@@ -1,0 +1,177 @@
+"""Closed-loop line-search rollout: CUDA kernel, plain version and the model
+registry the kernels read.
+
+Replaces ``cddp_tpu/ops/pallas/rollout.py::make_forward_kernel``. One
+rollout applies u = clamp(Ub + alpha*k + K (x - Xb)), accumulates the
+quadratic running and terminal cost and takes one explicit integrator step
+per time step. The CUDA kernel (``ops/csrc/forward_rollout.cu``) gives each
+problem instance one thread; trajectories are batch-last in device memory.
+
+**The model registry.** One table, keyed by the exact torch model class.
+Each entry gives the model's parameter vector and ``cuda_name``: the model's
+struct in ``ops/csrc/models.cuh`` holds its device functions ``f`` (the
+continuous dynamics) and ``fxfu`` (their Jacobians), and the kernel
+launchers built for it are exported as ``cddp_<kernel>_<cuda_name>_<f32|f64>``
+(the Riccati kernel, which needs no model, as ``..._<nx>x<nu>_...``). A model
+that is not in the table is not eligible for the kernels: its problems run
+the plain driver on the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Callable, List, Optional
+
+import torch
+
+from cddp_tpu_torch.models.base import DynamicalSystem
+from cddp_tpu_torch.models.unicycle import Unicycle
+from cddp_tpu_torch.ops.kernels import dispatch_log
+from cddp_tpu_torch.ops.linalg import true_div
+
+INTEGRATORS = ("euler", "heun", "rk3", "rk4")  # kernel codes 0..3
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_double)]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+@dataclass(frozen=True)
+class ModelEntry:
+    params: Callable[[DynamicalSystem], List[float]]  # CUDA parameter vector
+    cuda_name: str
+
+
+_REGISTRY = {
+    Unicycle: ModelEntry(params=lambda model: [], cuda_name="unicycle"),
+}
+
+
+def model_entry(model: DynamicalSystem) -> Optional[ModelEntry]:
+    """Registry entry for an exact registered class (a subclass keeps the
+    plain path, so its overridden dynamics are honoured)."""
+    return _REGISTRY.get(type(model))
+
+
+@dataclass(frozen=True)
+class LaneConsts:
+    """Problem constants shared by every instance, in the form the kernels
+    take them. ``lower``/``upper`` are None when controls are unclamped."""
+
+    model: DynamicalSystem
+    entry: ModelEntry
+    integrator: str
+    dt: float
+    Q: torch.Tensor  # dt-prescaled
+    R: torch.Tensor  # dt-prescaled
+    Qf: torch.Tensor
+    goal: torch.Tensor
+    lower: Optional[torch.Tensor]
+    upper: Optional[torch.Tensor]
+
+    @functools.cached_property
+    def host(self) -> List[float]:
+        """[dt, Q, R, Qf, goal, lower, upper, params] as the CUDA ``Consts``
+        struct lays them out (one device-to-host copy per solve)."""
+        nu = self.R.shape[0]
+        lo = self.lower if self.lower is not None else self.R.new_zeros(nu)
+        hi = self.upper if self.upper is not None else self.R.new_zeros(nu)
+        flat = torch.cat([t.reshape(-1).double().cpu()
+                          for t in (self.Q, self.R, self.Qf, self.goal, lo, hi)])
+        return [self.dt] + flat.tolist() + [float(p) for p in self.entry.params(self.model)]
+
+
+def lane_consts(problem) -> Optional[LaneConsts]:
+    """The kernels' view of a problem, or None when its model is not in the
+    registry or its integrator is not one of the four explicit steppers."""
+    entry = model_entry(problem.model)
+    integrator = problem.model.integration_type
+    if entry is None or integrator not in INTEGRATORS:
+        return None
+    obj = problem.objective
+    cc = problem.get_constraint("ControlConstraint")
+    return LaneConsts(
+        model=problem.model, entry=entry, integrator=integrator,
+        dt=problem.timestep, Q=obj.Q, R=obj.R, Qf=obj.Qf,
+        goal=obj.reference_state,
+        lower=cc.lower if cc is not None else None,
+        upper=cc.upper if cc is not None else None,
+    )
+
+
+def integrate_lane(f, kind: str, x, u, dt):
+    """One explicit step with the kernels' stage arithmetic
+    (rollout.py:580-613 of the JAX package); ``dt`` is a 0-d tensor of the
+    working dtype, as the kernels hold it."""
+    if kind == "euler":
+        return x + dt * f(x, u)
+    k1 = f(x, u)
+    if kind == "heun":
+        k2 = f(x + dt * k1, u)
+        return x + 0.5 * dt * (k1 + k2)
+    if kind == "rk3":
+        k2 = f(x + 0.5 * dt * k1, u)
+        k3 = f(x + dt * (2.0 * k2 - k1), u)
+        return x + true_div(dt, 6.0) * (k1 + 4.0 * k2 + k3)
+    if kind == "rk4":
+        k2 = f(x + 0.5 * dt * k1, u)
+        k3 = f(x + 0.5 * dt * k2, u)
+        k4 = f(x + dt * k3, u)
+        return x + true_div(dt, 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    raise ValueError(f"unknown integrator {kind!r}")
+
+
+def forward_rollout_plain(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
+    """Port of ``rollout.py::_scan_forward_single``. Batch-first: Xb
+    (B,N,nx) nominal states x_0..x_{N-1}, Ub/k (B,N,nu), K (B,N,nu,nx),
+    x0 (B,nx), alpha (B,). Returns (X tail (B,N,nx) = x_1..x_N,
+    U (B,N,nu), J (B,))."""
+    N = Xb.shape[1]
+    dt = torch.tensor(consts.dt, dtype=Xb.dtype, device=Xb.device)
+    f = lambda x, u: consts.model(x, u, None)  # noqa: E731
+    Q, R, Qf, goal = consts.Q, consts.R, consts.Qf, consts.goal
+    a = alpha[:, None]
+    x, J = x0, Xb.new_zeros(Xb.shape[0])
+    xs, us = [], []
+    for t in range(N):
+        u = Ub[:, t] + a * k[:, t] + (K[:, t] @ (x - Xb[:, t])[..., None])[..., 0]
+        if consts.lower is not None:
+            u = torch.minimum(torch.maximum(u, consts.lower), consts.upper)
+        e = x - goal
+        J = J + ((e @ Q) * e).sum(-1) + ((u @ R) * u).sum(-1)
+        x = integrate_lane(f, consts.integrator, x, u, dt)
+        xs.append(x)
+        us.append(u)
+    ef = x - goal
+    return torch.stack(xs, 1), torch.stack(us, 1), J + ((ef @ Qf) * ef).sum(-1)
+
+
+def forward_rollout(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
+    """CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    if Xb.device.type == "cpu":
+        dispatch_log.plain("forward_rollout", Xb.shape[0])
+        return forward_rollout_plain(consts, Xb, Ub, k, K, x0, alpha)
+    return _launch(consts, Xb, Ub, k, K, x0, alpha)
+
+
+def _launch(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
+    from cddp_tpu_torch.ops.kernels import build
+
+    ins = (Xb, Ub, k, K, x0, alpha)
+    Bsz, N, nx = Xb.shape
+    nu = Ub.shape[-1]
+    tag = build.dtype_tag("forward_rollout", ins, (
+        (N, nx), (N, nu), (N, nu), (N, nu, nx), (nx,), ()))
+    name = f"cddp_forward_rollout_{consts.entry.cuda_name}_{tag}"
+    fn = build.function(name, _ARGTYPES)
+    last = [t.movedim(0, -1).contiguous() for t in ins]
+    X = Xb.new_empty(N, nx, Bsz)
+    U = Xb.new_empty(N, nu, Bsz)
+    J = Xb.new_empty(Bsz)
+    err = fn(*(build.ptr(t) for t in last + [X, U, J]),
+             build.doubles(consts.host), N, Bsz,
+             INTEGRATORS.index(consts.integrator), int(consts.lower is not None),
+             build.stream_ptr(Xb.device))
+    build.check(err, name)
+    dispatch_log.launched("forward_rollout", Bsz)
+    return X.movedim(-1, 0), U.movedim(-1, 0), J

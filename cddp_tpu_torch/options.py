@@ -1,0 +1,125 @@
+"""Solver option trees (port of ``cddp_tpu/options.py``).
+
+Field names and defaults mirror the JAX package, which mirrors the
+reference structs — defaults are behaviour there (``max_iterations = 1``,
+``tolerance = 1e-5``). Options are static configuration: plain frozen
+dataclasses.
+
+Not carried over: ``matmul_precision``. Its replacement is a fixed rule —
+the port never enables TF32, so float32 matrix products stay exact float32
+(``torch.get_float32_matmul_precision() == "highest"``, PyTorch's default).
+The interior-point, multiple-shooting and log-barrier option groups arrive
+with their solvers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class LineSearchOptions:
+    """``options.hpp:41-52``."""
+
+    max_iterations: int = 11
+    initial_step_size: float = 1.0
+    min_step_size: float = 1e-8
+    step_reduction_factor: float = 0.5
+
+
+@dataclass(frozen=True)
+class RegularizationOptions:
+    """``options.hpp:58-68``."""
+
+    initial_value: float = 1e-6
+    update_factor: float = 10.0
+    max_value: float = 1e7
+    min_value: float = 1e-10
+    step_initial_value: float = 1.0
+
+
+@dataclass(frozen=True)
+class FilterOptions:
+    """``SolverSpecificFilterOptions`` (``options.hpp:93-108``). CLDDP reads
+    only ``armijo_constant``."""
+
+    merit_acceptance_threshold: float = 1e-6
+    violation_acceptance_threshold: float = 1e-6
+    max_violation_threshold: float = 1e4
+    min_violation_for_armijo_check: float = 1e-7
+    armijo_constant: float = 1e-4
+
+
+@dataclass(frozen=True)
+class BoxQPOptions:
+    """``boxqp.hpp:30-41``. Only the exact enumeration solver is ported:
+    ``method`` must resolve to "enum" (``"auto"`` does for n <= enum_max_dim)."""
+
+    max_iterations: int = 100
+    min_gradient_norm: float = 1e-8
+    min_relative_improvement: float = 1e-8
+    step_decrease_factor: float = 0.6
+    min_step_size: float = 1e-22
+    armijo_constant: float = 0.1
+    verbose: bool = False
+    max_ls_iterations: int = 99
+    method: str = "auto"
+    enum_max_dim: int = 4
+
+
+@dataclass(frozen=True)
+class CDDPOptions:
+    """Top-level options (``options.hpp:208-251``).
+
+    ``backward_engine``: "auto" runs the CUDA Riccati and rollout kernels on
+    CUDA tensors (their plain versions on CPU tensors); "scan" forces the
+    plain PyTorch passes everywhere. ``solve_engine``: "auto" runs the
+    whole-solve kernel when :func:`~cddp_tpu_torch.ops.kernels.mega_clddp.
+    mega_eligible` holds; "xla" keeps the per-pass driver (the name is the
+    JAX package's); "fused" asserts eligibility.
+    """
+
+    tolerance: float = 1e-5
+    acceptable_tolerance: float = 1e-6
+    max_iterations: int = 1
+    max_cpu_time: float = 0.0
+    verbose: bool = False
+    debug: bool = False
+    print_solver_header: bool = False
+    print_solver_options: bool = False
+    use_ilqr: bool = True
+    enable_parallel: bool = False
+    num_threads: int = 1
+    backward_engine: str = "auto"
+    solve_engine: str = "auto"
+    return_iteration_info: bool = False
+    warm_start: bool = False
+    termination_scaling_max_factor: float = 100.0
+
+    line_search: LineSearchOptions = field(default_factory=LineSearchOptions)
+    regularization: RegularizationOptions = field(
+        default_factory=RegularizationOptions
+    )
+    box_qp: BoxQPOptions = field(default_factory=BoxQPOptions)
+    filter: FilterOptions = field(default_factory=FilterOptions)
+
+    def replace(self, **kw) -> "CDDPOptions":
+        return dataclasses.replace(self, **kw)
+
+
+def line_search_alphas(opts: LineSearchOptions) -> Tuple[float, ...]:
+    """Geometric alpha ladder with min-step tail
+    (``detail::buildLineSearchAlphas``, cddp_context_utils.cpp:37-57)."""
+    alphas = []
+    a = opts.initial_step_size
+    for i in range(max(1, opts.max_iterations)):
+        alphas.append(a)
+        a *= opts.step_reduction_factor
+        if a < opts.min_step_size and i < opts.max_iterations - 1:
+            alphas.append(opts.min_step_size)
+            break
+    if not alphas:
+        alphas.append(opts.initial_step_size)
+    return tuple(alphas)

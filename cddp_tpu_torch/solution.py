@@ -1,0 +1,57 @@
+"""Solver status codes and solution record (port of ``cddp_tpu/solution.py``)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+class Status:
+    """Termination codes mapped to the reference's status_message strings
+    (cddp_solver_base.cpp:69,83,127 etc.)."""
+
+    RUNNING = -1
+    MAX_ITERATIONS_REACHED = 0
+    OPTIMAL_SOLUTION_FOUND = 1
+    ACCEPTABLE_SOLUTION_FOUND = 2
+    REGULARIZATION_LIMIT_NOT_CONVERGED = 3
+    REGULARIZATION_LIMIT_CONVERGED = 4
+    MAX_CPU_TIME_REACHED = 5
+
+    MESSAGES = {
+        -1: "Running",
+        0: "MaxIterationsReached",
+        1: "OptimalSolutionFound",
+        2: "AcceptableSolutionFound",
+        3: "RegularizationLimitReached_NotConverged",
+        4: "RegularizationLimitReached_Converged",
+        5: "MaxCpuTimeReached",
+    }
+
+    CONVERGED = (1, 2, 4)
+
+
+@dataclass(frozen=True)
+class Solution:
+    """Solver output (CDDPSolution, cddp_core.hpp:54-103). Batch-first:
+    a batched solve gives every tensor a leading batch axis."""
+
+    solver_name: str
+    status_code: torch.Tensor  # int32
+    iterations_completed: torch.Tensor  # int32
+    final_objective: torch.Tensor
+    final_step_length: torch.Tensor
+    final_regularization: torch.Tensor
+    time_points: torch.Tensor  # (N+1,)
+    state_trajectory: torch.Tensor  # (..., N+1, nx)
+    control_trajectory: torch.Tensor  # (..., N, nu)
+    feedback_gains: torch.Tensor  # (..., N, nu, nx)
+    feedforward_gains: torch.Tensor  # (..., N, nu)
+    inf_du: Optional[torch.Tensor] = None
+
+    def status_messages(self) -> list:
+        """One decoded status string per solve (flattened)."""
+        return [Status.MESSAGES.get(int(c), "Unknown")
+                for c in self.status_code.reshape(-1).tolist()]
