@@ -1,32 +1,40 @@
-"""Problem data in and solutions out as numpy arrays.
+"""Problem data and options in, solutions out, as plain values.
 
 This is how a problem built elsewhere (for instance by the JAX package,
-through ``np.asarray`` of its fields) enters the port, and how solutions are
-compared field by field. The port itself never sees a jax array.
+through ``np.asarray`` of its fields and ``dataclasses.asdict`` of its
+options) enters the port, and how solutions are compared field by field.
+The port itself never sees a jax array.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
+
 import numpy as np
 import torch
 
-from cddp_tpu_torch.constraints.path import ControlConstraint
+from cddp_tpu_torch.constraints.path import ControlConstraint, StateConstraint
 from cddp_tpu_torch.costs.objective import QuadraticObjective
 from cddp_tpu_torch.models.unicycle import Unicycle
+from cddp_tpu_torch.options import CDDPOptions
 from cddp_tpu_torch.problem import Problem
 
 # Model name -> constructor from (parameter vector, integrator).
 _MODELS = {
     "Unicycle": lambda params, integrator: Unicycle(integration_type=integrator),
 }
+_BOXES = {"control": ControlConstraint, "state": StateConstraint}
 
 
 def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
                         upper, x0, horizon: int, timestep: float,
-                        integrator: str, *, device, dtype) -> Problem:
-    """Build a CLDDP problem from numpy arrays. ``Q`` and ``R`` are already
+                        integrator: str, *, device, dtype, boxes=None) -> Problem:
+    """Build a problem from numpy arrays. ``Q`` and ``R`` are already
     dt-prescaled (as ``QuadraticObjective`` stores them) and go in as given;
-    ``lower``/``upper`` None means no control box."""
+    ``lower``/``upper`` None means no "ControlConstraint" box. ``boxes`` maps
+    further constraint names to ("control" | "state", lower, upper,
+    scale_factor)."""
     try:
         make_model = _MODELS[model_name]
     except KeyError as e:
@@ -37,6 +45,9 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
     constraints = {}
     if lower is not None:
         constraints["ControlConstraint"] = ControlConstraint(lower=t(lower), upper=t(upper))
+    for name, (kind, lo, hi, scale) in (boxes or {}).items():
+        constraints[name] = _BOXES[kind](lower=t(lo), upper=t(hi),
+                                         scale_factor=float(scale))
     return Problem(
         model=make_model(np.asarray(model_params), integrator),
         objective=objective, x0=t(x0), horizon=int(horizon),
@@ -44,10 +55,30 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
     )
 
 
+def options_from_dict(values: dict, cls=CDDPOptions):
+    """Options from a nested dict of plain values (``dataclasses.asdict`` of
+    an option tree; enums may be given by value). Keys the port's option
+    tree does not have are dropped."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in values:
+            continue
+        v = values[f.name]
+        default = getattr(cls(), f.name)
+        if dataclasses.is_dataclass(default):
+            v = options_from_dict(v, type(default))
+        elif isinstance(default, enum.Enum):
+            v = type(default)(getattr(v, "value", v))
+        kw[f.name] = v
+    return cls(**kw)
+
+
 def solution_to_numpy(sol) -> dict:
-    """The fields a parity check compares, as numpy arrays."""
+    """The fields a parity check compares, as numpy arrays. IPDDP solutions
+    add the stacked duals Y and slacks S (path-constraint names in sorted
+    order), the costates, mu, inf_pr and inf_comp."""
     f = lambda v: v.detach().cpu().numpy()  # noqa: E731
-    return {
+    out = {
         "X": f(sol.state_trajectory),
         "U": f(sol.control_trajectory),
         "k": f(sol.feedforward_gains),
@@ -59,3 +90,9 @@ def solution_to_numpy(sol) -> dict:
         "iterations": f(sol.iterations_completed),
         "status": f(sol.status_code),
     }
+    if sol.dual_trajectories is not None:
+        stack = lambda d: np.concatenate([f(d[k]) for k in sorted(d)], -1)  # noqa: E731
+        out.update(Y=stack(sol.dual_trajectories), S=stack(sol.slack_trajectories),
+                   Lambda=f(sol.costate_trajectory), mu=f(sol.barrier_mu),
+                   inf_pr=f(sol.inf_pr), inf_comp=f(sol.inf_comp))
+    return out

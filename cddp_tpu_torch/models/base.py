@@ -51,8 +51,9 @@ class DynamicalSystem(nn.Module):
 def rollout(model: DynamicalSystem, x0: torch.Tensor, U: torch.Tensor,
             dt: float) -> torch.Tensor:
     """Open-loop rollout X[t+1] = f_d(X[t], U[t], t*dt) for a batch:
-    x0 (B, nx), U (B, N, nu) -> X (B, N+1, nx) (base.py:93-117)."""
-    xs = [x0]
-    for t in range(U.shape[1]):
-        xs.append(model.discrete_dynamics(xs[-1], U[:, t], t * dt, dt))
-    return torch.stack(xs, dim=1)
+    x0 (B, nx), U (B, N, nu) -> X (B, N+1, nx) (base.py:93-117). Registered
+    models run the open-loop rollout kernel on CUDA tensors
+    (``ops/kernels/ip_rollout.py::open_loop_rollout``)."""
+    from cddp_tpu_torch.ops.kernels.ip_rollout import open_loop_rollout
+
+    return open_loop_rollout(model, x0, U, dt)

@@ -214,6 +214,9 @@ __global__ void __launch_bounds__(kThreads) clddp_solve_kernel(
 
   T cost = s.initial_cost();
   T reg = cfg.reg0, inf_du = T(INFINITY), alpha_pr = T(1);
+  // Work done, for the operation count of a roofline bound: backward
+  // attempts and rollouts (trials and the accepted step's rewrite).
+  int attempts = 0, rollouts = 0;
   int it = 0, status = kMaxIter;
 
   for (int iter = 0; iter < cfg.max_iterations; ++iter) {
@@ -224,6 +227,7 @@ __global__ void __launch_bounds__(kThreads) clddp_solve_kernel(
     for (int attempt = 0; attempt < cfg.bp_bound; ++attempt) {
       T qerr, nvx;
       const bool ok = s.backward(reg, dv0, dv1, qerr, nvx);
+      ++attempts;
       const T scaling = nan_max(T(cfg.s_max), nvx / T(N * M::NX)) / cfg.s_max;
       inf_du = qerr / scaling;
       const T reg_next = ok ? reg : nan_min(reg * cfg.reg_uf, cfg.reg_max);
@@ -249,6 +253,7 @@ __global__ void __launch_bounds__(kThreads) clddp_solve_kernel(
       T alpha = cfg.a0;
       for (int ia = 0; ia < cfg.n_alpha; ++ia) {
         const T J = s.rollout(alpha, cfg.integrator, false);
+        ++rollouts;
         const T dJ = cost - J;
         const T expected = -alpha * (dv0 + T(0.5) * alpha * dv1);
         // jnp.sign as a where-chain: +-1, +-0 on zero, NaN propagates.
@@ -265,7 +270,10 @@ __global__ void __launch_bounds__(kThreads) clddp_solve_kernel(
         const T a_next = alpha * cfg.a_r;
         alpha = a_next < cfg.a_min ? cfg.a_min : a_next;
       }
-      if (fp_ok) s.rollout(alpha_new, cfg.integrator, true);
+      if (fp_ok) {
+        s.rollout(alpha_new, cfg.integrator, true);
+        ++rollouts;
+      }
     }
 
     const T dJ = cost - J_new;
@@ -289,6 +297,8 @@ __global__ void __launch_bounds__(kThreads) clddp_solve_kernel(
   stats[3 * Bs + b] = alpha_pr;
   stats[4 * Bs + b] = T(it);
   stats[5 * Bs + b] = T(status);
+  stats[6 * Bs + b] = T(attempts);
+  stats[7 * Bs + b] = T(rollouts);
 }
 
 template <typename T, class M>

@@ -1,0 +1,731 @@
+// Whole IPDDP solve: one thread runs the complete interior-point solve of
+// one instance.
+//
+// Replaces cddp_tpu/ops/pallas/mega_ipddp.py::make_solve_kernel (:555) for
+// box-only path stacks, the quadratic goal cost, no terminal constraints and
+// tracked costates. The Pallas kernel runs a tile of instances in lock step
+// and freezes finished lanes with masks; here every thread follows its own
+// control flow, which is the per-instance semantics of
+// solvers/ipddp.py::_drive directly:
+//
+//   initial cost, merit, residuals; for each iteration:
+//     condensed backward (Euler linearization A = I + dt Fx, B = dt Fu)
+//       with the regularization retry, at most bp_bound attempts;
+//     early convergence test;
+//     fraction-to-boundary caps alpha_pr_max, alpha_du_max from the Newton
+//       step's dS, dY (a linear rollout of the new gains);
+//     first-success filter line search over the alpha ladder;
+//     on success: barrier update (ADAPTIVE or MONOTONIC/IPOPT), the accepted
+//       trial written over the nominal, filter update, convergence tests;
+//     on failure: regularization increase and the acceptable/limit exits.
+//
+// State (batch-last, [t][i][b]): X, U, Y, S, G, Lambda in and out, the
+// control gains k, K and the costate gains k_lambda, K_lambda. The dual and
+// slack gains are never stored: the max-step sweep and every trial recompute
+// them from (y, s, g, mu) and (k, K) at each step (ipddp_step.cuh), as the
+// JAX kernel does. A trial only sums its cost, merit and residuals; the
+// accepted one is rolled again with writes, repeating the trial's arithmetic
+// exactly. The filter (7 slots) lives in registers.
+//
+// Bound: device memory and latency. Per iteration each instance reads and
+// writes its trajectories several times (one backward attempt: 5 + 3m
+// values read and 6 + nx + nx^2 written per step; each trial: about
+// 2 nx + nx^2 + nu (1 + nx) + 3m read per step), and a thread has little
+// memory-level parallelism of its own.
+#include "ipddp_step.cuh"
+#include "models.cuh"
+
+namespace cddp {
+
+constexpr int kMaxAlpha = 64;  // mega_ipddp.py MAX_ALPHAS
+constexpr int kFCap = 7;       // max_filter_size (5) + 2
+
+// Solver options baked into one launch (mega_ipddp.py::_solve_cfg).
+template <typename T>
+struct IpCfg {
+  T tol, atol, reg0, reg_uf, reg_max, reg_min, f, f01, f03, f06, power,
+      mu_floor_adaptive, mu_min, min_ftb, btm, dual_weight, kappa_eps, armijo, mat,
+      one_m_vat, max_viol, mvfac, sqrt_atol, barrier_accept_tol, tol10, fail_accept;
+  T alphas[kMaxAlpha];
+  int max_iterations, n_alpha, bp_bound, integrator, adaptive, theta_l2, f_max;
+
+  static IpCfg from_host(const double* h, const double* alphas, int max_iterations,
+                         int n_alpha, int bp_bound, int integrator, int adaptive,
+                         int theta_l2, int f_max) {
+    IpCfg c{};
+    T* v[] = {&c.tol, &c.atol, &c.reg0, &c.reg_uf, &c.reg_max, &c.reg_min, &c.f,
+              &c.f01, &c.f03, &c.f06, &c.power, &c.mu_floor_adaptive, &c.mu_min,
+              &c.min_ftb, &c.btm, &c.dual_weight, &c.kappa_eps, &c.armijo, &c.mat,
+              &c.one_m_vat, &c.max_viol, &c.mvfac, &c.sqrt_atol,
+              &c.barrier_accept_tol, &c.tol10, &c.fail_accept};
+    for (int i = 0; i < int(sizeof(v) / sizeof(v[0])); ++i) *v[i] = T(h[i]);
+    for (int i = 0; i < n_alpha && i < kMaxAlpha; ++i) c.alphas[i] = T(alphas[i]);
+    c.max_iterations = max_iterations;
+    c.n_alpha = n_alpha;
+    c.bp_bound = bp_bound;
+    c.integrator = integrator;
+    c.adaptive = adaptive;
+    c.theta_l2 = theta_l2;
+    c.f_max = f_max;
+    return c;
+  }
+};
+
+// Status codes (cddp_tpu_torch.solution.Status), written as floats.
+constexpr int kIpMaxIter = 0, kIpOptimal = 1, kIpAcceptable = 2, kIpRegLimit = 3;
+
+// The fixed-size filter of solvers/filter.py: valid entries form a prefix
+// in insertion order. Every loop has a compile-time trip count and every
+// index is static, so the slots stay in registers.
+template <typename T>
+struct Filter {
+  T m[kFCap], v[kFCap];
+  bool ok[kFCap];
+
+  __device__ void clear() {
+#pragma unroll
+    for (int i = 0; i < kFCap; ++i) {
+      m[i] = T(INFINITY);
+      v[i] = T(INFINITY);
+      ok[i] = false;
+    }
+  }
+
+  __device__ int size() const {
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < kFCap; ++i) n += ok[i];
+    return n;
+  }
+
+  // (merit, violation, nonempty) of the most recent entry.
+  __device__ void back(T& mf, T& cv, bool& nonempty) const {
+    mf = T(INFINITY);
+    cv = T(INFINITY);
+    nonempty = false;
+#pragma unroll
+    for (int i = 0; i < kFCap; ++i) {
+      if (ok[i]) {
+        mf = m[i];
+        cv = v[i];
+        nonempty = true;
+      }
+    }
+  }
+
+  // acceptFilterEntry: reject a dominated candidate; otherwise drop the
+  // entries it dominates (stable compaction) and append it.
+  __device__ void accept(T mf, T cv) {
+    bool dominated = false, keep[kFCap];
+    int pos[kFCap], n = 0;
+#pragma unroll
+    for (int i = 0; i < kFCap; ++i) {
+      dominated = dominated | (ok[i] & (m[i] <= mf) & (v[i] <= cv));
+      keep[i] = ok[i] & !((mf <= m[i]) & (cv <= v[i]));
+      pos[i] = n;
+      n += keep[i];
+    }
+    if (dominated) return;
+    T nm[kFCap], nv[kFCap];
+#pragma unroll
+    for (int j = 0; j < kFCap; ++j) {
+      T mj = T(INFINITY), vj = T(INFINITY);
+#pragma unroll
+      for (int i = 0; i < kFCap; ++i) {
+        const bool sel = keep[i] & (pos[i] == j);
+        mj = sel ? m[i] : mj;
+        vj = sel ? v[i] : vj;
+      }
+      nm[j] = j == n ? mf : mj;
+      nv[j] = j == n ? cv : vj;
+    }
+#pragma unroll
+    for (int j = 0; j < kFCap; ++j) {
+      m[j] = nm[j];
+      v[j] = nv[j];
+      ok[j] = j <= n;
+    }
+  }
+
+  // pruneFilterToBestPoints: the min-violation entry, plus the min-merit
+  // entry when distinct (1e-12); the first minimum wins ties.
+  __device__ void prune() {
+    bool nonempty = false;
+    T bv_m = T(INFINITY), bv_v = T(INFINITY), bm_m = T(INFINITY), bm_v = T(INFINITY);
+    bool have_v = false, have_m = false;
+#pragma unroll
+    for (int i = 0; i < kFCap; ++i) {
+      if (!ok[i]) continue;
+      nonempty = true;
+      if (!have_v || v[i] < bv_v) {
+        bv_v = v[i];
+        bv_m = m[i];
+        have_v = true;
+      }
+      if (!have_m || m[i] < bm_m) {
+        bm_m = m[i];
+        bm_v = v[i];
+        have_m = true;
+      }
+    }
+    if (!nonempty) return;
+    const bool distinct = (dabs(bm_v - bv_v) > T(1e-12)) | (dabs(bm_m - bv_m) > T(1e-12));
+    clear();
+    m[0] = bv_m;
+    v[0] = bv_v;
+    ok[0] = true;
+    if (distinct) {
+      m[1] = bm_m;
+      v[1] = bm_v;
+      ok[1] = true;
+    }
+  }
+};
+
+// What one backward attempt reports besides the gains it writes.
+template <typename T>
+struct BackStats {
+  T dv0, dv1, inf_du, inf_pr, inf_comp, step;
+};
+
+// What one line-search trial reports.
+template <typename T>
+struct TrialOut {
+  T J, sumlog, theta, inf_pr, inf_comp, inf_comp_new;
+  bool ok;
+};
+
+template <typename T, class Mdl, int M>
+struct IpSolver {
+  static constexpr int NX = Mdl::NX, NU = Mdl::NU;
+  const Consts<T, Mdl>& c;
+  const BoxRows<T, M, NX, NU>& rows;
+  const IpCfg<T>& cfg;
+  T* X;
+  T* U;
+  T* Y;
+  T* S;
+  T* G;
+  T* L;
+  T* k;
+  T* K;
+  T* kl;
+  T* Kl;
+  size_t Bs;
+  int b;
+  int N;
+
+  __device__ T& at(T* p, int t, int i, int I) const { return p[(size_t(t) * I + i) * Bs + b]; }
+  __device__ T& at(T* p, int t, int i, int j, int I, int J) const {
+    return p[((size_t(t) * I + i) * J + j) * Bs + b];
+  }
+
+  template <int D>
+  __device__ void load(T* p, int t, T (&v)[D]) const {
+#pragma unroll
+    for (int i = 0; i < D; ++i) v[i] = at(p, t, i, D);
+  }
+
+  __device__ void load_gains(int t, T (&kt)[NU], T (&Kt)[NU][NX]) const {
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      kt[i] = at(k, t, i, NU);
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Kt[i][j] = at(K, t, i, j, NU, NX);
+    }
+  }
+
+  // Dual and slack gains at step t, recomputed from the stored control
+  // gains (the backward computed the same numbers from the same inputs).
+  __device__ void gains(int t, T mu, const T (&y)[M], const T (&s)[M], const T (&g)[M],
+                        T (&kt)[NU], T (&Kt)[NU][NX], T (&ky)[M], T (&Ky)[M][NX],
+                        T (&ks)[M], T (&Ks)[M][NX]) const {
+    Condensed<T, M> cd;
+    condense<T, M>(y, s, g, mu, cd);
+    load_gains(t, kt, Kt);
+    path_gains<T, NX, NU, M>(y, cd, rows.Gx, rows.Gu, kt, Kt, ky, Ky, ks, Ks);
+  }
+
+  __device__ void linearize(const T (&x)[NX], const T (&u)[NU], T (&A)[NX][NX],
+                            T (&Bm)[NX][NU]) const {
+    T Fx[NX][NX], Fu[NX][NU];
+    Mdl::fxfu(x, u, c.p, Fx, Fu);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) A[i][j] = c.dt * Fx[i][j] + (i == j ? T(1) : T(0));
+#pragma unroll
+      for (int j = 0; j < NU; ++j) Bm[i][j] = c.dt * Fu[i][j];
+    }
+  }
+
+  __device__ T initial_cost() const {
+    T J = T(0), x[NX], u[NU];
+    for (int t = 0; t < N; ++t) {
+      load(X, t, x);
+      load(U, t, u);
+      J = J + running_cost(c, x, u);
+    }
+    load(X, N, x);
+    return J + terminal_cost(c, x);
+  }
+
+  // inf_pr, inf_comp, sum log s and theta of the nominal (Y, S, G).
+  __device__ void residuals(T mu, T& inf_pr, T& inf_comp, T& theta) const {
+    T tsum = T(0), rmax = T(0), cmax = T(0);
+    for (int t = 0; t < N; ++t) {
+#pragma unroll
+      for (int r = 0; r < M; ++r) {
+        const T y = at(Y, t, r, M), s = at(S, t, r, M), g = at(G, t, r, M);
+        const T rr = g + s;
+        tsum = tsum + (cfg.theta_l2 ? rr * rr : dabs(rr));
+        rmax = nan_max(rmax, dabs(rr));
+        cmax = nan_max(cmax, dabs(y * s - mu));
+      }
+    }
+    inf_pr = rmax;
+    inf_comp = cmax;
+    theta = nan_max(cfg.theta_l2 ? dsqrt(tsum) : tsum, rmax);
+  }
+
+  __device__ T sum_log_s() const {
+    T sl = T(0);
+    for (int t = 0; t < N; ++t)
+#pragma unroll
+      for (int r = 0; r < M; ++r) sl = sl + dlog(nan_max(at(S, t, r, M), T(kEpsSlack)));
+    return sl;
+  }
+
+  // One backward attempt at regularization reg; writes k, K, k_lambda,
+  // K_lambda. Returns ok (every step's condensed Quu positive definite).
+  __device__ bool backward(T reg, T mu, BackStats<T>& bs) const {
+    T xN[NX], Vx[NX], Vxx[NX][NX];
+    load(X, N, xN);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      T s = T(0);
+#pragma unroll
+      for (int j = 0; j < NX; ++j) s = s + (xN[j] - c.goal[j]) * (T(2) * c.Qf[i][j]);
+      Vx[i] = s;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Vxx[i][j] = T(0.5) * (T(2) * c.Qf[i][j] + T(2) * c.Qf[j][i]);
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      at(kl, N, i, NX) = Vx[i];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) at(Kl, N, i, j, NX, NX) = Vxx[i][j];
+    }
+    T lxx[NX][NX], luu[NU][NU], lux[NU][NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < NX; ++j) lxx[i][j] = T(2) * c.Q[i][j];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+#pragma unroll
+      for (int j = 0; j < NU; ++j) luu[i][j] = T(2) * c.R[i][j];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) lux[i][j] = T(0);
+    }
+    bs = BackStats<T>{T(0), T(0), T(0), T(0), T(0), T(0)};
+    bool ok = true;
+    for (int t = N - 1; t >= 0; --t) {
+      T x[NX], u[NU], y[M], s[M], g[M], A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
+      load(X, t, x);
+      load(U, t, u);
+      load(Y, t, y);
+      load(S, t, s);
+      load(G, t, g);
+      linearize(x, u, A, Bm);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        T a = T(0);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) a = a + (x[j] - c.goal[j]) * (T(2) * c.Q[i][j]);
+        lx[i] = a;
+      }
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        T a = T(0);
+#pragma unroll
+        for (int j = 0; j < NU; ++j) a = a + u[j] * (T(2) * c.R[i][j]);
+        lu[i] = a;
+      }
+      Condensed<T, M> cd;
+      condense<T, M>(y, s, g, mu, cd);
+      IpStep<T, NX, NU> o;
+      condensed_step<T, NX, NU, M>(A, Bm, lx, lu, lxx, luu, lux, y, rows.Gx, rows.Gu,
+                                   cd, reg, Vx, Vxx, o);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        at(k, t, i, NU) = o.k[i];
+#pragma unroll
+        for (int j = 0; j < NX; ++j) at(K, t, i, j, NU, NX) = o.K[i][j];
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        at(kl, t, i, NX) = Vx[i];
+#pragma unroll
+        for (int j = 0; j < NX; ++j) at(Kl, t, i, j, NX, NX) = Vxx[i][j];
+      }
+      bs.dv0 = bs.dv0 + o.dv0;
+      bs.dv1 = bs.dv1 + o.dv1;
+      bs.inf_du = nan_max(bs.inf_du, o.qu_absmax);
+      bs.inf_pr = nan_max(bs.inf_pr, o.pr_absmax);
+      bs.inf_comp = nan_max(bs.inf_comp, o.comp_absmax);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) bs.step = nan_max(bs.step, dabs(o.k[i]));
+      ok = ok & o.ok;
+    }
+    return ok;
+  }
+
+  // Fraction-to-boundary caps from the Newton step (computeMaxStepSizes):
+  // dS, dY along the linear rollout of the gains from dx_0 = 0.
+  __device__ void max_steps(T mu, T& apr, T& adu) const {
+    constexpr T cap = max_ratio<T>();
+    const T tau = nan_max(cfg.min_ftb, T(1) - mu);
+    T dx[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) dx[i] = T(0);
+    apr = T(1);
+    adu = T(1);
+    for (int t = 0; t < N; ++t) {
+      T x[NX], u[NU], y[M], s[M], g[M], kt[NU], Kt[NU][NX], ky[M], Ky[M][NX], ks[M],
+          Ks[M][NX];
+      load(X, t, x);
+      load(U, t, u);
+      load(Y, t, y);
+      load(S, t, s);
+      load(G, t, g);
+      gains(t, mu, y, s, g, kt, Kt, ky, Ky, ks, Ks);
+#pragma unroll
+      for (int r = 0; r < M; ++r) {
+        T a = T(0), d = T(0);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) {
+          a = a + Ks[r][j] * dx[j];
+          d = d + Ky[r][j] * dx[j];
+        }
+        const T dS = ks[r] + a;
+        const T dY = clip(ky[r] + d, -cap, cap);
+        if (dS < T(0)) apr = nan_min(apr, -tau * s[r] / dS);
+        if (dY < T(0)) adu = nan_min(adu, -tau * y[r] / dY);
+      }
+      T du[NU], A[NX][NX], Bm[NX][NU], dxn[NX];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        T a = T(0);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) a = a + Kt[i][j] * dx[j];
+        du[i] = kt[i] + a;
+      }
+      linearize(x, u, A, Bm);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        T a = T(0), d = T(0);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) a = a + A[i][j] * dx[j];
+#pragma unroll
+        for (int j = 0; j < NU; ++j) d = d + Bm[i][j] * du[j];
+        dxn[i] = a + d;
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) dx[i] = dxn[i];
+    }
+    apr = clip(apr, T(0), T(1));
+    adu = clip(adu, T(0), T(1));
+  }
+
+  // One trial at (a_pr, a_du) from the nominal (the scan body of
+  // ipddp.py::_forward_pass, plus its terminal costate and residuals).
+  // With write, the trial replaces the nominal in place: the nominal x_{t+1}
+  // is read before it is overwritten, and inf_comp_new is the
+  // complementarity residual under mu_new.
+  __device__ TrialOut<T> trial(T a_pr, T a_du, T mu, T mu_new, bool write) const {
+    const T tau = nan_max(cfg.min_ftb, T(1) - mu);
+    T x[NX], xb[NX];
+    load(X, 0, x);
+    load(X, 0, xb);
+    TrialOut<T> o{T(0), T(0), T(0), T(0), T(0), T(0), true};
+    T tsum = T(0);
+    for (int t = 0; t < N; ++t) {
+      T y[M], s[M], g[M], kt[NU], Kt[NU][NX], ky[M], Ky[M][NX], ks[M], Ks[M][NX], dx[NX];
+      load(Y, t, y);
+      load(S, t, s);
+      load(G, t, g);
+      gains(t, mu, y, s, g, kt, Kt, ky, Ky, ks, Ks);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) dx[i] = x[i] - xb[i];
+      T lam_n[NX], u[NU], s_n[M], y_n[M], g_n[M], xn[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        T a = T(0);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) a = a + at(Kl, t, i, j, NX, NX) * dx[j];
+        lam_n[i] = at(L, t, i, NX) + a_pr * at(kl, t, i, NX) + a;
+      }
+#pragma unroll
+      for (int r = 0; r < M; ++r) {
+        T a = T(0), d = T(0);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) {
+          a = a + Ks[r][j] * dx[j];
+          d = d + Ky[r][j] * dx[j];
+        }
+        s_n[r] = s[r] + a_pr * ks[r] + a;
+        y_n[r] = y[r] + a_du * ky[r] + d;
+      }
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        T a = T(0);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) a = a + Kt[i][j] * dx[j];
+        u[i] = at(U, t, i, NU) + a_pr * kt[i] + a;
+      }
+      o.J = o.J + running_cost(c, x, u);
+      rows.eval(x, u, g_n);
+      integrate<T, Mdl>(cfg.integrator, x, u, c.p, c.dt, xn);
+#pragma unroll
+      for (int r = 0; r < M; ++r) {
+        o.ok = o.ok & ftb_ok(s_n[r], s[r], tau) & ftb_ok(y_n[r], y[r], tau) &
+               isfinite(s_n[r]) & isfinite(y_n[r]);
+        o.sumlog = o.sumlog + dlog(nan_max(s_n[r], T(kEpsSlack)));
+        const T rr = g_n[r] + s_n[r];
+        tsum = tsum + (cfg.theta_l2 ? rr * rr : dabs(rr));
+        o.inf_pr = nan_max(o.inf_pr, dabs(rr));
+        o.inf_comp = nan_max(o.inf_comp, dabs(y_n[r] * s_n[r] - mu));
+        o.inf_comp_new = nan_max(o.inf_comp_new, dabs(y_n[r] * s_n[r] - mu_new));
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) o.ok = o.ok & isfinite(xn[i]) & isfinite(lam_n[i]);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) o.ok = o.ok & isfinite(u[i]);
+      load(X, t + 1, xb);
+      if (write) {
+#pragma unroll
+        for (int i = 0; i < NU; ++i) at(U, t, i, NU) = u[i];
+#pragma unroll
+        for (int r = 0; r < M; ++r) {
+          at(Y, t, r, M) = y_n[r];
+          at(S, t, r, M) = s_n[r];
+          at(G, t, r, M) = g_n[r];
+        }
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          at(L, t, i, NX) = lam_n[i];
+          at(X, t + 1, i, NX) = xn[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+    }
+    o.J = o.J + terminal_cost(c, x);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      T a = T(0);
+#pragma unroll
+      for (int j = 0; j < NX; ++j) a = a + at(Kl, N, i, j, NX, NX) * (x[j] - xb[j]);
+      const T lam = at(L, N, i, NX) + a_pr * at(kl, N, i, NX) + a;
+      o.ok = o.ok & isfinite(lam);
+      if (write) at(L, N, i, NX) = lam;
+    }
+    o.theta = nan_max(cfg.theta_l2 ? dsqrt(tsum) : tsum, o.inf_pr);
+    return o;
+  }
+
+  // updateBarrierParameters (ipddp.py::_update_barrier_and_filter): mu_new.
+  __device__ T barrier(T mu, T inf_pr, T inf_du, T inf_comp) const {
+    const T superlinear = dpow(mu, cfg.power);
+    if (cfg.adaptive) {
+      const T kkt = nan_max(nan_max(inf_pr, inf_du), inf_comp);
+      const T threshold = nan_max(cfg.f * mu, T(2) * mu);
+      const T ratio = kkt / nan_max(mu, T(1e-20));
+      T factor = ratio < T(0.01) ? cfg.f01
+                                 : (ratio < T(0.1) ? cfg.f03 : (ratio < T(0.5) ? cfg.f06 : cfg.f));
+      factor = mu > T(1e-20) ? factor : cfg.f;
+      const T cand = nan_max(nan_min(factor * mu, superlinear), cfg.mu_floor_adaptive);
+      return kkt <= threshold ? cand : mu;
+    }
+    const T kkt = nan_max(nan_max(inf_pr, inf_du * cfg.dual_weight), inf_comp);
+    const T cand = nan_max(cfg.mu_min, nan_min(cfg.f * mu, superlinear));
+    return kkt <= cfg.kappa_eps * mu ? cand : mu;
+  }
+};
+
+template <typename T, class Mdl, int M>
+__global__ void __launch_bounds__(kThreads) ipddp_solve_kernel(
+    T* __restrict__ X, T* __restrict__ U, T* __restrict__ Y, T* __restrict__ S,
+    T* __restrict__ G, T* __restrict__ L, T* __restrict__ k, T* __restrict__ K,
+    T* __restrict__ kl, T* __restrict__ Kl, T* __restrict__ stats,
+    const __grid_constant__ Consts<T, Mdl> c,
+    const __grid_constant__ BoxRows<T, M, Mdl::NX, Mdl::NU> rows,
+    const __grid_constant__ IpCfg<T> cfg, int N, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t Bs = B;
+  const IpSolver<T, Mdl, M> sv{c, rows, cfg, X, U, Y, S, G, L, k, K, kl, Kl, Bs, b, N};
+
+  T mu = stats[4 * Bs + b];
+  T cost = sv.initial_cost();
+  T inf_pr, inf_comp, theta;
+  sv.residuals(mu, inf_pr, inf_comp, theta);
+  T merit = cost - mu * sv.sum_log_s();
+  T filter_theta = nan_max(theta, T(1e-8));
+  Filter<T> filt;
+  filt.clear();
+  T reg = cfg.reg0, inf_du = T(0), step_norm = T(0), alpha_pr = T(1);
+  // Work done, for the operation count of a roofline bound: backward
+  // attempts and trajectory sweeps (trials, the accepted trial's rewrite).
+  int attempts = 0, sweeps = 0;
+  int it = 0, status = kIpMaxIter;
+
+  for (int iter = 0; iter < cfg.max_iterations; ++iter) {
+    ++it;
+    // Backward pass with regularization retry (ipddp.py:1694-1708).
+    BackStats<T> bs;
+    bool bp_limit = false;
+    for (int attempt = 0; attempt < cfg.bp_bound; ++attempt) {
+      const bool ok = sv.backward(reg, mu, bs);
+      ++attempts;
+      const T reg_next = ok ? reg : nan_min(reg * cfg.reg_uf, cfg.reg_max);
+      const bool limit = !ok && reg_next >= cfg.reg_max;
+      reg = reg_next;
+      if (ok || limit) {
+        bp_limit = limit;
+        break;
+      }
+    }
+    inf_pr = bs.inf_pr;
+    inf_du = bs.inf_du;
+    inf_comp = bs.inf_comp;
+    step_norm = bs.step;
+    if (bp_limit) {
+      status = kIpRegLimit;
+      break;
+    }
+    // Early convergence (checkEarlyConvergence, ipddp_solver.cpp:925-958).
+    const T tol_e = nan_max(cfg.tol, cfg.btm * mu);
+    if (inf_pr < tol_e && inf_du < tol_e && inf_comp < tol_e &&
+        dabs(alpha_pr) * step_norm < cfg.tol10) {
+      status = kIpOptimal;
+      break;
+    }
+
+    // First-success filter line search (ipddp_solver.cpp:1784-1839).
+    T apr_max, adu_max;
+    sv.max_steps(mu, apr_max, adu_max);
+    T f_mf, f_cv;
+    bool nonempty;
+    filt.back(f_mf, f_cv, nonempty);
+    const T cv_old = nonempty ? f_cv : T(0);
+    const T high_ref = nonempty ? f_cv : filter_theta;
+    bool found = false;
+    T a_pr = T(1), a_du = T(1);
+    TrialOut<T> tr{};
+    for (int ia = 0; ia < cfg.n_alpha && !found; ++ia) {
+      a_pr = nan_min(cfg.alphas[ia], apr_max);
+      a_du = nan_min(cfg.alphas[ia], adu_max);
+      tr = sv.trial(a_pr, a_du, mu, mu, false);
+      ++sweeps;
+      const T phi = tr.J - mu * tr.sumlog;
+      const bool fin = tr.ok && isfinite(phi) && isfinite(tr.theta) &&
+                       isfinite(tr.inf_pr) && isfinite(tr.inf_comp);
+      const T expected = a_pr * bs.dv0;
+      const bool br1 = tr.theta > cfg.max_viol;
+      const bool acc1 = tr.theta < cfg.one_m_vat * high_ref;
+      const bool br2 = nan_max(tr.theta, cv_old) < cfg.mvfac && expected < T(0);
+      const bool acc2 = phi < merit + cfg.armijo * expected;
+      const bool acc3 = phi < merit - cfg.mat * tr.theta || tr.theta < cfg.one_m_vat * cv_old;
+      found = fin && (br1 ? acc1 : (br2 ? acc2 : acc3));
+    }
+
+    if (found) {
+      // Commit (ipddp.py:1788-1895): barrier update, the trial written over
+      // the nominal, the filter update, convergence under the new mu.
+      const T mu_new = sv.barrier(mu, tr.inf_pr, inf_du, tr.inf_comp);
+      const TrialOut<T> w = sv.trial(a_pr, a_du, mu, mu_new, true);
+      ++sweeps;
+      const T dJ = cost - tr.J;
+      const T ft_new = nan_max(tr.theta, T(1e-8));
+      filt.accept(tr.J - mu * tr.sumlog, ft_new);
+      if (filt.size() > cfg.f_max) filt.prune();
+      if (mu_new < mu && mu_new > T(0)) filt.clear();
+      inf_pr = tr.inf_pr;
+      inf_comp = w.inf_comp_new;
+      merit = tr.J - mu_new * tr.sumlog;
+      filter_theta = ft_new;
+      cost = tr.J;
+      alpha_pr = a_pr;
+      reg = nan_max(reg / cfg.reg_uf, cfg.reg_min);
+      mu = mu_new;
+      // checkConvergence (ipddp_solver.cpp:1953-2025).
+      const T tol2 = nan_max(cfg.tol, cfg.btm * mu);
+      const bool step_small = step_norm < cfg.tol10;
+      const bool conv_opt = inf_pr < tol2 && inf_du < tol2 && inf_comp < tol2 && step_small;
+      const bool acc_kkt = inf_pr < cfg.sqrt_atol && inf_du < cfg.sqrt_atol &&
+                           inf_comp < cfg.sqrt_atol;
+      const bool acc = acc_kkt && mu <= cfg.barrier_accept_tol &&
+                       ((it > 10 && dabs(dJ) < cfg.atol) ||
+                        (it >= 1 && step_small && inf_pr < T(1e-4)));
+      const bool conv_acc = cfg.atol > T(0) && acc;
+      status = conv_opt ? kIpOptimal : (conv_acc ? kIpAcceptable : status);
+      if (conv_opt || conv_acc) break;
+    } else {
+      // handleForwardPassFailure (ipddp_solver.cpp:2037-2082).
+      const T reg_n = nan_min(reg * cfg.reg_uf, cfg.reg_max);
+      const bool limit = reg_n >= cfg.reg_max;
+      const T acc_tol = nan_max(cfg.fail_accept, cfg.btm * mu);
+      const bool acceptable = cfg.atol > T(0) && inf_pr < acc_tol && inf_du < acc_tol &&
+                              inf_comp < acc_tol;
+      status = (limit && acceptable) ? kIpAcceptable : (limit ? kIpRegLimit : status);
+      reg = reg_n;
+      if (limit) break;
+    }
+  }
+
+  const T vals[11] = {cost,     inf_pr,    inf_du,     inf_comp,  mu,       reg,
+                      alpha_pr, T(it),     T(status),  T(attempts), T(sweeps)};
+#pragma unroll
+  for (int i = 0; i < 11; ++i) stats[i * Bs + b] = vals[i];
+}
+
+template <typename T, class Mdl, int M>
+int launch_ipddp_solve(T* const* buf, const double* consts, const double* rows,
+                       const double* cfg, const double* alphas, const int* ints,
+                       cudaStream_t stream) {
+  const int N = ints[0], B = ints[1];
+  if (ints[4] > kMaxAlpha) return static_cast<int>(cudaErrorInvalidValue);
+  const Consts<T, Mdl> c = Consts<T, Mdl>::from_host(consts);
+  const auto r = BoxRows<T, M, Mdl::NX, Mdl::NU>::from_host(rows);
+  const IpCfg<T> sc = IpCfg<T>::from_host(cfg, alphas, ints[3], ints[4], ints[5],
+                                          ints[2], ints[6], ints[7], ints[8]);
+  const int blocks = (B + kThreads - 1) / kThreads;
+  ipddp_solve_kernel<T, Mdl, M><<<blocks, kThreads, 0, stream>>>(
+      buf[0], buf[1], buf[2], buf[3], buf[4], buf[5], buf[6], buf[7], buf[8], buf[9],
+      buf[10], c, r, sc, N, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cddp
+
+// m: a control box (4), a state box (6) or both (10) on the unicycle.
+#define CDDP_IPDDP_SOLVE(MODEL, STRUCT, M)                                             \
+  extern "C" int CDDP_EXPORT(cddp_ipddp_solve_##MODEL##_m##M)(                         \
+      scalar_t* X, scalar_t* U, scalar_t* Y, scalar_t* S, scalar_t* G, scalar_t* L,    \
+      scalar_t* k, scalar_t* K, scalar_t* kl, scalar_t* Kl, scalar_t* stats,           \
+      const double* consts, const double* rows, const double* cfg,                     \
+      const double* alphas, int N, int B, int integrator, int max_iterations,          \
+      int n_alpha, int bp_bound, int adaptive, int theta_l2, int f_max,                \
+      void* stream) {                                                                  \
+    scalar_t* buf[11] = {X, U, Y, S, G, L, k, K, kl, Kl, stats};                       \
+    const int ints[9] = {N, B, integrator, max_iterations, n_alpha,                    \
+                         bp_bound, adaptive, theta_l2, f_max};                         \
+    return cddp::launch_ipddp_solve<scalar_t, cddp::STRUCT, M>(                        \
+        buf, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream));      \
+  }
+
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 4)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 6)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 10)

@@ -1,0 +1,263 @@
+"""Open-loop rollout and the interior-point forward pass: CUDA kernels and
+their plain versions.
+
+Replaces ``cddp_tpu/ops/pallas/ip_rollout.py::_make_ol_kernel`` (the
+open-loop rollout X[t+1] = f_d(X[t], U[t]) that seeds every solve) and
+``_make_ip_forward_kernel`` (one trial of the IPDDP line search). The CUDA
+kernels (``ops/csrc/open_loop_rollout.cu``, ``ops/csrc/ip_forward.cu``) give
+each problem instance one thread; trajectories are batch-last in device
+memory. CUDA tensors launch the kernels; CPU tensors run the plain versions,
+which carry the same lane arithmetic (``rollout.integrate_lane``, the box
+rows ``(lo - v) * scale`` and ``(v - hi) * scale``).
+
+The forward kernel takes one trial at step sizes (alpha_pr, alpha_du) and
+the fraction-to-boundary tau, per instance:
+
+- the feedback law u = Ub + alpha_pr k_u + K_u dx and the costate update
+  lam = lam + alpha_pr k_lam + K_lam dx;
+- slack and dual trial steps with their separate step sizes, and with
+  ``slack_soc`` the slack re-closure s := -g where it passes the
+  fraction-to-boundary test;
+- the stacked box rows g, the fraction-to-boundary and finiteness masks;
+- the quadratic running cost and the model's integrator step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+
+from cddp_tpu_torch.constraints.path import ControlConstraint, StateConstraint
+from cddp_tpu_torch.ops.kernels import dispatch_log
+from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+from cddp_tpu_torch.solvers.base import ftb_ok
+
+_OL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_double)]
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.POINTER(ctypes.c_double)] * 2
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+# Stack sizes m the interior-point kernels are instantiated for (a control
+# box, a state box, or both, of the registered models).
+KERNEL_ROWS = {"unicycle": (4, 6, 10)}
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+# --- open-loop rollout (kernel 4) ---------------------------------------------
+
+
+def open_loop_rollout_plain(model, x0, U, dt: float):
+    """Lane arithmetic of the JAX package's open-loop scan
+    (ip_rollout.py:684-699): X (B, N+1, nx) from x0 (B, nx), U (B, N, nu)."""
+    kind = model.integration_type
+    dtv = torch.tensor(dt, dtype=x0.dtype, device=x0.device)
+    f = lambda x, u: model(x, u, None)  # noqa: E731
+    xs = [x0]
+    for t in range(U.shape[1]):
+        xs.append(rollout_ops.integrate_lane(f, kind, xs[-1], U[:, t], dtv))
+    return torch.stack(xs, dim=1)
+
+
+def open_loop_rollout(model, x0, U, dt: float, kernel: bool = True):
+    """X (B, N+1, nx). A registered model with an explicit integrator
+    launches the kernel on CUDA tensors and runs the plain version on CPU
+    tensors or with ``kernel=False`` (the solvers' ``backward_engine="scan"``);
+    other models step ``model.discrete_dynamics``."""
+    entry = rollout_ops.model_entry(model)
+    if entry is None or model.integration_type not in rollout_ops.INTEGRATORS:
+        xs = [x0]
+        for t in range(U.shape[1]):
+            xs.append(model.discrete_dynamics(xs[-1], U[:, t], t * dt, dt))
+        return torch.stack(xs, dim=1)
+    if x0.device.type == "cpu" or not kernel:
+        dispatch_log.plain("open_loop_rollout", x0.shape[0])
+        return open_loop_rollout_plain(model, x0, U, dt)
+    return _launch_open_loop(model, entry, x0, U, dt)
+
+
+def _launch_open_loop(model, entry, x0, U, dt):
+    from cddp_tpu_torch.ops.kernels import build
+
+    Bsz, N, nu = U.shape
+    nx = x0.shape[-1]
+    tag = build.dtype_tag("open_loop_rollout", (x0, U), ((nx,), (N, nu)))
+    name = f"cddp_open_loop_rollout_{entry.cuda_name}_{tag}"
+    fn = build.function(name, _OL_ARGTYPES)
+    Ul, x0l = (t.movedim(0, -1).contiguous() for t in (U, x0))
+    X = x0.new_empty(N, nx, Bsz)
+    host = [float(dt)] + [float(p) for p in entry.params(model)]
+    err = fn(build.ptr(Ul), build.ptr(x0l), build.ptr(X), build.doubles(host),
+             N, Bsz, rollout_ops.INTEGRATORS.index(model.integration_type),
+             build.stream_ptr(x0.device))
+    build.check(err, name)
+    dispatch_log.launched("open_loop_rollout", Bsz)
+    return torch.cat([x0[:, None], X.movedim(-1, 0)], dim=1)
+
+
+# --- box rows -------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class BoxRows:
+    """The stacked box rows of a box-only path stack, in stack order: row r
+    reads entry ``var[r]`` of [x; u] and is g = (bound - v) * scale (lower
+    rows) or (v - bound) * scale (upper rows)."""
+
+    items: Tuple  # ((kind "control"|"state", constraint), ...)
+    nx: int
+    nu: int
+
+    @property
+    def m(self) -> int:
+        return sum(c.dual_dim for _, c in self.items)
+
+    def evaluate(self, x, u):
+        """g (B, m), the lane form of the JAX kernels (ip_rollout.py:311-317)."""
+        parts = []
+        for kind, c in self.items:
+            v = u if kind == "control" else x
+            parts.append((c.lower - v) * c.scale_factor)
+            parts.append((v - c.upper) * c.scale_factor)
+        return torch.cat(parts, dim=-1)
+
+    @property
+    def host(self) -> List[float]:
+        """Per row [var index, upper flag, bound, scale], as the CUDA
+        ``BoxRows`` struct reads them."""
+        out = []
+        for kind, c in self.items:
+            off = self.nx if kind == "control" else 0
+            n = c.upper.shape[0]
+            lo, hi = c.lower.double().cpu().tolist(), c.upper.double().cpu().tolist()
+            out += [v for i in range(n) for v in (off + i, 0.0, lo[i], c.scale_factor)]
+            out += [v for i in range(n) for v in (off + i, 1.0, hi[i], c.scale_factor)]
+        return out
+
+
+def box_rows(problem, stk) -> Optional[BoxRows]:
+    """The stack as box rows, or None unless every item is exactly a
+    ControlConstraint or StateConstraint (ip_rollout.py:199-216)."""
+    items = []
+    for _, c in stk.items:
+        if type(c) is ControlConstraint:
+            items.append(("control", c))
+        elif type(c) is StateConstraint:
+            items.append(("state", c))
+        else:
+            return None
+    if not items:
+        return None
+    return BoxRows(items=tuple(items), nx=problem.state_dim, nu=problem.control_dim)
+
+
+@dataclass(frozen=True)
+class ForwardConsts:
+    """The forward kernel's view of a problem."""
+
+    lane: rollout_ops.LaneConsts
+    rows: BoxRows
+    slack_soc: bool
+
+
+def resolve_ip_forward(problem, options, stk) -> Optional[ForwardConsts]:
+    """Eligibility of the forward kernel (ip_rollout.py:219-242):
+    ``forward_engine="auto"``, a registered model with an explicit
+    integrator, the quadratic objective and a box-only stack of a size the
+    kernel is built for (``KERNEL_ROWS``). Box stacks are affine, so the
+    "auto" slack SOC resolves to off; only an explicit ``slack_soc=True``
+    traces it."""
+    if options.ipddp.forward_engine != "auto":
+        return None
+    lane = rollout_ops.lane_consts(problem)
+    rows = box_rows(problem, stk)
+    if (lane is None or rows is None
+            or rows.m not in KERNEL_ROWS.get(lane.entry.cuda_name, ())):
+        return None
+    return ForwardConsts(lane=lane, rows=rows,
+                         slack_soc=options.ipddp.slack_soc is True)
+
+
+# --- interior-point forward trial (kernel 5) ------------------------------------
+
+
+def ip_forward_plain(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
+                     ky, Ky, ks, Ks, x0, a_pr, a_du, tau, soc):
+    """Port of ``ip_rollout.py::_scan_ip_forward_single``, batch-first:
+    Xb (B,N,nx) nominal x_0..x_{N-1}, Ub/ku (B,N,nu), Ku (B,N,nu,nx), Y/S/ky/ks
+    (B,N,m), Ky/Ks (B,N,m,nx), lam/klam (B,N,nx), Klam (B,N,nx,nx), x0 (B,nx),
+    a_pr/a_du/tau (B,), soc (B,) bool. Returns (X tail (B,N,nx) = x_1..x_N,
+    U (B,N,nu), S, Y, G (B,N,m), Lam (B,N,nx), J (B,), feasible (B,))."""
+    lc = fc.lane
+    N = Xb.shape[1]
+    dt = torch.tensor(lc.dt, dtype=Xb.dtype, device=Xb.device)
+    f = lambda x, u: lc.model(x, u, None)  # noqa: E731
+    apr, adu, tau_ = a_pr[:, None], a_du[:, None], tau[:, None]
+    x = x0
+    J = Xb.new_zeros(Xb.shape[0])
+    feas = torch.ones(Xb.shape[0], dtype=torch.bool, device=Xb.device)
+    outs = [[] for _ in range(6)]
+    for t in range(N):
+        dx = x - Xb[:, t]
+        s, y = S[:, t], Y[:, t]
+        lam_new = lam[:, t] + apr * klam[:, t] + _mv(Klam[:, t], dx)
+        s_new = s + apr * ks[:, t] + _mv(Ks[:, t], dx)
+        y_new = y + adu * ky[:, t] + _mv(Ky[:, t], dx)
+        u = Ub[:, t] + apr * ku[:, t] + _mv(Ku[:, t], dx)
+        e = x - lc.goal
+        J = J + (((e @ lc.Q) * e).sum(-1) + ((u @ lc.R) * u).sum(-1))
+        g = fc.rows.evaluate(x, u)
+        if fc.slack_soc:
+            ok_soc = ftb_ok(-g, s, tau_) & soc[:, None]
+            s_new = torch.where(ok_soc, -g, s_new)
+        x_next = rollout_ops.integrate_lane(f, lc.integrator, x, u, dt)
+        feas = (feas & ftb_ok(s_new, s, tau_).all(-1) & ftb_ok(y_new, y, tau_).all(-1)
+                & s_new.isfinite().all(-1) & y_new.isfinite().all(-1)
+                & x_next.isfinite().all(-1) & u.isfinite().all(-1)
+                & lam_new.isfinite().all(-1))
+        for o, v in zip(outs, (x_next, u, s_new, y_new, g, lam_new)):
+            o.append(v)
+        x = x_next
+    X, U, Sn, Yn, G, Lam = (torch.stack(o, 1) for o in outs)
+    return X, U, Sn, Yn, G, Lam, J, feas
+
+
+def ip_forward(fc: ForwardConsts, *args):
+    """CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    Xb = args[0]
+    if Xb.device.type == "cpu":
+        dispatch_log.plain("ip_forward", Xb.shape[0])
+        return ip_forward_plain(fc, *args)
+    return _launch_forward(fc, *args)
+
+
+def _launch_forward(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
+                    ky, Ky, ks, Ks, x0, a_pr, a_du, tau, soc):
+    from cddp_tpu_torch.ops.kernels import build
+
+    Bsz, N, nx = Xb.shape
+    nu, m = Ub.shape[-1], Y.shape[-1]
+    soc = soc.to(Xb.dtype)
+    ins = (Xb, Ub, Y, S, ku, Ku, klam, Klam, lam, ky, Ky, ks, Ks, x0, a_pr,
+           a_du, tau, soc)
+    tag = build.dtype_tag("ip_forward", ins, (
+        (N, nx), (N, nu), (N, m), (N, m), (N, nu), (N, nu, nx), (N, nx),
+        (N, nx, nx), (N, nx), (N, m), (N, m, nx), (N, m), (N, m, nx), (nx,),
+        (), (), (), ()))
+    name = f"cddp_ip_forward_{fc.lane.entry.cuda_name}_m{m}_{tag}"
+    fn = build.function(name, _FWD_ARGTYPES)
+    last = [t.movedim(0, -1).contiguous() for t in ins]
+    X, U, Sn, Yn, G, Lam = (Xb.new_empty(N, d, Bsz) for d in (nx, nu, m, m, m, nx))
+    J, F = Xb.new_empty(Bsz), Xb.new_empty(Bsz)
+    err = fn(*(build.ptr(t) for t in last + [X, U, Sn, Yn, G, Lam, J, F]),
+             build.doubles(fc.lane.host), build.doubles(fc.rows.host), N, Bsz,
+             rollout_ops.INTEGRATORS.index(fc.lane.integrator), int(fc.slack_soc),
+             build.stream_ptr(Xb.device))
+    build.check(err, name)
+    dispatch_log.launched("ip_forward", Bsz)
+    return (*(t.movedim(-1, 0) for t in (X, U, Sn, Yn, G, Lam)), J, F > 0.5)

@@ -86,6 +86,13 @@ def clddp_solve(problem, options: CDDPOptions, X0, U0, k0, K0) -> Solution:
 
 
 def _launch(problem, options, X0, U0, k0, K0) -> Solution:
+    return launch_counting_work(problem, options, X0, U0, k0, K0)[0]
+
+
+def launch_counting_work(problem, options, X0, U0, k0, K0):
+    """Launch the kernel; returns (Solution, work (2, B)): each instance's
+    backward attempts and rollouts (line-search trials and the accepted
+    step's rewrite), which a roofline bound's operation count reads."""
     from cddp_tpu_torch.ops.kernels import build
 
     ins = (X0, U0, k0, K0)
@@ -99,7 +106,7 @@ def _launch(problem, options, X0, U0, k0, K0) -> Solution:
     # The kernel updates X, U, k, K in place: always fresh batch-last copies.
     X, U, k, K = (t.movedim(0, -1).clone(memory_format=torch.contiguous_format)
                   for t in ins)
-    stats = X0.new_empty(6, Bsz)
+    stats = X0.new_empty(8, Bsz)
     ints = (N, Bsz, rollout_ops.INTEGRATORS.index(consts.integrator),
             options.max_iterations, len(line_search_alphas(options.line_search)),
             backward_retry_bound(options), int(options.enable_parallel))
@@ -122,4 +129,4 @@ def _launch(problem, options, X0, U0, k0, K0) -> Solution:
         feedback_gains=K.movedim(-1, 0),
         feedforward_gains=k.movedim(-1, 0),
         inf_du=stats[1],
-    )
+    ), stats[6:]

@@ -1,0 +1,176 @@
+"""Whole-solve IPDDP: the complete batched interior-point solve as one CUDA
+kernel.
+
+Replaces ``cddp_tpu/ops/pallas/mega_ipddp.py::make_solve_kernel`` for the
+stacks the box fleet uses: control and state boxes, the quadratic goal
+cost, no terminal constraints, costates tracked, both barrier strategies
+and both theta norms. The kernel (``ops/csrc/ipddp_solve.cu``) gives each
+instance one thread that runs ``solvers/ipddp.py::_drive`` for it: the
+initial cost, merit and residuals; per iteration the Jacobians and cost
+derivatives, the condensed backward with its regularization retries, the
+fraction-to-boundary step caps, the first-success filter line search, the
+barrier update with the fixed-size filter and the convergence tests. The
+trajectories, duals, slacks, control gains and costate gains live in device
+memory (batch-last); the dual and slack gains are recomputed from the
+control gains where they are needed, as the JAX kernel does.
+
+Its plain version is the per-pass driver ``solvers/ipddp.py::_drive``,
+which CPU tensors run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from cddp_tpu_torch.constraints.stack import PathStacker
+from cddp_tpu_torch.costs.objective import QuadraticObjective
+from cddp_tpu_torch.ops.kernels import dispatch_log, ip_rollout
+from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+from cddp_tpu_torch.ops.kernels.mega_clddp import backward_retry_bound
+from cddp_tpu_torch.options import BarrierStrategy, CDDPOptions, line_search_alphas
+from cddp_tpu_torch.solution import Solution
+
+MAX_ALPHAS = 64  # the kernel's alpha-ladder capacity (ipddp_solve.cu)
+# The kernel's filter slots (kFCap). An accepted entry joins at most
+# max_filter_size kept ones, so max_filter_size <= 6 fits.
+FILTER_SLOTS = 7
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_double)] * 4
+             + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
+def mega_eligible(problem, options: CDDPOptions) -> bool:
+    """Static dispatch predicate (mega_ipddp.py:2536-2598 of the JAX package,
+    restricted to the slice and without its TPU scratch-memory gates): a
+    registered model with an explicit integrator, the quadratic objective,
+    a box-only path stack of a size the kernel is built for, no terminal
+    constraints, iLQR with the sequential backward and line search, a
+    filter that fits the kernel's slots, and none of the driver features
+    the kernel does not model."""
+    stk = PathStacker(problem)
+    lane = rollout_ops.lane_consts(problem)
+    rows = ip_rollout.box_rows(problem, stk)
+    ip = options.ipddp
+    return (
+        lane is not None and rows is not None
+        and rows.m in ip_rollout.KERNEL_ROWS.get(lane.entry.cuda_name, ())
+        and isinstance(problem.objective, QuadraticObjective)
+        and not problem.terminal_constraints
+        and options.use_ilqr
+        and not options.enable_parallel
+        and ip.slack_soc is not True
+        and ip.use_constraint_hessians is not True
+        and not ip.check_state_stationarity
+        and ip.lqr_backend == "sequential"
+        and options.backward_engine == "auto"
+        and options.solve_engine != "xla"
+        and not options.return_iteration_info
+        and not options.verbose
+        and not options.debug
+        and options.max_cpu_time <= 0
+        and options.max_iterations >= 1
+        and options.regularization.update_factor > 1.0
+        and len(line_search_alphas(options.line_search)) <= MAX_ALPHAS
+        and ip.max_filter_size < FILTER_SLOTS
+    )
+
+
+def _solve_cfg(options: CDDPOptions):
+    """The solver options as the CUDA ``SolveCfg`` struct reads them; every
+    constant the driver folds from two options is folded here in double."""
+    reg, ip, fo = options.regularization, options.ipddp, options.filter
+    b = ip.barrier
+    tol, atol = options.tolerance, options.acceptable_tolerance
+    f = b.mu_update_factor
+    return [
+        tol, atol, reg.initial_value, reg.update_factor, reg.max_value,
+        reg.min_value, f, 0.1 * f, 0.3 * f, 0.6 * f, b.mu_update_power,
+        max(b.mu_min_value, tol / 100.0), b.mu_min_value,
+        b.min_fraction_to_boundary, ip.barrier_tol_mult,
+        ip.barrier_update_dual_weight, ip.mu_kappa_epsilon, fo.armijo_constant,
+        fo.merit_acceptance_threshold, 1 - fo.violation_acceptance_threshold,
+        fo.max_violation_threshold, fo.min_violation_for_armijo_check,
+        math.sqrt(atol), max(b.mu_min_value * 100.0, tol / 10.0), tol * 10.0,
+        math.sqrt(max(atol, tol)),
+    ]
+
+
+def ipddp_solve(problem, options: CDDPOptions, X, U, Y, S, G, Lambda, mu0, ku0,
+                Ku0) -> Solution:
+    """Batch-first whole solve from the initialized batch (``_initialize``):
+    X/Lambda (B,N+1,nx), U (B,N,nu), Y/S/G (B,N,m), mu0 (B,), ku0 (B,N,nu),
+    Ku0 (B,N,nu,nx). CUDA tensors launch the kernel; CPU tensors run the
+    plain driver."""
+    from cddp_tpu_torch.solvers import ipddp
+
+    if X.device.type == "cpu":
+        dispatch_log.plain("ipddp_solve", X.shape[0])
+        return ipddp._drive(problem, options, X, U, Y, S, G, Lambda, mu0, ku0, Ku0)
+    return _launch(problem, options, X, U, Y, S, G, Lambda, mu0, ku0, Ku0)
+
+
+def _launch(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0) -> Solution:
+    return launch_counting_work(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0,
+                                Ku0)[0]
+
+
+def launch_counting_work(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
+    """Launch the kernel; returns (Solution, work (2, B)): each instance's
+    backward attempts and trajectory sweeps (line-search trials and the
+    accepted trial's rewrite), which a roofline bound's operation count
+    reads."""
+    from cddp_tpu_torch.ops.kernels import build
+
+    stk = PathStacker(problem)
+    lane = rollout_ops.lane_consts(problem)
+    rows = ip_rollout.box_rows(problem, stk)
+    ins = (X0, U0, Y0, S0, G0, L0, ku0, Ku0, mu0)
+    Bsz, N1, nx = X0.shape
+    N, nu, m = N1 - 1, problem.control_dim, Y0.shape[-1]
+    tag = build.dtype_tag("ipddp_solve", ins, (
+        (N + 1, nx), (N, nu), (N, m), (N, m), (N, m), (N + 1, nx), (N, nu),
+        (N, nu, nx), ()))
+    name = f"cddp_ipddp_solve_{lane.entry.cuda_name}_m{m}_{tag}"
+    fn = build.function(name, _ARGTYPES)
+    # The kernel updates its state in place: always fresh batch-last copies.
+    X, U, Y, S, G, L, k, K = (t.movedim(0, -1).clone(memory_format=torch.contiguous_format)
+                              for t in ins[:8])
+    klam = X0.new_empty(N + 1, nx, Bsz)
+    Klam = X0.new_empty(N + 1, nx, nx, Bsz)
+    stats = X0.new_empty(11, Bsz)
+    stats[4] = mu0
+    alphas = line_search_alphas(options.line_search)
+    ip = options.ipddp
+    ints = (N, Bsz, rollout_ops.INTEGRATORS.index(lane.integrator),
+            options.max_iterations, len(alphas), backward_retry_bound(options),
+            int(ip.barrier.strategy == BarrierStrategy.ADAPTIVE),
+            int(ip.theta_norm == "l2"), ip.max_filter_size)
+    err = fn(*(build.ptr(t) for t in (X, U, Y, S, G, L, k, K, klam, Klam, stats)),
+             build.doubles(lane.host), build.doubles(rows.host),
+             build.doubles(_solve_cfg(options)), build.doubles(alphas), *ints,
+             build.stream_ptr(X0.device))
+    build.check(err, name)
+    dispatch_log.launched("ipddp_solve", Bsz)
+    Yb, Sb = Y.movedim(-1, 0), S.movedim(-1, 0)
+    return Solution(
+        solver_name="IPDDP",
+        status_code=stats[8].to(torch.int32),
+        iterations_completed=stats[7].to(torch.int32),
+        final_objective=stats[0],
+        final_step_length=stats[6],
+        final_regularization=stats[5],
+        time_points=torch.arange(N + 1, dtype=X0.dtype, device=X0.device) * problem.timestep,
+        state_trajectory=X.movedim(-1, 0),
+        control_trajectory=U.movedim(-1, 0),
+        feedback_gains=K.movedim(-1, 0),
+        feedforward_gains=k.movedim(-1, 0),
+        inf_du=stats[2],
+        dual_trajectories=stk.split(Yb),
+        slack_trajectories=stk.split(Sb),
+        costate_trajectory=L.movedim(-1, 0),
+        barrier_mu=stats[4],
+        inf_pr=stats[1],
+        inf_comp=stats[3],
+    ), stats[9:]

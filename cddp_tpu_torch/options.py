@@ -8,13 +8,14 @@ dataclasses.
 Not carried over: ``matmul_precision``. Its replacement is a fixed rule —
 the port never enables TF32, so float32 matrix products stay exact float32
 (``torch.get_float32_matmul_precision() == "highest"``, PyTorch's default).
-The interior-point, multiple-shooting and log-barrier option groups arrive
-with their solvers.
+The multiple-shooting and log-barrier option groups arrive with their
+solvers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -40,6 +41,26 @@ class RegularizationOptions:
     step_initial_value: float = 1.0
 
 
+class BarrierStrategy(enum.Enum):
+    """Barrier update strategy (``options.hpp:28-33``)."""
+
+    ADAPTIVE = "adaptive"
+    MONOTONIC = "monotonic"
+    IPOPT = "ipopt"
+
+
+@dataclass(frozen=True)
+class BarrierOptions:
+    """``SolverSpecificBarrierOptions`` (``options.hpp:73-88``)."""
+
+    mu_initial: float = 1e-0
+    mu_min_value: float = 1e-10
+    mu_update_factor: float = 0.5
+    mu_update_power: float = 1.2
+    min_fraction_to_boundary: float = 0.99
+    strategy: BarrierStrategy = BarrierStrategy.ADAPTIVE
+
+
 @dataclass(frozen=True)
 class FilterOptions:
     """``SolverSpecificFilterOptions`` (``options.hpp:93-108``). CLDDP reads
@@ -50,6 +71,49 @@ class FilterOptions:
     max_violation_threshold: float = 1e4
     min_violation_for_armijo_check: float = 1e-7
     armijo_constant: float = 1e-4
+
+
+@dataclass(frozen=True)
+class IPDDPOptions:
+    """``IPDDPAlgorithmOptions`` (``options.hpp:148-185``), with the JAX
+    package's additions under the same names and defaults.
+
+    ``forward_engine``: "auto" runs the interior-point forward kernel on
+    CUDA tensors of eligible problems (its plain version on CPU tensors);
+    "scan" keeps the generic plain forward pass. ``slack_soc`` and
+    ``use_constraint_hessians`` are "auto", True or False; the port's path
+    constraints are boxes, whose Hessians are zero, so only an explicit
+    ``slack_soc=True`` changes the iterates. Fields the port does not honour
+    yet (``check_state_stationarity``, ``lqr_backend="parallel"``, the
+    warm-start fields, which ``warm_start`` gates) are refused by the solver.
+    """
+
+    dual_var_init_scale: float = 1e-1
+    slack_var_init_scale: float = 1e-2
+    barrier_tol_mult: float = 0.1
+    barrier_update_dual_weight: float = 0.01
+    mu_kappa_epsilon: float = 10.0
+    check_state_stationarity: bool = False
+    theta_norm: str = "l1"
+    max_filter_size: int = 5
+    theta_0_floor: float = 1.0
+    warmstart_repair: bool = False
+    warmstart_s_min: float = 1e-4
+    warmstart_y_min: float = 1e-4
+    warmstart_interior_factor: float = 1.1
+    warmstart_staleness_check: bool = True
+    warmstart_reset_x0_threshold: float = -1.0
+    jacobian_regularization_value: float = 1e-8
+    jacobian_regularization_exponent: float = 0.25
+    terminal_dual_init_scale: float = 1e-1
+    terminal_slack_init_scale: float = 1e-2
+    terminal_constraint_tolerance: float = 1e-6
+    slack_soc: object = "auto"
+    use_constraint_hessians: object = "auto"
+    soc_stall_iterations: int = 8
+    barrier: BarrierOptions = field(default_factory=BarrierOptions)
+    lqr_backend: str = "sequential"
+    forward_engine: str = "auto"
 
 
 @dataclass(frozen=True)
@@ -73,11 +137,12 @@ class BoxQPOptions:
 class CDDPOptions:
     """Top-level options (``options.hpp:208-251``).
 
-    ``backward_engine``: "auto" runs the CUDA Riccati and rollout kernels on
-    CUDA tensors (their plain versions on CPU tensors); "scan" forces the
-    plain PyTorch passes everywhere. ``solve_engine``: "auto" runs the
-    whole-solve kernel when :func:`~cddp_tpu_torch.ops.kernels.mega_clddp.
-    mega_eligible` holds; "xla" keeps the per-pass driver (the name is the
+    ``backward_engine``: "auto" (and, for IPDDP, "fused") runs the CUDA
+    backward and rollout kernels on CUDA tensors (their plain versions on
+    CPU tensors); "scan" forces the plain PyTorch passes everywhere.
+    ``solve_engine``: "auto" runs the solver's whole-solve kernel when its
+    ``mega_eligible`` holds (``ops/kernels/mega_clddp.py``,
+    ``mega_ipddp.py``); "xla" keeps the per-pass driver (the name is the
     JAX package's); "fused" asserts eligibility.
     """
 
@@ -104,6 +169,7 @@ class CDDPOptions:
     )
     box_qp: BoxQPOptions = field(default_factory=BoxQPOptions)
     filter: FilterOptions = field(default_factory=FilterOptions)
+    ipddp: IPDDPOptions = field(default_factory=IPDDPOptions)
 
     def replace(self, **kw) -> "CDDPOptions":
         return dataclasses.replace(self, **kw)

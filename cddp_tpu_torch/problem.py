@@ -13,6 +13,7 @@ from typing import Dict, Optional
 
 import torch
 
+from cddp_tpu_torch import devices
 from cddp_tpu_torch.constraints.path import ControlConstraint
 from cddp_tpu_torch.costs.objective import QuadraticObjective
 from cddp_tpu_torch.models.base import DynamicalSystem
@@ -26,6 +27,8 @@ class Problem:
     horizon: int
     timestep: float
     constraints: Dict[str, ControlConstraint] = field(default_factory=dict)
+    # Always empty: terminal constraints are not ported yet.
+    terminal_constraints: Dict[str, object] = field(default_factory=dict)
 
     @property
     def state_dim(self) -> int:
@@ -44,8 +47,17 @@ class Problem:
             raise ValueError("Cannot add null constraint.")
         return self.replace(constraints={**self.constraints, name: constraint})
 
+    def add_terminal_constraint(self, name: str, constraint) -> "Problem":
+        raise NotImplementedError(
+            "terminal constraints are not yet ported to cddp_tpu_torch")
+
     def get_constraint(self, name: str) -> Optional[ControlConstraint]:
         return self.constraints.get(name)
+
+    def sorted_constraints(self):
+        """(name, constraint) pairs in name order — the std::map iteration
+        order the reference's stacked blocks use."""
+        return sorted(self.constraints.items())
 
     def initial_trajectories(self, X=None, U=None):
         """Zero-initialized (X, U) with X[..., 0, :] = x0, unless warm-start
@@ -67,10 +79,11 @@ def problem(model: DynamicalSystem, objective: QuadraticObjective, x0,
             horizon: int, timestep: float,
             constraints: Optional[Dict[str, ControlConstraint]] = None, *,
             device=None, dtype=None) -> Problem:
+    """Build a Problem; ``x0`` goes to ``device``, the CUDA card when None."""
     return Problem(
         model=model,
         objective=objective,
-        x0=torch.as_tensor(x0, device=device, dtype=dtype),
+        x0=torch.as_tensor(x0, device=devices.resolve(device), dtype=dtype),
         horizon=int(horizon),
         timestep=float(timestep),
         constraints=dict(constraints or {}),

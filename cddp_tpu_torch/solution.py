@@ -2,8 +2,9 @@
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -50,6 +51,31 @@ class Solution:
     feedback_gains: torch.Tensor  # (..., N, nu, nx)
     feedforward_gains: torch.Tensor  # (..., N, nu)
     inf_du: Optional[torch.Tensor] = None
+    # Interior-point fields (IPDDP): duals and slacks per path constraint
+    # name, (..., N, dual_dim); costates (..., N+1, nx); the final barrier
+    # parameter and residuals. None for CLDDP.
+    dual_trajectories: Optional[Dict[str, torch.Tensor]] = None
+    slack_trajectories: Optional[Dict[str, torch.Tensor]] = None
+    costate_trajectory: Optional[torch.Tensor] = None
+    barrier_mu: Optional[torch.Tensor] = None
+    inf_pr: Optional[torch.Tensor] = None
+    inf_comp: Optional[torch.Tensor] = None
+    terminal_duals: Optional[Dict[str, torch.Tensor]] = None
+
+    def first(self) -> "Solution":
+        """The first instance of a batched solution (the unbatched form):
+        every per-instance tensor loses its leading batch axis."""
+
+        def pick(f, v):
+            if isinstance(v, torch.Tensor) and f != "time_points":
+                return v[0]
+            if isinstance(v, dict):
+                return {k: t[0] for k, t in v.items()}
+            return v
+
+        return dataclasses.replace(self, **{
+            f.name: pick(f.name, getattr(self, f.name))
+            for f in dataclasses.fields(self)})
 
     def status_messages(self) -> list:
         """One decoded status string per solve (flattened)."""

@@ -10,7 +10,11 @@ def get_solver(name: str) -> Callable:
         from cddp_tpu_torch.solvers import clddp
 
         return clddp.solve
-    if name in ("LogDDP", "LOGDDP", "IPDDP", "MSIPDDP"):
+    if name == "IPDDP":
+        from cddp_tpu_torch.solvers import ipddp
+
+        return ipddp.solve
+    if name in ("LogDDP", "LOGDDP", "MSIPDDP"):
         raise NotImplementedError(f"solver {name!r} is not yet ported to cddp_tpu_torch")
     raise ValueError(
         f"Unknown solver {name!r}. Available: ['CLDDP', 'LogDDP', 'IPDDP', 'MSIPDDP']"

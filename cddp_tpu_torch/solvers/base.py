@@ -1,4 +1,4 @@
-"""Shared solver machinery used by CLDDP (port of ``cddp_tpu/solvers/base.py``).
+"""Shared solver machinery (port of ``cddp_tpu/solvers/base.py``).
 
 Batch-first: trajectories are (B, N+1, nx) / (B, N, nu) and per-instance
 scalars are (B,) tensors.
@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -59,6 +60,41 @@ def decrease_regularization(reg, options: CDDPOptions):
 def regularization_limit_reached(reg, options: CDDPOptions):
     """cddp_core.cpp:328-331."""
     return reg >= options.regularization.max_value
+
+
+# Knife-edge slop multiplier for the fraction-to-boundary re-check; the
+# CUDA kernels (ops/csrc/ipddp_step.cuh) use the same factor, so every engine
+# resolves boundary ties alike.
+FTB_SLOP_FACTOR = 16.0
+
+
+def ftb_ok(v_new, v_old, tau):
+    """Fraction-to-boundary re-check ``v_new >= (1 - tau) * v_old`` with a
+    rounding-scale slop on the boundary (base.py:111-133 of the JAX
+    package, bit for bit): at an alpha-capped rung the binding row lands on
+    the bound exactly, and the slop makes that tie accept on every engine.
+    ``tau`` broadcasts against ``v_new``."""
+    eps = torch.finfo(v_new.dtype).eps
+    slop = (FTB_SLOP_FACTOR * eps) * (1.0 + v_old.abs() + v_new.abs())
+    return (v_new > 0.0) & (v_new >= (1.0 - tau) * v_old - slop)
+
+
+class LineSearchSelection(NamedTuple):
+    index: torch.Tensor  # selected alpha index (B,)
+    success: torch.Tensor  # any alpha succeeded (B,)
+
+
+def select_forward_result(success, merit, enable_parallel: bool
+                          ) -> LineSearchSelection:
+    """Which alpha's rollout to commit, per instance, from (B, n_alpha)
+    flags and merits: the first success in ladder order, or with
+    ``enable_parallel`` the lowest merit among successes (the first minimum
+    wins ties) (cddp_solver_base.cpp:256-287)."""
+    if enable_parallel:
+        idx = torch.where(success, merit, torch.full_like(merit, float("inf"))).argmin(-1)
+    else:
+        idx = success.int().argmax(-1)
+    return LineSearchSelection(index=idx, success=success.any(-1))
 
 
 def kkt_scaling(norm_Vx, horizon, state_dim, options: CDDPOptions):

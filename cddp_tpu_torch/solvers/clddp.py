@@ -295,9 +295,4 @@ def solve(
         sol = mega_clddp.clddp_solve(problem, options, X, U, k0, K0)
     else:
         sol = _solve(problem, options, X, U, k0, K0)
-    if unbatched:
-        sol = Solution(**{
-            f: (v[0] if isinstance(v, torch.Tensor) and f != "time_points" else v)
-            for f, v in sol.__dict__.items()
-        })
-    return sol
+    return sol.first() if unbatched else sol

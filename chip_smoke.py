@@ -9,24 +9,50 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 
 1. start: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device -> exit nonzero with no result (no CPU fallback);
-2. build: compile the three CUDA kernels from ``cddp_tpu_torch/ops/csrc``;
-3. kernel vs plain PyTorch on the card, at the flagship problem's shapes
-   (N=20, nx=3, nu=2) with B=4096: the Riccati and rollout kernels in
-   float64 (atol 1e-9) and float32 (as accurate as the plain version against
-   float64, per time step; see ``check``), the whole-solve kernel
-   against the plain driver (float64: every status and iteration count equal,
-   X, U and cost within 1e-8; float32: status, iterations and cost within
-   rel 1e-4 equal on >= 99% of instances); in float64 also the branches the
-   flagship does not reach: an indefinite Riccati case, the regularization
-   limit (status 3), the early exit (1) and the acceptable exit (2), held
-   exactly, and a 30-iteration run into last-bit ties, held as an envelope
-   (see ``phase_branches``);
-4. the flagship fleet (the workload of ``bench.py``: cold control-limited
-   unicycle MPC, H=20, CLDDP, 10 iterations, float32, B=262144) through
-   ``batched_solve``: the launch counts prove the whole-solve kernel ran it
-   (and the Riccati and rollout kernels the per-pass engine); costs must be
-   finite and fall; solves/s of the whole-solve kernel, the per-pass kernels
-   and the plain driver on the card.
+2. build: compile the seven CUDA kernels from ``cddp_tpu_torch/ops/csrc``
+   (float32 and float64), printing ptxas registers and spills;
+3. the CLDDP kernels against their plain PyTorch versions on the card, at
+   the flagship problem's shapes (N=20, nx=3, nu=2) with B=4096: the
+   Riccati and rollout kernels in float64 (atol 1e-9) and float32 (as
+   accurate as the plain version against float64, per time step; see
+   ``check``), the whole-solve kernel against the plain driver (float64:
+   every status and iteration count equal, X, U and cost within 1e-8;
+   float32: status, iterations and cost within rel 1e-4 equal on >= 99% of
+   instances); in float64 also the branches the flagship does not reach: an
+   indefinite Riccati case, the regularization limit (status 3), the early
+   exit (1) and the acceptable exit (2), held exactly, and a 30-iteration
+   run into last-bit ties, held as an envelope (see ``phase_branches``);
+4. the flagship CLDDP fleet (the workload of ``bench.py``: cold
+   control-limited unicycle MPC, H=20, 10 iterations, float32, B=262144)
+   through ``batched_solve``: the launch counts prove the whole-solve kernel
+   ran it (and the Riccati and rollout kernels the per-pass engine); costs
+   must be finite and fall; solves/s of the whole-solve kernel, the
+   per-pass kernels and the plain driver; each kernel's time, its plain
+   version's and its bound;
+5. the IPDDP kernels against their plain versions at B=4096 on the box
+   fleet's shapes (m=4 box rows), with inputs staged by the plain driver
+   (``stage_ip_inputs``): the open-loop rollout, condensed backward and
+   forward trial kernels in float64 (atol 1e-9, flags equal) and float32
+   (the float64-truth rule of ``check``), the whole-solve kernel against the
+   plain per-pass driver on the same cold seeds (float64: every status and
+   iteration count equal, X, U, duals, slacks, cost and mu within 1e-8, on
+   the box fleet and the cases of ``phase_ip_branches``; float32: status,
+   iterations and cost within rel 1e-4 on >= 99% over five iterations, and
+   at ten no further from the plain driver than it is from itself under a
+   one-ulp change of x0, see ``check_ip_f32``);
+6. the IPDDP box fleet (``bench_ipddp_fleet.py``'s box problem: the
+   flagship under IPDDP, 10 iterations, tolerance 1e-4, float32, B=262144)
+   through ``batched_solve`` on each engine: the launch counts (whole solve:
+   one open-loop rollout and one whole-solve launch; per-pass: the rollout,
+   backward and forward kernels; plain: none), finite costs and residuals,
+   status agreement with the plain driver on >= 99%, solves/s; each
+   kernel's time, its plain version's and its bound.
+
+A bound is the larger of the compulsory bytes (each input read once, each
+output written once, ``unique_bytes``) over 3.35 TB/s and the operations
+(``count_ops`` on the plain version, per instance; for a whole solve, from
+the kernel's own count of backward attempts and trajectory sweeps) over 67
+TFLOP/s, the H100 SXM's float32 rate outside the tensor cores.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -89,7 +115,6 @@ def stage_inputs(prob, B, gen):
     """Backward- and forward-pass inputs as the per-pass driver builds them,
     linearized about random nominal trajectories of the flagship problem."""
     from cddp_tpu_torch.models import rollout
-    from cddp_tpu_torch.solvers import base
 
     dev, dtype = prob.x0.device, prob.x0.dtype
     rand = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=dtype)  # noqa: E731
@@ -97,15 +122,23 @@ def stage_inputs(prob, B, gen):
     x0 = rand(B, 3) - 0.5
     U = (2.0 * rand(B, HORIZON, 2) - 1.0) * cc.upper * 0.75
     X = rollout(prob.model, x0, U, DT)
+    back = clddp_backward_inputs(prob, X, U, 10.0 ** (-6.0 + 4.0 * rand(B)))
+    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125], device=dev, dtype=dtype)
+    alpha = alphas[torch.randint(0, 4, (B,), generator=gen, device=dev)]
+    return X, U, back, alpha
+
+
+def clddp_backward_inputs(prob, X, U, reg):
+    """The Riccati backward's inputs about (X, U), as the per-pass CLDDP
+    driver builds them."""
+    from cddp_tpu_torch.solvers import base
+
+    cc = prob.get_constraint("ControlConstraint")
     A, Bm = base.discrete_jacobians(prob, X, U)
     lx, lu, lxx, luu, lux = base.running_cost_derivatives(prob, X, U)
     Vx = prob.objective.terminal_cost_gradient(X[:, -1])
     Vxx = prob.objective.terminal_cost_hessian(X[:, -1])
-    reg = 10.0 ** (-6.0 + 4.0 * rand(B))
-    back = (A, Bm, lx, lu, lxx, luu, lux, cc.lower - U, cc.upper - U, Vx, Vxx, reg)
-    alphas = torch.tensor([1.0, 0.5, 0.25, 0.125], device=dev, dtype=dtype)
-    alpha = alphas[torch.randint(0, 4, (B,), generator=gen, device=dev)]
-    return X, U, back, alpha
+    return (A, Bm, lx, lu, lxx, luu, lux, cc.lower - U, cc.upper - U, Vx, Vxx, reg)
 
 
 def step_scale(w):
@@ -332,6 +365,540 @@ def phase_kernels(tt, dev):
     return results
 
 
+# --- operation and byte counts for the roofline bounds -------------------------
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
+H100_F32_PER_S = 67e12  # float32 outside the tensor cores
+H100_F64_PER_S = 34e12  # float64 outside the tensor cores
+
+# aten ops that move or make data without arithmetic: no operations.
+_NO_OPS = {
+    "view", "_unsafe_view", "reshape", "_reshape_alias", "expand", "clone", "copy_",
+    "cat", "stack", "select", "slice", "unsqueeze", "squeeze", "permute", "transpose",
+    "t", "empty", "new_empty", "empty_like", "zeros", "new_zeros", "zeros_like",
+    "full", "new_full", "full_like", "ones", "ones_like", "eye", "detach", "alias",
+    "_to_copy", "lift_fresh", "unbind", "split", "split_with_sizes", "contiguous",
+    "fill_", "zero_", "scalar_tensor", "arange", "movedim", "flatten", "item",
+    "_local_scalar_dense", "is_nonzero", "resolve_conj", "resolve_neg", "diagonal",
+    "as_strided", "index_select", "index", "set_", "new_ones", "lift_fresh_copy",
+    "squeeze_", "unsqueeze_", "to", "_index_put_impl_", "index_put_",
+}
+_REDUCTIONS = {"sum", "amax", "amin", "all", "any", "max", "min", "mean", "prod"}
+
+
+def count_ops(fn, *args):
+    """Arithmetic operations ``fn(*args)`` performs, counted at the aten
+    level: 2 m n k for a matrix product, one per output element for an
+    elementwise op (add, mul, compare, select, sin, log, ...), one per input
+    element for a reduction, none for data movement. Run on one instance,
+    it counts the plain version's arithmetic per instance."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    total = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            name = func.overloadpacket.__name__
+            if name in ("mm", "bmm"):
+                lhs, rhs = a[0], a[1]
+                total[0] += 2 * lhs.numel() * rhs.shape[-1]
+            elif name in ("addmm", "baddbmm"):
+                total[0] += 2 * a[1].numel() * a[2].shape[-1] + out.numel()
+            elif name in _REDUCTIONS:
+                total[0] += a[0].numel()
+            elif name not in _NO_OPS and isinstance(out, torch.Tensor):
+                total[0] += out.numel()
+            return out
+
+    with Count():
+        fn(*args)
+    return total[0]
+
+
+def unique_bytes(tensors):
+    """Bytes of the distinct elements of ``tensors``: a broadcast (stride 0)
+    axis counts once, as a kernel need read it only once."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            n = 1
+            for size, stride in zip(t.shape, t.stride()):
+                n *= size if stride != 0 else 1
+            total += n * t.element_size()
+    return total
+
+
+def bound(nbytes, ops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the card's non-tensor peak for the dtype."""
+    peak = H100_F64_PER_S if dtype == torch.float64 else H100_F32_PER_S
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def one(args):
+    """The first instance of batch-first arguments (non-tensors as they are)."""
+    return tuple(a[:1] if isinstance(a, torch.Tensor) and a.dim() else a for a in args)
+
+
+# --- IPDDP (the box fleet) -------------------------------------------------------
+
+STATE_BOX = ([-5.0, -5.0, -2.0 * math.pi], [5.0, 5.0, 2.0 * math.pi])
+
+
+def ip_problem(tt, dtype, device, horizon=HORIZON, state_box=False, goal=None):
+    """The IPDDP box fleet (``bench_ipddp_fleet.py``'s box problem: the
+    flagship problem under IPDDP), optionally with the state box of
+    tests/test_mega_ipddp.py and another goal."""
+    prob = flagship_problem(tt, dtype, device, horizon)
+    if goal is not None:
+        prob = prob.replace(objective=prob.objective.replace(
+            reference_state=torch.tensor(goal, device=device, dtype=dtype)))
+    if state_box:
+        prob = prob.add_constraint("StateConstraint", tt.state_constraint(
+            *STATE_BOX, device=device, dtype=dtype))
+    return prob
+
+
+def ip_seeds(prob, opts, x0):
+    """The cold-start batch ``ipddp.solve`` builds for x0: (problem,
+    (X, U, Y, S, G, Lambda, mu0, k_u0, K_u0))."""
+    from cddp_tpu_torch.constraints.stack import PathStacker
+    from cddp_tpu_torch.solvers import ipddp
+
+    p = prob.replace(x0=x0)
+    B, N, nu, nx = x0.shape[0], p.horizon, p.control_dim, p.state_dim
+    seeds = ipddp._initialize(p, opts, PathStacker(p), x0.new_zeros(B, N, nu))
+    return p, seeds + (x0.new_zeros(B, N, nu), x0.new_zeros(B, N, nu, nx))
+
+
+def plain_ip_options(tt, opts):
+    """``opts`` with the plain engines: the per-pass driver without kernels."""
+    return opts.replace(backward_engine="scan", ipddp=dataclasses.replace(
+        opts.ipddp, forward_engine="scan"))
+
+
+def stage_ip_inputs(tt, prob, B, gen, opts):
+    """Inputs of the open-loop rollout, condensed backward and forward trial
+    kernels as the per-pass driver stages them: the plain driver takes four
+    iterations from cold starts at random x0, and about the iterate it
+    reaches the backward's inputs are built at its barrier parameter and
+    regularization, and a line-search trial from the plain backward's gains
+    at a random ladder step capped by the fraction-to-boundary maxima. On
+    a quarter of the batch the caps are tripled, so that the trial's
+    fraction-to-boundary test fails on part of it; the slack SOC flag is
+    set on half. Returns (problem, (x0, U), backward args, forward args)."""
+    from cddp_tpu_torch.constraints.stack import PathStacker
+    from cddp_tpu_torch.options import line_search_alphas
+    from cddp_tpu_torch.solvers import ipddp
+
+    dev, dtype = prob.x0.device, prob.x0.dtype
+    rand = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=dtype)  # noqa: E731
+    x0 = rand(B, 3) - 0.5
+    p, seeds = ip_seeds(prob, opts, x0)
+    stk = PathStacker(p)
+    sol = ipddp._drive(p, plain_ip_options(tt, opts.replace(max_iterations=4)), *seeds)
+    X, U, Lam = sol.state_trajectory, sol.control_trajectory, sol.costate_trajectory
+    Y = torch.cat([sol.dual_trajectories[n] for n in stk.names], -1)
+    S = torch.cat([sol.slack_trajectories[n] for n in stk.names], -1)
+    G = ipddp._eval_path(stk, X, U)
+    mu, reg = sol.barrier_mu, sol.final_regularization
+    back = ipddp.backward_inputs(p, stk, X, U, Y, S, G, mu, reg)
+    bp = ipddp._backward_condensed(p, opts.replace(backward_engine="scan"), stk, X, U,
+                                   Y, S, G, mu, reg)
+    a_pr_max, a_du_max = ipddp._max_step_sizes(S, Y, bp.dS, bp.dY, mu, opts)
+    ladder = torch.tensor(line_search_alphas(opts.line_search)[:4], device=dev, dtype=dtype)
+    alpha = ladder[torch.randint(0, len(ladder), (B,), generator=gen, device=dev)]
+    over = torch.where(rand(B) < 0.25, 3.0, 1.0).to(dtype)
+    fwd = (X[:, :-1], U, Y, S, bp.k_u, bp.K_u, bp.k_lambda[:, :-1], bp.K_lambda[:, :-1],
+           Lam[:, :-1], bp.k_y, bp.K_y, bp.k_s, bp.K_s, x0,
+           torch.minimum(alpha, a_pr_max * over), torch.minimum(alpha, a_du_max * over),
+           ipddp._tau(opts, mu), rand(B) < 0.5)
+    return p, (x0, U), back, fwd
+
+
+def forward_consts(prob, opts, slack_soc, f64=False):
+    """The forward kernel's constants for ``prob``, with the slack SOC
+    re-closure on or off (and in float64 for the float32 truth)."""
+    from cddp_tpu_torch.constraints.stack import PathStacker
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+
+    fc = ip_rollout.resolve_ip_forward(prob, opts, PathStacker(prob))
+    fc = dataclasses.replace(fc, slack_soc=slack_soc)
+    return dataclasses.replace(fc, lane=consts_f64(fc.lane)) if f64 else fc
+
+
+def cost_share(a, b):
+    """Share of instances whose status, iteration count and cost (rel
+    1e-4) are equal in two solutions."""
+    same = (a.status_code == b.status_code) & (a.iterations_completed == b.iterations_completed)
+    rel = (a.final_objective - b.final_objective).abs() / b.final_objective.abs()
+    return float((same & (rel <= 1e-4)).double().mean())
+
+
+def check_ip_solve(label, kern, plain, exact, tol=1e-8, min_share=0.99):
+    """The whole-solve kernel against the plain per-pass driver on the same
+    seeds. float64: status and iteration count equal on every instance; X,
+    U, every dual and slack, cost and mu within ``tol``. float32: status
+    and iterations equal on >= 99% of instances, and status, iterations and
+    cost (rel 1e-4) on >= ``min_share``. Returns (status counts, share with
+    equal cost, max abs cost err where status and iterations agree)."""
+    same = ((kern.status_code == plain.status_code)
+            & (kern.iterations_completed == plain.iterations_completed))
+    counts = torch.bincount(kern.status_code.long(), minlength=4).tolist()
+    cost_err = float((kern.final_objective - plain.final_objective)[same].abs().max())
+    tag = "float64" if exact else "float32"
+    if exact:
+        if not bool(same.all()):
+            raise AssertionError(f"ipddp_solve f64 {label}: status/iterations differ "
+                                 f"on {int((~same).sum())} instances")
+        pairs = [("X", kern.state_trajectory, plain.state_trajectory),
+                 ("U", kern.control_trajectory, plain.control_trajectory),
+                 ("cost", kern.final_objective, plain.final_objective),
+                 ("mu", kern.barrier_mu, plain.barrier_mu)]
+        for name in plain.dual_trajectories:
+            pairs += [(f"Y[{name}]", kern.dual_trajectories[name],
+                       plain.dual_trajectories[name]),
+                      (f"S[{name}]", kern.slack_trajectories[name],
+                       plain.slack_trajectories[name])]
+        errs = {}
+        for name, g, w in pairs:
+            errs[name] = float(abs_err(g, w).max())
+            if not errs[name] <= tol:
+                raise AssertionError(f"ipddp_solve f64 {label} {name}: max abs err "
+                                     f"{errs[name]} > {tol}")
+        share = 1.0
+        detail = "max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    else:
+        rel = ((kern.final_objective - plain.final_objective).abs()
+               / plain.final_objective.abs())
+        share = cost_share(kern, plain)
+        if float(same.double().mean()) < 0.99 or share < min_share:
+            raise AssertionError(f"ipddp_solve f32 {label}: status and iterations agree "
+                                 f"on {float(same.double().mean()):.4%} (need >= 99%), "
+                                 f"and cost too on {share:.4%} (need >= {min_share:.4%})")
+        detail = (f"status and iterations alone on {float(same.double().mean()):.4%}; "
+                  f"median rel cost err {float(rel.median()):.3e}, 99th percentile "
+                  f"{float(rel.quantile(0.99)):.3e}")
+    its = torch.bincount(kern.iterations_completed.long()).tolist()
+    print(f"[kernels {tag}] ipddp_solve {label}: status, iterations"
+          f"{'' if exact else ' and cost'} agree on {share:.4%} of {same.numel()}; "
+          f"statuses {counts}; iterations {its}; {detail}")
+    return counts, share, cost_err
+
+
+def ip_solve_pair(tt, prob, opts, x0):
+    """The whole-solve kernel and the plain per-pass driver from the same
+    cold seeds."""
+    from cddp_tpu_torch.ops.kernels import mega_ipddp
+    from cddp_tpu_torch.solvers import ipddp
+
+    p, seeds = ip_seeds(prob, opts, x0)
+    if not mega_ipddp.mega_eligible(p, opts):
+        raise AssertionError("the case is not eligible for the whole-solve kernel")
+    return (mega_ipddp._launch(p, opts, *seeds),
+            ipddp._drive(p, plain_ip_options(tt, opts), *seeds))
+
+
+def phase_ip_kernels(tt, dev):
+    """Kernels 4-7 against their plain versions on the card (phase 5)."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        exact = dtype == torch.float64
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        prob = ip_problem(tt, dtype, dev)
+        opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+        p, ol, back, fwd = stage_ip_inputs(tt, prob, B_CHECK, gen, opts)
+        as64 = lambda ts: tuple(t.double() if t.is_floating_point() else t  # noqa: E731
+                                for t in ts)
+        entry = rollout_ops.model_entry(p.model)
+
+        want = (ip_rollout.open_loop_rollout_plain(p.model, *ol, DT),)
+        truth = None if exact else (ip_rollout.open_loop_rollout_plain(
+            p.model, *as64(ol), DT),)
+        err4 = check("open_loop_rollout",
+                     (ip_rollout._launch_open_loop(p.model, entry, *ol, DT),), want, truth)
+
+        truth = None if exact else ric.ipddp_backward_plain(*as64(back))
+        got = ric._launch(*back)
+        err6 = check("ipddp_backward", got, ric.ipddp_backward_plain(*back), truth)
+        ok_share = float(got[-1][:, 6].double().mean())
+
+        err5 = 0.0
+        for soc in (False, True):
+            fc = forward_consts(p, opts, soc)
+            truth = None if exact else ip_rollout.ip_forward_plain(
+                forward_consts(p, opts, soc, f64=True), *as64(fwd))
+            got = ip_rollout._launch_forward(fc, *fwd)
+            err5 = max(err5, check(f"ip_forward slack_soc={soc}", got,
+                                   ip_rollout.ip_forward_plain(fc, *fwd), truth))
+            feasible = float(got[-1].double().mean())
+            print(f"[kernels {tag}] ip_forward slack_soc={soc}: feasible on "
+                  f"{feasible:.2%} of {B_CHECK}")
+            if exact and not 0.0 < feasible < 1.0:
+                raise AssertionError("the forward trial must pass its fraction-to-"
+                                     "boundary test on part of the batch only")
+        print(f"[kernels {tag}] open_loop_rollout max abs err {err4:.3e}; "
+              f"ipddp_backward max abs err {err6:.3e} (ok on {ok_share:.2%}); "
+              f"ip_forward max abs err {err5:.3e}")
+
+        x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=dtype) - 0.5
+        if exact:
+            _, share, cost_err = check_ip_solve("box fleet", *ip_solve_pair(tt, prob, opts, x0),
+                                                True)
+            phase_ip_branches(tt, dev, x0)
+        else:
+            share, cost_err = check_ip_f32(tt, dev, prob, opts, x0)
+        results[tag] = dict(open_loop_rollout=err4, ipddp_backward=err6, ip_forward=err5,
+                            ipddp_solve=cost_err, ipddp_solve_agreement=share)
+    return results
+
+
+def check_ip_f32(tt, dev, prob, opts, x0):
+    """The float32 whole-solve kernel against the plain driver. Over the box
+    fleet's first five iterations the two agree in status, iterations and
+    cost (rel 1e-4) on >= 99% of instances. From the sixth on the float32
+    path forks at accept-margin ties of the filter line search (the JAX
+    package's tests/test_mega_ipddp.py::TestF32BranchSensitivity): the plain
+    driver forks from itself as often when x0 moves by one ulp. At the full
+    10 iterations the kernel is held to that floor: its share of equal
+    cost may fall at most 3 points below the plain driver's share against
+    itself from x0 one ulp up, and against the plain driver in float64 its
+    median and 99th-percentile relative cost errors may be at most twice
+    the float32 plain driver's (+1e-6). Returns (share with equal cost,
+    max abs cost err where status and iterations agree) at five
+    iterations."""
+    from cddp_tpu_torch.solvers import ipddp
+
+    _, short_share, short_err = check_ip_solve(
+        "box fleet, 5 iterations", *ip_solve_pair(tt, prob, opts.replace(max_iterations=5), x0),
+        False)
+    kern, plain = ip_solve_pair(tt, prob, opts, x0)
+    plain_opts = plain_ip_options(tt, opts)
+    p1, seeds1 = ip_seeds(prob, plain_opts, torch.nextafter(x0, torch.full_like(x0, math.inf)))
+    floor = cost_share(ipddp._drive(p1, plain_opts, *seeds1), plain)
+    print(f"[kernels float32] the plain driver against itself from x0 one ulp up: status, "
+          f"iterations and cost agree on {floor:.4%} of {x0.shape[0]}")
+    check_ip_solve("box fleet", kern, plain, False, min_share=floor - 0.03)
+    p64, seeds64 = ip_seeds(ip_problem(tt, torch.float64, dev), plain_opts, x0.double())
+    truth = ipddp._drive(p64, plain_opts, *seeds64).final_objective
+    errs = {}
+    for name, sol in (("kernel", kern), ("plain", plain)):
+        rel = (sol.final_objective.double() - truth).abs() / truth.abs()
+        errs[name] = (float(rel.median()), float(rel.quantile(0.99)))
+    print(f"[kernels float32] ipddp_solve box fleet against the float64 plain driver: "
+          f"median rel cost err kernel {errs['kernel'][0]:.3e}, plain {errs['plain'][0]:.3e}; "
+          f"99th percentile kernel {errs['kernel'][1]:.3e}, plain {errs['plain'][1]:.3e}")
+    for i, what in enumerate(("median", "99th percentile")):
+        if not errs["kernel"][i] <= 2.0 * errs["plain"][i] + 1e-6:
+            raise AssertionError(f"ipddp_solve f32: {what} rel cost err against float64 "
+                                 f"{errs['kernel'][i]:.3e} exceeds twice the plain "
+                                 f"driver's {errs['plain'][i]:.3e}")
+    return short_share, short_err
+
+
+def phase_ip_branches(tt, dev, x0):
+    """float64 cases of the whole-solve kernel against the plain driver that
+    take its other branches: both other barrier strategies, the state box,
+    the regularization limit through the backward retry loop (status 3) and
+    a run to convergence (status 1 or 2). Each asserts the statuses it is
+    there for."""
+    from cddp_tpu_torch.options import (BarrierOptions, BarrierStrategy,
+                                        RegularizationOptions)
+
+    dtype = torch.float64
+    base = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    barrier = lambda s: base.replace(ipddp=tt.IPDDPOptions(  # noqa: E731
+        barrier=BarrierOptions(strategy=s)))
+    limit = ip_problem(tt, dtype, dev, horizon=8)
+    limit = limit.replace(objective=limit.objective.replace(
+        R=-5.0 * torch.eye(2, device=dev, dtype=dtype)))
+    cases = (
+        # label, problem, options, statuses every instance must end in,
+        # statuses some instance must reach
+        ("monotonic", ip_problem(tt, dtype, dev), barrier(BarrierStrategy.MONOTONIC),
+         None, ()),
+        ("ipopt", ip_problem(tt, dtype, dev), barrier(BarrierStrategy.IPOPT), None, ()),
+        ("control and state box", ip_problem(tt, dtype, dev, state_box=True), base,
+         None, ()),
+        ("regularization limit", limit, tt.CDDPOptions(
+            max_iterations=4, regularization=RegularizationOptions(
+                initial_value=1e-6, update_factor=10.0, max_value=1e-2)), {3}, (3,)),
+        ("to convergence", ip_problem(tt, dtype, dev, goal=(0.6, 0.4, 0.5)),
+         tt.CDDPOptions(max_iterations=60, tolerance=1e-5), None, (1, 2)),
+    )
+    for label, prob, opts, only, reached in cases:
+        counts, _, _ = check_ip_solve(label, *ip_solve_pair(tt, prob, opts, x0), True)
+        if only is not None and sum(counts[s] for s in only) != x0.shape[0]:
+            raise AssertionError(f"{label}: statuses {counts}, not all in {only}")
+        if reached and not sum(counts[s] for s in reached) > 0:
+            raise AssertionError(f"{label}: statuses {counts} reach none of {reached}")
+
+
+def phase_ip_fleet(tt, dev, smi):
+    """The IPDDP box fleet through ``batched_solve`` at B_MAIN, float32
+    (phase 6): launch counts per engine, finite costs and residuals, status
+    agreement with the plain driver, solves/s. Returns (launch counts,
+    solves/s, problem, x0)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    prob = ip_problem(tt, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = torch.rand(B_MAIN, 3, generator=gen, device=dev) - 0.5
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    engines = {
+        "whole-solve kernel": opts,
+        "per-pass kernels": opts.replace(solve_engine="xla"),
+        "plain driver": plain_ip_options(tt, opts),
+    }
+    sols, counts = {}, {}
+    for name, o in engines.items():
+        dispatch_log.reset()
+        sols[name] = batched_solve(prob, x0, "IPDDP", o)
+        torch.cuda.synchronize()
+        counts[name] = dict(dispatch_log.launches)
+        print(f"[ipddp] launches of the {name} run: {counts[name]}")
+    if counts["whole-solve kernel"] != {"open_loop_rollout": 1, "ipddp_solve": 1}:
+        raise AssertionError(f"the default IPDDP solve did not run as one open-loop "
+                             f"rollout and one whole-solve launch: "
+                             f"{counts['whole-solve kernel']}")
+    per_pass = counts["per-pass kernels"]
+    if (per_pass.get("open_loop_rollout") != 1 or "ipddp_solve" in per_pass
+            or per_pass.get("ipddp_backward", 0) < 1 or per_pass.get("ip_forward", 0) < 1):
+        raise AssertionError(f"the per-pass IPDDP engine did not run on kernels 4-6 "
+                             f"alone: {per_pass}")
+    if counts["plain driver"]:
+        raise AssertionError(f"the plain IPDDP driver launched kernels: "
+                             f"{counts['plain driver']}")
+
+    whole, plain = sols["whole-solve kernel"], sols["plain driver"]
+    for name, sol in sols.items():
+        if not (bool(sol.final_objective.isfinite().all())
+                and bool(sol.inf_pr.isfinite().all())):
+            raise AssertionError(f"non-finite IPDDP costs or inf_pr from the {name}")
+    if tuple(whole.control_trajectory.shape) != (B_MAIN, HORIZON, 2):
+        raise AssertionError(f"control trajectory shape {tuple(whole.control_trajectory.shape)}")
+    agree = float((whole.status_code == plain.status_code).double().mean())
+    rel = (whole.final_objective - plain.final_objective).abs() / plain.final_objective.abs()
+    print(f"[ipddp] B={B_MAIN}: statuses "
+          f"{torch.bincount(whole.status_code.long(), minlength=4).tolist()}; mean cost "
+          f"{float(whole.final_objective.mean()):.4f}, max inf_pr "
+          f"{float(whole.inf_pr.max()):.3e}; whole-solve status agrees with the plain "
+          f"driver on {agree:.4%}, cost within rel 1e-4 on "
+          f"{float((rel <= 1e-4).double().mean()):.4%}")
+    if agree < 0.99:
+        raise AssertionError(f"whole-solve and plain IPDDP statuses agree on {agree:.4%} "
+                             f"(need >= 99%)")
+
+    reps = {"whole-solve kernel": 10, "per-pass kernels": 2, "plain driver": 1}
+    rates = {}
+    for name, o in engines.items():
+        def run(o=o):
+            return batched_solve(prob, x0, "IPDDP", o).final_objective
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps[name]):
+            run()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps[name]
+        rates[name] = B_MAIN / dt
+        print(f"[ipddp] {name}: {rates[name]:.1f} solves/s ({dt * 1e3:.2f} ms per "
+              f"B={B_MAIN} solve, {reps[name]} reps)  [{smi}]")
+    launches = {"open_loop_rollout": counts["whole-solve kernel"]["open_loop_rollout"],
+                "ipddp_solve": counts["whole-solve kernel"]["ipddp_solve"],
+                "ipddp_backward": per_pass["ipddp_backward"],
+                "ip_forward": per_pass["ip_forward"]}
+    return launches, rates, prob, x0
+
+
+def time_ip_kernels(tt, prob, x0, smi):
+    """Kernels 4-7 at the main path's batch and shapes: kernel and plain
+    times by CUDA events, and each one's bound from this run's inputs.
+    Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout, mega_ipddp
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+    from cddp_tpu_torch.solvers import ipddp
+
+    dtype = prob.x0.dtype
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    gen = torch.Generator(device=x0.device).manual_seed(SEED)
+    p, ol, back, fwd = stage_ip_inputs(tt, prob, B_MAIN, gen, opts)
+    entry = rollout_ops.model_entry(p.model)
+    fc = forward_consts(p, opts, False)
+    out4 = ip_rollout._launch_open_loop(p.model, entry, *ol, DT)
+    out5 = ip_rollout._launch_forward(fc, *fwd)
+    out6 = ric._launch(*back)
+    pw, seeds = ip_seeds(prob, opts, x0)
+    sol7, work = mega_ipddp.launch_counting_work(pw, opts, *seeds)
+    plain_opts = plain_ip_options(tt, opts)
+
+    # Operations per instance, counted on the plain versions at B=1; the
+    # whole solve's from this run's backward attempts and trajectory sweeps.
+    ops4 = count_ops(ip_rollout.open_loop_rollout_plain, p.model, *one(ol), DT)
+    ops5 = count_ops(ip_rollout.ip_forward_plain, fc, *one(fwd))
+    ops6 = count_ops(ric.ipddp_backward_plain, *one(back))
+    from cddp_tpu_torch.constraints.stack import PathStacker
+
+    p1 = pw.replace(x0=pw.x0[:1])
+    s1 = one(seeds)
+    stk1 = PathStacker(p1)
+    mu1 = s1[6]
+    reg1 = torch.full_like(mu1, 1e-6)
+    ops_back = count_ops(lambda: ric.ipddp_backward_plain(*ipddp.backward_inputs(
+        p1, stk1, s1[0], s1[1], s1[2], s1[3], s1[4], mu1, reg1)))
+    ops_sweep = ops5 + count_ops(
+        lambda t: (ipddp._barrier_merit(t[6], t[2], mu1), ipddp._theta(opts, t[4], t[2]),
+                   ipddp._primal_comp(t[4], t[2], t[3], mu1)),
+        one(out5))
+    attempts, sweeps = (float(w.double().sum()) for w in work)
+    ops7 = attempts * ops_back + sweeps * ops_sweep
+    print(f"[bound] operations per instance: open_loop_rollout {ops4}, ip_forward "
+          f"{ops5}, ipddp_backward {ops6}; ipddp_solve {ops7 / B_MAIN:.0f} on average "
+          f"({attempts / B_MAIN:.3f} backward attempts x {ops_back} + "
+          f"{sweeps / B_MAIN:.3f} sweeps x {ops_sweep})")
+
+    ins7 = seeds
+    outs7 = (sol7.state_trajectory, sol7.control_trajectory, sol7.feedforward_gains,
+             sol7.feedback_gains, sol7.costate_trajectory,
+             *sol7.dual_trajectories.values(), *sol7.slack_trajectories.values())
+    work_items = {
+        "open_loop_rollout": (ol, (out4[:, 1:],), ops4 * B_MAIN),
+        "ip_forward": (fwd, out5, ops5 * B_MAIN),
+        "ipddp_backward": (back, out6, ops6 * B_MAIN),
+        "ipddp_solve": (ins7, outs7 + (torch.empty(9, B_MAIN, device=x0.device),), ops7),
+    }
+    timing = {
+        "open_loop_rollout": (
+            cuda_ms(lambda: ip_rollout._launch_open_loop(p.model, entry, *ol, DT), 20),
+            cuda_ms(lambda: ip_rollout.open_loop_rollout_plain(p.model, *ol, DT), 5)),
+        "ip_forward": (cuda_ms(lambda: ip_rollout._launch_forward(fc, *fwd), 20),
+                       cuda_ms(lambda: ip_rollout.ip_forward_plain(fc, *fwd), 3)),
+        "ipddp_backward": (cuda_ms(lambda: ric._launch(*back), 20),
+                           cuda_ms(lambda: ric.ipddp_backward_plain(*back), 2)),
+        "ipddp_solve": (cuda_ms(lambda: mega_ipddp._launch(pw, opts, *seeds), 10),
+                        cuda_ms(lambda: ipddp._drive(pw, plain_opts, *seeds), 1)),
+    }
+    out = {}
+    for name, (ms, plain_ms) in timing.items():
+        ins, outs, ops = work_items[name]
+        nbytes = unique_bytes(ins) + unique_bytes(outs)
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        out[name] = (ms, plain_ms, b_ms, b_by)
+        print(f"[timing] {name} at B={B_MAIN}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB, "
+              f"{ops / 1e9:.3f} G operations)  [{smi}]")
+    return out
+
+
 def main():
     smi = nvidia_smi()
     print(f"nvidia-smi: {smi}")
@@ -361,7 +928,8 @@ def main():
     log = build.library_path().with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if ("registers" in line or "spill" in line or "entry function" in line
+                    or line.startswith("==")):
                 print(f"[ptxas] {line.strip()}")
 
     # --- phase 3: kernels against their plain versions -----------------------
@@ -440,16 +1008,39 @@ def main():
               f"B={B_MAIN} solve, {reps[name]} reps); status agrees with the "
               f"whole-solve kernel on {agree:.4%}  [{smi}]")
 
-    # Kernel times at the main path's batch against their plain versions.
+    # Kernel times at the main path's batch against their plain versions,
+    # and each one's bound from this run's inputs.
     X, U, back, alpha = stage_inputs(prob, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
-    k, K = riccati.riccati_backward_plain(*back)[:2]
+    out1 = riccati._launch(*back)
+    k, K = out1[0], out1[1]
     consts = rollout_ops.lane_consts(prob)
     fwd = (consts, X[:, :-1], U, k, K, X[:, 0], alpha)
+    out2 = rollout_ops._launch(*fwd)
     seeds = (X0.contiguous(), torch.zeros(B_MAIN, HORIZON, 2, device=dev),
              torch.zeros(B_MAIN, HORIZON, 2, device=dev),
              torch.zeros(B_MAIN, HORIZON, 2, 3, device=dev))
     p = prob.replace(x0=x0)
+    sol3, work = mega_clddp.launch_counting_work(p, opts, *seeds)
     plain_opts = engines["plain driver"]
+    # Operations per instance, counted on the plain versions at B=1; the
+    # whole solve's from this run's backward attempts and rollouts.
+    p1 = p.replace(x0=x0[:1])
+    ops1 = count_ops(riccati.riccati_backward_plain, *one(back))
+    ops2 = count_ops(rollout_ops.forward_rollout_plain, consts, *one(fwd[1:]))
+    ops_back = count_ops(lambda: riccati.riccati_backward_plain(*clddp_backward_inputs(
+        p1, X[:1], U[:1], back[-1][:1])))
+    attempts, rollouts = (float(w.double().sum()) for w in work)
+    ops3 = attempts * ops_back + rollouts * ops2
+    print(f"[bound] operations per instance: riccati_backward {ops1}, forward_rollout "
+          f"{ops2}; clddp_solve {ops3 / B_MAIN:.0f} on average ({attempts / B_MAIN:.3f} "
+          f"backward attempts x {ops_back} + {rollouts / B_MAIN:.3f} rollouts x {ops2})")
+    work_items = {
+        "riccati_backward": (back, out1, ops1 * B_MAIN),
+        "forward_rollout": (fwd[1:], out2, ops2 * B_MAIN),
+        "clddp_solve": (seeds, (sol3.state_trajectory, sol3.control_trajectory,
+                                sol3.feedforward_gains, sol3.feedback_gains,
+                                torch.empty(6, B_MAIN, device=dev)), ops3),
+    }
     timing = {
         "riccati_backward": (cuda_ms(lambda: riccati._launch(*back), 20),
                              cuda_ms(lambda: riccati.riccati_backward_plain(*back), 2)),
@@ -459,8 +1050,21 @@ def main():
                         cuda_ms(lambda: clddp._solve(p, plain_opts, *seeds), 1)),
     }
     for name, (ms, plain_ms) in timing.items():
-        print(f"[timing] {name} at B={B_MAIN}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms  [{smi}]")
+        ins, outs, ops = work_items[name]
+        nbytes = unique_bytes(ins) + unique_bytes(outs)
+        b_ms, b_by = bound(nbytes, ops, torch.float32)
+        timing[name] = (ms, plain_ms, b_ms, b_by)
+        print(f"[timing] {name} at B={B_MAIN}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB, "
+              f"{ops / 1e9:.3f} G operations)  [{smi}]")
+
+    # --- phase 5: the IPDDP kernels against their plain versions ----------------
+    errs.update({k: {**errs[k], **v} for k, v in phase_ip_kernels(tt, dev).items()})
+
+    # --- phase 6: the IPDDP box fleet through batched_solve ----------------------
+    ip_launches, ip_rates, ip_prob, ip_x0 = phase_ip_fleet(tt, dev, smi)
+    launches.update(ip_launches)
+    timing.update(time_ip_kernels(tt, ip_prob, ip_x0, smi))
 
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
@@ -469,15 +1073,27 @@ def main():
                             "cddp_tpu/ops/pallas/rollout.py:616"),
         "clddp_solve": ("cddp_tpu_torch/ops/csrc/clddp_solve.cu",
                         "cddp_tpu/ops/pallas/mega_clddp.py:303"),
+        "open_loop_rollout": ("cddp_tpu_torch/ops/csrc/open_loop_rollout.cu",
+                              "cddp_tpu/ops/pallas/ip_rollout.py:612"),
+        "ip_forward": ("cddp_tpu_torch/ops/csrc/ip_forward.cu",
+                       "cddp_tpu/ops/pallas/ip_rollout.py:248"),
+        "ipddp_backward": ("cddp_tpu_torch/ops/csrc/ipddp_backward.cu",
+                           "cddp_tpu/ops/pallas/ipddp_riccati.py:215"),
+        "ipddp_solve": ("cddp_tpu_torch/ops/csrc/ipddp_solve.cu",
+                        "cddp_tpu/ops/pallas/mega_ipddp.py:555"),
     }
+    # No single PyTorch call computes any of these functions, so library_ms
+    # is null for each.
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs["float32"][name],
-         "ms": timing[name][0], "plain_ms": timing[name][1]}
+         "ms": timing[name][0], "plain_ms": timing[name][1],
+         "bound_ms": timing[name][2], "bound_by": timing[name][3], "library_ms": None}
         for name, (src, rep) in sources.items()
     ]}
-    print(f"[card] {smi}; solves/s: " + ", ".join(
-        f"{n} {r:.1f}" for n, r in rates.items()))
+    print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(
+        f"{n} {r:.1f}" for n, r in rates.items()) + "; IPDDP solves/s: " + ", ".join(
+        f"{n} {r:.1f}" for n, r in ip_rates.items()))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

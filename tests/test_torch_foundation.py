@@ -4,6 +4,7 @@ problems built from arrays, the solver registry, and that the port never
 imports JAX."""
 
 import dataclasses
+import enum
 import re
 import subprocess
 import sys
@@ -59,6 +60,9 @@ def _assert_same_fields(port, ref):
         mine, theirs = getattr(port, f.name), getattr(ref, f.name)
         if dataclasses.is_dataclass(mine):
             _assert_same_fields(mine, theirs)
+        elif isinstance(mine, enum.Enum):
+            assert (type(mine).__name__, mine.value) == (type(theirs).__name__,
+                                                        theirs.value), f.name
         else:
             assert mine == theirs, f.name
 
@@ -132,7 +136,7 @@ def test_quadratic_objective_matches_jax():
                 for n in (3, 2, 3))
     goal = rng.normal(size=3)
     jo = ct.quadratic_objective(Q, R, Qf, goal, 0.05)
-    po = tt.quadratic_objective(Q, R, Qf, goal, 0.05, dtype=torch.float64)
+    po = tt.quadratic_objective(Q, R, Qf, goal, 0.05, device="cpu", dtype=torch.float64)
     X, U = rng.normal(size=(4, 7, 3)), rng.normal(size=(4, 6, 2))
     Xt, Ut = torch.as_tensor(X), torch.as_tensor(U)
     np.testing.assert_allclose(po.evaluate(Xt, Ut).numpy(),
@@ -156,9 +160,10 @@ def test_quadratic_objective_matches_jax():
             float(po.running_cost(torch.as_tensor(x[i]), torch.as_tensor(u[i]))),
             float(jo.running_cost(xi, ui, 0)), **TOL)
     with pytest.raises(NotImplementedError):
-        tt.quadratic_objective(Q, R, Qf, goal, 0.05, reference_states=np.zeros((5, 3)))
+        tt.quadratic_objective(Q, R, Qf, goal, 0.05, reference_states=np.zeros((5, 3)),
+                               device="cpu")
     with pytest.raises(ValueError):
-        tt.quadratic_objective(np.ones((3, 2)), R, Qf, goal, 0.05)
+        tt.quadratic_objective(np.ones((3, 2)), R, Qf, goal, 0.05, device="cpu")
 
 
 def test_problem_from_arrays_matches_jax_problem():
@@ -196,11 +201,12 @@ def test_canonicalize_problem_dtype_follows_x0():
 
 
 def test_solver_registry():
-    from cddp_tpu_torch.solvers import clddp, get_solver
+    from cddp_tpu_torch.solvers import clddp, get_solver, ipddp
 
     for name in ("CLDDP", "CLCDDP", "CDDP", "iLQR"):
         assert get_solver(name) is clddp.solve
-    for name in ("LogDDP", "IPDDP", "MSIPDDP"):
+    assert get_solver("IPDDP") is ipddp.solve
+    for name in ("LogDDP", "MSIPDDP"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             get_solver(name)
     with pytest.raises(ValueError, match="Unknown solver"):
@@ -223,6 +229,8 @@ def test_port_never_imports_jax():
         "import cddp_tpu_torch\n"
         "from cddp_tpu_torch.solvers import clddp\n"
         "from cddp_tpu_torch.ops.kernels import mega_clddp, riccati, rollout\n"
+        "from cddp_tpu_torch.solvers import ipddp\n"
+        "from cddp_tpu_torch.ops.kernels import ip_rollout, ipddp_riccati, mega_ipddp\n"
         "from cddp_tpu_torch import interop\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')]\n"
         "assert not bad, bad\n"
@@ -232,3 +240,25 @@ def test_port_never_imports_jax():
     run = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert run.returncode == 0 and "clean" in run.stdout, run.stderr[-2000:]
+
+
+def test_builders_default_to_the_card():
+    # Without a device the builders put their tensors on CUDA; with no CUDA
+    # device they raise instead of falling back to the CPU.
+    from cddp_tpu_torch.models import Unicycle
+
+    builds = (
+        lambda: tt.problem(Unicycle(), None, torch.zeros(3), 20, 0.05),
+        lambda: tt.quadratic_objective(np.eye(3), np.eye(2), np.eye(3), np.zeros(3), 0.05),
+        lambda: tt.control_constraint([-2.0, -1.0], [2.0, 1.0]),
+        lambda: tt.state_constraint([-1.0] * 3, [1.0] * 3),
+    )
+    if torch.cuda.is_available():
+        assert tt.problem(Unicycle(), None, torch.zeros(3), 20, 0.05).x0.is_cuda
+        assert tt.control_constraint([-2.0], [2.0]).lower.is_cuda
+        return
+    for build in builds:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    p = tt.problem(Unicycle(), None, [0.0, 0.0, 0.0], 20, 0.05, device="cpu")
+    assert p.x0.device.type == "cpu"
