@@ -1,14 +1,15 @@
 """cddp_tpu_torch — the PyTorch + CUDA port of ``cddp_tpu``.
 
-Batch-first CLDDP with a control box and IPDDP with control and state boxes
-over the unicycle, as the JAX package solves them, plus hand-written CUDA
-kernels for NVIDIA Hopper (``ops/csrc/``): for CLDDP the Riccati backward
-pass, the line-search rollout and the whole solve; for IPDDP the open-loop
-rollout, the interior-point forward pass, the condensed backward and the
-whole solve. CUDA tensors run the kernels; CPU tensors run their plain
-PyTorch versions. The builders put tensors on the CUDA card unless given
-``device``. The kernels are built with ``nvcc`` at first use, never at
-import.
+Batch-first CLDDP with a control box, and IPDDP, LogDDP and MSIPDDP with
+control and state boxes, over the unicycle, as the JAX package solves them,
+plus hand-written CUDA kernels for NVIDIA Hopper (``ops/csrc/``): for CLDDP
+the Riccati backward pass, the line-search rollout and the whole solve; for
+IPDDP the open-loop rollout (which seeds every barrier solver), the
+interior-point forward pass, the condensed backward and the whole solve;
+the whole LogDDP and MSIPDDP solves. CUDA tensors run the kernels; CPU
+tensors run their plain PyTorch versions. The builders put tensors on the
+CUDA card unless given ``device``. The kernels are built with ``nvcc`` at
+first use, never at import.
 """
 
 from cddp_tpu_torch.constraints.path import (
@@ -18,14 +19,23 @@ from cddp_tpu_torch.constraints.path import (
     state_constraint,
 )
 from cddp_tpu_torch.costs.objective import QuadraticObjective, quadratic_objective
-from cddp_tpu_torch.options import BarrierOptions, BarrierStrategy, CDDPOptions, IPDDPOptions
+from cddp_tpu_torch.options import (
+    BarrierOptions,
+    BarrierStrategy,
+    CDDPOptions,
+    IPDDPOptions,
+    LogBarrierOptions,
+    MSIPDDPOptions,
+    MultiShootingOptions,
+)
 from cddp_tpu_torch.parallel.batch import batched_solve
 from cddp_tpu_torch.problem import Problem, problem
 from cddp_tpu_torch.solution import Solution, Status
 
 __all__ = [
     "BarrierOptions", "BarrierStrategy", "CDDPOptions", "ControlConstraint",
-    "IPDDPOptions", "Problem", "QuadraticObjective", "Solution",
+    "IPDDPOptions", "LogBarrierOptions", "MSIPDDPOptions", "MultiShootingOptions", "Problem",
+    "QuadraticObjective", "Solution",
     "StateConstraint", "Status", "batched_solve", "control_constraint",
     "problem", "quadratic_objective", "solve", "state_constraint",
 ]

@@ -47,6 +47,11 @@ class _BoxConstraint:
     def upper_bound(self):
         return torch.cat([-self.lower, self.upper]) * self.scale_factor
 
+    def lower_bound(self):
+        """-inf on every row of the doubled form (path.py:49-50): the
+        relaxed log-barrier masks that side out."""
+        return torch.full_like(self.upper_bound(), float("-inf"))
+
     def evaluate_shifted(self, x, u):
         """G = g - ub, (B, 2n)."""
         return self.evaluate(x, u) - self.upper_bound()

@@ -73,10 +73,13 @@ def options_from_dict(values: dict, cls=CDDPOptions):
     return cls(**kw)
 
 
-def solution_to_numpy(sol) -> dict:
-    """The fields a parity check compares, as numpy arrays. IPDDP solutions
-    add the stacked duals Y and slacks S (path-constraint names in sorted
-    order), the costates, mu, inf_pr and inf_comp."""
+def solution_to_numpy(sol, state=None) -> dict:
+    """The fields a parity check compares, as numpy arrays. Solutions of the
+    barrier solvers add mu and inf_pr (LogDDP: the violation), the
+    interior-point ones the stacked duals Y and slacks S (path-constraint
+    names in sorted order), the costates and inf_comp. An MSIPDDP solver
+    ``state`` adds its gains, duals, slacks, shooting-node values F and
+    costates (k, K, Y, S, F, Lambda)."""
     f = lambda v: v.detach().cpu().numpy()  # noqa: E731
     out = {
         "X": f(sol.state_trajectory),
@@ -90,9 +93,14 @@ def solution_to_numpy(sol) -> dict:
         "iterations": f(sol.iterations_completed),
         "status": f(sol.status_code),
     }
+    for key, v in (("mu", sol.barrier_mu), ("inf_pr", sol.inf_pr),
+                   ("inf_comp", sol.inf_comp), ("Lambda", sol.costate_trajectory)):
+        if v is not None:
+            out[key] = f(v)
     if sol.dual_trajectories is not None:
         stack = lambda d: np.concatenate([f(d[k]) for k in sorted(d)], -1)  # noqa: E731
-        out.update(Y=stack(sol.dual_trajectories), S=stack(sol.slack_trajectories),
-                   Lambda=f(sol.costate_trajectory), mu=f(sol.barrier_mu),
-                   inf_pr=f(sol.inf_pr), inf_comp=f(sol.inf_comp))
+        out.update(Y=stack(sol.dual_trajectories), S=stack(sol.slack_trajectories))
+    if state is not None:
+        out.update(k=f(state.k_u), K=f(state.K_u), Y=f(state.Y), S=f(state.S),
+                   F=f(state.F), Lambda=f(state.Lambda))
     return out

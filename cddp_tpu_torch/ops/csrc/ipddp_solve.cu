@@ -25,20 +25,18 @@
 // them from (y, s, g, mu) and (k, K) at each step (ipddp_step.cuh), as the
 // JAX kernel does. A trial only sums its cost, merit and residuals; the
 // accepted one is rolled again with writes, repeating the trial's arithmetic
-// exactly. The filter (7 slots) lives in registers.
+// exactly. The filter (7 slots, ip_filter.cuh) lives in registers.
 //
 // Bound: device memory and latency. Per iteration each instance reads and
 // writes its trajectories several times (one backward attempt: 5 + 3m
 // values read and 6 + nx + nx^2 written per step; each trial: about
 // 2 nx + nx^2 + nu (1 + nx) + 3m read per step), and a thread has little
 // memory-level parallelism of its own.
+#include "ip_filter.cuh"
 #include "ipddp_step.cuh"
 #include "models.cuh"
 
 namespace cddp {
-
-constexpr int kMaxAlpha = 64;  // mega_ipddp.py MAX_ALPHAS
-constexpr int kFCap = 7;       // max_filter_size (5) + 2
 
 // Solver options baked into one launch (mega_ipddp.py::_solve_cfg).
 template <typename T>
@@ -73,114 +71,6 @@ struct IpCfg {
 
 // Status codes (cddp_tpu_torch.solution.Status), written as floats.
 constexpr int kIpMaxIter = 0, kIpOptimal = 1, kIpAcceptable = 2, kIpRegLimit = 3;
-
-// The fixed-size filter of solvers/filter.py: valid entries form a prefix
-// in insertion order. Every loop has a compile-time trip count and every
-// index is static, so the slots stay in registers.
-template <typename T>
-struct Filter {
-  T m[kFCap], v[kFCap];
-  bool ok[kFCap];
-
-  __device__ void clear() {
-#pragma unroll
-    for (int i = 0; i < kFCap; ++i) {
-      m[i] = T(INFINITY);
-      v[i] = T(INFINITY);
-      ok[i] = false;
-    }
-  }
-
-  __device__ int size() const {
-    int n = 0;
-#pragma unroll
-    for (int i = 0; i < kFCap; ++i) n += ok[i];
-    return n;
-  }
-
-  // (merit, violation, nonempty) of the most recent entry.
-  __device__ void back(T& mf, T& cv, bool& nonempty) const {
-    mf = T(INFINITY);
-    cv = T(INFINITY);
-    nonempty = false;
-#pragma unroll
-    for (int i = 0; i < kFCap; ++i) {
-      if (ok[i]) {
-        mf = m[i];
-        cv = v[i];
-        nonempty = true;
-      }
-    }
-  }
-
-  // acceptFilterEntry: reject a dominated candidate; otherwise drop the
-  // entries it dominates (stable compaction) and append it.
-  __device__ void accept(T mf, T cv) {
-    bool dominated = false, keep[kFCap];
-    int pos[kFCap], n = 0;
-#pragma unroll
-    for (int i = 0; i < kFCap; ++i) {
-      dominated = dominated | (ok[i] & (m[i] <= mf) & (v[i] <= cv));
-      keep[i] = ok[i] & !((mf <= m[i]) & (cv <= v[i]));
-      pos[i] = n;
-      n += keep[i];
-    }
-    if (dominated) return;
-    T nm[kFCap], nv[kFCap];
-#pragma unroll
-    for (int j = 0; j < kFCap; ++j) {
-      T mj = T(INFINITY), vj = T(INFINITY);
-#pragma unroll
-      for (int i = 0; i < kFCap; ++i) {
-        const bool sel = keep[i] & (pos[i] == j);
-        mj = sel ? m[i] : mj;
-        vj = sel ? v[i] : vj;
-      }
-      nm[j] = j == n ? mf : mj;
-      nv[j] = j == n ? cv : vj;
-    }
-#pragma unroll
-    for (int j = 0; j < kFCap; ++j) {
-      m[j] = nm[j];
-      v[j] = nv[j];
-      ok[j] = j <= n;
-    }
-  }
-
-  // pruneFilterToBestPoints: the min-violation entry, plus the min-merit
-  // entry when distinct (1e-12); the first minimum wins ties.
-  __device__ void prune() {
-    bool nonempty = false;
-    T bv_m = T(INFINITY), bv_v = T(INFINITY), bm_m = T(INFINITY), bm_v = T(INFINITY);
-    bool have_v = false, have_m = false;
-#pragma unroll
-    for (int i = 0; i < kFCap; ++i) {
-      if (!ok[i]) continue;
-      nonempty = true;
-      if (!have_v || v[i] < bv_v) {
-        bv_v = v[i];
-        bv_m = m[i];
-        have_v = true;
-      }
-      if (!have_m || m[i] < bm_m) {
-        bm_m = m[i];
-        bm_v = v[i];
-        have_m = true;
-      }
-    }
-    if (!nonempty) return;
-    const bool distinct = (dabs(bm_v - bv_v) > T(1e-12)) | (dabs(bm_m - bv_m) > T(1e-12));
-    clear();
-    m[0] = bv_m;
-    v[0] = bv_v;
-    ok[0] = true;
-    if (distinct) {
-      m[1] = bm_m;
-      v[1] = bm_v;
-      ok[1] = true;
-    }
-  }
-};
 
 // What one backward attempt reports besides the gains it writes.
 template <typename T>

@@ -21,6 +21,7 @@
 namespace cddp {
 
 constexpr double kEpsSlack = 1e-10;  // ipddp.EPS_SLACK
+constexpr int kMaxAlpha = 64;        // the whole-solve kernels' alpha-ladder capacity
 constexpr double kFtbSlop = 16.0;    // solvers/base.py FTB_SLOP_FACTOR
 
 // Barrier-ratio clip (ipddp.py:64-73): 1e6 in float32, 1e12 in float64.
@@ -97,6 +98,24 @@ struct BoxRows {
 #pragma unroll
       for (int j = 0; j < NU; ++j) v = var[r] == NX + j ? u[j] : v;
       g[r] = upper[r] ? (v - bound[r]) * sf[r] : (bound[r] - v) * sf[r];
+    }
+  }
+
+  // The same rows as LogDDP's and MSIPDDP's plain drivers evaluate them:
+  // G = g - ub of the doubled form (PathStacker.evaluate_shifted), g = +-v *
+  // scale, ub = +-bound * scale.
+  __device__ __forceinline__ void shifted(const T (&x)[NX], const T (&u)[NU],
+                                          T (&G)[MR]) const {
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      T v = T(0);
+#pragma unroll
+      for (int j = 0; j < NX; ++j) v = var[r] == j ? x[j] : v;
+#pragma unroll
+      for (int j = 0; j < NU; ++j) v = var[r] == NX + j ? u[j] : v;
+      const T g = upper[r] ? v * sf[r] : -(v * sf[r]);
+      const T ub = upper[r] ? bound[r] * sf[r] : -(bound[r] * sf[r]);
+      G[r] = g - ub;
     }
   }
 };

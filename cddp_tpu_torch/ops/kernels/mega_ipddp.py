@@ -41,18 +41,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_double)] * 4
              + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
-def mega_eligible(problem, options: CDDPOptions) -> bool:
-    """Static dispatch predicate (mega_ipddp.py:2536-2598 of the JAX package,
-    restricted to the slice and without its TPU scratch-memory gates): a
-    registered model with an explicit integrator, the quadratic objective,
-    a box-only path stack of a size the kernel is built for, no terminal
-    constraints, iLQR with the sequential backward and line search, a
-    filter that fits the kernel's slots, and none of the driver features
-    the kernel does not model."""
-    stk = PathStacker(problem)
+def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
+    """What the interior-point and log-barrier whole-solve kernels (7, 8, 9)
+    all require: a registered model with an explicit integrator, the
+    quadratic objective, a box-only path stack of a size the kernels are
+    built for, no terminal constraints, iLQR with the sequential backward
+    (``lqr_backend``) and line search, an alpha ladder that fits, and none
+    of the driver features the kernels do not model."""
     lane = rollout_ops.lane_consts(problem)
-    rows = ip_rollout.box_rows(problem, stk)
-    ip = options.ipddp
+    rows = ip_rollout.box_rows(problem, PathStacker(problem))
     return (
         lane is not None and rows is not None
         and rows.m in ip_rollout.KERNEL_ROWS.get(lane.entry.cuda_name, ())
@@ -60,10 +57,7 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
         and not problem.terminal_constraints
         and options.use_ilqr
         and not options.enable_parallel
-        and ip.slack_soc is not True
-        and ip.use_constraint_hessians is not True
-        and not ip.check_state_stationarity
-        and ip.lqr_backend == "sequential"
+        and lqr_backend == "sequential"
         and options.backward_engine == "auto"
         and options.solve_engine != "xla"
         and not options.return_iteration_info
@@ -73,6 +67,20 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
         and options.max_iterations >= 1
         and options.regularization.update_factor > 1.0
         and len(line_search_alphas(options.line_search)) <= MAX_ALPHAS
+    )
+
+
+def mega_eligible(problem, options: CDDPOptions) -> bool:
+    """Static dispatch predicate (mega_ipddp.py:2536-2598 of the JAX package,
+    restricted to the slice and without its TPU scratch-memory gates):
+    ``box_solve_eligible``, no IPDDP option the kernel does not model, and a
+    filter that fits the kernel's slots."""
+    ip = options.ipddp
+    return (
+        box_solve_eligible(problem, options, ip.lqr_backend)
+        and ip.slack_soc is not True
+        and ip.use_constraint_hessians is not True
+        and not ip.check_state_stationarity
         and ip.max_filter_size < FILTER_SLOTS
     )
 

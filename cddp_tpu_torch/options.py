@@ -8,8 +8,6 @@ dataclasses.
 Not carried over: ``matmul_precision``. Its replacement is a fixed rule —
 the port never enables TF32, so float32 matrix products stay exact float32
 (``torch.get_float32_matmul_precision() == "highest"``, PyTorch's default).
-The multiple-shooting and log-barrier option groups arrive with their
-solvers.
 """
 
 from __future__ import annotations
@@ -74,6 +72,18 @@ class FilterOptions:
 
 
 @dataclass(frozen=True)
+class LogBarrierOptions:
+    """``options.hpp:135-143``. ``use_relaxed_log_barrier_penalty`` is
+    print-only in the reference (LogDDP always evaluates the relaxed
+    barrier); ``lqr_backend`` "parallel" is refused by the solver."""
+
+    use_relaxed_log_barrier_penalty: bool = False
+    relaxed_log_barrier_delta: float = 1e-10
+    barrier: BarrierOptions = field(default_factory=BarrierOptions)
+    lqr_backend: str = "sequential"
+
+
+@dataclass(frozen=True)
 class IPDDPOptions:
     """``IPDDPAlgorithmOptions`` (``options.hpp:148-185``), with the JAX
     package's additions under the same names and defaults.
@@ -117,6 +127,32 @@ class IPDDPOptions:
 
 
 @dataclass(frozen=True)
+class MultiShootingOptions:
+    """``options.hpp:120-130``."""
+
+    segment_length: int = 5
+    rollout_type: str = "nonlinear"
+    use_controlled_rollout: bool = False
+    costate_var_init_scale: float = 1e-6
+
+
+@dataclass(frozen=True)
+class MSIPDDPOptions(MultiShootingOptions):
+    """``MSIPDDPAlgorithmOptions`` = the interior-point fields plus the
+    inherited :class:`MultiShootingOptions` (``options.hpp:113-131,190``),
+    with the JAX package's additions under the same names and defaults.
+    ``rollout_type`` is "nonlinear", "hybrid" or "dense". Warm starts
+    (``warmstart_staleness_check`` reads only them) and ``lqr_backend``
+    "parallel" or "sharded" are refused by the solver."""
+
+    dual_var_init_scale: float = 1e-1
+    slack_var_init_scale: float = 1e-2
+    barrier: BarrierOptions = field(default_factory=BarrierOptions)
+    warmstart_staleness_check: bool = True
+    lqr_backend: str = "sequential"
+
+
+@dataclass(frozen=True)
 class BoxQPOptions:
     """``boxqp.hpp:30-41``. Only the exact enumeration solver is ported:
     ``method`` must resolve to "enum" (``"auto"`` does for n <= enum_max_dim)."""
@@ -142,8 +178,9 @@ class CDDPOptions:
     CPU tensors); "scan" forces the plain PyTorch passes everywhere.
     ``solve_engine``: "auto" runs the solver's whole-solve kernel when its
     ``mega_eligible`` holds (``ops/kernels/mega_clddp.py``,
-    ``mega_ipddp.py``); "xla" keeps the per-pass driver (the name is the
-    JAX package's); "fused" asserts eligibility.
+    ``mega_ipddp.py``, ``mega_logddp.py``, ``mega_msipddp.py``); "xla" keeps
+    the per-pass driver (the name is the JAX package's); "fused" asserts
+    eligibility.
     """
 
     tolerance: float = 1e-5
@@ -169,7 +206,9 @@ class CDDPOptions:
     )
     box_qp: BoxQPOptions = field(default_factory=BoxQPOptions)
     filter: FilterOptions = field(default_factory=FilterOptions)
+    log_barrier: LogBarrierOptions = field(default_factory=LogBarrierOptions)
     ipddp: IPDDPOptions = field(default_factory=IPDDPOptions)
+    msipddp: MSIPDDPOptions = field(default_factory=MSIPDDPOptions)
 
     def replace(self, **kw) -> "CDDPOptions":
         return dataclasses.replace(self, **kw)

@@ -14,8 +14,14 @@ def get_solver(name: str) -> Callable:
         from cddp_tpu_torch.solvers import ipddp
 
         return ipddp.solve
-    if name in ("LogDDP", "LOGDDP", "MSIPDDP"):
-        raise NotImplementedError(f"solver {name!r} is not yet ported to cddp_tpu_torch")
+    if name in ("LogDDP", "LOGDDP"):
+        from cddp_tpu_torch.solvers import logddp
+
+        return logddp.solve
+    if name == "MSIPDDP":
+        from cddp_tpu_torch.solvers import msipddp
+
+        return msipddp.solve
     raise ValueError(
         f"Unknown solver {name!r}. Available: ['CLDDP', 'LogDDP', 'IPDDP', 'MSIPDDP']"
     )

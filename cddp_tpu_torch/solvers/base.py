@@ -40,6 +40,16 @@ def running_cost_derivatives(problem: Problem, X, U):
     return lx, lu, lxx, luu, lux
 
 
+def where_instances(mask, a, b):
+    """Per-instance select of batch-first tensors: ``a`` where ``mask`` (B,)."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def select_instances(mask, a: NamedTuple, b: NamedTuple):
+    """Per-instance select of two NamedTuples of batch-first tensors."""
+    return type(a)(*(where_instances(mask, x, y) for x, y in zip(a, b)))
+
+
 def compute_cost(problem: Problem, X, U):
     """Total objective (cddp_solver_base.cpp:416-425)."""
     return problem.objective.evaluate(X, U)

@@ -132,11 +132,6 @@ def _forward_pass(problem: Problem, options: CDDPOptions, consts, X, U, k, K,
     return ratio > options.filter.armijo_constant, J, X_new, U_new
 
 
-def _where(mask, a, b):
-    """Per-instance select of a batch-first tensor."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
-
-
 def _solve(problem: Problem, options: CDDPOptions, X0, U0, k0, K0) -> Solution:
     """Per-pass driver over a batch (cddp_solver_base.cpp:29-186)."""
     dtype, device = X0.dtype, X0.device
@@ -170,7 +165,7 @@ def _solve(problem: Problem, options: CDDPOptions, X0, U0, k0, K0) -> Solution:
             pend = ~bp_done
             trial = _backward_pass(problem, options, X, U, reg)
             bp = trial if bp is None else BackwardPassResult(
-                *(_where(pend, a, b) for a, b in zip(trial, bp)))
+                *(base.where_instances(pend, a, b) for a, b in zip(trial, bp)))
             reg_next = torch.where(trial.ok, reg,
                                    base.increase_regularization(reg, options))
             limit = ~trial.ok & base.regularization_limit_reached(reg_next, options)
@@ -200,8 +195,8 @@ def _solve(problem: Problem, options: CDDPOptions, X0, U0, k0, K0) -> Solution:
                 # First success in ladder order (cddp_solver_base.cpp:256-263).
                 take = ok & ~any_success
             J_new = torch.where(take, J, J_new)
-            X_sel = _where(take, Xn, X_sel)
-            U_sel = _where(take, Un, U_sel)
+            X_sel = base.where_instances(take, Xn, X_sel)
+            U_sel = base.where_instances(take, Un, U_sel)
             alpha_new = torch.where(take, alpha, alpha_new)
             any_success = any_success | ok
         fp_ok = any_success & ~early
@@ -226,12 +221,12 @@ def _solve(problem: Problem, options: CDDPOptions, X0, U0, k0, K0) -> Solution:
         ok_upd = active & ~bp_limit
         fail = active & bp_limit
         take = ok_upd & fp_ok
-        X = _where(take, X_sel, X)
-        U = _where(take, U_sel, U)
+        X = base.where_instances(take, X_sel, X)
+        U = base.where_instances(take, U_sel, U)
         cost = torch.where(take, J_new, cost)
         alpha_pr = torch.where(take, alpha_new, alpha_pr)
-        k = _where(active, bp.k, k)
-        K = _where(active, bp.K, K)
+        k = base.where_instances(active, bp.k, k)
+        K = base.where_instances(active, bp.K, K)
         inf_du = torch.where(active, bp.inf_du, inf_du)
         reg = torch.where(ok_upd, reg_new, reg)
         status = torch.where(

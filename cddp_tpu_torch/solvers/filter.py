@@ -36,12 +36,24 @@ def size(f: Filter) -> torch.Tensor:
     return f.valid.sum(-1)
 
 
+def candidate_dominated(f: Filter, mf, cv) -> torch.Tensor:
+    """isFilterCandidateDominated (interior_point_utils.cpp:97-105): an
+    entry dominates the candidate (mf, cv) (B,). Returns (B,) bool."""
+    return (f.valid & (f.merit <= mf[:, None]) & (f.violation <= cv[:, None])).any(-1)
+
+
+def contains_invalid(f: Filter) -> torch.Tensor:
+    """filterContainsInvalidValues (interior_point_utils.cpp:107-112), (B,)."""
+    bad = ~(torch.isfinite(f.merit) & torch.isfinite(f.violation))
+    return (f.valid & bad).any(-1)
+
+
 def accept_entry(f: Filter, mf, cv):
     """acceptFilterEntry: reject a candidate (mf, cv) (B,) that an entry
     dominates; otherwise drop the entries it dominates, keep the rest in
     order and append it. Returns (filter, accepted (B,))."""
     mf_, cv_ = mf[:, None], cv[:, None]
-    dominated = (f.valid & (f.merit <= mf_) & (f.violation <= cv_)).any(-1)
+    dominated = candidate_dominated(f, mf, cv)
     keep = f.valid & ~((mf_ <= f.merit) & (cv_ <= f.violation))
     # Stable compaction: kept entries first, original order preserved.
     order = torch.argsort((~keep).int(), dim=-1, stable=True)

@@ -77,15 +77,6 @@ class _Trial(NamedTuple):
     alpha_pr: torch.Tensor
 
 
-def _where(mask, a, b):
-    """Per-instance select of a batch-first tensor."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
-
-
-def _select(mask, a: NamedTuple, b: NamedTuple):
-    return type(a)(*(_where(mask, x, y) for x, y in zip(a, b)))
-
-
 def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
@@ -325,7 +316,7 @@ def _line_search(problem, options, stk, fc, soc_traced, st, bp, search):
         if options.enable_parallel:
             trials.append(r)
         else:
-            sel = r if sel is None else _select(r.success & ~found, r, sel)
+            sel = r if sel is None else base.select_instances(r.success & ~found, r, sel)
         found = found | r.success
     if options.enable_parallel:
         pick = base.select_forward_result(
@@ -333,7 +324,7 @@ def _line_search(problem, options, stk, fc, soc_traced, st, bp, search):
             torch.stack([r.merit for r in trials], -1), True)
         sel = trials[0]
         for i, r in enumerate(trials[1:], 1):
-            sel = _select(pick.index == i, r, sel)
+            sel = base.select_instances(pick.index == i, r, sel)
     return sel, found
 
 
@@ -434,7 +425,7 @@ def _drive(problem: Problem, options: CDDPOptions, X, U, Y, S, G, Lambda, mu0,
     def put(mask, **fields):
         for name, v in fields.items():
             st[name] = (flt.select(mask, v, st[name]) if name == "filt"
-                        else _where(mask, v, st[name]))
+                        else base.where_instances(mask, v, st[name]))
 
     for _ in range(options.max_iterations):
         if bool(done.all()):
@@ -450,7 +441,7 @@ def _drive(problem: Problem, options: CDDPOptions, X, U, Y, S, G, Lambda, mu0,
         while bool(pend.any()):
             trial = _backward_condensed(problem, options, stk, st["X"], st["U"],
                                         st["Y"], st["S"], st["G"], st["mu"], reg)
-            bp = trial if bp is None else _select(pend, trial, bp)
+            bp = trial if bp is None else base.select_instances(pend, trial, bp)
             reg_next = torch.where(trial.ok, reg, base.increase_regularization(reg, options))
             limit = ~trial.ok & base.regularization_limit_reached(reg_next, options)
             reg = torch.where(pend, reg_next, reg)
@@ -458,7 +449,8 @@ def _drive(problem: Problem, options: CDDPOptions, X, U, Y, S, G, Lambda, mu0,
             pend = pend & ~(trial.ok | limit)
         put(active, reg=reg, inf_pr=bp.inf_pr, inf_du=bp.inf_du,
             inf_comp=bp.inf_comp, step_norm=bp.step_norm)
-        k_u, K_u = _where(active, bp.k_u, k_u), _where(active, bp.K_u, K_u)
+        k_u = base.where_instances(active, bp.k_u, k_u)
+        K_u = base.where_instances(active, bp.K_u, K_u)
 
         fail_bp = active & bp_limit
         status = torch.where(fail_bp, Status.REGULARIZATION_LIMIT_NOT_CONVERGED, status)

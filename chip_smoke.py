@@ -9,7 +9,7 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 
 1. start: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device -> exit nonzero with no result (no CPU fallback);
-2. build: compile the seven CUDA kernels from ``cddp_tpu_torch/ops/csrc``
+2. build: compile the nine CUDA kernels from ``cddp_tpu_torch/ops/csrc``
    (float32 and float64), printing ptxas registers and spills;
 3. the CLDDP kernels against their plain PyTorch versions on the card, at
    the flagship problem's shapes (N=20, nx=3, nu=2) with B=4096: the
@@ -46,7 +46,23 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    one open-loop rollout and one whole-solve launch; per-pass: the rollout,
    backward and forward kernels; plain: none), finite costs and residuals,
    status agreement with the plain driver on >= 99%, solves/s; each
-   kernel's time, its plain version's and its bound.
+   kernel's time, its plain version's and its bound;
+7. the whole-solve kernels of LogDDP (9) and MSIPDDP (8) against their plain
+   drivers on the box fleet's cold seeds at B=4096, float64: every status and
+   iteration count equal, X, U, k, K and cost within 1e-8, for MSIPDDP also
+   Y, S, F, Lambda and mu, on the box fleet and the cases of
+   ``phase_barrier_branches``, each of which asserts the branch it is there
+   for; MSIPDDP over its first MS_EXACT_ITERS iterations, and at ten within 3
+   points of the plain driver's agreement with itself from x0 one ulp up
+   (its filter forks at roundoff ties, see MS_EXACT_ITERS); float32: see
+   ``check_barrier_f32``;
+8. the LogDDP and MSIPDDP box fleets (``bench_logddp_fleet.py``'s and
+   ``bench_msipddp_fleet.py``'s problem: the IPDDP box fleet's, segment
+   length 5) through ``batched_solve`` on each engine: the launch counts
+   (whole solve: one open-loop rollout and one whole-solve launch;
+   ``solve_engine="xla"``: the rollout only; plain: none), finite costs and
+   residuals, status agreement with the plain driver on >= 99%, solves/s;
+   each kernel's time, its plain driver's and its bound.
 
 A bound is the larger of the compulsory bytes (each input read once, each
 output written once, ``unique_bytes``) over 3.35 TB/s and the operations
@@ -899,7 +915,467 @@ def time_ip_kernels(tt, prob, x0, smi):
     return out
 
 
+# --- LogDDP and MSIPDDP (the barrier box fleets) -----------------------------------
+
+STATUS_NAMES = 5  # statuses 0-4 (4: LogDDP's regularization-limit quirk)
+
+
+def barrier_seeds(solver, p, opts, defect=False):
+    """The cold-start batch ``logddp.solve`` or ``msipddp.solve`` builds for
+    p.x0 (X rolled open-loop from U = 0 by the plain version, which kernel 4
+    equals), or for MSIPDDP the defect-carrying seed of
+    ``msipddp.defect_seed``; zero gains."""
+    from cddp_tpu_torch.constraints.stack import PathStacker
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+    from cddp_tpu_torch.solvers import msipddp
+
+    x0 = p.x0
+    B, N, nu, nx = x0.shape[0], p.horizon, p.control_dim, p.state_dim
+    U, gains = x0.new_zeros(B, N, nu), (x0.new_zeros(B, N, nu), x0.new_zeros(B, N, nu, nx))
+    if solver == "LogDDP":
+        return (ip_rollout.open_loop_rollout_plain(p.model, x0, U, p.timestep), U) + gains
+    stk = PathStacker(p)
+    if defect:
+        return msipddp.defect_seed(p, opts, stk, U) + gains
+    return msipddp._initialize(p, opts.replace(backward_engine="scan"), stk, U) + gains
+
+
+def barrier_pair(solver, prob, opts, x0, defect=False):
+    """The whole-solve kernel and the plain driver from the same seeds:
+    ((kernel Solution, fields), (plain Solution, fields)), the fields the
+    float64 check compares."""
+    from cddp_tpu_torch.ops.kernels import mega_logddp, mega_msipddp
+    from cddp_tpu_torch.solvers import logddp, msipddp
+
+    p = prob.replace(x0=x0)
+    seeds = barrier_seeds(solver, p, opts, defect)
+    mega, drive = ((mega_logddp, logddp._drive) if solver == "LogDDP"
+                   else (mega_msipddp, msipddp._drive))
+    if not mega.mega_eligible(p, opts):
+        raise AssertionError(f"the {solver} case is not eligible for the whole-solve kernel")
+
+    def fields(out):
+        sol, st = (out, None) if solver == "LogDDP" else out
+        f = {"X": sol.state_trajectory, "U": sol.control_trajectory,
+             "k": sol.feedforward_gains, "K": sol.feedback_gains, "cost": sol.final_objective}
+        if st is not None:
+            f.update(Y=st.Y, S=st.S, F=st.F, Lambda=st.Lambda, mu=sol.barrier_mu)
+        return sol, f
+
+    return fields(mega._launch(p, opts, *seeds)), fields(drive(p, opts, *seeds))
+
+
+# MSIPDDP's filter has no violation floor: once a cold start's violations
+# are l1 sums of roundoff, the float64 solve forks at ties (ROADMAP C.1) as
+# often against its own run from x0 one ulp away as against the kernel. The
+# float64 checks hold cold MSIPDDP fleets exactly over MS_EXACT_ITERS
+# iterations, forks at ties allowed on MS_TIE_SHARE of the instances, and
+# the box fleet at its ten iterations against the plain driver's agreement
+# with itself. Configurations whose violations stay well above roundoff (a
+# defect-carrying seed, a far goal, the monotonic barrier) do not tie: they
+# are held exactly at 10-15 iterations. float32 likewise.
+MS_EXACT_ITERS = 4
+MS_TIE_SHARE = 0.005
+SHORT_ITERS = {"LogDDP": 5, "MSIPDDP": MS_EXACT_ITERS}
+
+
+def check_barrier(solver, label, kern, plain, exact, tol=1e-8, min_share=0.99):
+    """A whole-solve kernel against its plain driver on the same seeds.
+    float64: status and iteration count equal on every instance, and every
+    field within ``tol`` on >= ``min_share`` of them (errors reported over
+    those). float32: status and iterations equal on >= 99%, and status,
+    iterations and cost (rel 1e-4) on >= ``min_share``. Returns (status
+    counts, share held, max abs cost err where status and iterations
+    agree)."""
+    (ks, kf), (ps, pf) = kern, plain
+    name = {"LogDDP": "logddp_solve", "MSIPDDP": "msipddp_solve"}[solver]
+    same = ((ks.status_code == ps.status_code)
+            & (ks.iterations_completed == ps.iterations_completed))
+    counts = torch.bincount(ks.status_code.long(), minlength=STATUS_NAMES).tolist()
+    cost_err = float((ks.final_objective - ps.final_objective)[same].abs().max())
+    tag = "float64" if exact else "float32"
+    if exact:
+        if not bool(same.all()):
+            raise AssertionError(f"{name} f64 {label}: status/iterations differ on "
+                                 f"{int((~same).sum())} instances")
+        close = fields_close(kf, pf, tol)
+        share = float(close.double().mean())
+        if share < min_share:
+            raise AssertionError(f"{name} f64 {label}: every field within {tol} on "
+                                 f"{share:.4%} of instances (need >= {min_share:.4%})")
+        errs = {k: float(abs_err(kf[k][close], pf[k][close]).max()) for k in kf}
+        cost_err = errs["cost"]
+        detail = (f"{int((~close).sum())} forked; max abs err over the rest "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    else:
+        share = cost_share(ks, ps)
+        if float(same.double().mean()) < 0.99 or share < min_share:
+            raise AssertionError(f"{name} f32 {label}: status and iterations agree on "
+                                 f"{float(same.double().mean()):.4%} (need >= 99%), and "
+                                 f"cost too on {share:.4%} (need >= {min_share:.4%})")
+        rel = (ks.final_objective - ps.final_objective).abs() / ps.final_objective.abs()
+        detail = (f"status and iterations alone on {float(same.double().mean()):.4%}; median "
+                  f"rel cost err {float(rel.median()):.3e}")
+    its = torch.bincount(ks.iterations_completed.long()).tolist()
+    print(f"[kernels {tag}] {name} {label}: held on {share:.4%} of {same.numel()}; "
+          f"statuses {counts}; iterations {its}; {detail}")
+    return counts, share, cost_err
+
+
+def fields_close(kf, pf, tol=1e-8):
+    """Per instance: every field of the two solutions within ``tol``."""
+    close = None
+    for k in kf:
+        e = abs_err(kf[k], pf[k])
+        e = e.flatten(1).amax(-1) if e.dim() > 1 else e
+        close = e <= tol if close is None else close & (e <= tol)
+    return close
+
+
+def agrees(a, b, exact):
+    """Per instance, two (Solution, fields) pairs agree: status and
+    iterations equal and every field within 1e-8 (float64), or status,
+    iterations and cost (rel 1e-4) (float32)."""
+    same = ((a[0].status_code == b[0].status_code)
+            & (a[0].iterations_completed == b[0].iterations_completed))
+    if exact:
+        return same & fields_close(a[1], b[1])
+    rel = (a[0].final_objective - b[0].final_objective).abs() / b[0].final_objective.abs()
+    return same & (rel <= 1e-4)
+
+
+def plain_agrees(solver, prob, opts, x1, plain, exact):
+    """Per instance: the plain driver from x1 (x0 moved by one ulp) agrees
+    with ``plain``, its run from x0."""
+    return agrees(barrier_pair(solver, prob, opts, x1)[1], plain, exact)
+
+
+def check_against_self(solver, label, prob, opts, x0, exact):
+    """The kernel at the fleet's budget against the plain driver's agreement
+    with itself: over all instances no more than 3 points below the plain
+    driver's from x0 one ulp up; and among the instances that run agrees
+    on, no more than 3 points below the plain driver's from x0 one ulp
+    down. (Rounding alone forks the solve at filter ties, so neither share
+    is near 100%.)"""
+    kern, plain = barrier_pair(solver, prob, opts, x0)
+    up, down = (plain_agrees(solver, prob, opts, torch.nextafter(x0, torch.full_like(x0, v)),
+                             plain, exact) for v in (math.inf, -math.inf))
+    floor = float(up.double().mean())
+    tag = "float64" if exact else "float32"
+    print(f"[kernels {tag}] {solver} {label}: the plain driver against itself from x0 one "
+          f"ulp up {floor:.4%}")
+    check_barrier(solver, label, kern, plain, exact, min_share=floor - 0.03)
+    same = agrees(kern, plain, exact)
+    cond, cond_down = (float((a & up).double().sum() / up.double().sum()) for a in (same, down))
+    print(f"[kernels {tag}] {solver} {label}: where the plain driver agrees with its run from "
+          f"x0 one ulp up, the kernel agrees with it on {cond:.4%}, its run from x0 one ulp "
+          f"down on {cond_down:.4%}")
+    if cond < cond_down - 0.03:
+        raise AssertionError(f"{solver} {label}: the kernel agrees with the plain driver on "
+                             f"{cond:.4%} of its stable instances, more than 3 points below "
+                             f"the plain driver's own {cond_down:.4%}")
+
+
+def check_barrier_f32(solver, prob, opts, x0):
+    """float32: over the solver's short budget (LogDDP 5 iterations, MSIPDDP
+    MS_EXACT_ITERS) the kernel agrees with the plain driver in status,
+    iterations and cost (rel 1e-4) on >= 99% of instances; at ten it may
+    fall at most 3 points below the plain driver's agreement with itself
+    from x0 one ulp up, the rate at which rounding alone forks the solve.
+    Returns (share, max abs cost err where status and iterations agree) at
+    the short budget."""
+    short = SHORT_ITERS[solver]
+    _, share, err = check_barrier(
+        solver, f"box fleet, {short} iterations",
+        *barrier_pair(solver, prob, opts.replace(max_iterations=short), x0), False)
+    check_against_self(solver, "box fleet, 10 iterations", prob, opts, x0, False)
+    return share, err
+
+
+def phase_barrier_branches(tt, dev, x0):
+    """float64 cases of kernels 9 and 8 against their plain drivers that take
+    the branches the box fleet does not; each asserts its branch was
+    reached (phase 7). Cold MSIPDDP fleets run MS_EXACT_ITERS iterations
+    with forks at roundoff ties allowed on MS_TIE_SHARE of the instances;
+    the MSIPDDP configurations that do not tie run 10-15 iterations and are
+    held on 99.9%."""
+    from cddp_tpu_torch.options import (BarrierOptions, BarrierStrategy, LogBarrierOptions,
+                                        MSIPDDPOptions, RegularizationOptions)
+
+    dtype = torch.float64
+    fleet = ip_problem(tt, dtype, dev)
+    far = ip_problem(tt, dtype, dev, goal=(0.6, 0.4, 0.5))
+    indefinite = ip_problem(tt, dtype, dev, horizon=8)
+    indefinite = indefinite.replace(objective=indefinite.objective.replace(
+        R=-5.0 * torch.eye(2, device=dev, dtype=dtype)))
+    limit = dict(max_iterations=4, regularization=RegularizationOptions(
+        initial_value=1e-6, update_factor=10.0, max_value=1e-2))
+    short = tt.CDDPOptions(max_iterations=8, tolerance=1e-4)
+
+    def ms(iters, **kw):
+        return short.replace(max_iterations=iters, msipddp=MSIPDDPOptions(**kw))
+
+    def strategy(s):
+        return BarrierOptions(strategy=s)
+
+    def moved_mu(sol, counts, f):
+        return bool((sol.barrier_mu < 1.0).any())
+
+    def converged(sol, counts, f):
+        return counts[1] + counts[2] > 0
+
+    def near_box(sol, counts, f):
+        # z = distance of a control to its bound <= delta on some instance.
+        U = f["U"]
+        z = torch.minimum(2.0 - U[..., 0].abs(), math.pi - U[..., 1].abs())
+        return float(z.min()) <= 0.5
+
+    def defects(sol, counts, f):
+        return float((f["F"] - f["X"][:, 1:]).abs().max())
+
+    cold, tie_free = 1.0 - MS_TIE_SHARE, 0.999
+    # label, solver, problem, options, defect seed, share held, check of the branch
+    cases = (
+        ("quadratic branch (delta 0.5)", "LogDDP", fleet, short.replace(
+            log_barrier=LogBarrierOptions(relaxed_log_barrier_delta=0.5)), False, 1.0, near_box),
+        ("status-4 quirk", "LogDDP", indefinite, tt.CDDPOptions(**limit), False, 1.0,
+         lambda s, c, f: c[4] == x0.shape[0]),
+        ("to convergence", "LogDDP", far, tt.CDDPOptions(
+            max_iterations=60, tolerance=1e-4, acceptable_tolerance=1e-4), False, 1.0, converged),
+        # Cold seeds carry no defects: the hybrid rule's linearized gap
+        # closing makes some, the dense rule none.
+        ("hybrid rollout", "MSIPDDP", fleet, ms(MS_EXACT_ITERS, rollout_type="hybrid"), False,
+         cold, lambda s, c, f: defects(s, c, f) > 1e-6),
+        ("dense rollout", "MSIPDDP", fleet, ms(MS_EXACT_ITERS, rollout_type="dense"), False,
+         cold, lambda s, c, f: defects(s, c, f) == 0.0),
+        ("defect seed, nonlinear", "MSIPDDP", fleet, ms(10, segment_length=4), True, tie_free,
+         moved_mu),
+        ("defect seed, hybrid", "MSIPDDP", fleet, ms(10, segment_length=4,
+                                                     rollout_type="hybrid"), True, tie_free,
+         moved_mu),
+        ("monotonic", "MSIPDDP", fleet, ms(10, barrier=strategy(BarrierStrategy.MONOTONIC)),
+         False, tie_free, moved_mu),
+        ("ipopt, to convergence", "MSIPDDP", far, ms(15, barrier=strategy(
+            BarrierStrategy.IPOPT)), False, tie_free, converged),
+        ("control and state box, to convergence", "MSIPDDP",
+         ip_problem(tt, dtype, dev, goal=(0.6, 0.4, 0.5), state_box=True), ms(15), False,
+         tie_free, lambda s, c, f: f["Y"].shape[-1] == 10 and converged(s, c, f)),
+        ("regularization limit", "MSIPDDP", indefinite, tt.CDDPOptions(**limit), False, cold,
+         lambda s, c, f: c[3] == x0.shape[0]),
+    )
+    for label, solver, prob, opts, defect, min_share, reached in cases:
+        kern, plain = barrier_pair(solver, prob, opts, x0, defect)
+        if defect:
+            seed = barrier_seeds(solver, prob.replace(x0=x0), opts, True)
+            d0 = float((seed[5] - seed[0][:, 1:]).abs().max())
+            print(f"[kernels float64] {label}: seed defects up to {d0:.3e}, after the solve "
+                  f"{defects(None, None, plain[1]):.3e}")
+            if not d0 > 1e-2:
+                raise AssertionError(f"{label}: the seed carries no defects")
+        counts, _, _ = check_barrier(solver, f"{label}, {opts.max_iterations} iterations",
+                                     kern, plain, True, min_share=min_share)
+        if not reached(plain[0], counts, plain[1]):
+            raise AssertionError(f"{solver} {label}: the branch was not reached "
+                                 f"(statuses {counts})")
+
+
+def phase_barrier_kernels(tt, dev):
+    """Kernels 9 and 8 against their plain drivers on the card (phase 7), on
+    the cold seeds of the box fleet at B_CHECK. Returns {dtype: {kernel:
+    max abs cost err, agreement}}."""
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        prob = ip_problem(tt, dtype, dev)
+        opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+        x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=dtype) - 0.5
+        out = {}
+        for solver, name in (("LogDDP", "logddp_solve"), ("MSIPDDP", "msipddp_solve")):
+            if dtype == torch.float32:
+                share, err = check_barrier_f32(solver, prob, opts, x0)
+            elif solver == "LogDDP":
+                _, share, err = check_barrier(solver, "box fleet",
+                                              *barrier_pair(solver, prob, opts, x0), True)
+            else:
+                _, share, err = check_barrier(solver, f"box fleet, {MS_EXACT_ITERS} iterations",
+                                              *barrier_pair(solver, prob, opts.replace(
+                                                  max_iterations=MS_EXACT_ITERS), x0), True,
+                                              min_share=1.0 - MS_TIE_SHARE)
+                check_against_self(solver, "box fleet, 10 iterations", prob, opts, x0, True)
+            out[name], out[name + "_agreement"] = err, share
+        if dtype == torch.float64:
+            phase_barrier_branches(tt, dev, x0)
+        results[tag] = out
+    return results
+
+
+def phase_barrier_fleets(tt, dev, smi):
+    """The LogDDP and MSIPDDP box fleets through ``batched_solve`` at B_MAIN,
+    float32 (phase 8): launch counts per engine, finite costs and inf_pr,
+    status agreement with the plain driver, solves/s. Returns (launch
+    counts, solves/s, problem, x0)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    prob = ip_problem(tt, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = torch.rand(B_MAIN, 3, generator=gen, device=dev) - 0.5
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    engines = {
+        "whole-solve kernel": opts,
+        "per-pass driver": opts.replace(solve_engine="xla"),
+        "plain driver": opts.replace(solve_engine="xla", backward_engine="scan"),
+    }
+    launches, rates = {}, {}
+    for solver, kernel in (("LogDDP", "logddp_solve"), ("MSIPDDP", "msipddp_solve")):
+        sols, counts = {}, {}
+        for name, o in engines.items():
+            dispatch_log.reset()
+            sols[name] = batched_solve(prob, x0, solver, o)
+            torch.cuda.synchronize()
+            counts[name] = dict(dispatch_log.launches)
+            print(f"[{solver}] launches of the {name} run: {counts[name]}")
+        if counts["whole-solve kernel"] != {"open_loop_rollout": 1, kernel: 1}:
+            raise AssertionError(f"the default {solver} solve did not run as one open-loop "
+                                 f"rollout and one whole-solve launch: "
+                                 f"{counts['whole-solve kernel']}")
+        if counts["per-pass driver"] != {"open_loop_rollout": 1}:
+            raise AssertionError(f"solve_engine='xla' {solver} launched "
+                                 f"{counts['per-pass driver']}")
+        if counts["plain driver"]:
+            raise AssertionError(f"the plain {solver} driver launched kernels: "
+                                 f"{counts['plain driver']}")
+        launches[kernel] = counts["whole-solve kernel"][kernel]
+        whole, plain = sols["whole-solve kernel"], sols["plain driver"]
+        for name, sol in sols.items():
+            if not (bool(sol.final_objective.isfinite().all())
+                    and bool(sol.inf_pr.isfinite().all())):
+                raise AssertionError(f"non-finite {solver} costs or inf_pr from the {name}")
+        if tuple(whole.control_trajectory.shape) != (B_MAIN, HORIZON, 2):
+            raise AssertionError(f"control shape {tuple(whole.control_trajectory.shape)}")
+        agree = float((whole.status_code == plain.status_code).double().mean())
+        rel = (whole.final_objective - plain.final_objective).abs() / plain.final_objective.abs()
+        print(f"[{solver}] B={B_MAIN}: statuses "
+              f"{torch.bincount(whole.status_code.long(), minlength=STATUS_NAMES).tolist()}; "
+              f"mean cost {float(whole.final_objective.mean()):.4f}, max inf_pr "
+              f"{float(whole.inf_pr.max()):.3e}; whole-solve status agrees with the plain "
+              f"driver on {agree:.4%}, cost within rel 1e-4 on "
+              f"{float((rel <= 1e-4).double().mean()):.4%}")
+        if agree < 0.99:
+            raise AssertionError(f"whole-solve and plain {solver} statuses agree on "
+                                 f"{agree:.4%} (need >= 99%)")
+        reps = {"whole-solve kernel": 10, "per-pass driver": 1, "plain driver": 1}
+        rates[solver] = {}
+        for name, o in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps[name]):
+                batched_solve(prob, x0, solver, o)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / reps[name]
+            rates[solver][name] = B_MAIN / dt
+            print(f"[{solver}] {name}: {rates[solver][name]:.1f} solves/s ({dt * 1e3:.2f} ms "
+                  f"per B={B_MAIN} solve, {reps[name]} reps)  [{smi}]")
+    return launches, rates, prob, x0
+
+
+def time_barrier_kernels(tt, prob, x0, smi):
+    """Kernels 9 and 8 at the main path's batch and shapes: kernel and plain
+    driver times by CUDA events, and each one's bound from this run's
+    inputs and work. Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    from cddp_tpu_torch.constraints.stack import PathStacker
+    from cddp_tpu_torch.ops.kernels import mega_logddp, mega_msipddp
+    from cddp_tpu_torch.options import line_search_alphas
+    from cddp_tpu_torch.solvers import logddp, msipddp
+
+    dtype = prob.x0.dtype
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    p = prob.replace(x0=x0)
+    p1 = prob.replace(x0=x0[:1])
+    out = {}
+
+    # Operations per instance, counted on the plain versions at B=1 from the
+    # cold seed; the whole solves' totals from this run's backward attempts
+    # and trajectory sweeps (and LogDDP's one nominal refresh per iteration).
+    seeds9 = barrier_seeds("LogDDP", p, opts)
+    sol9, work9 = mega_logddp.launch_counting_work(p, opts, *seeds9)
+    s1 = one(seeds9)
+    mu1 = torch.full((1,), opts.log_barrier.barrier.mu_initial, dtype=dtype, device=x0.device)
+    bar1 = logddp._barrier(opts, mu1)
+    reg1 = torch.full_like(mu1, opts.regularization.initial_value)
+    ops_back9 = count_ops(lambda: logddp._backward_pass(p1, opts, bar1, s1[0], s1[1], reg1))
+    bp1 = logddp._backward_pass(p1, opts, bar1, s1[0], s1[1], reg1)
+    cost1 = p1.objective.evaluate(s1[0], s1[1])
+    ops_sweep9 = count_ops(lambda: logddp._forward_pass(
+        p1, opts, bar1, s1[0], s1[1], bp1.k, bp1.K, bp1.dV, cost1, cost1, 1.0))
+    ops_ref9 = count_ops(lambda: logddp._merit_and_violation(p1, bar1, s1[0], s1[1]))
+    attempts, sweeps = (float(w.double().sum()) for w in work9)
+    iters = float(sol9.iterations_completed.double().sum())
+    ops9 = attempts * ops_back9 + sweeps * ops_sweep9 + iters * ops_ref9
+    print(f"[bound] operations per instance: logddp_solve {ops9 / B_MAIN:.0f} on average "
+          f"({attempts / B_MAIN:.3f} backward attempts x {ops_back9} + {sweeps / B_MAIN:.3f} "
+          f"sweeps x {ops_sweep9} + {iters / B_MAIN:.3f} refreshes x {ops_ref9})")
+    outs9 = (sol9.state_trajectory, sol9.control_trajectory, sol9.feedforward_gains,
+             sol9.feedback_gains, torch.empty(8, B_MAIN, device=x0.device))
+
+    seeds8 = barrier_seeds("MSIPDDP", p, opts)
+    sol8, st8, work8 = mega_msipddp.launch_counting_work(p, opts, *seeds8)
+    stk1 = PathStacker(p1)
+    m1 = one(seeds8)
+    st1 = dict(X=m1[0], U=m1[1], Y=m1[2], S=m1[3], G=m1[4], F=m1[5], Lambda=m1[6], mu=m1[7],
+               cost=p1.objective.evaluate(m1[0], m1[1]))
+    from cddp_tpu_torch.solvers import filter as flt
+
+    st1["filt"], _ = flt.accept_entry(flt.empty_filter(1, 7, dtype, x0.device),
+                                      st1["cost"], torch.zeros_like(st1["cost"]))
+    ops_back8 = count_ops(lambda: msipddp._backward_pass(p1, stk1, st1, reg1))
+    bp8 = msipddp._backward_pass(p1, stk1, st1, reg1)
+    alphas = line_search_alphas(opts.line_search)
+    ops_trial8 = count_ops(lambda: msipddp._forward_pass(p1, opts, stk1, st1, bp8, 1.0, alphas))
+    # A commit rewrites the accepted trial with its one dual step: the trial
+    # without the dual-step ladder and the filter test.
+    KydX = (bp8.K_y @ torch.zeros_like(m1[0][:, 1:, :, None]))[..., 0]
+    tau = torch.clamp(1.0 - st1["mu"], min=opts.msipddp.barrier.min_fraction_to_boundary)[:, None]
+    ops_ladder8 = count_ops(msipddp._dual_step, st1["Y"], bp8.k_y, KydX, tau, alphas)
+    ops_filter8 = count_ops(msipddp._is_filter_acceptable, st1["filt"], st1["cost"],
+                            st1["cost"], opts, st1["cost"])
+    ops_dual8 = count_ops(lambda: st1["Y"] + alphas[0] * bp8.k_y + KydX)
+    ops_commit8 = ops_trial8 - ops_ladder8 - ops_filter8 + ops_dual8
+    ops_reset8 = count_ops(msipddp._reset_filter_quantities, stk1, st1["X"], st1["Y"],
+                           st1["S"], st1["G"], st1["F"], st1["mu"], st1["cost"])
+    ops_init8 = count_ops(p1.objective.evaluate, st1["X"], st1["U"])
+    attempts, trials, commits, resets = (float(w.double().sum()) for w in work8)
+    ops8 = (attempts * ops_back8 + trials * ops_trial8 + commits * ops_commit8
+            + resets * ops_reset8 + B_MAIN * ops_init8)
+    print(f"[bound] operations per instance: msipddp_solve {ops8 / B_MAIN:.0f} on average "
+          f"({attempts / B_MAIN:.3f} backward attempts x {ops_back8} + {trials / B_MAIN:.3f} "
+          f"trials x {ops_trial8} + {commits / B_MAIN:.3f} commits x {ops_commit8} + "
+          f"{resets / B_MAIN:.3f} resets x {ops_reset8} + the initial cost {ops_init8})")
+    outs8 = (sol8.state_trajectory, sol8.control_trajectory, sol8.feedforward_gains,
+             sol8.feedback_gains, st8.Y, st8.S, st8.F, st8.Lambda,
+             torch.empty(9, B_MAIN, device=x0.device))
+
+    work = {
+        "logddp_solve": (seeds9, outs9, ops9, lambda: mega_logddp._launch(p, opts, *seeds9),
+                         lambda: logddp._drive(p, opts, *seeds9)),
+        "msipddp_solve": (seeds8[:4] + seeds8[5:], outs8, ops8,
+                          lambda: mega_msipddp._launch(p, opts, *seeds8),
+                          lambda: msipddp._drive(p, opts, *seeds8)),
+    }
+    for name, (ins, outs, ops, kernel, plain) in work.items():
+        ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 1)
+        nbytes = unique_bytes(ins) + unique_bytes(outs)
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        out[name] = (ms, plain_ms, b_ms, b_by)
+        print(f"[timing] {name} at B={B_MAIN}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB, {ops / 1e9:.3f} G "
+              f"operations)  [{smi}]")
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1065,6 +1541,17 @@ def main():
     ip_launches, ip_rates, ip_prob, ip_x0 = phase_ip_fleet(tt, dev, smi)
     launches.update(ip_launches)
     timing.update(time_ip_kernels(tt, ip_prob, ip_x0, smi))
+    print(f"[clock] phases 1-6 done at {time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 7: kernels 9 and 8 against their plain drivers -------------------
+    errs.update({k: {**errs[k], **v} for k, v in phase_barrier_kernels(tt, dev).items()})
+    print(f"[clock] phase 7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 8: the LogDDP and MSIPDDP box fleets through batched_solve --------
+    bar_launches, bar_rates, bar_prob, bar_x0 = phase_barrier_fleets(tt, dev, smi)
+    launches.update(bar_launches)
+    timing.update(time_barrier_kernels(tt, bar_prob, bar_x0, smi))
+    print(f"[clock] phase 8 done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
@@ -1081,6 +1568,10 @@ def main():
                            "cddp_tpu/ops/pallas/ipddp_riccati.py:215"),
         "ipddp_solve": ("cddp_tpu_torch/ops/csrc/ipddp_solve.cu",
                         "cddp_tpu/ops/pallas/mega_ipddp.py:555"),
+        "msipddp_solve": ("cddp_tpu_torch/ops/csrc/msipddp_solve.cu",
+                          "cddp_tpu/ops/pallas/mega_msipddp.py:302"),
+        "logddp_solve": ("cddp_tpu_torch/ops/csrc/logddp_solve.cu",
+                         "cddp_tpu/ops/pallas/mega_logddp.py:192"),
     }
     # No single PyTorch call computes any of these functions, so library_ms
     # is null for each.
@@ -1093,7 +1584,9 @@ def main():
     ]}
     print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in rates.items()) + "; IPDDP solves/s: " + ", ".join(
-        f"{n} {r:.1f}" for n, r in ip_rates.items()))
+        f"{n} {r:.1f}" for n, r in ip_rates.items()) + "".join(
+        f"; {solver} solves/s: " + ", ".join(f"{n} {r:.1f}" for n, r in rs.items())
+        for solver, rs in bar_rates.items()))
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

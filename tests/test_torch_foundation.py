@@ -201,28 +201,29 @@ def test_canonicalize_problem_dtype_follows_x0():
 
 
 def test_solver_registry():
-    from cddp_tpu_torch.solvers import clddp, get_solver, ipddp
+    from cddp_tpu_torch.solvers import clddp, get_solver, ipddp, logddp, msipddp
 
     for name in ("CLDDP", "CLCDDP", "CDDP", "iLQR"):
         assert get_solver(name) is clddp.solve
     assert get_solver("IPDDP") is ipddp.solve
-    for name in ("LogDDP", "MSIPDDP"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_solver(name)
+    assert get_solver("LogDDP") is logddp.solve
+    assert get_solver("LOGDDP") is logddp.solve
+    assert get_solver("MSIPDDP") is msipddp.solve
     with pytest.raises(ValueError, match="Unknown solver"):
         get_solver("Nope")
 
 
 def test_port_never_imports_jax():
-    pattern = re.compile(r"^\s*(import|from) (jax|flax)\b")
+    # Neither JAX nor any module of the JAX package, not even a JAX-free one:
+    # `cddp_tpu` is a whole word, so `cddp_tpu_torch` does not match.
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|cddp_tpu)\b")
+    files = [*(REPO / "cddp_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     offenders = [
-        f"{path}:{n}"
-        for path in (REPO / "cddp_tpu_torch").rglob("*.py")
+        f"{path.relative_to(REPO)}:{n}"
+        for path in files
         for n, line in enumerate(path.read_text().splitlines(), 1)
         if pattern.match(line)
-    ] + [f"chip_smoke.py:{n}" for n, line in enumerate(
-        (REPO / "chip_smoke.py").read_text().splitlines(), 1)
-        if pattern.match(line) or re.match(r"^\s*(import|from) cddp_tpu\b", line)]
+    ]
     assert not offenders, offenders
     code = (
         "import sys\n"
@@ -231,8 +232,11 @@ def test_port_never_imports_jax():
         "from cddp_tpu_torch.ops.kernels import mega_clddp, riccati, rollout\n"
         "from cddp_tpu_torch.solvers import ipddp\n"
         "from cddp_tpu_torch.ops.kernels import ip_rollout, ipddp_riccati, mega_ipddp\n"
+        "from cddp_tpu_torch.solvers import logddp, msipddp\n"
+        "from cddp_tpu_torch.ops.kernels import mega_logddp, mega_msipddp\n"
+        "from cddp_tpu_torch.constraints import barrier\n"
         "from cddp_tpu_torch import interop\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cddp_tpu')]\n"
         "assert not bad, bad\n"
         "assert 'cddp_tpu_torch.ops.kernels.build' not in sys.modules\n"
         "print('clean')\n"

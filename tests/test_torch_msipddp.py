@@ -1,0 +1,366 @@
+"""The MSIPDDP box fleet: MSIPDDP through the port's entry points on CPU
+against the JAX package's vmapped ``_drive``, seeded as
+tests/test_mega_msipddp.py::_run_both seeds it (float64, rtol = atol = 1e-8
+on the 17 outputs of its ``NAMES``; statuses and iteration counts exact).
+Both engines run: the whole-solve dispatch (on CPU tensors, the plain driver
+the kernel is held to) and ``solve_engine="xla"``. Also the defect-carrying
+seed, the branches the box fleet does not reach, the unbatched entry point,
+the options the port refuses, the option group carried across and the
+filter helpers MSIPDDP adds."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cddp_tpu as ct
+import cddp_tpu_torch as tt
+from cddp_tpu.constraints.stack import PathStacker as JPathStacker
+from cddp_tpu.solvers import filter as jflt
+from cddp_tpu.solvers import msipddp as jmsipddp
+from cddp_tpu_torch.constraints.stack import PathStacker
+from cddp_tpu_torch.interop import options_from_dict, solution_to_numpy
+from cddp_tpu_torch.ops.kernels import dispatch_log, mega_msipddp
+from cddp_tpu_torch.parallel.batch import batched_solve
+from cddp_tpu_torch.solvers import filter as flt
+from cddp_tpu_torch.solvers import msipddp
+from test_mega_msipddp import SEEDS, _unicycle_box
+from test_torch_ipddp import port_ip_problem, port_options
+
+torch.set_num_threads(1)
+
+NAMES = ("X", "U", "k", "K", "Y", "S", "F", "Lambda", "cost", "inf_pr", "inf_du",
+         "inf_comp", "mu", "reg", "alpha_pr", "iterations", "status")
+
+
+def _outputs(sol, st):
+    return dict(zip(NAMES, (
+        sol.state_trajectory, sol.control_trajectory, st.k_u, st.K_u, st.Y, st.S, st.F,
+        st.Lambda, sol.final_objective, sol.inf_pr, sol.inf_du, sol.inf_comp,
+        sol.barrier_mu, sol.final_regularization, sol.final_step_length,
+        sol.iterations_completed, sol.status_code)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fleet(jopts, seeded: bool):
+    """The jitted JAX vmapped ``_drive`` for one option set, from its own
+    ``_initialize`` cold seeds (as _run_both builds them) or, ``seeded``,
+    from given seeds. The problem is an argument, so cases with equal
+    options share one compile."""
+
+    def drive(p, x0, seeds):
+        p = p.replace(x0=x0)
+        N, nu, nx = p.horizon, p.control_dim, p.state_dim
+        return _outputs(*jmsipddp._drive(p, jopts, *seeds, jnp.zeros((N, nu)),
+                                         jnp.zeros((N, nu, nx))))
+
+    def cold(p, x0):
+        q = p.replace(x0=x0)
+        N, nu = q.horizon, q.control_dim
+        frac = jnp.linspace(0.0, 1.0, N + 1, dtype=x0.dtype)[:, None]
+        X0 = (x0[None] * (1 - frac) + q.objective.reference_state[None] * frac).at[0].set(x0)
+        seeds = jmsipddp._initialize(q, jopts, JPathStacker(q), X0,
+                                     jnp.zeros((N, nu), x0.dtype), None, x0.dtype)
+        return drive(p, x0, seeds)
+
+    if seeded:
+        return jax.jit(jax.vmap(drive, in_axes=(None, 0, 0)))
+    return jax.jit(jax.vmap(cold, in_axes=(None, 0)))
+
+
+def assert_match(got, want, tol=1e-8):
+    for name in NAMES:
+        g, w = np.asarray(got[name]), np.asarray(want[name])
+        if name in ("iterations", "status"):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=name)
+
+
+def _opts(max_iterations=8, strategy=None, mu_initial=None, **kw):
+    ms = {k: v for k, v in kw.items() if k in ("segment_length", "rollout_type")}
+    top = {k: v for k, v in kw.items() if k not in ms}
+    bar = ct.BarrierOptions()
+    if strategy is not None:
+        bar = dataclasses.replace(bar, strategy=strategy)
+    if mu_initial is not None:
+        bar = dataclasses.replace(bar, mu_initial=mu_initial)
+    return ct.CDDPOptions(max_iterations=max_iterations, tolerance=top.pop("tolerance", 1e-4),
+                          msipddp=ct.MSIPDDPOptions(barrier=bar, **ms), **top)
+
+
+def _x0(B, seed, scale):
+    return jnp.asarray(np.random.default_rng(seed).uniform(-scale, scale, size=(B, 3)))
+
+
+def _indefinite(jp):
+    return jp.replace(objective=jp.objective.replace(R=jnp.asarray(-np.eye(2) * 5.0)))
+
+
+class _Restorations:
+    """Counts the instances whose failed line search restored the filter."""
+
+    def __init__(self, monkeypatch):
+        self.count = 0
+        orig = msipddp._restoration
+
+        def counted(filt, fail):
+            out = orig(filt, fail)
+            self.count += int(out.sum())
+            return out
+
+        monkeypatch.setattr(msipddp, "_restoration", counted)
+
+
+def _defects(got):
+    return np.abs(got["F"] - got["X"][:, 1:]).max()
+
+
+# id -> (JAX problem, JAX options, x0, statuses every instance must end in,
+# check that the case reached the branch it is there for); a case with such
+# statuses must also reach one of them other than 0.
+CASES = {
+    "segment5_4": lambda: (_unicycle_box(horizon=20), _opts(4, segment_length=5),
+                           jnp.asarray(SEEDS), None, None),
+    "segment5_7": lambda: (_unicycle_box(horizon=20), _opts(7, segment_length=5),
+                           jnp.asarray(SEEDS), None, None),
+    "single_shooting": lambda: (_unicycle_box(horizon=12), _opts(6, segment_length=1),
+                                jnp.asarray(SEEDS), None, None),
+    # Cold seeds carry no defects: the hybrid rule's linearized gap closing
+    # makes some, the dense rule none.
+    "hybrid": lambda: (_unicycle_box(horizon=12), _opts(
+        6, segment_length=4, rollout_type="hybrid"), _x0(4, 5, 0.4), None,
+        lambda got: _defects(got) > 1e-6),
+    "dense": lambda: (_unicycle_box(horizon=12), _opts(
+        6, segment_length=4, rollout_type="dense"), _x0(4, 5, 0.4), None,
+        lambda got: _defects(got) == 0.0),
+    "monotonic": lambda: (_unicycle_box(horizon=12), _opts(
+        6, ct.BarrierStrategy.MONOTONIC), jnp.asarray(SEEDS), None,
+        lambda got: got["mu"].min() < 1.0),
+    "ipopt": lambda: (_unicycle_box(horizon=12), _opts(6, ct.BarrierStrategy.IPOPT),
+                      jnp.asarray(SEEDS), None, lambda got: got["mu"].min() < 1.0),
+    "state_box": lambda: (_unicycle_box(horizon=10, state_box=True), _opts(6),
+                          _x0(3, 9, 0.3), None, lambda got: got["Y"].shape[-1] == 10),
+    # An indefinite R fails the PD check at every reachable regularization.
+    "regularization_limit": lambda: (_indefinite(_unicycle_box(horizon=8)), _opts(
+        4, regularization=ct.RegularizationOptions(max_value=1e-2)), _x0(2, 4, 0.2), {3},
+        None),
+    # A loose tolerance converges (status 2) within a short budget; the
+    # fourth instance of this draw meets a roundoff filter tie (see
+    # test_segment5_8_envelope) at its sixth iteration and is left out.
+    "to_convergence": lambda: (_unicycle_box(horizon=12), _opts(8, tolerance=0.1),
+                               _x0(4, 6, 0.5)[:3], {0, 1, 2}, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fleet_matches_jax_driver(case):
+    jp, jopts, x0, statuses, reached = CASES[case]()
+    want = _jax_fleet(jopts, False)(jp, x0)
+    p, opts = port_ip_problem(jp), port_options(jopts)
+    p = p.replace(x0=torch.as_tensor(np.asarray(x0)))
+    for engine in ("auto", "xla"):
+        dispatch_log.reset()
+        got = solution_to_numpy(*tt.solve(p, "MSIPDDP", opts.replace(solve_engine=engine),
+                               return_state=True))
+        assert not dispatch_log.launches  # CPU tensors: the plain versions
+        assert_match(got, want)
+    assert got["iterations"].max() >= 1
+    if statuses is not None:
+        assert set(got["status"].tolist()) <= statuses
+        assert set(got["status"].tolist()) & (statuses - {0})
+    if reached is not None:
+        assert reached(got)
+
+
+def test_segment5_8_envelope():
+    # At the eighth iteration seed [-0.3, 0.2, 0] meets a filter tie: the
+    # violation entries are l1 sums of roundoff (1.2e-14 in the JAX driver,
+    # 1.6e-14 here, from residuals g + s rounded in another order), so the
+    # best-violation reference point differs and the two drivers take
+    # different steps (alpha 0.5 against 1). The MSIPDDP filter has no
+    # violation floor; the JAX package records the same tie between its own
+    # engines (tests/test_mega_msipddp.py::test_to_convergence_envelope).
+    # Past it the drivers are held as an envelope: equal statuses and
+    # iteration counts, primal feasibility, costs within 5e-3 relative.
+    jp, jopts, x0 = _unicycle_box(horizon=20), _opts(8, segment_length=5), jnp.asarray(SEEDS)
+    want = _jax_fleet(jopts, False)(jp, x0)
+    p, opts = port_ip_problem(jp), port_options(jopts)
+    got = solution_to_numpy(*tt.solve(p.replace(x0=torch.as_tensor(np.asarray(x0))),
+                                      "MSIPDDP", opts, return_state=True))
+    for name in ("iterations", "status"):
+        np.testing.assert_array_equal(got[name], np.asarray(want[name]))
+    assert got["inf_pr"].max() <= 1e-8 and np.asarray(want["inf_pr"]).max() <= 1e-8
+    rel = np.abs(got["cost"] - np.asarray(want["cost"])) / np.abs(np.asarray(want["cost"]))
+    assert rel.max() <= 5e-3
+    np.testing.assert_allclose(got["X"][:3], np.asarray(want["X"])[:3], rtol=1e-8, atol=1e-8)
+
+
+def test_batched_solve_runs_the_same_solve():
+    jp, jopts, x0, _, _ = CASES["segment5_4"]()
+    p, opts = port_ip_problem(jp), port_options(jopts)
+    got = solution_to_numpy(batched_solve(p, torch.as_tensor(np.asarray(x0)), "MSIPDDP",
+                                          opts))
+    want = _jax_fleet(jopts, False)(jp, x0)
+    for name, key in (("X", "X"), ("U", "U"), ("K", "K"), ("cost", "cost"), ("Y", "Y"),
+                      ("Lambda", "Lambda"), ("status", "status")):
+        np.testing.assert_allclose(got[key], np.asarray(want[name]), rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("rollout_type", ["nonlinear", "hybrid"])
+def test_defect_seed_matches_jax_driver(rollout_type):
+    # X interpolated from x0 to the goal with F = f_d(X[:-1], U): the
+    # defects d = F - X[1:] are far from zero, so the backward's drift
+    # Vx + Vxx d, the costate gains and the gap closing all carry them.
+    jp = _unicycle_box(horizon=12)
+    jopts = _opts(5, segment_length=4, rollout_type=rollout_type)
+    x0 = _x0(3, 7, 0.4)
+    p, opts = port_ip_problem(jp), port_options(jopts)
+    p = p.replace(x0=torch.as_tensor(np.asarray(x0)))
+    seeds = msipddp.defect_seed(p, opts, PathStacker(p), torch.zeros(3, 12, 2,
+                                                                     dtype=torch.float64))
+    X, F = seeds[0], seeds[5]
+    assert float((F - X[:, 1:]).abs().max()) > 0.05
+    # The seed is the JAX package's interpolation and warm-branch F.
+    frac = np.linspace(0.0, 1.0, 13)[:, None]
+    ref = np.asarray(jp.objective.reference_state)
+    want_X = np.asarray(x0)[:, None] * (1 - frac) + ref * frac
+    want_X[:, 0] = np.asarray(x0)
+    np.testing.assert_allclose(X.numpy(), want_X, rtol=1e-15, atol=1e-15)
+    want_F = jax.vmap(jax.vmap(lambda x, u: jp.model.discrete_dynamics(x, u, 0.0, jp.timestep)))(
+        jnp.asarray(want_X[:, :-1]), jnp.zeros((3, 12, 2)))
+    np.testing.assert_allclose(F.numpy(), np.asarray(want_F), rtol=1e-14, atol=1e-14)
+
+    N, nu, nx = p.horizon, p.control_dim, p.state_dim
+    gains = (torch.zeros(3, N, nu, dtype=torch.float64),
+             torch.zeros(3, N, nu, nx, dtype=torch.float64))
+    got = solution_to_numpy(*msipddp._drive(p, opts, *seeds, *gains))
+    want = _jax_fleet(jopts, True)(jp, x0, tuple(jnp.asarray(s.numpy()) for s in seeds))
+    assert_match(got, want)
+
+
+def test_restoration_matches_jax_driver(monkeypatch):
+    # With mu_initial 1e-4 the filter of instance 58 of this draw collects
+    # more than five entries before a line search fails at its ninth
+    # iteration: the failure restores the filter instead of raising the
+    # regularization. (The entries' violations are l1 sums of roundoff, so
+    # which instances get there depends on rounding: instance 2 of the draw
+    # restores at its eighth iteration here but not in the JAX driver, and
+    # is left out.)
+    restorations = _Restorations(monkeypatch)
+    jp = _unicycle_box(horizon=12)
+    jopts = _opts(10, mu_initial=1e-4)
+    x0 = jnp.asarray(np.random.default_rng(0).uniform(-0.5, 0.5, size=(64, 3))[[0, 58]])
+    p, opts = port_ip_problem(jp), port_options(jopts)
+    got = solution_to_numpy(*tt.solve(p.replace(x0=torch.as_tensor(np.asarray(x0))),
+                                      "MSIPDDP", opts, return_state=True))
+    assert restorations.count == 1
+    assert_match(got, _jax_fleet(jopts, False)(jp, x0))
+
+
+@pytest.mark.parametrize("variant", ["parallel_line_search", "unconstrained"])
+def test_driver_variants_match_jax(variant):
+    # enable_parallel (the best merit among the successes) and a problem
+    # without path constraints (the Armijo branch, mu0 = 1e-8) keep the
+    # plain driver: the whole-solve kernel takes neither.
+    jp = _unicycle_box(horizon=12)
+    jopts = _opts(6)
+    if variant == "parallel_line_search":
+        jopts = jopts.replace(enable_parallel=True)
+    else:
+        jp = jp.replace(constraints={})
+    x0 = _x0(3, 13, 0.5)
+    p, opts = port_ip_problem(jp), port_options(jopts)
+    assert not mega_msipddp.mega_eligible(p, opts)
+    got = solution_to_numpy(*tt.solve(p.replace(x0=torch.as_tensor(np.asarray(x0))),
+                                      "MSIPDDP", opts, return_state=True))
+    assert_match(got, _jax_fleet(jopts, False)(jp, x0))
+    if variant == "unconstrained":
+        assert got["Y"].shape == (3, 12, 0) and np.all(got["mu"] == 1e-8)
+
+
+def test_unbatched_solve_matches_jax_solve():
+    jp = _unicycle_box(horizon=10, state_box=True).replace(x0=jnp.asarray([0.3, -0.2, 0.1]))
+    jopts = _opts(5)
+    p, opts = port_ip_problem(jp), port_options(jopts)
+    sol, st = tt.solve(p, "MSIPDDP", opts, return_state=True)
+    assert sol.state_trajectory.shape == (11, 3) and sol.status_code.shape == ()
+    assert sol.solver_name == "MSIPDDP" and set(sol.dual_trajectories) == set(jp.constraints)
+    jsol, jst = ct.solve(jp, "MSIPDDP", jopts, return_state=True)
+    assert_match(solution_to_numpy(sol, st), _outputs(jsol, jst))
+
+
+def test_dispatch_and_unported_options():
+    p = port_ip_problem(_unicycle_box(horizon=6))
+    opts = tt.CDDPOptions(max_iterations=2)
+    assert mega_msipddp.mega_eligible(p, opts)
+    for o in (opts.replace(solve_engine="xla"), opts.replace(backward_engine="scan"),
+              opts.replace(enable_parallel=True)):
+        assert not mega_msipddp.mega_eligible(p, o)
+    assert not mega_msipddp.mega_eligible(p.replace(constraints={}), opts)
+    with pytest.raises(ValueError, match="solve_engine='fused'"):
+        tt.solve(p, "MSIPDDP", opts.replace(solve_engine="fused", enable_parallel=True))
+    with pytest.raises(ValueError, match="rollout_type"):
+        tt.solve(p, "MSIPDDP", opts.replace(msipddp=tt.MSIPDDPOptions(rollout_type="linear")))
+    sol, state = tt.solve(p, "MSIPDDP", opts, return_state=True)
+    for o, kw, match in (
+        (opts.replace(use_ilqr=False), {}, "full DDP"),
+        (opts.replace(msipddp=tt.MSIPDDPOptions(lqr_backend="parallel")), {}, "parallel"),
+        (opts.replace(msipddp=tt.MSIPDDPOptions(lqr_backend="sharded")), {}, "sharded"),
+        (opts.replace(warm_start=True), dict(state=state), "warm start"),
+        (opts.replace(verbose=True), {}, "verbose"),
+        (opts.replace(max_cpu_time=1.0), {}, "max_cpu_time"),
+        (opts.replace(return_iteration_info=True), {}, "return_iteration_info"),
+    ):
+        with pytest.raises(NotImplementedError, match=match):
+            tt.solve(p, "MSIPDDP", o, **kw)
+
+
+def test_msipddp_options_carried_across():
+    jopts = _opts(7, ct.BarrierStrategy.IPOPT, mu_initial=0.5, segment_length=3,
+                  rollout_type="hybrid")
+    jopts = jopts.replace(msipddp=dataclasses.replace(
+        jopts.msipddp, use_controlled_rollout=True, costate_var_init_scale=1e-3,
+        dual_var_init_scale=0.2))
+    opts = options_from_dict(dataclasses.asdict(jopts))
+    assert opts.max_iterations == 7
+    assert opts.msipddp == tt.MSIPDDPOptions(
+        dual_var_init_scale=0.2, segment_length=3, rollout_type="hybrid",
+        use_controlled_rollout=True, costate_var_init_scale=1e-3,
+        barrier=tt.BarrierOptions(strategy=tt.BarrierStrategy.IPOPT, mu_initial=0.5))
+    # The multiple-shooting group is one class, whose fields MSIPDDPOptions inherits.
+    assert isinstance(opts.msipddp, tt.MultiShootingOptions)
+    assert (dataclasses.asdict(tt.MultiShootingOptions())
+            == dataclasses.asdict(ct.MultiShootingOptions()))
+
+
+def test_filter_helpers_match_jax():
+    cap = 7
+    merit = np.array([[1.0, 2.0, np.inf, 0.0, 0.0, 0.0, 0.0],
+                      [3.0, np.nan, 1.0, 0.0, 0.0, 0.0, 0.0],
+                      [2.0, 1.0, 0.5, 0.2, 0.1, 0.05, 0.0],
+                      [np.inf] * cap])
+    viol = np.array([[1.0, 0.5, 0.1, 0.0, 0.0, 0.0, 0.0],
+                     [0.0, 0.2, np.inf, 0.0, 0.0, 0.0, 0.0],
+                     [0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7],
+                     [np.inf] * cap])
+    valid = np.array([[True, True, False, False, False, False, False],
+                      [True, True, True, False, False, False, False],
+                      [True] * cap,
+                      [False] * cap])
+    f = flt.Filter(torch.as_tensor(merit), torch.as_tensor(viol), torch.as_tensor(valid))
+    jf = [jflt.Filter(jnp.asarray(m), jnp.asarray(v), jnp.asarray(ok))
+          for m, v, ok in zip(merit, viol, valid)]
+    got_inv = flt.contains_invalid(f).numpy()
+    np.testing.assert_array_equal(got_inv, [bool(jflt.contains_invalid(j)) for j in jf])
+    assert got_inv.tolist() == [False, True, False, False]
+    for mf, cv in ((1.0, 1.0), (2.0, 0.5), (0.5, 0.05), (1.5, 0.2), (10.0, 10.0),
+                   (np.nan, 0.0), (0.0, np.inf)):
+        got = flt.candidate_dominated(f, torch.full((4,), mf, dtype=torch.float64),
+                                      torch.full((4,), cv, dtype=torch.float64)).numpy()
+        np.testing.assert_array_equal(got, [bool(jflt.candidate_dominated(j, mf, cv))
+                                            for j in jf])

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's fleet solves, on one NVIDIA GPU.
 
-    python3 torch_profile_fleet.py [--batch 262144] [--solver CLDDP|IPDDP|both]
+    python3 torch_profile_fleet.py [--batch 262144] [--solver CLDDP|IPDDP|LogDDP|MSIPDDP|all]
 
 For the flagship fleet (cold control-limited unicycle MPC, H=20, 10
 iterations, tolerance 1e-4, float32, x0 ~ U(-0.5, 0.5)) under each solver
-and engine (whole-solve kernel, per-pass kernels, plain driver), it prints:
+and engine (whole-solve kernel, per-pass kernels, plain driver; LogDDP and
+MSIPDDP have no per-pass kernels, and their ``solve_engine="xla"`` engine
+is the plain driver seeded by the open-loop rollout kernel), it prints:
 the host-clock ms of one ``batched_solve`` (after a warm-up, ending in a
 synchronize); under ``torch.profiler`` the device busy time (the sum over
 the CUDA kernel rows, which do not overlap on one stream), the profiled
@@ -23,10 +25,14 @@ from torch.profiler import DeviceType, ProfilerActivity, profile
 import chip_smoke
 
 
+SOLVERS = ("CLDDP", "IPDDP", "LogDDP", "MSIPDDP")
+
+
 def engines(tt, solver):
     opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
-    plain = (chip_smoke.plain_ip_options(tt, opts) if solver == "IPDDP"
-             else opts.replace(backward_engine="scan"))
+    plain = {"CLDDP": opts.replace(backward_engine="scan"),
+             "IPDDP": chip_smoke.plain_ip_options(tt, opts)}.get(
+        solver, opts.replace(solve_engine="xla", backward_engine="scan"))
     return {"whole-solve kernel": opts, "per-pass kernels": opts.replace(solve_engine="xla"),
             "plain driver": plain}
 
@@ -34,7 +40,7 @@ def engines(tt, solver):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=chip_smoke.B_MAIN)
-    ap.add_argument("--solver", default="both", choices=("CLDDP", "IPDDP", "both"))
+    ap.add_argument("--solver", default="all", choices=SOLVERS + ("all",))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_fleet: no CUDA device")
@@ -48,7 +54,7 @@ def main():
     prob = chip_smoke.flagship_problem(tt, torch.float32, dev)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
     x0 = torch.rand(args.batch, 3, generator=gen, device=dev) - 0.5
-    for solver in (("CLDDP", "IPDDP") if args.solver == "both" else (args.solver,)):
+    for solver in (SOLVERS if args.solver == "all" else (args.solver,)):
         for name, opts in engines(tt, solver).items():
             batched_solve(prob, x0, solver, opts)
             torch.cuda.synchronize()
