@@ -325,3 +325,5 @@ extern "C" int CDDP_EXPORT(cddp_clddp_solve_unicycle)(
       X, U, k, K, stats, consts, cfg, N, B, integrator, max_iterations, n_alpha,
       bp_bound, parallel_ls, static_cast<cudaStream_t>(stream));
 }
+CDDP_REGISTER(cddp_clddp_solve_unicycle, (cddp::clddp_solve_kernel<scalar_t, cddp::Unicycle>),
+              cddp::kThreads, 0)

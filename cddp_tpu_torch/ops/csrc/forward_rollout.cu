@@ -76,3 +76,5 @@ extern "C" int CDDP_EXPORT(cddp_forward_rollout_unicycle)(
       Xb, Ub, k, K, x0, alpha, X, U, J, consts, N, B, integrator, clamp,
       static_cast<cudaStream_t>(stream));
 }
+CDDP_REGISTER(cddp_forward_rollout_unicycle,
+              (cddp::forward_rollout_kernel<scalar_t, cddp::Unicycle>), cddp::kThreads, 0)

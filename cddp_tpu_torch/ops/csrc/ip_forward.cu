@@ -143,7 +143,9 @@ int launch_ip_forward(const T* const* in, T* const* out, const double* consts,
     return cddp::launch_ip_forward<scalar_t, cddp::STRUCT, M>(                         \
         in, out, consts, rows, N, B, integrator, slack_soc,                            \
         static_cast<cudaStream_t>(stream));                                            \
-  }
+  }                                                                                    \
+  CDDP_REGISTER(cddp_ip_forward_##MODEL##_m##M,                                        \
+                (cddp::ip_forward_kernel<scalar_t, cddp::STRUCT, M>), cddp::kThreads, 0)
 
 CDDP_IP_FORWARD(unicycle, Unicycle, 4)
 CDDP_IP_FORWARD(unicycle, Unicycle, 6)

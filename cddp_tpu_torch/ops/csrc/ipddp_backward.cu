@@ -157,7 +157,9 @@ int launch_ipddp_backward(const T* const* in, T* const* out, int N, int B,
     scalar_t* out[9] = {ku, Ku, ky, Ky, ks, Ks, Vxs, Vxxs, stats};                     \
     return cddp::launch_ipddp_backward<scalar_t, NX, NU, M>(                           \
         in, out, N, B, static_cast<cudaStream_t>(stream));                             \
-  }
+  }                                                                                    \
+  CDDP_REGISTER(cddp_ipddp_backward_##NX##x##NU##x##M,                                 \
+                (cddp::ipddp_backward_kernel<scalar_t, NX, NU, M>), cddp::kThreads, 0)
 
 CDDP_IPDDP_BACKWARD(3, 2, 4)
 CDDP_IPDDP_BACKWARD(3, 2, 6)

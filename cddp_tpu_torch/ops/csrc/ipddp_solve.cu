@@ -22,19 +22,25 @@
 // State (batch-last, [t][i][b]): X, U, Y, S, G, Lambda in and out, the
 // control gains k, K and the costate gains k_lambda, K_lambda. The dual and
 // slack gains are never stored: the max-step sweep and every trial recompute
-// them from (y, s, g, mu) and (k, K) at each step (ipddp_step.cuh), as the
-// JAX kernel does. A trial only sums its cost, merit and residuals; the
-// accepted one is rolled again with writes, repeating the trial's arithmetic
-// exactly. The filter (7 slots, ip_filter.cuh) lives in registers.
+// them from (y, s, g, mu) and (k, K) at each step, one constraint row at a
+// time (ipddp_step.cuh::path_gain_row), as the JAX kernel does. A trial only
+// sums its cost, merit and residuals; the accepted one is rolled again with
+// writes, repeating the trial's arithmetic exactly. The filter (7 slots,
+// ip_filter.cuh) lives in registers.
 //
-// Bound: device memory and latency. Per iteration each instance reads and
-// writes its trajectories several times (one backward attempt: 5 + 3m
-// values read and 6 + nx + nx^2 written per step; each trial: about
-// 2 nx + nx^2 + nu (1 + nx) + 3m read per step), and a thread has little
-// memory-level parallelism of its own.
+// Bound: latency. Per iteration each instance reads and writes its
+// trajectories several times (one backward attempt: 5 + 3m values read and
+// 6 + nx + nx^2 written per step; each trial: 3m + nu (1 + nx) + nx^2 +
+// 3 nx + nu read per step), each load dependent and just before its use.
+// Two things hide it: the register budget (at most 128 a thread in float32,
+// so four blocks of 128 threads share an SM, twice the warps of 186
+// registers at 256 threads), and every sweep stages step t+1's nominal
+// values in shared memory with cp.async while it computes step t
+// (sweep_stage.cuh), so the loads are in flight without taking registers.
 #include "ip_filter.cuh"
 #include "ipddp_step.cuh"
 #include "models.cuh"
+#include "sweep_stage.cuh"
 
 namespace cddp {
 
@@ -88,6 +94,13 @@ struct TrialOut {
 template <typename T, class Mdl, int M>
 struct IpSolver {
   static constexpr int NX = Mdl::NX, NU = Mdl::NU;
+  // Staged values of one step (sweep_stage.cuh): Y, S, G, U always; X[t]
+  // (backward, max-step sweep) or the nominal X[t+1] (trial) at vX; k, K
+  // for the max-step sweep and the trial; Kl, L, kl for the trial.
+  static constexpr int vY = 0, vS = M, vG = 2 * M, vU = 3 * M, vk = vU + NU, vK = vk + NU,
+                       vX = vK + NU * NX, vKl = vX + NX, vL = vKl + NX * NX, vkl = vL + NX,
+                       kValues = vkl + NX;
+  using Stage = SweepStage<T, kValues>;
   const Consts<T, Mdl>& c;
   const BoxRows<T, M, NX, NU>& rows;
   const IpCfg<T>& cfg;
@@ -104,6 +117,7 @@ struct IpSolver {
   size_t Bs;
   int b;
   int N;
+  Stage st;
 
   __device__ T& at(T* p, int t, int i, int I) const { return p[(size_t(t) * I + i) * Bs + b]; }
   __device__ T& at(T* p, int t, int i, int j, int I, int J) const {
@@ -116,24 +130,44 @@ struct IpSolver {
     for (int i = 0; i < D; ++i) v[i] = at(p, t, i, D);
   }
 
-  __device__ void load_gains(int t, T (&kt)[NU], T (&Kt)[NU][NX]) const {
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      kt[i] = at(k, t, i, NU);
-#pragma unroll
-      for (int j = 0; j < NX; ++j) Kt[i][j] = at(K, t, i, j, NU, NX);
+  // Stage step t's nominal values for a sweep (gains: k, K; trial: the
+  // nominal X[t+1] in place of X[t], and Kl, L, kl) and close the group.
+  __device__ void fetch(int t, int stage, bool gains, bool trial) const {
+    st.template fetch<M>(stage, vY, Y, t, Bs, b);
+    st.template fetch<M>(stage, vS, S, t, Bs, b);
+    st.template fetch<M>(stage, vG, G, t, Bs, b);
+    st.template fetch<NU>(stage, vU, U, t, Bs, b);
+    st.template fetch<NX>(stage, vX, X, trial ? t + 1 : t, Bs, b);
+    if (gains) {
+      st.template fetch<NU>(stage, vk, k, t, Bs, b);
+      st.template fetch<NU * NX>(stage, vK, K, t, Bs, b);
     }
+    if (trial) {
+      st.template fetch<NX * NX>(stage, vKl, Kl, t, Bs, b);
+      st.template fetch<NX>(stage, vL, L, t, Bs, b);
+      st.template fetch<NX>(stage, vkl, kl, t, Bs, b);
+    }
+    Stage::commit();
   }
 
-  // Dual and slack gains at step t, recomputed from the stored control
-  // gains (the backward computed the same numbers from the same inputs).
-  __device__ void gains(int t, T mu, const T (&y)[M], const T (&s)[M], const T (&g)[M],
-                        T (&kt)[NU], T (&Kt)[NU][NX], T (&ky)[M], T (&Ky)[M][NX],
-                        T (&ks)[M], T (&Ks)[M][NX]) const {
-    Condensed<T, M> cd;
-    condense<T, M>(y, s, g, mu, cd);
-    load_gains(t, kt, Kt);
-    path_gains<T, NX, NU, M>(y, cd, rows.Gx, rows.Gu, kt, Kt, ky, Ky, ks, Ks);
+  // Before step t of a sweep whose next step is t_next (or none): stage
+  // t_next, then wait for step t's values.
+  __device__ void advance(int t_next, bool has_next, int stage, bool gains, bool trial) const {
+    if (has_next)
+      fetch(t_next, stage ^ 1, gains, trial);
+    else
+      Stage::commit();
+    Stage::wait_prior();
+  }
+
+  // Row r of the dual and slack gains at one step, recomputed from the
+  // row's nominal (y, s, g) and the step's control gains (the backward
+  // computed the same numbers from the same inputs).
+  __device__ void gain_row(int r, T mu, T y, T s, T g, const T (&kt)[NU],
+                           const T (&Kt)[NU][NX], T& ky, T (&Ky)[NX], T& ks,
+                           T (&Ks)[NX]) const {
+    path_gain_row<T, NX, NU>(y, condense_row(y, s, g, mu), rows.Gx[r], rows.Gu[r], kt, Kt, ky,
+                             Ky, ks, Ks);
   }
 
   __device__ void linearize(const T (&x)[NX], const T (&u)[NU], T (&A)[NX][NX],
@@ -220,13 +254,16 @@ struct IpSolver {
     }
     bs = BackStats<T>{T(0), T(0), T(0), T(0), T(0), T(0)};
     bool ok = true;
-    for (int t = N - 1; t >= 0; --t) {
+    int stage = 0;
+    fetch(N - 1, stage, false, false);
+    for (int t = N - 1; t >= 0; --t, stage ^= 1) {
+      advance(t - 1, t > 0, stage, false, false);
       T x[NX], u[NU], y[M], s[M], g[M], A[NX][NX], Bm[NX][NU], lx[NX], lu[NU];
-      load(X, t, x);
-      load(U, t, u);
-      load(Y, t, y);
-      load(S, t, s);
-      load(G, t, g);
+      st.get(stage, vX, x);
+      st.get(stage, vU, u);
+      st.get(stage, vY, y);
+      st.get(stage, vS, s);
+      st.get(stage, vG, g);
       linearize(x, u, A, Bm);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
@@ -281,27 +318,30 @@ struct IpSolver {
     for (int i = 0; i < NX; ++i) dx[i] = T(0);
     apr = T(1);
     adu = T(1);
-    for (int t = 0; t < N; ++t) {
-      T x[NX], u[NU], y[M], s[M], g[M], kt[NU], Kt[NU][NX], ky[M], Ky[M][NX], ks[M],
-          Ks[M][NX];
-      load(X, t, x);
-      load(U, t, u);
-      load(Y, t, y);
-      load(S, t, s);
-      load(G, t, g);
-      gains(t, mu, y, s, g, kt, Kt, ky, Ky, ks, Ks);
+    int stage = 0;
+    fetch(0, stage, true, false);
+    for (int t = 0; t < N; ++t, stage ^= 1) {
+      advance(t + 1, t + 1 < N, stage, true, false);
+      T x[NX], u[NU], kt[NU], Kt[NU][NX];
+      st.get(stage, vX, x);
+      st.get(stage, vU, u);
+      st.get(stage, vk, kt);
+      st.get(stage, vK, Kt);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
+        const T y = st.get(stage, vY + r), s = st.get(stage, vS + r);
+        T ky, Ky[NX], ks, Ks[NX];
+        gain_row(r, mu, y, s, st.get(stage, vG + r), kt, Kt, ky, Ky, ks, Ks);
         T a = T(0), d = T(0);
 #pragma unroll
         for (int j = 0; j < NX; ++j) {
-          a = a + Ks[r][j] * dx[j];
-          d = d + Ky[r][j] * dx[j];
+          a = a + Ks[j] * dx[j];
+          d = d + Ky[j] * dx[j];
         }
-        const T dS = ks[r] + a;
-        const T dY = clip(ky[r] + d, -cap, cap);
-        if (dS < T(0)) apr = nan_min(apr, -tau * s[r] / dS);
-        if (dY < T(0)) adu = nan_min(adu, -tau * y[r] / dY);
+        const T dS = ks + a;
+        const T dY = clip(ky + d, -cap, cap);
+        if (dS < T(0)) apr = nan_min(apr, -tau * s / dS);
+        if (dY < T(0)) adu = nan_min(adu, -tau * y / dY);
       }
       T du[NU], A[NX][NX], Bm[NX][NU], dxn[NX];
 #pragma unroll
@@ -340,12 +380,13 @@ struct IpSolver {
     load(X, 0, xb);
     TrialOut<T> o{T(0), T(0), T(0), T(0), T(0), T(0), true};
     T tsum = T(0);
-    for (int t = 0; t < N; ++t) {
-      T y[M], s[M], g[M], kt[NU], Kt[NU][NX], ky[M], Ky[M][NX], ks[M], Ks[M][NX], dx[NX];
-      load(Y, t, y);
-      load(S, t, s);
-      load(G, t, g);
-      gains(t, mu, y, s, g, kt, Kt, ky, Ky, ks, Ks);
+    int stage = 0;
+    fetch(0, stage, true, true);
+    for (int t = 0; t < N; ++t, stage ^= 1) {
+      advance(t + 1, t + 1 < N, stage, true, true);
+      T kt[NU], Kt[NU][NX], dx[NX];
+      st.get(stage, vk, kt);
+      st.get(stage, vK, Kt);
 #pragma unroll
       for (int i = 0; i < NX; ++i) dx[i] = x[i] - xb[i];
       T lam_n[NX], u[NU], s_n[M], y_n[M], g_n[M], xn[NX];
@@ -353,34 +394,37 @@ struct IpSolver {
       for (int i = 0; i < NX; ++i) {
         T a = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) a = a + at(Kl, t, i, j, NX, NX) * dx[j];
-        lam_n[i] = at(L, t, i, NX) + a_pr * at(kl, t, i, NX) + a;
+        for (int j = 0; j < NX; ++j) a = a + st.get(stage, vKl + i * NX + j) * dx[j];
+        lam_n[i] = st.get(stage, vL + i) + a_pr * st.get(stage, vkl + i) + a;
       }
 #pragma unroll
       for (int r = 0; r < M; ++r) {
+        const T y = st.get(stage, vY + r), s = st.get(stage, vS + r);
+        T ky, Ky[NX], ks, Ks[NX];
+        gain_row(r, mu, y, s, st.get(stage, vG + r), kt, Kt, ky, Ky, ks, Ks);
         T a = T(0), d = T(0);
 #pragma unroll
         for (int j = 0; j < NX; ++j) {
-          a = a + Ks[r][j] * dx[j];
-          d = d + Ky[r][j] * dx[j];
+          a = a + Ks[j] * dx[j];
+          d = d + Ky[j] * dx[j];
         }
-        s_n[r] = s[r] + a_pr * ks[r] + a;
-        y_n[r] = y[r] + a_du * ky[r] + d;
+        s_n[r] = s + a_pr * ks + a;
+        y_n[r] = y + a_du * ky + d;
       }
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
         T a = T(0);
 #pragma unroll
         for (int j = 0; j < NX; ++j) a = a + Kt[i][j] * dx[j];
-        u[i] = at(U, t, i, NU) + a_pr * kt[i] + a;
+        u[i] = st.get(stage, vU + i) + a_pr * kt[i] + a;
       }
       o.J = o.J + running_cost(c, x, u);
       rows.eval(x, u, g_n);
       integrate<T, Mdl>(cfg.integrator, x, u, c.p, c.dt, xn);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
-        o.ok = o.ok & ftb_ok(s_n[r], s[r], tau) & ftb_ok(y_n[r], y[r], tau) &
-               isfinite(s_n[r]) & isfinite(y_n[r]);
+        o.ok = o.ok & ftb_ok(s_n[r], st.get(stage, vS + r), tau) &
+               ftb_ok(y_n[r], st.get(stage, vY + r), tau) & isfinite(s_n[r]) & isfinite(y_n[r]);
         o.sumlog = o.sumlog + dlog(nan_max(s_n[r], T(kEpsSlack)));
         const T rr = g_n[r] + s_n[r];
         tsum = tsum + (cfg.theta_l2 ? rr * rr : dabs(rr));
@@ -392,7 +436,7 @@ struct IpSolver {
       for (int i = 0; i < NX; ++i) o.ok = o.ok & isfinite(xn[i]) & isfinite(lam_n[i]);
 #pragma unroll
       for (int i = 0; i < NU; ++i) o.ok = o.ok & isfinite(u[i]);
-      load(X, t + 1, xb);
+      st.get(stage, vX, xb);
       if (write) {
 #pragma unroll
         for (int i = 0; i < NU; ++i) at(U, t, i, NU) = u[i];
@@ -445,17 +489,20 @@ struct IpSolver {
 };
 
 template <typename T, class Mdl, int M>
-__global__ void __launch_bounds__(kThreads) ipddp_solve_kernel(
+__global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_solve_kernel(
     T* __restrict__ X, T* __restrict__ U, T* __restrict__ Y, T* __restrict__ S,
     T* __restrict__ G, T* __restrict__ L, T* __restrict__ k, T* __restrict__ K,
     T* __restrict__ kl, T* __restrict__ Kl, T* __restrict__ stats,
     const __grid_constant__ Consts<T, Mdl> c,
     const __grid_constant__ BoxRows<T, M, Mdl::NX, Mdl::NU> rows,
     const __grid_constant__ IpCfg<T> cfg, int N, int B) {
+  extern __shared__ __align__(16) unsigned char cddp_smem[];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t Bs = B;
-  const IpSolver<T, Mdl, M> sv{c, rows, cfg, X, U, Y, S, G, L, k, K, kl, Kl, Bs, b, N};
+  using Sv = IpSolver<T, Mdl, M>;
+  const Sv sv{c, rows, cfg, X, U, Y, S, G, L, k, K, kl, Kl, Bs, b, N,
+              Sv::Stage::make(cddp_smem)};
 
   T mu = stats[4 * Bs + b];
   T cost = sv.initial_cost();
@@ -582,6 +629,11 @@ __global__ void __launch_bounds__(kThreads) ipddp_solve_kernel(
 }
 
 template <typename T, class Mdl, int M>
+constexpr int ipddp_solve_smem() {
+  return stage_bytes<T>(IpSolver<T, Mdl, M>::kValues);
+}
+
+template <typename T, class Mdl, int M>
 int launch_ipddp_solve(T* const* buf, const double* consts, const double* rows,
                        const double* cfg, const double* alphas, const int* ints,
                        cudaStream_t stream) {
@@ -591,8 +643,13 @@ int launch_ipddp_solve(T* const* buf, const double* consts, const double* rows,
   const auto r = BoxRows<T, M, Mdl::NX, Mdl::NU>::from_host(rows);
   const IpCfg<T> sc = IpCfg<T>::from_host(cfg, alphas, ints[3], ints[4], ints[5],
                                           ints[2], ints[6], ints[7], ints[8]);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  ipddp_solve_kernel<T, Mdl, M><<<blocks, kThreads, 0, stream>>>(
+  const int blocks = (B + kSolveThreads - 1) / kSolveThreads;
+  const int smem = ipddp_solve_smem<T, Mdl, M>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      (const void*)ipddp_solve_kernel<T, Mdl, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ipddp_solve_kernel<T, Mdl, M><<<blocks, kSolveThreads, smem, stream>>>(
       buf[0], buf[1], buf[2], buf[3], buf[4], buf[5], buf[6], buf[7], buf[8], buf[9],
       buf[10], c, r, sc, N, B);
   return static_cast<int>(cudaGetLastError());
@@ -614,7 +671,10 @@ int launch_ipddp_solve(T* const* buf, const double* consts, const double* rows,
                          bp_bound, adaptive, theta_l2, f_max};                         \
     return cddp::launch_ipddp_solve<scalar_t, cddp::STRUCT, M>(                        \
         buf, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream));      \
-  }
+  }                                                                                    \
+  CDDP_REGISTER(cddp_ipddp_solve_##MODEL##_m##M,                                       \
+                (cddp::ipddp_solve_kernel<scalar_t, cddp::STRUCT, M>), cddp::kSolveThreads, \
+                (cddp::ipddp_solve_smem<scalar_t, cddp::STRUCT, M>()))
 
 CDDP_IPDDP_SOLVE(unicycle, Unicycle, 4)
 CDDP_IPDDP_SOLVE(unicycle, Unicycle, 6)

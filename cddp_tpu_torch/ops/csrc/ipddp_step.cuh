@@ -104,19 +104,21 @@ struct BoxRows {
   // The same rows as LogDDP's and MSIPDDP's plain drivers evaluate them:
   // G = g - ub of the doubled form (PathStacker.evaluate_shifted), g = +-v *
   // scale, ub = +-bound * scale.
+  __device__ __forceinline__ T shifted_row(int r, const T (&x)[NX], const T (&u)[NU]) const {
+    T v = T(0);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) v = var[r] == j ? x[j] : v;
+#pragma unroll
+    for (int j = 0; j < NU; ++j) v = var[r] == NX + j ? u[j] : v;
+    const T g = upper[r] ? v * sf[r] : -(v * sf[r]);
+    const T ub = upper[r] ? bound[r] * sf[r] : -(bound[r] * sf[r]);
+    return g - ub;
+  }
+
   __device__ __forceinline__ void shifted(const T (&x)[NX], const T (&u)[NU],
                                           T (&G)[MR]) const {
 #pragma unroll
-    for (int r = 0; r < MR; ++r) {
-      T v = T(0);
-#pragma unroll
-      for (int j = 0; j < NX; ++j) v = var[r] == j ? x[j] : v;
-#pragma unroll
-      for (int j = 0; j < NU; ++j) v = var[r] == NX + j ? u[j] : v;
-      const T g = upper[r] ? v * sf[r] : -(v * sf[r]);
-      const T ub = upper[r] ? bound[r] * sf[r] : -(bound[r] * sf[r]);
-      G[r] = g - ub;
-    }
+    for (int r = 0; r < MR; ++r) G[r] = shifted_row(r, x, u);
   }
 };
 
@@ -126,19 +128,63 @@ struct Condensed {
   T ss[M], sigma[M], pr[M], comp[M], rhat[M], sir[M];
 };
 
+// The same quantities for one row.
+template <typename T>
+struct CondensedRow {
+  T ss, sigma, pr, comp, rhat, sir;
+};
+
+template <typename T>
+__device__ __forceinline__ CondensedRow<T> condense_row(T y, T s, T g, T mu) {
+  constexpr T cap = max_ratio<T>();
+  const T floor = nan_max(mu * T(1e-3), T(kEpsSlack));
+  CondensedRow<T> c;
+  c.ss = nan_max(s, floor);
+  c.sigma = clip(y / c.ss, T(0), cap);
+  c.pr = g + s;
+  c.comp = y * s - mu;
+  c.rhat = y * c.pr - c.comp;
+  c.sir = clip(c.rhat / c.ss, -cap, cap);
+  return c;
+}
+
 template <typename T, int M>
 __device__ __forceinline__ void condense(const T (&y)[M], const T (&s)[M],
                                          const T (&g)[M], T mu, Condensed<T, M>& c) {
-  constexpr T cap = max_ratio<T>();
-  const T floor = nan_max(mu * T(1e-3), T(kEpsSlack));
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    c.ss[i] = nan_max(s[i], floor);
-    c.sigma[i] = clip(y[i] / c.ss[i], T(0), cap);
-    c.pr[i] = g[i] + s[i];
-    c.comp[i] = y[i] * s[i] - mu;
-    c.rhat[i] = y[i] * c.pr[i] - c.comp[i];
-    c.sir[i] = clip(c.rhat[i] / c.ss[i], -cap, cap);
+    const CondensedRow<T> r = condense_row(y[i], s[i], g[i], mu);
+    c.ss[i] = r.ss;
+    c.sigma[i] = r.sigma;
+    c.pr[i] = r.pr;
+    c.comp[i] = r.comp;
+    c.rhat[i] = r.rhat;
+    c.sir[i] = r.sir;
+  }
+}
+
+// One row of the closed-form dual and slack gains: ky, Ky, ks, Ks of a
+// constraint row with Jacobian rows (Gx, Gu), dual y and condensation c,
+// from the control gains (k, K). The whole-solve kernels make and use the
+// gains a row at a time, so the [M][NX] arrays are never all live.
+template <typename T, int NX, int NU>
+__device__ __forceinline__ void path_gain_row(T y, const CondensedRow<T>& c,
+                                              const T (&Gx)[NX], const T (&Gu)[NU],
+                                              const T (&k)[NU], const T (&K)[NU][NX], T& ky,
+                                              T (&Ky)[NX], T& ks, T (&Ks)[NX]) {
+  constexpr T cap = max_ratio<T>();
+  T temp = T(0);
+#pragma unroll
+  for (int l = 0; l < NU; ++l) temp = temp + Gu[l] * k[l];
+  ky = clip((c.rhat + y * temp) / c.ss, -cap, cap);
+  ks = -c.pr - temp;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    T guk = T(0);
+#pragma unroll
+    for (int l = 0; l < NU; ++l) guk = guk + Gu[l] * K[l][j];
+    Ky[j] = clip(c.sigma * (Gx[j] + guk), -cap, cap);
+    Ks[j] = -Gx[j] - guk;
   }
 }
 
@@ -150,22 +196,10 @@ __device__ __forceinline__ void path_gains(const T (&y)[M], const Condensed<T, M
                                            const T (&k)[NU], const T (&K)[NU][NX],
                                            T (&ky)[M], T (&Ky)[M][NX], T (&ks)[M],
                                            T (&Ks)[M][NX]) {
-  constexpr T cap = max_ratio<T>();
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    T temp = T(0);
-#pragma unroll
-    for (int l = 0; l < NU; ++l) temp = temp + Gu[i][l] * k[l];
-    ky[i] = clip((c.rhat[i] + y[i] * temp) / c.ss[i], -cap, cap);
-    ks[i] = -c.pr[i] - temp;
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      T guk = T(0);
-#pragma unroll
-      for (int l = 0; l < NU; ++l) guk = guk + Gu[i][l] * K[l][j];
-      Ky[i][j] = clip(c.sigma[i] * (Gx[i][j] + guk), -cap, cap);
-      Ks[i][j] = -Gx[i][j] - guk;
-    }
+    const CondensedRow<T> r{c.ss[i], c.sigma[i], c.pr[i], c.comp[i], c.rhat[i], c.sir[i]};
+    path_gain_row<T, NX, NU>(y[i], r, Gx[i], Gu[i], k, K, ky[i], Ky[i], ks[i], Ks[i]);
   }
 }
 

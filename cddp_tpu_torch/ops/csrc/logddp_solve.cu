@@ -534,7 +534,9 @@ int launch_logddp_solve(T* const* buf, const double* consts, const double* rows,
     const int ints[6] = {N, B, integrator, max_iterations, n_alpha, bp_bound};         \
     return cddp::launch_logddp_solve<scalar_t, cddp::STRUCT, M>(                       \
         buf, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream));      \
-  }
+  }                                                                                    \
+  CDDP_REGISTER(cddp_logddp_solve_##MODEL##_m##M,                                      \
+                (cddp::logddp_solve_kernel<scalar_t, cddp::STRUCT, M>), cddp::kThreads, 0)
 
 CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 4)
 CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 6)

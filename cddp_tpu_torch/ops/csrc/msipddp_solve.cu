@@ -30,16 +30,19 @@
 // the gap closing reads. The costates and F are live solver state: a trial
 // updates them and the next backward reads them. The constraint values G
 // and the dual and slack gains are never stored: they are recomputed from
-// (x, u), (y, s, mu) and the control gains where needed, as the JAX kernel
-// does. A trial only sums its cost, merit and violation; the accepted one is
-// rolled again with writes, repeating the trial's arithmetic exactly. The
-// filter (7 slots) lives in registers.
+// (x, u), (y, s, mu) and the control gains where needed, one constraint row
+// at a time, as the JAX kernel does. A trial only sums its cost, merit and
+// violation; the accepted one is rolled again with writes, repeating the
+// trial's arithmetic exactly. The filter (7 slots) lives in registers.
 //
-// Bound: device memory and latency. Per iteration each instance reads and
-// writes its trajectories several times (one backward attempt reads 3 nx +
-// nu + 2m and writes nu (1 + nx) + nx (1 + nx) values per step; each trial
-// reads about 3 nx + nu (1 + nx) + 2m + nx (1 + nx) per step), with one
-// thread's worth of memory-level parallelism, as kernels 3 and 7 have.
+// Bound: latency. Per iteration each instance reads and writes its
+// trajectories several times (one backward attempt reads 3 nx + nu + 2m and
+// writes nu (1 + nx) + nx (1 + nx) values per step; each trial reads about
+// 3 nx + nu (1 + nx) + 2m + nx (1 + nx) per step), with one thread's worth
+// of memory-level parallelism. Blocks of 128 threads at most 128 registers
+// in float32 keep four blocks (16 warps) on an SM. Staging the next step in
+// shared memory as kernel 7 does (sweep_stage.cuh) measured slower here
+// (PERF.md section 6), and is left out.
 #include "ip_filter.cuh"
 #include "ipddp_step.cuh"
 #include "models.cuh"
@@ -201,31 +204,29 @@ struct MsSolver {
     return o;
   }
 
-  // Dual and slack gains at one step (the closed forms of
-  // msipddp.py::_backward_pass, unclipped) from the nominal (y, s, G) and
-  // the control gains.
-  __device__ void gains(T mu, const T (&y)[M], const T (&s)[M], const T (&G)[M],
-                        const T (&kt)[NU], const T (&Kt)[NU][NX], T (&ky)[M], T (&Ky)[M][NX],
-                        T (&ks)[M], T (&Ks)[M][NX]) const {
+  // Row r of the dual and slack gains at one step (the closed forms of
+  // msipddp.py::_backward_pass, unclipped) from the row's nominal (y, s, G)
+  // and the step's control gains; made and used a row at a time, so the
+  // [M][NX] arrays are never all live.
+  __device__ void gain_row(int r, T mu, T y, T s, T G, const T (&kt)[NU],
+                           const T (&Kt)[NU][NX], T& ky, T (&Ky)[NX], T& ks,
+                           T (&Ks)[NX]) const {
+    const T ys_inv = y / s;
+    const T pr = G + s;
+    const T comp = y * s - mu;
+    const T rhat = y * pr - comp;
+    T temp = T(0);
 #pragma unroll
-    for (int r = 0; r < M; ++r) {
-      const T ys_inv = y[r] / s[r];
-      const T pr = G[r] + s[r];
-      const T comp = y[r] * s[r] - mu;
-      const T rhat = y[r] * pr - comp;
-      T temp = T(0);
+    for (int l = 0; l < NU; ++l) temp = temp + rows.Gu[r][l] * kt[l];
+    ky = (rhat + y * temp) / s;
+    ks = -pr - temp;
 #pragma unroll
-      for (int l = 0; l < NU; ++l) temp = temp + rows.Gu[r][l] * kt[l];
-      ky[r] = (rhat + y[r] * temp) / s[r];
-      ks[r] = -pr - temp;
+    for (int j = 0; j < NX; ++j) {
+      T guk = T(0);
 #pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        T guk = T(0);
-#pragma unroll
-        for (int l = 0; l < NU; ++l) guk = guk + rows.Gu[r][l] * Kt[l][j];
-        Ky[r][j] = ys_inv * (rows.Gx[r][j] + guk);
-        Ks[r][j] = -rows.Gx[r][j] - guk;
-      }
+      for (int l = 0; l < NU; ++l) guk = guk + rows.Gu[r][l] * Kt[l][j];
+      Ky[j] = ys_inv * (rows.Gx[r][j] + guk);
+      Ks[j] = -rows.Gx[r][j] - guk;
     }
   }
 
@@ -522,8 +523,7 @@ struct MsSolver {
     load(X, 0, x);
     load(X, 0, xb);
     for (int t = 0; t < N; ++t) {
-      T ub[NU], y[M], s[M], fo[NX], lam[NX], xbn[NX], G[M], kt[NU], Kt[NU][NX];
-      T ky[M], Ky[M][NX], ks[M], Ks[M][NX], dx[NX];
+      T ub[NU], y[M], s[M], fo[NX], lam[NX], xbn[NX], kt[NU], Kt[NU][NX], dx[NX];
       load(U, t, ub);
       load(Y, t, y);
       load(S, t, s);
@@ -536,18 +536,24 @@ struct MsSolver {
 #pragma unroll
         for (int j = 0; j < NX; ++j) Kt[i][j] = at(K, t, i, j, NU, NX);
       }
-      rows.shifted(xb, ub, G);
-      gains(mu, y, s, G, kt, Kt, ky, Ky, ks, Ks);
 #pragma unroll
       for (int i = 0; i < NX; ++i) dx[i] = x[i] - xb[i];
 
-      T s_n[M], u[NU], f_new[NX], xn[NX], lam_n[NX], g_n[M];
+      // Per row: the slack step and its fraction-to-boundary test, and the
+      // dual gain ky with Ky dx for the dual step below.
+      T s_n[M], ky[M], kydx[M], u[NU], f_new[NX], xn[NX], lam_n[NX], g_n[M];
 #pragma unroll
       for (int r = 0; r < M; ++r) {
-        T a = T(0);
+        T Ky[NX], ks, Ks[NX];
+        gain_row(r, mu, y[r], s[r], rows.shifted_row(r, xb, ub), kt, Kt, ky[r], Ky, ks, Ks);
+        T a = T(0), d = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) a = a + Ks[r][j] * dx[j];
-        s_n[r] = (s[r] + alpha * ks[r]) + a;
+        for (int j = 0; j < NX; ++j) {
+          a = a + Ks[j] * dx[j];
+          d = d + Ky[j] * dx[j];
+        }
+        s_n[r] = (s[r] + alpha * ks) + a;
+        kydx[r] = d;
         o.sfeas = o.sfeas & ftb_ok(s_n[r], s[r], tau);
       }
 #pragma unroll
@@ -619,14 +625,6 @@ struct MsSolver {
       for (int i = 0; i < NU; ++i) o.finite = o.finite & isfinite(u[i]);
       // The dual step: every rung's fraction-to-boundary test in this one
       // pass, or with write the chosen rung's duals.
-      T kydx[M];
-#pragma unroll
-      for (int r = 0; r < M; ++r) {
-        T a = T(0);
-#pragma unroll
-        for (int j = 0; j < NX; ++j) a = a + Ky[r][j] * dx[j];
-        kydx[r] = a;
-      }
       if (!write) {
         for (int j = 0; j < cfg.n_alpha; ++j) {
           bool feas = true;
@@ -699,7 +697,7 @@ struct MsSolver {
 };
 
 template <typename T, class Mdl, int M>
-__global__ void __launch_bounds__(kThreads) msipddp_solve_kernel(
+__global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) msipddp_solve_kernel(
     T* __restrict__ X, T* __restrict__ U, T* __restrict__ Y, T* __restrict__ S,
     T* __restrict__ F, T* __restrict__ L, T* __restrict__ k, T* __restrict__ K,
     T* __restrict__ kl, T* __restrict__ Kl, T* __restrict__ Ab, T* __restrict__ Bb,
@@ -839,8 +837,8 @@ int launch_msipddp_solve(T* const* buf, const double* consts, const double* rows
   const Consts<T, Mdl> c = Consts<T, Mdl>::from_host(consts);
   const auto r = BoxRows<T, M, Mdl::NX, Mdl::NU>::from_host(rows);
   const MsCfg<T> sc = MsCfg<T>::from_host(cfg, alphas, ints);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  msipddp_solve_kernel<T, Mdl, M><<<blocks, kThreads, 0, stream>>>(
+  const int blocks = (B + kSolveThreads - 1) / kSolveThreads;
+  msipddp_solve_kernel<T, Mdl, M><<<blocks, kSolveThreads, 0, stream>>>(
       buf[0], buf[1], buf[2], buf[3], buf[4], buf[5], buf[6], buf[7], buf[8], buf[9],
       buf[10], buf[11], buf[12], c, r, sc, N, B);
   return static_cast<int>(cudaGetLastError());
@@ -861,7 +859,9 @@ int launch_msipddp_solve(T* const* buf, const double* consts, const double* rows
                          bp_bound, strategy, seg,        rollout};                     \
     return cddp::launch_msipddp_solve<scalar_t, cddp::STRUCT, M>(                      \
         buf, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream));      \
-  }
+  }                                                                                    \
+  CDDP_REGISTER(cddp_msipddp_solve_##MODEL##_m##M,                                     \
+                (cddp::msipddp_solve_kernel<scalar_t, cddp::STRUCT, M>), cddp::kSolveThreads, 0)
 
 CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 4)
 CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 6)

@@ -69,3 +69,5 @@ extern "C" int CDDP_EXPORT(cddp_open_loop_rollout_unicycle)(
   return cddp::launch_open_loop_rollout<scalar_t, cddp::Unicycle>(
       U, x0, X, consts, N, B, integrator, static_cast<cudaStream_t>(stream));
 }
+CDDP_REGISTER(cddp_open_loop_rollout_unicycle,
+              (cddp::open_loop_rollout_kernel<scalar_t, cddp::Unicycle>), cddp::kThreads, 0)

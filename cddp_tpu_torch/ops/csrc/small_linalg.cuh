@@ -18,14 +18,58 @@
 #ifdef CDDP_F64
 typedef double scalar_t;
 #define CDDP_EXPORT(name) name##_f64
+#define CDDP_SUFFIX "_f64"
 #else
 typedef float scalar_t;
 #define CDDP_EXPORT(name) name##_f32
+#define CDDP_SUFFIX "_f32"
 #endif
 
 namespace cddp {
 
 constexpr int kThreads = 256;
+
+// Block size of the interior-point whole-solve kernels (ipddp_solve.cu,
+// msipddp_solve.cu), and the resident blocks per SM their register budget
+// is set for: in float32 four blocks of 128 threads, so at most 128
+// registers a thread; in float64 no bound.
+constexpr int kSolveThreads = 128;
+template <typename T>
+constexpr int solve_min_blocks() {
+  return sizeof(T) == 4 ? 4 : 1;
+}
+
+// Every launcher registers the kernel it launches, its block size and its
+// dynamic shared memory, so that cddp_kernel_attributes (riccati_backward.cu)
+// can report what the compiler and the occupancy calculator say of it.
+struct KernelInfo {
+  const char* name;  // the launcher's exported name
+  const void* fn;    // the __global__ function it launches
+  int threads, smem;
+  const KernelInfo* next;
+};
+
+inline const KernelInfo*& kernel_list() {
+  static const KernelInfo* head = nullptr;
+  return head;
+}
+
+struct RegisterKernel {
+  KernelInfo info;
+  RegisterKernel(const char* name, const void* fn, int threads, int smem)
+      : info{name, fn, threads, smem, kernel_list()} {
+    kernel_list() = &info;
+  }
+};
+
+}  // namespace cddp
+
+// NAME: the launcher's name without its type suffix; FN in parentheses.
+#define CDDP_REGISTER(NAME, FN, THREADS, SMEM)                                 \
+  static const cddp::RegisterKernel cddp_registered_##NAME(                    \
+      #NAME CDDP_SUFFIX, (const void*)(FN), THREADS, SMEM);
+
+namespace cddp {
 
 // jnp.maximum / jnp.minimum: a NaN operand wins (fmax/fmin would drop it).
 template <typename T>

@@ -33,7 +33,7 @@ KERNEL_SOURCES = ("riccati_backward.cu", "forward_rollout.cu", "clddp_solve.cu",
                   "open_loop_rollout.cu", "ip_forward.cu", "ipddp_backward.cu",
                   "ipddp_solve.cu", "logddp_solve.cu", "msipddp_solve.cu")
 HEADERS = ("small_linalg.cuh", "clddp_step.cuh", "models.cuh", "ipddp_step.cuh",
-           "ip_filter.cuh")
+           "ip_filter.cuh", "sweep_stage.cuh")
 
 COMMON_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
@@ -119,6 +119,24 @@ def function(name: str, argtypes) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+ATTRIBUTES = ("registers", "spill_bytes", "static_smem_bytes", "dynamic_smem_bytes",
+              "blocks_per_sm", "threads")
+
+
+def kernel_attributes(name: str) -> dict:
+    """What ``cudaFuncGetAttributes`` and the occupancy calculator report for
+    the kernel of launcher ``name`` (with its ``_f32``/``_f64`` suffix) at the
+    block size and dynamic shared memory it launches with: registers per
+    thread, local (spill) bytes per thread, static and dynamic shared bytes
+    per block, resident blocks per SM, threads per block."""
+    lib = library()
+    lib.cddp_kernel_attributes.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
+    lib.cddp_kernel_attributes.restype = ctypes.c_int
+    out = (ctypes.c_int * len(ATTRIBUTES))()
+    check(lib.cddp_kernel_attributes(name.encode(), out), name)
+    return dict(zip(ATTRIBUTES, out))
 
 
 def check(err: int, name: str) -> None:

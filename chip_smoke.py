@@ -10,7 +10,9 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 1. start: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device -> exit nonzero with no result (no CPU fallback);
 2. build: compile the nine CUDA kernels from ``cddp_tpu_torch/ops/csrc``
-   (float32 and float64), printing ptxas registers and spills;
+   (float32 and float64), printing ptxas registers and spills, and for
+   every launcher what the card reports of its kernel (registers, spill
+   bytes, shared memory, resident blocks per SM; ``print_kernel_attributes``);
 3. the CLDDP kernels against their plain PyTorch versions on the card, at
    the flagship problem's shapes (N=20, nx=3, nu=2) with B=4096: the
    Riccati and rollout kernels in float64 (atol 1e-9) and float32 (as
@@ -96,6 +98,57 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def launchers():
+    """Every launcher of the kernel library, by kernel, without its type
+    suffix; the main path's variant (m = 4 box rows) first."""
+    from cddp_tpu_torch.ops.kernels.ip_rollout import KERNEL_ROWS
+
+    rows = KERNEL_ROWS["unicycle"]
+    return {
+        "riccati_backward": ["cddp_riccati_backward_3x2"],
+        "forward_rollout": ["cddp_forward_rollout_unicycle"],
+        "clddp_solve": ["cddp_clddp_solve_unicycle"],
+        "open_loop_rollout": ["cddp_open_loop_rollout_unicycle"],
+        "ip_forward": [f"cddp_ip_forward_unicycle_m{m}" for m in rows],
+        "ipddp_backward": [f"cddp_ipddp_backward_3x2x{m}" for m in rows],
+        "ipddp_solve": [f"cddp_ipddp_solve_unicycle_m{m}" for m in rows],
+        "msipddp_solve": [f"cddp_msipddp_solve_unicycle_m{m}" for m in rows],
+        "logddp_solve": [f"cddp_logddp_solve_unicycle_m{m}" for m in rows],
+    }
+
+
+def print_kernel_attributes(smi):
+    """Print what the card reports of every launcher's kernel in float32
+    and float64 (registers, spill bytes, shared memory, resident blocks per
+    SM); returns {kernel: attributes of its main-path float32 variant}."""
+    from cddp_tpu_torch.ops.kernels import build
+
+    main_path = {}
+    for kernel, stems in launchers().items():
+        for stem in stems:
+            for tag in ("f32", "f64"):
+                a = build.kernel_attributes(f"{stem}_{tag}")
+                print(f"[attributes] {stem}_{tag}: {a['registers']} registers, "
+                      f"{a['spill_bytes']} local (spill) bytes, shared "
+                      f"{a['static_smem_bytes']} static + {a['dynamic_smem_bytes']} dynamic "
+                      f"bytes, {a['threads']} threads, {a['blocks_per_sm']} blocks per SM  "
+                      f"[{smi}]")
+                main_path.setdefault(kernel, a)
+    return main_path
+
+
+def warp_divergence(work):
+    """Mean over warps (consecutive groups of 32 instances) of the slowest
+    lane's work over the warp's mean lane work; work is the sum of a
+    whole-solve kernel's work rows (backward attempts and sweeps) per
+    instance. A warp runs as long as its slowest lane, so this is the
+    factor per-thread control flow costs over lanes that each did the
+    warp's mean work."""
+    w = sum(r.double() for r in work)
+    w = w[: w.numel() // 32 * 32].reshape(-1, 32)
+    return float((w.amax(1) / w.mean(1)).mean())
 
 
 def flagship_problem(tt, dtype, device, horizon=HORIZON):
@@ -877,6 +930,8 @@ def time_ip_kernels(tt, prob, x0, smi):
         one(out5))
     attempts, sweeps = (float(w.double().sum()) for w in work)
     ops7 = attempts * ops_back + sweeps * ops_sweep
+    print(f"[divergence] ipddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
+          f"(backward attempts + sweeps) {warp_divergence(work):.4f}")
     print(f"[bound] operations per instance: open_loop_rollout {ops4}, ip_forward "
           f"{ops5}, ipddp_backward {ops6}; ipddp_solve {ops7 / B_MAIN:.0f} on average "
           f"({attempts / B_MAIN:.3f} backward attempts x {ops_back} + "
@@ -1313,6 +1368,8 @@ def time_barrier_kernels(tt, prob, x0, smi):
     attempts, sweeps = (float(w.double().sum()) for w in work9)
     iters = float(sol9.iterations_completed.double().sum())
     ops9 = attempts * ops_back9 + sweeps * ops_sweep9 + iters * ops_ref9
+    print(f"[divergence] logddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
+          f"(backward attempts + sweeps) {warp_divergence(work9):.4f}")
     print(f"[bound] operations per instance: logddp_solve {ops9 / B_MAIN:.0f} on average "
           f"({attempts / B_MAIN:.3f} backward attempts x {ops_back9} + {sweeps / B_MAIN:.3f} "
           f"sweeps x {ops_sweep9} + {iters / B_MAIN:.3f} refreshes x {ops_ref9})")
@@ -1348,6 +1405,8 @@ def time_barrier_kernels(tt, prob, x0, smi):
     attempts, trials, commits, resets = (float(w.double().sum()) for w in work8)
     ops8 = (attempts * ops_back8 + trials * ops_trial8 + commits * ops_commit8
             + resets * ops_reset8 + B_MAIN * ops_init8)
+    print(f"[divergence] msipddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
+          f"(backward attempts + trials + commits + resets) {warp_divergence(work8):.4f}")
     print(f"[bound] operations per instance: msipddp_solve {ops8 / B_MAIN:.0f} on average "
           f"({attempts / B_MAIN:.3f} backward attempts x {ops_back8} + {trials / B_MAIN:.3f} "
           f"trials x {ops_trial8} + {commits / B_MAIN:.3f} commits x {ops_commit8} + "
@@ -1407,6 +1466,7 @@ def main():
             if ("registers" in line or "spill" in line or "entry function" in line
                     or line.startswith("==")):
                 print(f"[ptxas] {line.strip()}")
+    attrs = print_kernel_attributes(smi)
 
     # --- phase 3: kernels against their plain versions -----------------------
     errs = phase_kernels(tt, dev)
@@ -1507,6 +1567,8 @@ def main():
         p1, X[:1], U[:1], back[-1][:1])))
     attempts, rollouts = (float(w.double().sum()) for w in work)
     ops3 = attempts * ops_back + rollouts * ops2
+    print(f"[divergence] clddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
+          f"(backward attempts + rollouts) {warp_divergence(work):.4f}")
     print(f"[bound] operations per instance: riccati_backward {ops1}, forward_rollout "
           f"{ops2}; clddp_solve {ops3 / B_MAIN:.0f} on average ({attempts / B_MAIN:.3f} "
           f"backward attempts x {ops_back} + {rollouts / B_MAIN:.3f} rollouts x {ops2})")
@@ -1579,7 +1641,10 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs["float32"][name],
          "ms": timing[name][0], "plain_ms": timing[name][1],
-         "bound_ms": timing[name][2], "bound_by": timing[name][3], "library_ms": None}
+         "bound_ms": timing[name][2], "bound_by": timing[name][3], "library_ms": None,
+         "registers": attrs[name]["registers"], "spill_bytes": attrs[name]["spill_bytes"],
+         "smem_bytes": attrs[name]["static_smem_bytes"] + attrs[name]["dynamic_smem_bytes"],
+         "blocks_per_sm": attrs[name]["blocks_per_sm"]}
         for name, (src, rep) in sources.items()
     ]}
     print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(

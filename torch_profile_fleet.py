@@ -2,6 +2,7 @@
 """Where the time goes in the port's fleet solves, on one NVIDIA GPU.
 
     python3 torch_profile_fleet.py [--batch 262144] [--solver CLDDP|IPDDP|LogDDP|MSIPDDP|all]
+                                   [--engine whole|per-pass|plain|all]
 
 For the flagship fleet (cold control-limited unicycle MPC, H=20, 10
 iterations, tolerance 1e-4, float32, x0 ~ U(-0.5, 0.5)) under each solver
@@ -12,7 +13,9 @@ the host-clock ms of one ``batched_solve`` (after a warm-up, ending in a
 synchronize); under ``torch.profiler`` the device busy time (the sum over
 the CUDA kernel rows, which do not overlap on one stream), the profiled
 wall, the launch count and the eight kernels with the most device time;
-and the peak device memory of the solve. Imports nothing of JAX.
+and the peak device memory of the solve. First it prints what the card
+reports of every kernel (registers, spill bytes, shared memory, resident
+blocks per SM). Imports nothing of JAX.
 """
 
 import argparse
@@ -26,6 +29,7 @@ import chip_smoke
 
 
 SOLVERS = ("CLDDP", "IPDDP", "LogDDP", "MSIPDDP")
+ENGINES = {"whole": "whole-solve kernel", "per-pass": "per-pass kernels", "plain": "plain driver"}
 
 
 def engines(tt, solver):
@@ -41,6 +45,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=chip_smoke.B_MAIN)
     ap.add_argument("--solver", default="all", choices=SOLVERS + ("all",))
+    ap.add_argument("--engine", default="all", choices=tuple(ENGINES) + ("all",))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_fleet: no CUDA device")
@@ -50,12 +55,15 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    chip_smoke.print_kernel_attributes(smi)
     dev = torch.device("cuda", 0)
     prob = chip_smoke.flagship_problem(tt, torch.float32, dev)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
     x0 = torch.rand(args.batch, 3, generator=gen, device=dev) - 0.5
     for solver in (SOLVERS if args.solver == "all" else (args.solver,)):
         for name, opts in engines(tt, solver).items():
+            if args.engine != "all" and name != ENGINES[args.engine]:
+                continue
             batched_solve(prob, x0, solver, opts)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
