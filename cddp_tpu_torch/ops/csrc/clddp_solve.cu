@@ -19,12 +19,18 @@
 // so the kernel needs no candidate buffers. The accepted rollout repeats
 // the trial's arithmetic exactly, so it reproduces the trial's trajectory.
 //
-// Bound: device memory. Every backward attempt reads X, U (5 values per
-// step) and writes k, K (8); every trial rollout reads 13 values per step.
-// The state, value function and gains of one step live in registers; the
-// trajectories (about 370 values per instance at N=20) do not fit there.
+// Bound: latency. Every backward attempt reads X, U (5 values per step)
+// and writes k, K (8); every trial rollout reads 13 values per step. The
+// state, value function and gains of one step live in registers; the
+// trajectories (263 values per instance at N=20) do not, and a fleet's do
+// not stay in L2. Every sweep stages step t+1's nominal values in shared
+// memory with cp.async while it computes step t
+// (sweep_stage.cuh::NominalStage), so no load waits just before its use. A
+// register budget (blocks of 128 threads at 64, 72 or 80 registers)
+// measured no faster than these blocks of 256 threads (PERF.md, section 6).
 #include "clddp_step.cuh"
 #include "models.cuh"
+#include "sweep_stage.cuh"
 
 namespace cddp {
 
@@ -49,6 +55,7 @@ constexpr int kMaxIter = 0, kOptimal = 1, kAcceptable = 2, kRegLimit = 3;
 template <typename T, class M>
 struct Solver {
   static constexpr int NX = M::NX, NU = M::NU;
+  using Staged = NominalStage<T, NX, NU>;
   const Consts<T, M>& c;
   T* X;
   T* U;
@@ -56,6 +63,8 @@ struct Solver {
   T* K;
   size_t B;
   int b;
+  int N_;
+  Staged ns;
 
   __device__ T& x_at(int t, int i) const { return X[(size_t(t) * NX + i) * B + b]; }
   __device__ T& u_at(int t, int i) const { return U[(size_t(t) * NU + i) * B + b]; }
@@ -68,23 +77,21 @@ struct Solver {
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = x_at(t, i);
   }
-  __device__ void load_u(int t, T (&u)[NU]) const {
-#pragma unroll
-    for (int i = 0; i < NU; ++i) u[i] = u_at(t, i);
-  }
 
   __device__ T initial_cost() const {
     T J = T(0), x[NX], u[NU];
-    for (int t = 0; t < N(); ++t) {
-      load_x(t, x);
-      load_u(t, u);
+    int stage = 0;
+    ns.fetch(0, stage, false);
+    for (int t = 0; t < N(); ++t, stage ^= 1) {
+      ns.advance(t + 1, t + 1 < N(), stage, false);
+      ns.st.get(stage, Staged::vX, x);
+      ns.st.get(stage, Staged::vU, u);
       J = J + running_cost(c, x, u);
     }
     load_x(N(), x);
     return J + terminal_cost(c, x);
   }
 
-  int N_;
   __device__ int N() const { return N_; }
 
   // One backward attempt at regularization reg; writes k, K. Returns ok and
@@ -123,10 +130,13 @@ struct Solver {
       for (int j = 0; j < NX; ++j) lux[i][j] = T(0);
     }
 
-    for (int t = N() - 1; t >= 0; --t) {
+    int stage = 0;
+    ns.fetch(N() - 1, stage, false);
+    for (int t = N() - 1; t >= 0; --t, stage ^= 1) {
+      ns.advance(t - 1, t > 0, stage, false);
       T x[NX], u[NU], Fx[NX][NX], Fu[NX][NU];
-      load_x(t, x);
-      load_u(t, u);
+      ns.st.get(stage, Staged::vX, x);
+      ns.st.get(stage, Staged::vU, u);
       M::fxfu(x, u, c.p, Fx, Fu);
       T A[NX][NX], Bm[NX][NU], lx[NX], lu[NU], lb[NU], ub[NU];
 #pragma unroll
@@ -172,23 +182,22 @@ struct Solver {
 
   // Closed-loop rollout from the nominal X[0] at step alpha; returns its
   // cost. With write, the new trajectory replaces the nominal in place: the
-  // nominal x_{t+1} is read before it is overwritten.
+  // nominal x_{t+1} is read (from the stage) before it is overwritten.
   __device__ T rollout(T alpha, int integrator, bool write) const {
     T x[NX], xb[NX];
     load_x(0, x);
     load_x(0, xb);
     T J = T(0);
-    for (int t = 0; t < N(); ++t) {
+    int stage = 0;
+    ns.fetch(0, stage, true);
+    for (int t = 0; t < N(); ++t, stage ^= 1) {
+      ns.advance(t + 1, t + 1 < N(), stage, true);
       T ub[NU], kf[NU], Kf[NU][NX], u[NU], xn[NX];
-      load_u(t, ub);
-#pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        kf[i] = k_at(t, i);
-#pragma unroll
-        for (int j = 0; j < NX; ++j) Kf[i][j] = K_at(t, i, j);
-      }
+      ns.st.get(stage, Staged::vU, ub);
+      ns.st.get(stage, Staged::vk, kf);
+      ns.st.get(stage, Staged::vK, Kf);
       J = J + rollout_step<T, M>(c, integrator, true, alpha, x, xb, ub, kf, Kf, u, xn);
-      load_x(t + 1, xb);
+      ns.st.get(stage, Staged::vX, xb);
       if (write) {
 #pragma unroll
         for (int i = 0; i < NU; ++i) u_at(t, i) = u[i];
@@ -208,9 +217,12 @@ __global__ void __launch_bounds__(kThreads) clddp_solve_kernel(
     T* __restrict__ stats, const __grid_constant__ Consts<T, M> c,
     const SolveCfg<T> cfg, int N,
     int B) {
+  extern __shared__ __align__(16) unsigned char cddp_smem[];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Solver<T, M> s{c, X, U, k, K, size_t(B), b, N};
+  using Sv = Solver<T, M>;
+  const Sv s{c, X, U, k, K, size_t(B), b, N,
+             typename Sv::Staged{Sv::Staged::Stage::make(cddp_smem), X, U, k, K, size_t(B), b}};
 
   T cost = s.initial_cost();
   T reg = cfg.reg0, inf_du = T(INFINITY), alpha_pr = T(1);
@@ -302,6 +314,11 @@ __global__ void __launch_bounds__(kThreads) clddp_solve_kernel(
 }
 
 template <typename T, class M>
+constexpr int clddp_solve_smem() {
+  return stage_bytes<T>(Solver<T, M>::Staged::kValues, kThreads);
+}
+
+template <typename T, class M>
 int launch_clddp_solve(T* X, T* U, T* k, T* K, T* stats, const double* consts,
                        const double* cfg, int N, int B, int integrator,
                        int max_iterations, int n_alpha, int bp_bound,
@@ -310,8 +327,11 @@ int launch_clddp_solve(T* X, T* U, T* k, T* K, T* stats, const double* consts,
   const SolveCfg<T> sc = SolveCfg<T>::from_host(cfg, max_iterations, n_alpha,
                                                 bp_bound, parallel_ls, integrator);
   const int blocks = (B + kThreads - 1) / kThreads;
-  clddp_solve_kernel<T, M><<<blocks, kThreads, 0, stream>>>(X, U, k, K, stats, c,
-                                                            sc, N, B);
+  const int smem = clddp_solve_smem<T, M>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      (const void*)clddp_solve_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  clddp_solve_kernel<T, M><<<blocks, kThreads, smem, stream>>>(X, U, k, K, stats, c, sc, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -326,4 +346,4 @@ extern "C" int CDDP_EXPORT(cddp_clddp_solve_unicycle)(
       bp_bound, parallel_ls, static_cast<cudaStream_t>(stream));
 }
 CDDP_REGISTER(cddp_clddp_solve_unicycle, (cddp::clddp_solve_kernel<scalar_t, cddp::Unicycle>),
-              cddp::kThreads, 0)
+              cddp::kThreads, (cddp::clddp_solve_smem<scalar_t, cddp::Unicycle>()))

@@ -630,7 +630,7 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
 
 template <typename T, class Mdl, int M>
 constexpr int ipddp_solve_smem() {
-  return stage_bytes<T>(IpSolver<T, Mdl, M>::kValues);
+  return stage_bytes<T>(IpSolver<T, Mdl, M>::kValues, kSolveThreads);
 }
 
 template <typename T, class Mdl, int M>

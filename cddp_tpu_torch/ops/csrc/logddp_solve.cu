@@ -26,12 +26,18 @@
 // box form (the lower sides are -inf and masked out), computed as the plain
 // version computes them.
 //
-// Bound: latency and device memory. Each instance reads and writes its
-// trajectories several times per iteration (the refresh reads 5 values per
-// step, a backward attempt reads 5 and writes 8, a trial reads 13) with one
-// thread's worth of memory-level parallelism, as kernels 3 and 7 do.
+// Bound: latency. Each instance reads and writes its trajectories several
+// times per iteration (the refresh reads 5 values per step, a backward
+// attempt reads 5 and writes 8, a trial reads 13), and its working set
+// (about 1 KB an instance) does not stay in L2 across a fleet. Every sweep
+// stages step t+1's nominal values in shared memory with cp.async while it
+// computes step t (sweep_stage.cuh::NominalStage), so no load waits just
+// before its use. A register budget (blocks of 128 threads at 64, 72, 80
+// or 96 registers) measured slower than these blocks of 256 threads at the
+// compiler's choice (PERF.md, section 6).
 #include "ipddp_step.cuh"
 #include "models.cuh"
+#include "sweep_stage.cuh"
 
 namespace cddp {
 
@@ -95,6 +101,7 @@ __device__ __forceinline__ void barrier_z(const BoxRows<T, M, NX, NU>& rows,
 template <typename T, class Mdl, int M>
 struct LogSolver {
   static constexpr int NX = Mdl::NX, NU = Mdl::NU;
+  using Staged = NominalStage<T, NX, NU>;
   const Consts<T, Mdl>& c;
   const BoxRows<T, M, NX, NU>& rows;
   const LogCfg<T>& cfg;
@@ -105,6 +112,7 @@ struct LogSolver {
   size_t Bs;
   int b;
   int N;
+  Staged ns;
 
   __device__ T& at(T* p, int t, int i, int I) const { return p[(size_t(t) * I + i) * Bs + b]; }
   __device__ T& at(T* p, int t, int i, int j, int I, int J) const {
@@ -135,9 +143,12 @@ struct LogSolver {
 
   __device__ T initial_cost() const {
     T J = T(0), x[NX], u[NU];
-    for (int t = 0; t < N; ++t) {
-      load(X, t, x);
-      load(U, t, u);
+    int stage = 0;
+    ns.fetch(0, stage, false);
+    for (int t = 0; t < N; ++t, stage ^= 1) {
+      ns.advance(t + 1, t + 1 < N, stage, false);
+      ns.st.get(stage, Staged::vX, x);
+      ns.st.get(stage, Staged::vU, u);
       J = J + running_cost(c, x, u);
     }
     load(X, N, x);
@@ -149,9 +160,12 @@ struct LogSolver {
     T x[NX], u[NU];
     bc = T(0);
     cv = T(0);
-    for (int t = 0; t < N; ++t) {
-      load(X, t, x);
-      load(U, t, u);
+    int stage = 0;
+    ns.fetch(0, stage, false);
+    for (int t = 0; t < N; ++t, stage ^= 1) {
+      ns.advance(t + 1, t + 1 < N, stage, false);
+      ns.st.get(stage, Staged::vX, x);
+      ns.st.get(stage, Staged::vU, u);
       T bct, vt;
       barrier_cost(x, u, mu, bct, vt);
       bc = bc + bct;
@@ -176,10 +190,13 @@ struct LogSolver {
     dv0 = T(0);
     inf_du = T(0);
     bool ok = true;
-    for (int t = N - 1; t >= 0; --t) {
+    int stage = 0;
+    ns.fetch(N - 1, stage, false);
+    for (int t = N - 1; t >= 0; --t, stage ^= 1) {
+      ns.advance(t - 1, t > 0, stage, false);
       T x[NX], u[NU], Fx[NX][NX], Fu[NX][NU], A[NX][NX], Bm[NX][NU];
-      load(X, t, x);
-      load(U, t, u);
+      ns.st.get(stage, Staged::vX, x);
+      ns.st.get(stage, Staged::vU, u);
       Mdl::fxfu(x, u, c.p, Fx, Fu);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
@@ -364,7 +381,8 @@ struct LogSolver {
   // One trial from x0 at step alpha: cost, barrier cost and violation of the
   // closed-loop rollout u = U + alpha k + K (x - X). With write, the trial
   // replaces the nominal in place (the nominal x_{t+1} is read before it is
-  // overwritten). Returns finiteness of every x and u.
+  // overwritten: it comes from the stage). Returns finiteness of every x
+  // and u.
   __device__ bool trial(T alpha, T mu, bool write, T& J, T& bc, T& cv) const {
     T x[NX], xb[NX];
     load(X, 0, x);
@@ -373,14 +391,18 @@ struct LogSolver {
     J = T(0);
     bc = T(0);
     cv = T(0);
-    for (int t = 0; t < N; ++t) {
+    int stage = 0;
+    ns.fetch(0, stage, true);
+    for (int t = 0; t < N; ++t, stage ^= 1) {
+      ns.advance(t + 1, t + 1 < N, stage, true);
       T u[NU], xn[NX];
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
         T a = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) a = a + at(K, t, i, j, NU, NX) * (x[j] - xb[j]);
-        u[i] = (at(U, t, i, NU) + alpha * at(k, t, i, NU)) + a;
+        for (int j = 0; j < NX; ++j)
+          a = a + ns.st.get(stage, Staged::vK + i * NX + j) * (x[j] - xb[j]);
+        u[i] = (ns.st.get(stage, Staged::vU + i) + alpha * ns.st.get(stage, Staged::vk + i)) + a;
       }
       J = J + running_cost(c, x, u);
       T bct, vt;
@@ -392,7 +414,7 @@ struct LogSolver {
       for (int i = 0; i < NX; ++i) ok = ok & isfinite(xn[i]);
 #pragma unroll
       for (int i = 0; i < NU; ++i) ok = ok & isfinite(u[i]);
-      load(X, t + 1, xb);
+      ns.st.get(stage, Staged::vX, xb);
       if (write) {
 #pragma unroll
         for (int i = 0; i < NU; ++i) at(U, t, i, NU) = u[i];
@@ -413,10 +435,13 @@ __global__ void __launch_bounds__(kThreads) logddp_solve_kernel(
     T* __restrict__ stats, const __grid_constant__ Consts<T, Mdl> c,
     const __grid_constant__ BoxRows<T, M, Mdl::NX, Mdl::NU> rows,
     const __grid_constant__ LogCfg<T> cfg, int N, int B) {
+  extern __shared__ __align__(16) unsigned char cddp_smem[];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t Bs = B;
-  const LogSolver<T, Mdl, M> sv{c, rows, cfg, X, U, k, K, Bs, b, N};
+  using Sv = LogSolver<T, Mdl, M>;
+  const Sv sv{c, rows, cfg, X, U, k, K, Bs, b, N,
+              typename Sv::Staged{Sv::Staged::Stage::make(cddp_smem), X, U, k, K, Bs, b}};
 
   T mu = cfg.mu0;
   T cost = sv.initial_cost();
@@ -507,6 +532,11 @@ __global__ void __launch_bounds__(kThreads) logddp_solve_kernel(
 }
 
 template <typename T, class Mdl, int M>
+constexpr int logddp_solve_smem() {
+  return stage_bytes<T>(LogSolver<T, Mdl, M>::Staged::kValues, kThreads);
+}
+
+template <typename T, class Mdl, int M>
 int launch_logddp_solve(T* const* buf, const double* consts, const double* rows,
                         const double* cfg, const double* alphas, const int* ints,
                         cudaStream_t stream) {
@@ -516,7 +546,12 @@ int launch_logddp_solve(T* const* buf, const double* consts, const double* rows,
   const auto r = BoxRows<T, M, Mdl::NX, Mdl::NU>::from_host(rows);
   const LogCfg<T> sc = LogCfg<T>::from_host(cfg, alphas, ints[3], ints[4], ints[5], ints[2]);
   const int blocks = (B + kThreads - 1) / kThreads;
-  logddp_solve_kernel<T, Mdl, M><<<blocks, kThreads, 0, stream>>>(
+  const int smem = logddp_solve_smem<T, Mdl, M>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      (const void*)logddp_solve_kernel<T, Mdl, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  logddp_solve_kernel<T, Mdl, M><<<blocks, kThreads, smem, stream>>>(
       buf[0], buf[1], buf[2], buf[3], buf[4], c, r, sc, N, B);
   return static_cast<int>(cudaGetLastError());
 }
@@ -536,7 +571,8 @@ int launch_logddp_solve(T* const* buf, const double* consts, const double* rows,
         buf, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream));      \
   }                                                                                    \
   CDDP_REGISTER(cddp_logddp_solve_##MODEL##_m##M,                                      \
-                (cddp::logddp_solve_kernel<scalar_t, cddp::STRUCT, M>), cddp::kThreads, 0)
+                (cddp::logddp_solve_kernel<scalar_t, cddp::STRUCT, M>), cddp::kThreads,      \
+                (cddp::logddp_solve_smem<scalar_t, cddp::STRUCT, M>()))
 
 CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 4)
 CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 6)

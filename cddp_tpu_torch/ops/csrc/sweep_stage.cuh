@@ -1,7 +1,8 @@
 // Next-step staging of a trajectory sweep's nominal values in shared memory.
 //
-// A thread of the whole IPDDP solve (ipddp_solve.cu) walks its own
-// instance's batch-last trajectories one step at a time, and each step's loads are dependent ones that go to device
+// A thread of a whole-solve kernel (ipddp_solve.cu, clddp_solve.cu,
+// logddp_solve.cu) walks its own instance's batch-last trajectories one step
+// at a time, and each step's loads are dependent ones that go to device
 // memory just before they are used. Per-thread cp.async (LDGSTS) copies the
 // values of step t+1 into the thread's slot of a two-stage shared-memory
 // buffer while it computes step t, and the thread waits on the older group
@@ -19,10 +20,11 @@
 
 namespace cddp {
 
-// Dynamic shared memory of a block that stages V values a thread.
+// Dynamic shared memory of a block of `threads` threads that stages `values`
+// values a thread.
 template <typename T>
-constexpr int stage_bytes(int values) {
-  return 2 * values * kSolveThreads * int(sizeof(T));
+constexpr int stage_bytes(int values, int threads) {
+  return 2 * values * threads * int(sizeof(T));
 }
 
 template <typename T, int V>
@@ -85,6 +87,48 @@ struct SweepStage {
     for (int i = 0; i < D1; ++i)
 #pragma unroll
       for (int j = 0; j < D2; ++j) out[i][j] = get(stage, v0 + i * D2 + j);
+  }
+};
+
+// The staging of a sweep over one instance's nominal trajectories X
+// [t][nx][b], U [t][nu][b] and gains k, K, for the kernels whose sweeps read
+// nothing else (clddp_solve.cu, logddp_solve.cu). A nominal sweep (a cost, a
+// refresh, a backward attempt) stages X[t] and U[t]; a rollout stages the
+// nominal X[t+1], U[t], k[t] and K[t]. A rollout that rewrites the nominal
+// in place reads X[t+1] from the stage before it overwrites it, and the
+// copies in flight for step t+1 (X[t+2], U[t+1], k[t+1], K[t+1]) never touch
+// what step t writes.
+template <typename T, int NX, int NU>
+struct NominalStage {
+  static constexpr int vX = 0, vU = NX, vk = vU + NU, vK = vk + NU, kValues = vK + NU * NX;
+  using Stage = SweepStage<T, kValues>;
+  Stage st;
+  const T* X;
+  const T* U;
+  const T* k;
+  const T* K;
+  size_t Bs;
+  int b;
+
+  // Stage step t's values for a nominal sweep or a rollout, and close the group.
+  __device__ void fetch(int t, int stage, bool rollout) const {
+    st.template fetch<NX>(stage, vX, X, rollout ? t + 1 : t, Bs, b);
+    st.template fetch<NU>(stage, vU, U, t, Bs, b);
+    if (rollout) {
+      st.template fetch<NU>(stage, vk, k, t, Bs, b);
+      st.template fetch<NU * NX>(stage, vK, K, t, Bs, b);
+    }
+    Stage::commit();
+  }
+
+  // Before step t of a sweep whose next step is t_next (or none): stage
+  // t_next, then wait for step t's values.
+  __device__ void advance(int t_next, bool has_next, int stage, bool rollout) const {
+    if (has_next)
+      fetch(t_next, stage ^ 1, rollout);
+    else
+      Stage::commit();
+    Stage::wait_prior();
   }
 };
 

@@ -66,8 +66,12 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    residuals, status agreement with the plain driver on >= 99%, solves/s;
    each kernel's time, its plain driver's and its bound.
 
-A bound is the larger of the compulsory bytes (each input read once, each
-output written once, ``unique_bytes``) over 3.35 TB/s and the operations
+Each kernel is timed twice at the main path's shapes: by CUDA events
+around its wrapper (``cuda_ms``: the batch-first <-> batch-last copies
+included) and by the profiler's device time of the kernel alone
+(``device_ms``). A bound is the larger of the compulsory bytes (each input
+read once, each output written once, ``unique_bytes``) over 3.35 TB/s and
+the operations
 (``count_ops`` on the plain version, per instance; for a whole solve, from
 the kernel's own count of backward attempts and trajectory sweeps) over 67
 TFLOP/s, the H100 SXM's float32 rate outside the tensor cores.
@@ -167,9 +171,11 @@ def flagship_problem(tt, dtype, device, horizon=HORIZON):
     )
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() on the card, by CUDA events after a warm-up."""
-    fn()
+def cuda_ms(fn, reps, warm=True):
+    """Mean milliseconds of fn() on the card, by CUDA events after a warm-up
+    (unless ``warm`` is False)."""
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -178,6 +184,28 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, kernel, reps):
+    """Mean device milliseconds of one launch of the CUDA kernel ``kernel``
+    (its ``__global__`` function is ``cddp::<kernel>_kernel``) over ``reps``
+    calls of fn, which ``cuda_ms`` has just warmed: the profiler's kernel
+    rows, without the wrapper's layout copies, over the launches it
+    recorded (it can miss one of a short kernel's). Raises if it recorded
+    none."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and f"cddp::{kernel}_kernel<" in e.key]
+    count = sum(e.count for e in rows)
+    if count == 0:
+        raise AssertionError(f"the profiler saw no launch of {kernel} in {reps} calls")
+    return sum(e.self_device_time_total for e in rows) / count / 1e3
 
 
 def stage_inputs(prob, B, gen):
@@ -813,7 +841,8 @@ def phase_ip_branches(tt, dev, x0):
 def phase_ip_fleet(tt, dev, smi):
     """The IPDDP box fleet through ``batched_solve`` at B_MAIN, float32
     (phase 6): launch counts per engine, finite costs and residuals, status
-    agreement with the plain driver, solves/s. Returns (launch counts,
+    agreement with the plain driver, solves/s. Returns (launch counts of the
+    run that drives each kernel, launch counts of the default engine's run,
     solves/s, problem, x0)."""
     from cddp_tpu_torch.ops.kernels import dispatch_log
     from cddp_tpu_torch.parallel.batch import batched_solve
@@ -885,13 +914,12 @@ def phase_ip_fleet(tt, dev, smi):
                 "ipddp_solve": counts["whole-solve kernel"]["ipddp_solve"],
                 "ipddp_backward": per_pass["ipddp_backward"],
                 "ip_forward": per_pass["ip_forward"]}
-    return launches, rates, prob, x0
+    return launches, counts["whole-solve kernel"], rates, prob, x0
 
 
 def time_ip_kernels(tt, prob, x0, smi):
     """Kernels 4-7 at the main path's batch and shapes: kernel and plain
-    times by CUDA events, and each one's bound from this run's inputs.
-    Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    times and each one's bound from this run's inputs (``time_kernels``)."""
     from cddp_tpu_torch.ops.kernels import ip_rollout, mega_ipddp
     from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
@@ -947,26 +975,39 @@ def time_ip_kernels(tt, prob, x0, smi):
         "ipddp_backward": (back, out6, ops6 * B_MAIN),
         "ipddp_solve": (ins7, outs7 + (torch.empty(9, B_MAIN, device=x0.device),), ops7),
     }
-    timing = {
-        "open_loop_rollout": (
-            cuda_ms(lambda: ip_rollout._launch_open_loop(p.model, entry, *ol, DT), 20),
-            cuda_ms(lambda: ip_rollout.open_loop_rollout_plain(p.model, *ol, DT), 5)),
-        "ip_forward": (cuda_ms(lambda: ip_rollout._launch_forward(fc, *fwd), 20),
-                       cuda_ms(lambda: ip_rollout.ip_forward_plain(fc, *fwd), 3)),
-        "ipddp_backward": (cuda_ms(lambda: ric._launch(*back), 20),
-                           cuda_ms(lambda: ric.ipddp_backward_plain(*back), 2)),
-        "ipddp_solve": (cuda_ms(lambda: mega_ipddp._launch(pw, opts, *seeds), 10),
-                        cuda_ms(lambda: ipddp._drive(pw, plain_opts, *seeds), 1)),
+    # name: (kernel, its reps, plain version, its reps)
+    runs = {
+        "open_loop_rollout": (lambda: ip_rollout._launch_open_loop(p.model, entry, *ol, DT), 20,
+                              lambda: ip_rollout.open_loop_rollout_plain(p.model, *ol, DT), 5),
+        "ip_forward": (lambda: ip_rollout._launch_forward(fc, *fwd), 20,
+                       lambda: ip_rollout.ip_forward_plain(fc, *fwd), 3),
+        "ipddp_backward": (lambda: ric._launch(*back), 20,
+                           lambda: ric.ipddp_backward_plain(*back), 2),
+        "ipddp_solve": (lambda: mega_ipddp._launch(pw, opts, *seeds), 10,
+                        lambda: ipddp._drive(pw, plain_opts, *seeds), 1),
     }
+    return time_kernels(runs, work_items, dtype, smi)
+
+
+def time_kernels(runs, work_items, dtype, smi):
+    """Time each kernel of ``runs`` ({name: (kernel, reps, plain version,
+    reps)}) by CUDA events around its wrapper and by the profiler's device
+    time, its plain version by CUDA events, and its bound from
+    ``work_items`` ({name: (inputs, outputs, operations)}). Returns {name:
+    (ms, plain_ms, bound_ms, bound_by, device_ms)}. A plain version timed
+    once is a whole-solve plain driver, which its fleet's phase has just run
+    at these shapes: it gets no warm-up."""
     out = {}
-    for name, (ms, plain_ms) in timing.items():
+    for name, (kernel, reps, plain, plain_reps) in runs.items():
+        ms, plain_ms = cuda_ms(kernel, reps), cuda_ms(plain, plain_reps, warm=plain_reps > 1)
+        dev_ms = device_ms(kernel, name, max(reps // 2, 3))
         ins, outs, ops = work_items[name]
         nbytes = unique_bytes(ins) + unique_bytes(outs)
         b_ms, b_by = bound(nbytes, ops, dtype)
-        out[name] = (ms, plain_ms, b_ms, b_by)
-        print(f"[timing] {name} at B={B_MAIN}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-              f"ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB, "
-              f"{ops / 1e9:.3f} G operations)  [{smi}]")
+        out[name] = (ms, plain_ms, b_ms, b_by, dev_ms)
+        print(f"[timing] {name} at B={B_MAIN}: kernel {ms:.3f} ms with the wrapper, "
+              f"{dev_ms:.3f} ms device, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by} ({nbytes / 1e9:.3f} GB, {ops / 1e9:.3f} G operations)  [{smi}]")
     return out
 
 
@@ -1269,7 +1310,8 @@ def phase_barrier_fleets(tt, dev, smi):
     """The LogDDP and MSIPDDP box fleets through ``batched_solve`` at B_MAIN,
     float32 (phase 8): launch counts per engine, finite costs and inf_pr,
     status agreement with the plain driver, solves/s. Returns (launch
-    counts, solves/s, problem, x0)."""
+    counts of the whole-solve kernels, launch counts of the default engine's
+    runs, solves/s, problem, x0)."""
     from cddp_tpu_torch.ops.kernels import dispatch_log
     from cddp_tpu_torch.parallel.batch import batched_solve
 
@@ -1282,7 +1324,7 @@ def phase_barrier_fleets(tt, dev, smi):
         "per-pass driver": opts.replace(solve_engine="xla"),
         "plain driver": opts.replace(solve_engine="xla", backward_engine="scan"),
     }
-    launches, rates = {}, {}
+    launches, default, rates = {}, {}, {}
     for solver, kernel in (("LogDDP", "logddp_solve"), ("MSIPDDP", "msipddp_solve")):
         sols, counts = {}, {}
         for name, o in engines.items():
@@ -1302,6 +1344,7 @@ def phase_barrier_fleets(tt, dev, smi):
             raise AssertionError(f"the plain {solver} driver launched kernels: "
                                  f"{counts['plain driver']}")
         launches[kernel] = counts["whole-solve kernel"][kernel]
+        default[f"{solver} fleet"] = counts["whole-solve kernel"]
         whole, plain = sols["whole-solve kernel"], sols["plain driver"]
         for name, sol in sols.items():
             if not (bool(sol.final_objective.isfinite().all())
@@ -1332,13 +1375,13 @@ def phase_barrier_fleets(tt, dev, smi):
             rates[solver][name] = B_MAIN / dt
             print(f"[{solver}] {name}: {rates[solver][name]:.1f} solves/s ({dt * 1e3:.2f} ms "
                   f"per B={B_MAIN} solve, {reps[name]} reps)  [{smi}]")
-    return launches, rates, prob, x0
+    return launches, default, rates, prob, x0
 
 
 def time_barrier_kernels(tt, prob, x0, smi):
     """Kernels 9 and 8 at the main path's batch and shapes: kernel and plain
-    driver times by CUDA events, and each one's bound from this run's
-    inputs and work. Returns {name: (ms, plain_ms, bound_ms, bound_by)}."""
+    driver times and each one's bound from this run's inputs and work
+    (``time_kernels``)."""
     from cddp_tpu_torch.constraints.stack import PathStacker
     from cddp_tpu_torch.ops.kernels import mega_logddp, mega_msipddp
     from cddp_tpu_torch.options import line_search_alphas
@@ -1348,7 +1391,6 @@ def time_barrier_kernels(tt, prob, x0, smi):
     opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
     p = prob.replace(x0=x0)
     p1 = prob.replace(x0=x0[:1])
-    out = {}
 
     # Operations per instance, counted on the plain versions at B=1 from the
     # cold seed; the whole solves' totals from this run's backward attempts
@@ -1415,22 +1457,15 @@ def time_barrier_kernels(tt, prob, x0, smi):
              sol8.feedback_gains, st8.Y, st8.S, st8.F, st8.Lambda,
              torch.empty(9, B_MAIN, device=x0.device))
 
-    work = {
-        "logddp_solve": (seeds9, outs9, ops9, lambda: mega_logddp._launch(p, opts, *seeds9),
-                         lambda: logddp._drive(p, opts, *seeds9)),
-        "msipddp_solve": (seeds8[:4] + seeds8[5:], outs8, ops8,
-                          lambda: mega_msipddp._launch(p, opts, *seeds8),
-                          lambda: msipddp._drive(p, opts, *seeds8)),
+    work_items = {"logddp_solve": (seeds9, outs9, ops9),
+                  "msipddp_solve": (seeds8[:4] + seeds8[5:], outs8, ops8)}
+    runs = {
+        "logddp_solve": (lambda: mega_logddp._launch(p, opts, *seeds9), 10,
+                         lambda: logddp._drive(p, opts, *seeds9), 1),
+        "msipddp_solve": (lambda: mega_msipddp._launch(p, opts, *seeds8), 10,
+                          lambda: msipddp._drive(p, opts, *seeds8), 1),
     }
-    for name, (ins, outs, ops, kernel, plain) in work.items():
-        ms, plain_ms = cuda_ms(kernel, 10), cuda_ms(plain, 1)
-        nbytes = unique_bytes(ins) + unique_bytes(outs)
-        b_ms, b_by = bound(nbytes, ops, dtype)
-        out[name] = (ms, plain_ms, b_ms, b_by)
-        print(f"[timing] {name} at B={B_MAIN}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB, {ops / 1e9:.3f} G "
-              f"operations)  [{smi}]")
-    return out
+    return time_kernels(runs, work_items, dtype, smi)
 
 
 def main():
@@ -1501,6 +1536,8 @@ def main():
     if counts["plain driver"]:
         raise AssertionError(f"the plain driver launched kernels: {counts['plain driver']}")
     launches = {**counts["whole-solve kernel"], **per_pass}
+    # Launches of each kernel in the default engine's run of each fleet.
+    default = {"CLDDP fleet": counts["whole-solve kernel"]}
 
     X0 = x0[:, None].expand(-1, HORIZON + 1, -1)
     cost0 = base.compute_cost(prob.replace(x0=x0), X0, torch.zeros(B_MAIN, HORIZON, 2, device=dev))
@@ -1579,28 +1616,20 @@ def main():
                                 sol3.feedforward_gains, sol3.feedback_gains,
                                 torch.empty(6, B_MAIN, device=dev)), ops3),
     }
-    timing = {
-        "riccati_backward": (cuda_ms(lambda: riccati._launch(*back), 20),
-                             cuda_ms(lambda: riccati.riccati_backward_plain(*back), 2)),
-        "forward_rollout": (cuda_ms(lambda: rollout_ops._launch(*fwd), 20),
-                            cuda_ms(lambda: rollout_ops.forward_rollout_plain(*fwd), 2)),
-        "clddp_solve": (cuda_ms(lambda: mega_clddp._launch(p, opts, *seeds), 20),
-                        cuda_ms(lambda: clddp._solve(p, plain_opts, *seeds), 1)),
-    }
-    for name, (ms, plain_ms) in timing.items():
-        ins, outs, ops = work_items[name]
-        nbytes = unique_bytes(ins) + unique_bytes(outs)
-        b_ms, b_by = bound(nbytes, ops, torch.float32)
-        timing[name] = (ms, plain_ms, b_ms, b_by)
-        print(f"[timing] {name} at B={B_MAIN}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-              f"ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB, "
-              f"{ops / 1e9:.3f} G operations)  [{smi}]")
+    timing = time_kernels({
+        "riccati_backward": (lambda: riccati._launch(*back), 20,
+                             lambda: riccati.riccati_backward_plain(*back), 2),
+        "forward_rollout": (lambda: rollout_ops._launch(*fwd), 20,
+                            lambda: rollout_ops.forward_rollout_plain(*fwd), 2),
+        "clddp_solve": (lambda: mega_clddp._launch(p, opts, *seeds), 20,
+                        lambda: clddp._solve(p, plain_opts, *seeds), 1),
+    }, work_items, torch.float32, smi)
 
     # --- phase 5: the IPDDP kernels against their plain versions ----------------
     errs.update({k: {**errs[k], **v} for k, v in phase_ip_kernels(tt, dev).items()})
 
     # --- phase 6: the IPDDP box fleet through batched_solve ----------------------
-    ip_launches, ip_rates, ip_prob, ip_x0 = phase_ip_fleet(tt, dev, smi)
+    ip_launches, default["IPDDP fleet"], ip_rates, ip_prob, ip_x0 = phase_ip_fleet(tt, dev, smi)
     launches.update(ip_launches)
     timing.update(time_ip_kernels(tt, ip_prob, ip_x0, smi))
     print(f"[clock] phases 1-6 done at {time.perf_counter() - t_start:.1f} s")
@@ -1610,8 +1639,9 @@ def main():
     print(f"[clock] phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     # --- phase 8: the LogDDP and MSIPDDP box fleets through batched_solve --------
-    bar_launches, bar_rates, bar_prob, bar_x0 = phase_barrier_fleets(tt, dev, smi)
+    bar_launches, bar_default, bar_rates, bar_prob, bar_x0 = phase_barrier_fleets(tt, dev, smi)
     launches.update(bar_launches)
+    default.update(bar_default)
     timing.update(time_barrier_kernels(tt, bar_prob, bar_x0, smi))
     print(f"[clock] phase 8 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1636,11 +1666,17 @@ def main():
                          "cddp_tpu/ops/pallas/mega_logddp.py:192"),
     }
     # No single PyTorch call computes any of these functions, so library_ms
-    # is null for each.
+    # is null for each. "launches" counts the run that drives the kernel
+    # (the default engine's, or for kernels 1, 2, 5 and 6 the per-pass
+    # engine's); "default_launches" the default engine's runs of the four
+    # fleets. "ms" is CUDA events around the wrapper, "device_ms" the
+    # profiler's time of the kernel alone.
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs["float32"][name],
-         "ms": timing[name][0], "plain_ms": timing[name][1],
+         "launches": launches[name],
+         "default_launches": sum(c.get(name, 0) for c in default.values()),
+         "max_abs_err": errs["float32"][name],
+         "ms": timing[name][0], "device_ms": timing[name][4], "plain_ms": timing[name][1],
          "bound_ms": timing[name][2], "bound_by": timing[name][3], "library_ms": None,
          "registers": attrs[name]["registers"], "spill_bytes": attrs[name]["spill_bytes"],
          "smem_bytes": attrs[name]["static_smem_bytes"] + attrs[name]["dynamic_smem_bytes"],

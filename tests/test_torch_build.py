@@ -1,7 +1,9 @@
 """The kernel library's build inputs (CPU): every header a CUDA source
-includes enters the build digest, every source is compiled, and every
+includes enters the build digest, every source is compiled, every
 launcher the wrappers and ``chip_smoke.py`` name is exported and registered
-for its attributes by a source."""
+for its attributes by a source, and every kernel is launched and registered
+with the block size its ``__launch_bounds__`` names (a mismatch would fail
+only at launch, on the card)."""
 
 import re
 
@@ -64,6 +66,91 @@ def test_launchers_are_exported_and_registered(kernel):
     exported, registered = launchers_of(f"{kernel}.cu")
     assert exported == registered
     assert set(chip_smoke.launchers()[kernel]) == exported
+
+
+def call_args(text, start):
+    """The top-level comma-separated arguments of the call whose opening
+    parenthesis is at ``text[start]``."""
+    depth, args, cur = 0, [], []
+    for ch in text[start:]:
+        if ch in "(<":
+            depth += 1
+            if depth == 1 and ch == "(":
+                continue
+        elif ch in ")>":
+            depth -= 1
+            if depth == 0:
+                args.append("".join(cur).strip())
+                return args
+        if ch == "," and depth == 1:
+            args.append("".join(cur).strip())
+            cur = []
+        else:
+            cur.append(ch)
+    raise ValueError("unbalanced call")
+
+
+def launch_shapes(text):
+    """{kernel: (block size of its __launch_bounds__, whether it declares
+    extern __shared__, [(threads, dynamic smem) of each <<<...>>> launch],
+    [(threads, smem) of each CDDP_REGISTER])} of a source's text, the
+    constants without their ``cddp::`` qualifier."""
+    text = expanded(text)
+    plain = lambda a: re.sub(r"\bcddp::", "", a)  # noqa: E731
+    out = {}
+    for m in re.finditer(r"__global__ void __launch_bounds__\((.*?)\)\s*(\w+)\(", text):
+        body = text[m.end():text.index("\n}\n", m.end())]
+        out[m.group(2)] = (plain(m.group(1).split(",")[0].strip()),
+                           "extern __shared__" in body, [], [])
+    for m in re.finditer(r"(\w+)<[^<>;]*><<<([^>]*)>>>", text):
+        _, threads, smem = [a.strip() for a in m.group(2).split(",")][:3]
+        out[m.group(1)][2].append((plain(threads), smem))
+    for m in re.finditer(r"CDDP_REGISTER\(", text):
+        args = call_args(text, m.end() - 1)
+        if len(args) != 4 or "##" in args[0]:
+            continue  # a macro's definition, not an invocation
+        kernel = re.search(r"(\w+)<", plain(args[1])).group(1)
+        out[kernel][3].append((plain(args[2]), plain(args[3])))
+    return out
+
+
+def launch_shape_faults(shapes):
+    """What is wrong with a source's launch shapes: a kernel never launched
+    or registered, a block size other than its __launch_bounds__, no
+    dynamic shared memory for a kernel that declares extern __shared__."""
+    faults = []
+    for kernel, (bound, shared, launches, registered) in shapes.items():
+        if not launches or not registered:
+            faults.append(f"{kernel} is never launched or never registered")
+        for threads, smem in launches + registered:
+            if threads != bound:
+                faults.append(f"{kernel}: {threads} threads against __launch_bounds__({bound})")
+            if shared and smem == "0":
+                faults.append(f"{kernel} declares extern __shared__ but passes no bytes")
+    return faults
+
+
+@pytest.mark.parametrize("source", [s for s in SOURCES if s.endswith(".cu")])
+def test_launch_shape_matches_launch_bounds(source):
+    """Each kernel is launched and registered with the block-size constant
+    its ``__launch_bounds__`` names (more threads than the bound is a launch
+    the card refuses), and a kernel that declares ``extern __shared__``
+    launches and registers a nonzero dynamic shared-memory size."""
+    shapes = launch_shapes((build.CSRC / source).read_text())
+    assert shapes, f"{source} declares no kernel"
+    assert launch_shape_faults(shapes) == []
+
+
+def test_launch_shapes_see_a_mismatch():
+    text = (build.CSRC / "logddp_solve.cu").read_text()
+    shapes = launch_shapes(text)["logddp_solve_kernel"]
+    assert shapes[0] == "kThreads" and shapes[1]
+    assert len(shapes[2]) == 1 and len(shapes[3]) == 3  # one launch; m = 4, 6, 10
+    for old, new in (("kThreads, smem, stream>>>", "kSolveThreads, smem, stream>>>"),
+                     ("kThreads, smem, stream>>>", "kThreads, 0, stream>>>"),
+                     ("cddp::kThreads,      \\", "cddp::kSolveThreads, \\")):
+        assert old in text
+        assert launch_shape_faults(launch_shapes(text.replace(old, new))), new
 
 
 def test_macro_expansion_pastes_tokens():

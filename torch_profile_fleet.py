@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's fleet solves, on one NVIDIA GPU.
 
-    python3 torch_profile_fleet.py [--batch 262144] [--solver CLDDP|IPDDP|LogDDP|MSIPDDP|all]
-                                   [--engine whole|per-pass|plain|all]
+    python3 torch_profile_fleet.py [--batch 262144] [--solver CLDDP|IPDDP|LogDDP|MSIPDDP|all ...]
+                                   [--engine whole|per-pass|plain|all ...] [--sass] [--boxqp]
 
 For the flagship fleet (cold control-limited unicycle MPC, H=20, 10
 iterations, tolerance 1e-4, float32, x0 ~ U(-0.5, 0.5)) under each solver
@@ -13,14 +13,33 @@ the host-clock ms of one ``batched_solve`` (after a warm-up, ending in a
 synchronize); under ``torch.profiler`` the device busy time (the sum over
 the CUDA kernel rows, which do not overlap on one stream), the profiled
 wall, the launch count and the eight kernels with the most device time;
-and the peak device memory of the solve. First it prints what the card
-reports of every kernel (registers, spill bytes, shared memory, resident
-blocks per SM). Imports nothing of JAX.
+and the peak device memory of the solve. For the whole-solve kernel it also
+prints the work the kernel reports per instance (backward attempts and
+sweeps, ``mega_*.launch_counting_work``) and its warp divergence, so that
+two builds whose solves take different paths compare per unit of work.
+First it prints what the card reports of every kernel (registers, spill
+bytes, shared memory, resident blocks per SM); with ``--sass``, the loops
+of the four whole-solve kernels (float32, m = 4) in the compiled SASS
+(``cuobjdump``): each backward branch's body with its instruction count
+and its loads, stores and floating-point instructions. With ``--boxqp``,
+how many of the enumerated BoxQP's nine active sets the CLDDP fleet's
+backward steps evaluate when the search stops at the first valid one, per
+instance and per warp of 32 consecutive instances (its slowest lane), from
+the plain driver's selections on the card (``boxqp_first_valid``). Imports
+nothing of JAX.
+
+A/B of two source trees: run it in each tree's own checkout (each builds
+its own ``.torch_ext_build/``), in turns, in one call on one card, and
+compare the profiler's row of the kernel (device time without the wrapper's
+layout copies).
 """
 
 import argparse
+import re
 import subprocess
 import time
+from collections import Counter
+from pathlib import Path
 
 import torch
 from torch.profiler import DeviceType, ProfilerActivity, profile
@@ -30,6 +49,8 @@ import chip_smoke
 
 SOLVERS = ("CLDDP", "IPDDP", "LogDDP", "MSIPDDP")
 ENGINES = {"whole": "whole-solve kernel", "per-pass": "per-pass kernels", "plain": "plain driver"}
+WHOLE_SOLVE = {"CLDDP": "clddp_solve", "IPDDP": "ipddp_solve", "LogDDP": "logddp_solve",
+               "MSIPDDP": "msipddp_solve"}
 
 
 def engines(tt, solver):
@@ -41,11 +62,106 @@ def engines(tt, solver):
             "plain driver": plain}
 
 
+def whole_solve_work(solver, prob, x0, opts):
+    """The work rows the whole-solve kernel reports for this fleet, from the
+    seeds ``solve`` builds: (B,) tensors of backward attempts, sweeps, ..."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp, mega_msipddp
+
+    p = prob.replace(x0=x0)
+    if solver == "CLDDP":
+        B, N = x0.shape[0], p.horizon
+        U0 = x0.new_zeros(B, N, 2)
+        seeds = (x0[:, None].expand(-1, N + 1, -1).contiguous(), U0, U0.clone(),
+                 x0.new_zeros(B, N, 2, 3))
+        return mega_clddp.launch_counting_work(p, opts, *seeds)[-1]
+    if solver == "IPDDP":
+        pw, seeds = chip_smoke.ip_seeds(prob, opts, x0)
+        return mega_ipddp.launch_counting_work(pw, opts, *seeds)[-1]
+    mega = mega_logddp if solver == "LogDDP" else mega_msipddp
+    return mega.launch_counting_work(p, opts, *chip_smoke.barrier_seeds(solver, p, opts))[-1]
+
+
+def sass_loops(smi):
+    """Print the loops of the four whole-solve kernels (float32, m = 4) in
+    the library's SASS: for each backward branch, its body's instruction
+    count and its global loads (LDG), cp.async copies (LDGSTS), global
+    stores (STG), shared loads (LDS), local loads and stores (LDL, STL:
+    spills), floating-point instructions (F*), and branches (BRA)."""
+    from cddp_tpu_torch.ops.kernels import build
+
+    cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(build.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    kinds = ("LDG", "LDGSTS", "STG", "LDS", "LDL", "STL", "F", "BRA")
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        wanted = [k for k in WHOLE_SOLVE.values() if f"{len(k) + 7}{k}_kernelIf" in name]
+        if not wanted or ("logddp" in wanted[0] or "ipddp" in wanted[0]) and "Li4E" not in name:
+            continue
+        ins = []  # (address, opcode, branch target or None)
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", fn):
+            tgt = re.search(r"(0x[0-9a-f]+)", m.group(3)) if m.group(2).startswith("BRA") else None
+            ins.append((int(m.group(1), 16), m.group(2), int(tgt.group(1), 16) if tgt else None))
+        print(f"[sass] {wanted[0]} f32: {len(ins)} instructions  [{smi}]")
+        for addr, _, tgt in ins:
+            if tgt is None or tgt >= addr:
+                continue
+            body = Counter()
+            for a, o, _ in ins:
+                if tgt <= a <= addr:
+                    base = o.split(".")[0]
+                    body["all"] += 1
+                    body[base if base in kinds else ("F" if base[0] == "F" else "other")] += 1
+            print(f"    loop {tgt:#07x}-{addr:#07x}: {body['all']} instructions, "
+                  + ", ".join(f"{k} {body[k]}" for k in kinds))
+
+
+def boxqp_first_valid(prob, x0, opts, smi):
+    """Run the plain CLDDP driver on the fleet and record, for every backward
+    step of every instance, the index in product order of the active set
+    its BoxQP took (all of them when none was valid); print how many
+    configurations a search that stops at the first valid one evaluates,
+    per lane and per warp (its slowest lane), and how often the all-free
+    configuration 0 is taken. The lanes of a warp stay in step through the
+    backward passes here: every instance makes one attempt per iteration."""
+    from cddp_tpu_torch.ops.kernels import riccati
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    seen = []
+    enum = riccati.boxqp_solve_enum
+
+    def recording(H, g, lower, upper):
+        qp = enum(H, g, lower, upper)
+        nu = g.shape[-1]
+        digit = torch.where(qp.free, 0, torch.where(qp.x == lower, 1,
+                                                    torch.where(qp.x == upper, 2, 3)))
+        place = 3 ** torch.arange(nu - 1, -1, -1, device=g.device)
+        first = (digit.clamp(max=2) * place).sum(-1) + 1
+        seen.append(torch.where((digit == 3).any(-1), torch.full_like(first, 3 ** nu), first))
+        return qp
+
+    riccati.boxqp_solve_enum = recording
+    try:
+        batched_solve(prob, x0, "CLDDP", opts.replace(backward_engine="scan"))
+    finally:
+        riccati.boxqp_solve_enum = enum
+    ev = torch.stack(seen).double()  # (backward steps, B)
+    warps = ev[:, : ev.shape[1] // 32 * 32].reshape(ev.shape[0], -1, 32)
+    print(f"[boxqp] CLDDP fleet, {ev.shape[0]} backward steps x {ev.shape[1]} instances: "
+          f"configurations evaluated up to the first valid one, mean per lane "
+          f"{float(ev.mean()):.4f}, mean per warp of its slowest lane "
+          f"{float(warps.amax(-1).mean()):.4f} (of 9); configuration 0 taken by "
+          f"{float((ev == 1).double().mean()):.4%} of lane steps, by all 32 lanes in "
+          f"{float((warps == 1).all(-1).double().mean()):.4%} of warp steps  [{smi}]")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=chip_smoke.B_MAIN)
-    ap.add_argument("--solver", default="all", choices=SOLVERS + ("all",))
-    ap.add_argument("--engine", default="all", choices=tuple(ENGINES) + ("all",))
+    ap.add_argument("--solver", nargs="+", default=["all"], choices=SOLVERS + ("all",))
+    ap.add_argument("--engine", nargs="+", default=["all"], choices=tuple(ENGINES) + ("all",))
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--boxqp", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_fleet: no CUDA device")
@@ -56,13 +172,19 @@ def main():
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     chip_smoke.print_kernel_attributes(smi)
+    if args.sass:
+        sass_loops(smi)
     dev = torch.device("cuda", 0)
     prob = chip_smoke.flagship_problem(tt, torch.float32, dev)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
     x0 = torch.rand(args.batch, 3, generator=gen, device=dev) - 0.5
-    for solver in (SOLVERS if args.solver == "all" else (args.solver,)):
+    if args.boxqp:
+        boxqp_first_valid(prob, x0, tt.CDDPOptions(max_iterations=10, tolerance=1e-4), smi)
+    solvers = SOLVERS if "all" in args.solver else args.solver
+    wanted = set(ENGINES.values()) if "all" in args.engine else {ENGINES[e] for e in args.engine}
+    for solver in solvers:
         for name, opts in engines(tt, solver).items():
-            if args.engine != "all" and name != ENGINES[args.engine]:
+            if name not in wanted:
                 continue
             batched_solve(prob, x0, solver, opts)
             torch.cuda.synchronize()
@@ -86,6 +208,11 @@ def main():
                   f"{peak:.2f} GiB  [{smi}]")
             for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
                 print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+            if name == ENGINES["whole"]:
+                work = whole_solve_work(solver, prob, x0, opts)
+                print(f"    work per instance (backward attempts, sweeps, ...): "
+                      + ", ".join(f"{float(w.double().mean()):.4f}" for w in work)
+                      + f"; warp divergence {chip_smoke.warp_divergence(work):.4f}")
 
 
 if __name__ == "__main__":
