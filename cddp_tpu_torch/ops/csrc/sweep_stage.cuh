@@ -14,6 +14,16 @@
 // Layout [stage][value][thread]: a warp reads 32 consecutive words, free of
 // bank conflicts, and its copies come from 32 consecutive batch-last
 // addresses, so the global reads stay coalesced.
+//
+// TileStage is the sibling for a kernel whose threads walk their steps in
+// lockstep (ipddp_backward.cu) and whose operands come with any batch,
+// step and value strides: each thread copies its own instance's values of
+// the next step into the same [value][thread] tiles, whatever the layout
+// (a batch-last view copies coalesced; for a batch-first one each thread
+// reads its own run, the rest of a sector arriving through L1). An operand
+// broadcast over the batch is staged by the block once a step, or once a
+// launch when it is also constant over the steps, and every thread reads
+// that one copy.
 #pragma once
 
 #include "small_linalg.cuh"
@@ -25,6 +35,33 @@ namespace cddp {
 template <typename T>
 constexpr int stage_bytes(int values, int threads) {
   return 2 * values * threads * int(sizeof(T));
+}
+
+// Start copying the word *src of device memory into *dst of shared memory
+// (cp.async, LDGSTS); it lands by the cp.async group it is committed with.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(int(sizeof(T)))
+               : "memory");
+#endif
+}
+
+// Close the group of copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Wait until every group but the newest has landed: the current stage is
+// readable while the next one is still in flight.
+__device__ __forceinline__ void cp_async_wait_prior() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+#endif
 }
 
 template <typename T, int V>
@@ -40,14 +77,7 @@ struct SweepStage {
   __device__ T* slot(int stage, int v) const { return base + (stage * V + v) * stride; }
 
   // Start copying *src into value v of the stage.
-  __device__ void copy(int stage, int v, const T* src) const {
-#if defined(__CUDA_ARCH__)
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(slot(stage, v)));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src),
-                 "n"(int(sizeof(T)))
-                 : "memory");
-#endif
-  }
+  __device__ void copy(int stage, int v, const T* src) const { cp_async(slot(stage, v), src); }
 
   // Values [v0, v0 + D) of the stage from the D values of step t of a
   // batch-last array p[t][i][b]; returns v0 + D.
@@ -58,20 +88,8 @@ struct SweepStage {
     return v0 + D;
   }
 
-  // Close the group of copies issued since the last commit.
-  __device__ static void commit() {
-#if defined(__CUDA_ARCH__)
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-  }
-
-  // Wait until every group but the newest has landed: the current stage
-  // is readable while the next one is still in flight.
-  __device__ static void wait_prior() {
-#if defined(__CUDA_ARCH__)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-#endif
-  }
+  __device__ static void commit() { cp_async_commit(); }
+  __device__ static void wait_prior() { cp_async_wait_prior(); }
 
   __device__ T get(int stage, int v) const { return *slot(stage, v); }
 
@@ -129,6 +147,96 @@ struct NominalStage {
     else
       Stage::commit();
     Stage::wait_prior();
+  }
+};
+
+// Where an operand of a TileStage lives.
+enum TileKind : int {
+  kPerInstance = 0,  // batch stride != 0: a [value][thread] tile in each stage
+  kPerStep = 1,      // batch stride 0, step stride != 0: one row a step in each stage
+  kConstant = 2,     // both strides 0: one copy for the launch
+};
+
+struct TileOperand {
+  long long bs, ts, vs;  // batch, step and value strides, in elements
+  int kind, off;         // TileKind; its first value in a step's tile, row or the constants
+};
+
+// Lay out NOPS operands of D[o] values a step from their strides: fills
+// each operand's kind and offset, the values a step of the per-instance
+// tiles (V) and of the broadcast rows (W), and the constant values (C).
+// strides holds each operand's (batch, step, value) strides.
+template <int NOPS>
+inline void tile_layout(const int (&D)[NOPS], const long long* strides,
+                        TileOperand (&op)[NOPS], int& V, int& W, int& C) {
+  V = W = C = 0;
+  for (int o = 0; o < NOPS; ++o) {
+    const long long bs = strides[3 * o], ts = strides[3 * o + 1], vs = strides[3 * o + 2];
+    const int kind = bs != 0 ? kPerInstance : ts != 0 ? kPerStep : kConstant;
+    int& next = kind == kPerInstance ? V : kind == kPerStep ? W : C;
+    op[o] = TileOperand{bs, ts, vs, kind, next};
+    next += D[o];
+  }
+}
+
+// Two stages of one step each, then the constants, at base: in stage s,
+// value v of thread x of a per-instance operand at s * stage_elems + v * TH
+// + x; value v of a per-step broadcast at s * stage_elems + V * TH + v; a
+// constant at 2 * stage_elems + v.
+template <typename T, int TH>
+struct TileStage {
+  T* base;
+  int V, W;
+
+  __host__ __device__ static constexpr int bytes(int V, int W, int C) {
+    return (2 * (V * TH + W) + C) * int(sizeof(T));
+  }
+  __device__ int stage_elems() const { return V * TH + W; }
+  __device__ T* consts() const { return base + 2 * stage_elems(); }
+
+  // Start copying step t of operand o (D values a step) into the stage: a
+  // per-instance operand by each thread for its own instance b (if b < B),
+  // a per-step broadcast by the block.
+  template <int D>
+  __device__ void fetch(const T* src, const TileOperand& o, int stage, int t, int b,
+                        int B) const {
+    T* st = base + stage * stage_elems();
+    if (o.kind == kPerInstance) {
+      if (b >= B) return;
+      const T* from = src + (long long)b * o.bs + (long long)t * o.ts;
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+        cp_async(st + (o.off + i) * TH + threadIdx.x, from + i * o.vs);
+    } else if (o.kind == kPerStep) {
+      for (int i = threadIdx.x; i < D; i += TH)
+        cp_async(st + V * TH + o.off + i, src + (long long)t * o.ts + i * o.vs);
+    }
+  }
+
+  // Start copying a constant operand (once a launch).
+  template <int D>
+  __device__ void fetch_constant(const T* src, const TileOperand& o) const {
+    if (o.kind == kConstant)
+      for (int i = threadIdx.x; i < D; i += TH) cp_async(consts() + o.off + i, src + i * o.vs);
+  }
+
+  // This thread's D values of operand o in the stage.
+  template <int D>
+  __device__ void load(const TileOperand& o, int stage, T (&v)[D]) const {
+    const T* st = base + stage * stage_elems();
+    if (o.kind == kPerInstance) {
+      const T* p = st + o.off * TH + threadIdx.x;
+#pragma unroll
+      for (int i = 0; i < D; ++i) v[i] = p[i * TH];
+    } else {
+      const T* p = o.kind == kPerStep ? st + V * TH + o.off : consts() + o.off;
+#pragma unroll
+      for (int i = 0; i < D; ++i) v[i] = p[i];
+    }
+  }
+  template <int D1, int D2>
+  __device__ void load(const TileOperand& o, int stage, T (&v)[D1][D2]) const {
+    load<D1 * D2>(o, stage, reinterpret_cast<T(&)[D1 * D2]>(v));
   }
 };
 

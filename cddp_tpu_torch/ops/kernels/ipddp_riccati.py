@@ -10,7 +10,12 @@ control gains, as ``linalg.solve_and_check`` gives), the closed-form dual
 and slack gains and the value update. The CUDA kernel
 (``ops/csrc/ipddp_backward.cu``, step in ``ops/csrc/ipddp_step.cuh``) gives
 each instance one thread, which walks the horizon backwards with the value
-function in registers.
+function in registers. It reads every input where it lies, from its batch,
+step and value strides (``operand_strides``): the wrapper copies nothing,
+and an input broadcast over the batch (the cost Hessians, the constraint
+Jacobians) is read from its one copy. Its outputs are batch-last arrays,
+returned as batch-first views: the forward kernel, which reads the gains
+next, takes them batch-last without a copy.
 
 **Engine choice differs from the JAX package.** There this kernel is opt-in
 (``backward_engine="fused"``): on the TPU the custom-call boundary inside
@@ -44,7 +49,9 @@ EPS_SLACK = 1e-10
 # box, a state box, or both.
 KERNEL_SHAPES = ((3, 2, 4), (3, 2, 6), (3, 2, 10))
 
-_ARGTYPES = [ctypes.c_void_p] * 25 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# Inputs with a step axis: (B, N, ...) for the first 12, (B, ...) after.
+STEP_OPERANDS = 12
 
 
 def max_ratio(dtype) -> float:
@@ -161,23 +168,55 @@ def ipddp_backward(*args):
     return _launch(*args)
 
 
+def inner_shapes(nx, nu, m):
+    """Each input's shape after its batch (and step) axis."""
+    return ((nx, nx), (nx, nu), (nx,), (nu,), (nx, nx), (nu, nu), (nu, nx), (m,), (m,),
+            (m,), (m, nx), (m, nu), (nx,), (nx, nx), (), ())
+
+
+def operand_strides(ins):
+    """The kernel's view of its 16 inputs: each one's (batch stride, step
+    stride, value stride) in elements, the step stride 0 for Vx, Vxx, mu and
+    reg, which have no step axis. A batch or step stride of 0 is a
+    broadcast, read from one copy. The values of one instance and step (the
+    axes after batch and step, row-major) must be evenly spaced: the value
+    stride is 1 for a dense batch-first tensor and B for a batch-last view
+    (``movedim`` of a (..., B) tensor, as the forward kernel returns its
+    duals and slacks). Raises ValueError otherwise."""
+    out = []
+    for k, t in enumerate(ins):
+        lead = 2 if k < STEP_OPERANDS else 1
+        inner = [(n, st) for n, st in zip(t.shape[lead:], t.stride()[lead:]) if n != 1]
+        vs = inner[-1][1] if inner else 1
+        want = vs
+        for n, st in reversed(inner):
+            if st != want or vs == 0:
+                raise ValueError(f"ipddp_backward: input {k} of shape {tuple(t.shape)} and "
+                                 f"strides {t.stride()} has no evenly spaced values")
+            want *= n
+        out.append((t.stride(0), t.stride(1) if lead == 2 else 0, vs))
+    return out
+
+
 def _launch(A, Bm, lx, lu, lxx, luu, lux, Y, S, G, Gx, Gu, Vx, Vxx, mu, reg):
     from cddp_tpu_torch.ops.kernels import build
 
     ins = (A, Bm, lx, lu, lxx, luu, lux, Y, S, G, Gx, Gu, Vx, Vxx, mu, reg)
     Bsz, N, nx = A.shape[0], A.shape[1], A.shape[2]
     nu, m = Bm.shape[-1], Y.shape[-1]
-    tag = build.dtype_tag("ipddp_backward", ins, (
-        (N, nx, nx), (N, nx, nu), (N, nx), (N, nu), (N, nx, nx), (N, nu, nu),
-        (N, nu, nx), (N, m), (N, m), (N, m), (N, m, nx), (N, m, nu), (nx,),
-        (nx, nx), (), ()))
+    shapes = inner_shapes(nx, nu, m)
+    tag = build.dtype_tag("ipddp_backward", ins, [
+        ((N,) if k < STEP_OPERANDS else ()) + s for k, s in enumerate(shapes)])
+    strides = [s for triple in operand_strides(ins) for s in triple]
     name = f"cddp_ipddp_backward_{nx}x{nu}x{m}_{tag}"
     fn = build.function(name, _ARGTYPES)
-    last = [t.movedim(0, -1).contiguous() for t in ins]
     outs = [A.new_empty(*shape, Bsz) for shape in (
         (N, nu), (N, nu, nx), (N, m), (N, m, nx), (N, m), (N, m, nx), (N, nx),
         (N, nx, nx), (7,))]
-    err = fn(*(build.ptr(t) for t in last + outs), N, Bsz, build.stream_ptr(A.device))
+    err = fn((ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins)),
+             (ctypes.c_longlong * len(strides))(*strides),
+             (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs)),
+             N, Bsz, build.stream_ptr(A.device))
     build.check(err, name)
     dispatch_log.launched("ipddp_backward", Bsz)
     return tuple(t.movedim(-1, 0) for t in outs)

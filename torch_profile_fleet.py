@@ -16,10 +16,13 @@ wall, the launch count and the eight kernels with the most device time;
 and the peak device memory of the solve. For the whole-solve kernel it also
 prints the work the kernel reports per instance (backward attempts and
 sweeps, ``mega_*.launch_counting_work``) and its warp divergence, so that
-two builds whose solves take different paths compare per unit of work.
+two builds whose solves take different paths compare per unit of work; for
+the per-pass IPDDP engine, each kernel's wrapper ms a call (CUDA events,
+layout copies included) beside its device ms a launch.
 First it prints what the card reports of every kernel (registers, spill
 bytes, shared memory, resident blocks per SM); with ``--sass``, the loops
-of the four whole-solve kernels (float32, m = 4) in the compiled SASS
+of the four whole-solve kernels and the condensed IPDDP backward (float32,
+m = 4) in the compiled SASS
 (``cuobjdump``): each backward branch's body with its instruction count
 and its loads, stores and floating-point instructions. With ``--boxqp``,
 how many of the enumerated BoxQP's nine active sets the CLDDP fleet's
@@ -81,21 +84,69 @@ def whole_solve_work(solver, prob, x0, opts):
     return mega.launch_counting_work(p, opts, *chip_smoke.barrier_seeds(solver, p, opts))[-1]
 
 
+# The per-pass IPDDP engine's kernel wrappers, as the driver looks them up:
+# (module, attribute, kernel name).
+PER_PASS_WRAPPERS = {"IPDDP": (("ipddp_riccati", "ipddp_backward", "ipddp_backward"),
+                               ("ip_rollout", "ip_forward", "ip_forward"))}
+
+
+def per_pass_wrapper_ms(solver, prob, x0, opts, prof, smi):
+    """For a per-pass engine, each kernel's wrapper ms a call (CUDA events
+    around the wrapper in one more solve, its layout copies included) beside
+    its device ms a launch (the profiler's kernel rows of ``prof``), so the
+    cost of the wrapper around the kernel shows on the fleet itself."""
+    import importlib
+
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    for module, attr, kernel in PER_PASS_WRAPPERS.get(solver, ()):
+        mod = importlib.import_module(f"cddp_tpu_torch.ops.kernels.{module}")
+        wrapper, events = getattr(mod, attr), []
+
+        def timed(*args, wrapper=wrapper, events=events):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = wrapper(*args)
+            stop.record()
+            events.append((start, stop))
+            return out
+
+        setattr(mod, attr, timed)
+        try:
+            batched_solve(prob, x0, solver, opts)
+            torch.cuda.synchronize()
+        finally:
+            setattr(mod, attr, wrapper)
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and f"cddp::{kernel}_kernel<" in e.key]
+        launches = sum(e.count for e in rows)
+        dev_ms = sum(e.self_device_time_total for e in rows) / max(launches, 1) / 1e3
+        wrap_ms = sum(a.elapsed_time(b) for a, b in events) / max(len(events), 1)
+        print(f"    {kernel}: {len(events)} calls, wrapper {wrap_ms:.3f} ms a call (CUDA "
+              f"events), device {dev_ms:.3f} ms a launch over {launches} (profiler)  [{smi}]")
+
+
+# Kernels whose SASS loops ``--sass`` prints: the four whole solves and the
+# condensed IPDDP backward.
+SASS_KERNELS = tuple(WHOLE_SOLVE.values()) + ("ipddp_backward",)
+
+
 def sass_loops(smi):
-    """Print the loops of the four whole-solve kernels (float32, m = 4) in
-    the library's SASS: for each backward branch, its body's instruction
-    count and its global loads (LDG), cp.async copies (LDGSTS), global
-    stores (STG), shared loads (LDS), local loads and stores (LDL, STL:
-    spills), floating-point instructions (F*), and branches (BRA)."""
+    """Print the loops of ``SASS_KERNELS`` (float32, m = 4) in the library's
+    SASS: for each backward branch, its body's instruction count and its
+    global loads (LDG), cp.async copies (LDGSTS), global stores (STG),
+    shared loads and stores (LDS, STS), local loads and stores (LDL, STL:
+    spills), barriers (BAR), floating-point instructions (F*), and branches
+    (BRA)."""
     from cddp_tpu_torch.ops.kernels import build
 
     cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
     text = subprocess.run([cuobjdump, "-sass", str(build.library_path())], capture_output=True,
                           text=True, check=True).stdout
-    kinds = ("LDG", "LDGSTS", "STG", "LDS", "LDL", "STL", "F", "BRA")
+    kinds = ("LDG", "LDGSTS", "STG", "LDS", "STS", "LDL", "STL", "BAR", "F", "BRA")
     for fn in re.split(r"\n\s*Function : ", text)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        wanted = [k for k in WHOLE_SOLVE.values() if f"{len(k) + 7}{k}_kernelIf" in name]
+        wanted = [k for k in SASS_KERNELS if f"{len(k) + 7}{k}_kernelIf" in name]
         if not wanted or ("logddp" in wanted[0] or "ipddp" in wanted[0]) and "Li4E" not in name:
             continue
         ins = []  # (address, opcode, branch target or None)
@@ -208,6 +259,8 @@ def main():
                   f"{peak:.2f} GiB  [{smi}]")
             for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
                 print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}")
+            if name == ENGINES["per-pass"]:
+                per_pass_wrapper_ms(solver, prob, x0, opts, prof, smi)
             if name == ENGINES["whole"]:
                 work = whole_solve_work(solver, prob, x0, opts)
                 print(f"    work per instance (backward attempts, sweeps, ...): "
