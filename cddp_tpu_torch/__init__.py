@@ -1,22 +1,37 @@
 """cddp_tpu_torch — the PyTorch + CUDA port of ``cddp_tpu``.
 
-Batch-first CLDDP with a control box, and IPDDP, LogDDP and MSIPDDP with
-control and state boxes, over the unicycle, as the JAX package solves them,
-plus hand-written CUDA kernels for NVIDIA Hopper (``ops/csrc/``): for CLDDP
-the Riccati backward pass, the line-search rollout and the whole solve; for
-IPDDP the open-loop rollout (which seeds every barrier solver), the
-interior-point forward pass, the condensed backward and the whole solve;
-the whole LogDDP and MSIPDDP solves. CUDA tensors run the kernels; CPU
-tensors run their plain PyTorch versions. The builders put tensors on the
-CUDA card unless given ``device``. The kernels are built with ``nvcc`` at
-first use, never at import.
+Batch-first CLDDP with a control box; IPDDP with every path-constraint type
+of the JAX package (boxes, keep-out balls, linear, pole, cone and thrust
+constraints); LogDDP and MSIPDDP with control and state boxes; all over the
+unicycle, as the JAX package solves them. Hand-written CUDA kernels for
+NVIDIA Hopper (``ops/csrc/``): for CLDDP the Riccati backward pass, the
+line-search rollout and the whole solve; for IPDDP the open-loop rollout
+(which seeds every barrier solver), the interior-point forward pass, the
+condensed backward and the whole solve (box and keep-out-ball stacks, with
+the "auto" stall latch); the whole LogDDP and MSIPDDP solves. CUDA tensors
+run the kernels; CPU tensors run their plain PyTorch versions. The builders
+put tensors on the CUDA card unless given ``device``. The kernels are built
+with ``nvcc`` at first use, never at import.
 """
 
 from cddp_tpu_torch.constraints.path import (
+    BallConstraint,
     ControlConstraint,
+    LinearConstraint,
+    MaxThrustMagnitudeConstraint,
+    PathConstraint,
+    PoleConstraint,
+    SecondOrderConeConstraint,
     StateConstraint,
+    ThrustMagnitudeConstraint,
+    ball_constraint,
     control_constraint,
+    linear_constraint,
+    max_thrust_magnitude_constraint,
+    pole_constraint,
+    second_order_cone_constraint,
     state_constraint,
+    thrust_magnitude_constraint,
 )
 from cddp_tpu_torch.costs.objective import QuadraticObjective, quadratic_objective
 from cddp_tpu_torch.options import (
@@ -33,11 +48,15 @@ from cddp_tpu_torch.problem import Problem, problem
 from cddp_tpu_torch.solution import Solution, Status
 
 __all__ = [
-    "BarrierOptions", "BarrierStrategy", "CDDPOptions", "ControlConstraint",
-    "IPDDPOptions", "LogBarrierOptions", "MSIPDDPOptions", "MultiShootingOptions", "Problem",
-    "QuadraticObjective", "Solution",
-    "StateConstraint", "Status", "batched_solve", "control_constraint",
-    "problem", "quadratic_objective", "solve", "state_constraint",
+    "BallConstraint", "BarrierOptions", "BarrierStrategy", "CDDPOptions",
+    "ControlConstraint", "IPDDPOptions", "LinearConstraint", "LogBarrierOptions",
+    "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
+    "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",
+    "SecondOrderConeConstraint", "Solution", "StateConstraint", "Status",
+    "ThrustMagnitudeConstraint", "ball_constraint", "batched_solve",
+    "control_constraint", "linear_constraint", "max_thrust_magnitude_constraint",
+    "pole_constraint", "problem", "quadratic_objective", "second_order_cone_constraint",
+    "solve", "state_constraint", "thrust_magnitude_constraint",
 ]
 
 

@@ -7,10 +7,10 @@
 
 applied to both sides of lower <= g(x, u) <= upper, infinite bounds masked
 out. Batch-first: ``x`` is (..., nx), ``u`` (..., nu) and the barrier
-coefficient broadcasts against the leading axes (one mu per instance). The
-port's path constraints are boxes, whose constraint Hessians are zero, so
-the curvature term beta' * d2g of the JAX package's ``hessians`` vanishes and
-is not formed. ``log(delta)`` is taken in float64 on the host and rounded
+coefficient broadcasts against the leading axes (one mu per instance).
+LogDDP takes box stacks only, whose Jacobians are constant rows and whose
+constraint Hessians are zero, so the curvature term beta' * d2g of the JAX
+package's ``hessians`` vanishes and is not formed. ``log(delta)`` is taken in float64 on the host and rounded
 once to the working type, as the whole-solve kernel takes it.
 """
 
@@ -65,8 +65,7 @@ class RelaxedLogBarrier:
         return self.barrier_coeff * (bL[0] * mL + bU[0] * mU).sum(-1)
 
     def _jacobians(self, constraint, x, u):
-        nx, nu = x.shape[-1], u.shape[-1]
-        return constraint.state_jacobian(nx, nu), constraint.control_jacobian(nx, nu)
+        return constraint.jacobian_rows(x.shape[-1], u.shape[-1])
 
     def gradients(self, constraint, x, u):
         """(dB/dx (..., nx), dB/du (..., nu)) through the constraint

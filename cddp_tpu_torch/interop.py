@@ -14,7 +14,7 @@ import enum
 import numpy as np
 import torch
 
-from cddp_tpu_torch.constraints.path import ControlConstraint, StateConstraint
+from cddp_tpu_torch.constraints import path
 from cddp_tpu_torch.costs.objective import QuadraticObjective
 from cddp_tpu_torch.models.unicycle import Unicycle
 from cddp_tpu_torch.options import CDDPOptions
@@ -24,17 +24,28 @@ from cddp_tpu_torch.problem import Problem
 _MODELS = {
     "Unicycle": lambda params, integrator: Unicycle(integration_type=integrator),
 }
-_BOXES = {"control": ControlConstraint, "state": StateConstraint}
+_BOXES = {"control": path.ControlConstraint, "state": path.StateConstraint}
+# The other path-constraint types, by the JAX package's type names; each is
+# built from its fields, which carry the JAX type's names.
+_PATH = {cls.__name__: cls for cls in (
+    path.BallConstraint, path.LinearConstraint, path.PoleConstraint,
+    path.SecondOrderConeConstraint, path.ThrustMagnitudeConstraint,
+    path.MaxThrustMagnitudeConstraint)}
 
 
 def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
                         upper, x0, horizon: int, timestep: float,
-                        integrator: str, *, device, dtype, boxes=None) -> Problem:
+                        integrator: str, *, device, dtype, boxes=None,
+                        constraints=None) -> Problem:
     """Build a problem from numpy arrays. ``Q`` and ``R`` are already
     dt-prescaled (as ``QuadraticObjective`` stores them) and go in as given;
     ``lower``/``upper`` None means no "ControlConstraint" box. ``boxes`` maps
     further constraint names to ("control" | "state", lower, upper,
-    scale_factor)."""
+    scale_factor); ``constraints`` maps names to (type name, fields): a
+    type of ``_PATH`` and its fields, arrays becoming tensors and Python
+    numbers staying as they are, for example ("BallConstraint",
+    {"radius": np.asarray(0.4), "center": np.asarray([1.0, 1.0]),
+    "scale_factor": 1.0})."""
     try:
         make_model = _MODELS[model_name]
     except KeyError as e:
@@ -42,16 +53,21 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
                          f"available: {sorted(_MODELS)}") from e
     t = lambda a: torch.as_tensor(np.array(a), device=device, dtype=dtype)  # noqa: E731
     objective = QuadraticObjective(Q=t(Q), R=t(R), Qf=t(Qf), reference_state=t(goal))
-    constraints = {}
+    items = {}
     if lower is not None:
-        constraints["ControlConstraint"] = ControlConstraint(lower=t(lower), upper=t(upper))
+        items["ControlConstraint"] = path.ControlConstraint(lower=t(lower), upper=t(upper))
     for name, (kind, lo, hi, scale) in (boxes or {}).items():
-        constraints[name] = _BOXES[kind](lower=t(lo), upper=t(hi),
-                                         scale_factor=float(scale))
+        items[name] = _BOXES[kind](lower=t(lo), upper=t(hi), scale_factor=float(scale))
+    for name, (kind, fields) in (constraints or {}).items():
+        if kind not in _PATH:
+            raise ValueError(f"constraint type {kind!r} is not ported; "
+                             f"available: {sorted(_PATH)}")
+        items[name] = _PATH[kind](**{
+            k: v if isinstance(v, (bool, int, float)) else t(v) for k, v in fields.items()})
     return Problem(
         model=make_model(np.asarray(model_params), integrator),
         objective=objective, x0=t(x0), horizon=int(horizon),
-        timestep=float(timestep), constraints=constraints,
+        timestep=float(timestep), constraints=items,
     )
 
 

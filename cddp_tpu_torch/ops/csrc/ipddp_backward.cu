@@ -261,8 +261,9 @@ int launch_ipddp_backward(const T* const* in, const long long* strides, T* const
 
 }  // namespace cddp
 
-// (nx, nu, m): the unicycle with a control box (m=4), a state box (6) or
-// both (10). Registered with the per-pass driver's layout.
+// (nx, nu, m): the unicycle with a control box (m=4), a state box (6),
+// both (10), or a control box and a keep-out ball (5). Registered with the
+// per-pass driver's layout of a box stack.
 #define CDDP_IPDDP_BACKWARD(NX, NU, M)                                                 \
   extern "C" int CDDP_EXPORT(cddp_ipddp_backward_##NX##x##NU##x##M)(                   \
       const scalar_t* const* in, const long long* strides, scalar_t* const* out, int N, \
@@ -275,5 +276,6 @@ int launch_ipddp_backward(const T* const* in, const long long* strides, T* const
                 (cddp::ipddp_backward_main_smem<scalar_t, NX, NU, M>()))
 
 CDDP_IPDDP_BACKWARD(3, 2, 4)
+CDDP_IPDDP_BACKWARD(3, 2, 5)
 CDDP_IPDDP_BACKWARD(3, 2, 6)
 CDDP_IPDDP_BACKWARD(3, 2, 10)

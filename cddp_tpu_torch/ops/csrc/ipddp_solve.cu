@@ -2,8 +2,10 @@
 // one instance.
 //
 // Replaces cddp_tpu/ops/pallas/mega_ipddp.py::make_solve_kernel (:555) for
-// box-only path stacks, the quadratic goal cost, no terminal constraints and
-// tracked costates. The Pallas kernel runs a tile of instances in lock step
+// stacks of control and state boxes and, with the template argument BALL
+// (the stack row of a keep-out ball, -1 for none), one keep-out ball; the
+// quadratic goal cost, no terminal constraints and tracked costates. The
+// Pallas kernel runs a tile of instances in lock step
 // and freezes finished lanes with masks; here every thread follows its own
 // control flow, which is the per-instance semantics of
 // solvers/ipddp.py::_drive directly:
@@ -18,6 +20,17 @@
 //     on success: barrier update (ADAPTIVE or MONOTONIC/IPOPT), the accepted
 //       trial written over the nominal, filter update, convergence tests;
 //     on failure: regularization increase and the acceptable/limit exits.
+//
+// A ball row is curved, and its variant carries the "auto" stall latch
+// (mega_ipddp.py latch_traced, :595) as the JAX kernel traces it only for
+// ball stacks: the ball's g and its state-Jacobian row are evaluated from
+// each step's staged x (no device array holds them); the armed
+// constraint-Hessian fold adds y_ball (-2 scale) to lxx's head diagonal
+// before each condensed step; the armed slack SOC re-closes s := -g in each
+// trial where fraction-to-boundary allows; the stall detector counts
+// stalled commits; a failed line search drops the SOC near feasibility or
+// arms the latch at the regularization limit far from it. The box variants
+// (BALL = -1) compile none of it.
 //
 // State (batch-last, [t][i][b]): X, U, Y, S, G, Lambda in and out, the
 // control gains k, K and the costate gains k_lambda, K_lambda. The dual and
@@ -44,33 +57,34 @@
 
 namespace cddp {
 
-// Solver options baked into one launch (mega_ipddp.py::_solve_cfg).
+// Solver options baked into one launch (mega_ipddp.py::_solve_cfg). The
+// stall latch's words (mega_ipddp.py::_make_cfg): soc_auto and chess_auto
+// ("auto" slack SOC and constraint-Hessian fold), soc_stall (stalled
+// commits that arm it) and far (100 tol, the detector's "far from
+// feasibility" bar).
 template <typename T>
 struct IpCfg {
   T tol, atol, reg0, reg_uf, reg_max, reg_min, f, f01, f03, f06, power,
       mu_floor_adaptive, mu_min, min_ftb, btm, dual_weight, kappa_eps, armijo, mat,
-      one_m_vat, max_viol, mvfac, sqrt_atol, barrier_accept_tol, tol10, fail_accept;
+      one_m_vat, max_viol, mvfac, sqrt_atol, barrier_accept_tol, tol10, fail_accept, far;
   T alphas[kMaxAlpha];
-  int max_iterations, n_alpha, bp_bound, integrator, adaptive, theta_l2, f_max;
+  int max_iterations, n_alpha, bp_bound, integrator, adaptive, theta_l2, f_max, soc_auto,
+      chess_auto, soc_stall;
 
-  static IpCfg from_host(const double* h, const double* alphas, int max_iterations,
-                         int n_alpha, int bp_bound, int integrator, int adaptive,
-                         int theta_l2, int f_max) {
+  // ints: integrator, max_iterations, n_alpha, bp_bound, adaptive, theta_l2,
+  // f_max, soc_auto, chess_auto, soc_stall.
+  static IpCfg from_host(const double* h, const double* alphas, const int* ints) {
     IpCfg c{};
     T* v[] = {&c.tol, &c.atol, &c.reg0, &c.reg_uf, &c.reg_max, &c.reg_min, &c.f,
               &c.f01, &c.f03, &c.f06, &c.power, &c.mu_floor_adaptive, &c.mu_min,
               &c.min_ftb, &c.btm, &c.dual_weight, &c.kappa_eps, &c.armijo, &c.mat,
               &c.one_m_vat, &c.max_viol, &c.mvfac, &c.sqrt_atol,
-              &c.barrier_accept_tol, &c.tol10, &c.fail_accept};
+              &c.barrier_accept_tol, &c.tol10, &c.fail_accept, &c.far};
     for (int i = 0; i < int(sizeof(v) / sizeof(v[0])); ++i) *v[i] = T(h[i]);
-    for (int i = 0; i < n_alpha && i < kMaxAlpha; ++i) c.alphas[i] = T(alphas[i]);
-    c.max_iterations = max_iterations;
-    c.n_alpha = n_alpha;
-    c.bp_bound = bp_bound;
-    c.integrator = integrator;
-    c.adaptive = adaptive;
-    c.theta_l2 = theta_l2;
-    c.f_max = f_max;
+    int* n[] = {&c.integrator, &c.max_iterations, &c.n_alpha, &c.bp_bound, &c.adaptive,
+                &c.theta_l2, &c.f_max, &c.soc_auto, &c.chess_auto, &c.soc_stall};
+    for (int i = 0; i < int(sizeof(n) / sizeof(n[0])); ++i) *n[i] = ints[i];
+    for (int i = 0; i < c.n_alpha && i < kMaxAlpha; ++i) c.alphas[i] = T(alphas[i]);
     return c;
   }
 };
@@ -91,9 +105,10 @@ struct TrialOut {
   bool ok;
 };
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl, int M, int BALL>
 struct IpSolver {
   static constexpr int NX = Mdl::NX, NU = Mdl::NU;
+  static constexpr bool kBall = BALL >= 0;
   // Staged values of one step (sweep_stage.cuh): Y, S, G, U always; X[t]
   // (backward, max-step sweep) or the nominal X[t+1] (trial) at vX; k, K
   // for the max-step sweep and the trial; Kl, L, kl for the trial.
@@ -102,7 +117,8 @@ struct IpSolver {
                        kValues = vkl + NX;
   using Stage = SweepStage<T, kValues>;
   const Consts<T, Mdl>& c;
-  const BoxRows<T, M, NX, NU>& rows;
+  const BoxRows<T, M, NX, NU>& rows;  // the ball's row, if any, is a zero row
+  const BallRow<T, NX>& ball;
   const IpCfg<T>& cfg;
   T* X;
   T* U;
@@ -161,13 +177,29 @@ struct IpSolver {
   }
 
   // Row r of the dual and slack gains at one step, recomputed from the
-  // row's nominal (y, s, g) and the step's control gains (the backward
-  // computed the same numbers from the same inputs).
-  __device__ void gain_row(int r, T mu, T y, T s, T g, const T (&kt)[NU],
+  // row's nominal (y, s, g), the step's nominal x (a ball row's Jacobian)
+  // and its control gains (the backward computed the same numbers from the
+  // same inputs).
+  __device__ void gain_row(int r, const T (&x)[NX], T mu, T y, T s, T g, const T (&kt)[NU],
                            const T (&Kt)[NU][NX], T& ky, T (&Ky)[NX], T& ks,
                            T (&Ks)[NX]) const {
+    if constexpr (kBall) {
+      if (r == BALL) {
+        T gx[NX];
+        ball.gx(x, gx);
+        path_gain_row<T, NX, NU>(y, condense_row(y, s, g, mu), gx, rows.Gu[r], kt, Kt, ky, Ky,
+                                 ks, Ks);
+        return;
+      }
+    }
     path_gain_row<T, NX, NU>(y, condense_row(y, s, g, mu), rows.Gx[r], rows.Gu[r], kt, Kt, ky,
                              Ky, ks, Ks);
+  }
+
+  // The stack's g at (x, u): the box rows, then the ball row over its zero.
+  __device__ void eval(const T (&x)[NX], const T (&u)[NU], T (&g)[M]) const {
+    rows.eval(x, u, g);
+    if constexpr (kBall) g[BALL] = ball.g(x);
   }
 
   __device__ void linearize(const T (&x)[NX], const T (&u)[NU], T (&A)[NX][NX],
@@ -222,7 +254,8 @@ struct IpSolver {
 
   // One backward attempt at regularization reg; writes k, K, k_lambda,
   // K_lambda. Returns ok (every step's condensed Quu positive definite).
-  __device__ bool backward(T reg, T mu, BackStats<T>& bs) const {
+  // armed_w (0 or 1) weights a ball variant's constraint-Hessian fold.
+  __device__ bool backward(T reg, T mu, T armed_w, BackStats<T>& bs) const {
     T xN[NX], Vx[NX], Vxx[NX][NX];
     load(X, N, xN);
 #pragma unroll
@@ -282,8 +315,33 @@ struct IpSolver {
       Condensed<T, M> cd;
       condense<T, M>(y, s, g, mu, cd);
       IpStep<T, NX, NU> o;
-      condensed_step<T, NX, NU, M>(A, Bm, lx, lu, lxx, luu, lux, y, rows.Gx, rows.Gu,
-                                   cd, reg, Vx, Vxx, o);
+      if constexpr (kBall) {
+        // The ball's Jacobian row at this step's x, and the armed fold
+        // lxx[i][i] += (armed_w y_ball) (-2 scale) on the head dims
+        // (mega_ipddp.py:1073-1092): a multiply, not a branch on armed_w,
+        // so that a non-finite y gives NaN as the JAX kernel's does.
+        T Gx[M][NX], lxx_t[NX][NX];
+#pragma unroll
+        for (int r = 0; r < M; ++r)
+#pragma unroll
+          for (int j = 0; j < NX; ++j) Gx[r][j] = rows.Gx[r][j];
+        ball.gx(x, Gx[BALL]);
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+#pragma unroll
+          for (int j = 0; j < NX; ++j) lxx_t[i][j] = lxx[i][j];
+        if (cfg.chess_auto) {
+          const T h = (armed_w * y[BALL]) * (T(-2) * ball.sf);
+#pragma unroll
+          for (int i = 0; i < NX; ++i)
+            if (i < ball.d) lxx_t[i][i] = lxx[i][i] + h;
+        }
+        condensed_step<T, NX, NU, M>(A, Bm, lx, lu, lxx_t, luu, lux, y, Gx, rows.Gu, cd, reg,
+                                     Vx, Vxx, o);
+      } else {
+        condensed_step<T, NX, NU, M>(A, Bm, lx, lu, lxx, luu, lux, y, rows.Gx, rows.Gu,
+                                     cd, reg, Vx, Vxx, o);
+      }
 #pragma unroll
       for (int i = 0; i < NU; ++i) {
         at(k, t, i, NU) = o.k[i];
@@ -331,7 +389,7 @@ struct IpSolver {
       for (int r = 0; r < M; ++r) {
         const T y = st.get(stage, vY + r), s = st.get(stage, vS + r);
         T ky, Ky[NX], ks, Ks[NX];
-        gain_row(r, mu, y, s, st.get(stage, vG + r), kt, Kt, ky, Ky, ks, Ks);
+        gain_row(r, x, mu, y, s, st.get(stage, vG + r), kt, Kt, ky, Ky, ks, Ks);
         T a = T(0), d = T(0);
 #pragma unroll
         for (int j = 0; j < NX; ++j) {
@@ -372,8 +430,9 @@ struct IpSolver {
   // ipddp.py::_forward_pass, plus its terminal costate and residuals).
   // With write, the trial replaces the nominal in place: the nominal x_{t+1}
   // is read before it is overwritten, and inf_comp_new is the
-  // complementarity residual under mu_new.
-  __device__ TrialOut<T> trial(T a_pr, T a_du, T mu, T mu_new, bool write) const {
+  // complementarity residual under mu_new. soc: a ball variant's armed
+  // slack SOC is on.
+  __device__ TrialOut<T> trial(T a_pr, T a_du, T mu, T mu_new, bool write, bool soc) const {
     const T tau = nan_max(cfg.min_ftb, T(1) - mu);
     T x[NX], xb[NX];
     load(X, 0, x);
@@ -401,7 +460,7 @@ struct IpSolver {
       for (int r = 0; r < M; ++r) {
         const T y = st.get(stage, vY + r), s = st.get(stage, vS + r);
         T ky, Ky[NX], ks, Ks[NX];
-        gain_row(r, mu, y, s, st.get(stage, vG + r), kt, Kt, ky, Ky, ks, Ks);
+        gain_row(r, xb, mu, y, s, st.get(stage, vG + r), kt, Kt, ky, Ky, ks, Ks);
         T a = T(0), d = T(0);
 #pragma unroll
         for (int j = 0; j < NX; ++j) {
@@ -419,7 +478,19 @@ struct IpSolver {
         u[i] = st.get(stage, vU + i) + a_pr * kt[i] + a;
       }
       o.J = o.J + running_cost(c, x, u);
-      rows.eval(x, u, g_n);
+      eval(x, u, g_n);
+      if constexpr (kBall) {
+        // The armed slack SOC (mega_ipddp.py:1729-1745): s := -g at the
+        // trial point on every row where fraction-to-boundary allows,
+        // before the feasibility re-check.
+        if (soc) {
+#pragma unroll
+          for (int r = 0; r < M; ++r) {
+            const T s_soc = -g_n[r];
+            if (ftb_ok(s_soc, st.get(stage, vS + r), tau)) s_n[r] = s_soc;
+          }
+        }
+      }
       integrate<T, Mdl>(cfg.integrator, x, u, c.p, c.dt, xn);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
@@ -488,20 +559,21 @@ struct IpSolver {
   }
 };
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl, int M, int BALL>
 __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_solve_kernel(
     T* __restrict__ X, T* __restrict__ U, T* __restrict__ Y, T* __restrict__ S,
     T* __restrict__ G, T* __restrict__ L, T* __restrict__ k, T* __restrict__ K,
     T* __restrict__ kl, T* __restrict__ Kl, T* __restrict__ stats,
     const __grid_constant__ Consts<T, Mdl> c,
     const __grid_constant__ BoxRows<T, M, Mdl::NX, Mdl::NU> rows,
-    const __grid_constant__ IpCfg<T> cfg, int N, int B) {
+    const __grid_constant__ BallRow<T, Mdl::NX> ball, const __grid_constant__ IpCfg<T> cfg,
+    int N, int B) {
   extern __shared__ __align__(16) unsigned char cddp_smem[];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t Bs = B;
-  using Sv = IpSolver<T, Mdl, M>;
-  const Sv sv{c, rows, cfg, X, U, Y, S, G, L, k, K, kl, Kl, Bs, b, N,
+  using Sv = IpSolver<T, Mdl, M, BALL>;
+  const Sv sv{c, rows, ball, cfg, X, U, Y, S, G, L, k, K, kl, Kl, Bs, b, N,
               Sv::Stage::make(cddp_smem)};
 
   T mu = stats[4 * Bs + b];
@@ -517,6 +589,12 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
   // attempts and trajectory sweeps (trials, the accepted trial's rewrite).
   int attempts = 0, sweeps = 0;
   int it = 0, status = kIpMaxIter;
+  // The stall latch (a ball variant's only): the SOC not yet dropped, the
+  // latch armed, consecutive stalled commits, the best committed inf_pr
+  // (+inf until the first commit, ipddp.py:1651-1656).
+  bool soc_on = true, armed = false;
+  int stall = 0;
+  T best_inf_pr = T(INFINITY);
 
   for (int iter = 0; iter < cfg.max_iterations; ++iter) {
     ++it;
@@ -524,7 +602,7 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
     BackStats<T> bs;
     bool bp_limit = false;
     for (int attempt = 0; attempt < cfg.bp_bound; ++attempt) {
-      const bool ok = sv.backward(reg, mu, bs);
+      const bool ok = sv.backward(reg, mu, armed ? T(1) : T(0), bs);
       ++attempts;
       const T reg_next = ok ? reg : nan_min(reg * cfg.reg_uf, cfg.reg_max);
       const bool limit = !ok && reg_next >= cfg.reg_max;
@@ -564,7 +642,7 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
     for (int ia = 0; ia < cfg.n_alpha && !found; ++ia) {
       a_pr = nan_min(cfg.alphas[ia], apr_max);
       a_du = nan_min(cfg.alphas[ia], adu_max);
-      tr = sv.trial(a_pr, a_du, mu, mu, false);
+      tr = sv.trial(a_pr, a_du, mu, mu, false, cfg.soc_auto && soc_on && armed);
       ++sweeps;
       const T phi = tr.J - mu * tr.sumlog;
       const bool fin = tr.ok && isfinite(phi) && isfinite(tr.theta) &&
@@ -582,7 +660,20 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
       // Commit (ipddp.py:1788-1895): barrier update, the trial written over
       // the nominal, the filter update, convergence under the new mu.
       const T mu_new = sv.barrier(mu, tr.inf_pr, inf_du, tr.inf_comp);
-      const TrialOut<T> w = sv.trial(a_pr, a_du, mu, mu_new, true);
+      const TrialOut<T> w = sv.trial(a_pr, a_du, mu, mu_new, true, cfg.soc_auto && soc_on && armed);
+      if constexpr (Sv::kBall) {
+        // The stall detector (mega_ipddp.py:2111-2135, ipddp.py
+        // stall_detector_update), its constants in T as the JAX kernel's
+        // weak-typed ones: in float32, 1 - 1e-12 rounds to 1.
+        if (cfg.soc_auto || cfg.chess_auto) {
+          const bool mu_stuck = mu_new >= mu * T(1.0 - 1e-12);
+          const bool improved = tr.inf_pr < best_inf_pr * T(1.0 - 1e-3);
+          const bool stalled = tr.inf_pr > cfg.far && (mu_stuck || !improved) && !armed;
+          stall = stalled ? stall + 1 : 0;
+          armed = armed || stall >= cfg.soc_stall;
+          best_inf_pr = nan_min(best_inf_pr, tr.inf_pr);
+        }
+      }
       ++sweeps;
       const T dJ = cost - tr.J;
       const T ft_new = nan_max(tr.theta, T(1e-8));
@@ -613,6 +704,21 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
       // handleForwardPassFailure (ipddp_solver.cpp:2037-2082).
       const T reg_n = nan_min(reg * cfg.reg_uf, cfg.reg_max);
       const bool limit = reg_n >= cfg.reg_max;
+      if constexpr (Sv::kBall) {
+        // The latch's fail path (mega_ipddp.py:2209-2230): near
+        // feasibility an armed SOC is dropped; at the regularization limit
+        // far from feasibility an unarmed latch arms and the solve retries
+        // from the initial regularization. Either keeps reg or status.
+        if (cfg.soc_auto && soc_on && armed && inf_pr < cfg.tol10) {
+          soc_on = false;
+          continue;
+        }
+        if ((cfg.soc_auto || cfg.chess_auto) && limit && !armed && inf_pr > cfg.far) {
+          armed = true;
+          reg = cfg.reg0;
+          continue;
+        }
+      }
       const T acc_tol = nan_max(cfg.fail_accept, cfg.btm * mu);
       const bool acceptable = cfg.atol > T(0) && inf_pr < acc_tol && inf_du < acc_tol &&
                               inf_comp < acc_tol;
@@ -626,56 +732,67 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
                       alpha_pr, T(it),     T(status),  T(attempts), T(sweeps)};
 #pragma unroll
   for (int i = 0; i < 11; ++i) stats[i * Bs + b] = vals[i];
+  if constexpr (Sv::kBall) {
+    // The latch's final state (a box variant has none and leaves the rows).
+    stats[11 * Bs + b] = soc_on ? T(1) : T(0);
+    stats[12 * Bs + b] = armed ? T(1) : T(0);
+  }
 }
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl, int M, int BALL>
 constexpr int ipddp_solve_smem() {
-  return stage_bytes<T>(IpSolver<T, Mdl, M>::kValues, kSolveThreads);
+  return stage_bytes<T>(IpSolver<T, Mdl, M, BALL>::kValues, kSolveThreads);
 }
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl, int M, int BALL>
 int launch_ipddp_solve(T* const* buf, const double* consts, const double* rows,
-                       const double* cfg, const double* alphas, const int* ints,
-                       cudaStream_t stream) {
+                       const double* ball, const double* cfg, const double* alphas,
+                       const int* ints, cudaStream_t stream) {
   const int N = ints[0], B = ints[1];
   if (ints[4] > kMaxAlpha) return static_cast<int>(cudaErrorInvalidValue);
   const Consts<T, Mdl> c = Consts<T, Mdl>::from_host(consts);
   const auto r = BoxRows<T, M, Mdl::NX, Mdl::NU>::from_host(rows);
-  const IpCfg<T> sc = IpCfg<T>::from_host(cfg, alphas, ints[3], ints[4], ints[5],
-                                          ints[2], ints[6], ints[7], ints[8]);
+  const auto bl = BallRow<T, Mdl::NX>::from_host(ball);
+  const IpCfg<T> sc = IpCfg<T>::from_host(cfg, alphas, ints + 2);
   const int blocks = (B + kSolveThreads - 1) / kSolveThreads;
-  const int smem = ipddp_solve_smem<T, Mdl, M>();
+  const int smem = ipddp_solve_smem<T, Mdl, M, BALL>();
   const cudaError_t err = cudaFuncSetAttribute(
-      (const void*)ipddp_solve_kernel<T, Mdl, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      (const void*)ipddp_solve_kernel<T, Mdl, M, BALL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ipddp_solve_kernel<T, Mdl, M><<<blocks, kSolveThreads, smem, stream>>>(
+  ipddp_solve_kernel<T, Mdl, M, BALL><<<blocks, kSolveThreads, smem, stream>>>(
       buf[0], buf[1], buf[2], buf[3], buf[4], buf[5], buf[6], buf[7], buf[8], buf[9],
-      buf[10], c, r, sc, N, B);
+      buf[10], c, r, bl, sc, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cddp
 
-// m: a control box (4), a state box (6) or both (10) on the unicycle.
-#define CDDP_IPDDP_SOLVE(MODEL, STRUCT, M)                                             \
-  extern "C" int CDDP_EXPORT(cddp_ipddp_solve_##MODEL##_m##M)(                         \
+// A stack of m rows with the keep-out ball at row BALL (-1: none), named
+// NAME: on the unicycle a control box (4), a state box (6), both (10), and
+// a control box with a ball sorted before it (m5_ball0) or after it
+// (m5_ball4).
+#define CDDP_IPDDP_SOLVE(MODEL, STRUCT, M, BALL, NAME)                                 \
+  extern "C" int CDDP_EXPORT(cddp_ipddp_solve_##MODEL##_##NAME)(                       \
       scalar_t* X, scalar_t* U, scalar_t* Y, scalar_t* S, scalar_t* G, scalar_t* L,    \
       scalar_t* k, scalar_t* K, scalar_t* kl, scalar_t* Kl, scalar_t* stats,           \
-      const double* consts, const double* rows, const double* cfg,                     \
+      const double* consts, const double* rows, const double* ball, const double* cfg, \
       const double* alphas, int N, int B, int integrator, int max_iterations,          \
-      int n_alpha, int bp_bound, int adaptive, int theta_l2, int f_max,                \
-      void* stream) {                                                                  \
+      int n_alpha, int bp_bound, int adaptive, int theta_l2, int f_max, int soc_auto,  \
+      int chess_auto, int soc_stall, void* stream) {                                   \
     scalar_t* buf[11] = {X, U, Y, S, G, L, k, K, kl, Kl, stats};                       \
-    const int ints[9] = {N, B, integrator, max_iterations, n_alpha,                    \
-                         bp_bound, adaptive, theta_l2, f_max};                         \
-    return cddp::launch_ipddp_solve<scalar_t, cddp::STRUCT, M>(                        \
-        buf, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream));      \
+    const int ints[12] = {N,        B,        integrator, max_iterations,              \
+                          n_alpha,  bp_bound, adaptive,   theta_l2,                    \
+                          f_max,    soc_auto, chess_auto, soc_stall};                  \
+    return cddp::launch_ipddp_solve<scalar_t, cddp::STRUCT, M, BALL>(                  \
+        buf, consts, rows, ball, cfg, alphas, ints, static_cast<cudaStream_t>(stream)); \
   }                                                                                    \
-  CDDP_REGISTER(cddp_ipddp_solve_##MODEL##_m##M,                                       \
-                (cddp::ipddp_solve_kernel<scalar_t, cddp::STRUCT, M>), cddp::kSolveThreads, \
-                (cddp::ipddp_solve_smem<scalar_t, cddp::STRUCT, M>()))
+  CDDP_REGISTER(cddp_ipddp_solve_##MODEL##_##NAME,                                     \
+                (cddp::ipddp_solve_kernel<scalar_t, cddp::STRUCT, M, BALL>),           \
+                cddp::kSolveThreads, (cddp::ipddp_solve_smem<scalar_t, cddp::STRUCT, M, BALL>()))
 
-CDDP_IPDDP_SOLVE(unicycle, Unicycle, 4)
-CDDP_IPDDP_SOLVE(unicycle, Unicycle, 6)
-CDDP_IPDDP_SOLVE(unicycle, Unicycle, 10)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 4, -1, m4)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 6, -1, m6)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 10, -1, m10)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 5, 0, m5_ball0)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 5, 4, m5_ball4)

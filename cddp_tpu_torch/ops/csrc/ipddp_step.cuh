@@ -122,6 +122,46 @@ struct BoxRows {
   }
 };
 
+// A keep-out ball row (BallConstraint, constraints/path.py) of the
+// whole-solve kernel's stack: g = scale (r^2 - ||x[:d] - c||^2) in the JAX
+// kernel's order (mega_ipddp.py::box_g), its state-Jacobian row
+// -2 scale (x[:d] - c) at the point (stack_Gx), a zero control-Jacobian row,
+// and the state Hessian -2 scale I on the head dims. Host layout: d, r,
+// scale, c[0..NX) (the center in its first d entries).
+template <typename T, int NX>
+struct BallRow {
+  int d;
+  T radius, sf;
+  T c[NX];
+
+  static BallRow from_host(const double* h) {
+    BallRow b{};
+    b.d = int(h[0]);
+    b.radius = T(h[1]);
+    b.sf = T(h[2]);
+    for (int i = 0; i < NX; ++i) b.c[i] = T(h[3 + i]);
+    return b;
+  }
+
+  __device__ __forceinline__ T g(const T (&x)[NX]) const {
+    T q = T(0);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      if (i < d) {
+        const T diff = x[i] - c[i];
+        q = q + diff * diff;
+      }
+    }
+    return sf * (radius * radius - q);
+  }
+
+  __device__ __forceinline__ void gx(const T (&x)[NX], T (&row)[NX]) const {
+    const T s2 = T(-2) * sf;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) row[i] = i < d ? s2 * (x[i] - c[i]) : T(0);
+  }
+};
+
 // Per-row condensation quantities (ipddp.py::_condense_path).
 template <typename T, int M>
 struct Condensed {

@@ -30,7 +30,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from cddp_tpu_torch.constraints.path import ControlConstraint, StateConstraint
+from cddp_tpu_torch.constraints.path import (BallConstraint, ControlConstraint,
+                                             StateConstraint)
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 from cddp_tpu_torch.solvers.base import ftb_ok
@@ -103,13 +104,30 @@ def _launch_open_loop(model, entry, x0, U, dt):
 # --- box rows -------------------------------------------------------------------
 
 
+def row_kind(c, ball: bool = False):
+    """A path constraint's kind in the kernels' lane layout: "control" or
+    "state" for exactly a ControlConstraint or StateConstraint
+    (ip_rollout.py:199-216), with ``ball`` ("ball", d) for a keep-out
+    BallConstraint (the whole-solve IPDDP kernel's, mega_ipddp.py:2431-2457);
+    None for any other type."""
+    if type(c) is ControlConstraint:
+        return "control"
+    if type(c) is StateConstraint:
+        return "state"
+    if ball and type(c) is BallConstraint:
+        return ("ball", c.dim)
+    return None
+
+
 @dataclass(frozen=True)
 class BoxRows:
-    """The stacked box rows of a box-only path stack, in stack order: row r
-    reads entry ``var[r]`` of [x; u] and is g = (bound - v) * scale (lower
-    rows) or (v - bound) * scale (upper rows)."""
+    """The stacked rows of a lane stack, in stack order: a box row reads
+    entry ``var[r]`` of [x; u] and is g = (bound - v) * scale (lower rows)
+    or (v - bound) * scale (upper rows); a keep-out ball's row (``ball``
+    stacks of the whole-solve IPDDP kernel only) is computed from the
+    ball's parameters."""
 
-    items: Tuple  # ((kind "control"|"state", constraint), ...)
+    items: Tuple  # ((kind "control"|"state"|("ball", d), constraint), ...)
     nx: int
     nu: int
 
@@ -117,8 +135,15 @@ class BoxRows:
     def m(self) -> int:
         return sum(c.dual_dim for _, c in self.items)
 
+    @property
+    def ball_rows(self) -> List[int]:
+        """The stack rows of the keep-out balls."""
+        kinds = [kind for kind, c in self.items for _ in range(c.dual_dim)]
+        return [r for r, kind in enumerate(kinds) if isinstance(kind, tuple)]
+
     def evaluate(self, x, u):
-        """g (B, m), the lane form of the JAX kernels (ip_rollout.py:311-317)."""
+        """g (B, m) of a box-only stack, the lane form of the JAX kernels
+        (ip_rollout.py:311-317)."""
         parts = []
         for kind, c in self.items:
             v = u if kind == "control" else x
@@ -129,9 +154,12 @@ class BoxRows:
     @property
     def host(self) -> List[float]:
         """Per row [var index, upper flag, bound, scale], as the CUDA
-        ``BoxRows`` struct reads them."""
+        ``BoxRows`` struct reads them; a ball's row [-1, 0, 0, 0]."""
         out = []
         for kind, c in self.items:
+            if isinstance(kind, tuple):
+                out += [-1.0, 0.0, 0.0, 0.0]
+                continue
             off = self.nx if kind == "control" else 0
             n = c.upper.shape[0]
             lo, hi = c.lower.double().cpu().tolist(), c.upper.double().cpu().tolist()
@@ -139,19 +167,24 @@ class BoxRows:
             out += [v for i in range(n) for v in (off + i, 1.0, hi[i], c.scale_factor)]
         return out
 
+    @property
+    def ball(self) -> List[float]:
+        """The keep-out ball as the whole-solve IPDDP kernel reads it: [d,
+        radius, scale, center padded to nx]; zeros without a ball."""
+        for kind, c in self.items:
+            if isinstance(kind, tuple):
+                center = c.center.double().cpu().tolist()
+                return ([float(c.dim), float(c.radius), c.scale_factor] + center
+                        + [0.0] * (self.nx - len(center)))
+        return [0.0] * (3 + self.nx)
 
-def box_rows(problem, stk) -> Optional[BoxRows]:
-    """The stack as box rows, or None unless every item is exactly a
-    ControlConstraint or StateConstraint (ip_rollout.py:199-216)."""
-    items = []
-    for _, c in stk.items:
-        if type(c) is ControlConstraint:
-            items.append(("control", c))
-        elif type(c) is StateConstraint:
-            items.append(("state", c))
-        else:
-            return None
-    if not items:
+
+def box_rows(problem, stk, ball: bool = False) -> Optional[BoxRows]:
+    """The stack as lane rows, or None if it is empty or an item has no
+    ``row_kind``: control and state boxes, and with ``ball`` keep-out
+    balls."""
+    items = [(row_kind(c, ball), c) for _, c in stk.items]
+    if not items or any(kind is None for kind, _ in items):
         return None
     return BoxRows(items=tuple(items), nx=problem.state_dim, nu=problem.control_dim)
 
@@ -171,7 +204,9 @@ def resolve_ip_forward(problem, options, stk) -> Optional[ForwardConsts]:
     integrator, the quadratic objective and a box-only stack of a size the
     kernel is built for (``KERNEL_ROWS``). Box stacks are affine, so the
     "auto" slack SOC resolves to off; only an explicit ``slack_soc=True``
-    traces it."""
+    traces it. On any other stack (a keep-out ball, as in the JAX package,
+    ip_rollout.py:821) this returns None and the per-pass driver runs its
+    plain trial, ``solvers/ipddp.py::_forward_scan``."""
     if options.ipddp.forward_engine != "auto":
         return None
     lane = rollout_ops.lane_consts(problem)

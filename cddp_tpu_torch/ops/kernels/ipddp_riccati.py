@@ -46,8 +46,9 @@ from cddp_tpu_torch.ops.kernels import dispatch_log
 
 EPS_SLACK = 1e-10
 # (nx, nu, m) the kernel is instantiated for: the unicycle with a control
-# box, a state box, or both.
-KERNEL_SHAPES = ((3, 2, 4), (3, 2, 6), (3, 2, 10))
+# box, a state box, both, or a control box and a keep-out ball (m = 5, whose
+# per-step Jacobians and folded lxx the kernel reads materialised).
+KERNEL_SHAPES = ((3, 2, 4), (3, 2, 5), (3, 2, 6), (3, 2, 10))
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # Inputs with a step axis: (B, N, ...) for the first 12, (B, ...) after.

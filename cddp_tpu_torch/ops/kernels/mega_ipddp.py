@@ -2,17 +2,22 @@
 kernel.
 
 Replaces ``cddp_tpu/ops/pallas/mega_ipddp.py::make_solve_kernel`` for the
-stacks the box fleet uses: control and state boxes, the quadratic goal
-cost, no terminal constraints, costates tracked, both barrier strategies
-and both theta norms. The kernel (``ops/csrc/ipddp_solve.cu``) gives each
-instance one thread that runs ``solvers/ipddp.py::_drive`` for it: the
-initial cost, merit and residuals; per iteration the Jacobians and cost
-derivatives, the condensed backward with its regularization retries, the
-fraction-to-boundary step caps, the first-success filter line search, the
-barrier update with the fixed-size filter and the convergence tests. The
-trajectories, duals, slacks, control gains and costate gains live in device
-memory (batch-last); the dual and slack gains are recomputed from the
-control gains where they are needed, as the JAX kernel does.
+stacks its lane layout takes (``ip_rollout.box_rows`` with ``ball``):
+control and state boxes and keep-out balls, in the layouts the kernel is
+instantiated for (``solve_variant``); the
+quadratic goal cost, no terminal constraints, costates tracked, both
+barrier strategies and both theta norms. The kernel
+(``ops/csrc/ipddp_solve.cu``) gives each instance one thread that runs
+``solvers/ipddp.py::_drive`` for it: the initial cost, merit and residuals;
+per iteration the Jacobians and cost derivatives, the condensed backward
+with its regularization retries, the fraction-to-boundary step caps, the
+first-success filter line search, the barrier update with the fixed-size
+filter and the convergence tests. On a ball stack it also runs the "auto"
+stall latch: the armed constraint-Hessian fold, the armed slack SOC, the
+stall detector and the latch's fail path. The trajectories, duals, slacks,
+control gains and costate gains live in device memory (batch-last); the
+dual and slack gains are recomputed from the control gains where they are
+needed, as the JAX kernel does.
 
 Its plain version is the per-pass driver ``solvers/ipddp.py::_drive``,
 which CPU tensors run.
@@ -37,22 +42,27 @@ MAX_ALPHAS = 64  # the kernel's alpha-ladder capacity (ipddp_solve.cu)
 # The kernel's filter slots (kFCap). An accepted entry joins at most
 # max_filter_size kept ones, so max_filter_size <= 6 fits.
 FILTER_SLOTS = 7
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_double)] * 4
-             + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_double)] * 5
+             + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+# Stats rows the kernel writes: cost, inf_pr, inf_du, inf_comp, mu, reg,
+# alpha_pr, iterations, status, backward attempts, sweeps, and (ball
+# variants only) the latch's final SOC-on and armed flags.
+STATS_ROWS = 13
+# Ball layouts kernel 7 is instantiated for, by model: (m, the ball's stack
+# row). A control box and one keep-out ball, the ball's name sorted before
+# the box's or after it. Box-only stacks take ip_rollout.KERNEL_ROWS.
+BALL_LAYOUTS = {"unicycle": ((5, 0), (5, 4))}
 
 
-def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
+def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
     """What the interior-point and log-barrier whole-solve kernels (7, 8, 9)
-    all require: a registered model with an explicit integrator, the
-    quadratic objective, a box-only path stack of a size the kernels are
-    built for, no terminal constraints, iLQR with the sequential backward
-    (``lqr_backend``) and line search, an alpha ladder that fits, and none
-    of the driver features the kernels do not model."""
-    lane = rollout_ops.lane_consts(problem)
-    rows = ip_rollout.box_rows(problem, PathStacker(problem))
+    all require of a problem besides its stack: a registered model with an
+    explicit integrator, the quadratic objective, no terminal constraints,
+    iLQR with the sequential backward (``lqr_backend``) and line search, an
+    alpha ladder that fits, and none of the driver features the kernels do
+    not model."""
     return (
-        lane is not None and rows is not None
-        and rows.m in ip_rollout.KERNEL_ROWS.get(lane.entry.cuda_name, ())
+        rollout_ops.lane_consts(problem) is not None
         and isinstance(problem.objective, QuadraticObjective)
         and not problem.terminal_constraints
         and options.use_ilqr
@@ -70,14 +80,43 @@ def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
     )
 
 
+def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
+    """What the MSIPDDP and LogDDP whole-solve kernels (8, 9) require:
+    ``driver_eligible`` and a box-only path stack of a size they are built
+    for (``ip_rollout.KERNEL_ROWS``, as kernel 7's box variants)."""
+    return (solve_variant(problem, ball=False) is not None
+            and driver_eligible(problem, options, lqr_backend))
+
+
+def solve_variant(problem, ball: bool = True):
+    """Kernel 7's launcher suffix for the problem's stack, or None when the
+    kernel is not instantiated for it: "m{m}" for a box stack of a size in
+    ``ip_rollout.KERNEL_ROWS``, "m{m}_ball{row}" for a layout of
+    ``BALL_LAYOUTS``; box stacks only without ``ball``."""
+    lane = rollout_ops.lane_consts(problem)
+    rows = ip_rollout.box_rows(problem, PathStacker(problem), ball=ball)
+    if lane is None or rows is None:
+        return None
+    name, balls = lane.entry.cuda_name, rows.ball_rows
+    if not balls:
+        return f"m{rows.m}" if rows.m in ip_rollout.KERNEL_ROWS.get(name, ()) else None
+    if len(balls) == 1 and (rows.m, balls[0]) in BALL_LAYOUTS.get(name, ()):
+        return f"m{rows.m}_ball{balls[0]}"
+    return None
+
+
 def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_ipddp.py:2536-2598 of the JAX package,
-    restricted to the slice and without its TPU scratch-memory gates):
-    ``box_solve_eligible``, no IPDDP option the kernel does not model, and a
-    filter that fits the kernel's slots."""
+    restricted to the slice and without its TPU scratch-memory gates): a
+    lane stack of a layout the kernel is built for (``solve_variant``),
+    ``driver_eligible``, no IPDDP option the kernel does not model
+    (explicit ``slack_soc=True`` or ``use_constraint_hessians=True``: the
+    kernel carries only the "auto" latch), and a filter that fits the
+    kernel's slots."""
     ip = options.ipddp
     return (
-        box_solve_eligible(problem, options, ip.lqr_backend)
+        solve_variant(problem) is not None
+        and driver_eligible(problem, options, ip.lqr_backend)
         and ip.slack_soc is not True
         and ip.use_constraint_hessians is not True
         and not ip.check_state_stationarity
@@ -101,7 +140,7 @@ def _solve_cfg(options: CDDPOptions):
         fo.merit_acceptance_threshold, 1 - fo.violation_acceptance_threshold,
         fo.max_violation_threshold, fo.min_violation_for_armijo_check,
         math.sqrt(atol), max(b.mu_min_value * 100.0, tol / 10.0), tol * 10.0,
-        math.sqrt(max(atol, tol)),
+        math.sqrt(max(atol, tol)), 100.0 * tol,
     ]
 
 
@@ -120,8 +159,7 @@ def ipddp_solve(problem, options: CDDPOptions, X, U, Y, S, G, Lambda, mu0, ku0,
 
 
 def _launch(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0) -> Solution:
-    return launch_counting_work(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0,
-                                Ku0)[0]
+    return _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0)[0]
 
 
 def launch_counting_work(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
@@ -129,34 +167,55 @@ def launch_counting_work(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0
     backward attempts and trajectory sweeps (line-search trials and the
     accepted trial's rewrite), which a roofline bound's operation count
     reads."""
+    sol, stats = _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0)
+    return sol, stats[9:11]
+
+
+def launch_with_latch(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
+    """Launch a ball variant of the kernel; returns (Solution, soc_on (B,),
+    soc_armed (B,)): the stall latch's final state, as the plain driver's
+    ``events`` give it."""
+    if "_ball" not in (solve_variant(problem) or ""):
+        raise ValueError("launch_with_latch: the stack has no keep-out ball")
+    sol, stats = _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0)
+    return sol, stats[11] > 0.5, stats[12] > 0.5
+
+
+def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
     from cddp_tpu_torch.ops.kernels import build
 
     stk = PathStacker(problem)
     lane = rollout_ops.lane_consts(problem)
-    rows = ip_rollout.box_rows(problem, stk)
+    rows = ip_rollout.box_rows(problem, stk, ball=True)
+    has_ball = bool(rows.ball_rows)
     ins = (X0, U0, Y0, S0, G0, L0, ku0, Ku0, mu0)
     Bsz, N1, nx = X0.shape
     N, nu, m = N1 - 1, problem.control_dim, Y0.shape[-1]
     tag = build.dtype_tag("ipddp_solve", ins, (
         (N + 1, nx), (N, nu), (N, m), (N, m), (N, m), (N + 1, nx), (N, nu),
         (N, nu, nx), ()))
-    name = f"cddp_ipddp_solve_{lane.entry.cuda_name}_m{m}_{tag}"
+    name = f"cddp_ipddp_solve_{lane.entry.cuda_name}_{solve_variant(problem)}_{tag}"
     fn = build.function(name, _ARGTYPES)
     # The kernel updates its state in place: always fresh batch-last copies.
     X, U, Y, S, G, L, k, K = (t.movedim(0, -1).clone(memory_format=torch.contiguous_format)
                               for t in ins[:8])
     klam = X0.new_empty(N + 1, nx, Bsz)
     Klam = X0.new_empty(N + 1, nx, nx, Bsz)
-    stats = X0.new_empty(11, Bsz)
+    stats = X0.new_empty(STATS_ROWS, Bsz)
     stats[4] = mu0
     alphas = line_search_alphas(options.line_search)
     ip = options.ipddp
+    # The latch's words (mega_ipddp.py::_make_cfg): traced on ball stacks
+    # only, as the JAX kernel's latch_traced.
     ints = (N, Bsz, rollout_ops.INTEGRATORS.index(lane.integrator),
             options.max_iterations, len(alphas), backward_retry_bound(options),
             int(ip.barrier.strategy == BarrierStrategy.ADAPTIVE),
-            int(ip.theta_norm == "l2"), ip.max_filter_size)
+            int(ip.theta_norm == "l2"), ip.max_filter_size,
+            int(has_ball and ip.slack_soc == "auto"),
+            int(has_ball and ip.use_constraint_hessians == "auto"),
+            ip.soc_stall_iterations)
     err = fn(*(build.ptr(t) for t in (X, U, Y, S, G, L, k, K, klam, Klam, stats)),
-             build.doubles(lane.host), build.doubles(rows.host),
+             build.doubles(lane.host), build.doubles(rows.host), build.doubles(rows.ball),
              build.doubles(_solve_cfg(options)), build.doubles(alphas), *ints,
              build.stream_ptr(X0.device))
     build.check(err, name)
@@ -181,4 +240,4 @@ def launch_counting_work(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0
         barrier_mu=stats[4],
         inf_pr=stats[1],
         inf_comp=stats[3],
-    ), stats[9:]
+    ), stats

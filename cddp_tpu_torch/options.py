@@ -91,11 +91,14 @@ class IPDDPOptions:
     ``forward_engine``: "auto" runs the interior-point forward kernel on
     CUDA tensors of eligible problems (its plain version on CPU tensors);
     "scan" keeps the generic plain forward pass. ``slack_soc`` and
-    ``use_constraint_hessians`` are "auto", True or False; the port's path
-    constraints are boxes, whose Hessians are zero, so only an explicit
-    ``slack_soc=True`` changes the iterates. Fields the port does not honour
-    yet (``check_state_stationarity``, ``lqr_backend="parallel"``, the
-    warm-start fields, which ``warm_start`` gates) are refused by the solver.
+    ``use_constraint_hessians`` are "auto", True or False: "auto" traces the
+    slack SOC and the constraint-Hessian fold on stacks with a curved item
+    (a ball, a pole, a cone, a norm), behind the stall latch that arms them
+    after ``soc_stall_iterations`` stalled commits (``solvers/ipddp.py::
+    stall_detector_update``); on affine stacks it leaves both off. Fields
+    the port does not honour yet (``check_state_stationarity``,
+    ``lqr_backend="parallel"``, the warm-start fields, which ``warm_start``
+    gates) are refused by the solver.
     """
 
     dual_var_init_scale: float = 1e-1

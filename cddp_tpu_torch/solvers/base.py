@@ -160,6 +160,20 @@ _UNPORTED = {
 }
 
 
+def require_box_stack(problem: Problem, solver: str) -> None:
+    """Refuse path constraints other than control and state boxes: the
+    LogDDP and MSIPDDP drivers on such stacks (plain only, as in the JAX
+    package) are ROADMAP A, slice 4 item 10."""
+    from cddp_tpu_torch.ops.kernels.ip_rollout import row_kind
+
+    others = sorted(name for name, c in problem.constraints.items() if row_kind(c) is None)
+    if others:
+        raise NotImplementedError(
+            f"{solver} with path constraints other than control and state boxes "
+            f"({', '.join(others)}) is not yet ported to cddp_tpu_torch "
+            f"(ROADMAP A, slice 4 item 10)")
+
+
 def validate_options(options: CDDPOptions) -> None:
     """Reject typo'd engine selectors and options the port does not honour."""
     for name, choices in _ENGINE_CHOICES.items():

@@ -305,6 +305,7 @@ def solve(
     validate_options(options)
     if options.warm_start and gains is not None:
         raise NotImplementedError("LogDDP warm-start gains are not yet ported to cddp_tpu_torch")
+    base.require_box_stack(problem, "LogDDP")
     problem = base.canonicalize_problem_dtype(problem)
     _, U = problem.initial_trajectories(X0, U0)
     nu, nx, N = problem.control_dim, problem.state_dim, problem.horizon

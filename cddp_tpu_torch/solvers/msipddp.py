@@ -160,7 +160,8 @@ def _backward_pass(problem, stk, st, reg) -> _BP:
     A, Bm = base.discrete_jacobians(problem, X, U)
     lx, lu, lxx, luu, lux = base.running_cost_derivatives(problem, X, U)
     if stk:
-        Gx, Gu = stk.jacobians(nx, nu)
+        # Box stacks only (require_box_stack): constant rows, read once.
+        Gx, Gu = stk.jacobian_rows(nx, nu)
     else:
         Gx, Gu = X.new_zeros(0, nx), X.new_zeros(0, nu)
     defects = st["F"] - X[:, 1:]
@@ -608,6 +609,7 @@ def solve(
     if options.warm_start and state is not None:
         raise NotImplementedError("MSIPDDP warm starts (MSIPDDPSolverState) are not yet "
                                   "ported to cddp_tpu_torch")
+    base.require_box_stack(problem, "MSIPDDP")
     problem = base.canonicalize_problem_dtype(problem)
     stk = PathStacker(problem)
     TerminalStacker(problem)

@@ -68,6 +68,36 @@ def test_launchers_are_exported_and_registered(kernel):
     assert set(chip_smoke.launchers()[kernel]) == exported
 
 
+# The launchers each interior-point source instantiates, without the type
+# suffix: kernel 7 for the box stacks (m = 4, 6, 10) and for a control box
+# with a keep-out ball, the ball's row first or last (m5_ball0, m5_ball4);
+# kernel 6 for m = 4, 5 (the ball stack), 6 and 10.
+INSTANTIATIONS = {
+    "ipddp_solve.cu": {f"cddp_ipddp_solve_unicycle_{v}"
+                       for v in ("m4", "m6", "m10", "m5_ball0", "m5_ball4")},
+    "ipddp_backward.cu": {f"cddp_ipddp_backward_3x2x{m}" for m in (4, 5, 6, 10)},
+    "ip_forward.cu": {f"cddp_ip_forward_unicycle_m{m}" for m in (4, 6, 10)},
+}
+
+
+@pytest.mark.parametrize("source", sorted(INSTANTIATIONS))
+def test_instantiations(source):
+    exported, registered = launchers_of(source)
+    assert exported == registered == INSTANTIATIONS[source]
+
+
+def test_ball_variants_are_the_layouts_the_wrapper_names():
+    """Kernel 7's ball launchers are the ``BALL_LAYOUTS`` the wrapper picks
+    (``mega_ipddp.solve_variant``), and kernel 6's shapes its ``KERNEL_SHAPES``."""
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati, mega_ipddp
+
+    balls = {f"cddp_ipddp_solve_unicycle_m{m}_ball{row}"
+             for m, row in mega_ipddp.BALL_LAYOUTS["unicycle"]}
+    assert balls <= launchers_of("ipddp_solve.cu")[0]
+    assert launchers_of("ipddp_backward.cu")[0] == {
+        f"cddp_ipddp_backward_{nx}x{nu}x{m}" for nx, nu, m in ipddp_riccati.KERNEL_SHAPES}
+
+
 def call_args(text, start):
     """The top-level comma-separated arguments of the call whose opening
     parenthesis is at ``text[start]``."""

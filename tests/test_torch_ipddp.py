@@ -246,10 +246,13 @@ def test_options_and_problem_carried_across():
     want = np.stack([np.asarray(jstk.evaluate_shifted(jnp.asarray(a), jnp.asarray(b)))
                      for a, b in zip(x, u)])
     np.testing.assert_array_equal(got, want)
-    gx, gu = stk.jacobians(3, 2)
-    jgx, jgu = jstk.jacobians(jnp.asarray(x[0]), jnp.asarray(u[0]))
-    np.testing.assert_array_equal(gx.numpy(), np.asarray(jgx))
-    np.testing.assert_array_equal(gu.numpy(), np.asarray(jgu))
+    # Per point, as broadcasts of one copy (the box stack's constant rows).
+    gx, gu = stk.jacobians(torch.as_tensor(x), torch.as_tensor(u))
+    assert gx.stride(0) == 0 and gu.stride(0) == 0
+    for i in range(len(x)):
+        jgx, jgu = jstk.jacobians(jnp.asarray(x[i]), jnp.asarray(u[i]))
+        np.testing.assert_array_equal(gx[i].numpy(), np.asarray(jgx))
+        np.testing.assert_array_equal(gu[i].numpy(), np.asarray(jgu))
     split = stk.split(torch.as_tensor(got))
     for name, block in jstk.split(jnp.asarray(want)).items():
         np.testing.assert_array_equal(split[name].numpy(), np.asarray(block))

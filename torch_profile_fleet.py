@@ -3,12 +3,16 @@
 
     python3 torch_profile_fleet.py [--batch 262144] [--solver CLDDP|IPDDP|LogDDP|MSIPDDP|all ...]
                                    [--engine whole|per-pass|plain|all ...] [--sass] [--boxqp]
+                                   [--problem box|obstacle]
 
 For the flagship fleet (cold control-limited unicycle MPC, H=20, 10
 iterations, tolerance 1e-4, float32, x0 ~ U(-0.5, 0.5)) under each solver
 and engine (whole-solve kernel, per-pass kernels, plain driver; LogDDP and
 MSIPDDP have no per-pass kernels, and their ``solve_engine="xla"`` engine
-is the plain driver seeded by the open-loop rollout kernel), it prints:
+is the plain driver seeded by the open-loop rollout kernel), or with
+``--problem obstacle`` for the IPDDP obstacle fleet
+(``chip_smoke.obstacle_problem``: the control box and a keep-out ball, dt =
+0.03; IPDDP only, the other solvers take box stacks only), it prints:
 the host-clock ms of one ``batched_solve`` (after a warm-up, ending in a
 synchronize); under ``torch.profiler`` the device busy time (the sum over
 the CUDA kernel rows, which do not overlap on one stream), the profiled
@@ -213,6 +217,7 @@ def main():
     ap.add_argument("--engine", nargs="+", default=["all"], choices=tuple(ENGINES) + ("all",))
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--boxqp", action="store_true")
+    ap.add_argument("--problem", default="box", choices=("box", "obstacle"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_fleet: no CUDA device")
@@ -226,12 +231,15 @@ def main():
     if args.sass:
         sass_loops(smi)
     dev = torch.device("cuda", 0)
-    prob = chip_smoke.flagship_problem(tt, torch.float32, dev)
+    make = chip_smoke.obstacle_problem if args.problem == "obstacle" else chip_smoke.flagship_problem
+    prob = make(tt, torch.float32, dev)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
     x0 = torch.rand(args.batch, 3, generator=gen, device=dev) - 0.5
     if args.boxqp:
         boxqp_first_valid(prob, x0, tt.CDDPOptions(max_iterations=10, tolerance=1e-4), smi)
     solvers = SOLVERS if "all" in args.solver else args.solver
+    if args.problem == "obstacle":
+        solvers = [s for s in solvers if s == "IPDDP"]
     wanted = set(ENGINES.values()) if "all" in args.engine else {ENGINES[e] for e in args.engine}
     for solver in solvers:
         for name, opts in engines(tt, solver).items():
@@ -253,7 +261,7 @@ def main():
             rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
             busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
             launches = sum(e.count for e in rows)
-            print(f"[{solver} {name}] B={args.batch}: {host_ms:.2f} ms host clock; "
+            print(f"[{solver} {args.problem} {name}] B={args.batch}: {host_ms:.2f} ms host clock; "
                   f"profiled wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
                   f"({busy_ms / wall_ms:.1%}), {launches} kernel launches; peak "
                   f"{peak:.2f} GiB  [{smi}]")
