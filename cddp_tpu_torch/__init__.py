@@ -3,7 +3,9 @@
 Batch-first CLDDP with a control box; IPDDP with every path-constraint type
 of the JAX package (boxes, keep-out balls, linear, pole, cone and thrust
 constraints); LogDDP and MSIPDDP with control and state boxes; all over the
-unicycle, as the JAX package solves them. Hand-written CUDA kernels for
+unicycle, as the JAX package solves them, towards a goal or along a per-step
+reference trajectory (``reference_states``); and batch-first receding-horizon
+MPC (``make_mpc_controller``). Hand-written CUDA kernels for
 NVIDIA Hopper (``ops/csrc/``): for CLDDP the Riccati backward pass, the
 line-search rollout and the whole solve; for IPDDP the open-loop rollout
 (which seeds every barrier solver), the interior-point forward pass, the
@@ -43,18 +45,19 @@ from cddp_tpu_torch.options import (
     MSIPDDPOptions,
     MultiShootingOptions,
 )
-from cddp_tpu_torch.parallel.batch import batched_solve
+from cddp_tpu_torch.parallel.batch import MPCState, batched_solve, make_mpc_controller
 from cddp_tpu_torch.problem import Problem, problem
 from cddp_tpu_torch.solution import Solution, Status
 
 __all__ = [
     "BallConstraint", "BarrierOptions", "BarrierStrategy", "CDDPOptions",
     "ControlConstraint", "IPDDPOptions", "LinearConstraint", "LogBarrierOptions",
-    "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
+    "MPCState", "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
     "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",
     "SecondOrderConeConstraint", "Solution", "StateConstraint", "Status",
     "ThrustMagnitudeConstraint", "ball_constraint", "batched_solve",
-    "control_constraint", "linear_constraint", "max_thrust_magnitude_constraint",
+    "control_constraint", "linear_constraint", "make_mpc_controller",
+    "max_thrust_magnitude_constraint",
     "pole_constraint", "problem", "quadratic_objective", "second_order_cone_constraint",
     "solve", "state_constraint", "thrust_magnitude_constraint",
 ]

@@ -36,7 +36,7 @@ _PATH = {cls.__name__: cls for cls in (
 def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
                         upper, x0, horizon: int, timestep: float,
                         integrator: str, *, device, dtype, boxes=None,
-                        constraints=None) -> Problem:
+                        constraints=None, reference_states=None) -> Problem:
     """Build a problem from numpy arrays. ``Q`` and ``R`` are already
     dt-prescaled (as ``QuadraticObjective`` stores them) and go in as given;
     ``lower``/``upper`` None means no "ControlConstraint" box. ``boxes`` maps
@@ -45,14 +45,17 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
     type of ``_PATH`` and its fields, arrays becoming tensors and Python
     numbers staying as they are, for example ("BallConstraint",
     {"radius": np.asarray(0.4), "center": np.asarray([1.0, 1.0]),
-    "scale_factor": 1.0})."""
+    "scale_factor": 1.0}). ``reference_states`` (N or N+1, nx) makes the
+    objective track it (``QuadraticObjective.reference_states``)."""
     try:
         make_model = _MODELS[model_name]
     except KeyError as e:
         raise ValueError(f"model {model_name!r} is not ported; "
                          f"available: {sorted(_MODELS)}") from e
     t = lambda a: torch.as_tensor(np.array(a), device=device, dtype=dtype)  # noqa: E731
-    objective = QuadraticObjective(Q=t(Q), R=t(R), Qf=t(Qf), reference_state=t(goal))
+    objective = QuadraticObjective(
+        Q=t(Q), R=t(R), Qf=t(Qf), reference_state=t(goal),
+        reference_states=None if reference_states is None else t(reference_states))
     items = {}
     if lower is not None:
         items["ControlConstraint"] = path.ControlConstraint(lower=t(lower), upper=t(upper))

@@ -28,6 +28,12 @@
 // (sweep_stage.cuh::NominalStage), so no load waits just before its use. A
 // register budget (blocks of 128 threads at 64, 72 or 80 registers)
 // measured no faster than these blocks of 256 threads (PERF.md, section 6).
+//
+// TRACK (the `_track` launcher) is the tracking variant
+// (mega_clddp.py:304,345-349): step t's running reference is row t of the
+// shared (N, nx) reference `refs` (models.cuh::running_ref) in every
+// rollout's running cost and in the backward sweep's lx; the terminal cost
+// and its derivatives keep the goal.
 #include "clddp_step.cuh"
 #include "models.cuh"
 #include "sweep_stage.cuh"
@@ -52,11 +58,12 @@ struct SolveCfg {
 // Status codes (cddp_tpu_torch.solution.Status), written as floats.
 constexpr int kMaxIter = 0, kOptimal = 1, kAcceptable = 2, kRegLimit = 3;
 
-template <typename T, class M>
+template <typename T, class M, bool TRACK>
 struct Solver {
   static constexpr int NX = M::NX, NU = M::NU;
   using Staged = NominalStage<T, NX, NU>;
   const Consts<T, M>& c;
+  const T* refs;
   T* X;
   T* U;
   T* k;
@@ -86,7 +93,9 @@ struct Solver {
       ns.advance(t + 1, t + 1 < N(), stage, false);
       ns.st.get(stage, Staged::vX, x);
       ns.st.get(stage, Staged::vU, u);
-      J = J + running_cost(c, x, u);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
+      J = J + running_cost(c, rf, x, u);
     }
     load_x(N(), x);
     return J + terminal_cost(c, x);
@@ -138,6 +147,8 @@ struct Solver {
       ns.st.get(stage, Staged::vX, x);
       ns.st.get(stage, Staged::vU, u);
       M::fxfu(x, u, c.p, Fx, Fu);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
       T A[NX][NX], Bm[NX][NU], lx[NX], lu[NU], lb[NU], ub[NU];
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
@@ -147,7 +158,7 @@ struct Solver {
         for (int j = 0; j < NU; ++j) Bm[i][j] = c.dt * Fu[i][j];
         T s = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) s = s + c.Q[i][j] * (x[j] - c.goal[j]);
+        for (int j = 0; j < NX; ++j) s = s + c.Q[i][j] * (x[j] - rf[j]);
         lx[i] = T(2) * s;
       }
 #pragma unroll
@@ -196,7 +207,9 @@ struct Solver {
       ns.st.get(stage, Staged::vU, ub);
       ns.st.get(stage, Staged::vk, kf);
       ns.st.get(stage, Staged::vK, Kf);
-      J = J + rollout_step<T, M>(c, integrator, true, alpha, x, xb, ub, kf, Kf, u, xn);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
+      J = J + rollout_step<T, M>(c, rf, integrator, true, alpha, x, xb, ub, kf, Kf, u, xn);
       ns.st.get(stage, Staged::vX, xb);
       if (write) {
 #pragma unroll
@@ -211,17 +224,16 @@ struct Solver {
   }
 };
 
-template <typename T, class M>
+template <typename T, class M, bool TRACK>
 __global__ void __launch_bounds__(kThreads) clddp_solve_kernel(
     T* __restrict__ X, T* __restrict__ U, T* __restrict__ k, T* __restrict__ K,
-    T* __restrict__ stats, const __grid_constant__ Consts<T, M> c,
-    const SolveCfg<T> cfg, int N,
-    int B) {
+    T* __restrict__ stats, const T* __restrict__ refs,
+    const __grid_constant__ Consts<T, M> c, const SolveCfg<T> cfg, int N, int B) {
   extern __shared__ __align__(16) unsigned char cddp_smem[];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  using Sv = Solver<T, M>;
-  const Sv s{c, X, U, k, K, size_t(B), b, N,
+  using Sv = Solver<T, M, TRACK>;
+  const Sv s{c, refs, X, U, k, K, size_t(B), b, N,
              typename Sv::Staged{Sv::Staged::Stage::make(cddp_smem), X, U, k, K, size_t(B), b}};
 
   T cost = s.initial_cost();
@@ -315,12 +327,12 @@ __global__ void __launch_bounds__(kThreads) clddp_solve_kernel(
 
 template <typename T, class M>
 constexpr int clddp_solve_smem() {
-  return stage_bytes<T>(Solver<T, M>::Staged::kValues, kThreads);
+  return stage_bytes<T>(NominalStage<T, M::NX, M::NU>::kValues, kThreads);
 }
 
-template <typename T, class M>
-int launch_clddp_solve(T* X, T* U, T* k, T* K, T* stats, const double* consts,
-                       const double* cfg, int N, int B, int integrator,
+template <typename T, class M, bool TRACK>
+int launch_clddp_solve(T* X, T* U, T* k, T* K, T* stats, const T* refs,
+                       const double* consts, const double* cfg, int N, int B, int integrator,
                        int max_iterations, int n_alpha, int bp_bound,
                        int parallel_ls, cudaStream_t stream) {
   const Consts<T, M> c = Consts<T, M>::from_host(consts);
@@ -329,21 +341,31 @@ int launch_clddp_solve(T* X, T* U, T* k, T* K, T* stats, const double* consts,
   const int blocks = (B + kThreads - 1) / kThreads;
   const int smem = clddp_solve_smem<T, M>();
   const cudaError_t err = cudaFuncSetAttribute(
-      (const void*)clddp_solve_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      (const void*)clddp_solve_kernel<T, M, TRACK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  clddp_solve_kernel<T, M><<<blocks, kThreads, smem, stream>>>(X, U, k, K, stats, c, sc, N, B);
+  clddp_solve_kernel<T, M, TRACK><<<blocks, kThreads, smem, stream>>>(X, U, k, K, stats, refs, c,
+                                                                       sc, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cddp
 
-extern "C" int CDDP_EXPORT(cddp_clddp_solve_unicycle)(
-    scalar_t* X, scalar_t* U, scalar_t* k, scalar_t* K, scalar_t* stats,
-    const double* consts, const double* cfg, int N, int B, int integrator,
-    int max_iterations, int n_alpha, int bp_bound, int parallel_ls, void* stream) {
-  return cddp::launch_clddp_solve<scalar_t, cddp::Unicycle>(
-      X, U, k, K, stats, consts, cfg, N, B, integrator, max_iterations, n_alpha,
-      bp_bound, parallel_ls, static_cast<cudaStream_t>(stream));
-}
-CDDP_REGISTER(cddp_clddp_solve_unicycle, (cddp::clddp_solve_kernel<scalar_t, cddp::Unicycle>),
-              cddp::kThreads, (cddp::clddp_solve_smem<scalar_t, cddp::Unicycle>()))
+// The goal form and (TRACK true, suffix _track) the tracking form; `refs`
+// is the shared (N, nx) reference, NULL and unread in the goal form.
+#define CDDP_CLDDP_SOLVE(MODEL, STRUCT, TRACK, SUFFIX)                                   \
+  extern "C" int CDDP_EXPORT(cddp_clddp_solve_##MODEL##SUFFIX)(                          \
+      scalar_t* X, scalar_t* U, scalar_t* k, scalar_t* K, scalar_t* stats,               \
+      const scalar_t* refs, const double* consts, const double* cfg, int N, int B,       \
+      int integrator, int max_iterations, int n_alpha, int bp_bound, int parallel_ls,    \
+      void* stream) {                                                                    \
+    return cddp::launch_clddp_solve<scalar_t, cddp::STRUCT, TRACK>(                      \
+        X, U, k, K, stats, refs, consts, cfg, N, B, integrator, max_iterations, n_alpha, \
+        bp_bound, parallel_ls, static_cast<cudaStream_t>(stream));                       \
+  }                                                                                      \
+  CDDP_REGISTER(cddp_clddp_solve_##MODEL##SUFFIX,                                        \
+                (cddp::clddp_solve_kernel<scalar_t, cddp::STRUCT, TRACK>), cddp::kThreads, \
+                (cddp::clddp_solve_smem<scalar_t, cddp::STRUCT>()))
+
+CDDP_CLDDP_SOLVE(unicycle, Unicycle, false, )
+CDDP_CLDDP_SOLVE(unicycle, Unicycle, true, _track)

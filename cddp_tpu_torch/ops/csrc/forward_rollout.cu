@@ -9,17 +9,22 @@
 // at nx=3, nu=2, against a few dozen flops). Trajectories are batch-last,
 // so warps read and write consecutive addresses; the problem constants are
 // a by-value kernel parameter, read from the constant bank.
+//
+// TRACK (the `_track` launchers) is the tracking variant (rollout.py:618,
+// the refs row at :669-670): step t's running cost tracks row t of the
+// shared (N, nx) reference `refs` (models.cuh::running_ref); the terminal
+// cost tracks the goal in both forms.
 #include "models.cuh"
 
 namespace cddp {
 
-template <typename T, class M>
+template <typename T, class M, bool TRACK>
 __global__ void __launch_bounds__(kThreads) forward_rollout_kernel(
     const T* __restrict__ Xb, const T* __restrict__ Ub, const T* __restrict__ kk,
     const T* __restrict__ KK, const T* __restrict__ x0, const T* __restrict__ alpha,
     T* __restrict__ Xo, T* __restrict__ Uo, T* __restrict__ Jo,
-    const __grid_constant__ Consts<T, M> c, int N, int B, int integrator,
-    int clamp) {
+    const T* __restrict__ refs, const __grid_constant__ Consts<T, M> c, int N, int B,
+    int integrator, int clamp) {
   constexpr int NX = M::NX, NU = M::NU;
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -41,7 +46,9 @@ __global__ void __launch_bounds__(kThreads) forward_rollout_kernel(
 #pragma unroll
       for (int j = 0; j < NX; ++j) Kf[i][j] = KK[((size_t(t) * NU + i) * NX + j) * Bs + b];
     }
-    J = J + rollout_step<T, M>(c, integrator, clamp != 0, a, x, xb, ub, kf, Kf, u, xn);
+    T rf[NX];
+    running_ref<TRACK>(c, refs, t, rf);
+    J = J + rollout_step<T, M>(c, rf, integrator, clamp != 0, a, x, xb, ub, kf, Kf, u, xn);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       Xo[(size_t(t) * NX + i) * Bs + b] = xn[i];
@@ -53,28 +60,35 @@ __global__ void __launch_bounds__(kThreads) forward_rollout_kernel(
   Jo[b] = J + terminal_cost(c, x);
 }
 
-template <typename T, class M>
+template <typename T, class M, bool TRACK>
 int launch_forward_rollout(const T* Xb, const T* Ub, const T* k, const T* K,
-                           const T* x0, const T* alpha, T* X, T* U, T* J,
+                           const T* x0, const T* alpha, T* X, T* U, T* J, const T* refs,
                            const double* consts, int N, int B, int integrator,
                            int clamp, cudaStream_t stream) {
   const Consts<T, M> c = Consts<T, M>::from_host(consts);
   const int blocks = (B + kThreads - 1) / kThreads;
-  forward_rollout_kernel<T, M><<<blocks, kThreads, 0, stream>>>(
-      Xb, Ub, k, K, x0, alpha, X, U, J, c, N, B, integrator, clamp);
+  forward_rollout_kernel<T, M, TRACK><<<blocks, kThreads, 0, stream>>>(
+      Xb, Ub, k, K, x0, alpha, X, U, J, refs, c, N, B, integrator, clamp);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cddp
 
-extern "C" int CDDP_EXPORT(cddp_forward_rollout_unicycle)(
-    const scalar_t* Xb, const scalar_t* Ub, const scalar_t* k, const scalar_t* K,
-    const scalar_t* x0, const scalar_t* alpha, scalar_t* X, scalar_t* U,
-    scalar_t* J, const double* consts, int N, int B, int integrator, int clamp,
-    void* stream) {
-  return cddp::launch_forward_rollout<scalar_t, cddp::Unicycle>(
-      Xb, Ub, k, K, x0, alpha, X, U, J, consts, N, B, integrator, clamp,
-      static_cast<cudaStream_t>(stream));
-}
-CDDP_REGISTER(cddp_forward_rollout_unicycle,
-              (cddp::forward_rollout_kernel<scalar_t, cddp::Unicycle>), cddp::kThreads, 0)
+// The goal form and (TRACK true, suffix _track) the tracking form; `refs`
+// is the shared (N, nx) reference, NULL and unread in the goal form.
+#define CDDP_FORWARD_ROLLOUT(MODEL, STRUCT, TRACK, SUFFIX)                               \
+  extern "C" int CDDP_EXPORT(cddp_forward_rollout_##MODEL##SUFFIX)(                      \
+      const scalar_t* Xb, const scalar_t* Ub, const scalar_t* k, const scalar_t* K,      \
+      const scalar_t* x0, const scalar_t* alpha, scalar_t* X, scalar_t* U, scalar_t* J,  \
+      const scalar_t* refs, const double* consts, int N, int B, int integrator,          \
+      int clamp, void* stream) {                                                         \
+    return cddp::launch_forward_rollout<scalar_t, cddp::STRUCT, TRACK>(                  \
+        Xb, Ub, k, K, x0, alpha, X, U, J, refs, consts, N, B, integrator, clamp,         \
+        static_cast<cudaStream_t>(stream));                                              \
+  }                                                                                      \
+  CDDP_REGISTER(cddp_forward_rollout_##MODEL##SUFFIX,                                    \
+                (cddp::forward_rollout_kernel<scalar_t, cddp::STRUCT, TRACK>),           \
+                cddp::kThreads, 0)
+
+CDDP_FORWARD_ROLLOUT(unicycle, Unicycle, false, )
+CDDP_FORWARD_ROLLOUT(unicycle, Unicycle, true, _track)

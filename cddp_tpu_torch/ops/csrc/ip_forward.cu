@@ -16,12 +16,17 @@
 // 2 nx + nu + 3m (20), against about 150 flops and one sin/cos pair. All
 // tensors are batch-last, so every load and store of a warp is coalesced;
 // the problem constants and box rows are a by-value kernel parameter.
+//
+// TRACK (the `_track` launchers) is the tracking variant: the JAX kernel's
+// "quadratic_track" cost lane (ip_rollout.py:136-163), whose per-step stage
+// parameter is the reference row. Step t's running cost tracks row t of the
+// shared (N, nx) reference `refs` (models.cuh::running_ref).
 #include "ipddp_step.cuh"
 #include "models.cuh"
 
 namespace cddp {
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl, int M, bool TRACK>
 __global__ void __launch_bounds__(kThreads) ip_forward_kernel(
     const T* __restrict__ Xb, const T* __restrict__ Ub, const T* __restrict__ Y,
     const T* __restrict__ S, const T* __restrict__ kuv, const T* __restrict__ Kuv,
@@ -31,7 +36,7 @@ __global__ void __launch_bounds__(kThreads) ip_forward_kernel(
     const T* __restrict__ adu, const T* __restrict__ tauv, const T* __restrict__ socv,
     T* __restrict__ Xo, T* __restrict__ Uo, T* __restrict__ So, T* __restrict__ Yo,
     T* __restrict__ Go, T* __restrict__ Lo, T* __restrict__ Jo, T* __restrict__ Fo,
-    const __grid_constant__ Consts<T, Mdl> c,
+    const T* __restrict__ refs, const __grid_constant__ Consts<T, Mdl> c,
     const __grid_constant__ BoxRows<T, M, Mdl::NX, Mdl::NU> rows, int N, int B,
     int integrator, int slack_soc) {
   constexpr int NX = Mdl::NX, NU = Mdl::NU;
@@ -74,7 +79,9 @@ __global__ void __launch_bounds__(kThreads) ip_forward_kernel(
     }
 #pragma unroll
     for (int i = 0; i < NU; ++i) u[i] = step(Ub, kuv, Kuv, NU, i, a_pr);
-    J = J + running_cost(c, x, u);
+    T rf[NX];
+    running_ref<TRACK>(c, refs, t, rf);
+    J = J + running_cost(c, rf, x, u);
     rows.eval(x, u, g);
     if (slack_soc) {
 #pragma unroll
@@ -110,43 +117,50 @@ __global__ void __launch_bounds__(kThreads) ip_forward_kernel(
   Fo[b] = ok ? T(1) : T(0);
 }
 
-template <typename T, class Mdl, int M>
-int launch_ip_forward(const T* const* in, T* const* out, const double* consts,
+template <typename T, class Mdl, int M, bool TRACK>
+int launch_ip_forward(const T* const* in, T* const* out, const T* refs, const double* consts,
                       const double* rows, int N, int B, int integrator, int slack_soc,
                       cudaStream_t stream) {
   const Consts<T, Mdl> c = Consts<T, Mdl>::from_host(consts);
   const auto r = BoxRows<T, M, Mdl::NX, Mdl::NU>::from_host(rows);
   const int blocks = (B + kThreads - 1) / kThreads;
-  ip_forward_kernel<T, Mdl, M><<<blocks, kThreads, 0, stream>>>(
+  ip_forward_kernel<T, Mdl, M, TRACK><<<blocks, kThreads, 0, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9], in[10],
       in[11], in[12], in[13], in[14], in[15], in[16], in[17], out[0], out[1], out[2],
-      out[3], out[4], out[5], out[6], out[7], c, r, N, B, integrator, slack_soc);
+      out[3], out[4], out[5], out[6], out[7], refs, c, r, N, B, integrator, slack_soc);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cddp
 
-// m: a control box (4), a state box (6) or both (10) on the unicycle.
-#define CDDP_IP_FORWARD(MODEL, STRUCT, M)                                              \
-  extern "C" int CDDP_EXPORT(cddp_ip_forward_##MODEL##_m##M)(                          \
+// m: a control box (4), a state box (6) or both (10) on the unicycle; the
+// goal form and (TRACK true, suffix _track) the tracking form, whose `refs`
+// is the shared (N, nx) reference (NULL and unread in the goal form).
+#define CDDP_IP_FORWARD(MODEL, STRUCT, M, TRACK, SUFFIX)                               \
+  extern "C" int CDDP_EXPORT(cddp_ip_forward_##MODEL##_m##M##SUFFIX)(                  \
       const scalar_t* Xb, const scalar_t* Ub, const scalar_t* Y, const scalar_t* S,    \
       const scalar_t* ku, const scalar_t* Ku, const scalar_t* klam,                    \
       const scalar_t* Klam, const scalar_t* lam, const scalar_t* ky,                   \
       const scalar_t* Ky, const scalar_t* ks, const scalar_t* Ks, const scalar_t* x0,  \
       const scalar_t* apr, const scalar_t* adu, const scalar_t* tau,                   \
       const scalar_t* soc, scalar_t* X, scalar_t* U, scalar_t* So, scalar_t* Yo,       \
-      scalar_t* G, scalar_t* L, scalar_t* J, scalar_t* F, const double* consts,        \
-      const double* rows, int N, int B, int integrator, int slack_soc, void* stream) { \
+      scalar_t* G, scalar_t* L, scalar_t* J, scalar_t* F, const scalar_t* refs,        \
+      const double* consts, const double* rows, int N, int B, int integrator,          \
+      int slack_soc, void* stream) {                                                   \
     const scalar_t* in[18] = {Xb, Ub, Y,  S,  ku, Ku, klam, Klam, lam,                 \
                               ky, Ky, ks, Ks, x0, apr, adu, tau, soc};                 \
     scalar_t* out[8] = {X, U, So, Yo, G, L, J, F};                                     \
-    return cddp::launch_ip_forward<scalar_t, cddp::STRUCT, M>(                         \
-        in, out, consts, rows, N, B, integrator, slack_soc,                            \
+    return cddp::launch_ip_forward<scalar_t, cddp::STRUCT, M, TRACK>(                  \
+        in, out, refs, consts, rows, N, B, integrator, slack_soc,                      \
         static_cast<cudaStream_t>(stream));                                            \
   }                                                                                    \
-  CDDP_REGISTER(cddp_ip_forward_##MODEL##_m##M,                                        \
-                (cddp::ip_forward_kernel<scalar_t, cddp::STRUCT, M>), cddp::kThreads, 0)
+  CDDP_REGISTER(cddp_ip_forward_##MODEL##_m##M##SUFFIX,                                \
+                (cddp::ip_forward_kernel<scalar_t, cddp::STRUCT, M, TRACK>),           \
+                cddp::kThreads, 0)
 
-CDDP_IP_FORWARD(unicycle, Unicycle, 4)
-CDDP_IP_FORWARD(unicycle, Unicycle, 6)
-CDDP_IP_FORWARD(unicycle, Unicycle, 10)
+CDDP_IP_FORWARD(unicycle, Unicycle, 4, false, )
+CDDP_IP_FORWARD(unicycle, Unicycle, 6, false, )
+CDDP_IP_FORWARD(unicycle, Unicycle, 10, false, )
+CDDP_IP_FORWARD(unicycle, Unicycle, 4, true, _track)
+CDDP_IP_FORWARD(unicycle, Unicycle, 6, true, _track)
+CDDP_IP_FORWARD(unicycle, Unicycle, 10, true, _track)

@@ -4,7 +4,7 @@
 // Replaces cddp_tpu/ops/pallas/mega_ipddp.py::make_solve_kernel (:555) for
 // stacks of control and state boxes and, with the template argument BALL
 // (the stack row of a keep-out ball, -1 for none), one keep-out ball; the
-// quadratic goal cost, no terminal constraints and tracked costates. The
+// quadratic cost, no terminal constraints and tracked costates. The
 // Pallas kernel runs a tile of instances in lock step
 // and freezes finished lanes with masks; here every thread follows its own
 // control flow, which is the per-instance semantics of
@@ -50,6 +50,13 @@
 // registers at 256 threads), and every sweep stages step t+1's nominal
 // values in shared memory with cp.async while it computes step t
 // (sweep_stage.cuh), so the loads are in flight without taking registers.
+//
+// TRACK (the `_track` launchers) is the tracking variant
+// (mega_ipddp.py:556,608-609,731-732): step t's running reference is row t
+// of the shared (N, nx) reference `refs` (models.cuh::running_ref) in every
+// sweep's running cost and in the backward sweep's lx, read with the same
+// step t as the staged nominal x (which a ball row's g and Jacobian read);
+// the terminal cost and its derivatives keep the goal.
 #include "ip_filter.cuh"
 #include "ipddp_step.cuh"
 #include "models.cuh"
@@ -105,7 +112,7 @@ struct TrialOut {
   bool ok;
 };
 
-template <typename T, class Mdl, int M, int BALL>
+template <typename T, class Mdl, int M, int BALL, bool TRACK>
 struct IpSolver {
   static constexpr int NX = Mdl::NX, NU = Mdl::NU;
   static constexpr bool kBall = BALL >= 0;
@@ -120,6 +127,7 @@ struct IpSolver {
   const BoxRows<T, M, NX, NU>& rows;  // the ball's row, if any, is a zero row
   const BallRow<T, NX>& ball;
   const IpCfg<T>& cfg;
+  const T* refs;
   T* X;
   T* U;
   T* Y;
@@ -220,7 +228,9 @@ struct IpSolver {
     for (int t = 0; t < N; ++t) {
       load(X, t, x);
       load(U, t, u);
-      J = J + running_cost(c, x, u);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
+      J = J + running_cost(c, rf, x, u);
     }
     load(X, N, x);
     return J + terminal_cost(c, x);
@@ -298,11 +308,13 @@ struct IpSolver {
       st.get(stage, vS, s);
       st.get(stage, vG, g);
       linearize(x, u, A, Bm);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         T a = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) a = a + (x[j] - c.goal[j]) * (T(2) * c.Q[i][j]);
+        for (int j = 0; j < NX; ++j) a = a + (x[j] - rf[j]) * (T(2) * c.Q[i][j]);
         lx[i] = a;
       }
 #pragma unroll
@@ -477,7 +489,9 @@ struct IpSolver {
         for (int j = 0; j < NX; ++j) a = a + Kt[i][j] * dx[j];
         u[i] = st.get(stage, vU + i) + a_pr * kt[i] + a;
       }
-      o.J = o.J + running_cost(c, x, u);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
+      o.J = o.J + running_cost(c, rf, x, u);
       eval(x, u, g_n);
       if constexpr (kBall) {
         // The armed slack SOC (mega_ipddp.py:1729-1745): s := -g at the
@@ -559,11 +573,11 @@ struct IpSolver {
   }
 };
 
-template <typename T, class Mdl, int M, int BALL>
+template <typename T, class Mdl, int M, int BALL, bool TRACK>
 __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_solve_kernel(
     T* __restrict__ X, T* __restrict__ U, T* __restrict__ Y, T* __restrict__ S,
     T* __restrict__ G, T* __restrict__ L, T* __restrict__ k, T* __restrict__ K,
-    T* __restrict__ kl, T* __restrict__ Kl, T* __restrict__ stats,
+    T* __restrict__ kl, T* __restrict__ Kl, T* __restrict__ stats, const T* __restrict__ refs,
     const __grid_constant__ Consts<T, Mdl> c,
     const __grid_constant__ BoxRows<T, M, Mdl::NX, Mdl::NU> rows,
     const __grid_constant__ BallRow<T, Mdl::NX> ball, const __grid_constant__ IpCfg<T> cfg,
@@ -572,8 +586,8 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t Bs = B;
-  using Sv = IpSolver<T, Mdl, M, BALL>;
-  const Sv sv{c, rows, ball, cfg, X, U, Y, S, G, L, k, K, kl, Kl, Bs, b, N,
+  using Sv = IpSolver<T, Mdl, M, BALL, TRACK>;
+  const Sv sv{c, rows, ball, cfg, refs, X, U, Y, S, G, L, k, K, kl, Kl, Bs, b, N,
               Sv::Stage::make(cddp_smem)};
 
   T mu = stats[4 * Bs + b];
@@ -741,11 +755,11 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
 
 template <typename T, class Mdl, int M, int BALL>
 constexpr int ipddp_solve_smem() {
-  return stage_bytes<T>(IpSolver<T, Mdl, M, BALL>::kValues, kSolveThreads);
+  return stage_bytes<T>(IpSolver<T, Mdl, M, BALL, false>::kValues, kSolveThreads);
 }
 
-template <typename T, class Mdl, int M, int BALL>
-int launch_ipddp_solve(T* const* buf, const double* consts, const double* rows,
+template <typename T, class Mdl, int M, int BALL, bool TRACK>
+int launch_ipddp_solve(T* const* buf, const T* refs, const double* consts, const double* rows,
                        const double* ball, const double* cfg, const double* alphas,
                        const int* ints, cudaStream_t stream) {
   const int N = ints[0], B = ints[1];
@@ -757,12 +771,12 @@ int launch_ipddp_solve(T* const* buf, const double* consts, const double* rows,
   const int blocks = (B + kSolveThreads - 1) / kSolveThreads;
   const int smem = ipddp_solve_smem<T, Mdl, M, BALL>();
   const cudaError_t err = cudaFuncSetAttribute(
-      (const void*)ipddp_solve_kernel<T, Mdl, M, BALL>,
+      (const void*)ipddp_solve_kernel<T, Mdl, M, BALL, TRACK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ipddp_solve_kernel<T, Mdl, M, BALL><<<blocks, kSolveThreads, smem, stream>>>(
+  ipddp_solve_kernel<T, Mdl, M, BALL, TRACK><<<blocks, kSolveThreads, smem, stream>>>(
       buf[0], buf[1], buf[2], buf[3], buf[4], buf[5], buf[6], buf[7], buf[8], buf[9],
-      buf[10], c, r, bl, sc, N, B);
+      buf[10], refs, c, r, bl, sc, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -771,28 +785,35 @@ int launch_ipddp_solve(T* const* buf, const double* consts, const double* rows,
 // A stack of m rows with the keep-out ball at row BALL (-1: none), named
 // NAME: on the unicycle a control box (4), a state box (6), both (10), and
 // a control box with a ball sorted before it (m5_ball0) or after it
-// (m5_ball4).
-#define CDDP_IPDDP_SOLVE(MODEL, STRUCT, M, BALL, NAME)                                 \
+// (m5_ball4); TRACK true (NAME suffix _track) is the tracking form, whose
+// `refs` is the shared (N, nx) reference (NULL and unread in the goal form).
+#define CDDP_IPDDP_SOLVE(MODEL, STRUCT, M, BALL, TRACK, NAME)                          \
   extern "C" int CDDP_EXPORT(cddp_ipddp_solve_##MODEL##_##NAME)(                       \
       scalar_t* X, scalar_t* U, scalar_t* Y, scalar_t* S, scalar_t* G, scalar_t* L,    \
       scalar_t* k, scalar_t* K, scalar_t* kl, scalar_t* Kl, scalar_t* stats,           \
-      const double* consts, const double* rows, const double* ball, const double* cfg, \
-      const double* alphas, int N, int B, int integrator, int max_iterations,          \
-      int n_alpha, int bp_bound, int adaptive, int theta_l2, int f_max, int soc_auto,  \
-      int chess_auto, int soc_stall, void* stream) {                                   \
+      const scalar_t* refs, const double* consts, const double* rows,                  \
+      const double* ball, const double* cfg, const double* alphas, int N, int B,       \
+      int integrator, int max_iterations, int n_alpha, int bp_bound, int adaptive,     \
+      int theta_l2, int f_max, int soc_auto, int chess_auto, int soc_stall,            \
+      void* stream) {                                                                  \
     scalar_t* buf[11] = {X, U, Y, S, G, L, k, K, kl, Kl, stats};                       \
     const int ints[12] = {N,        B,        integrator, max_iterations,              \
                           n_alpha,  bp_bound, adaptive,   theta_l2,                    \
                           f_max,    soc_auto, chess_auto, soc_stall};                  \
-    return cddp::launch_ipddp_solve<scalar_t, cddp::STRUCT, M, BALL>(                  \
-        buf, consts, rows, ball, cfg, alphas, ints, static_cast<cudaStream_t>(stream)); \
+    return cddp::launch_ipddp_solve<scalar_t, cddp::STRUCT, M, BALL, TRACK>(           \
+        buf, refs, consts, rows, ball, cfg, alphas, ints,                              \
+        static_cast<cudaStream_t>(stream));                                            \
   }                                                                                    \
   CDDP_REGISTER(cddp_ipddp_solve_##MODEL##_##NAME,                                     \
-                (cddp::ipddp_solve_kernel<scalar_t, cddp::STRUCT, M, BALL>),           \
+                (cddp::ipddp_solve_kernel<scalar_t, cddp::STRUCT, M, BALL, TRACK>),    \
                 cddp::kSolveThreads, (cddp::ipddp_solve_smem<scalar_t, cddp::STRUCT, M, BALL>()))
 
-CDDP_IPDDP_SOLVE(unicycle, Unicycle, 4, -1, m4)
-CDDP_IPDDP_SOLVE(unicycle, Unicycle, 6, -1, m6)
-CDDP_IPDDP_SOLVE(unicycle, Unicycle, 10, -1, m10)
-CDDP_IPDDP_SOLVE(unicycle, Unicycle, 5, 0, m5_ball0)
-CDDP_IPDDP_SOLVE(unicycle, Unicycle, 5, 4, m5_ball4)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 4, -1, false, m4)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 6, -1, false, m6)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 10, -1, false, m10)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 5, 0, false, m5_ball0)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 5, 4, false, m5_ball4)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 4, -1, true, m4_track)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 6, -1, true, m6_track)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 10, -1, true, m10_track)
+CDDP_IPDDP_SOLVE(unicycle, Unicycle, 5, 0, true, m5_ball0_track)

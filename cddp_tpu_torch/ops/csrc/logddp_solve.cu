@@ -2,7 +2,7 @@
 // of one instance.
 //
 // Replaces cddp_tpu/ops/pallas/mega_logddp.py::make_log_solve_kernel (:192)
-// for box-only path stacks, the quadratic goal cost and cold seeds. The
+// for box-only path stacks, the quadratic cost and cold seeds. The
 // Pallas kernel runs a tile of instances in lock step and freezes finished
 // lanes with masks; here every thread follows its own control flow, which is
 // the per-instance semantics of solvers/logddp.py::_drive directly:
@@ -35,6 +35,12 @@
 // before its use. A register budget (blocks of 128 threads at 64, 72, 80
 // or 96 registers) measured slower than these blocks of 256 threads at the
 // compiler's choice (PERF.md, section 6).
+//
+// TRACK (the `_track` launchers) is the tracking variant
+// (mega_logddp.py:194,209-230): step t's running reference is row t of the
+// shared (N, nx) reference `refs` (models.cuh::running_ref) in every sweep's
+// running cost and in the backward sweep's lx; the terminal cost and its
+// derivatives keep the goal.
 #include "ipddp_step.cuh"
 #include "models.cuh"
 #include "sweep_stage.cuh"
@@ -98,13 +104,14 @@ __device__ __forceinline__ void barrier_z(const BoxRows<T, M, NX, NU>& rows,
   for (int r = 0; r < M; ++r) z[r] = -z[r];
 }
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl, int M, bool TRACK>
 struct LogSolver {
   static constexpr int NX = Mdl::NX, NU = Mdl::NU;
   using Staged = NominalStage<T, NX, NU>;
   const Consts<T, Mdl>& c;
   const BoxRows<T, M, NX, NU>& rows;
   const LogCfg<T>& cfg;
+  const T* refs;
   T* X;
   T* U;
   T* k;
@@ -149,7 +156,9 @@ struct LogSolver {
       ns.advance(t + 1, t + 1 < N, stage, false);
       ns.st.get(stage, Staged::vX, x);
       ns.st.get(stage, Staged::vU, u);
-      J = J + running_cost(c, x, u);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
+      J = J + running_cost(c, rf, x, u);
     }
     load(X, N, x);
     return J + terminal_cost(c, x);
@@ -216,12 +225,13 @@ struct LogSolver {
       }
       // Q-expansion (ops/kernels/riccati.py::q_expansion) plus the barrier
       // terms mu G' d1, mu G'(d2 G).
-      T Qx[NX], Qu[NU], Qxx[NX][NX], Qux[NU][NX], Quu[NU][NU];
+      T Qx[NX], Qu[NU], Qxx[NX][NX], Qux[NU][NX], Quu[NU][NU], rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         T lx = T(0), av = T(0), g = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) lx = lx + (x[j] - c.goal[j]) * (T(2) * c.Q[i][j]);
+        for (int j = 0; j < NX; ++j) lx = lx + (x[j] - rf[j]) * (T(2) * c.Q[i][j]);
 #pragma unroll
         for (int l = 0; l < NX; ++l) av = av + A[l][i] * Vx[l];
 #pragma unroll
@@ -404,7 +414,9 @@ struct LogSolver {
           a = a + ns.st.get(stage, Staged::vK + i * NX + j) * (x[j] - xb[j]);
         u[i] = (ns.st.get(stage, Staged::vU + i) + alpha * ns.st.get(stage, Staged::vk + i)) + a;
       }
-      J = J + running_cost(c, x, u);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
+      J = J + running_cost(c, rf, x, u);
       T bct, vt;
       barrier_cost(x, u, mu, bct, vt);
       bc = bc + bct;
@@ -429,18 +441,18 @@ struct LogSolver {
   }
 };
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl, int M, bool TRACK>
 __global__ void __launch_bounds__(kThreads) logddp_solve_kernel(
     T* __restrict__ X, T* __restrict__ U, T* __restrict__ k, T* __restrict__ K,
-    T* __restrict__ stats, const __grid_constant__ Consts<T, Mdl> c,
+    T* __restrict__ stats, const T* __restrict__ refs, const __grid_constant__ Consts<T, Mdl> c,
     const __grid_constant__ BoxRows<T, M, Mdl::NX, Mdl::NU> rows,
     const __grid_constant__ LogCfg<T> cfg, int N, int B) {
   extern __shared__ __align__(16) unsigned char cddp_smem[];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t Bs = B;
-  using Sv = LogSolver<T, Mdl, M>;
-  const Sv sv{c, rows, cfg, X, U, k, K, Bs, b, N,
+  using Sv = LogSolver<T, Mdl, M, TRACK>;
+  const Sv sv{c, rows, cfg, refs, X, U, k, K, Bs, b, N,
               typename Sv::Staged{Sv::Staged::Stage::make(cddp_smem), X, U, k, K, Bs, b}};
 
   T mu = cfg.mu0;
@@ -531,13 +543,13 @@ __global__ void __launch_bounds__(kThreads) logddp_solve_kernel(
   for (int i = 0; i < 10; ++i) stats[i * Bs + b] = vals[i];
 }
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl>
 constexpr int logddp_solve_smem() {
-  return stage_bytes<T>(LogSolver<T, Mdl, M>::Staged::kValues, kThreads);
+  return stage_bytes<T>(NominalStage<T, Mdl::NX, Mdl::NU>::kValues, kThreads);
 }
 
-template <typename T, class Mdl, int M>
-int launch_logddp_solve(T* const* buf, const double* consts, const double* rows,
+template <typename T, class Mdl, int M, bool TRACK>
+int launch_logddp_solve(T* const* buf, const T* refs, const double* consts, const double* rows,
                         const double* cfg, const double* alphas, const int* ints,
                         cudaStream_t stream) {
   const int N = ints[0], B = ints[1];
@@ -546,34 +558,40 @@ int launch_logddp_solve(T* const* buf, const double* consts, const double* rows,
   const auto r = BoxRows<T, M, Mdl::NX, Mdl::NU>::from_host(rows);
   const LogCfg<T> sc = LogCfg<T>::from_host(cfg, alphas, ints[3], ints[4], ints[5], ints[2]);
   const int blocks = (B + kThreads - 1) / kThreads;
-  const int smem = logddp_solve_smem<T, Mdl, M>();
+  const int smem = logddp_solve_smem<T, Mdl>();
   const cudaError_t err = cudaFuncSetAttribute(
-      (const void*)logddp_solve_kernel<T, Mdl, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      (const void*)logddp_solve_kernel<T, Mdl, M, TRACK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  logddp_solve_kernel<T, Mdl, M><<<blocks, kThreads, smem, stream>>>(
-      buf[0], buf[1], buf[2], buf[3], buf[4], c, r, sc, N, B);
+  logddp_solve_kernel<T, Mdl, M, TRACK><<<blocks, kThreads, smem, stream>>>(
+      buf[0], buf[1], buf[2], buf[3], buf[4], refs, c, r, sc, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cddp
 
-// m: a control box (4), a state box (6) or both (10) on the unicycle.
-#define CDDP_LOGDDP_SOLVE(MODEL, STRUCT, M)                                            \
-  extern "C" int CDDP_EXPORT(cddp_logddp_solve_##MODEL##_m##M)(                        \
+// m: a control box (4), a state box (6) or both (10) on the unicycle; the
+// goal form and (TRACK true, suffix _track) the tracking form, whose `refs`
+// is the shared (N, nx) reference (NULL and unread in the goal form).
+#define CDDP_LOGDDP_SOLVE(MODEL, STRUCT, M, TRACK, SUFFIX)                             \
+  extern "C" int CDDP_EXPORT(cddp_logddp_solve_##MODEL##_m##M##SUFFIX)(                \
       scalar_t* X, scalar_t* U, scalar_t* k, scalar_t* K, scalar_t* stats,             \
-      const double* consts, const double* rows, const double* cfg,                     \
-      const double* alphas, int N, int B, int integrator, int max_iterations,          \
-      int n_alpha, int bp_bound, void* stream) {                                       \
+      const scalar_t* refs, const double* consts, const double* rows,                  \
+      const double* cfg, const double* alphas, int N, int B, int integrator,           \
+      int max_iterations, int n_alpha, int bp_bound, void* stream) {                   \
     scalar_t* buf[5] = {X, U, k, K, stats};                                            \
     const int ints[6] = {N, B, integrator, max_iterations, n_alpha, bp_bound};         \
-    return cddp::launch_logddp_solve<scalar_t, cddp::STRUCT, M>(                       \
-        buf, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream));      \
+    return cddp::launch_logddp_solve<scalar_t, cddp::STRUCT, M, TRACK>(                \
+        buf, refs, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream)); \
   }                                                                                    \
-  CDDP_REGISTER(cddp_logddp_solve_##MODEL##_m##M,                                      \
-                (cddp::logddp_solve_kernel<scalar_t, cddp::STRUCT, M>), cddp::kThreads,      \
-                (cddp::logddp_solve_smem<scalar_t, cddp::STRUCT, M>()))
+  CDDP_REGISTER(cddp_logddp_solve_##MODEL##_m##M##SUFFIX,                              \
+                (cddp::logddp_solve_kernel<scalar_t, cddp::STRUCT, M, TRACK>),         \
+                cddp::kThreads,      \
+                (cddp::logddp_solve_smem<scalar_t, cddp::STRUCT>()))
 
-CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 4)
-CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 6)
-CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 10)
+CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 4, false, )
+CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 6, false, )
+CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 10, false, )
+CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 4, true, _track)
+CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 6, true, _track)
+CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 10, true, _track)

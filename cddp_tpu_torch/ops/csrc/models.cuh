@@ -125,15 +125,37 @@ struct Consts {
   }
 };
 
-// e'Qe + u'Ru with e = x - goal, summed from zero (QuadraticObjective,
-// dt-prescaled Q and R).
+// Step t's running reference, as the kernels' TRACK template flag selects
+// it. The goal form (TRACK false) is c.goal and never reads `refs`. The
+// tracking form reads row t of `refs`, the (N, nx) reference trajectory
+// (QuadraticObjective.reference_states rows 0..N-1) that the whole batch
+// shares, through the read-only data cache: every thread of a launch reads
+// the same N*nx values, so a row costs one cached line per warp. The
+// reference is not part of Consts, whose by-value size would grow with N.
+// The terminal cost always tracks c.goal.
+template <bool TRACK, typename T, class M>
+__device__ __forceinline__ void running_ref(const Consts<T, M>& c,
+                                            const T* __restrict__ refs, int t,
+                                            T (&r)[M::NX]) {
+#pragma unroll
+  for (int i = 0; i < M::NX; ++i) {
+    if constexpr (TRACK) {
+      r[i] = __ldg(refs + size_t(t) * M::NX + i);
+    } else {
+      r[i] = c.goal[i];
+    }
+  }
+}
+
+// e'Qe + u'Ru with e = x - ref (the step's running reference), summed from
+// zero (QuadraticObjective, dt-prescaled Q and R).
 template <typename T, class M>
-__device__ __forceinline__ T running_cost(const Consts<T, M>& c, const T (&x)[M::NX],
-                                          const T (&u)[M::NU]) {
+__device__ __forceinline__ T running_cost(const Consts<T, M>& c, const T (&ref)[M::NX],
+                                          const T (&x)[M::NX], const T (&u)[M::NU]) {
   constexpr int NX = M::NX, NU = M::NU;
   T e[NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) e[i] = x[i] - c.goal[i];
+  for (int i = 0; i < NX; ++i) e[i] = x[i] - ref[i];
   T s = T(0);
 #pragma unroll
   for (int i = 0; i < NX; ++i)
@@ -159,12 +181,13 @@ __device__ __forceinline__ T terminal_cost(const Consts<T, M>& c, const T (&x)[M
 
 // One step of a closed-loop line-search rollout: u = ub + alpha*kf +
 // Kf (x - xb), clamped to the box when `clamp`; one explicit integrator
-// step x -> xn. Returns the running cost of (x, u). The rollout kernel and
-// the whole-solve kernel both step through here, so their trajectories and
-// costs round alike.
+// step x -> xn. Returns the running cost of (x, u) against the step's
+// reference `ref`. The rollout kernel and the whole-solve kernel both step
+// through here, so their trajectories and costs round alike.
 template <typename T, class M>
 __device__ __forceinline__ T rollout_step(
-    const Consts<T, M>& c, int integrator, bool clamp, T alpha, const T (&x)[M::NX],
+    const Consts<T, M>& c, const T (&ref)[M::NX], int integrator, bool clamp, T alpha,
+    const T (&x)[M::NX],
     const T (&xb)[M::NX], const T (&ub)[M::NU], const T (&kf)[M::NU],
     const T (&Kf)[M::NU][M::NX], T (&u)[M::NU], T (&xn)[M::NX]) {
   constexpr int NX = M::NX, NU = M::NU;
@@ -175,7 +198,7 @@ __device__ __forceinline__ T rollout_step(
     for (int j = 0; j < NX; ++j) ui = ui + Kf[i][j] * (x[j] - xb[j]);
     u[i] = clamp ? nan_min(nan_max(ui, c.lb[i]), c.ub[i]) : ui;
   }
-  const T l = running_cost(c, x, u);
+  const T l = running_cost(c, ref, x, u);
   integrate<T, M>(integrator, x, u, c.p, c.dt, xn);
   return l;
 }

@@ -2,8 +2,8 @@
 // interior-point solve of one instance.
 //
 // Replaces cddp_tpu/ops/pallas/mega_msipddp.py::make_ms_solve_kernel (:302)
-// for box-only path stacks (m > 0), the quadratic goal cost and cold seeds,
-// with the three barrier strategies and the three gap-closing rollouts. The
+// for box-only path stacks (m > 0), the quadratic cost and cold seeds, with
+// the three barrier strategies and the three gap-closing rollouts. The
 // Pallas kernel runs a tile of instances in lock step and freezes finished
 // lanes with masks; here every thread follows its own control flow, which is
 // the per-instance semantics of solvers/msipddp.py::_drive directly:
@@ -43,6 +43,12 @@
 // in float32 keep four blocks (16 warps) on an SM. Staging the next step in
 // shared memory as kernel 7 does (sweep_stage.cuh) measured slower here
 // (PERF.md section 6), and is left out.
+//
+// TRACK (the `_track` launchers) is the tracking variant
+// (mega_msipddp.py:304,321-342): step t's running reference is row t of the
+// shared (N, nx) reference `refs` (models.cuh::running_ref) in every
+// trial's running cost and in the backward sweep's lx; the terminal cost
+// and its derivatives keep the goal.
 #include "ip_filter.cuh"
 #include "ipddp_step.cuh"
 #include "models.cuh"
@@ -104,12 +110,13 @@ struct MsTrial {
   bool sfeas, finite;
 };
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl, int M, bool TRACK>
 struct MsSolver {
   static constexpr int NX = Mdl::NX, NU = Mdl::NU;
   const Consts<T, Mdl>& c;
   const BoxRows<T, M, NX, NU>& rows;
   const MsCfg<T>& cfg;
+  const T* refs;
   T* X;
   T* U;
   T* Y;
@@ -161,7 +168,9 @@ struct MsSolver {
     for (int t = 0; t < N; ++t) {
       load(X, t, x);
       load(U, t, u);
-      J = J + running_cost(c, x, u);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
+      J = J + running_cost(c, rf, x, u);
     }
     load(X, N, x);
     return J + terminal_cost(c, x);
@@ -283,12 +292,13 @@ struct MsSolver {
         for (int j = 0; j < NX; ++j) at(Kl, t, i, j, NX, NX) = T(0.5) * (Vxx[i][j] + Vxx[j][i]);
       }
       // Q-expansion (lxx = 2Q, luu = 2R, lux = 0).
-      T Qx[NX], Qu[NU], Qxx[NX][NX], Qux[NU][NX], Quu[NU][NU];
+      T Qx[NX], Qu[NU], Qxx[NX][NX], Qux[NU][NX], Quu[NU][NU], rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         T lx = T(0), gy = T(0), ad = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) lx = lx + (x[j] - c.goal[j]) * (T(2) * c.Q[i][j]);
+        for (int j = 0; j < NX; ++j) lx = lx + (x[j] - rf[j]) * (T(2) * c.Q[i][j]);
 #pragma unroll
         for (int r = 0; r < M; ++r) gy = gy + y[r] * rows.Gx[r][i];
 #pragma unroll
@@ -605,7 +615,9 @@ struct MsSolver {
         for (int j = 0; j < NX; ++j) a = a + at(Kl, t, i, j, NX, NX) * dx[j];
         lam_n[i] = (lam[i] + alpha * at(kl, t, i, NX)) + a;
       }
-      o.J = o.J + running_cost(c, x, u);
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
+      o.J = o.J + running_cost(c, rf, x, u);
       rows.shifted(x, u, g_n);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
@@ -696,18 +708,19 @@ struct MsSolver {
   }
 };
 
-template <typename T, class Mdl, int M>
+template <typename T, class Mdl, int M, bool TRACK>
 __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) msipddp_solve_kernel(
     T* __restrict__ X, T* __restrict__ U, T* __restrict__ Y, T* __restrict__ S,
     T* __restrict__ F, T* __restrict__ L, T* __restrict__ k, T* __restrict__ K,
     T* __restrict__ kl, T* __restrict__ Kl, T* __restrict__ Ab, T* __restrict__ Bb,
-    T* __restrict__ stats, const __grid_constant__ Consts<T, Mdl> c,
+    T* __restrict__ stats, const T* __restrict__ refs, const __grid_constant__ Consts<T, Mdl> c,
     const __grid_constant__ BoxRows<T, M, Mdl::NX, Mdl::NU> rows,
     const __grid_constant__ MsCfg<T> cfg, int N, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t Bs = B;
-  const MsSolver<T, Mdl, M> sv{c, rows, cfg, X, U, Y, S, F, L, k, K, kl, Kl, Ab, Bb, Bs, b, N};
+  const MsSolver<T, Mdl, M, TRACK> sv{c,  rows, cfg, refs, X,  U,  Y,  S,  F, L,
+                                      k,  K,    kl,  Kl,   Ab, Bb, Bs, b,  N};
 
   T mu = stats[4 * Bs + b];
   T cost = sv.initial_cost();
@@ -828,8 +841,8 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) msipddp_
   for (int i = 0; i < 13; ++i) stats[i * Bs + b] = vals[i];
 }
 
-template <typename T, class Mdl, int M>
-int launch_msipddp_solve(T* const* buf, const double* consts, const double* rows,
+template <typename T, class Mdl, int M, bool TRACK>
+int launch_msipddp_solve(T* const* buf, const T* refs, const double* consts, const double* rows,
                          const double* cfg, const double* alphas, const int* ints,
                          cudaStream_t stream) {
   const int N = ints[0], B = ints[1];
@@ -838,31 +851,38 @@ int launch_msipddp_solve(T* const* buf, const double* consts, const double* rows
   const auto r = BoxRows<T, M, Mdl::NX, Mdl::NU>::from_host(rows);
   const MsCfg<T> sc = MsCfg<T>::from_host(cfg, alphas, ints);
   const int blocks = (B + kSolveThreads - 1) / kSolveThreads;
-  msipddp_solve_kernel<T, Mdl, M><<<blocks, kSolveThreads, 0, stream>>>(
+  msipddp_solve_kernel<T, Mdl, M, TRACK><<<blocks, kSolveThreads, 0, stream>>>(
       buf[0], buf[1], buf[2], buf[3], buf[4], buf[5], buf[6], buf[7], buf[8], buf[9],
-      buf[10], buf[11], buf[12], c, r, sc, N, B);
+      buf[10], buf[11], buf[12], refs, c, r, sc, N, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cddp
 
-// m: a control box (4), a state box (6) or both (10) on the unicycle.
-#define CDDP_MSIPDDP_SOLVE(MODEL, STRUCT, M)                                           \
-  extern "C" int CDDP_EXPORT(cddp_msipddp_solve_##MODEL##_m##M)(                       \
+// m: a control box (4), a state box (6) or both (10) on the unicycle; the
+// goal form and (TRACK true, suffix _track) the tracking form, whose `refs`
+// is the shared (N, nx) reference (NULL and unread in the goal form).
+#define CDDP_MSIPDDP_SOLVE(MODEL, STRUCT, M, TRACK, SUFFIX)                            \
+  extern "C" int CDDP_EXPORT(cddp_msipddp_solve_##MODEL##_m##M##SUFFIX)(               \
       scalar_t* X, scalar_t* U, scalar_t* Y, scalar_t* S, scalar_t* F, scalar_t* L,    \
       scalar_t* k, scalar_t* K, scalar_t* kl, scalar_t* Kl, scalar_t* A, scalar_t* Bm, \
-      scalar_t* stats, const double* consts, const double* rows, const double* cfg,    \
-      const double* alphas, int N, int B, int integrator, int max_iterations,          \
-      int n_alpha, int bp_bound, int strategy, int seg, int rollout, void* stream) {   \
+      scalar_t* stats, const scalar_t* refs, const double* consts, const double* rows, \
+      const double* cfg, const double* alphas, int N, int B, int integrator,           \
+      int max_iterations, int n_alpha, int bp_bound, int strategy, int seg,            \
+      int rollout, void* stream) {                                                     \
     scalar_t* buf[13] = {X, U, Y, S, F, L, k, K, kl, Kl, A, Bm, stats};                \
     const int ints[9] = {N,        B,        integrator, max_iterations, n_alpha,      \
                          bp_bound, strategy, seg,        rollout};                     \
-    return cddp::launch_msipddp_solve<scalar_t, cddp::STRUCT, M>(                      \
-        buf, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream));      \
+    return cddp::launch_msipddp_solve<scalar_t, cddp::STRUCT, M, TRACK>(               \
+        buf, refs, consts, rows, cfg, alphas, ints, static_cast<cudaStream_t>(stream)); \
   }                                                                                    \
-  CDDP_REGISTER(cddp_msipddp_solve_##MODEL##_m##M,                                     \
-                (cddp::msipddp_solve_kernel<scalar_t, cddp::STRUCT, M>), cddp::kSolveThreads, 0)
+  CDDP_REGISTER(cddp_msipddp_solve_##MODEL##_m##M##SUFFIX,                             \
+                (cddp::msipddp_solve_kernel<scalar_t, cddp::STRUCT, M, TRACK>),        \
+                cddp::kSolveThreads, 0)
 
-CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 4)
-CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 6)
-CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 10)
+CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 4, false, )
+CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 6, false, )
+CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 10, false, )
+CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 4, true, _track)
+CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 6, true, _track)
+CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 10, true, _track)

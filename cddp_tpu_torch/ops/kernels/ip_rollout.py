@@ -19,7 +19,8 @@ the fraction-to-boundary tau, per instance:
   ``slack_soc`` the slack re-closure s := -g where it passes the
   fraction-to-boundary test;
 - the stacked box rows g, the fraction-to-boundary and finiteness masks;
-- the quadratic running cost and the model's integrator step.
+- the quadratic running cost, against a tracking objective's row t at
+  step t (the ``_track`` launchers), and the model's integrator step.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from cddp_tpu_torch.solvers.base import ftb_ok
 
 _OL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_double)]
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.POINTER(ctypes.c_double)] * 2
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_double)] * 2
                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 # Stack sizes m the interior-point kernels are instantiated for (a control
@@ -244,7 +245,7 @@ def ip_forward_plain(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
         s_new = s + apr * ks[:, t] + _mv(Ks[:, t], dx)
         y_new = y + adu * ky[:, t] + _mv(Ky[:, t], dx)
         u = Ub[:, t] + apr * ku[:, t] + _mv(Ku[:, t], dx)
-        e = x - lc.goal
+        e = x - lc.running_ref(t)
         J = J + (((e @ lc.Q) * e).sum(-1) + ((u @ lc.R) * u).sum(-1))
         g = fc.rows.evaluate(x, u)
         if fc.slack_soc:
@@ -266,7 +267,7 @@ def ip_forward(fc: ForwardConsts, *args):
     """CUDA tensors launch the kernel; CPU tensors run the plain version."""
     Xb = args[0]
     if Xb.device.type == "cpu":
-        dispatch_log.plain("ip_forward", Xb.shape[0])
+        dispatch_log.plain("ip_forward" + fc.lane.variant, Xb.shape[0])
         return ip_forward_plain(fc, *args)
     return _launch_forward(fc, *args)
 
@@ -284,15 +285,15 @@ def _launch_forward(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
         (N, nx), (N, nu), (N, m), (N, m), (N, nu), (N, nu, nx), (N, nx),
         (N, nx, nx), (N, nx), (N, m), (N, m, nx), (N, m), (N, m, nx), (nx,),
         (), (), (), ()))
-    name = f"cddp_ip_forward_{fc.lane.entry.cuda_name}_m{m}_{tag}"
+    name = f"cddp_ip_forward_{fc.lane.entry.cuda_name}_m{m}{fc.lane.variant}_{tag}"
     fn = build.function(name, _FWD_ARGTYPES)
     last = [t.movedim(0, -1).contiguous() for t in ins]
     X, U, Sn, Yn, G, Lam = (Xb.new_empty(N, d, Bsz) for d in (nx, nu, m, m, m, nx))
     J, F = Xb.new_empty(Bsz), Xb.new_empty(Bsz)
     err = fn(*(build.ptr(t) for t in last + [X, U, Sn, Yn, G, Lam, J, F]),
-             build.doubles(fc.lane.host), build.doubles(fc.rows.host), N, Bsz,
+             fc.lane.refs_ptr(Xb), build.doubles(fc.lane.host), build.doubles(fc.rows.host), N, Bsz,
              rollout_ops.INTEGRATORS.index(fc.lane.integrator), int(fc.slack_soc),
              build.stream_ptr(Xb.device))
     build.check(err, name)
-    dispatch_log.launched("ip_forward", Bsz)
+    dispatch_log.launched("ip_forward" + fc.lane.variant, Bsz)
     return (*(t.movedim(-1, 0) for t in (X, U, Sn, Yn, G, Lam)), J, F > 0.5)

@@ -9,6 +9,11 @@ success, or best merit with ``enable_parallel``), and the acceptance,
 regularization and convergence driver. Per-instance control flow replaces
 the Pallas kernel's lane masks; finished instances simply stop.
 
+A tracking objective (``reference_states``) launches the tracking variant
+(launcher suffix ``_track``, ``dispatch_log`` name ``clddp_solve_track``),
+which reads step t's running reference from the shared (N, nx) rows of
+``rollout.LaneConsts.refs``.
+
 Its plain version is the per-pass driver ``solvers/clddp.py::_solve``,
 which CPU tensors run.
 """
@@ -26,15 +31,17 @@ from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 from cddp_tpu_torch.options import CDDPOptions, line_search_alphas
 from cddp_tpu_torch.solution import Solution
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_double)] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_double)] * 2
              + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_clddp.py:821-865 of the JAX package,
     without its TPU scratch-memory gate): a registered model with an explicit
-    integrator, a control box with the enum BoxQP, and none of the driver
-    features the kernel does not model."""
+    integrator, the quadratic objective (the goal or a tracked
+    ``reference_states``, mega_clddp.py:825,884), a control box with the
+    enum BoxQP, and none of the driver features the kernel does not
+    model."""
     return (
         problem.get_constraint("ControlConstraint") is not None
         and enum_applies(options.box_qp, problem.control_dim)
@@ -80,7 +87,8 @@ def clddp_solve(problem, options: CDDPOptions, X0, U0, k0, K0) -> Solution:
     from cddp_tpu_torch.solvers import clddp
 
     if X0.device.type == "cpu":
-        dispatch_log.plain("clddp_solve", X0.shape[0])
+        variant = rollout_ops.lane_consts(problem).variant
+        dispatch_log.plain("clddp_solve" + variant, X0.shape[0])
         return clddp._solve(problem, options, X0, U0, k0, K0)
     return _launch(problem, options, X0, U0, k0, K0)
 
@@ -101,7 +109,7 @@ def launch_counting_work(problem, options, X0, U0, k0, K0):
     N, nu = N1 - 1, problem.control_dim
     tag = build.dtype_tag("clddp_solve", ins, (
         (N + 1, nx), (N, nu), (N, nu), (N, nu, nx)))
-    name = f"cddp_clddp_solve_{consts.entry.cuda_name}_{tag}"
+    name = f"cddp_clddp_solve_{consts.entry.cuda_name}{consts.variant}_{tag}"
     fn = build.function(name, _ARGTYPES)
     # The kernel updates X, U, k, K in place: always fresh batch-last copies.
     X, U, k, K = (t.movedim(0, -1).clone(memory_format=torch.contiguous_format)
@@ -110,11 +118,11 @@ def launch_counting_work(problem, options, X0, U0, k0, K0):
     ints = (N, Bsz, rollout_ops.INTEGRATORS.index(consts.integrator),
             options.max_iterations, len(line_search_alphas(options.line_search)),
             backward_retry_bound(options), int(options.enable_parallel))
-    err = fn(*(build.ptr(t) for t in (X, U, k, K, stats)),
+    err = fn(*(build.ptr(t) for t in (X, U, k, K, stats)), consts.refs_ptr(X0),
              build.doubles(consts.host), build.doubles(_solve_cfg(options)),
              *ints, build.stream_ptr(X0.device))
     build.check(err, name)
-    dispatch_log.launched("clddp_solve", Bsz)
+    dispatch_log.launched("clddp_solve" + consts.variant, Bsz)
     return Solution(
         solver_name="CLDDP",
         status_code=stats[5].to(torch.int32),

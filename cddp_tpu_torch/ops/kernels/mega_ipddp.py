@@ -5,8 +5,10 @@ Replaces ``cddp_tpu/ops/pallas/mega_ipddp.py::make_solve_kernel`` for the
 stacks its lane layout takes (``ip_rollout.box_rows`` with ``ball``):
 control and state boxes and keep-out balls, in the layouts the kernel is
 instantiated for (``solve_variant``); the
-quadratic goal cost, no terminal constraints, costates tracked, both
-barrier strategies and both theta norms. The kernel
+quadratic cost (the goal, or a tracked ``reference_states`` on the
+``TRACK_LAYOUTS``: the tracking variant, launcher suffix ``_track``,
+``dispatch_log`` name ``ipddp_solve_track``), no terminal constraints,
+costates tracked, both barrier strategies and both theta norms. The kernel
 (``ops/csrc/ipddp_solve.cu``) gives each instance one thread that runs
 ``solvers/ipddp.py::_drive`` for it: the initial cost, merit and residuals;
 per iteration the Jacobians and cost derivatives, the condensed backward
@@ -42,7 +44,7 @@ MAX_ALPHAS = 64  # the kernel's alpha-ladder capacity (ipddp_solve.cu)
 # The kernel's filter slots (kFCap). An accepted entry joins at most
 # max_filter_size kept ones, so max_filter_size <= 6 fits.
 FILTER_SLOTS = 7
-_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.POINTER(ctypes.c_double)] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_double)] * 5
              + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 # Stats rows the kernel writes: cost, inf_pr, inf_du, inf_comp, mu, reg,
 # alpha_pr, iterations, status, backward attempts, sweeps, and (ball
@@ -52,6 +54,9 @@ STATS_ROWS = 13
 # row). A control box and one keep-out ball, the ball's name sorted before
 # the box's or after it. Box-only stacks take ip_rollout.KERNEL_ROWS.
 BALL_LAYOUTS = {"unicycle": ((5, 0), (5, 4))}
+# The layouts kernel 7 also has a tracking variant of (suffix "_track"), by
+# model: the box stacks and the ball's row first.
+TRACK_LAYOUTS = {"unicycle": ("m4", "m6", "m10", "m5_ball0")}
 
 
 def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
@@ -89,20 +94,26 @@ def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
 
 
 def solve_variant(problem, ball: bool = True):
-    """Kernel 7's launcher suffix for the problem's stack, or None when the
-    kernel is not instantiated for it: "m{m}" for a box stack of a size in
-    ``ip_rollout.KERNEL_ROWS``, "m{m}_ball{row}" for a layout of
-    ``BALL_LAYOUTS``; box stacks only without ``ball``."""
+    """Kernel 7's launcher suffix for the problem's stack and objective, or
+    None when the kernel is not instantiated for them: "m{m}" for a box
+    stack of a size in ``ip_rollout.KERNEL_ROWS``, "m{m}_ball{row}" for a
+    layout of ``BALL_LAYOUTS``, each followed by "_track" for a tracking
+    objective on a layout of ``TRACK_LAYOUTS``; box stacks only without
+    ``ball``. Kernels 8 and 9 take the same box suffixes."""
     lane = rollout_ops.lane_consts(problem)
     rows = ip_rollout.box_rows(problem, PathStacker(problem), ball=ball)
     if lane is None or rows is None:
         return None
     name, balls = lane.entry.cuda_name, rows.ball_rows
-    if not balls:
-        return f"m{rows.m}" if rows.m in ip_rollout.KERNEL_ROWS.get(name, ()) else None
-    if len(balls) == 1 and (rows.m, balls[0]) in BALL_LAYOUTS.get(name, ()):
-        return f"m{rows.m}_ball{balls[0]}"
-    return None
+    layout = None
+    if not balls and rows.m in ip_rollout.KERNEL_ROWS.get(name, ()):
+        layout = f"m{rows.m}"
+    elif len(balls) == 1 and (rows.m, balls[0]) in BALL_LAYOUTS.get(name, ()):
+        layout = f"m{rows.m}_ball{balls[0]}"
+    if layout is None or (lane.refs is not None
+                          and layout not in TRACK_LAYOUTS.get(name, ())):
+        return None
+    return layout + lane.variant
 
 
 def mega_eligible(problem, options: CDDPOptions) -> bool:
@@ -153,7 +164,8 @@ def ipddp_solve(problem, options: CDDPOptions, X, U, Y, S, G, Lambda, mu0, ku0,
     from cddp_tpu_torch.solvers import ipddp
 
     if X.device.type == "cpu":
-        dispatch_log.plain("ipddp_solve", X.shape[0])
+        variant = rollout_ops.lane_consts(problem).variant
+        dispatch_log.plain("ipddp_solve" + variant, X.shape[0])
         return ipddp._drive(problem, options, X, U, Y, S, G, Lambda, mu0, ku0, Ku0)
     return _launch(problem, options, X, U, Y, S, G, Lambda, mu0, ku0, Ku0)
 
@@ -215,11 +227,11 @@ def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
             int(has_ball and ip.use_constraint_hessians == "auto"),
             ip.soc_stall_iterations)
     err = fn(*(build.ptr(t) for t in (X, U, Y, S, G, L, k, K, klam, Klam, stats)),
-             build.doubles(lane.host), build.doubles(rows.host), build.doubles(rows.ball),
-             build.doubles(_solve_cfg(options)), build.doubles(alphas), *ints,
-             build.stream_ptr(X0.device))
+             lane.refs_ptr(X0), build.doubles(lane.host), build.doubles(rows.host),
+             build.doubles(rows.ball), build.doubles(_solve_cfg(options)), build.doubles(alphas),
+             *ints, build.stream_ptr(X0.device))
     build.check(err, name)
-    dispatch_log.launched("ipddp_solve", Bsz)
+    dispatch_log.launched("ipddp_solve" + lane.variant, Bsz)
     Yb, Sb = Y.movedim(-1, 0), S.movedim(-1, 0)
     return Solution(
         solver_name="IPDDP",

@@ -2,7 +2,9 @@
 CUDA kernel.
 
 Replaces ``cddp_tpu/ops/pallas/mega_logddp.py::make_log_solve_kernel`` for
-box-only path stacks, the quadratic goal cost and cold seeds. The kernel
+box-only path stacks, the quadratic cost (the goal, or a tracked
+``reference_states``: the tracking variant, launcher suffix ``_track``,
+``dispatch_log`` name ``logddp_solve_track``) and cold seeds. The kernel
 (``ops/csrc/logddp_solve.cu``) gives each instance one thread that runs
 ``solvers/logddp.py::_drive`` for it: the initial cost, merit and violation;
 per iteration the refresh of the nominal merit and violation under the
@@ -31,7 +33,7 @@ from cddp_tpu_torch.ops.kernels.mega_ipddp import box_solve_eligible
 from cddp_tpu_torch.options import CDDPOptions, line_search_alphas
 from cddp_tpu_torch.solution import Solution
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_double)] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_double)] * 4
              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
@@ -65,7 +67,8 @@ def logddp_solve(problem, options: CDDPOptions, X, U, k0, K0) -> Solution:
     from cddp_tpu_torch.solvers import logddp
 
     if X.device.type == "cpu":
-        dispatch_log.plain("logddp_solve", X.shape[0])
+        variant = rollout_ops.lane_consts(problem).variant
+        dispatch_log.plain("logddp_solve" + variant, X.shape[0])
         return logddp._drive(problem, options, X, U, k0, K0)
     return _launch(problem, options, X, U, k0, K0)
 
@@ -87,7 +90,7 @@ def launch_counting_work(problem, options, X0, U0, k0, K0):
     Bsz, N1, nx = X0.shape
     N, nu, m = N1 - 1, problem.control_dim, rows.m
     tag = build.dtype_tag("logddp_solve", ins, ((N + 1, nx), (N, nu), (N, nu), (N, nu, nx)))
-    name = f"cddp_logddp_solve_{lane.entry.cuda_name}_m{m}_{tag}"
+    name = f"cddp_logddp_solve_{lane.entry.cuda_name}_m{m}{lane.variant}_{tag}"
     fn = build.function(name, _ARGTYPES)
     # The kernel updates its state in place: always fresh batch-last copies.
     X, U, k, K = (t.movedim(0, -1).clone(memory_format=torch.contiguous_format)
@@ -96,11 +99,12 @@ def launch_counting_work(problem, options, X0, U0, k0, K0):
     alphas = line_search_alphas(options.line_search)
     ints = (N, Bsz, rollout_ops.INTEGRATORS.index(lane.integrator), options.max_iterations,
             len(alphas), backward_retry_bound(options))
-    err = fn(*(build.ptr(t) for t in (X, U, k, K, stats)), build.doubles(lane.host),
+    err = fn(*(build.ptr(t) for t in (X, U, k, K, stats)), lane.refs_ptr(X0),
+             build.doubles(lane.host),
              build.doubles(rows.host), build.doubles(_solve_cfg(options)),
              build.doubles(alphas), *ints, build.stream_ptr(X0.device))
     build.check(err, name)
-    dispatch_log.launched("logddp_solve", Bsz)
+    dispatch_log.launched("logddp_solve" + lane.variant, Bsz)
     return Solution(
         solver_name="LogDDP",
         status_code=stats[7].to(torch.int32),

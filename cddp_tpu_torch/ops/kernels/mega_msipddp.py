@@ -2,8 +2,10 @@
 solve as one CUDA kernel.
 
 Replaces ``cddp_tpu/ops/pallas/mega_msipddp.py::make_ms_solve_kernel`` for
-box-only path stacks (m > 0), the quadratic goal cost and cold seeds, with
-all three barrier strategies and all three gap-closing rollouts. The kernel
+box-only path stacks (m > 0), the quadratic cost (the goal, or a tracked
+``reference_states``: the tracking variant, launcher suffix ``_track``,
+``dispatch_log`` name ``msipddp_solve_track``) and cold seeds, with all
+three barrier strategies and all three gap-closing rollouts. The kernel
 (``ops/csrc/msipddp_solve.cu``) gives each instance one thread that runs
 ``solvers/msipddp.py::_drive`` for it: per iteration the defect-aware
 condensed backward with unclipped y/s and its regularization retries, the
@@ -36,7 +38,7 @@ from cddp_tpu_torch.solution import Solution
 
 STRATEGIES = (BarrierStrategy.ADAPTIVE, BarrierStrategy.MONOTONIC, BarrierStrategy.IPOPT)
 ROLLOUT_TYPES = ("nonlinear", "hybrid", "dense")  # the kernel's kRoll* order
-_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.POINTER(ctypes.c_double)] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.POINTER(ctypes.c_double)] * 4
              + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
@@ -75,7 +77,8 @@ def msipddp_solve(problem, options: CDDPOptions, X, U, Y, S, G, F, Lambda, mu0, 
     from cddp_tpu_torch.solvers import msipddp
 
     if X.device.type == "cpu":
-        dispatch_log.plain("msipddp_solve", X.shape[0])
+        variant = rollout_ops.lane_consts(problem).variant
+        dispatch_log.plain("msipddp_solve" + variant, X.shape[0])
         return msipddp._drive(problem, options, X, U, Y, S, G, F, Lambda, mu0, ku0, Ku0)
     return _launch(problem, options, X, U, Y, S, G, F, Lambda, mu0, ku0, Ku0)
 
@@ -103,7 +106,7 @@ def launch_counting_work(problem, options, X0, U0, Y0, S0, G0, F0, L0, mu0, ku0,
     N, nu, m = N1 - 1, problem.control_dim, rows.m
     tag = build.dtype_tag("msipddp_solve", ins, (
         (N + 1, nx), (N, nu), (N, m), (N, m), (N, nx), (N, nx), (N, nu), (N, nu, nx), ()))
-    name = f"cddp_msipddp_solve_{lane.entry.cuda_name}_m{m}_{tag}"
+    name = f"cddp_msipddp_solve_{lane.entry.cuda_name}_m{m}{lane.variant}_{tag}"
     fn = build.function(name, _ARGTYPES)
     # The kernel updates its state in place: always fresh batch-last copies.
     X, U, Y, S, F, L, k, K = (t.movedim(0, -1).clone(memory_format=torch.contiguous_format)
@@ -122,11 +125,11 @@ def launch_counting_work(problem, options, X0, U0, Y0, S0, G0, F0, L0, mu0, ku0,
             len(alphas), backward_retry_bound(options), STRATEGIES.index(ms.barrier.strategy),
             ms.segment_length, ROLLOUT_TYPES.index(ms.rollout_type))
     err = fn(*(build.ptr(t) for t in (X, U, Y, S, F, L, k, K, kl, Kl, A, Bm, stats)),
-             build.doubles(lane.host), build.doubles(rows.host),
+             lane.refs_ptr(X0), build.doubles(lane.host), build.doubles(rows.host),
              build.doubles(_solve_cfg(options, m * N + nu * N)), build.doubles(alphas),
              *ints, build.stream_ptr(X0.device))
     build.check(err, name)
-    dispatch_log.launched("msipddp_solve", Bsz)
+    dispatch_log.launched("msipddp_solve" + lane.variant, Bsz)
     Xb, Ub, Yb, Sb, Fb, Lb, kb, Kb = (t.movedim(-1, 0) for t in (X, U, Y, S, F, L, k, K))
     sol = Solution(
         solver_name="MSIPDDP",

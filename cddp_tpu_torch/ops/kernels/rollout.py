@@ -32,7 +32,7 @@ from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.linalg import true_div
 
 INTEGRATORS = ("euler", "heun", "rk3", "rk4")  # kernel codes 0..3
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_double)]
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_double)]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
@@ -56,7 +56,13 @@ def model_entry(model: DynamicalSystem) -> Optional[ModelEntry]:
 @dataclass(frozen=True)
 class LaneConsts:
     """Problem constants shared by every instance, in the form the kernels
-    take them. ``lower``/``upper`` are None when controls are unclamped."""
+    take them. ``lower``/``upper`` are None when controls are unclamped.
+    ``refs`` is a tracking objective's running reference, rows 0..N-1 of
+    ``reference_states`` as one contiguous (N, nx) tensor that the whole
+    batch shares, or None for the goal form: the kernels take it as a
+    device pointer beside the by-value constants (its size grows with N),
+    and their tracking variants (launcher suffix ``_track``) read row t at
+    step t."""
 
     model: DynamicalSystem
     entry: ModelEntry
@@ -68,6 +74,27 @@ class LaneConsts:
     goal: torch.Tensor
     lower: Optional[torch.Tensor]
     upper: Optional[torch.Tensor]
+    refs: Optional[torch.Tensor] = None
+
+    @property
+    def variant(self) -> str:
+        """The launcher suffix of the objective's form: "_track" or ""."""
+        return "" if self.refs is None else "_track"
+
+    def running_ref(self, t: int):
+        """Step t's running reference: row t of ``refs``, or the goal."""
+        return self.goal if self.refs is None else self.refs[t]
+
+    def refs_ptr(self, like: torch.Tensor):
+        """``refs`` as a kernel argument (NULL for the goal form); raises
+        unless it lies on ``like``'s device in ``like``'s dtype, as the
+        kernel reads it."""
+        if self.refs is None:
+            return None
+        if self.refs.device != like.device or self.refs.dtype != like.dtype:
+            raise ValueError(f"reference_states on {self.refs.device} {self.refs.dtype}, "
+                             f"the kernel's inputs on {like.device} {like.dtype}")
+        return ctypes.c_void_p(self.refs.data_ptr())
 
     @functools.cached_property
     def host(self) -> List[float]:
@@ -90,12 +117,14 @@ def lane_consts(problem) -> Optional[LaneConsts]:
         return None
     obj = problem.objective
     cc = problem.get_constraint("ControlConstraint")
+    refs = obj.reference_states
     return LaneConsts(
         model=problem.model, entry=entry, integrator=integrator,
         dt=problem.timestep, Q=obj.Q, R=obj.R, Qf=obj.Qf,
         goal=obj.reference_state,
         lower=cc.lower if cc is not None else None,
         upper=cc.upper if cc is not None else None,
+        refs=None if refs is None else refs[:problem.horizon].to(obj.Q.dtype).contiguous(),
     )
 
 
@@ -125,7 +154,8 @@ def forward_rollout_plain(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
     """Port of ``rollout.py::_scan_forward_single``. Batch-first: Xb
     (B,N,nx) nominal states x_0..x_{N-1}, Ub/k (B,N,nu), K (B,N,nu,nx),
     x0 (B,nx), alpha (B,). Returns (X tail (B,N,nx) = x_1..x_N,
-    U (B,N,nu), J (B,))."""
+    U (B,N,nu), J (B,)). Step t's running cost tracks
+    ``consts.running_ref(t)``, the terminal cost the goal."""
     N = Xb.shape[1]
     dt = torch.tensor(consts.dt, dtype=Xb.dtype, device=Xb.device)
     f = lambda x, u: consts.model(x, u, None)  # noqa: E731
@@ -137,7 +167,7 @@ def forward_rollout_plain(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
         u = Ub[:, t] + a * k[:, t] + (K[:, t] @ (x - Xb[:, t])[..., None])[..., 0]
         if consts.lower is not None:
             u = torch.minimum(torch.maximum(u, consts.lower), consts.upper)
-        e = x - goal
+        e = x - consts.running_ref(t)
         J = J + ((e @ Q) * e).sum(-1) + ((u @ R) * u).sum(-1)
         x = integrate_lane(f, consts.integrator, x, u, dt)
         xs.append(x)
@@ -149,7 +179,7 @@ def forward_rollout_plain(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
 def forward_rollout(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
     """CUDA tensors launch the kernel; CPU tensors run the plain version."""
     if Xb.device.type == "cpu":
-        dispatch_log.plain("forward_rollout", Xb.shape[0])
+        dispatch_log.plain("forward_rollout" + consts.variant, Xb.shape[0])
         return forward_rollout_plain(consts, Xb, Ub, k, K, x0, alpha)
     return _launch(consts, Xb, Ub, k, K, x0, alpha)
 
@@ -162,16 +192,16 @@ def _launch(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
     nu = Ub.shape[-1]
     tag = build.dtype_tag("forward_rollout", ins, (
         (N, nx), (N, nu), (N, nu), (N, nu, nx), (nx,), ()))
-    name = f"cddp_forward_rollout_{consts.entry.cuda_name}_{tag}"
+    name = f"cddp_forward_rollout_{consts.entry.cuda_name}{consts.variant}_{tag}"
     fn = build.function(name, _ARGTYPES)
     last = [t.movedim(0, -1).contiguous() for t in ins]
     X = Xb.new_empty(N, nx, Bsz)
     U = Xb.new_empty(N, nu, Bsz)
     J = Xb.new_empty(Bsz)
-    err = fn(*(build.ptr(t) for t in last + [X, U, J]),
+    err = fn(*(build.ptr(t) for t in last + [X, U, J]), consts.refs_ptr(Xb),
              build.doubles(consts.host), N, Bsz,
              INTEGRATORS.index(consts.integrator), int(consts.lower is not None),
              build.stream_ptr(Xb.device))
     build.check(err, name)
-    dispatch_log.launched("forward_rollout", Bsz)
+    dispatch_log.launched("forward_rollout" + consts.variant, Bsz)
     return X.movedim(-1, 0), U.movedim(-1, 0), J

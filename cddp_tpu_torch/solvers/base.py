@@ -33,10 +33,11 @@ def discrete_jacobians(problem: Problem, X, U):
 
 
 def running_cost_derivatives(problem: Problem, X, U):
-    """(lx, lu, lxx, luu, lux) stacked over the horizon."""
-    x = X[:, :-1]
-    lx, lu = problem.objective.running_cost_gradients(x, U)
-    lxx, luu, lux = problem.objective.running_cost_hessians(x, U)
+    """(lx, lu, lxx, luu, lux) stacked over the horizon: step t's running
+    reference (a tracking objective's row t) against X[:, t]."""
+    x, steps = X[:, :-1], slice(0, U.shape[1])
+    lx, lu = problem.objective.running_cost_gradients(x, U, steps)
+    lxx, luu, lux = problem.objective.running_cost_hessians(x, U, steps)
     return lx, lu, lxx, luu, lux
 
 

@@ -119,7 +119,7 @@ def _forward_pass(problem: Problem, options: CDDPOptions, consts, X, U, k, K,
                 K[:, t] @ (x - X[:, t])[..., None])[..., 0]
             if cc is not None:
                 u = cc.clamp(u)
-            J = J + problem.objective.running_cost(x, u)
+            J = J + problem.objective.running_cost(x, u, t)
             x = problem.model.discrete_dynamics(x, u, t * dt, dt)
             xs.append(x)
             us.append(u)

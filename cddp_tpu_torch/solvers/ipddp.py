@@ -312,7 +312,7 @@ def _forward_scan(problem, stk, soc_on_path, X, U, Y, S, Lambda, bp, a_pr, a_du,
         s_new = s + apr * bp.k_s[:, t] + _mv(bp.K_s[:, t], dx)
         y_new = y + adu * bp.k_y[:, t] + _mv(bp.K_y[:, t], dx)
         u = U[:, t] + apr * bp.k_u[:, t] + _mv(bp.K_u[:, t], dx)
-        J = J + problem.objective.running_cost(x, u)
+        J = J + problem.objective.running_cost(x, u, t)
         g = stk.evaluate_shifted(x, u)
         if soc_on_path:
             # Slack second-order correction: re-close s := -g at the trial

@@ -10,7 +10,7 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 1. start: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device -> exit nonzero with no result (no CPU fallback);
 2. build: compile the nine CUDA kernels from ``cddp_tpu_torch/ops/csrc``
-   (float32 and float64), printing ptxas registers and spills, and for
+   (float32 and float64; goal and tracking variants), printing ptxas registers and spills, and for
    every launcher what the card reports of its kernel (registers, spill
    bytes, shared memory, resident blocks per SM; ``print_kernel_attributes``);
 3. the CLDDP kernels against their plain PyTorch versions on the card, at
@@ -90,7 +90,23 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    (whole solve: one open-loop rollout and one whole-solve launch;
    ``solve_engine="xla"``: the rollout only; plain: none), finite costs and
    residuals, status agreement with the plain driver on >= 99%, solves/s;
-   each kernel's time, its plain driver's and its bound.
+   each kernel's time, its plain driver's and its bound;
+11. tracking MPC (per-step reference trajectories): on the tracking
+   unicycle of tests/test_ip_rollout.py:537-559 at N=20 (the arc (sin t,
+   1 - cos t, t), t in [0, 1], Q = 0.5 I, R = 0.1 I, Qf = 50 I, a control
+   box of +-2; ``tracking_problem``), the tracking variant of kernels 2, 3,
+   5, 7 (m = 4, and m5_ball0 with the obstacle fleet's ball), 8 and 9 against
+   its plain version at B=4096 by the rules of phases 3, 5 and 9 (float64
+   exact, float32 by each solver's agreement rule; CLDDP's at ten
+   iterations is IPDDP's, the plain driver's agreement with itself one ulp
+   up less 3 points, since this fleet converges); then the tracking MPC
+   fleet: ``make_mpc_controller(prob, "CLDDP")`` at B=262144, float32, 10
+   iterations, five ticks with the reference sliding one step a tick and
+   the plant stepping with the model's discrete dynamics, each tick one
+   launch of kernel 3's tracking variant, with ms per tick, solves/s and
+   the fleet's mean distance to the reference; the tracking fleets that
+   drive kernels 2, 5 (per-pass), 7, 8 and 9 (whole solve) once each, the
+   IPDDP one timed; each variant's times and bound at B=262144.
 
 Each kernel is timed twice at the main path's shapes: by CUDA events
 around its wrapper (``cuda_ms``: the batch-first <-> batch-last copies
@@ -104,7 +120,8 @@ TFLOP/s, the H100 SXM's float32 rate outside the tensor cores.
 
 The line before the last is the kernels' JSON record (kernel 7's entry
 carries the obstacle run under "obstacle", kernel 6's under "obstacle_m5",
-kernel 5's its 0 launches there); the last line is
+kernel 5's its 0 launches there; each tracking variant is an entry of its
+own, named with the suffix "_track"); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -134,25 +151,28 @@ def nvidia_smi() -> str:
 
 def launchers():
     """Every launcher of the kernel library, by kernel, without its type
-    suffix; the main path's variant (m = 4 box rows) first."""
+    suffix; the main path's variant (m = 4 box rows, the goal form) first,
+    the tracking variants (suffix ``_track``) after the goal forms."""
     from cddp_tpu_torch.ops.kernels.ip_rollout import KERNEL_ROWS
     from cddp_tpu_torch.ops.kernels.ipddp_riccati import KERNEL_SHAPES
-    from cddp_tpu_torch.ops.kernels.mega_ipddp import BALL_LAYOUTS
+    from cddp_tpu_torch.ops.kernels.mega_ipddp import BALL_LAYOUTS, TRACK_LAYOUTS
 
     rows = KERNEL_ROWS["unicycle"]
     balls = [f"m{m}_ball{row}" for m, row in BALL_LAYOUTS["unicycle"]]
+    boxes = [f"m{m}" for m in rows]
+    track = lambda stems: stems + [f"{s}_track" for s in stems]  # noqa: E731
     return {
         "riccati_backward": ["cddp_riccati_backward_3x2"],
-        "forward_rollout": ["cddp_forward_rollout_unicycle"],
-        "clddp_solve": ["cddp_clddp_solve_unicycle"],
+        "forward_rollout": track(["cddp_forward_rollout_unicycle"]),
+        "clddp_solve": track(["cddp_clddp_solve_unicycle"]),
         "open_loop_rollout": ["cddp_open_loop_rollout_unicycle"],
-        "ip_forward": [f"cddp_ip_forward_unicycle_m{m}" for m in rows],
+        "ip_forward": track([f"cddp_ip_forward_unicycle_{v}" for v in boxes]),
         "ipddp_backward": [f"cddp_ipddp_backward_{nx}x{nu}x{m}"
                            for nx, nu, m in KERNEL_SHAPES],
-        "ipddp_solve": [f"cddp_ipddp_solve_unicycle_{v}"
-                        for v in [f"m{m}" for m in rows] + balls],
-        "msipddp_solve": [f"cddp_msipddp_solve_unicycle_m{m}" for m in rows],
-        "logddp_solve": [f"cddp_logddp_solve_unicycle_m{m}" for m in rows],
+        "ipddp_solve": [f"cddp_ipddp_solve_unicycle_{v}" for v in boxes + balls]
+        + [f"cddp_ipddp_solve_unicycle_{v}_track" for v in TRACK_LAYOUTS["unicycle"]],
+        "msipddp_solve": track([f"cddp_msipddp_solve_unicycle_{v}" for v in boxes]),
+        "logddp_solve": track([f"cddp_logddp_solve_unicycle_{v}" for v in boxes]),
     }
 
 
@@ -301,7 +321,7 @@ def step_scale(w):
 def consts_f64(consts):
     """The rollout's problem constants in float64."""
     return dataclasses.replace(consts, **{
-        f: getattr(consts, f).double() for f in ("Q", "R", "Qf", "goal", "lower", "upper")
+        f: getattr(consts, f).double() for f in ("Q", "R", "Qf", "goal", "lower", "upper", "refs")
         if getattr(consts, f) is not None})
 
 
@@ -392,6 +412,27 @@ def check_solve_f64(label, kern, plain, min_share=1.0, traj_tol=1e-8):
     return counts
 
 
+def check_solve_f32(label, kern, plain, min_share):
+    """float32: status, iterations and cost (rel 1e-4) equal on >= ``min_share``
+    of instances. A float32 line-search fork (the Armijo ratio of some
+    iteration within rounding of its threshold) can leave status and
+    iteration count equal but move the cost well past 1e-4; it counts
+    against the allowance like a status fork. Returns the share."""
+    same = ((kern.status_code == plain.status_code)
+            & (kern.iterations_completed == plain.iterations_completed))
+    rel = (kern.final_objective - plain.final_objective).abs() / plain.final_objective.abs()
+    close = same & (rel <= 1e-4)
+    share = float(close.double().mean())
+    if share < min_share:
+        raise AssertionError(f"clddp_solve f32 {label}: status, iterations and cost (rel "
+                             f"1e-4) agree on {share:.4f} of instances (need >= {min_share:.4f})")
+    print(f"[kernels float32] clddp_solve {label}: agree on {share:.4%}; "
+          f"{int((same & ~close).sum())} instances with equal status and iterations forked "
+          f"in cost (max rel {float(rel[same].max()):.3e}); median rel cost err "
+          f"{float(rel.median()):.3e}")
+    return share
+
+
 def phase_branches(tt, dev):
     """float64 cases that reach the kernels' other branches (phase 3): the
     BoxQP's failure exit under an indefinite Hessian, the regularization
@@ -449,8 +490,10 @@ def phase_branches(tt, dev):
             raise AssertionError(f"{label}: statuses {counts} miss {reached}")
 
 
-def phase_kernels(tt, dev):
-    """Each kernel against its plain version on the card (phase 3)."""
+def phase_kernels(tt, dev, make_problem=flagship_problem, label="flagship"):
+    """Each CLDDP kernel against its plain version on the card, on the
+    problem ``make_problem`` builds (phase 3: the flagship, with the
+    branches of ``phase_branches``; phase 11: the tracking problem)."""
     from cddp_tpu_torch.ops.kernels import riccati
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 
@@ -458,7 +501,7 @@ def phase_kernels(tt, dev):
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
         gen = torch.Generator(device=dev).manual_seed(SEED)
-        prob = flagship_problem(tt, dtype, dev)
+        prob = make_problem(tt, dtype, dev)
         X, U, back, alpha = stage_inputs(prob, B_CHECK, gen)
 
         # float32 is held against the plain version in float64 on the same
@@ -479,31 +522,32 @@ def phase_kernels(tt, dev):
               f"forward_rollout max abs err {err_f:.3e}")
 
         opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
-        kern, plain = solve_pair(tt, prob.replace(x0=X[:, 0]), opts)
+        p = prob.replace(x0=X[:, 0])
+        kern, plain = solve_pair(tt, p, opts)
         same = ((kern.status_code == plain.status_code)
                 & (kern.iterations_completed == plain.iterations_completed))
         share = float(same.double().mean())
         cost_err = float((kern.final_objective - plain.final_objective)[same].abs().max())
         if exact:
-            check_solve_f64("flagship", kern, plain)
-            phase_branches(tt, dev)
+            check_solve_f64(label, kern, plain)
+            if make_problem is flagship_problem:
+                phase_branches(tt, dev)
+        elif make_problem is flagship_problem:
+            share = check_solve_f32(label, kern, plain, 0.99)
         else:
-            # A float32 line-search fork (the Armijo ratio of some iteration
-            # within rounding of its threshold) can leave status and iteration
-            # count equal but move the cost well past 1e-4; it counts against
-            # the 1% fork allowance like a status fork.
-            rel = ((kern.final_objective - plain.final_objective).abs()
-                   / plain.final_objective.abs())
-            close = same & (rel <= 1e-4)
-            share = float(close.double().mean())
-            if share < 0.99:
-                raise AssertionError(
-                    f"clddp_solve f32: status, iterations and cost (rel 1e-4) "
-                    f"agree on {share:.4f} of instances (need >= 0.99)")
-            print(f"[kernels {tag}] clddp_solve: {int((same & ~close).sum())} "
-                  f"instances with equal status and iterations forked in cost "
-                  f"(max rel {float(rel[same].max()):.3e}); median rel cost err "
-                  f"{float(rel.median()):.3e}")
+            # A fleet that converges (most of the tracking problem's does
+            # within ten iterations) meets the acceptable exit's 0 < dJ < 1e-6 and the
+            # early exit's inf_du < tol at float32 rounding: the plain driver
+            # forks from itself there under a one-ulp change of x0, as IPDDP's
+            # filter ties do (check_ip_f32). So its rule: 99% over the first
+            # five iterations, and at ten at most 3 points below that floor.
+            share = check_solve_f32(f"{label}, 5 iterations", *solve_pair(
+                tt, p, opts.replace(max_iterations=5)), 0.99)
+            up = p.replace(x0=torch.nextafter(p.x0, torch.full_like(p.x0, math.inf)))
+            floor = cost_share(solve_pair(tt, up, opts)[1], plain)
+            print(f"[kernels {tag}] clddp_solve {label}: the plain driver against itself from "
+                  f"x0 one ulp up agrees on {floor:.4%}")
+            check_solve_f32(label, kern, plain, floor - 0.03)
         print(f"[kernels {tag}] clddp_solve vs plain driver: agree on "
               f"{share:.4%} of {B_CHECK}; max abs cost err where status and "
               f"iterations agree {cost_err:.3e}")
@@ -609,6 +653,71 @@ def bound(nbytes, ops, dtype):
 def one(args):
     """The first instance of batch-first arguments (non-tensors as they are)."""
     return tuple(a[:1] if isinstance(a, torch.Tensor) and a.dim() else a for a in args)
+
+
+def time_clddp_kernels(prob, x0, opts, smi,
+                       names=("riccati_backward", "forward_rollout", "clddp_solve")):
+    """Kernels 1-3 (those of ``names``) at the main path's batch: kernel and
+    plain times and each one's bound from this run's inputs
+    (``time_kernels``); the rollout on ``stage_inputs``' trajectories and
+    gains, the whole solve on the fleet's cold seeds from x0."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, riccati
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+    from cddp_tpu_torch.solvers import clddp
+
+    dev = x0.device
+    X, U, back, alpha = stage_inputs(prob, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
+    out1 = riccati._launch(*back)
+    k, K = out1[0], out1[1]
+    consts = rollout_ops.lane_consts(prob)
+    fwd = (consts, X[:, :-1], U, k, K, X[:, 0], alpha)
+    out2 = rollout_ops._launch(*fwd)
+    seeds = (x0[:, None].expand(-1, HORIZON + 1, -1).contiguous(),
+             torch.zeros(B_MAIN, HORIZON, 2, device=dev),
+             torch.zeros(B_MAIN, HORIZON, 2, device=dev),
+             torch.zeros(B_MAIN, HORIZON, 2, 3, device=dev))
+    p = prob.replace(x0=x0)
+    sol3, work = mega_clddp.launch_counting_work(p, opts, *seeds)
+    plain_opts = opts.replace(backward_engine="scan")
+    # Operations per instance, counted on the plain versions at B=1; the
+    # whole solve's from this run's backward attempts and rollouts.
+    p1 = p.replace(x0=x0[:1])
+    ops1 = count_ops(riccati.riccati_backward_plain, *one(back))
+    ops2 = count_ops(rollout_ops.forward_rollout_plain, consts, *one(fwd[1:]))
+    ops_back = count_ops(lambda: riccati.riccati_backward_plain(*clddp_backward_inputs(
+        p1, X[:1], U[:1], back[-1][:1])))
+    attempts, rollouts = (float(w.double().sum()) for w in work)
+    ops3 = attempts * ops_back + rollouts * ops2
+    print(f"[divergence] clddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
+          f"(backward attempts + rollouts) {warp_divergence(work):.4f}")
+    print(f"[bound] operations per instance: riccati_backward {ops1}, forward_rollout "
+          f"{ops2}; clddp_solve {ops3 / B_MAIN:.0f} on average ({attempts / B_MAIN:.3f} "
+          f"backward attempts x {ops_back} + {rollouts / B_MAIN:.3f} rollouts x {ops2})")
+    refs = reference_read(prob)
+    work_items = {
+        "riccati_backward": (back, out1, ops1 * B_MAIN),
+        "forward_rollout": (fwd[1:] + refs, out2, ops2 * B_MAIN),
+        "clddp_solve": (seeds + refs, (sol3.state_trajectory, sol3.control_trajectory,
+                                       sol3.feedforward_gains, sol3.feedback_gains,
+                                       torch.empty(6, B_MAIN, device=dev)), ops3),
+    }
+    runs = {
+        "riccati_backward": (lambda: riccati._launch(*back), 20,
+                             lambda: riccati.riccati_backward_plain(*back), 2),
+        "forward_rollout": (lambda: rollout_ops._launch(*fwd), 20,
+                            lambda: rollout_ops.forward_rollout_plain(*fwd), 2),
+        "clddp_solve": (lambda: mega_clddp._launch(p, opts, *seeds), 20,
+                        lambda: clddp._solve(p, plain_opts, *seeds), 1),
+    }
+    return time_kernels({n: runs[n] for n in names}, work_items, prob.x0.dtype, smi)
+
+
+def reference_read(prob):
+    """A tracking objective's running reference as the tracking kernels read
+    it, one (N, nx) copy for the whole batch, for ``unique_bytes``; nothing
+    for the goal form."""
+    refs = prob.objective.reference_states
+    return () if refs is None else (refs[:prob.horizon],)
 
 
 # --- IPDDP (the box fleet) -------------------------------------------------------
@@ -1065,11 +1174,12 @@ def phase_ip_fleet(tt, dev, smi, obstacle=False):
     return launches, counts["whole-solve kernel"], rates, prob, x0
 
 
-def time_ip_kernels(tt, prob, x0, smi):
-    """Kernels 4-7 at the main path's batch and shapes: kernel and plain
-    times and each one's bound from this run's inputs (``time_kernels``);
-    kernel 6 on the per-pass driver's layout (``per_pass_layout``), and also
-    timed on the plain driver's."""
+def time_ip_kernels(tt, prob, x0, smi, names=("open_loop_rollout", "ip_forward",
+                                               "ipddp_backward", "ipddp_solve")):
+    """Kernels 4-7 (those of ``names``) at the main path's batch and shapes:
+    kernel and plain times and each one's bound from this run's inputs
+    (``time_kernels``); kernel 6 on the per-pass driver's layout
+    (``per_pass_layout``), and also timed on the plain driver's."""
     from cddp_tpu_torch.ops.kernels import ip_rollout, mega_ipddp
     from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
@@ -1116,13 +1226,14 @@ def time_ip_kernels(tt, prob, x0, smi):
           f"({attempts / B_MAIN:.3f} backward attempts x {ops_back} + "
           f"{sweeps / B_MAIN:.3f} sweeps x {ops_sweep})")
 
-    ins7 = seeds
+    refs = reference_read(prob)
+    ins7 = seeds + refs
     outs7 = (sol7.state_trajectory, sol7.control_trajectory, sol7.feedforward_gains,
              sol7.feedback_gains, sol7.costate_trajectory,
              *sol7.dual_trajectories.values(), *sol7.slack_trajectories.values())
     work_items = {
         "open_loop_rollout": (ol, (out4[:, 1:],), ops4 * B_MAIN),
-        "ip_forward": (fwd, out5, ops5 * B_MAIN),
+        "ip_forward": (fwd + refs, out5, ops5 * B_MAIN),
         "ipddp_backward": (backward_operands_read(back), out6, ops6 * B_MAIN),
         "ipddp_solve": (ins7, outs7 + (torch.empty(9, B_MAIN, device=x0.device),), ops7),
     }
@@ -1137,7 +1248,9 @@ def time_ip_kernels(tt, prob, x0, smi):
         "ipddp_solve": (lambda: mega_ipddp._launch(pw, opts, *seeds), 10,
                         lambda: ipddp._drive(pw, plain_opts, *seeds), 1),
     }
-    out = time_kernels(runs, work_items, dtype, smi)
+    out = time_kernels({n: runs[n] for n in names}, work_items, dtype, smi)
+    if "ipddp_backward" not in names:
+        return out
     dense = lambda: ric._launch(*back_dense)  # noqa: E731
     print(f"[timing] ipddp_backward at B={B_MAIN} on batch-first Y, S and G (the plain "
           f"driver's layout): kernel {cuda_ms(dense, 20):.3f} ms with the wrapper, "
@@ -1615,7 +1728,7 @@ def check_against_self(solver, label, prob, opts, x0, exact):
                              f"the plain driver's own {cond_down:.4%}")
 
 
-def check_barrier_f32(solver, prob, opts, x0):
+def check_barrier_f32(solver, prob, opts, x0, label="box fleet"):
     """float32: over the solver's short budget (LogDDP 5 iterations, MSIPDDP
     MS_EXACT_ITERS) the kernel agrees with the plain driver in status,
     iterations and cost (rel 1e-4) on >= 99% of instances; at ten it may
@@ -1625,9 +1738,9 @@ def check_barrier_f32(solver, prob, opts, x0):
     the short budget."""
     short = SHORT_ITERS[solver]
     _, share, err = check_barrier(
-        solver, f"box fleet, {short} iterations",
+        solver, f"{label}, {short} iterations",
         *barrier_pair(solver, prob, opts.replace(max_iterations=short), x0), False)
-    check_against_self(solver, "box fleet, 10 iterations", prob, opts, x0, False)
+    check_against_self(solver, f"{label}, 10 iterations", prob, opts, x0, False)
     return share, err
 
 
@@ -1718,32 +1831,34 @@ def phase_barrier_branches(tt, dev, x0):
                                  f"(statuses {counts})")
 
 
-def phase_barrier_kernels(tt, dev):
-    """Kernels 9 and 8 against their plain drivers on the card (phase 9), on
-    the cold seeds of the box fleet at B_CHECK. Returns {dtype: {kernel:
-    max abs cost err, agreement}}."""
+def phase_barrier_kernels(tt, dev, make_problem=ip_problem, label="box fleet"):
+    """Kernels 9 and 8 against their plain drivers on the card, on the cold
+    seeds at B_CHECK of the problem ``make_problem`` builds (phase 9: the
+    box fleet, with the branches of ``phase_barrier_branches``; phase 11:
+    the tracking problem). Returns {dtype: {kernel: max abs cost err,
+    agreement}}."""
     results = {}
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
         gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-        prob = ip_problem(tt, dtype, dev)
+        prob = make_problem(tt, dtype, dev)
         opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
         x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=dtype) - 0.5
         out = {}
         for solver, name in (("LogDDP", "logddp_solve"), ("MSIPDDP", "msipddp_solve")):
             if dtype == torch.float32:
-                share, err = check_barrier_f32(solver, prob, opts, x0)
+                share, err = check_barrier_f32(solver, prob, opts, x0, label)
             elif solver == "LogDDP":
-                _, share, err = check_barrier(solver, "box fleet",
+                _, share, err = check_barrier(solver, label,
                                               *barrier_pair(solver, prob, opts, x0), True)
             else:
-                _, share, err = check_barrier(solver, f"box fleet, {MS_EXACT_ITERS} iterations",
+                _, share, err = check_barrier(solver, f"{label}, {MS_EXACT_ITERS} iterations",
                                               *barrier_pair(solver, prob, opts.replace(
                                                   max_iterations=MS_EXACT_ITERS), x0), True,
                                               min_share=1.0 - MS_TIE_SHARE)
-                check_against_self(solver, "box fleet, 10 iterations", prob, opts, x0, True)
+                check_against_self(solver, f"{label}, 10 iterations", prob, opts, x0, True)
             out[name], out[name + "_agreement"] = err, share
-        if dtype == torch.float64:
+        if dtype == torch.float64 and make_problem is ip_problem:
             phase_barrier_branches(tt, dev, x0)
         results[tag] = out
     return results
@@ -1900,8 +2015,9 @@ def time_barrier_kernels(tt, prob, x0, smi):
              sol8.feedback_gains, st8.Y, st8.S, st8.F, st8.Lambda,
              torch.empty(9, B_MAIN, device=x0.device))
 
-    work_items = {"logddp_solve": (seeds9, outs9, ops9),
-                  "msipddp_solve": (seeds8[:4] + seeds8[5:], outs8, ops8)}
+    refs = reference_read(prob)
+    work_items = {"logddp_solve": (seeds9 + refs, outs9, ops9),
+                  "msipddp_solve": (seeds8[:4] + seeds8[5:] + refs, outs8, ops8)}
     runs = {
         "logddp_solve": (lambda: mega_logddp._launch(p, opts, *seeds9), 10,
                          lambda: logddp._drive(p, opts, *seeds9), 1),
@@ -1909,6 +2025,230 @@ def time_barrier_kernels(tt, prob, x0, smi):
                           lambda: msipddp._drive(p, opts, *seeds8), 1),
     }
     return time_kernels(runs, work_items, dtype, smi)
+
+
+# --- tracking MPC (per-step reference trajectories) --------------------------------
+
+TRACK_TICKS = 5
+# The tracking variant of each kernel that has one: its dispatch_log name.
+TRACKING = {k: k + "_track" for k in ("forward_rollout", "clddp_solve", "ip_forward",
+                                      "ipddp_solve", "msipddp_solve", "logddp_solve")}
+
+
+def tracking_reference(horizon, tick, dtype, device):
+    """The arc (sin t, 1 - cos t, t) at t = linspace(0, 1, N) + tick * dt:
+    tests/test_ip_rollout.py:537-559's reference, slid by one step a tick."""
+    ts = torch.linspace(0.0, 1.0, horizon, dtype=torch.float64) + tick * DT
+    refs = torch.stack([torch.sin(ts), 1.0 - torch.cos(ts), ts], 1)
+    return refs.to(device=device, dtype=dtype)
+
+
+def tracking_problem(tt, dtype, device, horizon=HORIZON, ball=False):
+    """The tracking unicycle of tests/test_ip_rollout.py:537-559: Q = 0.5 I,
+    R = 0.1 I, Qf = 50 I, dt = 0.05, a control box of +-2, the arc as its
+    per-step reference and the arc's end as its goal; with ``ball`` the
+    obstacle fleet's keep-out ball (radius 0.4 at (1, 1), its row first:
+    kernel 7's m5_ball0_track variant)."""
+    from cddp_tpu_torch.models import Unicycle
+
+    kw = dict(device=device, dtype=dtype)
+    refs = tracking_reference(horizon, 0, dtype, device)
+    obj = tt.quadratic_objective(torch.eye(3) * 0.5, torch.eye(2) * 0.1, torch.eye(3) * 50.0,
+                                 refs[-1], DT, reference_states=refs, **kw)
+    prob = tt.problem(Unicycle(), obj, torch.zeros(3), horizon, DT, **kw)
+    prob = prob.add_constraint("ControlConstraint", tt.control_constraint(
+        [-2.0, -2.0], [2.0, 2.0], **kw))
+    if ball:
+        prob = prob.add_constraint("BallConstraint", tt.ball_constraint(0.4, [1.0, 1.0], 1.0,
+                                                                        **kw))
+    return prob
+
+
+def phase_tracking_ip_kernels(tt, dev):
+    """Kernels 5 and 7's tracking variants against their plain versions at
+    B_CHECK (phase 11): the forward trial on the tracking problem's staged
+    inputs (``stage_ip_inputs``; float64 within 1e-9, float32 by the
+    float64-truth rule of ``check``), and the whole solve at m = 4 and on
+    m5_ball0 (the tracking problem with the obstacle fleet's ball) against
+    the plain driver from cold seeds (float64: ``check_ip_solve``, the
+    ball's duals and slacks at 1e-8 + 1e-8 |plain|; float32:
+    ``check_ip_f32``). Returns {dtype: {kernel: max abs err}}."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout, mega_ipddp
+
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        exact = dtype == torch.float64
+        gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+        prob = tracking_problem(tt, dtype, dev)
+        opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+        p, _, _, fwd = stage_ip_inputs(tt, prob, B_CHECK, gen, opts)
+        as64 = lambda ts: tuple(t.double() if t.is_floating_point() else t  # noqa: E731
+                                for t in ts)
+        err5 = 0.0
+        for soc in (False, True):
+            fc = forward_consts(p, opts, soc)
+            if fc.lane.variant != "_track":
+                raise AssertionError("the tracking problem's forward trial is not tracking")
+            truth = None if exact else ip_rollout.ip_forward_plain(
+                forward_consts(p, opts, soc, f64=True), *as64(fwd))
+            err5 = max(err5, check(f"ip_forward_track slack_soc={soc}",
+                                   ip_rollout._launch_forward(fc, *fwd),
+                                   ip_rollout.ip_forward_plain(fc, *fwd), truth))
+        print(f"[tracking {tag}] ip_forward_track max abs err {err5:.3e}")
+        x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=dtype) - 0.5
+        ball = tracking_problem(tt, dtype, dev, ball=True)
+        for pr, variant in ((prob, "m4_track"), (ball, "m5_ball0_track")):
+            if mega_ipddp.solve_variant(pr) != variant:
+                raise AssertionError(f"kernel 7 variant {mega_ipddp.solve_variant(pr)}, "
+                                     f"not {variant}")
+        if exact:
+            _, _, err7 = check_ip_solve("tracking", *ip_solve_pair(tt, prob, opts, x0), True)
+            _, _, err7b = check_ip_solve("tracking with the ball",
+                                         *ip_solve_pair(tt, ball, opts, x0), True,
+                                         dual_rtol=1e-8)
+        else:
+            _, err7 = check_ip_f32(tt, dev, prob, opts, x0, label="tracking",
+                                   prob64=tracking_problem(tt, torch.float64, dev))
+            _, err7b = check_ip_f32(tt, dev, ball, opts, x0, label="tracking with the ball",
+                                    prob64=tracking_problem(tt, torch.float64, dev, ball=True))
+        results[tag] = dict(ip_forward_track=err5, ipddp_solve_track=err7,
+                            ipddp_solve_track_ball=err7b)
+    return results
+
+
+def phase_tracking_mpc(tt, dev, smi):
+    """The tracking MPC fleet (phase 11): ``make_mpc_controller`` under CLDDP
+    at B_MAIN, float32, 10 iterations, ``TRACK_TICKS`` ticks, the reference
+    sliding one step a tick and the plant stepping with the model's own
+    discrete dynamics. Each tick must be one launch of kernel 3's tracking
+    variant and give finite controls, plans and costs. Prints ms per tick
+    (host clock, ending in a synchronize), solves/s and the fleet's mean
+    distance to the reference's current point at the first and last tick.
+    Returns (launches of the ticks, ms per tick)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+
+    prob = tracking_problem(tt, torch.float32, dev)
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    init_fn, step_fn = tt.make_mpc_controller(
+        prob, "CLDDP", opts, reference_fn=lambda tick: tracking_reference(
+            HORIZON, tick, torch.float32, dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand(B_MAIN, 3, generator=gen, device=dev) - 0.5
+    state = init_fn(x)
+
+    def distance(x, tick):
+        here = tracking_reference(HORIZON, tick, torch.float32, dev)[0, :2]
+        return float((x[:, :2] - here).norm(dim=-1).mean())
+
+    dist0, ms, launches = distance(x, 0), [], {}
+    for tick in range(TRACK_TICKS):
+        dispatch_log.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, state, info = step_fn(state, x, tick)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(dispatch_log.launches)
+        if counts != {TRACKING["clddp_solve"]: 1}:
+            raise AssertionError(f"MPC tick {tick} did not run as one launch of kernel 3's "
+                                 f"tracking variant: {counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        for name, t in (("u_apply", u), ("U_plan", state.U_plan), ("X_plan", state.X_plan),
+                        ("cost", info["cost"])):
+            if not bool(t.isfinite().all()):
+                raise AssertionError(f"MPC tick {tick}: non-finite {name}")
+        x = prob.model.discrete_dynamics(x, u, tick * DT, DT)
+        print(f"[tracking mpc] tick {tick}: {ms[-1]:.2f} ms ({B_MAIN / ms[-1] * 1e3:.1f} "
+              f"solves/s), launches {counts}, statuses "
+              f"{torch.bincount(info['status'].long(), minlength=4).tolist()}, mean "
+              f"iterations {float(info['iterations'].double().mean()):.3f}  [{smi}]")
+    if not bool(x.isfinite().all()):
+        raise AssertionError("non-finite plant states")
+    steady = sum(ms[1:]) / (len(ms) - 1)
+    print(f"[tracking mpc] B={B_MAIN}, {TRACK_TICKS} ticks: {steady:.2f} ms a tick after the "
+          f"first ({B_MAIN / steady * 1e3:.1f} solves/s), first {ms[0]:.2f} ms; mean distance "
+          f"to the reference's current point {dist0:.4f} at tick 0, "
+          f"{distance(x, TRACK_TICKS):.4f} at tick {TRACK_TICKS}  [{smi}]")
+    return launches, ms
+
+
+def phase_tracking_fleets(tt, dev, smi):
+    """The tracking problem's fleets at B_MAIN, float32, through
+    ``batched_solve``, each run with the launch counts zeroed just before
+    it: CLDDP and IPDDP per-pass (kernels 2 and 5's tracking variants),
+    IPDDP, LogDDP and MSIPDDP whole-solve (kernels 7, 9 and 8's), each
+    variant launched and no goal variant of a cost kernel; finite costs.
+    The IPDDP fleet is timed (host clock). Returns (launch counts of the run
+    that drives each tracking variant, launch counts of the whole-solve
+    runs, problem, x0)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    prob = tracking_problem(tt, torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = torch.rand(B_MAIN, 3, generator=gen, device=dev) - 0.5
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    runs = (  # solver, options, the tracking variants it must launch
+        ("CLDDP", opts.replace(solve_engine="xla"), ("forward_rollout",)),
+        ("IPDDP", opts.replace(solve_engine="xla"), ("ip_forward",)),
+        ("IPDDP", opts, ("ipddp_solve",)),
+        ("LogDDP", opts, ("logddp_solve",)),
+        ("MSIPDDP", opts, ("msipddp_solve",)),
+    )
+    launches, default = {}, {}
+    for solver, o, kernels in runs:
+        dispatch_log.reset()
+        sol = batched_solve(prob, x0, solver, o)
+        torch.cuda.synchronize()
+        counts = dict(dispatch_log.launches)
+        engine = "per-pass" if o.solve_engine == "xla" else "whole-solve"
+        print(f"[tracking] {solver} {engine} launches: {counts}")
+        goal_forms = [k for k in TRACKING if k in counts]
+        if goal_forms or not all(counts.get(TRACKING[k], 0) >= 1 for k in kernels):
+            raise AssertionError(f"the {solver} {engine} tracking fleet did not run on the "
+                                 f"tracking variants of {kernels} alone: {counts}")
+        if not bool(sol.final_objective.isfinite().all()):
+            raise AssertionError(f"non-finite costs from the {solver} {engine} tracking fleet")
+        launches.update({TRACKING[k]: counts[TRACKING[k]] for k in kernels})
+        if engine == "whole-solve":
+            default[f"{solver} tracking fleet"] = counts
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        batched_solve(prob, x0, "IPDDP", opts)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    print(f"[tracking] IPDDP tracking fleet, whole-solve kernel: {B_MAIN / dt:.1f} solves/s "
+          f"({dt * 1e3:.2f} ms per B={B_MAIN} solve, {reps} reps)  [{smi}]")
+    return launches, default, prob, x0
+
+
+def phase_tracking(tt, dev, smi):
+    """Phase 11, tracking MPC: every tracking variant against its plain
+    version at B_CHECK, the tracking MPC fleet, the tracking fleets that
+    drive each variant, and each variant's times and bound at B_MAIN.
+    Returns (launches, default-engine launches, {dtype: {variant: err}},
+    {variant: timing})."""
+    errs = {"float64": {}, "float32": {}}
+    for tag, r in phase_kernels(tt, dev, tracking_problem, "tracking").items():
+        errs[tag].update({TRACKING[k]: r[k] for k in ("forward_rollout", "clddp_solve")})
+    for tag, r in phase_tracking_ip_kernels(tt, dev).items():
+        errs[tag].update(r)
+    for tag, r in phase_barrier_kernels(tt, dev, tracking_problem, "tracking").items():
+        errs[tag].update({TRACKING[k]: r[k] for k in ("logddp_solve", "msipddp_solve")})
+    launches, ms = phase_tracking_mpc(tt, dev, smi)
+    default = {"tracking MPC fleet": dict(launches)}
+    fleet_launches, fleet_default, prob, x0 = phase_tracking_fleets(tt, dev, smi)
+    launches.update(fleet_launches)
+    default.update(fleet_default)
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    timing = time_clddp_kernels(prob, x0, opts, smi, names=("forward_rollout", "clddp_solve"))
+    timing.update(time_ip_kernels(tt, prob, x0, smi, names=("ip_forward", "ipddp_solve")))
+    timing.update(time_barrier_kernels(tt, prob, x0, smi))
+    return launches, default, errs, {TRACKING[k]: v for k, v in timing.items()}
 
 
 def main():
@@ -1927,10 +2267,9 @@ def main():
         raise AssertionError("TF32 must stay off (float32 matmul precision 'highest')")
 
     import cddp_tpu_torch as tt
-    from cddp_tpu_torch.ops.kernels import build, dispatch_log, mega_clddp, riccati
-    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+    from cddp_tpu_torch.ops.kernels import build, dispatch_log
     from cddp_tpu_torch.parallel.batch import batched_solve
-    from cddp_tpu_torch.solvers import base, clddp
+    from cddp_tpu_torch.solvers import base
 
     # --- phase 2: build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -2026,47 +2365,7 @@ def main():
 
     # Kernel times at the main path's batch against their plain versions,
     # and each one's bound from this run's inputs.
-    X, U, back, alpha = stage_inputs(prob, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
-    out1 = riccati._launch(*back)
-    k, K = out1[0], out1[1]
-    consts = rollout_ops.lane_consts(prob)
-    fwd = (consts, X[:, :-1], U, k, K, X[:, 0], alpha)
-    out2 = rollout_ops._launch(*fwd)
-    seeds = (X0.contiguous(), torch.zeros(B_MAIN, HORIZON, 2, device=dev),
-             torch.zeros(B_MAIN, HORIZON, 2, device=dev),
-             torch.zeros(B_MAIN, HORIZON, 2, 3, device=dev))
-    p = prob.replace(x0=x0)
-    sol3, work = mega_clddp.launch_counting_work(p, opts, *seeds)
-    plain_opts = engines["plain driver"]
-    # Operations per instance, counted on the plain versions at B=1; the
-    # whole solve's from this run's backward attempts and rollouts.
-    p1 = p.replace(x0=x0[:1])
-    ops1 = count_ops(riccati.riccati_backward_plain, *one(back))
-    ops2 = count_ops(rollout_ops.forward_rollout_plain, consts, *one(fwd[1:]))
-    ops_back = count_ops(lambda: riccati.riccati_backward_plain(*clddp_backward_inputs(
-        p1, X[:1], U[:1], back[-1][:1])))
-    attempts, rollouts = (float(w.double().sum()) for w in work)
-    ops3 = attempts * ops_back + rollouts * ops2
-    print(f"[divergence] clddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
-          f"(backward attempts + rollouts) {warp_divergence(work):.4f}")
-    print(f"[bound] operations per instance: riccati_backward {ops1}, forward_rollout "
-          f"{ops2}; clddp_solve {ops3 / B_MAIN:.0f} on average ({attempts / B_MAIN:.3f} "
-          f"backward attempts x {ops_back} + {rollouts / B_MAIN:.3f} rollouts x {ops2})")
-    work_items = {
-        "riccati_backward": (back, out1, ops1 * B_MAIN),
-        "forward_rollout": (fwd[1:], out2, ops2 * B_MAIN),
-        "clddp_solve": (seeds, (sol3.state_trajectory, sol3.control_trajectory,
-                                sol3.feedforward_gains, sol3.feedback_gains,
-                                torch.empty(6, B_MAIN, device=dev)), ops3),
-    }
-    timing = time_kernels({
-        "riccati_backward": (lambda: riccati._launch(*back), 20,
-                             lambda: riccati.riccati_backward_plain(*back), 2),
-        "forward_rollout": (lambda: rollout_ops._launch(*fwd), 20,
-                            lambda: rollout_ops.forward_rollout_plain(*fwd), 2),
-        "clddp_solve": (lambda: mega_clddp._launch(p, opts, *seeds), 20,
-                        lambda: clddp._solve(p, plain_opts, *seeds), 1),
-    }, work_items, torch.float32, smi)
+    timing = time_clddp_kernels(prob, x0, opts, smi)
 
     # --- phase 5: the IPDDP kernels against their plain versions ----------------
     errs.update({k: {**errs[k], **v} for k, v in phase_ip_kernels(tt, dev).items()})
@@ -2097,6 +2396,10 @@ def main():
     default.update(bar_default)
     timing.update(time_barrier_kernels(tt, bar_prob, bar_x0, smi))
     print(f"[clock] phase 10 done at {time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 11: tracking MPC --------------------------------------------------
+    tr_launches, tr_default, tr_errs, tr_timing = phase_tracking(tt, dev, smi)
+    print(f"[clock] phase 11 done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
@@ -2159,6 +2462,37 @@ def main():
                          smem_bytes=a["static_smem_bytes"] + a["dynamic_smem_bytes"],
                          blocks_per_sm=a["blocks_per_sm"])
         by_name[name][key] = entry
+    # Phase 11's tracking variants, each an entry of its own: launches in
+    # the tracking run that drives it (the MPC ticks for kernel 3's, the
+    # per-pass fleets for kernels 2 and 5's, the whole-solve fleets for
+    # kernels 7, 8 and 9's), "default_launches" in the tracking MPC ticks
+    # and whole-solve fleets; times and bounds on the tracking fleet's
+    # inputs; attributes of the m = 4 (box) variant, and kernel 7's
+    # m5_ball0 variant's errors and attributes under "ball".
+    track_stems = {k: next(s for s in stems if s.endswith("_track"))
+                   for k, stems in launchers().items() if k in TRACKING}
+    for name, track in TRACKING.items():
+        a = build.kernel_attributes(f"{track_stems[name]}_f32")
+        ms, plain_ms, b_ms, b_by, dev_ms, source = tr_timing[track]
+        src, rep = sources[name]
+        entry = {"name": track, "route": "cuda", "source": src, "replaces": rep,
+                 "variant_of": name, "launches": tr_launches[track],
+                 "default_launches": sum(c.get(track, 0) for c in tr_default.values()),
+                 "max_abs_err": tr_errs["float32"][track],
+                 "max_abs_err_f64": tr_errs["float64"][track],
+                 "ms": ms, "device_ms": dev_ms, "device_ms_source": source,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "registers": a["registers"], "spill_bytes": a["spill_bytes"],
+                 "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
+                 "blocks_per_sm": a["blocks_per_sm"]}
+        if name == "ipddp_solve":
+            b = build.kernel_attributes("cddp_ipddp_solve_unicycle_m5_ball0_track_f32")
+            entry["ball"] = {"max_abs_err": tr_errs["float32"]["ipddp_solve_track_ball"],
+                             "max_abs_err_f64": tr_errs["float64"]["ipddp_solve_track_ball"],
+                             "registers": b["registers"], "spill_bytes": b["spill_bytes"],
+                             "smem_bytes": b["static_smem_bytes"] + b["dynamic_smem_bytes"],
+                             "blocks_per_sm": b["blocks_per_sm"]}
+        record["kernels"].append(entry)
     print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in rates.items()) + "; IPDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in ip_rates.items()) + "".join(

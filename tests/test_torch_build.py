@@ -68,15 +68,25 @@ def test_launchers_are_exported_and_registered(kernel):
     assert set(chip_smoke.launchers()[kernel]) == exported
 
 
-# The launchers each interior-point source instantiates, without the type
-# suffix: kernel 7 for the box stacks (m = 4, 6, 10) and for a control box
-# with a keep-out ball, the ball's row first or last (m5_ball0, m5_ball4);
-# kernel 6 for m = 4, 5 (the ball stack), 6 and 10.
+# The launchers each source with more than one instantiates, without the
+# type suffix: kernel 7 for the box stacks (m = 4, 6, 10) and for a control
+# box with a keep-out ball, the ball's row first or last (m5_ball0,
+# m5_ball4); kernel 6 for m = 4, 5 (the ball stack), 6 and 10; kernels 2, 3,
+# 5, 8 and 9 in the goal form and the tracking form (suffix _track), kernel
+# 7's tracking form for the box stacks and m5_ball0.
 INSTANTIATIONS = {
     "ipddp_solve.cu": {f"cddp_ipddp_solve_unicycle_{v}"
-                       for v in ("m4", "m6", "m10", "m5_ball0", "m5_ball4")},
+                       for v in ("m4", "m6", "m10", "m5_ball0", "m5_ball4", "m4_track",
+                                 "m6_track", "m10_track", "m5_ball0_track")},
     "ipddp_backward.cu": {f"cddp_ipddp_backward_3x2x{m}" for m in (4, 5, 6, 10)},
-    "ip_forward.cu": {f"cddp_ip_forward_unicycle_m{m}" for m in (4, 6, 10)},
+    "ip_forward.cu": {f"cddp_ip_forward_unicycle_m{m}{t}" for m in (4, 6, 10)
+                      for t in ("", "_track")},
+    "forward_rollout.cu": {f"cddp_forward_rollout_unicycle{t}" for t in ("", "_track")},
+    "clddp_solve.cu": {f"cddp_clddp_solve_unicycle{t}" for t in ("", "_track")},
+    "logddp_solve.cu": {f"cddp_logddp_solve_unicycle_m{m}{t}" for m in (4, 6, 10)
+                        for t in ("", "_track")},
+    "msipddp_solve.cu": {f"cddp_msipddp_solve_unicycle_m{m}{t}" for m in (4, 6, 10)
+                         for t in ("", "_track")},
 }
 
 
@@ -88,12 +98,15 @@ def test_instantiations(source):
 
 def test_ball_variants_are_the_layouts_the_wrapper_names():
     """Kernel 7's ball launchers are the ``BALL_LAYOUTS`` the wrapper picks
-    (``mega_ipddp.solve_variant``), and kernel 6's shapes its ``KERNEL_SHAPES``."""
+    (``mega_ipddp.solve_variant``), its tracking launchers the
+    ``TRACK_LAYOUTS``, and kernel 6's shapes its ``KERNEL_SHAPES``."""
     from cddp_tpu_torch.ops.kernels import ipddp_riccati, mega_ipddp
 
     balls = {f"cddp_ipddp_solve_unicycle_m{m}_ball{row}"
              for m, row in mega_ipddp.BALL_LAYOUTS["unicycle"]}
     assert balls <= launchers_of("ipddp_solve.cu")[0]
+    assert {f"cddp_ipddp_solve_unicycle_{v}_track" for v in mega_ipddp.TRACK_LAYOUTS[
+        "unicycle"]} <= launchers_of("ipddp_solve.cu")[0]
     assert launchers_of("ipddp_backward.cu")[0] == {
         f"cddp_ipddp_backward_{nx}x{nu}x{m}" for nx, nu, m in ipddp_riccati.KERNEL_SHAPES}
 
@@ -175,7 +188,8 @@ def test_launch_shapes_see_a_mismatch():
     text = (build.CSRC / "logddp_solve.cu").read_text()
     shapes = launch_shapes(text)["logddp_solve_kernel"]
     assert shapes[0] == "kThreads" and shapes[1]
-    assert len(shapes[2]) == 1 and len(shapes[3]) == 3  # one launch; m = 4, 6, 10
+    # One launch; m = 4, 6, 10 in the goal and the tracking form.
+    assert len(shapes[2]) == 1 and len(shapes[3]) == 6
     for old, new in (("kThreads, smem, stream>>>", "kSolveThreads, smem, stream>>>"),
                      ("kThreads, smem, stream>>>", "kThreads, 0, stream>>>"),
                      ("cddp::kThreads,      \\", "cddp::kSolveThreads, \\")):

@@ -159,9 +159,12 @@ def test_quadratic_objective_matches_jax():
         np.testing.assert_allclose(
             float(po.running_cost(torch.as_tensor(x[i]), torch.as_tensor(u[i]))),
             float(jo.running_cost(xi, ui, 0)), **TOL)
-    with pytest.raises(NotImplementedError):
-        tt.quadratic_objective(Q, R, Qf, goal, 0.05, reference_states=np.zeros((5, 3)),
-                               device="cpu")
+    # A reference trajectory whose last row is not the goal: the JAX
+    # package's ValueError (tracking itself: tests/test_torch_tracking.py).
+    for build in (ct.quadratic_objective,
+                  lambda *a, **k: tt.quadratic_objective(*a, **k, device="cpu")):
+        with pytest.raises(ValueError, match="Last reference state must be same"):
+            build(Q, R, Qf, goal, 0.05, reference_states=np.zeros((5, 3)))
     with pytest.raises(ValueError):
         tt.quadratic_objective(np.ones((3, 2)), R, Qf, goal, 0.05, device="cpu")
 

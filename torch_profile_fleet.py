@@ -3,7 +3,9 @@
 
     python3 torch_profile_fleet.py [--batch 262144] [--solver CLDDP|IPDDP|LogDDP|MSIPDDP|all ...]
                                    [--engine whole|per-pass|plain|all ...] [--sass] [--boxqp]
-                                   [--problem box|obstacle]
+                                   [--problem box|obstacle|tracking]
+    python3 torch_profile_fleet.py --save-outputs PATH [--batch B]
+    python3 torch_profile_fleet.py --compare-outputs A B
 
 For the flagship fleet (cold control-limited unicycle MPC, H=20, 10
 iterations, tolerance 1e-4, float32, x0 ~ U(-0.5, 0.5)) under each solver
@@ -12,7 +14,10 @@ MSIPDDP have no per-pass kernels, and their ``solve_engine="xla"`` engine
 is the plain driver seeded by the open-loop rollout kernel), or with
 ``--problem obstacle`` for the IPDDP obstacle fleet
 (``chip_smoke.obstacle_problem``: the control box and a keep-out ball, dt =
-0.03; IPDDP only, the other solvers take box stacks only), it prints:
+0.03; IPDDP only, the other solvers take box stacks only), or with
+``--problem tracking`` for the tracking fleet (``chip_smoke.tracking_problem``:
+the unicycle tracking a per-step arc reference, which runs the kernels'
+tracking variants), it prints:
 the host-clock ms of one ``batched_solve`` (after a warm-up, ending in a
 synchronize); under ``torch.profiler`` the device busy time (the sum over
 the CUDA kernel rows, which do not overlap on one stream), the profiled
@@ -38,7 +43,12 @@ nothing of JAX.
 A/B of two source trees: run it in each tree's own checkout (each builds
 its own ``.torch_ext_build/``), in turns, in one call on one card, and
 compare the profiler's row of the kernel (device time without the wrapper's
-layout copies).
+layout copies). ``--save-outputs PATH`` instead saves the default engine's
+solutions of the goal-form fleets (the box problem under the four solvers,
+the obstacle problem under IPDDP; 10 iterations, tolerance 1e-4, float32
+and float64) with ``torch.save``, and ``--compare-outputs A B`` says of two
+such files whether every field holds the same bits (exit status 1 if not):
+run the first in each tree, the second once.
 """
 
 import argparse
@@ -153,6 +163,8 @@ def sass_loops(smi):
         wanted = [k for k in SASS_KERNELS if f"{len(k) + 7}{k}_kernelIf" in name]
         if not wanted or ("logddp" in wanted[0] or "ipddp" in wanted[0]) and "Li4E" not in name:
             continue
+        if "Lb1E" in name:  # a tracking variant (TRACK = true): the goal form's loops only
+            continue
         ins = []  # (address, opcode, branch target or None)
         for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", fn):
             tgt = re.search(r"(0x[0-9a-f]+)", m.group(3)) if m.group(2).startswith("BRA") else None
@@ -210,6 +222,58 @@ def boxqp_first_valid(prob, x0, opts, smi):
           f"{float((warps == 1).all(-1).double().mean()):.4%} of warp steps  [{smi}]")
 
 
+def save_outputs(path, batch, smi):
+    """Save the default engine's solutions of the goal-form fleets, float32
+    and float64, from x0 ~ U(-0.5, 0.5) (seed ``chip_smoke.SEED``), to
+    ``path``: {"<problem>/<solver>/<dtype>/<field>": CPU tensor}."""
+    import cddp_tpu_torch as tt
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    dev = torch.device("cuda", 0)
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+        x0 = (torch.rand(batch, 3, generator=gen, device=dev) - 0.5).to(dtype)
+        for label, make, solvers in (("box", chip_smoke.flagship_problem, SOLVERS),
+                                     ("obstacle", chip_smoke.obstacle_problem, ("IPDDP",))):
+            prob = make(tt, dtype, dev)
+            for solver in solvers:
+                sol = batched_solve(prob, x0, solver, opts)
+                fields = {f: getattr(sol, f) for f in SAVED_FIELDS}
+                for kind in ("dual_trajectories", "slack_trajectories"):
+                    named = getattr(sol, kind) or {}
+                    fields.update({f"{kind}[{k}]": v for k, v in named.items()})
+                for f, v in fields.items():
+                    if v is not None:
+                        out[f"{label}/{solver}/{str(dtype)[6:]}/{f}"] = v.detach().cpu()
+    torch.save(out, path)
+    print(f"[outputs] saved {len(out)} fields of B={batch} fleets to {path}  [{smi}]")
+
+
+SAVED_FIELDS = ("state_trajectory", "control_trajectory", "feedforward_gains",
+                "feedback_gains", "final_objective", "iterations_completed", "status_code",
+                "inf_du", "inf_pr", "barrier_mu", "costate_trajectory")
+
+
+def compare_outputs(a, b):
+    """Whether two ``save_outputs`` files hold the same bits, fleet by fleet;
+    returns 1 if any field differs or is missing from one of them."""
+    A, B = torch.load(a), torch.load(b)
+    fleets = sorted({k.rsplit("/", 1)[0] for k in A} | {k.rsplit("/", 1)[0] for k in B})
+    differ = 0
+    for fleet in fleets:
+        keys = sorted({k for k in A if k.startswith(fleet + "/")}
+                      | {k for k in B if k.startswith(fleet + "/")})
+        bad = [k.rsplit("/", 1)[1] for k in keys
+               if k not in A or k not in B or not torch.equal(A[k], B[k])]
+        differ += bool(bad)
+        print(f"[outputs] {fleet}: {len(keys)} fields, "
+              + ("every one the same bits" if not bad else f"differ: {bad}"))
+    print(f"[outputs] {len(fleets)} fleets, {differ} differ")
+    return int(differ > 0)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=chip_smoke.B_MAIN)
@@ -217,8 +281,12 @@ def main():
     ap.add_argument("--engine", nargs="+", default=["all"], choices=tuple(ENGINES) + ("all",))
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--boxqp", action="store_true")
-    ap.add_argument("--problem", default="box", choices=("box", "obstacle"))
+    ap.add_argument("--problem", default="box", choices=("box", "obstacle", "tracking"))
+    ap.add_argument("--save-outputs", metavar="PATH")
+    ap.add_argument("--compare-outputs", nargs=2, metavar=("A", "B"))
     args = ap.parse_args()
+    if args.compare_outputs:
+        raise SystemExit(compare_outputs(*args.compare_outputs))
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_fleet: no CUDA device")
     import cddp_tpu_torch as tt
@@ -228,10 +296,15 @@ def main():
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     chip_smoke.print_kernel_attributes(smi)
+    if args.save_outputs:
+        return save_outputs(args.save_outputs, args.batch, smi)
     if args.sass:
         sass_loops(smi)
     dev = torch.device("cuda", 0)
-    make = chip_smoke.obstacle_problem if args.problem == "obstacle" else chip_smoke.flagship_problem
+    # (tracking_problem looked up only when asked: an A/B runs this script
+    # against a parent tree's chip_smoke, which may not have it.)
+    make = {"box": chip_smoke.flagship_problem, "obstacle": chip_smoke.obstacle_problem,
+            "tracking": lambda *a: chip_smoke.tracking_problem(*a)}[args.problem]
     prob = make(tt, torch.float32, dev)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
     x0 = torch.rand(args.batch, 3, generator=gen, device=dev) - 0.5
