@@ -2,7 +2,8 @@
 
 Batch-first CLDDP with a control box; IPDDP with every path-constraint type
 of the JAX package (boxes, keep-out balls, linear, pole, cone and thrust
-constraints); LogDDP and MSIPDDP with control and state boxes; all over the
+constraints) and both terminal types (linear inequalities A x_N <= b and
+equalities x_N = target); LogDDP and MSIPDDP with control and state boxes; all over the
 unicycle, as the JAX package solves them, towards a goal or along a per-step
 reference trajectory (``reference_states``); and batch-first receding-horizon
 MPC (``make_mpc_controller``). Hand-written CUDA kernels for
@@ -10,7 +11,7 @@ NVIDIA Hopper (``ops/csrc/``): for CLDDP the Riccati backward pass, the
 line-search rollout and the whole solve; for IPDDP the open-loop rollout
 (which seeds every barrier solver), the interior-point forward pass, the
 condensed backward and the whole solve (box and keep-out-ball stacks, with
-the "auto" stall latch); the whole LogDDP and MSIPDDP solves. CUDA tensors
+the "auto" stall latch, and terminal constraints on the control box); the whole LogDDP and MSIPDDP solves. CUDA tensors
 run the kernels; CPU tensors run their plain PyTorch versions. The builders
 put tensors on the CUDA card unless given ``device``. The kernels are built
 with ``nvcc`` at first use, never at import.
@@ -35,6 +36,13 @@ from cddp_tpu_torch.constraints.path import (
     state_constraint,
     thrust_magnitude_constraint,
 )
+from cddp_tpu_torch.constraints.terminal import (
+    TerminalConstraint,
+    TerminalEqualityConstraint,
+    TerminalInequalityConstraint,
+    terminal_equality_constraint,
+    terminal_inequality_constraint,
+)
 from cddp_tpu_torch.costs.objective import QuadraticObjective, quadratic_objective
 from cddp_tpu_torch.options import (
     BarrierOptions,
@@ -55,11 +63,13 @@ __all__ = [
     "MPCState", "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
     "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",
     "SecondOrderConeConstraint", "Solution", "StateConstraint", "Status",
+    "TerminalConstraint", "TerminalEqualityConstraint", "TerminalInequalityConstraint",
     "ThrustMagnitudeConstraint", "ball_constraint", "batched_solve",
     "control_constraint", "linear_constraint", "make_mpc_controller",
     "max_thrust_magnitude_constraint",
     "pole_constraint", "problem", "quadratic_objective", "second_order_cone_constraint",
-    "solve", "state_constraint", "thrust_magnitude_constraint",
+    "solve", "state_constraint", "terminal_equality_constraint",
+    "terminal_inequality_constraint", "thrust_magnitude_constraint",
 ]
 
 

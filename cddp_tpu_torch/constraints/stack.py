@@ -82,13 +82,67 @@ class PathStacker:
 
 
 class TerminalStacker:
-    """Stacked terminal constraints. The port carries none yet: building a
-    stacker for a problem with terminal constraints raises."""
-
-    ineq_dim = 0
-    eq_dim = 0
+    """Stacked terminal constraints, split into inequality and equality
+    groups (getTerminalInequalityLayout / getTerminalEqualityLayout,
+    ipddp_solver.cpp:52-117), each in name order. Refuses any other
+    terminal type as the reference does (ipddp_solver.cpp:56-67). Values
+    are (..., mT) and (..., p) at x_N (..., nx); both groups are affine, so
+    their Jacobians are constant (mT, nx) and (p, nx) rows."""
 
     def __init__(self, problem):
-        if getattr(problem, "terminal_constraints", None):
-            raise NotImplementedError(
-                "terminal constraints are not yet ported to cddp_tpu_torch")
+        from cddp_tpu_torch.constraints.terminal import (
+            TerminalEqualityConstraint,
+            TerminalInequalityConstraint,
+        )
+
+        self.ineq_items, self.eq_items = [], []
+        for name, c in problem.sorted_terminal_constraints():
+            if isinstance(c, TerminalEqualityConstraint):
+                self.eq_items.append((name, c))
+            elif isinstance(c, TerminalInequalityConstraint):
+                self.ineq_items.append((name, c))
+            else:
+                raise TypeError(
+                    f"IPDDP: terminal constraint '{name}' has unsupported type. "
+                    "Supported terminal constraints are TerminalEqualityConstraint "
+                    "and TerminalInequalityConstraint.")
+        self.ineq_names = [n for n, _ in self.ineq_items]
+        self.ineq_dims = [c.dual_dim for _, c in self.ineq_items]
+        self.ineq_dim = sum(self.ineq_dims)
+        self.eq_names = [n for n, _ in self.eq_items]
+        self.eq_dims = [c.dual_dim for _, c in self.eq_items]
+        self.eq_dim = sum(self.eq_dims)
+
+    @staticmethod
+    def _evaluate(items, x):
+        if not items:
+            return x.new_zeros(*x.shape[:-1], 0)
+        return torch.cat([c.evaluate(x) for _, c in items], dim=-1)
+
+    @staticmethod
+    def _rows(items, x):
+        if not items:
+            return x.new_zeros(0, x.shape[-1])
+        return torch.cat([c.jacobian_rows() for _, c in items]).to(x.dtype)
+
+    # --- inequalities: g_T(x_N) <= 0 stacked ------------------------------
+    def ineq_evaluate(self, x) -> torch.Tensor:
+        return self._evaluate(self.ineq_items, x)
+
+    def ineq_jacobian(self, x) -> torch.Tensor:
+        """The constant rows (mT, nx)."""
+        return self._rows(self.ineq_items, x)
+
+    def split_ineq(self, stacked) -> Dict[str, torch.Tensor]:
+        return _split_blocks(self.ineq_names, self.ineq_dims, stacked)
+
+    # --- equalities: h_T(x_N) = 0 stacked ---------------------------------
+    def eq_evaluate(self, x) -> torch.Tensor:
+        return self._evaluate(self.eq_items, x)
+
+    def eq_jacobian(self, x) -> torch.Tensor:
+        """The constant rows (p, nx)."""
+        return self._rows(self.eq_items, x)
+
+    def split_eq(self, stacked) -> Dict[str, torch.Tensor]:
+        return _split_blocks(self.eq_names, self.eq_dims, stacked)

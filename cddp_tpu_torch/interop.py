@@ -14,7 +14,7 @@ import enum
 import numpy as np
 import torch
 
-from cddp_tpu_torch.constraints import path
+from cddp_tpu_torch.constraints import path, terminal
 from cddp_tpu_torch.costs.objective import QuadraticObjective
 from cddp_tpu_torch.models.unicycle import Unicycle
 from cddp_tpu_torch.options import CDDPOptions
@@ -31,12 +31,15 @@ _PATH = {cls.__name__: cls for cls in (
     path.BallConstraint, path.LinearConstraint, path.PoleConstraint,
     path.SecondOrderConeConstraint, path.ThrustMagnitudeConstraint,
     path.MaxThrustMagnitudeConstraint)}
+_TERMINAL = {cls.__name__: cls for cls in (
+    terminal.TerminalEqualityConstraint, terminal.TerminalInequalityConstraint)}
 
 
 def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
                         upper, x0, horizon: int, timestep: float,
                         integrator: str, *, device, dtype, boxes=None,
-                        constraints=None, reference_states=None) -> Problem:
+                        constraints=None, reference_states=None,
+                        terminal_constraints=None) -> Problem:
     """Build a problem from numpy arrays. ``Q`` and ``R`` are already
     dt-prescaled (as ``QuadraticObjective`` stores them) and go in as given;
     ``lower``/``upper`` None means no "ControlConstraint" box. ``boxes`` maps
@@ -45,8 +48,12 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
     type of ``_PATH`` and its fields, arrays becoming tensors and Python
     numbers staying as they are, for example ("BallConstraint",
     {"radius": np.asarray(0.4), "center": np.asarray([1.0, 1.0]),
-    "scale_factor": 1.0}). ``reference_states`` (N or N+1, nx) makes the
-    objective track it (``QuadraticObjective.reference_states``)."""
+    "scale_factor": 1.0}). ``terminal_constraints`` maps names to (type
+    name, fields) in the same form, for the two terminal types, for example
+    ("TerminalInequalityConstraint", {"A": ..., "b": ...}) or
+    ("TerminalEqualityConstraint", {"target_state": ...}).
+    ``reference_states`` (N or N+1, nx) makes the objective track it
+    (``QuadraticObjective.reference_states``)."""
     try:
         make_model = _MODELS[model_name]
     except KeyError as e:
@@ -61,16 +68,22 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
         items["ControlConstraint"] = path.ControlConstraint(lower=t(lower), upper=t(upper))
     for name, (kind, lo, hi, scale) in (boxes or {}).items():
         items[name] = _BOXES[kind](lower=t(lo), upper=t(hi), scale_factor=float(scale))
-    for name, (kind, fields) in (constraints or {}).items():
-        if kind not in _PATH:
-            raise ValueError(f"constraint type {kind!r} is not ported; "
-                             f"available: {sorted(_PATH)}")
-        items[name] = _PATH[kind](**{
-            k: v if isinstance(v, (bool, int, float)) else t(v) for k, v in fields.items()})
+    def build(types, specs):
+        out = {}
+        for name, (kind, fields) in (specs or {}).items():
+            if kind not in types:
+                raise ValueError(f"constraint type {kind!r} is not ported; "
+                                 f"available: {sorted(types)}")
+            out[name] = types[kind](**{
+                k: v if isinstance(v, (bool, int, float)) else t(v) for k, v in fields.items()})
+        return out
+
+    items.update(build(_PATH, constraints))
     return Problem(
         model=make_model(np.asarray(model_params), integrator),
         objective=objective, x0=t(x0), horizon=int(horizon),
         timestep=float(timestep), constraints=items,
+        terminal_constraints=build(_TERMINAL, terminal_constraints),
     )
 
 
@@ -96,7 +109,10 @@ def solution_to_numpy(sol, state=None) -> dict:
     """The fields a parity check compares, as numpy arrays. Solutions of the
     barrier solvers add mu and inf_pr (LogDDP: the violation), the
     interior-point ones the stacked duals Y and slacks S (path-constraint
-    names in sorted order), the costates and inf_comp. An MSIPDDP solver
+    names in sorted order), the costates and inf_comp, and with terminal
+    constraints the stacked terminal duals Y_T, slacks S_T and equality
+    multipliers Lambda_T_eq (names in sorted order; width 0 where a group
+    is empty). An MSIPDDP solver
     ``state`` adds its gains, duals, slacks, shooting-node values F and
     costates (k, K, Y, S, F, Lambda)."""
     f = lambda v: v.detach().cpu().numpy()  # noqa: E731
@@ -119,6 +135,13 @@ def solution_to_numpy(sol, state=None) -> dict:
     if sol.dual_trajectories is not None:
         stack = lambda d: np.concatenate([f(d[k]) for k in sorted(d)], -1)  # noqa: E731
         out.update(Y=stack(sol.dual_trajectories), S=stack(sol.slack_trajectories))
+    if sol.terminal_duals is not None:
+        ineq = sorted(sol.terminal_slacks)
+        eq = sorted(set(sol.terminal_duals) - set(ineq))
+        cat = lambda d, names: np.concatenate(  # noqa: E731
+            [f(d[k]) for k in names] or [f(sol.final_objective)[..., None][..., :0]], -1)
+        out.update(Y_T=cat(sol.terminal_duals, ineq), S_T=cat(sol.terminal_slacks, ineq),
+                   Lambda_T_eq=cat(sol.terminal_duals, eq))
     if state is not None:
         out.update(k=f(state.k_u), K=f(state.K_u), Y=f(state.Y), S=f(state.S),
                    F=f(state.F), Lambda=f(state.Lambda))

@@ -47,8 +47,6 @@ __device__ __forceinline__ T clip(T v, T lo, T hi) {
 
 __device__ __forceinline__ float dlog(float v) { return logf(v); }
 __device__ __forceinline__ double dlog(double v) { return log(v); }
-__device__ __forceinline__ float dsqrt(float v) { return sqrtf(v); }
-__device__ __forceinline__ double dsqrt(double v) { return sqrt(v); }
 __device__ __forceinline__ float dpow(float a, float b) { return powf(a, b); }
 __device__ __forceinline__ double dpow(double a, double b) { return pow(a, b); }
 

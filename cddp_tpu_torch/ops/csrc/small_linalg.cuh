@@ -83,6 +83,8 @@ __device__ __forceinline__ T nan_min(T a, T b) {
 
 __device__ __forceinline__ float dabs(float v) { return fabsf(v); }
 __device__ __forceinline__ double dabs(double v) { return fabs(v); }
+__device__ __forceinline__ float dsqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double dsqrt(double v) { return sqrt(v); }
 
 // C = A @ B for (N,K) @ (K,M).
 template <typename T, int N, int K, int M>
@@ -235,6 +237,98 @@ __device__ __forceinline__ bool leading_minors_from(const T (&A)[N][N]) {
 template <typename T, int N>
 __device__ __forceinline__ bool leading_minors_pd(const T (&A)[N][N]) {
   return (A[0][0] > T(0)) & leading_minors_from<T, N, 2>(A);
+}
+
+// Cholesky solve of the P x P system A x = b (mega_ipddp.py::
+// _chol_solve_lanes, :394-425): returns whether every pivot was positive
+// (the plain driver's check that torch.linalg.cholesky_ex succeeded). From
+// the first failed pivot on, diagonal entries are 1 and the entries below
+// them 0, so a failed solve still runs, on a factor the caller discards.
+template <typename T, int P>
+__device__ __forceinline__ bool chol_solve(const T (&A)[P][P], const T (&b)[P], T (&x)[P]) {
+  T L[P][P];
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      T s = A[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
+      if (i == j) {
+        ok = ok & (s > T(0));
+        L[i][i] = ok ? dsqrt(nan_max(s, T(1e-300))) : T(1);
+      } else {
+        L[i][j] = ok ? s / L[j][j] : T(0);
+      }
+    }
+  }
+  T z[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    T s = b[i];
+#pragma unroll
+    for (int j = 0; j < i; ++j) s = s - L[i][j] * z[j];
+    z[i] = s / L[i][i];
+  }
+#pragma unroll
+  for (int i = P - 1; i >= 0; --i) {
+    T s = z[i];
+#pragma unroll
+    for (int j = i + 1; j < P; ++j) s = s - L[j][i] * x[j];
+    x[i] = s / L[i][i];
+  }
+  return ok;
+}
+
+// The largest and smallest singular value of a (near-)symmetric P x P
+// matrix, as |eigenvalues| of sym(A) by eight cyclic Jacobi sweeps with
+// trig-free rotations (mega_ipddp.py::_jacobi_sv_minmax, :428-466). Stands in
+// for an SVD in the terminal equality's regularization floor: it agrees
+// with one wherever the floor is zero (min >= 1e-8 max) and is approximate
+// only near rank deficiency.
+template <typename T, int P>
+__device__ __forceinline__ void jacobi_sv_minmax(const T (&A)[P][P], T& mx, T& mn) {
+  T B[P][P];
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+#pragma unroll
+    for (int j = 0; j < P; ++j) B[i][j] = T(0.5) * (A[i][j] + A[j][i]);
+#pragma unroll
+  for (int sweep = 0; sweep < 8; ++sweep) {
+#pragma unroll
+    for (int i = 0; i < P - 1; ++i) {
+#pragma unroll
+      for (int j = i + 1; j < P; ++j) {
+        const T apq = B[i][j];
+        const bool small = dabs(apq) < T(1e-300);
+        const T tau = (B[j][j] - B[i][i]) / (T(2) * (small ? T(1) : apq));
+        const T sgn = tau >= T(0) ? T(1) : T(-1);
+        const T t = small ? T(0) : sgn / (dabs(tau) + dsqrt(T(1) + tau * tau));
+        const T c = T(1) / dsqrt(T(1) + t * t);
+        const T s = t * c;
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const T bik = B[i][k], bjk = B[j][k];
+          B[i][k] = c * bik - s * bjk;
+          B[j][k] = s * bik + c * bjk;
+        }
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const T bki = B[k][i], bkj = B[k][j];
+          B[k][i] = c * bki - s * bkj;
+          B[k][j] = s * bki + c * bkj;
+        }
+      }
+    }
+  }
+  mx = dabs(B[0][0]);
+  mn = mx;
+#pragma unroll
+  for (int i = 1; i < P; ++i) {
+    mx = nan_max(mx, dabs(B[i][i]));
+    mn = nan_min(mn, dabs(B[i][i]));
+  }
 }
 
 }  // namespace cddp

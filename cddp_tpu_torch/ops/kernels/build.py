@@ -31,9 +31,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
 
 KERNEL_SOURCES = ("riccati_backward.cu", "forward_rollout.cu", "clddp_solve.cu",
                   "open_loop_rollout.cu", "ip_forward.cu", "ipddp_backward.cu",
-                  "ipddp_solve.cu", "logddp_solve.cu", "msipddp_solve.cu")
+                  "ipddp_solve.cu", "ipddp_solve_terminal.cu", "logddp_solve.cu",
+                  "msipddp_solve.cu")
 HEADERS = ("small_linalg.cuh", "clddp_step.cuh", "models.cuh", "ipddp_step.cuh",
-           "ip_filter.cuh", "sweep_stage.cuh")
+           "ip_filter.cuh", "sweep_stage.cuh", "ipddp_solve.cuh")
 
 COMMON_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",

@@ -7,9 +7,13 @@ control and state boxes and keep-out balls, in the layouts the kernel is
 instantiated for (``solve_variant``); the
 quadratic cost (the goal, or a tracked ``reference_states`` on the
 ``TRACK_LAYOUTS``: the tracking variant, launcher suffix ``_track``,
-``dispatch_log`` name ``ipddp_solve_track``), no terminal constraints,
-costates tracked, both barrier strategies and both theta norms. The kernel
-(``ops/csrc/ipddp_solve.cu``) gives each instance one thread that runs
+``dispatch_log`` name ``ipddp_solve_track``), terminal constraints on the
+``TERMINAL_LAYOUTS`` (linear terminal inequalities, the terminal equality
+x_N = target, or both: launcher suffixes ``_ti{mT}``, ``_te{p}``,
+``_te{p}_ti{mT}``, built from ``ops/csrc/ipddp_solve_terminal.cu``, and
+logged under the same suffixes, ``ipddp_solve_ti2`` for instance), costates
+tracked, both barrier strategies and both theta norms. The kernel
+(``ops/csrc/ipddp_solve.cuh``) gives each instance one thread that runs
 ``solvers/ipddp.py::_drive`` for it: the initial cost, merit and residuals;
 per iteration the Jacobians and cost derivatives, the condensed backward
 with its regularization retries, the fraction-to-boundary step caps, the
@@ -19,7 +23,9 @@ stall latch: the armed constraint-Hessian fold, the armed slack SOC, the
 stall detector and the latch's fail path. The trajectories, duals, slacks,
 control gains and costate gains live in device memory (batch-last); the
 dual and slack gains are recomputed from the control gains where they are
-needed, as the JAX kernel does.
+needed, as the JAX kernel does. The terminal inequalities' slacks and duals
+and the equality's multipliers are per-instance state beside them, and the
+constants A, b and the target one read-only array beside ``Consts``.
 
 Its plain version is the per-pass driver ``solvers/ipddp.py::_drive``,
 which CPU tensors run.
@@ -32,7 +38,7 @@ import math
 
 import torch
 
-from cddp_tpu_torch.constraints.stack import PathStacker
+from cddp_tpu_torch.constraints.stack import PathStacker, TerminalStacker
 from cddp_tpu_torch.costs.objective import QuadraticObjective
 from cddp_tpu_torch.ops.kernels import dispatch_log, ip_rollout
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
@@ -44,7 +50,7 @@ MAX_ALPHAS = 64  # the kernel's alpha-ladder capacity (ipddp_solve.cu)
 # The kernel's filter slots (kFCap). An accepted entry joins at most
 # max_filter_size kept ones, so max_filter_size <= 6 fits.
 FILTER_SLOTS = 7
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_double)] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.POINTER(ctypes.c_double)] * 5
              + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 # Stats rows the kernel writes: cost, inf_pr, inf_du, inf_comp, mu, reg,
 # alpha_pr, iterations, status, backward attempts, sweeps, and (ball
@@ -57,19 +63,23 @@ BALL_LAYOUTS = {"unicycle": ((5, 0), (5, 4))}
 # The layouts kernel 7 also has a tracking variant of (suffix "_track"), by
 # model: the box stacks and the ball's row first.
 TRACK_LAYOUTS = {"unicycle": ("m4", "m6", "m10", "m5_ball0")}
+# The terminal variants of kernel 7, by model and layout: (mT, p), the
+# terminal inequality rows and terminal equality rows, suffix "_te{p}" then
+# "_ti{mT}" (goal form only). A TerminalEqualityConstraint on the unicycle
+# has p = nx = 3.
+TERMINAL_LAYOUTS = {"unicycle": {"m4": ((1, 0), (2, 0), (0, 3), (1, 3))}}
 
 
 def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
     """What the interior-point and log-barrier whole-solve kernels (7, 8, 9)
-    all require of a problem besides its stack: a registered model with an
-    explicit integrator, the quadratic objective, no terminal constraints,
+    all require of a problem besides its stack and terminal constraints: a
+    registered model with an explicit integrator, the quadratic objective,
     iLQR with the sequential backward (``lqr_backend``) and line search, an
     alpha ladder that fits, and none of the driver features the kernels do
     not model."""
     return (
         rollout_ops.lane_consts(problem) is not None
         and isinstance(problem.objective, QuadraticObjective)
-        and not problem.terminal_constraints
         and options.use_ilqr
         and not options.enable_parallel
         and lqr_backend == "sequential"
@@ -87,23 +97,30 @@ def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
 
 def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
     """What the MSIPDDP and LogDDP whole-solve kernels (8, 9) require:
-    ``driver_eligible`` and a box-only path stack of a size they are built
-    for (``ip_rollout.KERNEL_ROWS``, as kernel 7's box variants)."""
-    return (solve_variant(problem, ball=False) is not None
+    ``driver_eligible``, no terminal constraints (mega_msipddp.py:1281-1284,
+    mega_logddp.py:773 of the JAX package) and a box-only path stack of a
+    size they are built for (``ip_rollout.KERNEL_ROWS``, as kernel 7's box
+    variants)."""
+    return (not problem.terminal_constraints
+            and solve_variant(problem, ball=False) is not None
             and driver_eligible(problem, options, lqr_backend))
 
 
 def solve_variant(problem, ball: bool = True):
-    """Kernel 7's launcher suffix for the problem's stack and objective, or
-    None when the kernel is not instantiated for them: "m{m}" for a box
-    stack of a size in ``ip_rollout.KERNEL_ROWS``, "m{m}_ball{row}" for a
-    layout of ``BALL_LAYOUTS``, each followed by "_track" for a tracking
-    objective on a layout of ``TRACK_LAYOUTS``; box stacks only without
-    ``ball``. Kernels 8 and 9 take the same box suffixes."""
+    """Kernel 7's launcher suffix for the problem's stack, objective and
+    terminal constraints, or None when the kernel is not instantiated for
+    them: "m{m}" for a box stack of a size in ``ip_rollout.KERNEL_ROWS``,
+    "m{m}_ball{row}" for a layout of ``BALL_LAYOUTS``, each followed by
+    "_track" for a tracking objective on a layout of ``TRACK_LAYOUTS``, or
+    by "_te{p}" and "_ti{mT}" for terminal constraints of a shape in
+    ``TERMINAL_LAYOUTS``; box stacks without terminal constraints only
+    without ``ball``. Kernels 8 and 9 take the same box suffixes."""
     lane = rollout_ops.lane_consts(problem)
     rows = ip_rollout.box_rows(problem, PathStacker(problem), ball=ball)
     if lane is None or rows is None:
         return None
+    if problem.terminal_constraints:
+        return None if not ball else _terminal_variant(problem, lane, rows)
     name, balls = lane.entry.cuda_name, rows.ball_rows
     layout = None
     if not balls and rows.m in ip_rollout.KERNEL_ROWS.get(name, ()):
@@ -116,10 +133,24 @@ def solve_variant(problem, ball: bool = True):
     return layout + lane.variant
 
 
+def _terminal_variant(problem, lane, rows):
+    """The terminal suffix of a goal-form box stack (``solve_variant``)."""
+    tstk = TerminalStacker(problem)
+    shape = (tstk.ineq_dim, tstk.eq_dim)
+    layout = f"m{rows.m}"
+    if (rows.ball_rows or lane.refs is not None
+            or shape not in TERMINAL_LAYOUTS.get(lane.entry.cuda_name, {}).get(layout, ())):
+        return None
+    return (layout + (f"_te{tstk.eq_dim}" if tstk.eq_dim else "")
+            + (f"_ti{tstk.ineq_dim}" if tstk.ineq_dim else ""))
+
+
 def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_ipddp.py:2536-2598 of the JAX package,
     restricted to the slice and without its TPU scratch-memory gates): a
-    lane stack of a layout the kernel is built for (``solve_variant``),
+    lane stack and terminal constraints of a layout the kernel is built for
+    (``solve_variant``; terminal equalities are TerminalEqualityConstraint
+    rows, the only equality type ``TerminalStacker`` takes),
     ``driver_eligible``, no IPDDP option the kernel does not model
     (explicit ``slack_soc=True`` or ``use_constraint_hessians=True``: the
     kernel carries only the "auto" latch), and a filter that fits the
@@ -151,35 +182,50 @@ def _solve_cfg(options: CDDPOptions):
         fo.merit_acceptance_threshold, 1 - fo.violation_acceptance_threshold,
         fo.max_violation_threshold, fo.min_violation_for_armijo_check,
         math.sqrt(atol), max(b.mu_min_value * 100.0, tol / 10.0), tol * 10.0,
-        math.sqrt(max(atol, tol)), 100.0 * tol,
+        math.sqrt(max(atol, tol)), 100.0 * tol, ip.jacobian_regularization_value,
+        ip.jacobian_regularization_exponent,
     ]
 
 
+def dispatch_name(problem) -> str:
+    """The name a launch of the problem's variant logs in ``dispatch_log``:
+    "ipddp_solve", with "_track" for a tracking objective, or the terminal
+    suffix ("_ti2", "_te3", "_te3_ti1", ...) of a terminal variant."""
+    variant = solve_variant(problem) or ""
+    if problem.terminal_constraints:
+        return "ipddp_solve" + variant[variant.index("_"):]
+    return "ipddp_solve" + rollout_ops.lane_consts(problem).variant
+
+
 def ipddp_solve(problem, options: CDDPOptions, X, U, Y, S, G, Lambda, mu0, ku0,
-                Ku0) -> Solution:
+                Ku0, terminal=None) -> Solution:
     """Batch-first whole solve from the initialized batch (``_initialize``):
     X/Lambda (B,N+1,nx), U (B,N,nu), Y/S/G (B,N,m), mu0 (B,), ku0 (B,N,nu),
-    Ku0 (B,N,nu,nx). CUDA tensors launch the kernel; CPU tensors run the
-    plain driver."""
+    Ku0 (B,N,nu,nx), and ``terminal`` = (S_T (B,mT), Y_T (B,mT),
+    Lambda_T_eq (B,p)) from ``ipddp.initialize_terminal`` (None: the cold
+    one). CUDA tensors launch the kernel; CPU tensors run the plain
+    driver."""
     from cddp_tpu_torch.solvers import ipddp
 
     if X.device.type == "cpu":
-        variant = rollout_ops.lane_consts(problem).variant
-        dispatch_log.plain("ipddp_solve" + variant, X.shape[0])
-        return ipddp._drive(problem, options, X, U, Y, S, G, Lambda, mu0, ku0, Ku0)
-    return _launch(problem, options, X, U, Y, S, G, Lambda, mu0, ku0, Ku0)
+        dispatch_log.plain(dispatch_name(problem), X.shape[0])
+        return ipddp._drive(problem, options, X, U, Y, S, G, Lambda, mu0, ku0, Ku0,
+                            terminal=terminal)
+    return _launch(problem, options, X, U, Y, S, G, Lambda, mu0, ku0, Ku0, terminal)
 
 
-def _launch(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0) -> Solution:
-    return _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0)[0]
+def _launch(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0,
+            terminal=None) -> Solution:
+    return _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0, terminal)[0]
 
 
-def launch_counting_work(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
+def launch_counting_work(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0,
+                         terminal=None):
     """Launch the kernel; returns (Solution, work (2, B)): each instance's
     backward attempts and trajectory sweeps (line-search trials and the
     accepted trial's rewrite), which a roofline bound's operation count
     reads."""
-    sol, stats = _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0)
+    sol, stats = _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0, terminal)
     return sol, stats[9:11]
 
 
@@ -193,10 +239,21 @@ def launch_with_latch(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
     return sol, stats[11] > 0.5, stats[12] > 0.5
 
 
-def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
-    from cddp_tpu_torch.ops.kernels import build
+def _terminal_consts(tstk, like):
+    """The terminal constants the kernel reads beside Consts, one array:
+    the inequalities' A (mT, nx) row-major and b (mT), then the equality's
+    target (p)."""
+    parts = [c.A.reshape(-1) for _, c in tstk.ineq_items]
+    parts += [c.b for _, c in tstk.ineq_items]
+    parts += [c.target_state for _, c in tstk.eq_items]
+    return torch.cat([t.to(like) for t in parts])
 
-    stk = PathStacker(problem)
+
+def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0, terminal=None):
+    from cddp_tpu_torch.ops.kernels import build
+    from cddp_tpu_torch.solvers import ipddp
+
+    stk, tstk = PathStacker(problem), TerminalStacker(problem)
     lane = rollout_ops.lane_consts(problem)
     rows = ip_rollout.box_rows(problem, stk, ball=True)
     has_ball = bool(rows.ball_rows)
@@ -209,8 +266,13 @@ def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
     name = f"cddp_ipddp_solve_{lane.entry.cuda_name}_{solve_variant(problem)}_{tag}"
     fn = build.function(name, _ARGTYPES)
     # The kernel updates its state in place: always fresh batch-last copies.
-    X, U, Y, S, G, L, k, K = (t.movedim(0, -1).clone(memory_format=torch.contiguous_format)
-                              for t in ins[:8])
+    last = lambda t: t.movedim(0, -1).clone(memory_format=torch.contiguous_format)  # noqa: E731
+    X, U, Y, S, G, L, k, K = (last(t) for t in ins[:8])
+    if terminal is None:
+        terminal = ipddp.initialize_terminal(problem, options, tstk, X0, mu0)
+    S_T, Y_T, Lte = (last(t) for t in terminal)
+    term_c = _terminal_consts(tstk, X0) if problem.terminal_constraints else None
+    dlam = X0.new_empty(tstk.eq_dim, Bsz)  # the multiplier step, kernel scratch
     klam = X0.new_empty(N + 1, nx, Bsz)
     Klam = X0.new_empty(N + 1, nx, nx, Bsz)
     stats = X0.new_empty(STATS_ROWS, Bsz)
@@ -226,12 +288,14 @@ def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
             int(has_ball and ip.slack_soc == "auto"),
             int(has_ball and ip.use_constraint_hessians == "auto"),
             ip.soc_stall_iterations)
+    opt_ptr = lambda t: None if t is None or t.numel() == 0 else build.ptr(t)  # noqa: E731
     err = fn(*(build.ptr(t) for t in (X, U, Y, S, G, L, k, K, klam, Klam, stats)),
-             lane.refs_ptr(X0), build.doubles(lane.host), build.doubles(rows.host),
+             lane.refs_ptr(X0), *(opt_ptr(t) for t in (term_c, S_T, Y_T, Lte, dlam)),
+             build.doubles(lane.host), build.doubles(rows.host),
              build.doubles(rows.ball), build.doubles(_solve_cfg(options)), build.doubles(alphas),
              *ints, build.stream_ptr(X0.device))
     build.check(err, name)
-    dispatch_log.launched("ipddp_solve" + lane.variant, Bsz)
+    dispatch_log.launched(dispatch_name(problem), Bsz)
     Yb, Sb = Y.movedim(-1, 0), S.movedim(-1, 0)
     return Solution(
         solver_name="IPDDP",
@@ -252,4 +316,6 @@ def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0):
         barrier_mu=stats[4],
         inf_pr=stats[1],
         inf_comp=stats[3],
+        **ipddp.terminal_fields(tstk, S_T.movedim(-1, 0), Y_T.movedim(-1, 0),
+                                Lte.movedim(-1, 0)),
     ), stats

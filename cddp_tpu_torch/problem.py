@@ -1,7 +1,7 @@
 """Problem definition (port of ``cddp_tpu/problem.py:31-123``).
 
 A :class:`Problem` is immutable: it bundles the model, objective, path
-constraints, initial state and horizon, and every solve returns new
+and terminal constraints, initial state and horizon, and every solve returns new
 tensors. ``x0`` is (nx,) for one solve or (B, nx) for a batch.
 """
 
@@ -27,7 +27,6 @@ class Problem:
     horizon: int
     timestep: float
     constraints: Dict[str, ControlConstraint] = field(default_factory=dict)
-    # Always empty: terminal constraints are not ported yet.
     terminal_constraints: Dict[str, object] = field(default_factory=dict)
 
     @property
@@ -48,8 +47,12 @@ class Problem:
         return self.replace(constraints={**self.constraints, name: constraint})
 
     def add_terminal_constraint(self, name: str, constraint) -> "Problem":
-        raise NotImplementedError(
-            "terminal constraints are not yet ported to cddp_tpu_torch")
+        """Functional add-or-replace of a terminal constraint
+        (problem.py:78-85 of the JAX package)."""
+        if constraint is None:
+            raise ValueError("Cannot add null constraint.")
+        return self.replace(terminal_constraints={**self.terminal_constraints,
+                                                  name: constraint})
 
     def get_constraint(self, name: str) -> Optional[ControlConstraint]:
         return self.constraints.get(name)
@@ -58,6 +61,9 @@ class Problem:
         """(name, constraint) pairs in name order — the std::map iteration
         order the reference's stacked blocks use."""
         return sorted(self.constraints.items())
+
+    def sorted_terminal_constraints(self):
+        return sorted(self.terminal_constraints.items())
 
     def initial_trajectories(self, X=None, U=None):
         """Zero-initialized (X, U) with X[..., 0, :] = x0, unless warm-start
@@ -77,7 +83,8 @@ class Problem:
 
 def problem(model: DynamicalSystem, objective: QuadraticObjective, x0,
             horizon: int, timestep: float,
-            constraints: Optional[Dict[str, ControlConstraint]] = None, *,
+            constraints: Optional[Dict[str, ControlConstraint]] = None,
+            terminal_constraints: Optional[Dict[str, object]] = None, *,
             device=None, dtype=None) -> Problem:
     """Build a Problem; ``x0`` goes to ``device``, the CUDA card when None."""
     return Problem(
@@ -87,4 +94,5 @@ def problem(model: DynamicalSystem, objective: QuadraticObjective, x0,
         horizon=int(horizon),
         timestep=float(timestep),
         constraints=dict(constraints or {}),
+        terminal_constraints=dict(terminal_constraints or {}),
     )

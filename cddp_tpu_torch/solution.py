@@ -60,7 +60,11 @@ class Solution:
     barrier_mu: Optional[torch.Tensor] = None
     inf_pr: Optional[torch.Tensor] = None
     inf_comp: Optional[torch.Tensor] = None
+    # Terminal constraints (IPDDP): the inequalities' duals and the
+    # equalities' multipliers by name, (..., dual_dim), and the
+    # inequalities' slacks by name. None without terminal constraints.
     terminal_duals: Optional[Dict[str, torch.Tensor]] = None
+    terminal_slacks: Optional[Dict[str, torch.Tensor]] = None
 
     def first(self) -> "Solution":
         """The first instance of a batched solution (the unbatched form):

@@ -141,6 +141,7 @@ def canonicalize_problem_dtype(problem: Problem) -> Problem:
     return dataclasses.replace(
         problem, model=model, objective=cast(problem.objective),
         constraints=cast(problem.constraints),
+        terminal_constraints=cast(problem.terminal_constraints),
     )
 
 

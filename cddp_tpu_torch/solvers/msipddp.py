@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from cddp_tpu_torch.constraints.stack import PathStacker, TerminalStacker
+from cddp_tpu_torch.constraints.stack import PathStacker
 from cddp_tpu_torch.ops import linalg
 from cddp_tpu_torch.ops.kernels import ip_rollout
 from cddp_tpu_torch.ops.linalg import true_div
@@ -612,7 +612,6 @@ def solve(
     base.require_box_stack(problem, "MSIPDDP")
     problem = base.canonicalize_problem_dtype(problem)
     stk = PathStacker(problem)
-    TerminalStacker(problem)
     _, U = problem.initial_trajectories(X0, U0)
     nu, nx, N = problem.control_dim, problem.state_dim, problem.horizon
     unbatched = problem.x0.dim() == 1

@@ -10,7 +10,7 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 1. start: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device -> exit nonzero with no result (no CPU fallback);
 2. build: compile the nine CUDA kernels from ``cddp_tpu_torch/ops/csrc``
-   (float32 and float64; goal and tracking variants), printing ptxas registers and spills, and for
+   (float32 and float64; goal, tracking and terminal variants), printing ptxas registers and spills, and for
    every launcher what the card reports of its kernel (registers, spill
    bytes, shared memory, resident blocks per SM; ``print_kernel_attributes``);
 3. the CLDDP kernels against their plain PyTorch versions on the card, at
@@ -106,7 +106,24 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    launch of kernel 3's tracking variant, with ms per tick, solves/s and
    the fleet's mean distance to the reference; the tracking fleets that
    drive kernels 2, 5 (per-pass), 7, 8 and 9 (whole solve) once each, the
-   IPDDP one timed; each variant's times and bound at B=262144.
+   IPDDP one timed; each variant's times and bound at B=262144;
+12. terminal constraints: kernel 7's four terminal variants (``TERMINAL``:
+   one or two linear terminal inequality rows, the terminal equality x_N =
+   target, and both, on the IPDDP box fleet; ``terminal_problem``) against
+   the plain driver at B=4096 from cold seeds (float64: every status and
+   iteration count equal, X, U, cost and mu, duals, slacks and the terminal
+   duals, multipliers and slacks within 1e-8 for the inequality variants
+   and 1e-7 for the equality ones, whose Gramian form rounds apart from the
+   driver's p+1 sweeps; float32 by ``check_ip_f32``, the equality variants
+   held from five iterations on to the plain driver's own agreement one
+   ulp up, since they fork from the first iterations); the per-pass engine
+   on the terminal-inequality and terminal-equality fleets against the
+   plain driver (float64, 1e-8; kernels 4, 5 and 6, and for the equality
+   kernels 4 and 5 beside its plain reduced LQR); then the four terminal
+   fleets at B=262144 through ``batched_solve``, each one launch of its
+   variant, with the terminal violation, ms per fleet and solves/s of the
+   two fleets of the slice, and each variant's times, bound, work and
+   attributes.
 
 Each kernel is timed twice at the main path's shapes: by CUDA events
 around its wrapper (``cuda_ms``: the batch-first <-> batch-last copies
@@ -121,7 +138,8 @@ TFLOP/s, the H100 SXM's float32 rate outside the tensor cores.
 The line before the last is the kernels' JSON record (kernel 7's entry
 carries the obstacle run under "obstacle", kernel 6's under "obstacle_m5",
 kernel 5's its 0 launches there; each tracking variant is an entry of its
-own, named with the suffix "_track"); the last line is
+own, named with the suffix "_track", and each terminal variant one named
+as dispatch_log names it, "ipddp_solve_ti2" for instance); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -155,7 +173,8 @@ def launchers():
     the tracking variants (suffix ``_track``) after the goal forms."""
     from cddp_tpu_torch.ops.kernels.ip_rollout import KERNEL_ROWS
     from cddp_tpu_torch.ops.kernels.ipddp_riccati import KERNEL_SHAPES
-    from cddp_tpu_torch.ops.kernels.mega_ipddp import BALL_LAYOUTS, TRACK_LAYOUTS
+    from cddp_tpu_torch.ops.kernels.mega_ipddp import (BALL_LAYOUTS, TERMINAL_LAYOUTS,
+                                                       TRACK_LAYOUTS)
 
     rows = KERNEL_ROWS["unicycle"]
     balls = [f"m{m}_ball{row}" for m, row in BALL_LAYOUTS["unicycle"]]
@@ -171,6 +190,10 @@ def launchers():
                            for nx, nu, m in KERNEL_SHAPES],
         "ipddp_solve": [f"cddp_ipddp_solve_unicycle_{v}" for v in boxes + balls]
         + [f"cddp_ipddp_solve_unicycle_{v}_track" for v in TRACK_LAYOUTS["unicycle"]],
+        "ipddp_solve_terminal": [
+            f"cddp_ipddp_solve_unicycle_{layout}" + (f"_te{p}" if p else "")
+            + (f"_ti{mT}" if mT else "")
+            for layout, shapes in TERMINAL_LAYOUTS["unicycle"].items() for mT, p in shapes],
         "msipddp_solve": track([f"cddp_msipddp_solve_unicycle_{v}" for v in boxes]),
         "logddp_solve": track([f"cddp_logddp_solve_unicycle_{v}" for v in boxes]),
     }
@@ -826,7 +849,8 @@ def cost_share(a, b):
 def check_ip_solve(label, kern, plain, exact, tol=1e-8, min_share=0.99, dual_rtol=0.0):
     """The whole-solve kernel against the plain per-pass driver on the same
     seeds. float64: status and iteration count equal on every instance; X,
-    U, cost and mu within ``tol``, every dual and slack within ``tol`` +
+    U, cost and mu within ``tol``, every dual and slack (the terminal
+    constraints' duals, multipliers and slacks too) within ``tol`` +
     ``dual_rtol`` times the plain value's magnitude. float32: status
     and iterations equal on >= 99% of instances, and status, iterations and
     cost (rel 1e-4) on >= ``min_share``. Returns (status counts, share with
@@ -849,6 +873,12 @@ def check_ip_solve(label, kern, plain, exact, tol=1e-8, min_share=0.99, dual_rto
                        plain.dual_trajectories[name], dual_rtol),
                       (f"S[{name}]", kern.slack_trajectories[name],
                        plain.slack_trajectories[name], dual_rtol)]
+        for name in plain.terminal_duals or {}:
+            pairs.append((f"Y_T[{name}]", kern.terminal_duals[name],
+                          plain.terminal_duals[name], dual_rtol))
+        for name in plain.terminal_slacks or {}:
+            pairs.append((f"S_T[{name}]", kern.terminal_slacks[name],
+                          plain.terminal_slacks[name], dual_rtol))
         errs = {}
         for name, g, w, rtol in pairs:
             err = abs_err(g, w)
@@ -1008,7 +1038,17 @@ def check_backward_layouts(tt, dev, back, opts):
     return out[4]
 
 
-def check_ip_f32(tt, dev, prob, opts, x0, prob64=None, label="box fleet"):
+def self_agreement(tt, prob, opts, x0, plain):
+    """The share of instances on which the plain driver from x0 one ulp up
+    agrees with ``plain`` in status, iterations and cost (rel 1e-4)."""
+    from cddp_tpu_torch.solvers import ipddp
+
+    plain_opts = plain_ip_options(tt, opts)
+    p1, seeds1 = ip_seeds(prob, plain_opts, torch.nextafter(x0, torch.full_like(x0, math.inf)))
+    return cost_share(ipddp._drive(p1, plain_opts, *seeds1), plain)
+
+
+def check_ip_f32(tt, dev, prob, opts, x0, prob64=None, label="box fleet", early_forks=False):
     """The float32 whole-solve kernel against the plain driver. Over the box
     fleet's first five iterations the two agree in status, iterations and
     cost (rel 1e-4) on >= 99% of instances. From the sixth on the float32
@@ -1019,18 +1059,27 @@ def check_ip_f32(tt, dev, prob, opts, x0, prob64=None, label="box fleet"):
     cost may fall at most 3 points below the plain driver's share against
     itself from x0 one ulp up, and against the plain driver in float64 its
     median and 99th-percentile relative cost errors may be at most twice
-    the float32 plain driver's (+1e-6). Returns (share with equal cost,
-    max abs cost err where status and iterations agree) at five
-    iterations."""
+    the float32 plain driver's (+1e-6). ``early_forks``: a fleet whose
+    plain driver forks from itself within five iterations already (the
+    terminal equality's, whose multiplier least squares reads float32
+    rounding from the first iteration) is held to that floor at five
+    iterations too. Returns (share with equal cost, max abs cost err where
+    status and iterations agree) at five iterations."""
     from cddp_tpu_torch.solvers import ipddp
 
-    _, short_share, short_err = check_ip_solve(
-        f"{label}, 5 iterations", *ip_solve_pair(tt, prob, opts.replace(max_iterations=5), x0),
-        False)
+    short_opts = opts.replace(max_iterations=5)
+    kern5, plain5 = ip_solve_pair(tt, prob, short_opts, x0)
+    short_min = 0.99
+    if early_forks:
+        floor5 = self_agreement(tt, prob, short_opts, x0, plain5)
+        print(f"[kernels float32] {label}: the plain driver against itself from x0 one ulp "
+              f"up at five iterations: {floor5:.4%} of {x0.shape[0]}")
+        short_min = floor5 - 0.03
+    _, short_share, short_err = check_ip_solve(f"{label}, 5 iterations", kern5, plain5, False,
+                                               min_share=short_min)
     kern, plain = ip_solve_pair(tt, prob, opts, x0)
     plain_opts = plain_ip_options(tt, opts)
-    p1, seeds1 = ip_seeds(prob, plain_opts, torch.nextafter(x0, torch.full_like(x0, math.inf)))
-    floor = cost_share(ipddp._drive(p1, plain_opts, *seeds1), plain)
+    floor = self_agreement(tt, prob, opts, x0, plain)
     print(f"[kernels float32] the plain driver against itself from x0 one ulp up: status, "
           f"iterations and cost agree on {floor:.4%} of {x0.shape[0]}")
     check_ip_solve(label, kern, plain, False, min_share=floor - 0.03)
@@ -2251,6 +2300,261 @@ def phase_tracking(tt, dev, smi):
     return launches, default, errs, {TRACKING[k]: v for k, v in timing.items()}
 
 
+# --- IPDDP terminal constraints (phase 12) ----------------------------------------
+
+# Kernel 7's terminal variants (launcher suffix) and their dispatch_log names.
+TERMINAL = {"m4_ti1": "ipddp_solve_ti1", "m4_ti2": "ipddp_solve_ti2",
+            "m4_te3": "ipddp_solve_te3", "m4_te3_ti1": "ipddp_solve_te3_ti1"}
+# The two fleets of the slice: terminal inequalities, terminal equality.
+TERMINAL_FLEETS = ("m4_ti2", "m4_te3")
+
+
+def terminal_problem(tt, dtype, device, variant, horizon=HORIZON):
+    """The IPDDP box fleet (``ip_problem``) with the terminal constraints of
+    kernel 7's ``variant`` (tests/test_mega_ipddp.py:611-723): m4_ti2, the
+    terminal-inequality fleet, A_T x_N <= b_T with A_T = [[1,0,0],[0,1,0]]
+    and b_T = (1.9, 1.9), which binds short of the goal; m4_ti1 its first
+    row; m4_te3, the terminal-equality fleet, x_N = (1.5, 1.0, pi/4); and
+    m4_te3_ti1 that with theta_N <= 2."""
+    kw = dict(device=device, dtype=dtype)
+    prob = ip_problem(tt, dtype, device, horizon)
+    if variant in ("m4_ti1", "m4_ti2"):
+        rows = 1 if variant == "m4_ti1" else 2
+        return prob.add_terminal_constraint("TerminalInequality", tt.terminal_inequality_constraint(
+            [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]][:rows], [1.9, 1.9][:rows], **kw))
+    prob = prob.add_terminal_constraint("TerminalEquality", tt.terminal_equality_constraint(
+        [1.5, 1.0, math.pi / 4], **kw))
+    if variant == "m4_te3_ti1":
+        prob = prob.add_terminal_constraint("TerminalInequality",
+                                            tt.terminal_inequality_constraint(
+                                                [[0.0, 0.0, 1.0]], [2.0], **kw))
+    return prob
+
+
+def terminal_violation(prob, X):
+    """Each instance's terminal violation at x_N: the sum over the terminal
+    constraints of their ``violation`` (positive parts; the equality's
+    norm)."""
+    return sum(c.violation(X[:, -1]) for c in prob.terminal_constraints.values())
+
+
+def phase_terminal_kernels(tt, dev):
+    """(a) Each terminal variant of kernel 7 against the plain driver at
+    B_CHECK from cold seeds (phase 12): float64 by ``check_ip_solve`` (the
+    inequality variants within 1e-8, the equality ones within 1e-7, the JAX
+    package's envelope for its kernel against its driver; every status and
+    iteration count equal; duals, multipliers and slacks, the terminal ones
+    included, within that + 1e-8 |plain|); float32 by ``check_ip_f32`` (the
+    equality variants held to the plain driver's own one-ulp agreement from
+    five iterations on). dispatch_log must show the variant's launch.
+    Returns {dtype: {dispatch name: cost err}}."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log, mega_ipddp
+
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+        x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=dtype) - 0.5
+        opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+        errs = {}
+        for variant, name in TERMINAL.items():
+            prob = terminal_problem(tt, dtype, dev, variant)
+            if mega_ipddp.solve_variant(prob) != variant:
+                raise AssertionError(f"kernel 7 variant {mega_ipddp.solve_variant(prob)}, "
+                                     f"not {variant}")
+            eq = "_te" in variant
+            dispatch_log.reset()
+            if dtype == torch.float64:
+                _, _, errs[name] = check_ip_solve(
+                    f"terminal {variant}", *ip_solve_pair(tt, prob, opts, x0), True,
+                    tol=1e-7 if eq else 1e-8, dual_rtol=1e-8)
+            else:
+                _, errs[name] = check_ip_f32(
+                    tt, dev, prob, opts, x0, label=f"terminal {variant}", early_forks=eq,
+                    prob64=terminal_problem(tt, torch.float64, dev, variant))
+            counts = dict(dispatch_log.launches)
+            if counts.get(name, 0) < 1 or any(k.startswith("ipddp_solve") and k != name
+                                               for k in counts):
+                raise AssertionError(f"the {variant} checks launched {counts}: not {name} "
+                                     f"alone of kernel 7's variants")
+        print(f"[terminal {tag}] kernel 7's terminal variants against the plain driver: "
+              + ", ".join(f"{k} cost err {v:.3e}" for k, v in errs.items()))
+        results[tag] = errs
+    return results
+
+
+def phase_terminal_per_pass(tt, dev):
+    """(b) The per-pass engine (``solve_engine="xla"``) on both fleets at
+    B_CHECK, float64, against the plain driver by ``check_ip_solve``
+    (1e-8): the inequality fleet launches kernels 4, 5 and 6 (the folded
+    terminal value per instance), the equality fleet kernels 4 and 5 (its
+    reduced LQR is plain torch, as in JAX); neither launches kernel 7."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=torch.float64) - 0.5
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    for variant in TERMINAL_FLEETS:
+        prob = terminal_problem(tt, torch.float64, dev, variant)
+        dispatch_log.reset()
+        per_pass = batched_solve(prob, x0, "IPDDP", opts.replace(solve_engine="xla"))
+        counts = dict(dispatch_log.launches)
+        want = {"open_loop_rollout", "ip_forward"} | (
+            set() if "_te" in variant else {"ipddp_backward"})
+        if set(counts) != want:
+            raise AssertionError(f"the per-pass engine on {variant} launched {counts}, "
+                                 f"not {sorted(want)}")
+        plain = batched_solve(prob, x0, "IPDDP", plain_ip_options(tt, opts))
+        check_ip_solve(f"per-pass engine, terminal {variant}", per_pass, plain, True,
+                       dual_rtol=1e-8)
+        print(f"[terminal float64] per-pass engine on {variant}: launches {counts}")
+
+
+def time_terminal_kernel(tt, prob, x0, smi, variant):
+    """Kernel 7's terminal ``variant`` at B_MAIN on the fleet's cold seeds:
+    wrapper and device ms, the plain driver's ms and the bound, whose
+    operations are the plain version's per backward attempt (the terminal
+    value fold and condensed backward, or the reduced LQR) and per sweep
+    (the forward trial with the terminal rows, merit, theta and residuals)
+    times this run's work. Returns (timing tuple as ``time_kernels``
+    gives it, work per instance (attempts, sweeps), attributes)."""
+    from cddp_tpu_torch.constraints.stack import PathStacker, TerminalStacker
+    from cddp_tpu_torch.ops.kernels import build, ip_rollout, mega_ipddp
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.solvers import ipddp
+
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    plain_opts = plain_ip_options(tt, opts)
+    pw, seeds = ip_seeds(prob, opts, x0)
+    sol7, work = mega_ipddp.launch_counting_work(pw, opts, *seeds)
+
+    # Operations per instance, on the plain versions at B=1.
+    p1 = pw.replace(x0=pw.x0[:1])
+    s1 = one(seeds)
+    stk1, tstk1 = PathStacker(p1), TerminalStacker(p1)
+    X, U, Y, S, G, mu1 = s1[0], s1[1], s1[2], s1[3], s1[4], s1[6]
+    reg1 = torch.full_like(mu1, 1e-6)
+    S_T, Y_T, lam = ipddp.initialize_terminal(p1, opts, tstk1, X, mu1)
+    tm = ipddp._Terminal(G_T=tstk1.ineq_evaluate(X[:, -1]), S_T=S_T, Y_T=Y_T,
+                         h_T=tstk1.eq_evaluate(X[:, -1]), Lambda_T_eq=lam)
+    if tstk1.eq_dim:
+        ops_back = count_ops(lambda: ipddp._backward_terminal_eq(
+            p1, plain_opts, stk1, tstk1, X, U, Y, S, G, tm, mu1, reg1))
+    else:
+        def condensed():
+            fold = ipddp._terminal_value_fold(p1, tstk1, X[:, -1], S_T, Y_T, mu1)
+            return ric.ipddp_backward_plain(*ipddp.backward_inputs(
+                p1, stk1, X, U, Y, S, G, mu1, reg1, terminal=fold[:2]))
+        ops_back = count_ops(condensed)
+    bp = ipddp._backward_condensed(p1, plain_opts, stk1, X, U, Y, S, G, mu1, reg1,
+                                   terminal=(tstk1, tm))
+    fc = forward_consts(p1, opts, False)
+    tau = ipddp._tau(opts, mu1)
+    a = torch.ones_like(mu1)
+    fwd = (X[:, :-1], U, Y, S, bp.k_u, bp.K_u, bp.k_lambda[:, :-1], bp.K_lambda[:, :-1],
+           s1[5][:, :-1], bp.k_y, bp.K_y, bp.k_s, bp.K_s, X[:, 0], a, a, tau,
+           torch.zeros_like(mu1, dtype=torch.bool))
+    out5 = ip_rollout.ip_forward_plain(fc, *fwd)
+    st = dict(X=X, S_T=S_T, Y_T=Y_T, G_T=tm.G_T, Lambda_T_eq=lam, mu=mu1)
+    ops_sweep = count_ops(ip_rollout.ip_forward_plain, fc, *fwd) + count_ops(
+        lambda: (lambda tmn: (ipddp._barrier_merit(out5[6], out5[2], mu1, tmn),
+                              ipddp._theta(opts, out5[4], out5[2], tmn),
+                              ipddp._primal_comp(out5[4], out5[2], out5[3], mu1, tmn)))(
+            ipddp._terminal_trial(tstk1, st, bp, out5[0][:, -1], a, a, tau)[0]))
+    attempts, sweeps = (float(w.double().sum()) for w in work)
+    ops7 = attempts * ops_back + sweeps * ops_sweep
+    print(f"[divergence] ipddp_solve {variant} at B={B_MAIN}: {warp_divergence(work):.4f}; "
+          f"operations per instance {ops7 / B_MAIN:.0f} ({attempts / B_MAIN:.3f} backward "
+          f"attempts x {ops_back} + {sweeps / B_MAIN:.3f} sweeps x {ops_sweep})")
+    tstk = TerminalStacker(pw)
+    term_state = ipddp.initialize_terminal(pw, opts, tstk, seeds[0], seeds[6])
+    ins = seeds + term_state + (mega_ipddp._terminal_consts(tstk, x0),)
+    outs = (sol7.state_trajectory, sol7.control_trajectory, sol7.feedforward_gains,
+            sol7.feedback_gains, sol7.costate_trajectory,
+            *sol7.dual_trajectories.values(), *sol7.slack_trajectories.values(),
+            *sol7.terminal_duals.values(), *sol7.terminal_slacks.values(),
+            torch.empty(9, B_MAIN, device=x0.device))
+    runs = {"ipddp_solve": (lambda: mega_ipddp._launch(pw, opts, *seeds), 10,
+                            lambda: ipddp._drive(pw, plain_opts, *seeds), 1)}
+    timing = time_kernels(runs, {"ipddp_solve": (ins, outs, ops7)}, x0.dtype, smi,
+                          label=f" {variant}")["ipddp_solve"]
+    attrs = build.kernel_attributes(f"cddp_ipddp_solve_unicycle_{variant}_f32")
+    return timing, (attempts / B_MAIN, sweeps / B_MAIN), attrs
+
+
+def phase_terminal_fleets(tt, dev, smi):
+    """(c) The main path of phase 12: each terminal variant's fleet through
+    ``batched_solve`` at B_MAIN, float32, 10 iterations, the launch counts
+    zeroed just before each run and read just after (one open-loop rollout
+    and one launch of the variant); finite costs, residuals and states;
+    the largest terminal violation among the instances that converged and
+    its mean (and over all instances); for the two fleets of the slice
+    (``TERMINAL_FLEETS``) ms per fleet by the host clock and solves/s. Then
+    each variant's times, bound, work and attributes
+    (``time_terminal_kernel``). Returns (launches {name: n}, {name: timing},
+    {name: work}, {name: attributes})."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = torch.rand(B_MAIN, 3, generator=gen, device=dev) - 0.5
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    probs = {v: terminal_problem(tt, torch.float32, dev, v) for v in TERMINAL}
+    launches = {}
+    for variant, name in TERMINAL.items():
+        prob = probs[variant]
+        dispatch_log.reset()
+        sol = batched_solve(prob, x0, "IPDDP", opts)
+        torch.cuda.synchronize()
+        counts = dict(dispatch_log.launches)
+        if counts != {"open_loop_rollout": 1, name: 1}:
+            raise AssertionError(f"the {variant} fleet did not run as one open-loop rollout "
+                                 f"and one launch of {name}: {counts}")
+        launches[name] = counts[name]
+        for what, t in (("cost", sol.final_objective), ("inf_pr", sol.inf_pr),
+                        ("X", sol.state_trajectory)):
+            if not bool(t.isfinite().all()):
+                raise AssertionError(f"non-finite {what} from the {variant} fleet")
+        viol = terminal_violation(prob, sol.state_trajectory)
+        conv = (sol.status_code == 1) | (sol.status_code == 2)
+        conv_txt = (f"{int(conv.sum())} converged, terminal violation max "
+                    f"{float(viol[conv].max()):.3e}, mean {float(viol[conv].mean()):.3e}"
+                    if bool(conv.any()) else "none converged")
+        print(f"[terminal] {variant} fleet B={B_MAIN}: launches {counts}; statuses "
+              f"{torch.bincount(sol.status_code.long(), minlength=4).tolist()}; {conv_txt}; "
+              f"over all instances max {float(viol.max()):.3e}, mean {float(viol.mean()):.3e}; "
+              f"mean cost {float(sol.final_objective.mean()):.4f}")
+    for variant in TERMINAL_FLEETS:
+        reps = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            batched_solve(probs[variant], x0, "IPDDP", opts)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / reps
+        print(f"[terminal] {variant} fleet, whole-solve kernel: {dt * 1e3:.2f} ms per "
+              f"B={B_MAIN} solve ({B_MAIN / dt:.1f} solves/s, {reps} reps)  [{smi}]")
+    timing, work, attrs = {}, {}, {}
+    for variant, name in TERMINAL.items():
+        timing[name], work[name], attrs[name] = time_terminal_kernel(
+            tt, probs[variant], x0, smi, variant)
+        print(f"[terminal] {name}: {work[name][0]:.3f} backward attempts and "
+              f"{work[name][1]:.3f} sweeps per instance; attributes {attrs[name]}  [{smi}]")
+    return launches, timing, work, attrs
+
+
+def phase_terminal(tt, dev, smi):
+    """Phase 12, terminal constraints: (a) kernel 7's terminal variants
+    against the plain driver, (b) the per-pass engine on both fleets, (c)
+    the fleets at B_MAIN. Returns (launches, {dtype: errs}, timing, work,
+    attributes)."""
+    errs = phase_terminal_kernels(tt, dev)
+    phase_terminal_per_pass(tt, dev)
+    launches, timing, work, attrs = phase_terminal_fleets(tt, dev, smi)
+    return launches, errs, timing, work, attrs
+
+
 def main():
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -2401,6 +2705,10 @@ def main():
     tr_launches, tr_default, tr_errs, tr_timing = phase_tracking(tt, dev, smi)
     print(f"[clock] phase 11 done at {time.perf_counter() - t_start:.1f} s")
 
+    # --- phase 12: terminal constraints ---------------------------------------------
+    te_launches, te_errs, te_timing, te_work, te_attrs = phase_terminal(tt, dev, smi)
+    print(f"[clock] phase 12 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
                              "cddp_tpu/ops/pallas/riccati.py:236"),
@@ -2493,6 +2801,23 @@ def main():
                              "smem_bytes": b["static_smem_bytes"] + b["dynamic_smem_bytes"],
                              "blocks_per_sm": b["blocks_per_sm"]}
         record["kernels"].append(entry)
+    # Phase 12's terminal variants of kernel 7, each an entry of its own:
+    # launches in phase 12's main-path run of its fleet, times and bound on
+    # that fleet's cold seeds, work per instance, float32 attributes.
+    for variant, name in TERMINAL.items():
+        ms, plain_ms, b_ms, b_by, dev_ms, source = te_timing[name]
+        a = te_attrs[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": "cddp_tpu_torch/ops/csrc/ipddp_solve_terminal.cu",
+            "replaces": sources["ipddp_solve"][1], "variant_of": "ipddp_solve",
+            "launches": te_launches[name], "default_launches": te_launches[name],
+            "max_abs_err": te_errs["float32"][name], "max_abs_err_f64": te_errs["float64"][name],
+            "ms": ms, "device_ms": dev_ms, "device_ms_source": source, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "attempts": te_work[name][0], "sweeps": te_work[name][1],
+            "registers": a["registers"], "spill_bytes": a["spill_bytes"],
+            "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
+            "blocks_per_sm": a["blocks_per_sm"]})
     print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in rates.items()) + "; IPDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in ip_rates.items()) + "".join(

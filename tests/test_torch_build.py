@@ -35,10 +35,20 @@ def expanded(text):
     return "\n".join(out)
 
 
+def source_text(source):
+    """A source's text after the text of each header it includes that
+    declares a kernel: a kernel template and its launcher macro live in a
+    header, and each source that includes it instantiates some of them."""
+    text = (build.CSRC / source).read_text()
+    heads = [(build.CSRC / h).read_text()
+             for h in re.findall(r'^#include "([^"]+)"', text, re.M)]
+    return "\n".join([h for h in heads if "__global__" in h] + [text])
+
+
 def launchers_of(source):
     """(exported, registered): the launcher names, without their type
     suffix, that ``source`` exports and registers for its attributes."""
-    text = expanded((build.CSRC / source).read_text())
+    text = expanded(source_text(source))
     return (set(re.findall(r"CDDP_EXPORT\((\w+)\)", text)),
             set(re.findall(r"CDDP_REGISTER\((\w+),", text)))
 
@@ -73,11 +83,15 @@ def test_launchers_are_exported_and_registered(kernel):
 # box with a keep-out ball, the ball's row first or last (m5_ball0,
 # m5_ball4); kernel 6 for m = 4, 5 (the ball stack), 6 and 10; kernels 2, 3,
 # 5, 8 and 9 in the goal form and the tracking form (suffix _track), kernel
-# 7's tracking form for the box stacks and m5_ball0.
+# 7's tracking form for the box stacks and m5_ball0; kernel 7's terminal
+# variants on the control box in their own translation unit: one or two
+# terminal inequality rows (ti1, ti2), the terminal equality (te3), both.
 INSTANTIATIONS = {
     "ipddp_solve.cu": {f"cddp_ipddp_solve_unicycle_{v}"
                        for v in ("m4", "m6", "m10", "m5_ball0", "m5_ball4", "m4_track",
                                  "m6_track", "m10_track", "m5_ball0_track")},
+    "ipddp_solve_terminal.cu": {f"cddp_ipddp_solve_unicycle_{v}"
+                                for v in ("m4_ti1", "m4_ti2", "m4_te3", "m4_te3_ti1")},
     "ipddp_backward.cu": {f"cddp_ipddp_backward_3x2x{m}" for m in (4, 5, 6, 10)},
     "ip_forward.cu": {f"cddp_ip_forward_unicycle_m{m}{t}" for m in (4, 6, 10)
                       for t in ("", "_track")},
@@ -107,6 +121,10 @@ def test_ball_variants_are_the_layouts_the_wrapper_names():
     assert balls <= launchers_of("ipddp_solve.cu")[0]
     assert {f"cddp_ipddp_solve_unicycle_{v}_track" for v in mega_ipddp.TRACK_LAYOUTS[
         "unicycle"]} <= launchers_of("ipddp_solve.cu")[0]
+    assert {f"cddp_ipddp_solve_unicycle_{layout}" + (f"_te{p}" if p else "")
+            + (f"_ti{mT}" if mT else "")
+            for layout, shapes in mega_ipddp.TERMINAL_LAYOUTS["unicycle"].items()
+            for mT, p in shapes} == launchers_of("ipddp_solve_terminal.cu")[0]
     assert launchers_of("ipddp_backward.cu")[0] == {
         f"cddp_ipddp_backward_{nx}x{nu}x{m}" for nx, nu, m in ipddp_riccati.KERNEL_SHAPES}
 
@@ -179,7 +197,7 @@ def test_launch_shape_matches_launch_bounds(source):
     its ``__launch_bounds__`` names (more threads than the bound is a launch
     the card refuses), and a kernel that declares ``extern __shared__``
     launches and registers a nonzero dynamic shared-memory size."""
-    shapes = launch_shapes((build.CSRC / source).read_text())
+    shapes = launch_shapes(source_text(source))
     assert shapes, f"{source} declares no kernel"
     assert launch_shape_faults(shapes) == []
 

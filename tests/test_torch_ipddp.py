@@ -218,8 +218,8 @@ def test_dispatch_and_unported_options():
             tt.solve(p, "IPDDP", o)
     with pytest.raises(ValueError, match="forward_engine"):
         tt.solve(p, "IPDDP", opts.replace(ipddp=tt.IPDDPOptions(forward_engine="pallas")))
-    with pytest.raises(NotImplementedError, match="terminal"):
-        p.add_terminal_constraint("goal", object())
+    with pytest.raises(TypeError, match="terminal constraint 'goal' has unsupported type"):
+        tt.solve(p.add_terminal_constraint("goal", object()), "IPDDP", opts)
     with pytest.raises(NotImplementedError, match="without path constraints"):
         tt.solve(p.replace(constraints={}), "IPDDP", opts)
 

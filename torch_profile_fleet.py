@@ -3,9 +3,10 @@
 
     python3 torch_profile_fleet.py [--batch 262144] [--solver CLDDP|IPDDP|LogDDP|MSIPDDP|all ...]
                                    [--engine whole|per-pass|plain|all ...] [--sass] [--boxqp]
-                                   [--problem box|obstacle|tracking]
+                                   [--problem box|obstacle|tracking|terminal_ineq|terminal_eq]
     python3 torch_profile_fleet.py --save-outputs PATH [--batch B]
     python3 torch_profile_fleet.py --compare-outputs A B
+    python3 torch_profile_fleet.py --compare-sass TREE_A TREE_B
 
 For the flagship fleet (cold control-limited unicycle MPC, H=20, 10
 iterations, tolerance 1e-4, float32, x0 ~ U(-0.5, 0.5)) under each solver
@@ -17,7 +18,10 @@ is the plain driver seeded by the open-loop rollout kernel), or with
 0.03; IPDDP only, the other solvers take box stacks only), or with
 ``--problem tracking`` for the tracking fleet (``chip_smoke.tracking_problem``:
 the unicycle tracking a per-step arc reference, which runs the kernels'
-tracking variants), it prints:
+tracking variants), or with ``--problem terminal_ineq`` / ``terminal_eq``
+for the terminal-constraint fleets (``chip_smoke.terminal_problem``: the box
+fleet with A x_N <= b, kernel 7's ``m4_ti2``, or x_N = target, ``m4_te3``;
+IPDDP only, the only solver that reads terminal constraints), it prints:
 the host-clock ms of one ``batched_solve`` (after a warm-up, ending in a
 synchronize); under ``torch.profiler`` the device busy time (the sum over
 the CUDA kernel rows, which do not overlap on one stream), the profiled
@@ -44,11 +48,14 @@ A/B of two source trees: run it in each tree's own checkout (each builds
 its own ``.torch_ext_build/``), in turns, in one call on one card, and
 compare the profiler's row of the kernel (device time without the wrapper's
 layout copies). ``--save-outputs PATH`` instead saves the default engine's
-solutions of the goal-form fleets (the box problem under the four solvers,
-the obstacle problem under IPDDP; 10 iterations, tolerance 1e-4, float32
-and float64) with ``torch.save``, and ``--compare-outputs A B`` says of two
+solutions of the fleets without terminal constraints (the box and tracking
+problems under the four solvers, the obstacle problem under IPDDP; 10
+iterations, tolerance 1e-4, float32 and float64) with ``torch.save``, and ``--compare-outputs A B`` says of two
 such files whether every field holds the same bits (exit status 1 if not):
-run the first in each tree, the second once.
+run the first in each tree, the second once. ``--compare-sass TREE_A
+TREE_B`` says whether every kernel of the first tree's built library
+compiles to the same SASS instructions in the second's (``cuobjdump``;
+exit status 1 if not).
 """
 
 import argparse
@@ -223,8 +230,8 @@ def boxqp_first_valid(prob, x0, opts, smi):
 
 
 def save_outputs(path, batch, smi):
-    """Save the default engine's solutions of the goal-form fleets, float32
-    and float64, from x0 ~ U(-0.5, 0.5) (seed ``chip_smoke.SEED``), to
+    """Save the default engine's solutions of the box, obstacle and
+    tracking fleets, float32 and float64, from x0 ~ U(-0.5, 0.5) (seed ``chip_smoke.SEED``), to
     ``path``: {"<problem>/<solver>/<dtype>/<field>": CPU tensor}."""
     import cddp_tpu_torch as tt
     from cddp_tpu_torch.parallel.batch import batched_solve
@@ -236,7 +243,8 @@ def save_outputs(path, batch, smi):
         gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
         x0 = (torch.rand(batch, 3, generator=gen, device=dev) - 0.5).to(dtype)
         for label, make, solvers in (("box", chip_smoke.flagship_problem, SOLVERS),
-                                     ("obstacle", chip_smoke.obstacle_problem, ("IPDDP",))):
+                                     ("obstacle", chip_smoke.obstacle_problem, ("IPDDP",)),
+                                     ("tracking", chip_smoke.tracking_problem, SOLVERS)):
             prob = make(tt, dtype, dev)
             for solver in solvers:
                 sol = batched_solve(prob, x0, solver, opts)
@@ -274,6 +282,47 @@ def compare_outputs(a, b):
     return int(differ > 0)
 
 
+def sass_functions(tree):
+    """{kernel: its SASS instructions} of the kernel library built in
+    ``tree`` (its ``.torch_ext_build/``), addresses and encodings dropped.
+    Kernel 7 is keyed by its model, m, ball row and TRACK arguments alone:
+    since its terminal variants its name carries MT, PT and their
+    parameter, and its variants without them (MT = PT = 0) are compared
+    with the kernels of those arguments."""
+    from cddp_tpu_torch.ops.kernels import build
+
+    lib = sorted(Path(tree, ".torch_ext_build").glob("libcddp_kernels_*.so"))[0]
+    cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", text)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        m = re.match(r"(_ZN4cddp18ipddp_solve_kernelI.NS_8UnicycleELi\d+ELin?\d+ELb\d)"
+                     r"(ELi0ELi0)?EE", name)
+        if m:
+            name = m.group(1)
+        elif name.startswith("_ZN4cddp18ipddp_solve_kernel"):
+            continue  # a terminal variant: no counterpart before them
+        out[name] = [re.sub(r"\s+", " ", i)
+                     for i in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", fn)]
+    return out
+
+
+def compare_sass(a, b):
+    """Whether every kernel of tree ``a``'s library compiles to the same
+    SASS instructions in tree ``b``'s; returns 1 if one differs or is
+    missing."""
+    A, B = sass_functions(a), sass_functions(b)
+    bad = sorted(k for k in A if A[k] != B.get(k))
+    print(f"[sass] {len(A)} kernels in {a}; {len(A) - len(bad)} the same instructions in {b}; "
+          f"{len(set(B) - set(A))} in {b} only")
+    for k in bad:
+        print(f"[sass] differs: {k[:110]} ({len(A[k])} against "
+              f"{len(B[k]) if k in B else None} instructions)")
+    return int(bool(bad))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=chip_smoke.B_MAIN)
@@ -281,12 +330,16 @@ def main():
     ap.add_argument("--engine", nargs="+", default=["all"], choices=tuple(ENGINES) + ("all",))
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--boxqp", action="store_true")
-    ap.add_argument("--problem", default="box", choices=("box", "obstacle", "tracking"))
+    ap.add_argument("--problem", default="box", choices=("box", "obstacle", "tracking",
+                                                         "terminal_ineq", "terminal_eq"))
     ap.add_argument("--save-outputs", metavar="PATH")
     ap.add_argument("--compare-outputs", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--compare-sass", nargs=2, metavar=("TREE_A", "TREE_B"))
     args = ap.parse_args()
     if args.compare_outputs:
         raise SystemExit(compare_outputs(*args.compare_outputs))
+    if args.compare_sass:
+        raise SystemExit(compare_sass(*args.compare_sass))
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_fleet: no CUDA device")
     import cddp_tpu_torch as tt
@@ -301,17 +354,19 @@ def main():
     if args.sass:
         sass_loops(smi)
     dev = torch.device("cuda", 0)
-    # (tracking_problem looked up only when asked: an A/B runs this script
+    # (terminal_problem looked up only when asked: an A/B runs this script
     # against a parent tree's chip_smoke, which may not have it.)
     make = {"box": chip_smoke.flagship_problem, "obstacle": chip_smoke.obstacle_problem,
-            "tracking": lambda *a: chip_smoke.tracking_problem(*a)}[args.problem]
+            "tracking": chip_smoke.tracking_problem,
+            "terminal_ineq": lambda *a: chip_smoke.terminal_problem(*a, "m4_ti2"),
+            "terminal_eq": lambda *a: chip_smoke.terminal_problem(*a, "m4_te3")}[args.problem]
     prob = make(tt, torch.float32, dev)
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
     x0 = torch.rand(args.batch, 3, generator=gen, device=dev) - 0.5
     if args.boxqp:
         boxqp_first_valid(prob, x0, tt.CDDPOptions(max_iterations=10, tolerance=1e-4), smi)
     solvers = SOLVERS if "all" in args.solver else args.solver
-    if args.problem == "obstacle":
+    if args.problem in ("obstacle", "terminal_ineq", "terminal_eq"):
         solvers = [s for s in solvers if s == "IPDDP"]
     wanted = set(ENGINES.values()) if "all" in args.engine else {ENGINES[e] for e in args.engine}
     for solver in solvers:
