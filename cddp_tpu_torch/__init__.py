@@ -6,7 +6,9 @@ constraints) and both terminal types (linear inequalities A x_N <= b and
 equalities x_N = target); LogDDP and MSIPDDP with control and state boxes; all over the
 unicycle, as the JAX package solves them, towards a goal or along a per-step
 reference trajectory (``reference_states``); and batch-first receding-horizon
-MPC (``make_mpc_controller``). Hand-written CUDA kernels for
+MPC (``make_mpc_controller``), warm-started from a trajectory or from the
+interior-point solvers' state (``IPDDPSolverState``, ``MSIPDDPSolverState``),
+and the float64 ``polish`` of a float32 fleet. Hand-written CUDA kernels for
 NVIDIA Hopper (``ops/csrc/``): for CLDDP the Riccati backward pass, the
 line-search rollout and the whole solve; for IPDDP the open-loop rollout
 (which seeds every barrier solver), the interior-point forward pass, the
@@ -55,11 +57,14 @@ from cddp_tpu_torch.options import (
 )
 from cddp_tpu_torch.parallel.batch import MPCState, batched_solve, make_mpc_controller
 from cddp_tpu_torch.problem import Problem, problem
+from cddp_tpu_torch.refine import polish
 from cddp_tpu_torch.solution import Solution, Status
+from cddp_tpu_torch.solvers.ipddp import IPDDPSolverState
+from cddp_tpu_torch.solvers.msipddp import MSIPDDPSolverState
 
 __all__ = [
     "BallConstraint", "BarrierOptions", "BarrierStrategy", "CDDPOptions",
-    "ControlConstraint", "IPDDPOptions", "LinearConstraint", "LogBarrierOptions",
+    "ControlConstraint", "IPDDPOptions", "IPDDPSolverState", "MSIPDDPSolverState", "LinearConstraint", "LogBarrierOptions",
     "MPCState", "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
     "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",
     "SecondOrderConeConstraint", "Solution", "StateConstraint", "Status",
@@ -67,7 +72,7 @@ __all__ = [
     "ThrustMagnitudeConstraint", "ball_constraint", "batched_solve",
     "control_constraint", "linear_constraint", "make_mpc_controller",
     "max_thrust_magnitude_constraint",
-    "pole_constraint", "problem", "quadratic_objective", "second_order_cone_constraint",
+    "pole_constraint", "polish", "problem", "quadratic_objective", "second_order_cone_constraint",
     "solve", "state_constraint", "terminal_equality_constraint",
     "terminal_inequality_constraint", "thrust_magnitude_constraint",
 ]

@@ -14,6 +14,7 @@ import enum
 import numpy as np
 import torch
 
+from cddp_tpu_torch import devices
 from cddp_tpu_torch.constraints import path, terminal
 from cddp_tpu_torch.costs.objective import QuadraticObjective
 from cddp_tpu_torch.models.unicycle import Unicycle
@@ -105,6 +106,25 @@ def options_from_dict(values: dict, cls=CDDPOptions):
     return cls(**kw)
 
 
+def solver_state_from_arrays(state, device=None, dtype=None):
+    """A solver state built elsewhere (the JAX package's IPDDPSolverState or
+    MSIPDDPSolverState, whose fields are numpy or array-likes, unbatched or
+    with one leading batch axis) as the port's state of the same solver and
+    layout, on ``device`` (the CUDA card when None): an IPDDP state has x0,
+    an MSIPDDP state F."""
+    from cddp_tpu_torch.solvers.ipddp import IPDDPSolverState
+    from cddp_tpu_torch.solvers.msipddp import MSIPDDPSolverState
+
+    fields = getattr(state, "_fields", ())
+    cls = (IPDDPSolverState if "x0" in fields else
+           MSIPDDPSolverState if "F" in fields else None)
+    if cls is None:
+        raise TypeError(f"not an IPDDP or MSIPDDP solver state: {type(state).__name__}")
+    dev = devices.resolve(device)
+    return cls(*(torch.as_tensor(np.array(getattr(state, f)), device=dev, dtype=dtype)
+                 for f in cls._fields))
+
+
 def solution_to_numpy(sol, state=None) -> dict:
     """The fields a parity check compares, as numpy arrays. Solutions of the
     barrier solvers add mu and inf_pr (LogDDP: the violation), the
@@ -112,9 +132,10 @@ def solution_to_numpy(sol, state=None) -> dict:
     names in sorted order), the costates and inf_comp, and with terminal
     constraints the stacked terminal duals Y_T, slacks S_T and equality
     multipliers Lambda_T_eq (names in sorted order; width 0 where a group
-    is empty). An MSIPDDP solver
-    ``state`` adds its gains, duals, slacks, shooting-node values F and
-    costates (k, K, Y, S, F, Lambda)."""
+    is empty). A solver ``state`` adds its gains, duals, slacks and
+    costates (k, K, Y, S, Lambda), an MSIPDDP state its shooting-node
+    values F, an IPDDP state its terminal state (Y_T, S_T, Lambda_T_eq) and
+    x0."""
     f = lambda v: v.detach().cpu().numpy()  # noqa: E731
     out = {
         "X": f(sol.state_trajectory),
@@ -143,6 +164,8 @@ def solution_to_numpy(sol, state=None) -> dict:
         out.update(Y_T=cat(sol.terminal_duals, ineq), S_T=cat(sol.terminal_slacks, ineq),
                    Lambda_T_eq=cat(sol.terminal_duals, eq))
     if state is not None:
-        out.update(k=f(state.k_u), K=f(state.K_u), Y=f(state.Y), S=f(state.S),
-                   F=f(state.F), Lambda=f(state.Lambda))
+        out.update({key: f(getattr(state, field)) for key, field in (
+            ("k", "k_u"), ("K", "K_u"), ("Y", "Y"), ("S", "S"), ("Lambda", "Lambda"),
+            ("F", "F"), ("Y_T", "Y_T"), ("S_T", "S_T"), ("Lambda_T_eq", "Lambda_T_eq"),
+            ("x0", "x0")) if hasattr(state, field)})
     return out

@@ -67,31 +67,42 @@ def make_mpc_controller(
     that reference trajectory, shared by the fleet, and its last row is the
     terminal goal (the MPCC pattern, examples/ipddp_mpcc_rc.py:629-649).
 
-    ``warm_start_solver_state=True`` (threading the IPDDP/MSIPDDP dual and
-    slack state between ticks) is not ported; CLDDP and LogDDP refuse it as
-    the JAX package does.
+    ``warm_start_solver_state=True`` (IPDDP and MSIPDDP) also threads the
+    solver's dual, slack, costate and gain state from tick to tick,
+    unshifted, as the JAX package does (the interior-point warm start of
+    ipddp_solver.cpp:652-817): ``init_fn`` then returns (MPCState, solver
+    state), the latter from one cold solve of one iteration, and each tick
+    solves with ``warm_start=True`` from the last tick's state. CLDDP and
+    LogDDP refuse it, as the JAX package does.
     """
     from cddp_tpu_torch.solvers import get_solver
 
     solve_fn = get_solver(solver)
     N, nu, nx = problem.horizon, problem.control_dim, problem.state_dim
-    if warm_start_solver_state:
-        if solver not in ("IPDDP", "MSIPDDP"):
-            raise ValueError(
-                "warm_start_solver_state requires IPDDP or MSIPDDP (the solvers "
-                f"with dual/slack state pytrees); got {solver!r}. CLDDP/LogDDP "
-                "warm start through the primal plan, which the controller "
-                "already threads."
-            )
-        raise NotImplementedError(
-            "warm_start_solver_state (the IPDDP/MSIPDDP solver state threaded "
-            "between ticks) is not yet ported to cddp_tpu_torch (ROADMAP A.4.6)")
+    if warm_start_solver_state and solver not in ("IPDDP", "MSIPDDP"):
+        raise ValueError(
+            "warm_start_solver_state requires IPDDP or MSIPDDP (the solvers "
+            f"with dual/slack state pytrees); got {solver!r}. CLDDP/LogDDP "
+            "warm start through the primal plan, which the controller "
+            "already threads."
+        )
+    stateful = warm_start_solver_state
+    if stateful:
+        options = options.replace(warm_start=True)
 
     def init_fn(x0):
-        return MPCState(U_plan=x0.new_zeros(x0.shape[0], N, nu),
-                        X_plan=x0[:, None, :].expand(-1, N + 1, nx).clone())
+        mpc = MPCState(U_plan=x0.new_zeros(x0.shape[0], N, nu),
+                       X_plan=x0[:, None, :].expand(-1, N + 1, nx).clone())
+        if not stateful:
+            return mpc
+        # One cold solve of one iteration gives the solver state's shapes.
+        _, st = solve_fn(problem.replace(x0=x0),
+                         options.replace(warm_start=False, max_iterations=1),
+                         return_state=True)
+        return mpc, st
 
     def step_fn(state, x_current, tick=0):
+        mpc, sstate = state if stateful else (state, None)
         p = problem.replace(x0=x_current)
         if reference_fn is not None:
             obj = p.objective
@@ -101,14 +112,18 @@ def make_mpc_controller(
             # quadratic_objective enforces).
             p = p.replace(objective=obj.replace(reference_states=refs,
                                                 reference_state=refs[-1]))
-        X0 = state.X_plan.clone()
+        X0 = mpc.X_plan.clone()
         X0[:, 0] = x_current
-        sol = solve_fn(p, options, X0=X0, U0=state.U_plan)
+        if stateful:
+            sol, new_sstate = solve_fn(p, options, X0=X0, U0=mpc.U_plan, state=sstate,
+                                       return_state=True)
+        else:
+            sol = solve_fn(p, options, X0=X0, U0=mpc.U_plan)
         U, X = sol.control_trajectory, sol.state_trajectory
-        new_state = MPCState(U_plan=torch.cat([U[:, 1:], U[:, -1:]], 1),
-                             X_plan=torch.cat([X[:, 1:], X[:, -1:]], 1))
+        new_mpc = MPCState(U_plan=torch.cat([U[:, 1:], U[:, -1:]], 1),
+                           X_plan=torch.cat([X[:, 1:], X[:, -1:]], 1))
         info = dict(cost=sol.final_objective, iterations=sol.iterations_completed,
                     status=sol.status_code)
-        return U[:, 0], new_state, info
+        return U[:, 0], ((new_mpc, new_sstate) if stateful else new_mpc), info
 
     return init_fn, step_fn

@@ -81,6 +81,13 @@ class Solution:
             f.name: pick(f.name, getattr(self, f.name))
             for f in dataclasses.fields(self)})
 
+    def converged_mask(self) -> torch.Tensor:
+        """Boolean convergence flags of every solve, the shape of
+        ``status_code`` (solution.py:115-120 of the JAX package)."""
+        code = self.status_code
+        return torch.isin(code, torch.tensor(Status.CONVERGED, dtype=code.dtype,
+                                             device=code.device))
+
     def status_messages(self) -> list:
         """One decoded status string per solve (flattened)."""
         return [Status.MESSAGES.get(int(c), "Unknown")

@@ -6,7 +6,8 @@ slice the port carries: path constraints of every type of
 terminal inequalities folded into the terminal value, and terminal
 equalities through the p+1 reduced LQR), iLQR Hessians, the sequential
 condensed backward, both line-search modes, both barrier strategies, both
-theta norms, and cold starts. On a curved
+theta norms, cold starts and warm starts (a trajectory, or an
+``IPDDPSolverState`` carried from an earlier solve). On a curved
 stack (a ball, a norm or cone constraint) the "auto" slack second-order
 correction and constraint-Hessian fold are traced behind the stall latch
 (``stall_detector_update``), as the JAX driver traces them.
@@ -45,6 +46,21 @@ from cddp_tpu_torch.solvers import filter as flt
 SLACK_INTERIOR_OFFSET = 1e-4
 EPS_SLACK = ric.EPS_SLACK
 EPS_DUAL = 1e-10
+
+
+class IPDDPSolverState(NamedTuple):
+    """The warm-start checkpoint (ipddp.py:100-115 of the JAX package),
+    batch-first: what the reference solver object keeps across solves."""
+
+    k_u: torch.Tensor  # (B, N, nu)
+    K_u: torch.Tensor  # (B, N, nu, nx)
+    Y: torch.Tensor  # (B, N, m)
+    S: torch.Tensor  # (B, N, m)
+    Lambda: torch.Tensor  # (B, N+1, nx)
+    Y_T: torch.Tensor  # (B, mT)
+    S_T: torch.Tensor  # (B, mT)
+    Lambda_T_eq: torch.Tensor  # (B, p)
+    x0: torch.Tensor  # (B, nx): the initial state the state was solved from
 
 
 class _BP(NamedTuple):
@@ -112,7 +128,6 @@ def validate_options(options: CDDPOptions) -> None:
         ("use_ilqr=False (full DDP)", not options.use_ilqr),
         ("ipddp.lqr_backend='parallel'", ip.lqr_backend != "sequential"),
         ("ipddp.check_state_stationarity", ip.check_state_stationarity),
-        ("warm_start (IPDDPSolverState)", options.warm_start),
     ):
         if unported:
             raise NotImplementedError(f"IPDDP {name} is not yet ported to cddp_tpu_torch")
@@ -780,12 +795,15 @@ def _init_dual_slack(G, mu, options):
     return Y, S
 
 
-def _initialize(problem, options, stk, U0):
+def _initialize(problem, options, stk, U0, trajectory_warm=False, tstk=None):
     """Cold start (ipddp_solver.cpp:820-914): X rolled open-loop from U0,
     slacks and duals from the path values, zero costates, mu_initial
     (``_cold_mu`` of the JAX package: the port's IPDDP always has path
-    constraints). Returns (X, U, Y, S, G, Lambda, mu0); the terminal
-    constraints' state is ``initialize_terminal``'s."""
+    constraints). ``trajectory_warm`` (a warm start from a given U0 without
+    a solver state, ipddp.py:1406-1428) tiers mu0 per instance by the
+    seed's largest path and terminal-inequality (``tstk``) violation.
+    Returns (X, U, Y, S, G, Lambda, mu0); the terminal constraints' state
+    is ``initialize_terminal``'s."""
     x0 = problem.x0
     kernel = options.backward_engine != "scan"
     X = ip_rollout.open_loop_rollout(problem.model, x0, U0, problem.timestep,
@@ -793,26 +811,123 @@ def _initialize(problem, options, stk, U0):
     mu0 = torch.full((x0.shape[0],), options.ipddp.barrier.mu_initial,
                      dtype=x0.dtype, device=x0.device)
     G = _eval_path(stk, X, U0)
+    if trajectory_warm:
+        mu0 = _tiered_mu(options, G, tstk, X)
     Y, S = _init_dual_slack(G, mu0, options)
     Lambda = X.new_zeros(X.shape)
     return X, U0, Y, S, G, Lambda, mu0
 
 
-def initialize_terminal(problem, options, tstk, X, mu0):
+def _tiered_mu(options, G, tstk, X):
+    """The trajectory-warm mu0 (ipddp.py:1413-1428): tolerance where the
+    seed is feasible to it, 1% of mu_initial (floored at 10 tolerance)
+    where no row is violated by more than 0.1, else 10% of mu_initial."""
+    viol = torch.clamp(G, min=0.0).flatten(1).amax(-1)
+    if tstk is not None and tstk.ineq_dim:
+        viol = torch.maximum(viol, torch.clamp(tstk.ineq_evaluate(X[:, -1]), min=0.0).amax(-1))
+    tol, b = options.tolerance, options.ipddp.barrier
+    c = lambda v: viol.new_tensor(v)  # noqa: E731
+    return torch.where(viol <= tol, c(max(tol, b.mu_min_value)), torch.where(
+        viol <= 0.1, c(max(tol * 10.0, b.mu_initial * 0.01)), c(b.mu_initial * 0.1)))
+
+
+def initialize_terminal(problem, options, tstk, X, mu0, slack_scale=None, dual_scale=None):
     """The terminal constraints' cold state at X's x_N (ipddp.py:1435-1446):
     s_T = max(terminal_slack_init_scale, -g_T + offset), y_T = mu0
     terminal_dual_init_scale / max(s_T, eps), zero equality multipliers.
-    Returns (S_T (B, mT), Y_T (B, mT), Lambda_T_eq (B, p))."""
+    ``slack_scale`` and ``dual_scale`` replace the two terminal scales (the
+    x0-drift reset takes the path ones, ipddp.py:1476-1483). Returns (S_T
+    (B, mT), Y_T (B, mT), Lambda_T_eq (B, p))."""
     ip = options.ipddp
+    slack_scale = ip.terminal_slack_init_scale if slack_scale is None else slack_scale
+    dual_scale = ip.terminal_dual_init_scale if dual_scale is None else dual_scale
     lam = X.new_zeros(X.shape[0], tstk.eq_dim)
     if not tstk.ineq_dim:
         return lam[:, :0], lam[:, :0], lam
     G_T = tstk.ineq_evaluate(X[:, -1])
-    S_T = torch.maximum(G_T.new_tensor(ip.terminal_slack_init_scale),
-                        -G_T + SLACK_INTERIOR_OFFSET)
-    Y_T = (mu0[:, None] * ip.terminal_dual_init_scale) / torch.maximum(
-        S_T, S_T.new_tensor(EPS_SLACK))
+    S_T = torch.maximum(G_T.new_tensor(slack_scale), -G_T + SLACK_INTERIOR_OFFSET)
+    Y_T = (mu0[:, None] * dual_scale) / torch.maximum(S_T, S_T.new_tensor(EPS_SLACK))
     return S_T, Y_T, lam
+
+
+def _interior(v, floor, factor):
+    """repairWarmstartInterior (ipddp_solver.cpp:233-262): v floored, and
+    scaled by ``factor`` where the smallest entry of its last axis (one
+    step's rows, or the terminal rows) sits within ``factor`` of the
+    floor."""
+    if v.numel() == 0:
+        return v
+    v = torch.clamp(v, min=floor)
+    near = v.amin(-1, keepdim=True) < floor * factor
+    return torch.where(near, v * factor, v)
+
+
+def warm_start(problem, options, stk, tstk, U0, state: IPDDPSolverState):
+    """The warm start from a solver state (ipddp.py:1448-1545, :1563-1571):
+    X re-rolled from U0 as in a cold start, the state's duals, slacks,
+    costates, terminal state and gains kept, mu0 = 0.1 mu_initial; whole
+    steps whose duals or slacks are stale re-initialised
+    (``warmstart_staleness_check``), the interior repair
+    (``warmstart_repair``), and the x0-drift reset
+    (``warmstart_reset_x0_threshold`` > 0), which restarts an instance
+    cold from zero controls where x0 moved further than the threshold from
+    the state's. Returns (X, U, Y, S, G, Lambda, mu0, terminal, k_u0,
+    K_u0)."""
+    ip = options.ipddp
+    X, U, _, _, G, _, _ = _initialize(problem, options, stk, U0)
+    mu0 = torch.full_like(X[:, 0, 0], ip.barrier.mu_initial * 0.1)
+    Y, S, Lambda = state.Y, state.S, state.Lambda
+    S_T, Y_T, Lte = state.S_T, state.Y_T, state.Lambda_T_eq
+    if ip.warmstart_staleness_check:
+        # warmstartNeedsReinit (:264-292): a step is stale when any of its
+        # rows is.
+        required = torch.maximum(G.new_tensor(ip.slack_var_init_scale),
+                                 -G + SLACK_INTERIOR_OFFSET)
+        bad = ((Y <= EPS_DUAL) | (S <= EPS_SLACK) | (S < 0.1 * required)
+               | ~torch.isfinite(Y) | ~torch.isfinite(S)).any(-1, keepdim=True)
+        Y_new, S_new = _init_dual_slack(G, mu0, options)
+        Y, S = torch.where(bad, Y_new, Y), torch.where(bad, S_new, S)
+    if ip.warmstart_repair:
+        f = ip.warmstart_interior_factor
+        S = _interior(S, ip.warmstart_s_min, f)
+        Y = _interior(Y, ip.warmstart_y_min, f)
+        S_T = _interior(S_T, ip.warmstart_s_min, f)
+        Y_T = _interior(Y_T, ip.warmstart_y_min, f)
+    k_u, K_u = state.k_u, state.K_u
+    if ip.warmstart_reset_x0_threshold > 0.0:
+        reset = torch.linalg.vector_norm(problem.x0 - state.x0, dim=-1) > float(
+            ip.warmstart_reset_x0_threshold)
+        cold = _initialize(problem, options, stk, torch.zeros_like(U0))
+        mu_c = cold[6]
+        term_c = initialize_terminal(problem, options, tstk, cold[0], mu_c,
+                                     ip.slack_var_init_scale, ip.dual_var_init_scale)
+        sel = lambda c, w: base.where_instances(reset, c, w)  # noqa: E731
+        X, U, Y, S, G = (sel(c, w) for c, w in zip(cold[:5], (X, U, Y, S, G)))
+        Lambda = sel(torch.zeros_like(Lambda), Lambda)
+        S_T, Y_T = sel(term_c[0], S_T), sel(term_c[1], Y_T)
+        Lte = sel(torch.zeros_like(Lte), Lte)
+        mu0 = sel(mu_c, mu0)
+        k_u, K_u = sel(torch.zeros_like(k_u), k_u), sel(torch.zeros_like(K_u), K_u)
+    return X, U, Y, S, G, Lambda, mu0, (S_T, Y_T, Lte), k_u, K_u
+
+
+def solver_state(problem, sol: Solution) -> IPDDPSolverState:
+    """The checkpoint a solve leaves (ipddp.py:1998-2002), from its
+    batch-first Solution on any engine: the last backward's gains, the
+    stacked duals and slacks, the costates, the terminal state and x0."""
+    stk, tstk = PathStacker(problem), TerminalStacker(problem)
+    X = sol.state_trajectory
+    empty = X.new_zeros(X.shape[0], 0)
+
+    def cat(d, names):
+        return torch.cat([d[n] for n in names], -1) if names else empty
+
+    td, ts = sol.terminal_duals or {}, sol.terminal_slacks or {}
+    return IPDDPSolverState(
+        k_u=sol.feedforward_gains, K_u=sol.feedback_gains,
+        Y=cat(sol.dual_trajectories, stk.names), S=cat(sol.slack_trajectories, stk.names),
+        Lambda=sol.costate_trajectory, Y_T=cat(td, tstk.ineq_names),
+        S_T=cat(ts, tstk.ineq_names), Lambda_T_eq=cat(td, tstk.eq_names), x0=problem.x0)
 
 
 def _drive(problem: Problem, options: CDDPOptions, X, U, Y, S, G, Lambda, mu0,
@@ -1068,10 +1183,17 @@ def solve(
     options: CDDPOptions = CDDPOptions(),
     X0: Optional[torch.Tensor] = None,
     U0: Optional[torch.Tensor] = None,
-) -> Solution:
+    state: Optional[IPDDPSolverState] = None,
+    return_state: bool = False,
+):
     """Solve with IPDDP. ``problem.x0`` is (nx,) for one solve or (B, nx)
     for a batch; ``U0`` seeds the controls (X is rolled out from it, as
-    the reference's cold start does; ``X0`` is accepted and unused)."""
+    the reference's start does; ``X0`` is accepted and unused). With
+    ``options.warm_start``, a ``state`` from an earlier solve warm starts
+    from its duals, slacks, costates and gains (``warm_start``), and
+    without one a given ``U0`` tiers the initial barrier parameter by its
+    violation. ``return_state=True`` also returns the
+    :class:`IPDDPSolverState` the solve leaves (ipddp.py:2036-2082)."""
     from cddp_tpu_torch.ops.kernels import mega_ipddp
 
     base.validate_options(options)
@@ -1081,12 +1203,16 @@ def solve(
     if not stk:
         raise NotImplementedError(
             "IPDDP without path constraints is not yet ported to cddp_tpu_torch")
+    warm = state if options.warm_start else None
+    trajectory_warm = bool(options.warm_start and state is None and U0 is not None)
     _, U = problem.initial_trajectories(X0, U0)
     nu, nx, N = problem.control_dim, problem.state_dim, problem.horizon
     unbatched = problem.x0.dim() == 1
     if unbatched:
         problem = problem.replace(x0=problem.x0[None])
         U = U[None]
+        if warm is not None:
+            warm = IPDDPSolverState(*(t[None] for t in warm))
 
     whole = mega_ipddp.mega_eligible(problem, options)
     if options.solve_engine == "fused" and not whole:
@@ -1098,14 +1224,25 @@ def solve(
             "built for, iLQR, the sequential line search and default driver "
             "options (see mega_ipddp.mega_eligible)"
         )
-    X, U, Y, S, G, Lambda, mu0 = _initialize(problem, options, stk, U)
-    terminal = initialize_terminal(problem, options, tstk, X, mu0)
-    ku0 = X.new_zeros(X.shape[0], N, nu)
-    Ku0 = X.new_zeros(X.shape[0], N, nu, nx)
+    if warm is not None:
+        warm = IPDDPSolverState(*(t.to(U) for t in warm))
+        X, U, Y, S, G, Lambda, mu0, terminal, ku0, Ku0 = warm_start(
+            problem, options, stk, tstk, U, warm)
+    else:
+        X, U, Y, S, G, Lambda, mu0 = _initialize(problem, options, stk, U,
+                                                 trajectory_warm, tstk)
+        terminal = initialize_terminal(problem, options, tstk, X, mu0)
+        ku0 = X.new_zeros(X.shape[0], N, nu)
+        Ku0 = X.new_zeros(X.shape[0], N, nu, nx)
     if whole:
         sol = mega_ipddp.ipddp_solve(problem, options, X, U, Y, S, G, Lambda, mu0,
                                      ku0, Ku0, terminal=terminal)
     else:
         sol = _drive(problem, options, X, U, Y, S, G, Lambda, mu0, ku0, Ku0,
                      terminal=terminal)
-    return sol.first() if unbatched else sol
+    if not return_state:
+        return sol.first() if unbatched else sol
+    st = solver_state(problem, sol)
+    if unbatched:
+        return sol.first(), IPDDPSolverState(*(t[0] for t in st))
+    return sol, st

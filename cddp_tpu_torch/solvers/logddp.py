@@ -10,8 +10,8 @@ regularization exhaustion in the backward pass counts as *converged*
 (status 4, handleBackwardPassRegularizationLimit, :216-222).
 
 The slice the port carries: box path constraints (or none), the quadratic
-goal cost, iLQR Hessians, the sequential backward, both line-search modes
-and cold starts. Batch-first throughout, with a per-instance done mask (the
+goal cost, iLQR Hessians, the sequential backward, both line-search modes,
+cold starts and warm gains. Batch-first throughout, with a per-instance done mask (the
 select semantics of the vmapped ``lax.while_loop``). ``_drive`` is the
 plain driver and the plain version of the whole-solve kernel
 (``ops/kernels/mega_logddp.py``).
@@ -298,13 +298,13 @@ def solve(
     """Solve with LogDDP. ``problem.x0`` is (nx,) for one solve or (B, nx)
     for a batch; ``U0`` seeds the controls. The state sequence is always
     re-rolled open-loop from the controls (logddp_solver.cpp:140-151), so
-    ``X0`` sets only shapes. Warm-start gains are not ported."""
+    ``X0`` sets only shapes. With ``options.warm_start``, ``gains`` = (k
+    (B, N, nu), K (B, N, nu, nx)) seed the control gains (logddp.py:531-536
+    of the JAX package; zeros otherwise)."""
     from cddp_tpu_torch.ops.kernels import mega_logddp
 
     base.validate_options(options)
     validate_options(options)
-    if options.warm_start and gains is not None:
-        raise NotImplementedError("LogDDP warm-start gains are not yet ported to cddp_tpu_torch")
     base.require_box_stack(problem, "LogDDP")
     problem = base.canonicalize_problem_dtype(problem)
     _, U = problem.initial_trajectories(X0, U0)
@@ -313,6 +313,7 @@ def solve(
     if unbatched:
         problem = problem.replace(x0=problem.x0[None])
         U = U[None]
+        gains = None if gains is None else tuple(g[None] for g in gains)
 
     whole = mega_logddp.mega_eligible(problem, options)
     if options.solve_engine == "fused" and not whole:
@@ -324,7 +325,10 @@ def solve(
         )
     X = ip_rollout.open_loop_rollout(problem.model, problem.x0, U, problem.timestep,
                                      kernel=options.backward_engine != "scan")
-    k0, K0 = X.new_zeros(X.shape[0], N, nu), X.new_zeros(X.shape[0], N, nu, nx)
+    if options.warm_start and gains is not None:
+        k0, K0 = (g.to(X) for g in gains)
+    else:
+        k0, K0 = X.new_zeros(X.shape[0], N, nu), X.new_zeros(X.shape[0], N, nu, nx)
     if whole:
         sol = mega_logddp.logddp_solve(problem, options, X, U, k0, K0)
     else:

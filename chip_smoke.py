@@ -123,7 +123,23 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    fleets at B=262144 through ``batched_solve``, each one launch of its
    variant, with the terminal violation, ms per fleet and solves/s of the
    two fleets of the slice, and each variant's times, bound, work and
-   attributes.
+   attributes;
+13. warm starts: kernels 7, 8 and 9 from warm seeds (a cold solve of the
+   fleet, then a tick: x0 advanced one step, the plans shifted) against
+   their plain drivers at B=4096 (``phase_warm_kernels``: float64 exactly,
+   kernel 7 on m4, m4_track, m5_ball0, m4_ti2 and m4_te3 and on warm
+   branches that each assert they were reached (stale steps re-initialised,
+   the interior repair, an x0-drift reset splitting the batch, nonzero
+   gains at the regularization limit, the three trajectory-warm mu tiers),
+   kernel 8 on the box and tracking fleets over MS_EXACT_ITERS iterations,
+   kernel 9 with warm gains; float32 by ``check_ip_f32`` and
+   ``check_barrier_f32``); the warm MPC fleet (``phase_warm_mpc``:
+   ``make_mpc_controller(..., warm_start_solver_state=True)`` and False
+   under IPDDP and MSIPDDP on phase 11's tracking problem at B=262144 for
+   five ticks, one whole-solve launch a tick, ms and mean iterations a
+   tick); the certified fleet (``phase_certified_fleet``: the float32 IPDDP
+   box fleet at 20 iterations, then ``tt.polish`` in float64 on the card,
+   one float64 launch of kernel 7); the warm kernels' device times.
 
 Each kernel is timed twice at the main path's shapes: by CUDA events
 around its wrapper (``cuda_ms``: the batch-first <-> batch-last copies
@@ -139,7 +155,8 @@ The line before the last is the kernels' JSON record (kernel 7's entry
 carries the obstacle run under "obstacle", kernel 6's under "obstacle_m5",
 kernel 5's its 0 launches there; each tracking variant is an entry of its
 own, named with the suffix "_track", and each terminal variant one named
-as dispatch_log names it, "ipddp_solve_ti2" for instance); the last line is
+as dispatch_log names it, "ipddp_solve_ti2" for instance; kernels 7, 8 and
+9 carry phase 13's warm seeds under "warm"); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -906,17 +923,26 @@ def check_ip_solve(label, kern, plain, exact, tol=1e-8, min_share=0.99, dual_rto
     return counts, share, cost_err
 
 
-def ip_solve_pair(tt, prob, opts, x0):
+def seeded(prob, opts, x0, seeds_fn=None):
+    """(problem, seeds, terminal state) for x0: the cold seeds of
+    ``ip_seeds`` (terminal None: the cold one), or ``seeds_fn``'s (phase
+    13's warm seeds, ``ip_warm_seeds``)."""
+    if seeds_fn is None:
+        return ip_seeds(prob, opts, x0) + (None,)
+    return seeds_fn(prob, opts, x0)
+
+
+def ip_solve_pair(tt, prob, opts, x0, seeds_fn=None):
     """The whole-solve kernel and the plain per-pass driver from the same
-    cold seeds."""
+    seeds: cold ones, or ``seeds_fn``'s."""
     from cddp_tpu_torch.ops.kernels import mega_ipddp
     from cddp_tpu_torch.solvers import ipddp
 
-    p, seeds = ip_seeds(prob, opts, x0)
+    p, seeds, term = seeded(prob, opts, x0, seeds_fn)
     if not mega_ipddp.mega_eligible(p, opts):
         raise AssertionError("the case is not eligible for the whole-solve kernel")
-    return (mega_ipddp._launch(p, opts, *seeds),
-            ipddp._drive(p, plain_ip_options(tt, opts), *seeds))
+    return (mega_ipddp._launch(p, opts, *seeds, terminal=term),
+            ipddp._drive(p, plain_ip_options(tt, opts), *seeds, terminal=term))
 
 
 def phase_ip_kernels(tt, dev):
@@ -1038,17 +1064,19 @@ def check_backward_layouts(tt, dev, back, opts):
     return out[4]
 
 
-def self_agreement(tt, prob, opts, x0, plain):
+def self_agreement(tt, prob, opts, x0, plain, seeds_fn=None):
     """The share of instances on which the plain driver from x0 one ulp up
     agrees with ``plain`` in status, iterations and cost (rel 1e-4)."""
     from cddp_tpu_torch.solvers import ipddp
 
     plain_opts = plain_ip_options(tt, opts)
-    p1, seeds1 = ip_seeds(prob, plain_opts, torch.nextafter(x0, torch.full_like(x0, math.inf)))
-    return cost_share(ipddp._drive(p1, plain_opts, *seeds1), plain)
+    p1, seeds1, term1 = seeded(prob, plain_opts,
+                               torch.nextafter(x0, torch.full_like(x0, math.inf)), seeds_fn)
+    return cost_share(ipddp._drive(p1, plain_opts, *seeds1, terminal=term1), plain)
 
 
-def check_ip_f32(tt, dev, prob, opts, x0, prob64=None, label="box fleet", early_forks=False):
+def check_ip_f32(tt, dev, prob, opts, x0, prob64=None, label="box fleet", early_forks=False,
+                 seeds_fn=None):
     """The float32 whole-solve kernel against the plain driver. Over the box
     fleet's first five iterations the two agree in status, iterations and
     cost (rel 1e-4) on >= 99% of instances. From the sixth on the float32
@@ -1063,29 +1091,31 @@ def check_ip_f32(tt, dev, prob, opts, x0, prob64=None, label="box fleet", early_
     plain driver forks from itself within five iterations already (the
     terminal equality's, whose multiplier least squares reads float32
     rounding from the first iteration) is held to that floor at five
-    iterations too. Returns (share with equal cost, max abs cost err where
-    status and iterations agree) at five iterations."""
+    iterations too. ``seeds_fn``: seeds other than the cold ones (phase
+    13's warm seeds), for x0 and its move alike. Returns (share with equal
+    cost, max abs cost err where status and iterations agree) at five
+    iterations."""
     from cddp_tpu_torch.solvers import ipddp
 
     short_opts = opts.replace(max_iterations=5)
-    kern5, plain5 = ip_solve_pair(tt, prob, short_opts, x0)
+    kern5, plain5 = ip_solve_pair(tt, prob, short_opts, x0, seeds_fn)
     short_min = 0.99
     if early_forks:
-        floor5 = self_agreement(tt, prob, short_opts, x0, plain5)
+        floor5 = self_agreement(tt, prob, short_opts, x0, plain5, seeds_fn)
         print(f"[kernels float32] {label}: the plain driver against itself from x0 one ulp "
               f"up at five iterations: {floor5:.4%} of {x0.shape[0]}")
         short_min = floor5 - 0.03
     _, short_share, short_err = check_ip_solve(f"{label}, 5 iterations", kern5, plain5, False,
                                                min_share=short_min)
-    kern, plain = ip_solve_pair(tt, prob, opts, x0)
+    kern, plain = ip_solve_pair(tt, prob, opts, x0, seeds_fn)
     plain_opts = plain_ip_options(tt, opts)
-    floor = self_agreement(tt, prob, opts, x0, plain)
+    floor = self_agreement(tt, prob, opts, x0, plain, seeds_fn)
     print(f"[kernels float32] the plain driver against itself from x0 one ulp up: status, "
           f"iterations and cost agree on {floor:.4%} of {x0.shape[0]}")
     check_ip_solve(label, kern, plain, False, min_share=floor - 0.03)
     prob64 = ip_problem(tt, torch.float64, dev) if prob64 is None else prob64
-    p64, seeds64 = ip_seeds(prob64, plain_opts, x0.double())
-    truth = ipddp._drive(p64, plain_opts, *seeds64).final_objective
+    p64, seeds64, term64 = seeded(prob64, plain_opts, x0.double(), seeds_fn)
+    truth = ipddp._drive(p64, plain_opts, *seeds64, terminal=term64).final_objective
     errs = {}
     for name, sol in (("kernel", kern), ("plain", plain)):
         rel = (sol.final_objective.double() - truth).abs() / truth.abs()
@@ -1641,15 +1671,16 @@ def barrier_seeds(solver, p, opts, defect=False):
     return msipddp._initialize(p, opts.replace(backward_engine="scan"), stk, U) + gains
 
 
-def barrier_pair(solver, prob, opts, x0, defect=False):
-    """The whole-solve kernel and the plain driver from the same seeds:
-    ((kernel Solution, fields), (plain Solution, fields)), the fields the
-    float64 check compares."""
+def barrier_pair(solver, prob, opts, x0, defect=False, seeds_fn=None):
+    """The whole-solve kernel and the plain driver from the same seeds (the
+    cold ones, or ``seeds_fn(problem, opts)``'s): ((kernel Solution,
+    fields), (plain Solution, fields)), the fields the float64 check
+    compares."""
     from cddp_tpu_torch.ops.kernels import mega_logddp, mega_msipddp
     from cddp_tpu_torch.solvers import logddp, msipddp
 
     p = prob.replace(x0=x0)
-    seeds = barrier_seeds(solver, p, opts, defect)
+    seeds = barrier_seeds(solver, p, opts, defect) if seeds_fn is None else seeds_fn(p, opts)
     mega, drive = ((mega_logddp, logddp._drive) if solver == "LogDDP"
                    else (mega_msipddp, msipddp._drive))
     if not mega.mega_eligible(p, opts):
@@ -1677,6 +1708,18 @@ def barrier_pair(solver, prob, opts, x0, defect=False):
 # are held exactly at 10-15 iterations. float32 likewise.
 MS_EXACT_ITERS = 4
 MS_TIE_SHARE = 0.005
+# From the box fleet's warm seeds (phase 13) the float64 plain driver forks
+# from itself one ulp away from its third iteration on (on the CPU at
+# B=1024: 100% agree at two iterations, 93% at three, 80-82% at four): a
+# warm iterate starts near feasible, so its l1 violations reach roundoff
+# sooner than a cold start's. Those seeds are held exactly over
+# MS_WARM_EXACT_ITERS iterations and at MS_WARM_SELF_ITERS against the
+# plain driver's agreement with itself (at four, on an H100, the kernel agreed
+# on 77.59% against the plain driver's 80.91% with itself, a fork rate 3.3
+# points above it: the kernel rounds every operation apart from the plain
+# driver, a larger nudge than one ulp of x0).
+MS_WARM_EXACT_ITERS = 2
+MS_WARM_SELF_ITERS = 3
 SHORT_ITERS = {"LogDDP": 5, "MSIPDDP": MS_EXACT_ITERS}
 
 
@@ -1745,22 +1788,22 @@ def agrees(a, b, exact):
     return same & (rel <= 1e-4)
 
 
-def plain_agrees(solver, prob, opts, x1, plain, exact):
+def plain_agrees(solver, prob, opts, x1, plain, exact, seeds_fn=None):
     """Per instance: the plain driver from x1 (x0 moved by one ulp) agrees
     with ``plain``, its run from x0."""
-    return agrees(barrier_pair(solver, prob, opts, x1)[1], plain, exact)
+    return agrees(barrier_pair(solver, prob, opts, x1, seeds_fn=seeds_fn)[1], plain, exact)
 
 
-def check_against_self(solver, label, prob, opts, x0, exact):
+def check_against_self(solver, label, prob, opts, x0, exact, seeds_fn=None):
     """The kernel at the fleet's budget against the plain driver's agreement
     with itself: over all instances no more than 3 points below the plain
     driver's from x0 one ulp up; and among the instances that run agrees
     on, no more than 3 points below the plain driver's from x0 one ulp
     down. (Rounding alone forks the solve at filter ties, so neither share
     is near 100%.)"""
-    kern, plain = barrier_pair(solver, prob, opts, x0)
+    kern, plain = barrier_pair(solver, prob, opts, x0, seeds_fn=seeds_fn)
     up, down = (plain_agrees(solver, prob, opts, torch.nextafter(x0, torch.full_like(x0, v)),
-                             plain, exact) for v in (math.inf, -math.inf))
+                             plain, exact, seeds_fn) for v in (math.inf, -math.inf))
     floor = float(up.double().mean())
     tag = "float64" if exact else "float32"
     print(f"[kernels {tag}] {solver} {label}: the plain driver against itself from x0 one "
@@ -1777,19 +1820,32 @@ def check_against_self(solver, label, prob, opts, x0, exact):
                              f"the plain driver's own {cond_down:.4%}")
 
 
-def check_barrier_f32(solver, prob, opts, x0, label="box fleet"):
+def check_barrier_f32(solver, prob, opts, x0, label="box fleet", seeds_fn=None,
+                      early_forks=False):
     """float32: over the solver's short budget (LogDDP 5 iterations, MSIPDDP
     MS_EXACT_ITERS) the kernel agrees with the plain driver in status,
     iterations and cost (rel 1e-4) on >= 99% of instances; at ten it may
     fall at most 3 points below the plain driver's agreement with itself
     from x0 one ulp up, the rate at which rounding alone forks the solve.
     Returns (share, max abs cost err where status and iterations agree) at
-    the short budget."""
+    the short budget. ``early_forks``: a fleet whose plain driver forks
+    from itself within the short budget already (MSIPDDP from the box
+    fleet's warm seeds) is held there to that floor less 3 points, as
+    ``check_ip_f32`` holds one."""
     short = SHORT_ITERS[solver]
-    _, share, err = check_barrier(
-        solver, f"{label}, {short} iterations",
-        *barrier_pair(solver, prob, opts.replace(max_iterations=short), x0), False)
-    check_against_self(solver, f"{label}, 10 iterations", prob, opts, x0, False)
+    short_opts = opts.replace(max_iterations=short)
+    kern, plain = barrier_pair(solver, prob, short_opts, x0, seeds_fn=seeds_fn)
+    short_min = 0.99
+    if early_forks:
+        up = torch.nextafter(x0, torch.full_like(x0, math.inf))
+        floor = float(plain_agrees(solver, prob, short_opts, up, plain, False,
+                                   seeds_fn).double().mean())
+        print(f"[kernels float32] {solver} {label}: the plain driver against itself from x0 "
+              f"one ulp up at {short} iterations: {floor:.4%} of {x0.shape[0]}")
+        short_min = floor - 0.03
+    _, share, err = check_barrier(solver, f"{label}, {short} iterations", kern, plain, False,
+                                  min_share=short_min)
+    check_against_self(solver, f"{label}, 10 iterations", prob, opts, x0, False, seeds_fn)
     return share, err
 
 
@@ -2555,6 +2611,505 @@ def phase_terminal(tt, dev, smi):
     return launches, errs, timing, work, attrs
 
 
+# --- warm starts (phase 13) ----------------------------------------------------------
+
+WARM_TICKS = 5
+
+
+def tick(tt, solver, prob, opts, x0):
+    """A cold solve of the fleet from x0 by the default engine, then one MPC
+    tick: (x1 = X[:, 1], the state plan and the control plan shifted one
+    step, the solve's solver state: ``return_state`` for IPDDP and MSIPDDP,
+    the gains (k, K) for LogDDP)."""
+    p = prob.replace(x0=x0)
+    if solver == "LogDDP":
+        sol = tt.solve(p, solver, opts)
+        st = (sol.feedforward_gains, sol.feedback_gains)
+    else:
+        sol, st = tt.solve(p, solver, opts, return_state=True)
+    X, U = sol.state_trajectory, sol.control_trajectory
+    shift = lambda T: torch.cat([T[:, 1:], T[:, -1:]], 1)  # noqa: E731
+    return X[:, 1].clone(), shift(X), shift(U), st
+
+
+def ip_warm_seeds(state, U_plan):
+    """A seeds function (``seeded``) of IPDDP's warm start: for x1, the
+    seeds ``ipddp.warm_start`` builds from ``state`` and the controls
+    ``U_plan``, each cast to x1's type, under the options' warm-start
+    fields; with ``state`` None the trajectory warm start from ``U_plan``
+    (``ipddp._initialize`` with ``trajectory_warm``: mu0 tiered per
+    instance)."""
+
+    def seeds(prob, opts, x1):
+        from cddp_tpu_torch.constraints.stack import PathStacker, TerminalStacker
+        from cddp_tpu_torch.solvers import ipddp
+
+        p = prob.replace(x0=x1)
+        stk, tstk = PathStacker(p), TerminalStacker(p)
+        U = U_plan.to(x1.dtype)
+        if state is None:
+            X, U, Y, S, G, L, mu0 = ipddp._initialize(p, opts, stk, U, True, tstk)
+            term = ipddp.initialize_terminal(p, opts, tstk, X, mu0)
+            k, K = torch.zeros_like(U), U.new_zeros(U.shape + (p.state_dim,))
+        else:
+            st = ipddp.IPDDPSolverState(*(t.to(x1.dtype) for t in state))
+            X, U, Y, S, G, L, mu0, term, k, K = ipddp.warm_start(p, opts, stk, tstk, U, st)
+        return p, (X, U, Y, S, G, L, mu0, k, K), term
+
+    return seeds
+
+
+def ms_warm_seeds(state, X_plan, U_plan):
+    """A seeds function (``barrier_pair``) of MSIPDDP's warm start: the
+    state plan with row 0 set to x0 (its shooting nodes carry the tick's
+    defects), the control plan, and ``msipddp.warm_start`` from ``state``;
+    the state's gains."""
+
+    def seeds(p, opts):
+        from cddp_tpu_torch.constraints.stack import PathStacker
+        from cddp_tpu_torch.solvers import msipddp
+
+        dt = p.x0.dtype
+        X = X_plan.to(dt).clone()
+        X[:, 0] = p.x0
+        st = msipddp.MSIPDDPSolverState(*(t.to(dt) for t in state))
+        return msipddp.warm_start(p, opts, PathStacker(p), X, U_plan.to(dt), st) + (
+            st.k_u, st.K_u)
+
+    return seeds
+
+
+def log_warm_seeds(U_plan, gains):
+    """A seeds function (``barrier_pair``) of LogDDP's warm gains: X rolled
+    open-loop from the control plan by the plain version, and the gains."""
+
+    def seeds(p, opts):
+        from cddp_tpu_torch.ops.kernels import ip_rollout
+
+        U = U_plan.to(p.x0.dtype)
+        X = ip_rollout.open_loop_rollout_plain(p.model, p.x0, U, p.timestep)
+        return (X, U) + tuple(g.to(p.x0.dtype) for g in gains)
+
+    return seeds
+
+
+def warm_ip_check(tt, label, prob, opts, x1, seeds_fn, tol=1e-8, dual_rtol=0.0):
+    """Kernel 7 against the plain driver from one warm seed in float64
+    (``check_ip_solve``'s exact rule); also their gains within ``tol``.
+    Returns (status counts, max abs cost err)."""
+    kern, plain = ip_solve_pair(tt, prob, opts.replace(warm_start=True), x1, seeds_fn)
+    counts, _, err = check_ip_solve(f"warm {label}", kern, plain, True, tol=tol,
+                                    dual_rtol=dual_rtol)
+    for name, a, b in (("k", kern.feedforward_gains, plain.feedforward_gains),
+                       ("K", kern.feedback_gains, plain.feedback_gains)):
+        e = float(abs_err(a, b).max())
+        if not e <= tol:
+            raise AssertionError(f"ipddp_solve f64 warm {label}: gains {name} max abs err {e}")
+    return counts, err
+
+
+def phase_warm_kernels(tt, dev):
+    """Phase 13 (a): kernels 7, 8 and 9 against their plain drivers from warm
+    seeds at B_CHECK. Each seed is a cold solve of the fleet (the default
+    engine, 10 iterations) and one tick: x0 advanced one step and the plans
+    shifted. Float64, exactly (``check_ip_solve``; kernel 7's gains too):
+    kernel 7 on its m4, m4_track, m5_ball0, m4_ti2 and m4_te3 variants (te3
+    at 1e-7), and on the box fleet from a state whose stale steps are
+    re-initialised, with the interior repair, with an x0-drift reset that
+    splits the batch, at the regularization limit with nonzero gains, and
+    from the three trajectory-warm mu tiers; kernel 8 on the box and
+    tracking fleets over MS_EXACT_ITERS iterations (ties allowed on
+    MS_TIE_SHARE; the box fleet's over MS_WARM_EXACT_ITERS, and at
+    MS_WARM_SELF_ITERS against the plain driver's self-agreement), kernel 9
+    with warm gains at 10. Float32: kernels 7 and 8
+    on the box and tracking fleets and kernel 9 on the box fleet by
+    ``check_ip_f32`` and ``check_barrier_f32``; from the box fleet's warm
+    seeds the IPDDP and MSIPDDP plain drivers fork from themselves one ulp
+    up within the short budget (on the CPU at B=256-512: 60.5% agree at five
+    iterations, 71.9% at four), so those two are held there to that floor
+    (``early_forks``). Returns {dtype: {kernel: max abs cost err}}."""
+    errs = {"float64": {}, "float32": {}}
+
+    def note(tag, name, err):
+        errs[tag][name] = max(errs[tag].get(name, 0.0), err)
+
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+        x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=dtype) - 0.5
+        fleets = {"m4": ip_problem(tt, dtype, dev), "m4_track": tracking_problem(tt, dtype, dev)}
+        if dtype == torch.float64:
+            fleets.update(m5_ball0=obstacle_problem(tt, dtype, dev),
+                          m4_ti2=terminal_problem(tt, dtype, dev, "m4_ti2"),
+                          m4_te3=terminal_problem(tt, dtype, dev, "m4_te3"))
+        ticks = {}
+        for label, prob in fleets.items():
+            x1, _, U1, st = ticks[label] = tick(tt, "IPDDP", prob, opts, x0)
+            if dtype == torch.float32:
+                prob64 = (ip_problem if label == "m4" else tracking_problem)(tt, torch.float64,
+                                                                             dev)
+                share, err = check_ip_f32(tt, dev, prob, opts.replace(warm_start=True), x1,
+                                          prob64, f"warm {label}", early_forks=label == "m4",
+                                          seeds_fn=ip_warm_seeds(st, U1))
+                note(tag, "ipddp_solve", err)
+                continue
+            _, err = warm_ip_check(tt, label, prob, opts, x1, ip_warm_seeds(st, U1),
+                                   tol=1e-7 if label == "m4_te3" else 1e-8,
+                                   dual_rtol=1e-8 if label == "m5_ball0" else 0.0)
+            note(tag, "ipddp_solve", err)
+        if dtype == torch.float64:
+            phase_warm_branches(tt, dev, opts, fleets["m4"], ticks["m4"], note)
+        for solver, name in (("MSIPDDP", "msipddp_solve"), ("LogDDP", "logddp_solve")):
+            for label in ("m4", "m4_track") if solver == "MSIPDDP" else ("m4",):
+                prob = fleets[label]
+                x1, X1, U1, st = tick(tt, solver, prob, opts, x0)
+                seeds_fn = (ms_warm_seeds(st, X1, U1) if solver == "MSIPDDP"
+                            else log_warm_seeds(U1, st))
+                if dtype == torch.float32:
+                    share, err = check_barrier_f32(solver, prob, opts, x1, f"warm {label}",
+                                                   seeds_fn, early_forks=label == "m4")
+                elif solver == "MSIPDDP":
+                    its = MS_WARM_EXACT_ITERS if label == "m4" else MS_EXACT_ITERS
+                    _, share, err = check_barrier(
+                        solver, f"warm {label}, {its} iterations",
+                        *barrier_pair(solver, prob, opts.replace(max_iterations=its), x1,
+                                      seeds_fn=seeds_fn), True, min_share=1.0 - MS_TIE_SHARE)
+                    if label == "m4":
+                        check_against_self(solver, f"warm {label}, {MS_WARM_SELF_ITERS} "
+                                           f"iterations", prob,
+                                           opts.replace(max_iterations=MS_WARM_SELF_ITERS),
+                                           x1, True, seeds_fn)
+                else:
+                    _, share, err = check_barrier(
+                        solver, f"warm {label}", *barrier_pair(solver, prob, opts, x1,
+                                                              seeds_fn=seeds_fn), True)
+                note(tag, name, err)
+    return errs
+
+
+def phase_warm_branches(tt, dev, opts, prob, box_tick, note):
+    """Float64 cases of kernel 7 from warm seeds on the box fleet that take
+    the warm start's other branches; each asserts its branch was reached."""
+    from cddp_tpu_torch.options import RegularizationOptions
+
+    x1, _, U1, st = box_tick
+    ip = tt.IPDDPOptions
+    gen = torch.Generator(device=dev).manual_seed(SEED + 131)
+
+    def reached(label, seeds_fn, o, x, count):
+        p, seeds, _ = seeds_fn(prob, o.replace(warm_start=True), x)
+        n = int(count(p, seeds))
+        print(f"[warm] {label}: {n} of {x.shape[0]} instances take the branch")
+        if not 0 < n:
+            raise AssertionError(f"warm {label}: no instance takes the branch")
+
+    # Stale steps: y <= EPS_DUAL on one row of every fourth step of a third
+    # of the instances re-initialises those whole steps.
+    Y = st.Y.clone()
+    Y[::3, ::4, 0] = 0.0
+    stale = st._replace(Y=Y)
+    reached("stale steps", ip_warm_seeds(stale, U1), opts, x1,
+            lambda p, s: ((s[2] != Y).any(-1).any(-1)).sum())
+    note("float64", "ipddp_solve", warm_ip_check(tt, "stale steps", prob, opts, x1,
+                                                 ip_warm_seeds(stale, U1))[1])
+    # The interior repair on slacks and duals hugging their floors.
+    S, Y = st.S.clone(), st.Y.clone()
+    S[::2, ::5, 1], Y[1::2, ::7, 2] = 1e-9, 2e-5
+    hug = st._replace(S=S, Y=Y)
+    o = opts.replace(ipddp=ip(warmstart_repair=True, warmstart_staleness_check=False))
+    reached("interior repair", ip_warm_seeds(hug, U1), o, x1,
+            lambda p, s: ((s[3] != S) | (s[2] != Y)).flatten(1).any(-1).sum())
+    note("float64", "ipddp_solve", warm_ip_check(tt, "interior repair", prob, o, x1,
+                                                 ip_warm_seeds(hug, U1))[1])
+    # The x0-drift reset on half of the batch.
+    xr = x1.clone()
+    xr[::2, 0] += 0.9
+    o = opts.replace(ipddp=ip(warmstart_reset_x0_threshold=0.5))
+    reached("x0-drift reset", ip_warm_seeds(st, U1), o, xr,
+            lambda p, s: (torch.linalg.vector_norm(p.x0 - st.x0, dim=-1) > 0.5).sum())
+    note("float64", "ipddp_solve", warm_ip_check(tt, "x0-drift reset", prob, o, xr,
+                                                 ip_warm_seeds(st, U1))[1])
+    # Nonzero gains at the regularization limit (an indefinite R): every
+    # backward attempt of the first iteration fails.
+    limit = ip_problem(tt, torch.float64, dev, horizon=8)
+    limit = limit.replace(objective=limit.objective.replace(
+        R=-5.0 * torch.eye(2, device=dev, dtype=torch.float64)))
+    lo = tt.CDDPOptions(max_iterations=4, regularization=RegularizationOptions(
+        initial_value=1e-6, update_factor=10.0, max_value=1e-2))
+    xl, _, Ul, stl = tick(tt, "IPDDP", limit, lo, x1)
+    stl = stl._replace(
+        k_u=0.05 * torch.randn(stl.k_u.shape, generator=gen, device=dev, dtype=torch.float64),
+        K_u=0.05 * torch.randn(stl.K_u.shape, generator=gen, device=dev, dtype=torch.float64))
+    counts, err = warm_ip_check(tt, "regularization limit, nonzero gains", limit, lo, xl,
+                                ip_warm_seeds(stl, Ul))
+    if counts[3] != xl.shape[0]:
+        raise AssertionError(f"warm regularization limit: statuses {counts}, not all 3")
+    note("float64", "ipddp_solve", err)
+    # The three trajectory-warm mu tiers, a third of the batch each: the
+    # plan clipped inside the box, 0.05 outside it, 0.5 outside it.
+    U = torch.clamp(U1, -1.9, 1.9)
+    U[1::3, :, 0], U[2::3, :, 0] = 2.05, 2.5
+    # (the count: the instances of the smallest of the three tiers)
+    reached("trajectory-warm tiers", ip_warm_seeds(None, U), opts, x1,
+            lambda p, s: (torch.unique(s[6], return_counts=True)[1].min()
+                          if torch.unique(s[6]).numel() == 3 else 0))
+    note("float64", "ipddp_solve", warm_ip_check(tt, "trajectory-warm mu tiers", prob, opts,
+                                                 x1, ip_warm_seeds(None, U))[1])
+
+
+class count_work:
+    """Within the ``with`` block, each launch of the whole-solve kernel of
+    ``mega`` (``mega_ipddp`` or ``mega_msipddp``) goes through its
+    ``launch_counting_work``, the same launch with its work rows returned,
+    timed by CUDA events around the wrapper. Indexing the block's value
+    gives a launch's (wrapper ms, mean work per instance by row, warp
+    divergence of the work): backward attempts and sweeps (kernel 7);
+    attempts, trials, commits and nominal resets (kernel 8)."""
+
+    def __init__(self, mega):
+        self.mega, self.records = mega, []
+
+    def __enter__(self):
+        self.launch = self.mega._launch
+
+        def counted(*args, **kw):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.mega.launch_counting_work(*args, **kw)
+            stop.record()
+            self.records.append((start, stop, out[-1]))
+            return out[0] if len(out) == 2 else out[:2]
+
+        self.mega._launch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mega._launch = self.launch
+
+    def __getitem__(self, i):
+        """(wrapper ms, mean work per instance by row, warp divergence)."""
+        start, stop, rows = self.records[i]
+        torch.cuda.synchronize()
+        return (start.elapsed_time(stop), [round(float(r.double().mean()), 3) for r in rows],
+                warp_divergence(rows))
+
+
+def phase_warm_mpc(tt, dev, smi):
+    """Phase 13 (b): the warm MPC fleet. Phase 11's tracking problem and
+    reference under IPDDP and under MSIPDDP, ``make_mpc_controller(...,
+    warm_start_solver_state=True)`` and again with False, at B_MAIN,
+    float32, 10 iterations, ``WARM_TICKS`` ticks each, the launch counts
+    zeroed before every tick: each tick one launch of the solver's tracking
+    whole-solve kernel (kernel 7 or 8), and for IPDDP one open-loop rollout
+    (the warm start re-rolls X from the plan; the warm MSIPDDP tick takes the
+    plan as its shooting nodes, the cold one re-rolls it); finite controls,
+    plans and costs. Prints ms a tick (host clock, ending in a synchronize),
+    mean iterations, status counts and the mean distance to the reference.
+    Each tick's whole-solve launch is the one its controller makes, run
+    through the kernel's ``launch_counting_work`` (``count_work``) so that
+    the tick also prints the wrapper's ms (CUDA events) and the mean work
+    per instance. Then one LogDDP solve of the box fleet with warm gains
+    (kernel 9). Returns ({kernel: launches in the warm runs}, {run: ms per
+    tick}, {run: mean iterations per tick})."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log, mega_ipddp, mega_msipddp
+
+    prob = tracking_problem(tt, torch.float32, dev)
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x_start = torch.rand(B_MAIN, 3, generator=gen, device=dev) - 0.5
+
+    def distance(x, tick):
+        here = tracking_reference(HORIZON, tick, torch.float32, dev)[0, :2]
+        return float((x[:, :2] - here).norm(dim=-1).mean())
+
+    launches, ms_runs, its_runs = {}, {}, {}
+    for solver, kernel in (("IPDDP", "ipddp_solve_track"), ("MSIPDDP", "msipddp_solve_track")):
+        for warm in (True, False):
+            run = f"{solver} {'warm' if warm else 'cold'}"
+            init_fn, step_fn = tt.make_mpc_controller(
+                prob, solver, opts, reference_fn=lambda tick: tracking_reference(
+                    HORIZON, tick, torch.float32, dev), warm_start_solver_state=warm)
+            x = x_start.clone()
+            state = init_fn(x)
+            ms, its = [], []
+            for k in range(WARM_TICKS):
+                dispatch_log.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with count_work(mega_ipddp if solver == "IPDDP" else mega_msipddp) as work:
+                    u, state, info = step_fn(state, x, k)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts = dict(dispatch_log.launches)
+                want = {kernel: 1}
+                if solver == "IPDDP" or not warm:
+                    want["open_loop_rollout"] = 1
+                if counts != want:
+                    raise AssertionError(f"{run} MPC tick {k}: launches {counts}, not {want}")
+                if warm:
+                    for name, v in counts.items():
+                        launches[name] = launches.get(name, 0) + v
+                mpc = state[0] if warm else state
+                for name, t in (("u_apply", u), ("U_plan", mpc.U_plan), ("X_plan", mpc.X_plan),
+                                ("cost", info["cost"])):
+                    if not bool(t.isfinite().all()):
+                        raise AssertionError(f"{run} MPC tick {k}: non-finite {name}")
+                its.append(float(info["iterations"].double().mean()))
+                x = prob.model.discrete_dynamics(x, u, k * DT, DT)
+                kernel_ms, rows, div = work[0]
+                print(f"[warm mpc] {run} tick {k}: {ms[-1]:.2f} ms ({B_MAIN / ms[-1] * 1e3:.1f} "
+                      f"solves/s; the kernel's wrapper {kernel_ms:.2f} ms, mean work per "
+                      f"instance {rows}, warp divergence {div:.3f}), mean iterations "
+                      f"{its[-1]:.3f}, statuses "
+                      f"{torch.bincount(info['status'].long(), minlength=4).tolist()}, "
+                      f"launches {counts}, mean distance to the reference "
+                      f"{distance(x, k + 1):.4f}  [{smi}]")
+            if not bool(x.isfinite().all()):
+                raise AssertionError(f"{run}: non-finite plant states")
+            ms_runs[run], its_runs[run] = ms, its
+            steady = sum(ms[1:]) / (len(ms) - 1)
+            print(f"[warm mpc] {run}, B={B_MAIN}, {WARM_TICKS} ticks: {steady:.2f} ms a tick "
+                  f"after the first, first {ms[0]:.2f}; mean iterations a tick "
+                  f"{sum(its) / len(its):.3f}; mean distance to the reference "
+                  f"{distance(x, WARM_TICKS):.4f} at the end  [{smi}]")
+    # LogDDP's warm gains on the box fleet (kernel 9 from warm gains).
+    box = ip_problem(tt, torch.float32, dev)
+    _, _, U1, gains = tick(tt, "LogDDP", box, opts, x_start)
+    dispatch_log.reset()
+    sol = tt.solve(box.replace(x0=x_start), "LogDDP", opts.replace(warm_start=True), U0=U1,
+                   gains=gains)
+    torch.cuda.synchronize()
+    counts = dict(dispatch_log.launches)
+    if counts.get("logddp_solve", 0) != 1 or not bool(sol.final_objective.isfinite().all()):
+        raise AssertionError(f"the warm-gains LogDDP fleet: launches {counts}, or non-finite "
+                             f"costs")
+    launches["logddp_solve"] = counts["logddp_solve"]
+    print(f"[warm mpc] LogDDP box fleet from warm gains: launches {counts}, mean iterations "
+          f"{float(sol.iterations_completed.double().mean()):.3f}")
+    return launches, ms_runs, its_runs
+
+
+def phase_certified_fleet(tt, dev, smi):
+    """Phase 13 (c): the certified fleet (``bench_fleet_polish.py``'s
+    configuration, ``_problem`` :27-43: the IPDDP box fleet, H = 20): the
+    float32 fleet at B_MAIN, 20 iterations, tolerance 1e-4, through
+    ``batched_solve``, then ``tt.polish(..., tolerance=1e-4)`` in float64 on
+    the card, with the launch counts zeroed before it. Prints the path the
+    polish took (dual-warm when every instance converged, else
+    trajectory-seeded), the certified fraction, the mean iterations after
+    the polish, the fleet's and the polish's seconds (host clock, ending in
+    a synchronize), the pre-polish relative cost error's p50, p99 and max
+    against the polished cost, and kernel 7's float64 launches. Returns
+    (launches of the polish, summary)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    prob32, prob64 = ip_problem(tt, torch.float32, dev), ip_problem(tt, torch.float64, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = torch.rand(B_MAIN, 3, generator=gen, device=dev) - 0.5
+    opts = tt.CDDPOptions(max_iterations=20, tolerance=1e-4)
+    batched_solve(prob32, x0, "IPDDP", opts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol32 = batched_solve(prob32, x0, "IPDDP", opts)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    # The polish's gate (refine.py): an IPDDP fleet dual-warms when every
+    # instance converged.
+    path = "dual-warm" if bool(sol32.converged_mask().all()) else "trajectory-seeded"
+    dispatch_log.reset()
+    t0 = time.perf_counter()
+    out = tt.polish(prob64, sol32, tolerance=1e-4)
+    torch.cuda.synchronize()
+    polish_s = time.perf_counter() - t0
+    counts = dict(dispatch_log.launches)
+    if counts.get("ipddp_solve", 0) != 1 or out.final_objective.dtype != torch.float64:
+        raise AssertionError(f"the polish did not run as one float64 launch of kernel 7: "
+                             f"{counts}")
+    if not bool(out.final_objective.isfinite().all()):
+        raise AssertionError("non-finite polished costs")
+    c32, c64 = sol32.final_objective.double(), out.final_objective
+    rel = (c32 - c64).abs() / torch.clamp(c64.abs(), min=1e-9)
+    q = torch.quantile(rel, torch.tensor([0.5, 0.99], dtype=torch.float64, device=dev))
+    summary = dict(path=path, converged_f32=float(sol32.converged_mask().double().mean()),
+                   certified=float(out.converged_mask().double().mean()),
+                   mean_iterations=float(out.iterations_completed.double().mean()),
+                   fleet_s=fleet_s, polish_s=polish_s, rel_p50=float(q[0]),
+                   rel_p99=float(q[1]), rel_max=float(rel.max()),
+                   inf_pr_max=float(out.inf_pr.max()), inf_du_max=float(out.inf_du.max()),
+                   launches=counts)
+    print(f"[certified] B={B_MAIN}: float32 fleet {fleet_s:.4f} s (converged "
+          f"{summary['converged_f32']:.4%}); polish ({path}) in float64 {polish_s:.4f} s, "
+          f"certified {summary['certified']:.4%}, mean iterations "
+          f"{summary['mean_iterations']:.3f}, statuses "
+          f"{torch.bincount(out.status_code.long(), minlength=5).tolist()}, max inf_pr "
+          f"{summary['inf_pr_max']:.3e}, max inf_du {summary['inf_du_max']:.3e}; pre-polish "
+          f"relative cost error p50 {summary['rel_p50']:.3e}, p99 {summary['rel_p99']:.3e}, "
+          f"max {summary['rel_max']:.3e}; kernel 7 float64 launches {counts}  [{smi}]")
+    return counts, summary
+
+
+def time_warm_kernels(tt, dev, smi):
+    """Device ms of kernels 7 and 8 on the warm MPC fleet's tick-1 seeds
+    (the tracking problem at B_MAIN, float32: a cold solve and one tick) and
+    of kernel 9 from warm gains on the box fleet, each by the profiler
+    (``device_ms``) after a CUDA-event warm-up. Returns {kernel: (ms with
+    the wrapper, device ms, source)}."""
+    from cddp_tpu_torch.ops.kernels import mega_ipddp, mega_logddp, mega_msipddp
+
+    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    wopts = opts.replace(warm_start=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = torch.rand(B_MAIN, 3, generator=gen, device=dev) - 0.5
+    prob = tracking_problem(tt, torch.float32, dev)
+    box = ip_problem(tt, torch.float32, dev)
+    out = {}
+    x1, _, U1, st = tick(tt, "IPDDP", prob, opts, x0)
+    p, seeds, term = ip_warm_seeds(st, U1)(prob, wopts, x1)
+    runs = {"ipddp_solve": lambda: mega_ipddp._launch(p, opts, *seeds, terminal=term)}
+    x1m, X1m, U1m, stm = tick(tt, "MSIPDDP", prob, opts, x0)
+    pm = prob.replace(x0=x1m)
+    seeds_m = ms_warm_seeds(stm, X1m, U1m)(pm, wopts)
+    runs["msipddp_solve"] = lambda: mega_msipddp._launch(pm, opts, *seeds_m)
+    x1l, _, U1l, gains = tick(tt, "LogDDP", box, opts, x0)
+    pl = box.replace(x0=x1l)
+    seeds_l = log_warm_seeds(U1l, gains)(pl, wopts)
+    runs["logddp_solve"] = lambda: mega_logddp._launch(pl, opts, *seeds_l)
+    for name, fn in runs.items():
+        ms = cuda_ms(fn, 5)
+        dev_ms, source = device_ms(fn, name, 3)
+        out[name] = (ms, dev_ms, source)
+        print(f"[timing] {name} from warm seeds at B={B_MAIN}: {ms:.3f} ms with the wrapper, "
+              f"{dev_ms:.3f} ms device ({source})  [{smi}]")
+    return out
+
+
+def phase_warm(tt, dev, smi):
+    """Phase 13, warm starts: (a) ``phase_warm_kernels``, (b)
+    ``phase_warm_mpc``, (c) ``phase_certified_fleet``, and the warm
+    kernels' device times. Returns ({kernel: warm entry}, certified
+    summary)."""
+    errs = phase_warm_kernels(tt, dev)
+    launches, ms_runs, its_runs = phase_warm_mpc(tt, dev, smi)
+    polish_launches, summary = phase_certified_fleet(tt, dev, smi)
+    timing = time_warm_kernels(tt, dev, smi)
+    entries = {}
+    for name in ("ipddp_solve", "msipddp_solve", "logddp_solve"):
+        ms, dev_ms, source = timing[name]
+        key = name + ("_track" if name != "logddp_solve" else "")
+        entries[name] = {"launches": launches.get(key, 0), "ms": ms, "device_ms": dev_ms,
+                         "device_ms_source": source,
+                         "max_abs_err": errs["float32"].get(name),
+                         "max_abs_err_f64": errs["float64"].get(name)}
+    entries["ipddp_solve"]["polish_f64_launches"] = polish_launches.get("ipddp_solve", 0)
+    for name, solver in (("ipddp_solve", "IPDDP"), ("msipddp_solve", "MSIPDDP")):
+        entries[name]["mpc_ms"] = {k: v for k, v in ms_runs.items() if k.split()[0] == solver}
+        entries[name]["mpc_iterations"] = {k: v for k, v in its_runs.items()
+                                           if k.split()[0] == solver}
+    return entries, summary
+
+
 def main():
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -2709,6 +3264,10 @@ def main():
     te_launches, te_errs, te_timing, te_work, te_attrs = phase_terminal(tt, dev, smi)
     print(f"[clock] phase 12 done at {time.perf_counter() - t_start:.1f} s")
 
+    # --- phase 13: warm starts --------------------------------------------------------
+    warm_entries, certified = phase_warm(tt, dev, smi)
+    print(f"[clock] phase 13 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
                              "cddp_tpu/ops/pallas/riccati.py:236"),
@@ -2818,6 +3377,14 @@ def main():
             "registers": a["registers"], "spill_bytes": a["spill_bytes"],
             "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
             "blocks_per_sm": a["blocks_per_sm"]})
+    # Phase 13's warm starts: kernels 7, 8 and 9 from warm seeds, each under
+    # "warm": launches in the warm MPC runs (kernels 7 and 8's tracking
+    # variants) and the warm-gains LogDDP fleet, device ms on their seeds,
+    # errors against the plain drivers; kernel 7's also the certified
+    # fleet's float64 polish launches and the MPC ms and iterations a tick.
+    for name, entry in warm_entries.items():
+        by_name[name]["warm"] = entry
+    by_name["ipddp_solve"]["warm"]["certified_fleet"] = certified
     print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in rates.items()) + "; IPDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in ip_rates.items()) + "".join(

@@ -211,7 +211,6 @@ def test_dispatch_and_unported_options():
         (opts.replace(ipddp=tt.IPDDPOptions(lqr_backend="parallel")), "parallel"),
         (opts.replace(ipddp=tt.IPDDPOptions(check_state_stationarity=True)),
          "stationarity"),
-        (opts.replace(warm_start=True), "warm_start"),
         (opts.replace(verbose=True), "verbose"),
     ):
         with pytest.raises(NotImplementedError, match=match):

@@ -169,12 +169,10 @@ def test_dispatch_and_unported_options():
     assert not mega_logddp.mega_eligible(p.replace(constraints={}), opts)
     with pytest.raises(ValueError, match="solve_engine='fused'"):
         tt.solve(p, "LogDDP", opts.replace(solve_engine="fused", enable_parallel=True))
-    gains = (torch.zeros(6, 2, dtype=torch.float64), torch.zeros(6, 2, 3, dtype=torch.float64))
     for o, kw, match in (
         (opts.replace(use_ilqr=False), {}, "full DDP"),
         (opts.replace(log_barrier=tt.LogBarrierOptions(lqr_backend="parallel")), {},
          "parallel"),
-        (opts.replace(warm_start=True), dict(gains=gains), "warm-start"),
         (opts.replace(verbose=True), {}, "verbose"),
         (opts.replace(max_cpu_time=1.0), {}, "max_cpu_time"),
     ):

@@ -5,7 +5,7 @@ of CLDDP and IPDDP, each with and without ``reference_fn`` (the arc
 reference sliding by one step a tick). Both controllers see the same plant
 states; u_apply, the shifted plans and the (B,) cost, iterations and status
 of ``info`` agree within 1e-8 (counts exactly) on every tick. Also the
-``warm_start_solver_state`` refusals."""
+``warm_start_solver_state`` refusals of CLDDP and LogDDP."""
 
 import dataclasses
 import functools
@@ -80,17 +80,12 @@ def test_fleet_controller_matches_jax(solver, iterations, tracking):
     assert np.all(np.isfinite(x))
 
 
-@pytest.mark.parametrize("solver,error", [
-    ("CLDDP", ValueError), ("LogDDP", ValueError),
-    ("IPDDP", NotImplementedError), ("MSIPDDP", NotImplementedError)])
-def test_warm_start_solver_state_refusals(solver, error):
-    """CLDDP and LogDDP refuse solver-state threading as the JAX package does;
-    IPDDP and MSIPDDP, which the JAX package threads, are not ported."""
+@pytest.mark.parametrize("solver", ["CLDDP", "LogDDP"])
+def test_warm_start_solver_state_refusals(solver):
+    """CLDDP and LogDDP refuse solver-state threading as the JAX package
+    does (IPDDP and MSIPDDP thread it: tests/test_torch_warm.py)."""
     p = port_problem(tracking_jax(horizon=N))
-    match = "requires IPDDP or MSIPDDP" if error is ValueError else "ROADMAP A.4.6"
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="requires IPDDP or MSIPDDP"):
         tt.make_mpc_controller(p, solver, warm_start_solver_state=True)
-    if error is ValueError:
-        with pytest.raises(ValueError, match="requires IPDDP or MSIPDDP"):
-            jmake_mpc_controller(tracking_jax(horizon=N), solver,
-                                 warm_start_solver_state=True)
+    with pytest.raises(ValueError, match="requires IPDDP or MSIPDDP"):
+        jmake_mpc_controller(tracking_jax(horizon=N), solver, warm_start_solver_state=True)

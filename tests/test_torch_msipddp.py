@@ -306,12 +306,10 @@ def test_dispatch_and_unported_options():
         tt.solve(p, "MSIPDDP", opts.replace(solve_engine="fused", enable_parallel=True))
     with pytest.raises(ValueError, match="rollout_type"):
         tt.solve(p, "MSIPDDP", opts.replace(msipddp=tt.MSIPDDPOptions(rollout_type="linear")))
-    sol, state = tt.solve(p, "MSIPDDP", opts, return_state=True)
     for o, kw, match in (
         (opts.replace(use_ilqr=False), {}, "full DDP"),
         (opts.replace(msipddp=tt.MSIPDDPOptions(lqr_backend="parallel")), {}, "parallel"),
         (opts.replace(msipddp=tt.MSIPDDPOptions(lqr_backend="sharded")), {}, "sharded"),
-        (opts.replace(warm_start=True), dict(state=state), "warm start"),
         (opts.replace(verbose=True), {}, "verbose"),
         (opts.replace(max_cpu_time=1.0), {}, "max_cpu_time"),
         (opts.replace(return_iteration_info=True), {}, "return_iteration_info"),

@@ -3,7 +3,7 @@
 
     python3 torch_host_kernel.py [--variants m4 m4_ti1 m4_ti2 m4_te3 m4_te3_ti1]
                                  [--dtype f64|f32] [--batch 1024] [--iterations 10]
-                                 [--shares] [--work] [--svd]
+                                 [--shares] [--work] [--svd] [--warm]
 
 A machine with no GPU and no ``nvcc`` can still hold the kernel's
 arithmetic against the plain driver. The script copies
@@ -16,7 +16,10 @@ stand-in ``cuda_runtime.h``, and points ``build.function`` at the result, so
 that ``mega_ipddp._launch`` runs the kernel's code on CPU tensors. Then,
 on the IPDDP box fleet (variant ``m4``) and its terminal fleets
 (``chip_smoke.terminal_problem``), cold seeds from x0 ~ U(-0.5, 0.5) of
-numpy's generator with seed 0:
+numpy's generator with seed 0 (with ``--warm``, warm seeds instead: the
+plain driver's cold solve from those x0, then one tick, x0 advanced one step
+and the plan shifted, and ``ipddp.warm_start`` from the solve's state, as
+``chip_smoke.py``'s phase 13 seeds kernel 7):
 
 - by default, each variant's statuses and iteration counts against the
   plain driver's and the largest X, U, cost, multiplier and terminal-dual
@@ -150,18 +153,24 @@ def x0_batch(batch, dtype):
     return torch.as_tensor(rng.uniform(-0.5, 0.5, (batch, 3)), dtype=dtype)
 
 
-def pair(variant, dtype, batch, iterations, x0=None):
-    """(kernel Solution, its work rows, plain Solution) from cold seeds."""
+def pair(variant, dtype, batch, iterations, x0=None, warm=False):
+    """(kernel Solution, its work rows, plain Solution) from cold seeds, or
+    with ``warm`` from the warm seeds of a tick."""
     opts = tt.CDDPOptions(max_iterations=iterations, tolerance=1e-4)
     x0 = x0_batch(batch, dtype) if x0 is None else x0
-    p, seeds = chip_smoke.ip_seeds(problem(variant, dtype), opts, x0)
-    kern, work = mega_ipddp.launch_counting_work(p, opts, *seeds)
-    plain = ipddp._drive(p, chip_smoke.plain_ip_options(tt, opts), *seeds)
+    prob, seeds_fn = problem(variant, dtype), None
+    if warm:
+        x0, _, U1, state = chip_smoke.tick(tt, "IPDDP", prob, opts, x0)
+        seeds_fn = chip_smoke.ip_warm_seeds(state, U1)
+        opts = opts.replace(warm_start=True)
+    p, seeds, term = chip_smoke.seeded(prob, opts, x0, seeds_fn)
+    kern, work = mega_ipddp.launch_counting_work(p, opts, *seeds, terminal=term)
+    plain = ipddp._drive(p, chip_smoke.plain_ip_options(tt, opts), *seeds, terminal=term)
     return kern, work, plain
 
 
-def compare(variant, dtype, batch, iterations):
-    kern, _, plain = pair(variant, dtype, batch, iterations)
+def compare(variant, dtype, batch, iterations, warm=False):
+    kern, _, plain = pair(variant, dtype, batch, iterations, warm=warm)
     same = ((kern.status_code == plain.status_code)
             & (kern.iterations_completed == plain.iterations_completed))
     fields = {"X": (kern.state_trajectory, plain.state_trajectory),
@@ -172,7 +181,7 @@ def compare(variant, dtype, batch, iterations):
         for name, t in (getattr(plain, group) or {}).items():
             fields[f"{group}[{name}]"] = (getattr(kern, group)[name], t)
     errs = ", ".join(f"{k} {float((a - b)[same].abs().max()):.3e}" for k, (a, b) in fields.items())
-    print(f"[host] {variant} {dtype}: status and iterations equal on "
+    print(f"[host] {variant} {dtype}{' warm' if warm else ''}: status and iterations equal on "
           f"{float(same.double().mean()):.4%} of {batch}; max abs err {errs}")
 
 
@@ -226,6 +235,7 @@ def main():
     ap.add_argument("--shares", action="store_true")
     ap.add_argument("--work", action="store_true")
     ap.add_argument("--svd", action="store_true")
+    ap.add_argument("--warm", action="store_true")
     args = ap.parse_args()
     torch.set_num_threads(4)
     use_host(build_host())
@@ -236,7 +246,7 @@ def main():
         elif args.work:
             work(variant, dtype, args.batch, args.iterations)
         else:
-            compare(variant, dtype, args.batch, args.iterations)
+            compare(variant, dtype, args.batch, args.iterations, args.warm)
     if args.svd:
         svd_floor(dtype, args.batch, args.iterations)
 
