@@ -3,20 +3,25 @@
 Batch-first CLDDP with a control box; IPDDP with every path-constraint type
 of the JAX package (boxes, keep-out balls, linear, pole, cone and thrust
 constraints) and both terminal types (linear inequalities A x_N <= b and
-equalities x_N = target); LogDDP and MSIPDDP with control and state boxes; all over the
-unicycle, as the JAX package solves them, towards a goal or along a per-step
-reference trajectory (``reference_states``); and batch-first receding-horizon
-MPC (``make_mpc_controller``), warm-started from a trajectory or from the
-interior-point solvers' state (``IPDDPSolverState``, ``MSIPDDPSolverState``),
-and the float64 ``polish`` of a float32 fleet. Hand-written CUDA kernels for
-NVIDIA Hopper (``ops/csrc/``): for CLDDP the Riccati backward pass, the
-line-search rollout and the whole solve; for IPDDP the open-loop rollout
-(which seeds every barrier solver), the interior-point forward pass, the
-condensed backward and the whole solve (box and keep-out-ball stacks, with
-the "auto" stall latch, and terminal constraints on the control box); the whole LogDDP and MSIPDDP solves. CUDA tensors
-run the kernels; CPU tensors run their plain PyTorch versions. The builders
-put tensors on the CUDA card unless given ``device``. The kernels are built
-with ``nvcc`` at first use, never at import.
+equalities x_N = target); LogDDP and MSIPDDP with control and state boxes;
+over the unicycle, the pendulum, the cart-pole and the
+Hill-Clohessy-Wiltshire spacecraft (``cddp_tpu_torch.models``), as the JAX
+package solves them, towards a goal or along a per-step reference
+trajectory (``reference_states``); and batch-first receding-horizon MPC
+(``make_mpc_controller``), warm-started from a trajectory or from the
+interior-point solvers' state (``IPDDPSolverState``,
+``MSIPDDPSolverState``), and the float64 ``polish`` of a float32 fleet.
+Hand-written CUDA kernels for NVIDIA Hopper (``ops/csrc/``): for CLDDP the
+Riccati backward pass, the line-search rollout and the whole solve; for
+IPDDP the open-loop rollout (which seeds every barrier solver), the
+interior-point forward pass, the condensed backward and the whole solve
+(box and keep-out-ball stacks, with the "auto" stall latch, and terminal
+constraints on the control box); the whole LogDDP and MSIPDDP solves. Each
+kernel is instantiated for the models and stacks its wrapper's table names;
+other problems run the plain driver. CUDA tensors run the kernels; CPU
+tensors run their plain PyTorch versions. The builders put tensors on the
+CUDA card unless given ``device``. The kernels are built with ``nvcc`` at
+first use, never at import.
 """
 
 from cddp_tpu_torch.constraints.path import (

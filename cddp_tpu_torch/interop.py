@@ -17,14 +17,17 @@ import torch
 from cddp_tpu_torch import devices
 from cddp_tpu_torch.constraints import path, terminal
 from cddp_tpu_torch.costs.objective import QuadraticObjective
-from cddp_tpu_torch.models.unicycle import Unicycle
+from cddp_tpu_torch.models import HCW, CartPole, Pendulum, Unicycle
 from cddp_tpu_torch.options import CDDPOptions
 from cddp_tpu_torch.problem import Problem
 
-# Model name -> constructor from (parameter vector, integrator).
-_MODELS = {
-    "Unicycle": lambda params, integrator: Unicycle(integration_type=integrator),
-}
+# Model name (the JAX package's class name) -> (class, its parameter count).
+# The parameter vector is the model registry's, in the JAX lane order
+# (``ops/kernels/rollout.py::_REGISTRY``): the pendulum's (length, mass,
+# damping, gravity), the cart-pole's (cart_mass, pole_mass, pole_length,
+# gravity, damping), HCW's (mean_motion, mass); the unicycle has none.
+_MODELS = {"Unicycle": (Unicycle, 0), "Pendulum": (Pendulum, 4), "CartPole": (CartPole, 5),
+           "HCW": (HCW, 2)}
 _BOXES = {"control": path.ControlConstraint, "state": path.StateConstraint}
 # The other path-constraint types, by the JAX package's type names; each is
 # built from its fields, which carry the JAX type's names.
@@ -41,8 +44,10 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
                         integrator: str, *, device, dtype, boxes=None,
                         constraints=None, reference_states=None,
                         terminal_constraints=None) -> Problem:
-    """Build a problem from numpy arrays. ``Q`` and ``R`` are already
-    dt-prescaled (as ``QuadraticObjective`` stores them) and go in as given;
+    """Build a problem from numpy arrays. ``model_params`` is the model's
+    parameter vector in the registry's order (``_MODELS``). ``Q`` and ``R``
+    are already dt-prescaled (as ``QuadraticObjective`` stores them) and go
+    in as given;
     ``lower``/``upper`` None means no "ControlConstraint" box. ``boxes`` maps
     further constraint names to ("control" | "state", lower, upper,
     scale_factor); ``constraints`` maps names to (type name, fields): a
@@ -56,10 +61,14 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
     ``reference_states`` (N or N+1, nx) makes the objective track it
     (``QuadraticObjective.reference_states``)."""
     try:
-        make_model = _MODELS[model_name]
+        model_cls, n_params = _MODELS[model_name]
     except KeyError as e:
-        raise ValueError(f"model {model_name!r} is not ported; "
-                         f"available: {sorted(_MODELS)}") from e
+        raise ValueError(f"model {model_name!r} is not ported; the ported "
+                         f"models: {sorted(_MODELS)}") from e
+    params = np.asarray(model_params, dtype=np.float64).reshape(-1).tolist()
+    if len(params) != n_params:
+        raise ValueError(f"model {model_name!r} takes {n_params} parameters, "
+                         f"got {len(params)}")
     t = lambda a: torch.as_tensor(np.array(a), device=device, dtype=dtype)  # noqa: E731
     objective = QuadraticObjective(
         Q=t(Q), R=t(R), Qf=t(Qf), reference_state=t(goal),
@@ -81,7 +90,7 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
 
     items.update(build(_PATH, constraints))
     return Problem(
-        model=make_model(np.asarray(model_params), integrator),
+        model=model_cls(*params, integration_type=integrator),
         objective=objective, x0=t(x0), horizon=int(horizon),
         timestep=float(timestep), constraints=items,
         terminal_constraints=build(_TERMINAL, terminal_constraints),

@@ -17,6 +17,14 @@ from torch import nn
 from cddp_tpu_torch.ops.integrators import integrate
 
 
+def register_parameters(model: nn.Module, **values: float) -> None:
+    """The physical parameters as float64 scalar buffers, in the order given
+    (the JAX model's field order). A solve casts them to its dtype
+    (``solvers/base.py::canonicalize_problem_dtype``)."""
+    for name, v in values.items():
+        model.register_buffer(name, torch.tensor(float(v), dtype=torch.float64))
+
+
 class DynamicalSystem(nn.Module):
     """Continuous ODE plus integrator dispatch. Subclasses set ``state_dim``
     and ``control_dim`` and implement ``forward``."""

@@ -367,5 +367,15 @@ int launch_clddp_solve(T* X, T* U, T* k, T* K, T* stats, const T* refs,
                 (cddp::clddp_solve_kernel<scalar_t, cddp::STRUCT, TRACK>), cddp::kThreads, \
                 (cddp::clddp_solve_smem<scalar_t, cddp::STRUCT>()))
 
+// The models of rollout.CLDDP_MODELS; each one's staging fits a block's
+// shared memory in both types.
 CDDP_CLDDP_SOLVE(unicycle, Unicycle, false, )
 CDDP_CLDDP_SOLVE(unicycle, Unicycle, true, _track)
+CDDP_CLDDP_SOLVE(pendulum, Pendulum, false, )
+CDDP_CLDDP_SOLVE(pendulum, Pendulum, true, _track)
+CDDP_CLDDP_SOLVE(cartpole, CartPole, false, )
+CDDP_CLDDP_SOLVE(cartpole, CartPole, true, _track)
+static_assert(cddp::clddp_solve_smem<double, cddp::Unicycle>() <= 232448 &&
+                  cddp::clddp_solve_smem<double, cddp::Pendulum>() <= 232448 &&
+                  cddp::clddp_solve_smem<double, cddp::CartPole>() <= 232448,
+              "a block's staging must fit its shared memory");

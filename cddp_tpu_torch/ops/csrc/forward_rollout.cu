@@ -90,5 +90,10 @@ int launch_forward_rollout(const T* Xb, const T* Ub, const T* k, const T* K,
                 (cddp::forward_rollout_kernel<scalar_t, cddp::STRUCT, TRACK>),           \
                 cddp::kThreads, 0)
 
+// The models of rollout.CLDDP_MODELS.
 CDDP_FORWARD_ROLLOUT(unicycle, Unicycle, false, )
 CDDP_FORWARD_ROLLOUT(unicycle, Unicycle, true, _track)
+CDDP_FORWARD_ROLLOUT(pendulum, Pendulum, false, )
+CDDP_FORWARD_ROLLOUT(pendulum, Pendulum, true, _track)
+CDDP_FORWARD_ROLLOUT(cartpole, CartPole, false, )
+CDDP_FORWARD_ROLLOUT(cartpole, CartPole, true, _track)

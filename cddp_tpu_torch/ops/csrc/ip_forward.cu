@@ -133,9 +133,10 @@ int launch_ip_forward(const T* const* in, T* const* out, const T* refs, const do
 
 }  // namespace cddp
 
-// m: a control box (4), a state box (6) or both (10) on the unicycle; the
-// goal form and (TRACK true, suffix _track) the tracking form, whose `refs`
-// is the shared (N, nx) reference (NULL and unread in the goal form).
+// m (ip_rollout.KERNEL_ROWS): a control box (4), a state box (6) or both
+// (10) on the unicycle, the control box on the pendulum (2) and on HCW (6);
+// the goal form and (TRACK true, suffix _track) the tracking form, whose
+// `refs` is the shared (N, nx) reference (NULL and unread in the goal form).
 #define CDDP_IP_FORWARD(MODEL, STRUCT, M, TRACK, SUFFIX)                               \
   extern "C" int CDDP_EXPORT(cddp_ip_forward_##MODEL##_m##M##SUFFIX)(                  \
       const scalar_t* Xb, const scalar_t* Ub, const scalar_t* Y, const scalar_t* S,    \
@@ -164,3 +165,7 @@ CDDP_IP_FORWARD(unicycle, Unicycle, 10, false, )
 CDDP_IP_FORWARD(unicycle, Unicycle, 4, true, _track)
 CDDP_IP_FORWARD(unicycle, Unicycle, 6, true, _track)
 CDDP_IP_FORWARD(unicycle, Unicycle, 10, true, _track)
+CDDP_IP_FORWARD(pendulum, Pendulum, 2, false, )
+CDDP_IP_FORWARD(pendulum, Pendulum, 2, true, _track)
+CDDP_IP_FORWARD(hcw, HCW, 6, false, )
+CDDP_IP_FORWARD(hcw, HCW, 6, true, _track)

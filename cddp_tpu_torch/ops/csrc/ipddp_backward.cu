@@ -229,7 +229,10 @@ constexpr int ipddp_backward_worst_smem() {
   for (int o = 0; o < 12; ++o) V += Sh::D[o];
   return BackIn<T>::bytes(V, 0, 0);
 }
-static_assert(ipddp_backward_worst_smem<scalar_t, 3, 2, 10>() <= 232448,
+// Each build checks its own type (float64 blocks are narrower).
+static_assert(ipddp_backward_worst_smem<scalar_t, 3, 2, 10>() <= 232448 &&
+                  ipddp_backward_worst_smem<scalar_t, 3, 2, 5>() <= 232448 &&
+                  ipddp_backward_worst_smem<scalar_t, 2, 1, 2>() <= 232448,
               "the tiles of a fully per-instance layout must fit a block's shared memory");
 
 // in: the 16 inputs; strides: each one's (batch, step, value) strides in
@@ -261,8 +264,9 @@ int launch_ipddp_backward(const T* const* in, const long long* strides, T* const
 
 }  // namespace cddp
 
-// (nx, nu, m): the unicycle with a control box (m=4), a state box (6),
-// both (10), or a control box and a keep-out ball (5). Registered with the
+// (nx, nu, m) of ipddp_riccati.KERNEL_SHAPES: the unicycle with a control
+// box (m=4), a state box (6), both (10), or a control box and a keep-out
+// ball (5); the pendulum with its control box (2, 1, 2). Registered with the
 // per-pass driver's layout of a box stack.
 #define CDDP_IPDDP_BACKWARD(NX, NU, M)                                                 \
   extern "C" int CDDP_EXPORT(cddp_ipddp_backward_##NX##x##NU##x##M)(                   \
@@ -279,3 +283,4 @@ CDDP_IPDDP_BACKWARD(3, 2, 4)
 CDDP_IPDDP_BACKWARD(3, 2, 5)
 CDDP_IPDDP_BACKWARD(3, 2, 6)
 CDDP_IPDDP_BACKWARD(3, 2, 10)
+CDDP_IPDDP_BACKWARD(2, 1, 2)

@@ -570,9 +570,10 @@ int launch_logddp_solve(T* const* buf, const T* refs, const double* consts, cons
 
 }  // namespace cddp
 
-// m: a control box (4), a state box (6) or both (10) on the unicycle; the
-// goal form and (TRACK true, suffix _track) the tracking form, whose `refs`
-// is the shared (N, nx) reference (NULL and unread in the goal form).
+// m (mega_ipddp.BOX_ROWS): a control box (4), a state box (6) or both
+// (10) on the unicycle, the control box (2) on the pendulum; the goal form
+// and (TRACK true, suffix _track) the tracking form, whose `refs` is the
+// shared (N, nx) reference (NULL and unread in the goal form).
 #define CDDP_LOGDDP_SOLVE(MODEL, STRUCT, M, TRACK, SUFFIX)                             \
   extern "C" int CDDP_EXPORT(cddp_logddp_solve_##MODEL##_m##M##SUFFIX)(                \
       scalar_t* X, scalar_t* U, scalar_t* k, scalar_t* K, scalar_t* stats,             \
@@ -595,3 +596,8 @@ CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 10, false, )
 CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 4, true, _track)
 CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 6, true, _track)
 CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 10, true, _track)
+CDDP_LOGDDP_SOLVE(pendulum, Pendulum, 2, false, )
+CDDP_LOGDDP_SOLVE(pendulum, Pendulum, 2, true, _track)
+static_assert(cddp::logddp_solve_smem<double, cddp::Unicycle>() <= 232448 &&
+                  cddp::logddp_solve_smem<double, cddp::Pendulum>() <= 232448,
+              "a block's staging must fit its shared memory");

@@ -1,11 +1,19 @@
 // Model device functions and the explicit integrators.
 //
 // Each registered model (ops/kernels/rollout.py::_REGISTRY) is a struct with
-// its dimensions, its parameter count, the continuous dynamics f(x, u, p)
-// (cddp_tpu/ops/pallas/rollout.py:49-50) and the analytic Jacobians
-// (Fx, Fu) (cddp_tpu/ops/pallas/mega_clddp.py:94-99). integrate() is the
-// four explicit steppers with the stage arithmetic of rollout.py:580-613;
-// rollout_step() is one closed-loop step with its running cost.
+// its dimensions, its parameter count NP (the registry's parameter vector,
+// in the JAX lane order), the continuous dynamics f(x, u, p)
+// (cddp_tpu/ops/pallas/rollout.py:49-72, :173-180) and the analytic
+// Jacobians (Fx, Fu) (cddp_tpu/ops/pallas/mega_clddp.py:94-205): the TPU
+// kernels' model lanes. Each writes the port's plain model's expressions in
+// its order of operations, so that the float64 build (--fmad=false) rounds
+// like it: the pendulum's analytic Jacobians are the JAX model's
+// (pendulum.py:41-57), not the lane's g*cos/l; the cart-pole's and HCW's
+// are what forward-mode AD of their dynamics gives, as the plain models
+// take them (the JAX models have no analytic Jacobians).
+// integrate() is the four explicit steppers with the stage arithmetic of
+// rollout.py:580-613; rollout_step() is one closed-loop step with its
+// running cost.
 #pragma once
 
 #include "small_linalg.cuh"
@@ -46,6 +54,125 @@ struct Unicycle {
     Fu[1][1] = T(0);
     Fu[2][0] = T(0);
     Fu[2][1] = T(1);
+  }
+};
+
+// p = (length, mass, damping, gravity).
+struct Pendulum {
+  static constexpr int NX = 2;
+  static constexpr int NU = 1;
+  static constexpr int NP = 4;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p,
+                           T (&dx)[NX]) {
+    const T l = p[0], m = p[1], b = p[2], g = p[3];
+    dx[0] = x[1];
+    dx[1] = (u[0] - b * x[1] + m * g * l * dsin(x[0])) / (m * l * l);
+  }
+
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T l = p[0], m = p[1], b = p[2], g = p[3];
+    const T ml2 = m * (l * l);
+    Fx[0][0] = T(0);
+    Fx[0][1] = T(1);
+    Fx[1][0] = (g / l) * dcos(x[0]);
+    Fx[1][1] = -b / ml2;
+    Fu[0][0] = T(0);
+    Fu[1][0] = T(1) / ml2;
+  }
+};
+
+// p = (cart_mass, pole_mass, pole_length, gravity, damping); x = (x, theta,
+// x_dot, theta_dot).
+struct CartPole {
+  static constexpr int NX = 4;
+  static constexpr int NU = 1;
+  static constexpr int NP = 5;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p,
+                           T (&dx)[NX]) {
+    const T mc = p[0], mp = p[1], l = p[2], g = p[3], b = p[4];
+    const T s = dsin(x[1]), c = dcos(x[1]), w2 = x[3] * x[3];
+    const T den = mc + mp * s * s;
+    dx[0] = x[2];
+    dx[1] = x[3];
+    dx[2] = (u[0] + mp * s * (l * w2 + g * c)) / den;
+    dx[3] = (-u[0] * c - mp * l * w2 * c * s - (mc + mp) * g * s - b * x[3]) / (l * den);
+  }
+
+  // Forward-mode AD of f, written out: each product's tangent is a_t b +
+  // b_t a, a quotient's (a_t - b_t (a / b)) / b, as the plain model's
+  // torch.func.jacfwd computes them (bit for bit on the CPU).
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T mc = p[0], mp = p[1], l = p[2], g = p[3], b = p[4];
+    const T s = dsin(x[1]), c = dcos(x[1]), w = x[3], F = u[0];
+    const T ms = mp * s, inner = l * (w * w) + g * c, q = mp * l * (w * w);
+    const T den = mc + ms * s, ld = l * den;
+    const T xdd = (F + ms * inner) / den;
+    const T tdd = (-F * c - q * c * s - (mc + mp) * g * s - b * w) / ld;
+    const T den_t = c * ms + c * mp * s;  // d(den)/dtheta
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Fx[i][j] = T(0);
+    Fx[0][2] = T(1);
+    Fx[1][3] = T(1);
+    Fx[2][1] = (-s * g * ms + c * mp * inner - den_t * xdd) / den;
+    Fx[2][3] = T(2) * w * l * ms / den;
+    Fx[3][1] = (-s * -F - (c * (q * c) + -s * q * s) - c * ((mc + mp) * g) - den_t * l * tdd) / ld;
+    Fx[3][3] = (-(T(2) * w * (mp * l) * c * s) - b) / ld;
+    Fu[0][0] = T(0);
+    Fu[1][0] = T(0);
+    Fu[2][0] = T(1) / den;
+    Fu[3][0] = -c / ld;
+  }
+};
+
+// Hill-Clohessy-Wiltshire relative motion; p = (mean_motion, mass).
+struct HCW {
+  static constexpr int NX = 6;
+  static constexpr int NU = 3;
+  static constexpr int NP = 2;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p,
+                           T (&dx)[NX]) {
+    const T n = p[0], mass = p[1];
+    dx[0] = x[3];
+    dx[1] = x[4];
+    dx[2] = x[5];
+    dx[3] = T(2) * n * x[4] + T(3) * n * n * x[0] + u[0] / mass;
+    dx[4] = T(-2) * n * x[3] + u[1] / mass;
+    dx[5] = -n * n * x[2] + u[2] / mass;
+  }
+
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T n = p[0], im = T(1) / p[1];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Fx[i][j] = T(0);
+#pragma unroll
+      for (int j = 0; j < NU; ++j) Fu[i][j] = T(0);
+    }
+    Fx[0][3] = T(1);
+    Fx[1][4] = T(1);
+    Fx[2][5] = T(1);
+    Fx[3][0] = T(3) * n * n;
+    Fx[3][4] = T(2) * n;
+    Fx[4][3] = T(-2) * n;
+    Fx[5][2] = -n * n;
+    Fu[3][0] = im;
+    Fu[4][1] = im;
+    Fu[5][2] = im;
   }
 };
 

@@ -859,9 +859,12 @@ int launch_msipddp_solve(T* const* buf, const T* refs, const double* consts, con
 
 }  // namespace cddp
 
-// m: a control box (4), a state box (6) or both (10) on the unicycle; the
-// goal form and (TRACK true, suffix _track) the tracking form, whose `refs`
-// is the shared (N, nx) reference (NULL and unread in the goal form).
+// m (mega_ipddp.BOX_ROWS): a control box (4), a state box (6) or both
+// (10) on the unicycle, the control box (2) on the pendulum; the goal form
+// and (TRACK true, suffix _track) the tracking form, whose `refs` is the
+// shared (N, nx) reference (NULL and unread in the goal form). The kernel
+// stages nothing in shared memory, so no instantiation has a shared-memory
+// size to bound.
 #define CDDP_MSIPDDP_SOLVE(MODEL, STRUCT, M, TRACK, SUFFIX)                            \
   extern "C" int CDDP_EXPORT(cddp_msipddp_solve_##MODEL##_m##M##SUFFIX)(               \
       scalar_t* X, scalar_t* U, scalar_t* Y, scalar_t* S, scalar_t* F, scalar_t* L,    \
@@ -886,3 +889,5 @@ CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 10, false, )
 CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 4, true, _track)
 CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 6, true, _track)
 CDDP_MSIPDDP_SOLVE(unicycle, Unicycle, 10, true, _track)
+CDDP_MSIPDDP_SOLVE(pendulum, Pendulum, 2, false, )
+CDDP_MSIPDDP_SOLVE(pendulum, Pendulum, 2, true, _track)

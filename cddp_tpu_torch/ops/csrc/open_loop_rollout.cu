@@ -6,8 +6,9 @@
 // one explicit integrator step (models.cuh) per time step.
 //
 // Bound: device memory. Per instance and step it reads nu values of U and
-// writes nx of X (5 values at the unicycle's nx=3, nu=2) against a few
-// dozen flops and one sin/cos pair. U and X are batch-last, so the loads
+// writes nx of X (5 values at the unicycle's nx=3, nu=2, 3 at the
+// pendulum's, 9 at HCW's nx=6, nu=3) against a few dozen flops and at most
+// one sin/cos pair. U and X are batch-last, so the loads
 // and stores of a warp are coalesced.
 #include "models.cuh"
 
@@ -63,11 +64,18 @@ int launch_open_loop_rollout(const T* U, const T* x0, T* X, const double* consts
 
 }  // namespace cddp
 
-extern "C" int CDDP_EXPORT(cddp_open_loop_rollout_unicycle)(
-    const scalar_t* U, const scalar_t* x0, scalar_t* X, const double* consts, int N,
-    int B, int integrator, void* stream) {
-  return cddp::launch_open_loop_rollout<scalar_t, cddp::Unicycle>(
-      U, x0, X, consts, N, B, integrator, static_cast<cudaStream_t>(stream));
-}
-CDDP_REGISTER(cddp_open_loop_rollout_unicycle,
-              (cddp::open_loop_rollout_kernel<scalar_t, cddp::Unicycle>), cddp::kThreads, 0)
+#define CDDP_OPEN_LOOP_ROLLOUT(MODEL, STRUCT)                                          \
+  extern "C" int CDDP_EXPORT(cddp_open_loop_rollout_##MODEL)(                          \
+      const scalar_t* U, const scalar_t* x0, scalar_t* X, const double* consts, int N, \
+      int B, int integrator, void* stream) {                                           \
+    return cddp::launch_open_loop_rollout<scalar_t, cddp::STRUCT>(                     \
+        U, x0, X, consts, N, B, integrator, static_cast<cudaStream_t>(stream));        \
+  }                                                                                    \
+  CDDP_REGISTER(cddp_open_loop_rollout_##MODEL,                                        \
+                (cddp::open_loop_rollout_kernel<scalar_t, cddp::STRUCT>), cddp::kThreads, 0)
+
+// Every model of the registry.
+CDDP_OPEN_LOOP_ROLLOUT(unicycle, Unicycle)
+CDDP_OPEN_LOOP_ROLLOUT(pendulum, Pendulum)
+CDDP_OPEN_LOOP_ROLLOUT(cartpole, CartPole)
+CDDP_OPEN_LOOP_ROLLOUT(hcw, HCW)

@@ -7,8 +7,10 @@
 // nothing carries between blocks.
 //
 // Bound: device memory. Per instance and step it reads the stage data
-// (A, B, l-derivatives, bounds: 41 values at nx=3, nu=2) and writes k and K
-// (8 values); the arithmetic per value read is small. Every tensor is
+// (A, B, l-derivatives, bounds: 41 values at nx=3, nu=2; 15 at the
+// pendulum's nx=2, nu=1, 44 at the cart-pole's nx=4, nu=1) and writes k and
+// K (8, 3, 5 values); the arithmetic per value read is small. At nu=1 the
+// enumerated BoxQP takes 3 active sets (clddp_step.cuh), at nu=2 nine. Every tensor is
 // batch-last ([t][i][j][b]), so the 32 threads of a warp read 32 consecutive
 // addresses and every load is fully coalesced.
 #include <cstring>
@@ -105,18 +107,6 @@ int launch_riccati_backward(const T* A, const T* Bm, const T* lx, const T* lu,
 
 extern "C" {
 
-// (nx, nu) = (3, 2): the unicycle of the model registry.
-int CDDP_EXPORT(cddp_riccati_backward_3x2)(
-    const scalar_t* A, const scalar_t* Bm, const scalar_t* lx, const scalar_t* lu,
-    const scalar_t* lxx, const scalar_t* luu, const scalar_t* lux,
-    const scalar_t* lb, const scalar_t* ub, const scalar_t* VxT,
-    const scalar_t* VxxT, const scalar_t* reg, scalar_t* k, scalar_t* K,
-    scalar_t* dV, scalar_t* stats, int N, int B, void* stream) {
-  return cddp::launch_riccati_backward<scalar_t, 3, 2>(
-      A, Bm, lx, lu, lxx, luu, lux, lb, ub, VxT, VxxT, reg, k, K, dV, stats, N, B,
-      static_cast<cudaStream_t>(stream));
-}
-
 #ifndef CDDP_F64
 const char* cddp_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -150,5 +140,22 @@ int cddp_kernel_attributes(const char* name, int* out) {
 
 }  // extern "C"
 
-CDDP_REGISTER(cddp_riccati_backward_3x2, (cddp::riccati_backward_kernel<scalar_t, 3, 2>),
-              cddp::kThreads, 0)
+#define CDDP_RICCATI_BACKWARD(NX, NU)                                                  \
+  extern "C" int CDDP_EXPORT(cddp_riccati_backward_##NX##x##NU)(                       \
+      const scalar_t* A, const scalar_t* Bm, const scalar_t* lx, const scalar_t* lu,   \
+      const scalar_t* lxx, const scalar_t* luu, const scalar_t* lux,                   \
+      const scalar_t* lb, const scalar_t* ub, const scalar_t* VxT,                     \
+      const scalar_t* VxxT, const scalar_t* reg, scalar_t* k, scalar_t* K,             \
+      scalar_t* dV, scalar_t* stats, int N, int B, void* stream) {                     \
+    return cddp::launch_riccati_backward<scalar_t, NX, NU>(                            \
+        A, Bm, lx, lu, lxx, luu, lux, lb, ub, VxT, VxxT, reg, k, K, dV, stats, N, B,   \
+        static_cast<cudaStream_t>(stream));                                            \
+  }                                                                                    \
+  CDDP_REGISTER(cddp_riccati_backward_##NX##x##NU,                                     \
+                (cddp::riccati_backward_kernel<scalar_t, NX, NU>), cddp::kThreads, 0)
+
+// (nx, nu) of the model registry's CLDDP models (riccati.KERNEL_SHAPES):
+// the unicycle (3, 2), the pendulum (2, 1) and the cart-pole (4, 1).
+CDDP_RICCATI_BACKWARD(3, 2)
+CDDP_RICCATI_BACKWARD(2, 1)
+CDDP_RICCATI_BACKWARD(4, 1)

@@ -42,9 +42,12 @@ _OL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_double)]
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_double)] * 2
                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
-# Stack sizes m the interior-point kernels are instantiated for (a control
-# box, a state box, or both, of the registered models).
-KERNEL_ROWS = {"unicycle": (4, 6, 10)}
+# Box-stack sizes m the forward kernel (5) is instantiated for, in the goal
+# and the tracking form, by model: the unicycle's control box, state box or
+# both; the pendulum's control box; HCW's control box (the rendezvous
+# fleet's per-pass trials). The open-loop rollout (4) takes every
+# registered model; the whole solves' box tables are mega_ipddp.BOX_ROWS.
+KERNEL_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,), "hcw": (6,)}
 
 
 def _mv(M, v):
@@ -78,7 +81,7 @@ def open_loop_rollout(model, x0, U, dt: float, kernel: bool = True):
             xs.append(model.discrete_dynamics(xs[-1], U[:, t], t * dt, dt))
         return torch.stack(xs, dim=1)
     if x0.device.type == "cpu" or not kernel:
-        dispatch_log.plain("open_loop_rollout", x0.shape[0])
+        dispatch_log.plain("open_loop_rollout" + entry.tag, x0.shape[0])
         return open_loop_rollout_plain(model, x0, U, dt)
     return _launch_open_loop(model, entry, x0, U, dt)
 
@@ -98,7 +101,7 @@ def _launch_open_loop(model, entry, x0, U, dt):
              N, Bsz, rollout_ops.INTEGRATORS.index(model.integration_type),
              build.stream_ptr(x0.device))
     build.check(err, name)
-    dispatch_log.launched("open_loop_rollout", Bsz)
+    dispatch_log.launched("open_loop_rollout" + entry.tag, Bsz)
     return torch.cat([x0[:, None], X.movedim(-1, 0)], dim=1)
 
 
@@ -267,7 +270,7 @@ def ip_forward(fc: ForwardConsts, *args):
     """CUDA tensors launch the kernel; CPU tensors run the plain version."""
     Xb = args[0]
     if Xb.device.type == "cpu":
-        dispatch_log.plain("ip_forward" + fc.lane.variant, Xb.shape[0])
+        dispatch_log.plain("ip_forward" + fc.lane.variant + fc.lane.tag, Xb.shape[0])
         return ip_forward_plain(fc, *args)
     return _launch_forward(fc, *args)
 
@@ -295,5 +298,5 @@ def _launch_forward(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
              rollout_ops.INTEGRATORS.index(fc.lane.integrator), int(fc.slack_soc),
              build.stream_ptr(Xb.device))
     build.check(err, name)
-    dispatch_log.launched("ip_forward" + fc.lane.variant, Bsz)
+    dispatch_log.launched("ip_forward" + fc.lane.variant + fc.lane.tag, Bsz)
     return (*(t.movedim(-1, 0) for t in (X, U, Sn, Yn, G, Lam)), J, F > 0.5)

@@ -47,8 +47,15 @@ from cddp_tpu_torch.ops.kernels import dispatch_log
 EPS_SLACK = 1e-10
 # (nx, nu, m) the kernel is instantiated for: the unicycle with a control
 # box, a state box, both, or a control box and a keep-out ball (m = 5, whose
-# per-step Jacobians and folded lxx the kernel reads materialised).
-KERNEL_SHAPES = ((3, 2, 4), (3, 2, 5), (3, 2, 6), (3, 2, 10))
+# per-step Jacobians and folded lxx the kernel reads materialised); the
+# pendulum with its control box.
+KERNEL_SHAPES = ((3, 2, 4), (3, 2, 5), (3, 2, 6), (3, 2, 10), (2, 1, 2))
+
+
+def dispatch_name(nx: int, nu: int, m: int) -> str:
+    """The kernel's ``dispatch_log`` name: "ipddp_backward", and
+    "@<nx>x<nu>x<m>" after it for a shape other than the unicycle's."""
+    return "ipddp_backward" + ("" if (nx, nu) == (3, 2) else f"@{nx}x{nu}x{m}")
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # Inputs with a step axis: (B, N, ...) for the first 12, (B, ...) after.
@@ -164,7 +171,8 @@ def ipddp_backward(*args):
     """CUDA tensors launch the kernel; CPU tensors run the plain version."""
     A = args[0]
     if A.device.type == "cpu":
-        dispatch_log.plain("ipddp_backward", A.shape[0])
+        dispatch_log.plain(dispatch_name(A.shape[-1], args[1].shape[-1], args[7].shape[-1]),
+                           A.shape[0])
         return ipddp_backward_plain(*args)
     return _launch(*args)
 
@@ -219,5 +227,5 @@ def _launch(A, Bm, lx, lu, lxx, luu, lux, Y, S, G, Gx, Gu, Vx, Vxx, mu, reg):
              (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs)),
              N, Bsz, build.stream_ptr(A.device))
     build.check(err, name)
-    dispatch_log.launched("ipddp_backward", Bsz)
+    dispatch_log.launched(dispatch_name(nx, nu, m), Bsz)
     return tuple(t.movedim(-1, 0) for t in outs)

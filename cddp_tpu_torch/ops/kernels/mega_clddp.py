@@ -38,14 +38,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_double)] * 2
 def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_clddp.py:821-865 of the JAX package,
     without its TPU scratch-memory gate): a registered model with an explicit
-    integrator, the quadratic objective (the goal or a tracked
-    ``reference_states``, mega_clddp.py:825,884), a control box with the
-    enum BoxQP, and none of the driver features the kernel does not
-    model."""
+    integrator the kernel is instantiated for (``rollout.CLDDP_MODELS``), the
+    quadratic objective (the goal or a tracked ``reference_states``,
+    mega_clddp.py:825,884), a control box with the enum BoxQP, and none of
+    the driver features the kernel does not model."""
     return (
         problem.get_constraint("ControlConstraint") is not None
         and enum_applies(options.box_qp, problem.control_dim)
-        and rollout_ops.lane_consts(problem) is not None
+        and (lane := rollout_ops.lane_consts(problem)) is not None
+        and lane.clddp
         and options.solve_engine != "xla"
         and options.backward_engine != "scan"
         and not options.return_iteration_info
@@ -87,8 +88,8 @@ def clddp_solve(problem, options: CDDPOptions, X0, U0, k0, K0) -> Solution:
     from cddp_tpu_torch.solvers import clddp
 
     if X0.device.type == "cpu":
-        variant = rollout_ops.lane_consts(problem).variant
-        dispatch_log.plain("clddp_solve" + variant, X0.shape[0])
+        lane = rollout_ops.lane_consts(problem)
+        dispatch_log.plain("clddp_solve" + lane.variant + lane.tag, X0.shape[0])
         return clddp._solve(problem, options, X0, U0, k0, K0)
     return _launch(problem, options, X0, U0, k0, K0)
 
@@ -122,7 +123,7 @@ def launch_counting_work(problem, options, X0, U0, k0, K0):
              build.doubles(consts.host), build.doubles(_solve_cfg(options)),
              *ints, build.stream_ptr(X0.device))
     build.check(err, name)
-    dispatch_log.launched("clddp_solve" + consts.variant, Bsz)
+    dispatch_log.launched("clddp_solve" + consts.variant + consts.tag, Bsz)
     return Solution(
         solver_name="CLDDP",
         status_code=stats[5].to(torch.int32),

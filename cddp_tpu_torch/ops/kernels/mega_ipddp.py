@@ -58,16 +58,26 @@ _ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.POINTER(ctypes.c_double)] * 5
 STATS_ROWS = 13
 # Ball layouts kernel 7 is instantiated for, by model: (m, the ball's stack
 # row). A control box and one keep-out ball, the ball's name sorted before
-# the box's or after it. Box-only stacks take ip_rollout.KERNEL_ROWS.
+# the box's or after it.
 BALL_LAYOUTS = {"unicycle": ((5, 0), (5, 4))}
 # The layouts kernel 7 also has a tracking variant of (suffix "_track"), by
-# model: the box stacks and the ball's row first.
-TRACK_LAYOUTS = {"unicycle": ("m4", "m6", "m10", "m5_ball0")}
+# model: the unicycle's box stacks and the ball's row first, the pendulum's
+# control box.
+TRACK_LAYOUTS = {"unicycle": ("m4", "m6", "m10", "m5_ball0"), "pendulum": ("m2",)}
 # The terminal variants of kernel 7, by model and layout: (mT, p), the
 # terminal inequality rows and terminal equality rows, suffix "_te{p}" then
-# "_ti{mT}" (goal form only). A TerminalEqualityConstraint on the unicycle
-# has p = nx = 3.
-TERMINAL_LAYOUTS = {"unicycle": {"m4": ((1, 0), (2, 0), (0, 3), (1, 3))}}
+# "_ti{mT}" (goal form only). A TerminalEqualityConstraint has p = nx: 3 on
+# the unicycle, 6 on HCW (the rendezvous x_N = target).
+TERMINAL_LAYOUTS = {"unicycle": {"m4": ((1, 0), (2, 0), (0, 3), (1, 3))},
+                    "hcw": {"m6": ((0, 6),)}}
+# The box-only stacks (m) the whole solves of IPDDP, MSIPDDP and LogDDP
+# (kernels 7, 8, 9) are instantiated for, by model, in the goal form and
+# (kernel 7: on TRACK_LAYOUTS) the tracking form. HCW's control box alone
+# is not among them: kernel 7 runs it in float32 at the barrier merit's
+# resolution, where it forks from the plain driver far more often than the
+# plain driver from itself (ROADMAP C.10); HCW runs kernel 7 with the
+# rendezvous's terminal equality (TERMINAL_LAYOUTS).
+BOX_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,)}
 
 
 def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
@@ -99,22 +109,24 @@ def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
     """What the MSIPDDP and LogDDP whole-solve kernels (8, 9) require:
     ``driver_eligible``, no terminal constraints (mega_msipddp.py:1281-1284,
     mega_logddp.py:773 of the JAX package) and a box-only path stack of a
-    size they are built for (``ip_rollout.KERNEL_ROWS``, as kernel 7's box
-    variants)."""
+    size they are built for (``BOX_ROWS``)."""
+    lane = rollout_ops.lane_consts(problem)
+    rows = ip_rollout.box_rows(problem, PathStacker(problem))
     return (not problem.terminal_constraints
-            and solve_variant(problem, ball=False) is not None
+            and lane is not None and rows is not None
+            and rows.m in BOX_ROWS.get(lane.entry.cuda_name, ())
             and driver_eligible(problem, options, lqr_backend))
 
 
 def solve_variant(problem, ball: bool = True):
     """Kernel 7's launcher suffix for the problem's stack, objective and
     terminal constraints, or None when the kernel is not instantiated for
-    them: "m{m}" for a box stack of a size in ``ip_rollout.KERNEL_ROWS``,
+    them: "m{m}" for a box stack of a size in ``BOX_ROWS``,
     "m{m}_ball{row}" for a layout of ``BALL_LAYOUTS``, each followed by
     "_track" for a tracking objective on a layout of ``TRACK_LAYOUTS``, or
     by "_te{p}" and "_ti{mT}" for terminal constraints of a shape in
     ``TERMINAL_LAYOUTS``; box stacks without terminal constraints only
-    without ``ball``. Kernels 8 and 9 take the same box suffixes."""
+    without ``ball``."""
     lane = rollout_ops.lane_consts(problem)
     rows = ip_rollout.box_rows(problem, PathStacker(problem), ball=ball)
     if lane is None or rows is None:
@@ -123,7 +135,7 @@ def solve_variant(problem, ball: bool = True):
         return None if not ball else _terminal_variant(problem, lane, rows)
     name, balls = lane.entry.cuda_name, rows.ball_rows
     layout = None
-    if not balls and rows.m in ip_rollout.KERNEL_ROWS.get(name, ()):
+    if not balls and rows.m in BOX_ROWS.get(name, ()):
         layout = f"m{rows.m}"
     elif len(balls) == 1 and (rows.m, balls[0]) in BALL_LAYOUTS.get(name, ()):
         layout = f"m{rows.m}_ball{balls[0]}"
@@ -190,11 +202,13 @@ def _solve_cfg(options: CDDPOptions):
 def dispatch_name(problem) -> str:
     """The name a launch of the problem's variant logs in ``dispatch_log``:
     "ipddp_solve", with "_track" for a tracking objective, or the terminal
-    suffix ("_ti2", "_te3", "_te3_ti1", ...) of a terminal variant."""
+    suffix ("_ti2", "_te3", "_te3_ti1", ...) of a terminal variant, then the
+    model's tag ("ipddp_solve_te6@hcw")."""
     variant = solve_variant(problem) or ""
+    lane = rollout_ops.lane_consts(problem)
     if problem.terminal_constraints:
-        return "ipddp_solve" + variant[variant.index("_"):]
-    return "ipddp_solve" + rollout_ops.lane_consts(problem).variant
+        return "ipddp_solve" + variant[variant.index("_"):] + lane.tag
+    return "ipddp_solve" + lane.variant + lane.tag
 
 
 def ipddp_solve(problem, options: CDDPOptions, X, U, Y, S, G, Lambda, mu0, ku0,

@@ -67,8 +67,8 @@ def logddp_solve(problem, options: CDDPOptions, X, U, k0, K0) -> Solution:
     from cddp_tpu_torch.solvers import logddp
 
     if X.device.type == "cpu":
-        variant = rollout_ops.lane_consts(problem).variant
-        dispatch_log.plain("logddp_solve" + variant, X.shape[0])
+        lane = rollout_ops.lane_consts(problem)
+        dispatch_log.plain("logddp_solve" + lane.variant + lane.tag, X.shape[0])
         return logddp._drive(problem, options, X, U, k0, K0)
     return _launch(problem, options, X, U, k0, K0)
 
@@ -104,7 +104,7 @@ def launch_counting_work(problem, options, X0, U0, k0, K0):
              build.doubles(rows.host), build.doubles(_solve_cfg(options)),
              build.doubles(alphas), *ints, build.stream_ptr(X0.device))
     build.check(err, name)
-    dispatch_log.launched("logddp_solve" + lane.variant, Bsz)
+    dispatch_log.launched("logddp_solve" + lane.variant + lane.tag, Bsz)
     return Solution(
         solver_name="LogDDP",
         status_code=stats[7].to(torch.int32),

@@ -83,8 +83,8 @@ def msipddp_solve(problem, options: CDDPOptions, X, U, Y, S, G, F, Lambda, mu0, 
     from cddp_tpu_torch.solvers import msipddp
 
     if X.device.type == "cpu":
-        variant = rollout_ops.lane_consts(problem).variant
-        dispatch_log.plain("msipddp_solve" + variant, X.shape[0])
+        lane = rollout_ops.lane_consts(problem)
+        dispatch_log.plain("msipddp_solve" + lane.variant + lane.tag, X.shape[0])
         return msipddp._drive(problem, options, X, U, Y, S, G, F, Lambda, mu0, ku0, Ku0)
     return _launch(problem, options, X, U, Y, S, G, F, Lambda, mu0, ku0, Ku0)
 
@@ -135,7 +135,7 @@ def launch_counting_work(problem, options, X0, U0, Y0, S0, G0, F0, L0, mu0, ku0,
              build.doubles(_solve_cfg(options, m * N + nu * N)), build.doubles(alphas),
              *ints, build.stream_ptr(X0.device))
     build.check(err, name)
-    dispatch_log.launched("msipddp_solve" + lane.variant, Bsz)
+    dispatch_log.launched("msipddp_solve" + lane.variant + lane.tag, Bsz)
     Xb, Ub, Yb, Sb, Fb, Lb, kb, Kb = (t.movedim(-1, 0) for t in (X, U, Y, S, F, L, k, K))
     sol = Solution(
         solver_name="MSIPDDP",

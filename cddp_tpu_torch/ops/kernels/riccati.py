@@ -23,6 +23,15 @@ from cddp_tpu_torch.ops.boxqp import BoxQPStatus, boxqp_solve_enum, solve_masked
 from cddp_tpu_torch.ops.kernels import dispatch_log
 
 _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# (nx, nu) the kernel is instantiated for: the unicycle, the pendulum and
+# the cart-pole of the model registry.
+KERNEL_SHAPES = ((3, 2), (2, 1), (4, 1))
+
+
+def dispatch_name(nx: int, nu: int) -> str:
+    """The kernel's ``dispatch_log`` name at (nx, nu): "riccati_backward",
+    and "@<nx>x<nu>" after it for every shape but the unicycle's."""
+    return "riccati_backward" + ("" if (nx, nu) == (3, 2) else f"@{nx}x{nu}")
 
 
 def _mT(M):
@@ -79,7 +88,7 @@ def riccati_backward_plain(A, Bm, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx, reg):
 def riccati_backward(A, Bm, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx, reg):
     """CUDA tensors launch the kernel; CPU tensors run the plain version."""
     if A.device.type == "cpu":
-        dispatch_log.plain("riccati_backward", A.shape[0])
+        dispatch_log.plain(dispatch_name(A.shape[-1], Bm.shape[-1]), A.shape[0])
         return riccati_backward_plain(A, Bm, lx, lu, lxx, luu, lux, lb, ub,
                                       Vx, Vxx, reg)
     return _launch(A, Bm, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx, reg)
@@ -104,6 +113,6 @@ def _launch(A, Bm, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx, reg):
     err = fn(*(build.ptr(t) for t in last + [k, K, dV, stats]), N, Bsz,
              build.stream_ptr(A.device))
     build.check(err, name)
-    dispatch_log.launched("riccati_backward", Bsz)
+    dispatch_log.launched(dispatch_name(nx, nu), Bsz)
     return (k.movedim(-1, 0), K.movedim(-1, 0), dV.movedim(-1, 0), stats[0],
             stats[1], stats[2] > 0.5)

@@ -14,7 +14,15 @@ continuous dynamics) and ``fxfu`` (their Jacobians), and the kernel
 launchers built for it are exported as ``cddp_<kernel>_<cuda_name>_<f32|f64>``
 (the Riccati kernel, which needs no model, as ``..._<nx>x<nu>_...``). A model
 that is not in the table is not eligible for the kernels: its problems run
-the plain driver on the tensors' device.
+the plain driver on the tensors' device. A registered model is eligible for
+a kernel only where that kernel is instantiated for it: each kernel's
+module keeps that table (``CLDDP_MODELS`` here for kernels 2 and 3,
+``riccati.KERNEL_SHAPES``, ``ip_rollout.KERNEL_ROWS``, ``mega_ipddp.BOX_ROWS``,
+``ipddp_riccati.KERNEL_SHAPES``, the layouts of ``mega_ipddp``), and a
+problem outside it runs the plain version of that kernel, on the tensors'
+device, before any launch is tried. Launches of a model other than the
+unicycle log the model's name after the kernel's (``clddp_solve@pendulum``,
+``LaneConsts.tag``).
 """
 
 from __future__ import annotations
@@ -26,8 +34,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from cddp_tpu_torch.models.base import DynamicalSystem
-from cddp_tpu_torch.models.unicycle import Unicycle
+from cddp_tpu_torch.models import HCW, CartPole, DynamicalSystem, Pendulum, Unicycle
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.linalg import true_div
 
@@ -41,10 +48,30 @@ class ModelEntry:
     params: Callable[[DynamicalSystem], List[float]]  # CUDA parameter vector
     cuda_name: str
 
+    @property
+    def tag(self) -> str:
+        """What a launch's ``dispatch_log`` name carries after the kernel's:
+        "" for the unicycle, "@<cuda_name>" for every other model."""
+        return "" if self.cuda_name == "unicycle" else "@" + self.cuda_name
+
+
+def _buffers(*names):
+    """The parameter vector: the model's scalar buffers in the JAX lane
+    order (rollout.py:138-203 of the JAX package)."""
+    return lambda model: [float(getattr(model, n)) for n in names]
+
 
 _REGISTRY = {
-    Unicycle: ModelEntry(params=lambda model: [], cuda_name="unicycle"),
+    Unicycle: ModelEntry(params=_buffers(), cuda_name="unicycle"),
+    Pendulum: ModelEntry(params=_buffers("length", "mass", "damping", "gravity"),
+                         cuda_name="pendulum"),
+    CartPole: ModelEntry(params=_buffers("cart_mass", "pole_mass", "pole_length", "gravity",
+                                         "damping"), cuda_name="cartpole"),
+    HCW: ModelEntry(params=_buffers("mean_motion", "mass"), cuda_name="hcw"),
 }
+# The models the line-search rollout (kernel 2) and the whole CLDDP solve
+# (kernel 3) are instantiated for, each in the goal and the tracking form.
+CLDDP_MODELS = ("unicycle", "pendulum", "cartpole")
 
 
 def model_entry(model: DynamicalSystem) -> Optional[ModelEntry]:
@@ -80,6 +107,16 @@ class LaneConsts:
     def variant(self) -> str:
         """The launcher suffix of the objective's form: "_track" or ""."""
         return "" if self.refs is None else "_track"
+
+    @property
+    def tag(self) -> str:
+        """The model's ``dispatch_log`` suffix (``ModelEntry.tag``)."""
+        return self.entry.tag
+
+    @property
+    def clddp(self) -> bool:
+        """Whether kernels 2 and 3 are instantiated for the model."""
+        return self.entry.cuda_name in CLDDP_MODELS
 
     def running_ref(self, t: int):
         """Step t's running reference: row t of ``refs``, or the goal."""
@@ -179,7 +216,7 @@ def forward_rollout_plain(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
 def forward_rollout(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
     """CUDA tensors launch the kernel; CPU tensors run the plain version."""
     if Xb.device.type == "cpu":
-        dispatch_log.plain("forward_rollout" + consts.variant, Xb.shape[0])
+        dispatch_log.plain("forward_rollout" + consts.variant + consts.tag, Xb.shape[0])
         return forward_rollout_plain(consts, Xb, Ub, k, K, x0, alpha)
     return _launch(consts, Xb, Ub, k, K, x0, alpha)
 
@@ -203,5 +240,5 @@ def _launch(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
              INTEGRATORS.index(consts.integrator), int(consts.lower is not None),
              build.stream_ptr(Xb.device))
     build.check(err, name)
-    dispatch_log.launched("forward_rollout" + consts.variant, Bsz)
+    dispatch_log.launched("forward_rollout" + consts.variant + consts.tag, Bsz)
     return X.movedim(-1, 0), U.movedim(-1, 0), J

@@ -20,6 +20,7 @@ from cddp_tpu_torch.ops import linalg
 from cddp_tpu_torch.ops.boxqp import enum_applies
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 from cddp_tpu_torch.ops.kernels.riccati import (
+    KERNEL_SHAPES,
     q_expansion,
     riccati_backward,
     riccati_backward_plain,
@@ -39,8 +40,11 @@ class BackwardPassResult(NamedTuple):
 
 
 def _use_kernels(problem: Problem, options: CDDPOptions) -> bool:
+    """Whether the backward pass launches the Riccati kernel: a registered
+    model of a shape it is instantiated for."""
     return (options.backward_engine != "scan"
-            and rollout_ops.model_entry(problem.model) is not None)
+            and rollout_ops.model_entry(problem.model) is not None
+            and (problem.state_dim, problem.control_dim) in KERNEL_SHAPES)
 
 
 def _backward_pass(problem: Problem, options: CDDPOptions, X, U, reg
@@ -139,6 +143,8 @@ def _solve(problem: Problem, options: CDDPOptions, X0, U0, k0, K0) -> Solution:
     alphas = line_search_alphas(options.line_search)
     consts = (rollout_ops.lane_consts(problem)
               if options.backward_engine != "scan" else None)
+    if consts is not None and not consts.clddp:
+        consts = None
 
     X, U, k, K = X0, U0, k0, K0
     cost = base.compute_cost(problem, X, U)

@@ -139,7 +139,26 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    five ticks, one whole-solve launch a tick, ms and mean iterations a
    tick); the certified fleet (``phase_certified_fleet``: the float32 IPDDP
    box fleet at 20 iterations, then ``tt.polish`` in float64 on the card,
-   one float64 launch of kernel 7); the warm kernels' device times.
+   one float64 launch of kernel 7); the warm kernels' device times;
+14. the pendulum, the cart-pole and HCW (``phase_zoo``, ``zoo_problem``:
+   the pendulum and cart-pole goldens' problems at N = 100 and 200, the
+   JAX rendezvous bench's HCW at N = 20 with x_N = 0): (a) every new
+   instantiation of kernels 1-9 against its plain version at B_CHECK, in
+   float64 (statuses and iterations equal; kernels 1, 2, 4, 5, 6 within
+   1e-9 + 1e-12 |v| plus twice the plain version's own move from inputs
+   one ulp up, whole solves within 1e-8, on the cart-pole's N = 200 plus
+   MOVE_FACTOR times the plain driver's move from x0 one ulp up, the
+   rendezvous ``m6_te6`` within 1e-7) and float32 (the rules of phases 3,
+   5 and 9; the cart-pole's chaotic swing-up by ``check``'s quantiles and
+   ``check_clddp_f32_accuracy``); the tracking forms over ZOO_TRACK_ITERS
+   iterations; (b) the pendulum fleet under the four solvers with the
+   goldens' options, (c) the cart-pole fleet under CLDDP, (d) the
+   rendezvous fleet on both IPDDP engines and as five warm and five cold
+   MPC ticks, each at B_MAIN in float32 with its launch counts, converged
+   share, iterations, ms and the whole-solve launch's work and warp
+   divergence; short runs that drive every other new instantiation; then
+   every new entry's times and bound at B_MAIN (the whole solves' plain
+   drivers timed at B_CHECK in (a), not at B_MAIN).
 
 Each kernel is timed twice at the main path's shapes: by CUDA events
 around its wrapper (``cuda_ms``: the batch-first <-> batch-last copies
@@ -156,7 +175,9 @@ carries the obstacle run under "obstacle", kernel 6's under "obstacle_m5",
 kernel 5's its 0 launches there; each tracking variant is an entry of its
 own, named with the suffix "_track", and each terminal variant one named
 as dispatch_log names it, "ipddp_solve_ti2" for instance; kernels 7, 8 and
-9 carry phase 13's warm seeds under "warm"); the last line is
+9 carry phase 13's warm seeds under "warm"; phase 14's instantiations are
+entries named with their model, ``clddp_solve@pendulum`` for instance,
+with "plain_at" saying where their plain time was taken); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -174,6 +195,8 @@ B_MAIN = 262144
 HORIZON = 20
 DT = 0.05
 SEED = 0
+TIMING_BUDGET_MS = 1000.0  # CUDA-event timing of one kernel: at most this, after one call
+HCW_X0_SCALE = (0.5, 0.5, 0.5, 0.005, 0.005, 0.005)  # the rendezvous fleet's x0 spread
 
 
 def nvidia_smi() -> str:
@@ -186,33 +209,40 @@ def nvidia_smi() -> str:
 
 def launchers():
     """Every launcher of the kernel library, by kernel, without its type
-    suffix; the main path's variant (m = 4 box rows, the goal form) first,
-    the tracking variants (suffix ``_track``) after the goal forms."""
+    suffix, for every model each kernel is instantiated for (the tables of
+    the kernels' wrappers); the unicycle's main-path variant (m = 4 box
+    rows, the goal form) first, the tracking variants (suffix ``_track``)
+    after the goal forms."""
     from cddp_tpu_torch.ops.kernels.ip_rollout import KERNEL_ROWS
     from cddp_tpu_torch.ops.kernels.ipddp_riccati import KERNEL_SHAPES
-    from cddp_tpu_torch.ops.kernels.mega_ipddp import (BALL_LAYOUTS, TERMINAL_LAYOUTS,
-                                                       TRACK_LAYOUTS)
+    from cddp_tpu_torch.ops.kernels.mega_ipddp import (BALL_LAYOUTS, BOX_ROWS,
+                                                       TERMINAL_LAYOUTS, TRACK_LAYOUTS)
+    from cddp_tpu_torch.ops.kernels.riccati import KERNEL_SHAPES as RICCATI_SHAPES
+    from cddp_tpu_torch.ops.kernels.rollout import _REGISTRY, CLDDP_MODELS
 
-    rows = KERNEL_ROWS["unicycle"]
     balls = [f"m{m}_ball{row}" for m, row in BALL_LAYOUTS["unicycle"]]
-    boxes = [f"m{m}" for m in rows]
     track = lambda stems: stems + [f"{s}_track" for s in stems]  # noqa: E731
+    by_model = lambda stem, table: [  # noqa: E731
+        f"{stem}_{model}_m{m}" for model, rows in table.items() for m in rows]
     return {
-        "riccati_backward": ["cddp_riccati_backward_3x2"],
-        "forward_rollout": track(["cddp_forward_rollout_unicycle"]),
-        "clddp_solve": track(["cddp_clddp_solve_unicycle"]),
-        "open_loop_rollout": ["cddp_open_loop_rollout_unicycle"],
-        "ip_forward": track([f"cddp_ip_forward_unicycle_{v}" for v in boxes]),
+        "riccati_backward": [f"cddp_riccati_backward_{nx}x{nu}" for nx, nu in RICCATI_SHAPES],
+        "forward_rollout": track([f"cddp_forward_rollout_{m}" for m in CLDDP_MODELS]),
+        "clddp_solve": track([f"cddp_clddp_solve_{m}" for m in CLDDP_MODELS]),
+        "open_loop_rollout": [f"cddp_open_loop_rollout_{e.cuda_name}" for e in _REGISTRY.values()],
+        "ip_forward": track(by_model("cddp_ip_forward", KERNEL_ROWS)),
         "ipddp_backward": [f"cddp_ipddp_backward_{nx}x{nu}x{m}"
                            for nx, nu, m in KERNEL_SHAPES],
-        "ipddp_solve": [f"cddp_ipddp_solve_unicycle_{v}" for v in boxes + balls]
-        + [f"cddp_ipddp_solve_unicycle_{v}_track" for v in TRACK_LAYOUTS["unicycle"]],
+        "ipddp_solve": by_model("cddp_ipddp_solve", BOX_ROWS)
+        + [f"cddp_ipddp_solve_unicycle_{v}" for v in balls]
+        + [f"cddp_ipddp_solve_{model}_{v}_track" for model, layouts in TRACK_LAYOUTS.items()
+           for v in layouts],
         "ipddp_solve_terminal": [
-            f"cddp_ipddp_solve_unicycle_{layout}" + (f"_te{p}" if p else "")
+            f"cddp_ipddp_solve_{model}_{layout}" + (f"_te{p}" if p else "")
             + (f"_ti{mT}" if mT else "")
-            for layout, shapes in TERMINAL_LAYOUTS["unicycle"].items() for mT, p in shapes],
-        "msipddp_solve": track([f"cddp_msipddp_solve_unicycle_{v}" for v in boxes]),
-        "logddp_solve": track([f"cddp_logddp_solve_unicycle_{v}" for v in boxes]),
+            for model, layouts in TERMINAL_LAYOUTS.items()
+            for layout, shapes in layouts.items() for mT, p in shapes],
+        "msipddp_solve": track(by_model("cddp_msipddp_solve", BOX_ROWS)),
+        "logddp_solve": track(by_model("cddp_logddp_solve", BOX_ROWS)),
     }
 
 
@@ -264,6 +294,23 @@ def flagship_problem(tt, dtype, device, horizon=HORIZON):
     )
 
 
+def fleet_x0(prob, B, gen):
+    """B initial states of the problem's fleet from ``gen``: the unicycle's
+    U(-0.5, 0.5); the pendulum's (pi, 0) + U(-0.1, 0.1); the cart-pole's
+    U(-0.05, 0.05); HCW's x0 + U(-1, 1) scaled by ``HCW_X0_SCALE``
+    (bench_ipddp_fleet.py:124-132)."""
+    dev, dtype, nx = prob.x0.device, prob.x0.dtype, prob.state_dim
+    u = torch.rand(B, nx, generator=gen, device=dev, dtype=dtype)
+    name = type(prob.model).__name__
+    if name == "Unicycle":
+        return u - 0.5
+    if name == "Pendulum":
+        return prob.x0 + 0.1 * (2.0 * u - 1.0)
+    if name == "CartPole":
+        return 0.05 * (2.0 * u - 1.0)
+    return prob.x0 + torch.tensor(HCW_X0_SCALE, device=dev, dtype=dtype) * (2.0 * u - 1.0)
+
+
 def cuda_ms(fn, reps, warm=True):
     """Mean milliseconds of fn() on the card, by CUDA events after a warm-up
     (unless ``warm`` is False)."""
@@ -285,13 +332,16 @@ def device_ms(fn, kernel, reps, events_ok=False):
     ``cddp::<kernel>_kernel``) over ``reps`` calls of fn, which ``cuda_ms``
     has just warmed, and where they come from. "profiler": the profiler's
     kernel rows, without the wrapper's layout copies, over the launches it
-    recorded (it can miss one of a short kernel's). If three sessions
-    record none: with ``events_ok`` (a wrapper that copies nothing, so
+    recorded (it can miss one of a short kernel's). If three sessions (one
+    with ``events_ok="wrapper"``) record none: with ``events_ok`` (a wrapper that copies nothing, so
     CUDA events around it time the kernel) "cuda_events", the CUDA-event
-    time; else raises."""
+    time; with ``events_ok="wrapper"`` (phase 14, late in a full run)
+    "cuda_events_wrapper", the CUDA-event time of the wrapper, its layout
+    copies included; else raises."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
-    for attempt in range(3):
+    sessions = 1 if events_ok == "wrapper" else 3
+    for attempt in range(sessions):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -306,11 +356,15 @@ def device_ms(fn, kernel, reps, events_ok=False):
         # m = 5 variant, late in a full run, in two or all three sessions;
         # in phases 7-8 alone it is recorded); profile it again.
         print(f"[timing] the profiler saw no launch of {kernel} in {reps} calls "
-              f"(session {attempt + 1} of 3)")
+              f"(session {attempt + 1} of {sessions})")
     if not events_ok:
         raise AssertionError(f"the profiler saw no launch of {kernel} in 3 sessions of "
                              f"{reps} calls")
     ms = cuda_ms(fn, reps, warm=False)
+    if events_ok == "wrapper":
+        print(f"[timing] {kernel}: no device time; CUDA events around its wrapper, its "
+              f"layout copies included: {ms:.3f} ms")
+        return ms, "cuda_events_wrapper"
     print(f"[timing] {kernel}: device time by CUDA events around its wrapper, which "
           f"copies nothing: {ms:.3f} ms")
     return ms, "cuda_events"
@@ -318,15 +372,16 @@ def device_ms(fn, kernel, reps, events_ok=False):
 
 def stage_inputs(prob, B, gen):
     """Backward- and forward-pass inputs as the per-pass driver builds them,
-    linearized about random nominal trajectories of the flagship problem."""
+    linearized about random nominal trajectories of the problem: x0 from
+    ``fleet_x0``, controls uniform in three quarters of the box."""
     from cddp_tpu_torch.models import rollout
 
     dev, dtype = prob.x0.device, prob.x0.dtype
     rand = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=dtype)  # noqa: E731
     cc = prob.get_constraint("ControlConstraint")
-    x0 = rand(B, 3) - 0.5
-    U = (2.0 * rand(B, HORIZON, 2) - 1.0) * cc.upper * 0.75
-    X = rollout(prob.model, x0, U, DT)
+    x0 = fleet_x0(prob, B, gen)
+    U = (2.0 * rand(B, prob.horizon, prob.control_dim) - 1.0) * cc.upper * 0.75
+    X = rollout(prob.model, x0, U, prob.timestep)
     back = clddp_backward_inputs(prob, X, U, 10.0 ** (-6.0 + 4.0 * rand(B)))
     alphas = torch.tensor([1.0, 0.5, 0.25, 0.125], device=dev, dtype=dtype)
     alpha = alphas[torch.randint(0, 4, (B,), generator=gen, device=dev)]
@@ -371,11 +426,19 @@ def abs_err(a, b):
     return torch.where(a.isnan() & b.isnan(), torch.zeros_like(b), (a - b).abs())
 
 
-def check(name, got, want, truth=None, gate=True):
+def check(name, got, want, truth=None, gate=True, rtol=0.0, moved=None, quantiles=False):
     """Hold a kernel's outputs against its plain version's; returns the max
     abs error between them. Flags must be equal everywhere.
 
-    float64 (no ``truth``): |got - want| <= 1e-9, NaN meeting NaN.
+    float64 (no ``truth``): |got - want| <= 1e-9 + ``rtol`` |want| + 2 m,
+    NaN meeting NaN, where m is 0 or, given ``moved`` (the plain version's
+    outputs from every input one ulp up, ``ulp_up``), the largest |moved -
+    want| of the output: how far rounding alone moves the plain version.
+    (Phase 14 gives both: on the pendulum's and the cart-pole's long
+    horizons the Riccati recursion's sums of |Vx| reach 1e5 and more, and
+    on the cart-pole's N = 200 a one-ulp move of its inputs moves the gains
+    by 1e-9 and more, above 1e-9 itself; the plain version's cuBLAS
+    products, which fuse multiply-adds, round apart from the kernel's.)
 
     float32: ``truth`` is the plain version run in float64 on the same
     inputs. Both float32 results are measured against it, per instance and
@@ -384,7 +447,11 @@ def check(name, got, want, truth=None, gate=True):
     e(got) <= 2 e(want) + 1e-6. (The backward recursion amplifies float32
     rounding in k to ~5e-4 of the step scale in both, so a fixed rtol
     between the two cannot be met.) With ``gate`` False the float32 errors
-    are printed and not held to that rule."""
+    are printed and not held to that rule. With ``quantiles`` (a chaotic
+    fleet's inputs, the cart-pole's N = 200, where a few instances' float32
+    rollouts leave the float64 one in both versions and the largest error
+    is one such instance's) the rule holds per instance, on the median and
+    the 99th percentile of e over the batch instead of its largest value."""
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         if not g.is_floating_point():
@@ -394,21 +461,62 @@ def check(name, got, want, truth=None, gate=True):
         err = abs_err(g, w)
         worst = max(worst, float(err.max()))
         if truth is None:
-            tol = 1e-9
+            move = 0.0 if moved is None else float(abs_err(moved[i], w).max())
+            tol = 1e-9 + rtol * w.double().abs().nan_to_num(0.0) + 2.0 * move
+            if moved is not None:
+                print(f"[kernels float64] {name}[{i}]: max abs err {float(err.max()):.3e}; the "
+                      f"plain version from inputs one ulp up moves {move:.3e}")
             if not bool((err <= tol).all()):
                 raise AssertionError(f"{name}[{i}]: {int((~(err <= tol)).sum())} "
                                      f"entries off, max abs err {float(err.max())}")
             continue
         t = truth[i].double()
         scale = t.abs() + step_scale(t)
-        e_got = float((abs_err(g, t) / scale).nan_to_num(0.0).max())
-        e_want = float((abs_err(w, t) / scale).nan_to_num(0.0).max())
-        print(f"[kernels float32] {name}[{i}] scaled error against float64: "
-              f"kernel {e_got:.3e}, plain {e_want:.3e}")
-        if gate and not e_got <= 2.0 * e_want + 1e-6:
-            raise AssertionError(f"{name}[{i}]: kernel error {e_got:.3e} against "
-                                 f"float64 exceeds 2x the plain version's {e_want:.3e}")
+        def per(x):  # e of each instance
+            return (abs_err(x, t) / scale).nan_to_num(0.0).reshape(t.shape[0], -1).amax(-1)
+
+        stats = ((("max", 1.0),) if not quantiles else (("median", 0.5), ("99th percentile", 0.99)))
+        for what, q in stats:
+            e_got, e_want = (float(per(x).quantile(q)) if quantiles else float(per(x).max())
+                             for x in (g, w))
+            print(f"[kernels float32] {name}[{i}] scaled error against float64 ({what}): "
+                  f"kernel {e_got:.3e}, plain {e_want:.3e}")
+            if gate and not e_got <= 2.0 * e_want + 1e-6:
+                raise AssertionError(f"{name}[{i}]: kernel error {e_got:.3e} ({what}) against "
+                                     f"float64 exceeds 2x the plain version's {e_want:.3e}")
     return worst
+
+
+# How far beyond the plain driver's own one-ulp move a float64 whole solve
+# may stray where ``check_solve_f64`` is given that move (phase 14). The
+# kernel rounds every product apart from the plain driver's cuBLAS ones,
+# which fuse multiply-adds, a larger nudge than one ulp of x0: on the
+# cart-pole's N = 200 over 10 iterations its X, U and cost differ by
+# 4.7-5.3 times that move (PERF.md).
+MOVE_FACTOR = 10.0
+
+
+# Host milliseconds of the last plain-driver run of ``solve_pair``,
+# ``ip_solve_pair`` or ``barrier_pair`` (ending in a synchronize), which
+# phase 14 records as each whole solve's plain time at B_CHECK.
+LAST_PLAIN_MS = [0.0]
+
+
+def timed_plain(run):
+    """run(), its host milliseconds (ending in a synchronize) recorded in
+    LAST_PLAIN_MS."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    LAST_PLAIN_MS[0] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def ulp_up(ts):
+    """Every floating-point tensor of ``ts`` one ulp up (others as they are)."""
+    return tuple(torch.nextafter(t, torch.full_like(t, math.inf))
+                 if isinstance(t, torch.Tensor) and t.is_floating_point() else t for t in ts)
 
 
 def solve_pair(tt, p, opts):
@@ -422,29 +530,41 @@ def solve_pair(tt, p, opts):
     seeds = (x0[:, None].expand(-1, N + 1, -1).contiguous(), U0, U0.clone(),
              x0.new_zeros(x0.shape[0], N, nu, x0.shape[1]))
     return (mega_clddp._launch(p, opts, *seeds),
-            clddp._solve(p, opts.replace(backward_engine="scan"), *seeds))
+            timed_plain(lambda: clddp._solve(p, opts.replace(backward_engine="scan"), *seeds)))
 
 
-def check_solve_f64(label, kern, plain, min_share=1.0, traj_tol=1e-8):
+def check_solve_f64(label, kern, plain, min_share=1.0, traj_tol=1e-8, moved=None):
     """float64: status and iteration count equal on at least ``min_share``
     of instances (all, unless a case allows ties), X and U within
     ``traj_tol`` where they are equal, and the cost within 1e-8 on every
-    instance. Returns the status counts."""
+    instance; given ``moved`` (the plain driver's solution from x0 one ulp
+    up), each within that plus ``MOVE_FACTOR`` times the largest move of
+    the plain driver's field (on a long horizon a one-ulp change moves the
+    cart-pole's plain X by 1e-8 and its U and cost by 1e-7 over 10
+    iterations, so rounding alone exceeds 1e-8 there). Returns the status
+    counts."""
     same = ((kern.status_code == plain.status_code)
             & (kern.iterations_completed == plain.iterations_completed))
     share = float(same.double().mean())
     if share < min_share:
         raise AssertionError(f"clddp_solve f64 {label}: status/iterations differ "
                              f"on {int((~same).sum())} instances")
-    errs = {}
-    for nm, g, w, tol in (
-            ("X", kern.state_trajectory[same], plain.state_trajectory[same], traj_tol),
-            ("U", kern.control_trajectory[same], plain.control_trajectory[same], traj_tol),
-            ("cost", kern.final_objective, plain.final_objective, 1e-8)):
-        errs[nm] = float((g - w).abs().max())
+    errs, bad = {}, []
+    fields = lambda s: (s.state_trajectory, s.control_trajectory, s.final_objective)  # noqa: E731
+    every = torch.ones_like(same)
+    for nm, g, w, m, tol, rows in zip(("X", "U", "cost"), fields(kern), fields(plain),
+                                      fields(moved or plain), (traj_tol, traj_tol, 1e-8),
+                                      (same, same, every)):
+        errs[nm] = float((g - w)[rows].abs().max())
+        if moved is not None:
+            move = float((m - w)[rows].abs().max())
+            print(f"[kernels float64] clddp_solve {label} {nm}: max abs err {errs[nm]:.3e}; the "
+                  f"plain driver from x0 one ulp up moves {move:.3e}")
+            tol = tol + MOVE_FACTOR * move
         if not errs[nm] <= tol:
-            raise AssertionError(f"clddp_solve f64 {label} {nm}: max abs err "
-                                 f"{errs[nm]} > {tol}")
+            bad.append(f"clddp_solve f64 {label} {nm}: max abs err {errs[nm]} > {tol}")
+    if bad:
+        raise AssertionError("; ".join(bad))
     counts = torch.bincount(kern.status_code.long(), minlength=4).tolist()
     print(f"[kernels float64] clddp_solve {label}: status and iterations equal "
           f"on {int(same.sum())} of {same.numel()}; statuses {counts}; max abs err "
@@ -530,10 +650,19 @@ def phase_branches(tt, dev):
             raise AssertionError(f"{label}: statuses {counts} miss {reached}")
 
 
-def phase_kernels(tt, dev, make_problem=flagship_problem, label="flagship"):
+def phase_kernels(tt, dev, make_problem=flagship_problem, label="flagship", opts=None,
+                  rtol=0.0, moved=False, chaotic=False):
     """Each CLDDP kernel against its plain version on the card, on the
     problem ``make_problem`` builds (phase 3: the flagship, with the
-    branches of ``phase_branches``; phase 11: the tracking problem)."""
+    branches of ``phase_branches``; phase 11: the tracking problem; phase
+    14: the pendulum's and the cart-pole's), the whole solve under ``opts``
+    (10 iterations, tolerance 1e-4 unless given); ``rtol`` and ``moved``:
+    ``check``'s float64 relative term and its one-ulp move of the plain
+    version (and ``check_solve_f64``'s of the plain driver);
+    ``chaotic``: a fleet whose float32 solves amplify rounding from the
+    first iterations (the cart-pole's N = 200) has its float32 kernels held
+    by ``check``'s quantiles and its whole solve by
+    ``check_clddp_f32_accuracy``."""
     from cddp_tpu_torch.ops.kernels import riccati
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 
@@ -550,18 +679,23 @@ def phase_kernels(tt, dev, make_problem=flagship_problem, label="flagship"):
         got = riccati._launch(*back)
         want = riccati.riccati_backward_plain(*back)
         truth = None if exact else riccati.riccati_backward_plain(*(t.double() for t in back))
-        err_r = check("riccati_backward", got, want, truth)
+        err_r = check("riccati_backward", got, want, truth, rtol=rtol, quantiles=chaotic,
+                      moved=riccati.riccati_backward_plain(*ulp_up(back))
+                      if exact and moved else None)
         k, K = want[0], want[1]
         consts = rollout_ops.lane_consts(prob)
         fwd = (consts, X[:, :-1], U, k, K, X[:, 0], alpha)
         truth = None if exact else rollout_ops.forward_rollout_plain(
             consts_f64(consts), *(t.double() for t in fwd[1:]))
         err_f = check("forward_rollout", rollout_ops._launch(*fwd),
-                      rollout_ops.forward_rollout_plain(*fwd), truth)
+                      rollout_ops.forward_rollout_plain(*fwd), truth, rtol=rtol,
+                      quantiles=chaotic,
+                      moved=rollout_ops.forward_rollout_plain(consts, *ulp_up(fwd[1:]))
+                      if exact and moved else None)
         print(f"[kernels {tag}] riccati_backward max abs err {err_r:.3e}; "
               f"forward_rollout max abs err {err_f:.3e}")
 
-        opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+        opts = opts or tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
         p = prob.replace(x0=X[:, 0])
         kern, plain = solve_pair(tt, p, opts)
         same = ((kern.status_code == plain.status_code)
@@ -569,11 +703,14 @@ def phase_kernels(tt, dev, make_problem=flagship_problem, label="flagship"):
         share = float(same.double().mean())
         cost_err = float((kern.final_objective - plain.final_objective)[same].abs().max())
         if exact:
-            check_solve_f64(label, kern, plain)
+            check_solve_f64(label, kern, plain, moved=solve_pair(
+                tt, p.replace(x0=ulp_up((p.x0,))[0]), opts)[1] if moved else None)
             if make_problem is flagship_problem:
                 phase_branches(tt, dev)
         elif make_problem is flagship_problem:
             share = check_solve_f32(label, kern, plain, 0.99)
+        elif chaotic:
+            share = check_clddp_f32_accuracy(tt, dev, make_problem, label, p, opts, kern, plain)
         else:
             # A fleet that converges (most of the tracking problem's does
             # within ten iterations) meets the acceptable exit's 0 < dJ < 1e-6 and the
@@ -581,8 +718,10 @@ def phase_kernels(tt, dev, make_problem=flagship_problem, label="flagship"):
             # forks from itself there under a one-ulp change of x0, as IPDDP's
             # filter ties do (check_ip_f32). So its rule: 99% over the first
             # five iterations, and at ten at most 3 points below that floor.
-            share = check_solve_f32(f"{label}, 5 iterations", *solve_pair(
-                tt, p, opts.replace(max_iterations=5)), 0.99)
+            short = min(5, opts.max_iterations)
+            share = check_solve_f32(f"{label}, {short} iterations", *(
+                (kern, plain) if short == opts.max_iterations
+                else solve_pair(tt, p, opts.replace(max_iterations=short))), 0.99)
             up = p.replace(x0=torch.nextafter(p.x0, torch.full_like(p.x0, math.inf)))
             floor = cost_share(solve_pair(tt, up, opts)[1], plain)
             print(f"[kernels {tag}] clddp_solve {label}: the plain driver against itself from "
@@ -594,6 +733,50 @@ def phase_kernels(tt, dev, make_problem=flagship_problem, label="flagship"):
         results[tag] = dict(riccati_backward=err_r, forward_rollout=err_f,
                             clddp_solve=cost_err, clddp_solve_agreement=share)
     return results
+
+
+def check_clddp_f32_accuracy(tt, dev, make_problem, label, p, opts, kern, plain):
+    """float32 CLDDP on a fleet whose solve amplifies rounding from the
+    first iterations (the cart-pole's N = 200 swing-up: the plain driver
+    agrees with itself from x0 one ulp up in cost (rel 1e-4) on 67% at five
+    iterations, and the kernel, which rounds every product apart from it,
+    with the plain driver on 57%, on an H100): agreement in cost
+    measures chaos there, not the kernel. At ``opts``' budget the kernel's
+    statuses and iterations equal the plain driver's on >= 99%, and
+    against the plain driver in float64 from the same x0 its median and
+    99th-percentile relative cost errors are at most twice the float32
+    plain driver's (+1e-6), the rule ``check_ip_f32`` holds kernel 7 to.
+    Returns the share with equal status, iterations and cost."""
+    from cddp_tpu_torch.solvers import clddp
+
+    p64 = make_problem(tt, torch.float64, dev).replace(x0=p.x0.double())
+    same = float(((kern.status_code == plain.status_code)
+                  & (kern.iterations_completed == plain.iterations_completed)).double().mean())
+    N, nu, nx = p64.horizon, p64.control_dim, p64.state_dim
+    x0 = p64.x0
+    U0 = x0.new_zeros(x0.shape[0], N, nu)
+    truth = clddp._solve(p64, opts.replace(backward_engine="scan"),
+                         x0[:, None].expand(-1, N + 1, -1).contiguous(), U0, U0.clone(),
+                         x0.new_zeros(x0.shape[0], N, nu, nx)).final_objective
+    errs = {}
+    for name, sol in (("kernel", kern), ("plain", plain)):
+        rel = (sol.final_objective.double() - truth).abs() / truth.abs()
+        errs[name] = (float(rel.median()), float(rel.quantile(0.99)))
+    share = cost_share(kern, plain)
+    print(f"[kernels float32] clddp_solve {label}, {opts.max_iterations} iterations: status "
+          f"and iterations agree on {same:.4%}, and cost (rel 1e-4) on {share:.4%}; rel cost "
+          f"err against float64: median kernel {errs['kernel'][0]:.3e}, plain "
+          f"{errs['plain'][0]:.3e}; 99th percentile kernel {errs['kernel'][1]:.3e}, plain "
+          f"{errs['plain'][1]:.3e}")
+    if same < 0.99:
+        raise AssertionError(f"clddp_solve f32 {label}: status and iterations agree on "
+                             f"{same:.4%} (need >= 99%)")
+    for i, what in enumerate(("median", "99th percentile")):
+        if not errs["kernel"][i] <= 2.0 * errs["plain"][i] + 1e-6:
+            raise AssertionError(f"clddp_solve f32 {label}: {what} rel cost err against "
+                                 f"float64 {errs['kernel'][i]:.3e} exceeds twice the plain "
+                                 f"driver's {errs['plain'][i]:.3e}")
+    return share
 
 
 # --- operation and byte counts for the roofline bounds -------------------------
@@ -696,26 +879,27 @@ def one(args):
 
 
 def time_clddp_kernels(prob, x0, opts, smi,
-                       names=("riccati_backward", "forward_rollout", "clddp_solve")):
+                       names=("riccati_backward", "forward_rollout", "clddp_solve"),
+                       plain_ms=None, events_ok=False):
     """Kernels 1-3 (those of ``names``) at the main path's batch: kernel and
     plain times and each one's bound from this run's inputs
-    (``time_kernels``); the rollout on ``stage_inputs``' trajectories and
-    gains, the whole solve on the fleet's cold seeds from x0."""
+    (``time_kernels``; ``plain_ms`` gives plain times measured elsewhere);
+    the rollout on ``stage_inputs``' trajectories and gains, the whole
+    solve on the fleet's cold seeds from x0."""
     from cddp_tpu_torch.ops.kernels import mega_clddp, riccati
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
     from cddp_tpu_torch.solvers import clddp
 
-    dev = x0.device
+    dev, N, nu, nx = x0.device, prob.horizon, prob.control_dim, prob.state_dim
     X, U, back, alpha = stage_inputs(prob, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
     out1 = riccati._launch(*back)
     k, K = out1[0], out1[1]
     consts = rollout_ops.lane_consts(prob)
     fwd = (consts, X[:, :-1], U, k, K, X[:, 0], alpha)
     out2 = rollout_ops._launch(*fwd)
-    seeds = (x0[:, None].expand(-1, HORIZON + 1, -1).contiguous(),
-             torch.zeros(B_MAIN, HORIZON, 2, device=dev),
-             torch.zeros(B_MAIN, HORIZON, 2, device=dev),
-             torch.zeros(B_MAIN, HORIZON, 2, 3, device=dev))
+    seeds = (x0[:, None].expand(-1, N + 1, -1).contiguous(),
+             x0.new_zeros(B_MAIN, N, nu), x0.new_zeros(B_MAIN, N, nu),
+             x0.new_zeros(B_MAIN, N, nu, nx))
     p = prob.replace(x0=x0)
     sol3, work = mega_clddp.launch_counting_work(p, opts, *seeds)
     plain_opts = opts.replace(backward_engine="scan")
@@ -749,7 +933,8 @@ def time_clddp_kernels(prob, x0, opts, smi,
         "clddp_solve": (lambda: mega_clddp._launch(p, opts, *seeds), 20,
                         lambda: clddp._solve(p, plain_opts, *seeds), 1),
     }
-    return time_kernels({n: runs[n] for n in names}, work_items, prob.x0.dtype, smi)
+    return time_kernels({n: runs[n] for n in names}, work_items, prob.x0.dtype, smi,
+                        plain_ms=plain_ms, events_ok=events_ok)
 
 
 def reference_read(prob):
@@ -797,11 +982,12 @@ def plain_ip_options(tt, opts):
         opts.ipddp, forward_engine="scan"))
 
 
-def stage_ip_inputs(tt, prob, B, gen, opts):
+def stage_ip_inputs(tt, prob, B, gen, opts, iterations=4):
     """Inputs of the open-loop rollout, condensed backward and forward trial
-    kernels as the per-pass driver stages them: the plain driver takes four
-    iterations from cold starts at random x0, and about the iterate it
-    reaches the backward's inputs are built at its barrier parameter and
+    kernels as the per-pass driver stages them: the plain driver takes
+    ``iterations`` (phase 14 takes one on its long horizons) from cold
+    starts at random x0, and about the iterate it reaches the backward's
+    inputs are built at its barrier parameter and
     regularization, and a line-search trial from the plain backward's gains
     at a random ladder step capped by the fraction-to-boundary maxima. On
     a quarter of the batch the caps are tripled, so that the trial's
@@ -813,10 +999,10 @@ def stage_ip_inputs(tt, prob, B, gen, opts):
 
     dev, dtype = prob.x0.device, prob.x0.dtype
     rand = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=dtype)  # noqa: E731
-    x0 = rand(B, 3) - 0.5
+    x0 = fleet_x0(prob, B, gen)
     p, seeds = ip_seeds(prob, opts, x0)
     stk = PathStacker(p)
-    sol = ipddp._drive(p, plain_ip_options(tt, opts.replace(max_iterations=4)), *seeds)
+    sol = ipddp._drive(p, plain_ip_options(tt, opts.replace(max_iterations=iterations)), *seeds)
     X, U, Lam = sol.state_trajectory, sol.control_trajectory, sol.costate_trajectory
     Y = torch.cat([sol.dual_trajectories[n] for n in stk.names], -1)
     S = torch.cat([sol.slack_trajectories[n] for n in stk.names], -1)
@@ -942,7 +1128,8 @@ def ip_solve_pair(tt, prob, opts, x0, seeds_fn=None):
     if not mega_ipddp.mega_eligible(p, opts):
         raise AssertionError("the case is not eligible for the whole-solve kernel")
     return (mega_ipddp._launch(p, opts, *seeds, terminal=term),
-            ipddp._drive(p, plain_ip_options(tt, opts), *seeds, terminal=term))
+            timed_plain(lambda: ipddp._drive(p, plain_ip_options(tt, opts), *seeds,
+                                             terminal=term)))
 
 
 def phase_ip_kernels(tt, dev):
@@ -1097,17 +1284,19 @@ def check_ip_f32(tt, dev, prob, opts, x0, prob64=None, label="box fleet", early_
     iterations."""
     from cddp_tpu_torch.solvers import ipddp
 
-    short_opts = opts.replace(max_iterations=5)
+    short = min(5, opts.max_iterations)
+    short_opts = opts.replace(max_iterations=short)
     kern5, plain5 = ip_solve_pair(tt, prob, short_opts, x0, seeds_fn)
     short_min = 0.99
     if early_forks:
         floor5 = self_agreement(tt, prob, short_opts, x0, plain5, seeds_fn)
         print(f"[kernels float32] {label}: the plain driver against itself from x0 one ulp "
-              f"up at five iterations: {floor5:.4%} of {x0.shape[0]}")
+              f"up at {short} iterations: {floor5:.4%} of {x0.shape[0]}")
         short_min = floor5 - 0.03
-    _, short_share, short_err = check_ip_solve(f"{label}, 5 iterations", kern5, plain5, False,
-                                               min_share=short_min)
-    kern, plain = ip_solve_pair(tt, prob, opts, x0, seeds_fn)
+    _, short_share, short_err = check_ip_solve(f"{label}, {short} iterations", kern5, plain5,
+                                               False, min_share=short_min)
+    kern, plain = ((kern5, plain5) if opts.max_iterations == short
+                   else ip_solve_pair(tt, prob, opts, x0, seeds_fn))
     plain_opts = plain_ip_options(tt, opts)
     floor = self_agreement(tt, prob, opts, x0, plain, seeds_fn)
     print(f"[kernels float32] the plain driver against itself from x0 one ulp up: status, "
@@ -1254,36 +1443,81 @@ def phase_ip_fleet(tt, dev, smi, obstacle=False):
 
 
 def time_ip_kernels(tt, prob, x0, smi, names=("open_loop_rollout", "ip_forward",
-                                               "ipddp_backward", "ipddp_solve")):
+                                               "ipddp_backward", "ipddp_solve"),
+                    opts=None, plain_ms=None, events_ok=False, stage_iterations=4):
     """Kernels 4-7 (those of ``names``) at the main path's batch and shapes:
     kernel and plain times and each one's bound from this run's inputs
-    (``time_kernels``); kernel 6 on the per-pass driver's layout
-    (``per_pass_layout``), and also timed on the plain driver's."""
+    (``time_kernels``; ``plain_ms`` gives plain times measured elsewhere),
+    the whole solve under ``opts`` (10 iterations, tolerance 1e-4 unless
+    given); kernel 6 on the per-pass driver's layout (``per_pass_layout``),
+    and also timed on the plain driver's."""
     from cddp_tpu_torch.ops.kernels import ip_rollout, mega_ipddp
     from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
     from cddp_tpu_torch.solvers import ipddp
 
-    dtype = prob.x0.dtype
-    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    dtype, dt = prob.x0.dtype, prob.timestep
+    opts = opts or tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
     gen = torch.Generator(device=x0.device).manual_seed(SEED)
-    p, ol, back_dense, fwd = stage_ip_inputs(tt, prob, B_MAIN, gen, opts)
+    p, ol, back_dense, fwd = stage_ip_inputs(tt, prob, B_MAIN, gen, opts, stage_iterations)
     back = per_pass_layout(back_dense)
     entry = rollout_ops.model_entry(p.model)
     fc = forward_consts(p, opts, False)
-    out4 = ip_rollout._launch_open_loop(p.model, entry, *ol, DT)
+    out4 = ip_rollout._launch_open_loop(p.model, entry, *ol, dt)
     out5 = ip_rollout._launch_forward(fc, *fwd)
-    out6 = ric._launch(*back)
     pw, seeds = ip_seeds(prob, opts, x0)
-    sol7, work = mega_ipddp.launch_counting_work(pw, opts, *seeds)
     plain_opts = plain_ip_options(tt, opts)
 
     # Operations per instance, counted on the plain versions at B=1; the
     # whole solve's from this run's backward attempts and trajectory sweeps.
-    ops4 = count_ops(ip_rollout.open_loop_rollout_plain, p.model, *one(ol), DT)
+    ops4 = count_ops(ip_rollout.open_loop_rollout_plain, p.model, *one(ol), dt)
     ops5 = count_ops(ip_rollout.ip_forward_plain, fc, *one(fwd))
     ops6 = count_ops(ric.ipddp_backward_plain, *one(back))
+    print(f"[bound] operations per instance: open_loop_rollout {ops4}, ip_forward "
+          f"{ops5}, ipddp_backward {ops6}")
+    refs = reference_read(prob)
+    work_items = {
+        "open_loop_rollout": (ol, (out4[:, 1:],), ops4 * B_MAIN),
+        "ip_forward": (fwd + refs, out5, ops5 * B_MAIN),
+    }
+    if "ipddp_backward" in names:
+        out6 = ric._launch(*back)
+        work_items["ipddp_backward"] = (backward_operands_read(back), out6, ops6 * B_MAIN)
+    if "ipddp_solve" in names:
+        work_items["ipddp_solve"] = ipddp_solve_work(tt, pw, opts, seeds, ops5, out5, refs)
+    # name: (kernel, its reps, plain version, its reps)
+    runs = {
+        "open_loop_rollout": (lambda: ip_rollout._launch_open_loop(p.model, entry, *ol, dt), 20,
+                              lambda: ip_rollout.open_loop_rollout_plain(p.model, *ol, dt), 5),
+        "ip_forward": (lambda: ip_rollout._launch_forward(fc, *fwd), 20,
+                       lambda: ip_rollout.ip_forward_plain(fc, *fwd), 3),
+        "ipddp_backward": (lambda: ric._launch(*back), 20,
+                           lambda: ric.ipddp_backward_plain(*back), 2),
+        "ipddp_solve": (lambda: mega_ipddp._launch(pw, opts, *seeds), 10,
+                        lambda: ipddp._drive(pw, plain_opts, *seeds), 1),
+    }
+    out = time_kernels({n: runs[n] for n in names}, work_items, dtype, smi, plain_ms=plain_ms,
+                       events_ok=events_ok)
+    if "ipddp_backward" not in names:
+        return out
+    dense = lambda: ric._launch(*back_dense)  # noqa: E731
+    print(f"[timing] ipddp_backward at B={B_MAIN} on batch-first Y, S and G (the plain "
+          f"driver's layout): kernel {cuda_ms(dense, 20):.3f} ms with the wrapper, "
+          f"{device_ms(dense, 'ipddp_backward', 10, events_ok)[0]:.3f} ms device  [{smi}]")
+    return out
+
+
+def ipddp_solve_work(tt, pw, opts, seeds, ops5, out5, refs):
+    """Kernel 7's (inputs, outputs, operations) for its bound from one
+    counted launch on ``seeds``: the operations of the plain version per
+    backward attempt and per sweep (the forward trial, ``ops5`` of it, with
+    the merit, theta and residuals) at B=1, times this launch's work."""
     from cddp_tpu_torch.constraints.stack import PathStacker
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import mega_ipddp
+    from cddp_tpu_torch.solvers import ipddp
+
+    sol7, work = mega_ipddp.launch_counting_work(pw, opts, *seeds)
 
     p1 = pw.replace(x0=pw.x0[:1])
     s1 = one(seeds)
@@ -1298,63 +1532,44 @@ def time_ip_kernels(tt, prob, x0, smi, names=("open_loop_rollout", "ip_forward",
         one(out5))
     attempts, sweeps = (float(w.double().sum()) for w in work)
     ops7 = attempts * ops_back + sweeps * ops_sweep
-    print(f"[divergence] ipddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
+    B = pw.x0.shape[0]
+    print(f"[divergence] ipddp_solve at B={B}: mean over warps of max / mean lane work "
           f"(backward attempts + sweeps) {warp_divergence(work):.4f}")
-    print(f"[bound] operations per instance: open_loop_rollout {ops4}, ip_forward "
-          f"{ops5}, ipddp_backward {ops6}; ipddp_solve {ops7 / B_MAIN:.0f} on average "
-          f"({attempts / B_MAIN:.3f} backward attempts x {ops_back} + "
-          f"{sweeps / B_MAIN:.3f} sweeps x {ops_sweep})")
-
-    refs = reference_read(prob)
-    ins7 = seeds + refs
+    print(f"[bound] operations per instance: ipddp_solve {ops7 / B:.0f} on average "
+          f"({attempts / B:.3f} backward attempts x {ops_back} + {sweeps / B:.3f} sweeps x "
+          f"{ops_sweep})")
     outs7 = (sol7.state_trajectory, sol7.control_trajectory, sol7.feedforward_gains,
              sol7.feedback_gains, sol7.costate_trajectory,
              *sol7.dual_trajectories.values(), *sol7.slack_trajectories.values())
-    work_items = {
-        "open_loop_rollout": (ol, (out4[:, 1:],), ops4 * B_MAIN),
-        "ip_forward": (fwd + refs, out5, ops5 * B_MAIN),
-        "ipddp_backward": (backward_operands_read(back), out6, ops6 * B_MAIN),
-        "ipddp_solve": (ins7, outs7 + (torch.empty(9, B_MAIN, device=x0.device),), ops7),
-    }
-    # name: (kernel, its reps, plain version, its reps)
-    runs = {
-        "open_loop_rollout": (lambda: ip_rollout._launch_open_loop(p.model, entry, *ol, DT), 20,
-                              lambda: ip_rollout.open_loop_rollout_plain(p.model, *ol, DT), 5),
-        "ip_forward": (lambda: ip_rollout._launch_forward(fc, *fwd), 20,
-                       lambda: ip_rollout.ip_forward_plain(fc, *fwd), 3),
-        "ipddp_backward": (lambda: ric._launch(*back), 20,
-                           lambda: ric.ipddp_backward_plain(*back), 2),
-        "ipddp_solve": (lambda: mega_ipddp._launch(pw, opts, *seeds), 10,
-                        lambda: ipddp._drive(pw, plain_opts, *seeds), 1),
-    }
-    out = time_kernels({n: runs[n] for n in names}, work_items, dtype, smi)
-    if "ipddp_backward" not in names:
-        return out
-    dense = lambda: ric._launch(*back_dense)  # noqa: E731
-    print(f"[timing] ipddp_backward at B={B_MAIN} on batch-first Y, S and G (the plain "
-          f"driver's layout): kernel {cuda_ms(dense, 20):.3f} ms with the wrapper, "
-          f"{device_ms(dense, 'ipddp_backward', 10)[0]:.3f} ms device  [{smi}]")
-    return out
+    return seeds + refs, outs7 + (torch.empty(9, B, device=pw.x0.device),), ops7
 
 
-def time_kernels(runs, work_items, dtype, smi, label="", events_ok=False):
+def time_kernels(runs, work_items, dtype, smi, label="", events_ok=False, plain_ms=None):
     """Time each kernel of ``runs`` ({name: (kernel, reps, plain version,
     reps)}) by CUDA events around its wrapper and by the profiler's device
-    time, its plain version by CUDA events, and its bound from
-    ``work_items`` ({name: (inputs, outputs, operations)}). Returns {name:
-    (ms, plain_ms, bound_ms, bound_by, device_ms, device_ms_source)}. A plain version timed
+    time, its plain version by CUDA events (unless ``plain_ms`` gives its
+    time, measured elsewhere), and its bound from ``work_items`` ({name:
+    (inputs, outputs, operations)}). Returns {name: (ms, plain_ms,
+    bound_ms, bound_by, device_ms, device_ms_source)}. A plain version timed
     once is a whole-solve plain driver, which its fleet's phase has just run
     at these shapes: it gets no warm-up."""
     out = {}
     for name, (kernel, reps, plain, plain_reps) in runs.items():
-        ms, plain_ms = cuda_ms(kernel, reps), cuda_ms(plain, plain_reps, warm=plain_reps > 1)
-        dev_ms, source = device_ms(kernel, name, max(reps // 2, 3), events_ok)
+        # A kernel that runs for seconds (phase 14's long solves) takes as
+        # many timed calls as fit TIMING_BUDGET_MS; the profiler takes at
+        # least three (it can miss a session's only launch).
+        reps = max(1, min(reps, int(TIMING_BUDGET_MS / max(cuda_ms(kernel, 1), 1e-3))))
+        ms = cuda_ms(kernel, reps, warm=False)
+        plain_ms_ = ((plain_ms or {}).get(name)
+                     or cuda_ms(plain, plain_reps, warm=plain_reps > 1))
+        dev_ms, source = device_ms(kernel, name.split("@")[0], max(reps // 2, 3), events_ok)
         ins, outs, ops = work_items[name]
         nbytes = unique_bytes(ins) + unique_bytes(outs)
         b_ms, b_by = bound(nbytes, ops, dtype)
-        out[name] = (ms, plain_ms, b_ms, b_by, dev_ms, source)
+        out[name] = (ms, plain_ms_, b_ms, b_by, dev_ms, source)
         print(f"[timing] {name}{label} at B={B_MAIN}: kernel {ms:.3f} ms with the wrapper, "
-              f"{dev_ms:.3f} ms device ({source}), plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+              f"{dev_ms:.3f} ms device ({source}), plain {plain_ms_:.3f} ms, bound {b_ms:.4f} ms "
+              f"by "
               f"{b_by} ({nbytes / 1e9:.3f} GB, {ops / 1e9:.3f} G operations)  [{smi}]")
     return out
 
@@ -1694,7 +1909,8 @@ def barrier_pair(solver, prob, opts, x0, defect=False, seeds_fn=None):
             f.update(Y=st.Y, S=st.S, F=st.F, Lambda=st.Lambda, mu=sol.barrier_mu)
         return sol, f
 
-    return fields(mega._launch(p, opts, *seeds)), fields(drive(p, opts, *seeds))
+    return (fields(mega._launch(p, opts, *seeds)),
+            fields(timed_plain(lambda: drive(p, opts, *seeds))))
 
 
 # MSIPDDP's filter has no violation floor: once a cold start's violations
@@ -1936,23 +2152,29 @@ def phase_barrier_branches(tt, dev, x0):
                                  f"(statuses {counts})")
 
 
-def phase_barrier_kernels(tt, dev, make_problem=ip_problem, label="box fleet"):
+def phase_barrier_kernels(tt, dev, make_problem=ip_problem, label="box fleet", opts=None,
+                          plain_ms=None, suffix=""):
     """Kernels 9 and 8 against their plain drivers on the card, on the cold
     seeds at B_CHECK of the problem ``make_problem`` builds (phase 9: the
     box fleet, with the branches of ``phase_barrier_branches``; phase 11:
-    the tracking problem). Returns {dtype: {kernel: max abs cost err,
+    the tracking problem; phase 14: the pendulum's), under ``opts`` (10
+    iterations, tolerance 1e-4 unless given); ``plain_ms`` gets each
+    solver's float32 plain host ms at the full budget under its kernel's
+    name and ``suffix``. Returns {dtype: {kernel: max abs cost err,
     agreement}}."""
     results = {}
+    opts = opts or tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
         gen = torch.Generator(device=dev).manual_seed(SEED + 7)
         prob = make_problem(tt, dtype, dev)
-        opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
-        x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=dtype) - 0.5
+        x0 = fleet_x0(prob, B_CHECK, gen)
         out = {}
         for solver, name in (("LogDDP", "logddp_solve"), ("MSIPDDP", "msipddp_solve")):
             if dtype == torch.float32:
                 share, err = check_barrier_f32(solver, prob, opts, x0, label)
+                if plain_ms is not None:
+                    plain_ms[name + suffix] = LAST_PLAIN_MS[0]
             elif solver == "LogDDP":
                 _, share, err = check_barrier(solver, label,
                                               *barrier_pair(solver, prob, opts, x0), True)
@@ -2041,17 +2263,18 @@ def phase_barrier_fleets(tt, dev, smi):
     return launches, default, rates, prob, x0
 
 
-def time_barrier_kernels(tt, prob, x0, smi):
-    """Kernels 9 and 8 at the main path's batch and shapes: kernel and plain
-    driver times and each one's bound from this run's inputs and work
-    (``time_kernels``)."""
+def time_barrier_kernels(tt, prob, x0, smi, opts=None, plain_ms=None, events_ok=False):
+    """Kernels 9 and 8 at the main path's batch and shapes, under ``opts``
+    (10 iterations, tolerance 1e-4 unless given): kernel and plain driver
+    times (``plain_ms`` gives them where measured elsewhere) and each one's
+    bound from this run's inputs and work (``time_kernels``)."""
     from cddp_tpu_torch.constraints.stack import PathStacker
     from cddp_tpu_torch.ops.kernels import mega_logddp, mega_msipddp
     from cddp_tpu_torch.options import line_search_alphas
     from cddp_tpu_torch.solvers import logddp, msipddp
 
     dtype = prob.x0.dtype
-    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    opts = opts or tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
     p = prob.replace(x0=x0)
     p1 = prob.replace(x0=x0[:1])
 
@@ -2129,7 +2352,7 @@ def time_barrier_kernels(tt, prob, x0, smi):
         "msipddp_solve": (lambda: mega_msipddp._launch(p, opts, *seeds8), 10,
                           lambda: msipddp._drive(p, opts, *seeds8), 1),
     }
-    return time_kernels(runs, work_items, dtype, smi)
+    return time_kernels(runs, work_items, dtype, smi, plain_ms=plain_ms, events_ok=events_ok)
 
 
 # --- tracking MPC (per-step reference trajectories) --------------------------------
@@ -2467,20 +2690,24 @@ def phase_terminal_per_pass(tt, dev):
         print(f"[terminal float64] per-pass engine on {variant}: launches {counts}")
 
 
-def time_terminal_kernel(tt, prob, x0, smi, variant):
+def time_terminal_kernel(tt, prob, x0, smi, variant, opts=None, plain_ms=None,
+                         events_ok=False):
     """Kernel 7's terminal ``variant`` at B_MAIN on the fleet's cold seeds:
     wrapper and device ms, the plain driver's ms and the bound, whose
     operations are the plain version's per backward attempt (the terminal
     value fold and condensed backward, or the reduced LQR) and per sweep
     (the forward trial with the terminal rows, merit, theta and residuals)
-    times this run's work. Returns (timing tuple as ``time_kernels``
-    gives it, work per instance (attempts, sweeps), attributes)."""
+    times this run's work, under ``opts`` (10 iterations, tolerance 1e-4
+    unless given; ``plain_ms``: the plain driver's time, measured
+    elsewhere). Returns (timing tuple as ``time_kernels`` gives it, work per
+    instance (attempts, sweeps), attributes)."""
     from cddp_tpu_torch.constraints.stack import PathStacker, TerminalStacker
     from cddp_tpu_torch.ops.kernels import build, ip_rollout, mega_ipddp
     from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
     from cddp_tpu_torch.solvers import ipddp
 
-    opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    opts = opts or tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
     plain_opts = plain_ip_options(tt, opts)
     pw, seeds = ip_seeds(prob, opts, x0)
     sol7, work = mega_ipddp.launch_counting_work(pw, opts, *seeds)
@@ -2534,8 +2761,10 @@ def time_terminal_kernel(tt, prob, x0, smi, variant):
     runs = {"ipddp_solve": (lambda: mega_ipddp._launch(pw, opts, *seeds), 10,
                             lambda: ipddp._drive(pw, plain_opts, *seeds), 1)}
     timing = time_kernels(runs, {"ipddp_solve": (ins, outs, ops7)}, x0.dtype, smi,
-                          label=f" {variant}")["ipddp_solve"]
-    attrs = build.kernel_attributes(f"cddp_ipddp_solve_unicycle_{variant}_f32")
+                          label=f" {variant}", events_ok=events_ok,
+                          plain_ms=plain_ms and {"ipddp_solve": plain_ms})["ipddp_solve"]
+    model = rollout_ops.model_entry(prob.model).cuda_name
+    attrs = build.kernel_attributes(f"cddp_ipddp_solve_{model}_{variant}_f32")
     return timing, (attempts / B_MAIN, sweeps / B_MAIN), attrs
 
 
@@ -3110,6 +3339,543 @@ def phase_warm(tt, dev, smi):
     return entries, summary
 
 
+# --- the pendulum, the cart-pole and HCW (phase 14) ---------------------------------
+
+# Iterations of (a)'s whole-solve checks, by model, and of the tracking
+# forms' checks and of the runs that drive the other instantiations. On
+# the long horizons each plain-driver run takes seconds (the cart-pole's
+# 5.7-9.4 s at ten iterations): at ten the whole script took 960.7 s on one
+# card and 1193.7 s on another of its 1200 s (PERF.md), so (a) holds
+# the goal forms over five iterations, the cart-pole's over three.
+ZOO_ITERS = {"pendulum": 5, "cartpole": 3, "hcw": 5}
+ZOO_TRACK_ITERS = 2
+ZOO_RTOL = 1e-12  # ``check``'s float64 relative term for kernels 1, 2, 4, 5 and 6
+# Phase 14's kernels, each an entry of the kernels' JSON line: (entry name,
+# dispatch_log name, kernel, model, launcher without its type suffix).
+# Kernels 1 and 6 are keyed by shape, so they log it; the entries name the
+# model.
+ZOO_ENTRIES = tuple(
+    (name, logged or name, name.split("@")[0].replace("_track", "").replace("_te6", ""),
+     name.split("@")[1], launcher)
+    for name, logged, launcher in (
+        ("riccati_backward@pendulum", "riccati_backward@2x1", "cddp_riccati_backward_2x1"),
+        ("riccati_backward@cartpole", "riccati_backward@4x1", "cddp_riccati_backward_4x1"),
+        ("forward_rollout@pendulum", None, "cddp_forward_rollout_pendulum"),
+        ("forward_rollout_track@pendulum", None, "cddp_forward_rollout_pendulum_track"),
+        ("forward_rollout@cartpole", None, "cddp_forward_rollout_cartpole"),
+        ("forward_rollout_track@cartpole", None, "cddp_forward_rollout_cartpole_track"),
+        ("clddp_solve@pendulum", None, "cddp_clddp_solve_pendulum"),
+        ("clddp_solve_track@pendulum", None, "cddp_clddp_solve_pendulum_track"),
+        ("clddp_solve@cartpole", None, "cddp_clddp_solve_cartpole"),
+        ("clddp_solve_track@cartpole", None, "cddp_clddp_solve_cartpole_track"),
+        ("open_loop_rollout@pendulum", None, "cddp_open_loop_rollout_pendulum"),
+        ("open_loop_rollout@cartpole", None, "cddp_open_loop_rollout_cartpole"),
+        ("open_loop_rollout@hcw", None, "cddp_open_loop_rollout_hcw"),
+        ("ip_forward@pendulum", None, "cddp_ip_forward_pendulum_m2"),
+        ("ip_forward_track@pendulum", None, "cddp_ip_forward_pendulum_m2_track"),
+        ("ip_forward@hcw", None, "cddp_ip_forward_hcw_m6"),
+        ("ip_forward_track@hcw", None, "cddp_ip_forward_hcw_m6_track"),
+        ("ipddp_backward@pendulum", "ipddp_backward@2x1x2", "cddp_ipddp_backward_2x1x2"),
+        ("ipddp_solve@pendulum", None, "cddp_ipddp_solve_pendulum_m2"),
+        ("ipddp_solve_track@pendulum", None, "cddp_ipddp_solve_pendulum_m2_track"),
+        ("ipddp_solve_te6@hcw", None, "cddp_ipddp_solve_hcw_m6_te6"),
+        ("msipddp_solve@pendulum", None, "cddp_msipddp_solve_pendulum_m2"),
+        ("msipddp_solve_track@pendulum", None, "cddp_msipddp_solve_pendulum_m2_track"),
+        ("logddp_solve@pendulum", None, "cddp_logddp_solve_pendulum_m2"),
+        ("logddp_solve_track@pendulum", None, "cddp_logddp_solve_pendulum_m2_track"),
+    ))
+
+
+def zoo_problem(tt, dtype, device, model, tracking=False, terminal=True):
+    """Phase 14's fleets. "pendulum": the pendulum goldens' problem
+    (tests/make_goldens.py:50-56; N = 100, dt = 0.02, Q = 0, R = 0.1, Qf =
+    100 I, the box +-20, x0 = (pi, 0)); "cartpole": the cart-pole golden's
+    (make_goldens.py:58-67; N = 200, dt = 0.02, the box +-100, the goal
+    (0, pi, 0, 0)); "hcw": the JAX rendezvous bench's
+    (bench_ipddp_fleet.py:56-82; HCW, N = 20, dt = 30, Q = 1e-4 I, R = 1e-2
+    I, Qf = I, the box +-0.004, x0 = (10, 5, 2, 0, 0, 0)) with the terminal
+    equality x_N = 0 when ``terminal``. ``tracking``: the straight line from
+    x0 to the goal as the per-step reference (the pendulum's Q = I, so that
+    it counts), no terminal constraint."""
+    from cddp_tpu_torch.models import HCW, CartPole, Pendulum
+
+    kw = dict(device=device, dtype=dtype)
+    f64 = lambda v: torch.as_tensor(v, dtype=torch.float64)  # noqa: E731
+    eye = lambda n, v: v * torch.eye(n, dtype=torch.float64)  # noqa: E731
+    if model == "pendulum":
+        m, N, dt, box = Pendulum(length=0.5, damping=0.01), 100, 0.02, [20.0]
+        x0, goal = [math.pi, 0.0], [0.0, 0.0]
+        Q, R, Qf = eye(2, 1.0 if tracking else 0.0), eye(1, 0.1), eye(2, 100.0)
+    elif model == "cartpole":
+        m, N, dt, box = CartPole(), 200, 0.02, [100.0]
+        x0, goal = [0.0] * 4, [0.0, math.pi, 0.0, 0.0]
+        Q, R, Qf = f64([0.1, 1.0, 0.1, 0.1]).diag(), eye(1, 0.05), f64([100.0, 500.0, 10.0,
+                                                                          10.0]).diag()
+    else:
+        m, N, dt, box = HCW(), 20, 30.0, [0.004] * 3
+        x0, goal = [10.0, 5.0, 2.0, 0.0, 0.0, 0.0], [0.0] * 6
+        Q, R, Qf = eye(6, 1e-4), eye(3, 1e-2), eye(6, 1.0)
+    refs = None
+    if tracking:
+        frac = torch.linspace(0.0, 1.0, N + 1, dtype=torch.float64)[:, None]
+        refs = f64(x0) * (1.0 - frac) + f64(goal) * frac
+    obj = tt.quadratic_objective(Q, R, Qf, f64(goal), dt, reference_states=refs, **kw)
+    prob = tt.problem(m, obj, f64(x0), N, dt, **kw).add_constraint(
+        "ControlConstraint", tt.control_constraint([-b for b in box], box, **kw))
+    if model == "hcw" and terminal and not tracking:
+        prob = prob.add_terminal_constraint(
+            "TerminalEquality", tt.terminal_equality_constraint(f64(goal), **kw))
+    return prob
+
+
+def zoo_options(tt, model, solver):
+    """The fleets' options: the goldens' (make_goldens.py:115-150; CLDDP on
+    the pendulum 100 iterations, tolerance 1e-3, acceptable 1e-4; the
+    interior-point solvers 300, 1e-4, 1e-5; CLDDP on the cart-pole 300,
+    1e-4, 1e-6), the rendezvous bench's (bench_ipddp_fleet.py:110: 10
+    iterations, tolerance 1e-4)."""
+    if model == "hcw":
+        return tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    if model == "cartpole":
+        return tt.CDDPOptions(max_iterations=300, tolerance=1e-4, acceptable_tolerance=1e-6)
+    if solver == "CLDDP":
+        return tt.CDDPOptions(max_iterations=100, tolerance=1e-3, acceptable_tolerance=1e-4)
+    return tt.CDDPOptions(max_iterations=300, tolerance=1e-4, acceptable_tolerance=1e-5)
+
+
+def zoo_maker(model, tracking=False, terminal=True):
+    """``zoo_problem`` as a ``make_problem(tt, dtype, device)``."""
+    return lambda tt, dtype, dev: zoo_problem(tt, dtype, dev, model, tracking, terminal)
+
+
+def phase_zoo_clddp_kernels(tt, dev, errs, plain):
+    """(a) kernels 1-3 on the pendulum and the cart-pole, goal and tracking
+    forms, by ``phase_kernels``' rules; the float32 plain driver's host ms
+    at B_CHECK under (a)'s budget (``plain``, from ``LAST_PLAIN_MS``)."""
+    for model in ("pendulum", "cartpole"):
+        for tracking in (False, True):
+            sfx = "_track" if tracking else ""
+            iters = ZOO_TRACK_ITERS if tracking else ZOO_ITERS[model]
+            opts = zoo_options(tt, model, "CLDDP").replace(max_iterations=iters)
+            out = phase_kernels(tt, dev, zoo_maker(model, tracking), f"{model}{sfx}", opts,
+                                rtol=ZOO_RTOL, moved=True, chaotic=model == "cartpole")
+            for tag, r in out.items():
+                for k in ("forward_rollout", "clddp_solve") + (
+                        () if tracking else ("riccati_backward",)):
+                    errs[tag][f"{k}{sfx if k != 'riccati_backward' else ''}@{model}"] = r[k]
+            plain[f"clddp_solve{sfx}@{model}"] = LAST_PLAIN_MS[0]
+
+
+def zoo_ip_check(tt, dev, label, make, opts, x0_gen_seed, eq=False):
+    """Kernel 7 against the plain driver on cold seeds at B_CHECK: float64 by
+    ``check_ip_solve`` (the terminal equality within 1e-7 and 1e-8 |plain|,
+    as phase 12), float32 by ``check_ip_f32`` (the equality with
+    ``early_forks``). Returns ({dtype: cost err}, float32 plain host ms)."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        prob = make(tt, dtype, dev)
+        x0 = fleet_x0(prob, B_CHECK, torch.Generator(device=dev).manual_seed(x0_gen_seed))
+        if dtype == torch.float64:
+            _, _, out[tag] = check_ip_solve(label, *ip_solve_pair(tt, prob, opts, x0), True,
+                                            tol=1e-7 if eq else 1e-8, dual_rtol=1e-8)
+        else:
+            _, out[tag] = check_ip_f32(tt, dev, prob, opts, x0, prob64=make(tt, torch.float64, dev),
+                                       label=label, early_forks=eq)
+    return out, LAST_PLAIN_MS[0]
+
+
+def phase_zoo_ip_kernels(tt, dev, errs, plain):
+    """(a) kernels 4-7 on the pendulum's control box (m = 2) and HCW's (m =
+    6): the open-loop rollout (also on the cart-pole), the condensed
+    backward (the pendulum's (2, 1, 2), on the plain driver's and the
+    per-pass driver's layouts, same bits) and the forward trial (goal and
+    tracking forms, with and without the slack SOC) on the inputs the
+    per-pass driver stages (``stage_ip_inputs``), by ``check``; kernel 7 on
+    the pendulum (goal and tracking forms) and HCW's rendezvous m6_te6
+    (``zoo_ip_check``)."""
+    from cddp_tpu_torch.models import rollout
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    as64 = lambda ts: tuple(t.double() if t.is_floating_point() else t  # noqa: E731
+                            for t in ts)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        exact = dtype == torch.float64
+        gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+        for model in ("pendulum", "cartpole", "hcw"):
+            prob = zoo_problem(tt, dtype, dev, model, terminal=False)
+            x0 = fleet_x0(prob, B_CHECK, gen)
+            cc = prob.get_constraint("ControlConstraint")
+            U = (2.0 * torch.rand(B_CHECK, prob.horizon, prob.control_dim, generator=gen,
+                                  device=dev, dtype=dtype) - 1.0) * cc.upper
+            entry = rollout_ops.model_entry(prob.model)
+            want = (ip_rollout.open_loop_rollout_plain(prob.model, x0, U, prob.timestep),)
+            truth = None if exact else (ip_rollout.open_loop_rollout_plain(
+                prob.model, x0.double(), U.double(), prob.timestep),)
+            got = (ip_rollout._launch_open_loop(prob.model, entry, x0, U, prob.timestep),)
+            if not torch.equal(got[0], rollout(prob.model, x0, U, prob.timestep)):
+                raise AssertionError(f"open_loop_rollout@{model}: the public rollout differs")
+            moved = None if not exact else (ip_rollout.open_loop_rollout_plain(
+                prob.model, *ulp_up((x0, U)), prob.timestep),)
+            errs[tag][f"open_loop_rollout@{model}"] = check(f"open_loop_rollout@{model}", got,
+                                                            want, truth, rtol=ZOO_RTOL,
+                                                            moved=moved)
+        for model in ("pendulum", "hcw"):
+            for tracking in (False, True):
+                sfx = "_track" if tracking else ""
+                prob = zoo_problem(tt, dtype, dev, model, tracking, terminal=False)
+                opts = zoo_options(tt, model, "IPDDP").replace(max_iterations=10)
+                p, ol, back, fwd = stage_ip_inputs(tt, prob, B_CHECK, gen, opts, iterations=1)
+                err5 = 0.0
+                for soc in (False, True):
+                    fc = forward_consts(p, opts, soc)
+                    truth = None if exact else ip_rollout.ip_forward_plain(
+                        forward_consts(p, opts, soc, f64=True), *as64(fwd))
+                    got = ip_rollout._launch_forward(fc, *fwd)
+                    moved = (ip_rollout.ip_forward_plain(fc, *ulp_up(fwd)) if exact
+                             else None)
+                    err5 = max(err5, check(f"ip_forward{sfx}@{model} slack_soc={soc}", got,
+                                           ip_rollout.ip_forward_plain(fc, *fwd), truth,
+                                           rtol=ZOO_RTOL, moved=moved))
+                    print(f"[zoo {tag}] ip_forward{sfx}@{model} slack_soc={soc}: feasible on "
+                          f"{float(got[-1].double().mean()):.2%} of {B_CHECK}")
+                errs[tag][f"ip_forward{sfx}@{model}"] = err5
+                if model == "pendulum" and not tracking:
+                    truth = None if exact else ric.ipddp_backward_plain(*as64(back))
+                    got = ric._launch(*back)
+                    moved = ric.ipddp_backward_plain(*ulp_up(back)) if exact else None
+                    errs[tag]["ipddp_backward@pendulum"] = check(
+                        "ipddp_backward@pendulum", got, ric.ipddp_backward_plain(*back), truth,
+                        rtol=ZOO_RTOL, moved=moved)
+                    again = ric._launch(*per_pass_layout(back))
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError("ipddp_backward@pendulum: the per-pass driver's "
+                                             "layout gives other bits")
+    cases = (  # entry, problem, options, iterations, terminal equality
+        ("ipddp_solve@pendulum", zoo_maker("pendulum"), "pendulum", ZOO_ITERS["pendulum"],
+         False),
+        ("ipddp_solve_track@pendulum", zoo_maker("pendulum", True), "pendulum", ZOO_TRACK_ITERS,
+         False),
+        ("ipddp_solve_te6@hcw", zoo_maker("hcw"), "hcw", ZOO_ITERS["hcw"], True),
+    )
+    for name, make, model, iters, eq in cases:
+        opts = zoo_options(tt, model, "IPDDP").replace(max_iterations=iters)
+        out, plain[name] = zoo_ip_check(tt, dev, name, make, opts, SEED + 43, eq)
+        for tag, v in out.items():
+            errs[tag][name] = v
+
+
+def phase_zoo_barrier_kernels(tt, dev, errs, plain):
+    """(a) kernels 9 and 8 on the pendulum, goal and tracking forms, by
+    ``phase_barrier_kernels``' rules (MSIPDDP over MS_EXACT_ITERS); each
+    one's float32 plain driver's host ms at B_CHECK (``plain``: a run of
+    its float32 check at the full budget)."""
+    for tracking in (False, True):
+        sfx = "_track" if tracking else ""
+        iters = ZOO_TRACK_ITERS if tracking else ZOO_ITERS["pendulum"]
+        opts = zoo_options(tt, "pendulum", "LogDDP").replace(max_iterations=iters)
+        out = phase_barrier_kernels(tt, dev, zoo_maker("pendulum", tracking), f"pendulum{sfx}",
+                                    opts, plain_ms=plain, suffix=f"{sfx}@pendulum")
+        for tag, r in out.items():
+            for k in ("logddp_solve", "msipddp_solve"):
+                errs[tag][f"{k}{sfx}@pendulum"] = r[k]
+
+
+def zoo_fleet_run(label, prob, x0, solver, opts, want, mega=None):
+    """One main-path run of a phase-14 fleet through ``batched_solve``, the
+    launch counts zeroed just before it and read just after; they must be
+    ``want``: these counts, or for a set these kernels, each at least once.
+    With ``mega`` the whole-solve launch goes through ``count_work``.
+    Returns (Solution, launches, host ms, (wrapper ms, work, divergence) or
+    None)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    dispatch_log.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if mega is None:
+        sol = batched_solve(prob, x0, solver, opts)
+        work = None
+    else:
+        with count_work(mega) as rec:
+            sol = batched_solve(prob, x0, solver, opts)
+        work = rec[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(dispatch_log.launches)
+    if counts != want if isinstance(want, dict) else set(counts) != want:
+        raise AssertionError(f"{label}: launches {counts}, not {want}")
+    for what, t in (("cost", sol.final_objective), ("X", sol.state_trajectory),
+                    ("U", sol.control_trajectory)):
+        if not bool(t.isfinite().all()):
+            raise AssertionError(f"{label}: non-finite {what}")
+    return sol, counts, ms, work
+
+
+def zoo_summary(label, sol, ms, work, smi):
+    """Print a fleet's converged share, iterations, ms and solves/s, and the
+    whole-solve launch's wrapper ms, work and warp divergence."""
+    conv = (sol.status_code == 1) | (sol.status_code == 2)
+    its = sol.iterations_completed.double()
+    extra = ("" if work is None else f"; the kernel's wrapper {work[0]:.2f} ms, mean work per "
+             f"instance {work[1]}, warp divergence {work[2]:.4f}")
+    print(f"[zoo] {label}, B={sol.status_code.numel()}: converged {float(conv.double().mean()):.4%}"
+          f", statuses {torch.bincount(sol.status_code.long(), minlength=5).tolist()}, "
+          f"iterations mean {float(its.mean()):.3f} max {int(its.max())}; {ms:.2f} ms "
+          f"({sol.status_code.numel() / ms * 1e3:.1f} solves/s){extra}  [{smi}]")
+
+
+def phase_zoo_fleets(tt, dev, smi):
+    """(b)-(d): the pendulum fleet (CLDDP with the golden's CLDDP options,
+    IPDDP, LogDDP and MSIPDDP with its interior-point options: one
+    whole-solve launch each, the barrier solvers beside one open-loop
+    rollout), the cart-pole fleet (one CLDDP whole-solve launch), the HCW
+    rendezvous fleet (whole-solve: one open-loop rollout and one m6_te6
+    launch; per-pass: kernels 4 and 5 beside the plain reduced LQR), each at
+    B_MAIN in float32; then five MPC ticks of the rendezvous warm and cold.
+    Runs that drive the other new instantiations follow, each at B_MAIN and
+    few iterations (the per-pass engines, the tracking forms, HCW's box
+    alone, the cart-pole's open-loop rollout). Returns (launches {entry:
+    n}, {fleet: (problem, x0, options)} for the timings)."""
+    from cddp_tpu_torch.models import rollout
+    from cddp_tpu_torch.ops.kernels import (dispatch_log, mega_clddp, mega_ipddp, mega_logddp,
+                                            mega_msipddp)
+
+    t0 = time.perf_counter()
+    launches, fleets = {}, {}
+    megas = {"CLDDP": mega_clddp, "IPDDP": mega_ipddp, "LogDDP": mega_logddp,
+             "MSIPDDP": mega_msipddp}
+    kernels = {"CLDDP": "clddp_solve", "IPDDP": "ipddp_solve", "LogDDP": "logddp_solve",
+               "MSIPDDP": "msipddp_solve"}
+    for model, solvers in (("pendulum", ("CLDDP", "IPDDP", "LogDDP", "MSIPDDP")),
+                           ("cartpole", ("CLDDP",))):
+        prob = zoo_problem(tt, torch.float32, dev, model)
+        x0 = fleet_x0(prob, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
+        for solver in solvers:
+            opts = zoo_options(tt, model, solver)
+            name = f"{kernels[solver]}@{model}"
+            want = {name: 1} if solver == "CLDDP" else {name: 1, f"open_loop_rollout@{model}": 1}
+            sol, counts, ms, work = zoo_fleet_run(f"{model} {solver} fleet", prob, x0, solver,
+                                                  opts, want, megas[solver])
+            launches.update(counts)
+            zoo_summary(f"{model} {solver} fleet", sol, ms, work, smi)
+            fleets[name] = (prob, x0, opts)
+
+    # (d) The HCW rendezvous fleet on both engines, then the MPC ticks.
+    prob = zoo_problem(tt, torch.float32, dev, "hcw")
+    x0 = fleet_x0(prob, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
+    opts = zoo_options(tt, "hcw", "IPDDP")
+    fleets["ipddp_solve_te6@hcw"] = (prob, x0, opts)
+    for engine, o, want in (
+            ("whole-solve", opts, {"open_loop_rollout@hcw": 1, "ipddp_solve_te6@hcw": 1}),
+            ("per-pass", opts.replace(solve_engine="xla"), {"open_loop_rollout@hcw",
+                                                            "ip_forward@hcw"})):
+        sol, counts, ms, work = zoo_fleet_run(f"hcw rendezvous {engine}", prob, x0, "IPDDP", o,
+                                              want, mega_ipddp if engine == "whole-solve" else None)
+        if engine == "whole-solve":
+            launches.update(counts)
+        else:
+            launches["ip_forward@hcw"] = counts["ip_forward@hcw"]
+        viol = terminal_violation(prob, sol.state_trajectory)
+        zoo_summary(f"hcw rendezvous fleet, {engine} engine", sol, ms, work, smi)
+        print(f"[zoo] hcw rendezvous {engine}: launches {counts}; terminal violation max "
+              f"{float(viol.max()):.3e}, mean {float(viol.mean()):.3e}, median "
+              f"{float(viol.median()):.3e}")
+    for warm in (True, False):
+        run = f"hcw rendezvous MPC {'warm' if warm else 'cold'}"
+        init_fn, step_fn = tt.make_mpc_controller(prob, "IPDDP", opts,
+                                                  warm_start_solver_state=warm)
+        x = x0.clone()
+        state = init_fn(x)
+        ms, its = [], []
+        for k in range(WARM_TICKS):
+            dispatch_log.reset()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with count_work(mega_ipddp) as work:
+                u, state, info = step_fn(state, x, k)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            counts = dict(dispatch_log.launches)
+            if counts != {"open_loop_rollout@hcw": 1, "ipddp_solve_te6@hcw": 1}:
+                raise AssertionError(f"{run} tick {k}: launches {counts}")
+            if not bool(u.isfinite().all()) or not bool(info["cost"].isfinite().all()):
+                raise AssertionError(f"{run} tick {k}: non-finite controls or costs")
+            its.append(float(info["iterations"].double().mean()))
+            x = prob.model.discrete_dynamics(x, u, k * prob.timestep, prob.timestep)
+            kernel_ms, rows, div = work[0]
+            print(f"[zoo] {run} tick {k}: {ms[-1]:.2f} ms (the kernel's wrapper {kernel_ms:.2f} "
+                  f"ms, mean work per instance {rows}, warp divergence {div:.3f}), mean "
+                  f"iterations {its[-1]:.3f}, statuses "
+                  f"{torch.bincount(info['status'].long(), minlength=4).tolist()}  [{smi}]")
+        print(f"[zoo] {run}, B={B_MAIN}, {WARM_TICKS} ticks: {sum(ms[1:]) / (len(ms) - 1):.2f} ms "
+              f"a tick after the first, first {ms[0]:.2f}; mean iterations a tick "
+              f"{sum(its) / len(its):.3f}; mean |x| at the end "
+              f"{float(x[:, :3].norm(dim=-1).mean()):.4f}  [{smi}]")
+
+    # The runs that drive the other instantiations, ZOO_TRACK_ITERS
+    # iterations each: (label, model, tracking, terminal, solver, engine, the
+    # kernels it launches, the entries it drives).
+    ol = {m: f"open_loop_rollout@{m}" for m in ("pendulum", "hcw")}
+    drive = (
+        ("pendulum CLDDP per-pass", "pendulum", False, True, "CLDDP", "xla",
+         {"riccati_backward@2x1", "forward_rollout@pendulum"}, ("forward_rollout@pendulum",)),
+        ("cartpole CLDDP per-pass", "cartpole", False, True, "CLDDP", "xla",
+         {"riccati_backward@4x1", "forward_rollout@cartpole"}, ("forward_rollout@cartpole",)),
+        ("pendulum IPDDP per-pass", "pendulum", False, True, "IPDDP", "xla",
+         {ol["pendulum"], "ipddp_backward@2x1x2", "ip_forward@pendulum"},
+         ("ip_forward@pendulum",)),
+        ("pendulum CLDDP tracking", "pendulum", True, True, "CLDDP", "auto",
+         {"clddp_solve_track@pendulum"}, ("clddp_solve_track@pendulum",)),
+        ("pendulum CLDDP tracking per-pass", "pendulum", True, True, "CLDDP", "xla",
+         {"riccati_backward@2x1", "forward_rollout_track@pendulum"},
+         ("forward_rollout_track@pendulum",)),
+        ("cartpole CLDDP tracking", "cartpole", True, True, "CLDDP", "auto",
+         {"clddp_solve_track@cartpole"}, ("clddp_solve_track@cartpole",)),
+        ("cartpole CLDDP tracking per-pass", "cartpole", True, True, "CLDDP", "xla",
+         {"riccati_backward@4x1", "forward_rollout_track@cartpole"},
+         ("forward_rollout_track@cartpole",)),
+        ("pendulum IPDDP tracking", "pendulum", True, True, "IPDDP", "auto",
+         {ol["pendulum"], "ipddp_solve_track@pendulum"}, ("ipddp_solve_track@pendulum",)),
+        ("pendulum IPDDP tracking per-pass", "pendulum", True, True, "IPDDP", "xla",
+         {ol["pendulum"], "ipddp_backward@2x1x2", "ip_forward_track@pendulum"},
+         ("ip_forward_track@pendulum",)),
+        ("pendulum LogDDP tracking", "pendulum", True, True, "LogDDP", "auto",
+         {ol["pendulum"], "logddp_solve_track@pendulum"}, ("logddp_solve_track@pendulum",)),
+        ("pendulum MSIPDDP tracking", "pendulum", True, True, "MSIPDDP", "auto",
+         {ol["pendulum"], "msipddp_solve_track@pendulum"}, ("msipddp_solve_track@pendulum",)),
+        ("hcw IPDDP tracking per-pass", "hcw", True, False, "IPDDP", "xla",
+         {ol["hcw"], "ip_forward_track@hcw"}, ("ip_forward_track@hcw",)),
+    )
+    for label, model, tracking, terminal, solver, engine, want, driven in drive:
+        p = zoo_problem(tt, torch.float32, dev, model, tracking, terminal)
+        x = fleet_x0(p, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
+        o = zoo_options(tt, model, solver).replace(max_iterations=ZOO_TRACK_ITERS,
+                                                   solve_engine=engine)
+        _, counts, ms, _ = zoo_fleet_run(label, p, x, solver, o, want)
+        print(f"[zoo] {label}, B={B_MAIN}, {ZOO_TRACK_ITERS} iterations: launches {counts}, "
+              f"{ms:.2f} ms")
+        for name in want:
+            launches.setdefault(name, counts[name])
+        for name in driven:
+            fleets[name] = (p, x, o.replace(solve_engine="auto"))
+    p = zoo_problem(tt, torch.float32, dev, "cartpole")
+    x = fleet_x0(p, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
+    dispatch_log.reset()
+    X = rollout(p.model, x, x.new_zeros(B_MAIN, p.horizon, 1), p.timestep)
+    torch.cuda.synchronize()
+    counts = dict(dispatch_log.launches)
+    if counts != {"open_loop_rollout@cartpole": 1} or not bool(X.isfinite().all()):
+        raise AssertionError(f"the cart-pole's open-loop rollout: launches {counts}")
+    launches.update(counts)
+    print(f"[zoo] fleets done in {time.perf_counter() - t0:.1f} s")
+    return launches, fleets
+
+
+def time_open_loop(prob, x0, smi):
+    """Kernel 4 at B_MAIN from x0 under random controls in the box: its
+    times, its plain version's and its bound (``time_kernels``)."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    gen = torch.Generator(device=x0.device).manual_seed(SEED)
+    cc = prob.get_constraint("ControlConstraint")
+    U = (2.0 * torch.rand(B_MAIN, prob.horizon, prob.control_dim, generator=gen,
+                          device=x0.device) - 1.0) * cc.upper
+    entry, dt = rollout_ops.model_entry(prob.model), prob.timestep
+    kernel = lambda: ip_rollout._launch_open_loop(prob.model, entry, x0, U, dt)  # noqa: E731
+    ops = count_ops(ip_rollout.open_loop_rollout_plain, prob.model, x0[:1], U[:1], dt)
+    runs = {"open_loop_rollout": (kernel, 20, lambda: ip_rollout.open_loop_rollout_plain(
+        prob.model, x0, U, dt), 3)}
+    work = {"open_loop_rollout": ((x0, U), (kernel()[:, 1:],), ops * B_MAIN)}
+    return time_kernels(runs, work, x0.dtype, smi, events_ok="wrapper")["open_loop_rollout"]
+
+
+def time_zoo_kernels(tt, fleets, plain, smi):
+    """Every phase-14 entry's wrapper and device ms, plain ms and bound at
+    B_MAIN on the inputs of the run that drives it (``fleets``: the
+    problem, x0 and options of each), by the timing functions of phases 4,
+    6, 10 and 12: kernels 1, 2, 4, 5 and 6 on the inputs ``stage_inputs``
+    and ``stage_ip_inputs`` stage about that run's problem, the whole
+    solves from its cold seeds under its options. The whole solves' plain
+    ms are the float32 plain drivers' at B_CHECK under (a)'s iterations
+    (``plain``): the plain drivers are not run at B_MAIN on these
+    horizons. Returns {entry: timing tuple}."""
+    out = {}
+
+    def keep(timing, model, sfx, shape_keyed=()):
+        for k, v in timing.items():
+            out[f"{k}@{model}" if k in shape_keyed else f"{k}{sfx}@{model}"] = v
+
+    for model in ("pendulum", "cartpole"):
+        for sfx in ("", "_track"):
+            name = f"clddp_solve{sfx}@{model}"
+            p, x0, o = fleets[name]
+            names = ("forward_rollout", "clddp_solve") + (("riccati_backward",) if not sfx else ())
+            keep(time_clddp_kernels(p, x0, o, smi, names=names, events_ok="wrapper",
+                                    plain_ms={"clddp_solve": plain[name]}),
+                 model, sfx, ("riccati_backward",))
+    # HCW's kernels 4 and 5 on the rendezvous fleet, whose per-pass engine
+    # runs them; kernel 5's tracking form on the tracking run.
+    keys = {("pendulum", ""): "ipddp_solve@pendulum",
+            ("pendulum", "_track"): "ipddp_solve_track@pendulum",
+            ("hcw", ""): "ipddp_solve_te6@hcw", ("hcw", "_track"): "ip_forward_track@hcw"}
+    for model, names in (("pendulum", ("open_loop_rollout", "ip_forward", "ipddp_backward",
+                                       "ipddp_solve")),
+                         ("hcw", ("open_loop_rollout", "ip_forward"))):
+        for sfx in ("", "_track"):
+            key = keys[(model, sfx)]
+            p, x0, o = fleets[key]
+            todo = names if not sfx else tuple(n for n in names if n in (
+                "ip_forward",) + (("ipddp_solve",) if model == "pendulum" else ()))
+            keep(time_ip_kernels(tt, p, x0, smi, names=todo, opts=o, events_ok="wrapper",
+                                 stage_iterations=1,
+                                 plain_ms={"ipddp_solve": plain.get(key)}),
+                 model, sfx, ("open_loop_rollout", "ipddp_backward"))
+    p, x0, _ = fleets["clddp_solve@cartpole"]
+    out["open_loop_rollout@cartpole"] = time_open_loop(p, x0, smi)
+    for sfx in ("", "_track"):
+        p, x0, o = fleets[f"logddp_solve{sfx}@pendulum"]
+        keep(time_barrier_kernels(tt, p, x0, smi, opts=o, events_ok="wrapper", plain_ms={
+            k: plain[f"{k}{sfx}@pendulum"] for k in ("logddp_solve", "msipddp_solve")}),
+             "pendulum", sfx)
+    prob, x0, opts = fleets["ipddp_solve_te6@hcw"]
+    timing, work, attrs = time_terminal_kernel(tt, prob, x0, smi, "m6_te6", opts=opts,
+                                               plain_ms=plain["ipddp_solve_te6@hcw"],
+                                               events_ok="wrapper")
+    out["ipddp_solve_te6@hcw"] = timing
+    print(f"[zoo] ipddp_solve_te6@hcw: {work[0]:.3f} backward attempts and {work[1]:.3f} "
+          f"sweeps per instance; attributes {attrs}  [{smi}]")
+    return out
+
+
+def phase_zoo(tt, dev, smi):
+    """Phase 14, the pendulum, the cart-pole and HCW: (a) every new
+    instantiation against its plain version at B_CHECK, float64 and
+    float32; (b)-(d) the fleets at B_MAIN and the runs that drive the other
+    instantiations; then each entry's times and bound at B_MAIN. Returns
+    ({entry: launches}, {dtype: {entry: err}}, {entry: timing}, {entry:
+    plain-driver batch and iterations})."""
+    t0 = time.perf_counter()
+    errs, plain = {"float64": {}, "float32": {}}, {}
+    phase_zoo_clddp_kernels(tt, dev, errs, plain)
+    phase_zoo_ip_kernels(tt, dev, errs, plain)
+    phase_zoo_barrier_kernels(tt, dev, errs, plain)
+    print(f"[zoo] (a) done in {time.perf_counter() - t0:.1f} s; plain drivers at B={B_CHECK}, "
+          f"float32: " + ", ".join(f"{k} {v:.1f} ms" for k, v in plain.items()))
+    launches, fleets = phase_zoo_fleets(tt, dev, smi)
+    timing = time_zoo_kernels(tt, fleets, plain, smi)
+    plain_at = {k: f"B={B_CHECK}, float32, "
+                   f"{ZOO_TRACK_ITERS if '_track' in k else ZOO_ITERS[k.split('@')[1]]} iterations"
+                   for k in plain}
+    print(f"[zoo] phase 14 done in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, timing, plain_at
+
+
 def main():
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -3268,6 +4034,10 @@ def main():
     warm_entries, certified = phase_warm(tt, dev, smi)
     print(f"[clock] phase 13 done at {time.perf_counter() - t_start:.1f} s")
 
+    # --- phase 14: the pendulum, the cart-pole and HCW -------------------------------
+    zoo_launches, zoo_errs, zoo_timing, zoo_plain_at = phase_zoo(tt, dev, smi)
+    print(f"[clock] phase 14 done at {time.perf_counter() - t_start:.1f} s")
+
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
                              "cddp_tpu/ops/pallas/riccati.py:236"),
@@ -3385,6 +4155,28 @@ def main():
     for name, entry in warm_entries.items():
         by_name[name]["warm"] = entry
     by_name["ipddp_solve"]["warm"]["certified_fleet"] = certified
+    # Phase 14's instantiations, each an entry of its own named with its
+    # model: launches in the run that drives it (the fleets' main paths for
+    # the whole solves and the rendezvous's kernels 4 and 5, a short run for
+    # the others), errors from (a), times and bound at B_MAIN on that run's
+    # inputs; the whole solves' plain ms are the plain drivers' of (a)
+    # ("plain_at").
+    for name, logged, kernel, model, launcher in ZOO_ENTRIES:
+        ms, plain_ms, b_ms, b_by, dev_ms, source = zoo_timing[name]
+        a = build.kernel_attributes(f"{launcher}_f32")
+        src, rep = sources[kernel]
+        if "_te" in name:
+            src = "cddp_tpu_torch/ops/csrc/ipddp_solve_terminal.cu"
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "variant_of": kernel,
+            "model": model, "dispatch_name": logged, "launches": zoo_launches[logged],
+            "max_abs_err": zoo_errs["float32"][name], "max_abs_err_f64": zoo_errs["float64"][name],
+            "ms": ms, "device_ms": dev_ms, "device_ms_source": source, "plain_ms": plain_ms,
+            "plain_at": zoo_plain_at.get(name, f"B={B_MAIN}, float32"),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "registers": a["registers"], "spill_bytes": a["spill_bytes"],
+            "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
+            "blocks_per_sm": a["blocks_per_sm"]})
     print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in rates.items()) + "; IPDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in ip_rates.items()) + "".join(

@@ -86,21 +86,38 @@ def test_launchers_are_exported_and_registered(kernel):
 # 7's tracking form for the box stacks and m5_ball0; kernel 7's terminal
 # variants on the control box in their own translation unit: one or two
 # terminal inequality rows (ti1, ti2), the terminal equality (te3), both.
+# Beside the unicycle: the pendulum (kernels 1-3 at (2, 1), kernels 4, 5, 7,
+# 8 and 9 on its control box m = 2, kernel 6 at (2, 1, 2)), the cart-pole
+# (kernels 1-4 at (4, 1)) and HCW (kernel 4, kernel 5 on its control box m
+# = 6 in both forms, kernel 7's rendezvous m6_te6).
 INSTANTIATIONS = {
     "ipddp_solve.cu": {f"cddp_ipddp_solve_unicycle_{v}"
                        for v in ("m4", "m6", "m10", "m5_ball0", "m5_ball4", "m4_track",
-                                 "m6_track", "m10_track", "m5_ball0_track")},
+                                 "m6_track", "m10_track", "m5_ball0_track")}
+    | {"cddp_ipddp_solve_pendulum_m2", "cddp_ipddp_solve_pendulum_m2_track"},
     "ipddp_solve_terminal.cu": {f"cddp_ipddp_solve_unicycle_{v}"
-                                for v in ("m4_ti1", "m4_ti2", "m4_te3", "m4_te3_ti1")},
-    "ipddp_backward.cu": {f"cddp_ipddp_backward_3x2x{m}" for m in (4, 5, 6, 10)},
-    "ip_forward.cu": {f"cddp_ip_forward_unicycle_m{m}{t}" for m in (4, 6, 10)
+                                for v in ("m4_ti1", "m4_ti2", "m4_te3", "m4_te3_ti1")}
+    | {"cddp_ipddp_solve_hcw_m6_te6"},
+    "ipddp_backward.cu": {f"cddp_ipddp_backward_3x2x{m}" for m in (4, 5, 6, 10)}
+    | {"cddp_ipddp_backward_2x1x2"},
+    "ip_forward.cu": {f"cddp_ip_forward_{v}{t}"
+                      for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2",
+                                "hcw_m6")
                       for t in ("", "_track")},
-    "forward_rollout.cu": {f"cddp_forward_rollout_unicycle{t}" for t in ("", "_track")},
-    "clddp_solve.cu": {f"cddp_clddp_solve_unicycle{t}" for t in ("", "_track")},
-    "logddp_solve.cu": {f"cddp_logddp_solve_unicycle_m{m}{t}" for m in (4, 6, 10)
+    "forward_rollout.cu": {f"cddp_forward_rollout_{m}{t}" for m in ("unicycle", "pendulum",
+                                                                     "cartpole")
+                           for t in ("", "_track")},
+    "clddp_solve.cu": {f"cddp_clddp_solve_{m}{t}" for m in ("unicycle", "pendulum", "cartpole")
+                       for t in ("", "_track")},
+    "logddp_solve.cu": {f"cddp_logddp_solve_{v}{t}"
+                        for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2")
                         for t in ("", "_track")},
-    "msipddp_solve.cu": {f"cddp_msipddp_solve_unicycle_m{m}{t}" for m in (4, 6, 10)
+    "msipddp_solve.cu": {f"cddp_msipddp_solve_{v}{t}"
+                         for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2")
                          for t in ("", "_track")},
+    "riccati_backward.cu": {f"cddp_riccati_backward_{s}" for s in ("3x2", "2x1", "4x1")},
+    "open_loop_rollout.cu": {f"cddp_open_loop_rollout_{m}"
+                             for m in ("unicycle", "pendulum", "cartpole", "hcw")},
 }
 
 
@@ -119,11 +136,13 @@ def test_ball_variants_are_the_layouts_the_wrapper_names():
     balls = {f"cddp_ipddp_solve_unicycle_m{m}_ball{row}"
              for m, row in mega_ipddp.BALL_LAYOUTS["unicycle"]}
     assert balls <= launchers_of("ipddp_solve.cu")[0]
-    assert {f"cddp_ipddp_solve_unicycle_{v}_track" for v in mega_ipddp.TRACK_LAYOUTS[
-        "unicycle"]} <= launchers_of("ipddp_solve.cu")[0]
-    assert {f"cddp_ipddp_solve_unicycle_{layout}" + (f"_te{p}" if p else "")
+    assert {f"cddp_ipddp_solve_{model}_{v}_track"
+            for model, layouts in mega_ipddp.TRACK_LAYOUTS.items()
+            for v in layouts} <= launchers_of("ipddp_solve.cu")[0]
+    assert {f"cddp_ipddp_solve_{model}_{layout}" + (f"_te{p}" if p else "")
             + (f"_ti{mT}" if mT else "")
-            for layout, shapes in mega_ipddp.TERMINAL_LAYOUTS["unicycle"].items()
+            for model, layouts in mega_ipddp.TERMINAL_LAYOUTS.items()
+            for layout, shapes in layouts.items()
             for mT, p in shapes} == launchers_of("ipddp_solve_terminal.cu")[0]
     assert launchers_of("ipddp_backward.cu")[0] == {
         f"cddp_ipddp_backward_{nx}x{nu}x{m}" for nx, nu, m in ipddp_riccati.KERNEL_SHAPES}
@@ -206,8 +225,9 @@ def test_launch_shapes_see_a_mismatch():
     text = (build.CSRC / "logddp_solve.cu").read_text()
     shapes = launch_shapes(text)["logddp_solve_kernel"]
     assert shapes[0] == "kThreads" and shapes[1]
-    # One launch; m = 4, 6, 10 in the goal and the tracking form.
-    assert len(shapes[2]) == 1 and len(shapes[3]) == 6
+    # One launch; m = 4, 6, 10 on the unicycle and 2 on the pendulum, in the
+    # goal and the tracking form.
+    assert len(shapes[2]) == 1 and len(shapes[3]) == 8
     for old, new in (("kThreads, smem, stream>>>", "kSolveThreads, smem, stream>>>"),
                      ("kThreads, smem, stream>>>", "kThreads, 0, stream>>>"),
                      ("cddp::kThreads,      \\", "cddp::kSolveThreads, \\")):

@@ -28,3 +28,22 @@ def test_chip_smoke_fails_without_gpu(where, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert run.returncode != 0
     assert '"ok": true' not in run.stdout
+
+
+def test_phase_14_entries_name_built_launchers_and_logged_kernels():
+    """Each phase-14 entry's launcher is one the kernel library builds
+    (``launchers``), and its dispatch_log name is the one its kernel's
+    wrapper logs for the entry's model."""
+    import chip_smoke
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati, riccati
+
+    built = {stem for stems in chip_smoke.launchers().values() for stem in stems}
+    shapes = {"pendulum": (2, 1, 2), "cartpole": (4, 1)}
+    for name, logged, kernel, model, launcher in chip_smoke.ZOO_ENTRIES:
+        assert launcher in built, launcher
+        if kernel == "riccati_backward":
+            assert logged == riccati.dispatch_name(*shapes[model][:2])
+        elif kernel == "ipddp_backward":
+            assert logged == ipddp_riccati.dispatch_name(*shapes[model])
+        else:
+            assert logged == name and logged.endswith("@" + model)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Kernel 7 (the whole IPDDP solve) built as host C++ and run on the CPU.
 
-    python3 torch_host_kernel.py [--variants m4 m4_ti1 m4_ti2 m4_te3 m4_te3_ti1]
+    python3 torch_host_kernel.py [--model unicycle|pendulum|hcw]
+                                 [--variants m4 m4_ti1 m4_ti2 m4_te3 m4_te3_ti1]
                                  [--dtype f64|f32] [--batch 1024] [--iterations 10]
                                  [--shares] [--work] [--svd] [--warm]
 
@@ -16,7 +17,12 @@ stand-in ``cuda_runtime.h``, and points ``build.function`` at the result, so
 that ``mega_ipddp._launch`` runs the kernel's code on CPU tensors. Then,
 on the IPDDP box fleet (variant ``m4``) and its terminal fleets
 (``chip_smoke.terminal_problem``), cold seeds from x0 ~ U(-0.5, 0.5) of
-numpy's generator with seed 0 (with ``--warm``, warm seeds instead: the
+numpy's generator with seed 0; with ``--model pendulum`` on the pendulum
+fleet's control box (``m2``; ``m2_track`` its tracking form), with
+``--model hcw`` on the rendezvous fleet (``m6_te6``: its control box and
+the terminal equality x_N = 0), both ``chip_smoke.zoo_problem``, from
+``chip_smoke.fleet_x0`` with a torch generator seeded 0 (with ``--warm``,
+warm seeds instead: the
 plain driver's cold solve from those x0, then one tick, x0 advanced one step
 and the plan shifted, and ``ipddp.warm_start`` from the solve's state, as
 ``chip_smoke.py``'s phase 13 seeds kernel 7):
@@ -29,7 +35,7 @@ and the plan shifted, and ``ipddp.warm_start`` from the solve's state, as
   iterations and at ``--iterations``, and the plain driver's share with
   itself from x0 one ulp up (``chip_smoke.cost_share``);
 - ``--work``: quantiles of the kernel's line-search sweeps per instance;
-- ``--svd``: on the terminal-equality fleet, the share of the plain
+- ``--svd``: on the model's terminal-equality fleet, the share of the plain
   driver's backward calls whose SVD floor (1e-8 times the largest singular
   value less the smallest) is positive, and the smallest ratio of the
   sensitivity matrix's singular values.
@@ -141,24 +147,35 @@ def use_host(libs):
         torch.float32: "f32", torch.float64: "f64"}[tensors[0].dtype]
 
 
-def problem(variant, dtype):
+# Each model's kernel-7 variants, the first its default fleet's.
+VARIANTS = {"unicycle": ["m4", *chip_smoke.TERMINAL], "pendulum": ["m2", "m2_track"],
+            "hcw": ["m6_te6"]}
+
+
+def problem(model, variant, dtype):
     device = torch.device("cpu")
+    if model != "unicycle":
+        return chip_smoke.zoo_problem(tt, dtype, device, model, tracking="_track" in variant,
+                                      terminal="_te" in variant)
     if variant == "m4":
         return chip_smoke.ip_problem(tt, dtype, device)
     return chip_smoke.terminal_problem(tt, dtype, device, variant)
 
 
-def x0_batch(batch, dtype):
-    rng = np.random.default_rng(0)
-    return torch.as_tensor(rng.uniform(-0.5, 0.5, (batch, 3)), dtype=dtype)
+def x0_batch(model, batch, dtype):
+    if model == "unicycle":
+        rng = np.random.default_rng(0)
+        return torch.as_tensor(rng.uniform(-0.5, 0.5, (batch, 3)), dtype=dtype)
+    return chip_smoke.fleet_x0(problem(model, VARIANTS[model][0], dtype), batch,
+                               torch.Generator().manual_seed(0))
 
 
-def pair(variant, dtype, batch, iterations, x0=None, warm=False):
+def pair(model, variant, dtype, batch, iterations, x0=None, warm=False):
     """(kernel Solution, its work rows, plain Solution) from cold seeds, or
     with ``warm`` from the warm seeds of a tick."""
     opts = tt.CDDPOptions(max_iterations=iterations, tolerance=1e-4)
-    x0 = x0_batch(batch, dtype) if x0 is None else x0
-    prob, seeds_fn = problem(variant, dtype), None
+    x0 = x0_batch(model, batch, dtype) if x0 is None else x0
+    prob, seeds_fn = problem(model, variant, dtype), None
     if warm:
         x0, _, U1, state = chip_smoke.tick(tt, "IPDDP", prob, opts, x0)
         seeds_fn = chip_smoke.ip_warm_seeds(state, U1)
@@ -169,8 +186,8 @@ def pair(variant, dtype, batch, iterations, x0=None, warm=False):
     return kern, work, plain
 
 
-def compare(variant, dtype, batch, iterations, warm=False):
-    kern, _, plain = pair(variant, dtype, batch, iterations, warm=warm)
+def compare(model, variant, dtype, batch, iterations, warm=False):
+    kern, _, plain = pair(model, variant, dtype, batch, iterations, warm=warm)
     same = ((kern.status_code == plain.status_code)
             & (kern.iterations_completed == plain.iterations_completed))
     fields = {"X": (kern.state_trajectory, plain.state_trajectory),
@@ -185,20 +202,20 @@ def compare(variant, dtype, batch, iterations, warm=False):
           f"{float(same.double().mean()):.4%} of {batch}; max abs err {errs}")
 
 
-def shares(variant, batch, iterations):
+def shares(model, variant, batch, iterations):
     dtype = torch.float32
-    x0 = x0_batch(batch, dtype)
+    x0 = x0_batch(model, batch, dtype)
     x1 = torch.nextafter(x0, torch.full_like(x0, math.inf))
     for its in (5, iterations):
-        kern, _, plain = pair(variant, dtype, batch, its, x0)
-        _, _, moved = pair(variant, dtype, batch, its, x1)
+        kern, _, plain = pair(model, variant, dtype, batch, its, x0)
+        _, _, moved = pair(model, variant, dtype, batch, its, x1)
         print(f"[host] {variant} float32, {its} iterations: the kernel agrees with the plain "
               f"driver on {chip_smoke.cost_share(kern, plain):.4%}, the plain driver from x0 "
               f"one ulp up on {chip_smoke.cost_share(moved, plain):.4%} of {batch}")
 
 
-def work(variant, dtype, batch, iterations):
-    _, rows, _ = pair(variant, dtype, batch, iterations)
+def work(model, variant, dtype, batch, iterations):
+    _, rows, _ = pair(model, variant, dtype, batch, iterations)
     sweeps = rows[1].double()
     q = torch.quantile(sweeps, torch.tensor([0.5, 0.8, 0.9, 0.99], dtype=torch.float64))
     print(f"[host] {variant} {dtype}: sweeps per instance mean {float(sweeps.mean()):.3f}, "
@@ -206,7 +223,7 @@ def work(variant, dtype, batch, iterations):
           f"max {float(sweeps.max()):.0f}")
 
 
-def svd_floor(dtype, batch, iterations):
+def svd_floor(model, dtype, batch, iterations):
     seen, svdvals = [], torch.linalg.svdvals
 
     def recording(A):
@@ -214,21 +231,23 @@ def svd_floor(dtype, batch, iterations):
         seen.append(sv)
         return sv
 
+    variant = next(v for v in VARIANTS[model] if "_te" in v)
     torch.linalg.svdvals = recording
     try:
-        pair("m4_te3", dtype, batch, iterations)
+        pair(model, variant, dtype, batch, iterations)
     finally:
         torch.linalg.svdvals = svdvals
     sv = torch.stack(seen)
     positive = (1e-8 * sv.amax(-1) - sv.amin(-1) > 0).double().mean()
-    print(f"[host] m4_te3 {dtype}: the SVD floor is positive on {float(positive):.4%} of "
+    print(f"[host] {variant} {dtype}: the SVD floor is positive on {float(positive):.4%} of "
           f"{sv.shape[0] * sv.shape[1]} backward calls; smallest singular-value ratio "
           f"{float((sv.amin(-1) / sv.amax(-1)).min()):.3e}")
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", nargs="*", default=["m4", *chip_smoke.TERMINAL])
+    ap.add_argument("--model", default="unicycle", choices=sorted(VARIANTS))
+    ap.add_argument("--variants", nargs="*", help="default: every variant of the model")
     ap.add_argument("--dtype", default="f64", choices=("f32", "f64"))
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--iterations", type=int, default=10)
@@ -240,15 +259,15 @@ def main():
     torch.set_num_threads(4)
     use_host(build_host())
     dtype = torch.float64 if args.dtype == "f64" else torch.float32
-    for variant in args.variants:
+    for variant in args.variants or VARIANTS[args.model]:
         if args.shares:
-            shares(variant, args.batch, args.iterations)
+            shares(args.model, variant, args.batch, args.iterations)
         elif args.work:
-            work(variant, dtype, args.batch, args.iterations)
+            work(args.model, variant, dtype, args.batch, args.iterations)
         else:
-            compare(variant, dtype, args.batch, args.iterations, args.warm)
+            compare(args.model, variant, dtype, args.batch, args.iterations, args.warm)
     if args.svd:
-        svd_floor(dtype, args.batch, args.iterations)
+        svd_floor(args.model, dtype, args.batch, args.iterations)
 
 
 if __name__ == "__main__":
