@@ -2,11 +2,12 @@
 
 Batch-first CLDDP with a control box; IPDDP with every path-constraint type
 of the JAX package (boxes, keep-out balls, linear, pole, cone and thrust
-constraints) and both terminal types (linear inequalities A x_N <= b and
+constraints), or none, and both terminal types (linear inequalities A x_N <= b and
 equalities x_N = target); LogDDP and MSIPDDP with control and state boxes;
-over the unicycle, the pendulum, the cart-pole and the
-Hill-Clohessy-Wiltshire spacecraft (``cddp_tpu_torch.models``), as the JAX
-package solves them, towards a goal or along a per-step reference
+over the unicycle, the pendulum, the cart-pole, the
+Hill-Clohessy-Wiltshire spacecraft, the forklift, the discrete car and any
+discrete linear system (``LTISystem``, ``lti_system``; all in
+``cddp_tpu_torch.models``), as the JAX package solves them, towards a goal or along a per-step reference
 trajectory (``reference_states``); and batch-first receding-horizon MPC
 (``make_mpc_controller``), warm-started from a trajectory or from the
 interior-point solvers' state (``IPDDPSolverState``,
@@ -18,7 +19,10 @@ interior-point forward pass, the condensed backward and the whole solve
 (box and keep-out-ball stacks, with the "auto" stall latch, and terminal
 constraints on the control box); the whole LogDDP and MSIPDDP solves. Each
 kernel is instantiated for the models and stacks its wrapper's table names;
-other problems run the plain driver. CUDA tensors run the kernels; CPU
+other problems run the plain driver. A discrete model (the car) steps its
+exact map in place of an integrator in every kernel that steps a model
+(the rollouts and the interior-point forward pass); the whole solves
+refuse it, as the JAX package's do. CUDA tensors run the kernels; CPU
 tensors run their plain PyTorch versions. The builders put tensors on the
 CUDA card unless given ``device``. The kernels are built with ``nvcc`` at
 first use, never at import.
@@ -51,6 +55,7 @@ from cddp_tpu_torch.constraints.terminal import (
     terminal_inequality_constraint,
 )
 from cddp_tpu_torch.costs.objective import QuadraticObjective, quadratic_objective
+from cddp_tpu_torch.models import Car, Forklift, LTISystem, lti_system
 from cddp_tpu_torch.options import (
     BarrierOptions,
     BarrierStrategy,
@@ -68,7 +73,8 @@ from cddp_tpu_torch.solvers.ipddp import IPDDPSolverState
 from cddp_tpu_torch.solvers.msipddp import MSIPDDPSolverState
 
 __all__ = [
-    "BallConstraint", "BarrierOptions", "BarrierStrategy", "CDDPOptions",
+    "BallConstraint", "BarrierOptions", "BarrierStrategy", "CDDPOptions", "Car",
+    "Forklift", "LTISystem", "lti_system",
     "ControlConstraint", "IPDDPOptions", "IPDDPSolverState", "MSIPDDPSolverState", "LinearConstraint", "LogBarrierOptions",
     "MPCState", "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
     "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",

@@ -17,17 +17,32 @@ import torch
 from cddp_tpu_torch import devices
 from cddp_tpu_torch.constraints import path, terminal
 from cddp_tpu_torch.costs.objective import QuadraticObjective
-from cddp_tpu_torch.models import HCW, CartPole, Pendulum, Unicycle
+from cddp_tpu_torch.models import HCW, Car, CartPole, Forklift, LTISystem, Pendulum, Unicycle
 from cddp_tpu_torch.options import CDDPOptions
 from cddp_tpu_torch.problem import Problem
 
-# Model name (the JAX package's class name) -> (class, its parameter count).
-# The parameter vector is the model registry's, in the JAX lane order
+# Model name (the JAX package's class name) -> (builder from the parameter
+# list, the problem's timestep, nx and nu; its parameter count from nx and
+# nu). The parameter vector is the model registry's, in the JAX lane order
 # (``ops/kernels/rollout.py::_REGISTRY``): the pendulum's (length, mass,
 # damping, gravity), the cart-pole's (cart_mass, pole_mass, pole_length,
-# gravity, damping), HCW's (mean_motion, mass); the unicycle has none.
-_MODELS = {"Unicycle": (Unicycle, 0), "Pendulum": (Pendulum, 4), "CartPole": (CartPole, 5),
-           "HCW": (HCW, 2)}
+# gravity, damping), HCW's (mean_motion, mass), the car's (wheelbase; its
+# timestep is the problem's), the forklift's (wheelbase, steer_sign, -1
+# rear-steered); the unicycle has none. An LTISystem, which has no lane,
+# takes its discrete A (nx, nx) and B (nx, nu) flattened and concatenated.
+_MODELS = {
+    "Unicycle": (lambda p, dt, nx, nu: Unicycle(), lambda nx, nu: 0),
+    "Pendulum": (lambda p, dt, nx, nu: Pendulum(*p), lambda nx, nu: 4),
+    "CartPole": (lambda p, dt, nx, nu: CartPole(*p), lambda nx, nu: 5),
+    "HCW": (lambda p, dt, nx, nu: HCW(*p), lambda nx, nu: 2),
+    "Car": (lambda p, dt, nx, nu: Car(p[0], timestep=dt), lambda nx, nu: 1),
+    "Forklift": (lambda p, dt, nx, nu: Forklift(p[0], rear_steer=p[1] < 0.0),
+                 lambda nx, nu: 2),
+    "LTISystem": (lambda p, dt, nx, nu: LTISystem(
+        torch.tensor(p[:nx * nx], dtype=torch.float64).reshape(nx, nx),
+        torch.tensor(p[nx * nx:], dtype=torch.float64).reshape(nx, nu), dt),
+        lambda nx, nu: nx * nx + nx * nu),
+}
 _BOXES = {"control": path.ControlConstraint, "state": path.StateConstraint}
 # The other path-constraint types, by the JAX package's type names; each is
 # built from its fields, which carry the JAX type's names.
@@ -45,7 +60,8 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
                         constraints=None, reference_states=None,
                         terminal_constraints=None) -> Problem:
     """Build a problem from numpy arrays. ``model_params`` is the model's
-    parameter vector in the registry's order (``_MODELS``). ``Q`` and ``R``
+    parameter vector in the registry's order (``_MODELS``; an LTISystem's
+    A and B, on ``device``). ``Q`` and ``R``
     are already dt-prescaled (as ``QuadraticObjective`` stores them) and go
     in as given;
     ``lower``/``upper`` None means no "ControlConstraint" box. ``boxes`` maps
@@ -61,11 +77,13 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
     ``reference_states`` (N or N+1, nx) makes the objective track it
     (``QuadraticObjective.reference_states``)."""
     try:
-        model_cls, n_params = _MODELS[model_name]
+        make_model, n_of = _MODELS[model_name]
     except KeyError as e:
         raise ValueError(f"model {model_name!r} is not ported; the ported "
                          f"models: {sorted(_MODELS)}") from e
     params = np.asarray(model_params, dtype=np.float64).reshape(-1).tolist()
+    nx, nu = np.shape(Q)[0], np.shape(R)[0]
+    n_params = n_of(nx, nu)
     if len(params) != n_params:
         raise ValueError(f"model {model_name!r} takes {n_params} parameters, "
                          f"got {len(params)}")
@@ -89,8 +107,12 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
         return out
 
     items.update(build(_PATH, constraints))
+    model = make_model(params, float(timestep), nx, nu)
+    if isinstance(model, LTISystem):
+        model = model.to(device)  # A and B are matrices the solve reads on its device
+    model.integration_type = integrator
     return Problem(
-        model=model_cls(*params, integration_type=integrator),
+        model=model,
         objective=objective, x0=t(x0), horizon=int(horizon),
         timestep=float(timestep), constraints=items,
         terminal_constraints=build(_TERMINAL, terminal_constraints),

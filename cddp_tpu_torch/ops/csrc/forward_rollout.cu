@@ -10,6 +10,10 @@
 // so warps read and write consecutive addresses; the problem constants are
 // a by-value kernel parameter, read from the constant bank.
 //
+// A discrete model (the car) takes its exact map in place of the integrator
+// step (rollout.py:680-683; models.cuh::integrate); its rollout reads and
+// writes 22 values a step at nx=4, nu=2 (Xb, Ub, k, K in; X, U out).
+//
 // TRACK (the `_track` launchers) is the tracking variant (rollout.py:618,
 // the refs row at :669-670): step t's running cost tracks row t of the
 // shared (N, nx) reference `refs` (models.cuh::running_ref); the terminal
@@ -90,10 +94,12 @@ int launch_forward_rollout(const T* Xb, const T* Ub, const T* k, const T* K,
                 (cddp::forward_rollout_kernel<scalar_t, cddp::STRUCT, TRACK>),           \
                 cddp::kThreads, 0)
 
-// The models of rollout.CLDDP_MODELS.
+// The models of rollout.ROLLOUT_MODELS (goal form) and rollout.CLDDP_MODELS
+// (tracking form).
 CDDP_FORWARD_ROLLOUT(unicycle, Unicycle, false, )
 CDDP_FORWARD_ROLLOUT(unicycle, Unicycle, true, _track)
 CDDP_FORWARD_ROLLOUT(pendulum, Pendulum, false, )
 CDDP_FORWARD_ROLLOUT(pendulum, Pendulum, true, _track)
 CDDP_FORWARD_ROLLOUT(cartpole, CartPole, false, )
 CDDP_FORWARD_ROLLOUT(cartpole, CartPole, true, _track)
+CDDP_FORWARD_ROLLOUT(car, Car, false, )

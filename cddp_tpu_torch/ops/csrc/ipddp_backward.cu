@@ -284,3 +284,4 @@ CDDP_IPDDP_BACKWARD(3, 2, 5)
 CDDP_IPDDP_BACKWARD(3, 2, 6)
 CDDP_IPDDP_BACKWARD(3, 2, 10)
 CDDP_IPDDP_BACKWARD(2, 1, 2)
+CDDP_IPDDP_BACKWARD(4, 2, 4)

@@ -3,7 +3,8 @@
 // Replaces cddp_tpu/ops/pallas/ip_rollout.py::_make_ol_kernel (:612), the
 // rollout that seeds every solve (the IPDDP cold start rolls X out of U0).
 // Each thread carries its state in registers across the horizon and takes
-// one explicit integrator step (models.cuh) per time step.
+// one explicit integrator step (models.cuh) per time step, or a discrete
+// model's exact map (ip_rollout.py:626-629; the car).
 //
 // Bound: device memory. Per instance and step it reads nu values of U and
 // writes nx of X (5 values at the unicycle's nx=3, nu=2, 3 at the
@@ -79,3 +80,5 @@ CDDP_OPEN_LOOP_ROLLOUT(unicycle, Unicycle)
 CDDP_OPEN_LOOP_ROLLOUT(pendulum, Pendulum)
 CDDP_OPEN_LOOP_ROLLOUT(cartpole, CartPole)
 CDDP_OPEN_LOOP_ROLLOUT(hcw, HCW)
+CDDP_OPEN_LOOP_ROLLOUT(car, Car)
+CDDP_OPEN_LOOP_ROLLOUT(forklift, Forklift)

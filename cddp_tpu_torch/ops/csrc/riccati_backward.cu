@@ -159,3 +159,4 @@ int cddp_kernel_attributes(const char* name, int* out) {
 CDDP_RICCATI_BACKWARD(3, 2)
 CDDP_RICCATI_BACKWARD(2, 1)
 CDDP_RICCATI_BACKWARD(4, 1)
+CDDP_RICCATI_BACKWARD(4, 2)

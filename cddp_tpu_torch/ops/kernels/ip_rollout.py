@@ -20,7 +20,8 @@ the fraction-to-boundary tau, per instance:
   fraction-to-boundary test;
 - the stacked box rows g, the fraction-to-boundary and finiteness masks;
 - the quadratic running cost, against a tracking objective's row t at
-  step t (the ``_track`` launchers), and the model's integrator step.
+  step t (the ``_track`` launchers), and the model's step: its integrator,
+  or a discrete model's exact map.
 """
 
 from __future__ import annotations
@@ -42,12 +43,14 @@ _OL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_double)]
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_double)] * 2
                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
-# Box-stack sizes m the forward kernel (5) is instantiated for, in the goal
-# and the tracking form, by model: the unicycle's control box, state box or
-# both; the pendulum's control box; HCW's control box (the rendezvous
-# fleet's per-pass trials). The open-loop rollout (4) takes every
-# registered model; the whole solves' box tables are mega_ipddp.BOX_ROWS.
-KERNEL_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,), "hcw": (6,)}
+# Box-stack sizes m the forward kernel (5) is instantiated for, by model:
+# in the tracking form the unicycle's control box, state box or both, the
+# pendulum's control box and HCW's (the rendezvous fleet's per-pass
+# trials); in the goal form those and the car's control box. The
+# open-loop rollout (4) takes every registered model; the whole solves'
+# box tables are mega_ipddp.BOX_ROWS.
+TRACK_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,), "hcw": (6,)}
+KERNEL_ROWS = {**TRACK_ROWS, "car": (4,)}
 
 
 def _mv(M, v):
@@ -59,23 +62,25 @@ def _mv(M, v):
 
 def open_loop_rollout_plain(model, x0, U, dt: float):
     """Lane arithmetic of the JAX package's open-loop scan
-    (ip_rollout.py:684-699): X (B, N+1, nx) from x0 (B, nx), U (B, N, nu)."""
-    kind = model.integration_type
+    (ip_rollout.py:684-699; a discrete model steps its exact map):
+    X (B, N+1, nx) from x0 (B, nx), U (B, N, nu), for a registered model."""
+    entry = rollout_ops.model_entry(model)
+    kind = rollout_ops.lane_integrator(model, entry)
     dtv = torch.tensor(dt, dtype=x0.dtype, device=x0.device)
-    f = lambda x, u: model(x, u, None)  # noqa: E731
     xs = [x0]
     for t in range(U.shape[1]):
-        xs.append(rollout_ops.integrate_lane(f, kind, xs[-1], U[:, t], dtv))
+        xs.append(rollout_ops.lane_step(model, entry, kind, xs[-1], U[:, t], dtv))
     return torch.stack(xs, dim=1)
 
 
 def open_loop_rollout(model, x0, U, dt: float, kernel: bool = True):
-    """X (B, N+1, nx). A registered model with an explicit integrator
-    launches the kernel on CUDA tensors and runs the plain version on CPU
-    tensors or with ``kernel=False`` (the solvers' ``backward_engine="scan"``);
-    other models step ``model.discrete_dynamics``."""
+    """X (B, N+1, nx). A registered model with an explicit integrator, or
+    a discrete one, launches the kernel on CUDA tensors and runs the plain
+    version on CPU tensors or with ``kernel=False`` (the solvers'
+    ``backward_engine="scan"``); other models step
+    ``model.discrete_dynamics``."""
     entry = rollout_ops.model_entry(model)
-    if entry is None or model.integration_type not in rollout_ops.INTEGRATORS:
+    if rollout_ops.lane_integrator(model, entry) is None:
         xs = [x0]
         for t in range(U.shape[1]):
             xs.append(model.discrete_dynamics(xs[-1], U[:, t], t * dt, dt))
@@ -98,7 +103,7 @@ def _launch_open_loop(model, entry, x0, U, dt):
     X = x0.new_empty(N, nx, Bsz)
     host = [float(dt)] + [float(p) for p in entry.params(model)]
     err = fn(build.ptr(Ul), build.ptr(x0l), build.ptr(X), build.doubles(host),
-             N, Bsz, rollout_ops.INTEGRATORS.index(model.integration_type),
+             N, Bsz, rollout_ops.INTEGRATORS.index(rollout_ops.lane_integrator(model, entry)),
              build.stream_ptr(x0.device))
     build.check(err, name)
     dispatch_log.launched("open_loop_rollout" + entry.tag, Bsz)
@@ -206,7 +211,8 @@ def resolve_ip_forward(problem, options, stk) -> Optional[ForwardConsts]:
     """Eligibility of the forward kernel (ip_rollout.py:219-242):
     ``forward_engine="auto"``, a registered model with an explicit
     integrator, the quadratic objective and a box-only stack of a size the
-    kernel is built for (``KERNEL_ROWS``). Box stacks are affine, so the
+    kernel is built for (``KERNEL_ROWS``; ``TRACK_ROWS`` for a tracking
+    objective). Box stacks are affine, so the
     "auto" slack SOC resolves to off; only an explicit ``slack_soc=True``
     traces it. On any other stack (a keep-out ball, as in the JAX package,
     ip_rollout.py:821) this returns None and the per-pass driver runs its
@@ -215,8 +221,9 @@ def resolve_ip_forward(problem, options, stk) -> Optional[ForwardConsts]:
         return None
     lane = rollout_ops.lane_consts(problem)
     rows = box_rows(problem, stk)
+    table = KERNEL_ROWS if lane is None or lane.refs is None else TRACK_ROWS
     if (lane is None or rows is None
-            or rows.m not in KERNEL_ROWS.get(lane.entry.cuda_name, ())):
+            or rows.m not in table.get(lane.entry.cuda_name, ())):
         return None
     return ForwardConsts(lane=lane, rows=rows,
                          slack_soc=options.ipddp.slack_soc is True)
@@ -235,7 +242,6 @@ def ip_forward_plain(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
     lc = fc.lane
     N = Xb.shape[1]
     dt = torch.tensor(lc.dt, dtype=Xb.dtype, device=Xb.device)
-    f = lambda x, u: lc.model(x, u, None)  # noqa: E731
     apr, adu, tau_ = a_pr[:, None], a_du[:, None], tau[:, None]
     x = x0
     J = Xb.new_zeros(Xb.shape[0])
@@ -254,7 +260,7 @@ def ip_forward_plain(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
         if fc.slack_soc:
             ok_soc = ftb_ok(-g, s, tau_) & soc[:, None]
             s_new = torch.where(ok_soc, -g, s_new)
-        x_next = rollout_ops.integrate_lane(f, lc.integrator, x, u, dt)
+        x_next = lc.step(x, u, dt)
         feas = (feas & ftb_ok(s_new, s, tau_).all(-1) & ftb_ok(y_new, y, tau_).all(-1)
                 & s_new.isfinite().all(-1) & y_new.isfinite().all(-1)
                 & x_next.isfinite().all(-1) & u.isfinite().all(-1)

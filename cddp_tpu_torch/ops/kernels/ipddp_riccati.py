@@ -48,8 +48,10 @@ EPS_SLACK = 1e-10
 # (nx, nu, m) the kernel is instantiated for: the unicycle with a control
 # box, a state box, both, or a control box and a keep-out ball (m = 5, whose
 # per-step Jacobians and folded lxx the kernel reads materialised); the
-# pendulum with its control box.
-KERNEL_SHAPES = ((3, 2, 4), (3, 2, 5), (3, 2, 6), (3, 2, 10), (2, 1, 2))
+# pendulum with its control box; the car with its control box (4x2, m = 4).
+# Never at m = 0: a problem without path constraints runs the plain
+# recursion, as the JAX gate requires m > 0 (ipddp.py:547).
+KERNEL_SHAPES = ((3, 2, 4), (3, 2, 5), (3, 2, 6), (3, 2, 10), (2, 1, 2), (4, 2, 4))
 
 
 def dispatch_name(nx: int, nu: int, m: int) -> str:
@@ -110,27 +112,41 @@ def path_gains(y, ss, sigma, pr, rhat, Gx, Gu, k_u, K_u):
 def condensed_step(A, Bm, lx, lu, lxx, luu, lux, y, s, g, Gx, Gu, Vx, Vxx, mu, reg):
     """One condensed Riccati step for a batch (ipddp.py:416-464). Returns
     (k_u, K_u, k_y, K_y, k_s, K_s, Vx, Vxx, dV step (B,2), Qu_c, primal
-    residual, complementarity residual, fail)."""
-    At, Bt, Gxt, Gut = _mT(A), _mT(Bm), _mT(Gx), _mT(Gu)
-    Qx = lx + _mv(Gxt, y) + _mv(At, Vx)
-    Qu = lu + _mv(Gut, y) + _mv(Bt, Vx)
+    residual, complementarity residual, fail). Without path rows (m = 0)
+    the condensation's terms are empty and are not formed: adding them
+    would add exact zeros."""
+    At, Bt = _mT(A), _mT(Bm)
     Qxx = lxx + At @ Vxx @ A
     Qux = lux + Bt @ Vxx @ A
     Quu = luu + Bt @ Vxx @ Bm
-    ss, sigma, pr, comp, rhat, sir = condense_path(y, s, g, mu)
-    sGx, sGu = sigma[..., None] * Gx, sigma[..., None] * Gu
     eye_u = torch.eye(Bm.shape[-1], dtype=A.dtype, device=A.device)
-    Quu_reg = _sym(Quu) + Gut @ sGu + reg[:, None, None] * eye_u
-    rhs_k = Qu + _mv(Gut, sir)
-    rhs_K = Qux + Gut @ sGx
+    path = y.shape[-1] > 0
+    if path:
+        Gxt, Gut = _mT(Gx), _mT(Gu)
+        Qx = lx + _mv(Gxt, y) + _mv(At, Vx)
+        Qu = lu + _mv(Gut, y) + _mv(Bt, Vx)
+        ss, sigma, pr, comp, rhat, sir = condense_path(y, s, g, mu)
+        sGx, sGu = sigma[..., None] * Gx, sigma[..., None] * Gu
+        Quu_reg = _sym(Quu) + Gut @ sGu + reg[:, None, None] * eye_u
+        rhs_k = Qu + _mv(Gut, sir)
+        rhs_K = Qux + Gut @ sGx
+    else:
+        Qx, Qu = lx + _mv(At, Vx), lu + _mv(Bt, Vx)
+        pr = comp = y
+        Quu_reg = _sym(Quu) + reg[:, None, None] * eye_u
+        rhs_k, rhs_K = Qu, Qux
     kK, pd_ok = linalg.solve_and_check(Quu_reg, torch.cat([rhs_k[..., None], rhs_K], -1))
     k_u, K_u = -kK[..., 0], -kK[..., 1:]
-    k_y, K_y, k_s, K_s = path_gains(y, ss, sigma, pr, rhat, Gx, Gu, k_u, K_u)
     # Condensed expansions folded back (ipddp_solver.cpp:1488-1509).
     Qu_c, Qux_c = rhs_k, rhs_K
-    Qx_c = Qx + _mv(Gxt, sir)
-    Qxx_c = Qxx + Gxt @ sGx
-    Quu_c = Quu + Gut @ sGu
+    if path:
+        k_y, K_y, k_s, K_s = path_gains(y, ss, sigma, pr, rhat, Gx, Gu, k_u, K_u)
+        Qx_c = Qx + _mv(Gxt, sir)
+        Qxx_c = Qxx + Gxt @ sGx
+        Quu_c = Quu + Gut @ sGu
+    else:
+        k_y, K_y, k_s, K_s = y, Gx, y, Gx
+        Qx_c, Qxx_c, Quu_c = Qx, Qxx, Quu
     dV = torch.stack([(k_u * Qu_c).sum(-1),
                       (_mv(_mT(Quu_c), 0.5 * k_u) * k_u).sum(-1)], dim=-1)
     Kt = _mT(K_u)
@@ -140,9 +156,16 @@ def condensed_step(A, Bm, lx, lu, lxx, luu, lux, y, s, g, Gx, Gu, Vx, Vxx, mu, r
             ~pd_ok)
 
 
+def maxabs(v):
+    """The largest |entry| over the last axis, 0 where it is empty
+    (ipddp.py:93-97 of the JAX package)."""
+    return v.abs().amax(-1) if v.shape[-1] else v.new_zeros(v.shape[:-1])
+
+
 def ipddp_backward_plain(A, Bm, lx, lu, lxx, luu, lux, Y, S, G, Gx, Gu, Vx, Vxx,
                          mu, reg):
-    """Reverse recursion of ``ipddp.py::_condensed_scan_single``, batch-first."""
+    """Reverse recursion of ``ipddp.py::_condensed_scan_single``, batch-first;
+    at m = 0 (no path constraints) the plain Riccati recursion."""
     Bsz, N = A.shape[0], A.shape[1]
     outs = [[None] * N for _ in range(8)]
     zero = A.new_zeros(Bsz)
@@ -158,8 +181,8 @@ def ipddp_backward_plain(A, Bm, lx, lu, lxx, luu, lux, Y, S, G, Gx, Gu, Vx, Vxx,
             o[t] = v
         dV = dV + dV_t
         inf_du = torch.maximum(inf_du, Qu_c.abs().amax(-1))
-        inf_pr = torch.maximum(inf_pr, pr.abs().amax(-1))
-        inf_comp = torch.maximum(inf_comp, comp.abs().amax(-1))
+        inf_pr = torch.maximum(inf_pr, maxabs(pr))
+        inf_comp = torch.maximum(inf_comp, maxabs(comp))
         step_norm = torch.maximum(step_norm, k_u.abs().amax(-1))
         ok = ok & ~fail
     stats = torch.stack([dV[:, 0], dV[:, 1], inf_du, inf_pr, inf_comp, step_norm,

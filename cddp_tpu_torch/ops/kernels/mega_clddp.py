@@ -38,7 +38,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_double)] * 2
 def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_clddp.py:821-865 of the JAX package,
     without its TPU scratch-memory gate): a registered model with an explicit
-    integrator the kernel is instantiated for (``rollout.CLDDP_MODELS``), the
+    integrator the kernel is instantiated for (``rollout.CLDDP_MODELS``;
+    never a discrete model, mega_clddp.py:843), the
     quadratic objective (the goal or a tracked ``reference_states``,
     mega_clddp.py:825,884), a control box with the enum BoxQP, and none of
     the driver features the kernel does not model."""
@@ -47,6 +48,7 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
         and enum_applies(options.box_qp, problem.control_dim)
         and (lane := rollout_ops.lane_consts(problem)) is not None
         and lane.clddp
+        and not lane.entry.discrete
         and options.solve_engine != "xla"
         and options.backward_engine != "scan"
         and not options.return_iteration_info

@@ -83,12 +83,16 @@ BOX_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,)}
 def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
     """What the interior-point and log-barrier whole-solve kernels (7, 8, 9)
     all require of a problem besides its stack and terminal constraints: a
-    registered model with an explicit integrator, the quadratic objective,
+    registered model with an explicit integrator (never a discrete model:
+    mega_ipddp.py:2559, mega_msipddp.py:1276 and mega_logddp.py:766 of the
+    JAX package refuse one), the quadratic objective,
     iLQR with the sequential backward (``lqr_backend``) and line search, an
     alpha ladder that fits, and none of the driver features the kernels do
     not model."""
+    lane = rollout_ops.lane_consts(problem)
     return (
-        rollout_ops.lane_consts(problem) is not None
+        lane is not None
+        and not lane.entry.discrete
         and isinstance(problem.objective, QuadraticObjective)
         and options.use_ilqr
         and not options.enable_parallel
@@ -161,7 +165,8 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_ipddp.py:2536-2598 of the JAX package,
     restricted to the slice and without its TPU scratch-memory gates): a
     lane stack and terminal constraints of a layout the kernel is built for
-    (``solve_variant``; terminal equalities are TerminalEqualityConstraint
+    (``solve_variant``: a nonempty path stack, as mega_ipddp.py:2568 of the
+    JAX package requires; terminal equalities are TerminalEqualityConstraint
     rows, the only equality type ``TerminalStacker`` takes),
     ``driver_eligible``, no IPDDP option the kernel does not model
     (explicit ``slack_soc=True`` or ``use_constraint_hessians=True``: the

@@ -24,8 +24,10 @@ from cddp_tpu_torch.ops.kernels import dispatch_log
 
 _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # (nx, nu) the kernel is instantiated for: the unicycle, the pendulum and
-# the cart-pole of the model registry.
-KERNEL_SHAPES = ((3, 2), (2, 1), (4, 1))
+# the cart-pole of the model registry, and the car's and the default
+# LTISystem's 4x2. The kernel reads A and B, so any model of these shapes
+# takes it (the JAX gate is nu <= 4 alone, riccati.py:491-497).
+KERNEL_SHAPES = ((3, 2), (2, 1), (4, 1), (4, 2))
 
 
 def dispatch_name(nx: int, nu: int) -> str:

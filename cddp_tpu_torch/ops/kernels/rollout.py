@@ -8,15 +8,19 @@ per time step. The CUDA kernel (``ops/csrc/forward_rollout.cu``) gives each
 problem instance one thread; trajectories are batch-last in device memory.
 
 **The model registry.** One table, keyed by the exact torch model class.
-Each entry gives the model's parameter vector and ``cuda_name``: the model's
-struct in ``ops/csrc/models.cuh`` holds its device functions ``f`` (the
-continuous dynamics) and ``fxfu`` (their Jacobians), and the kernel
+Each entry gives the model's parameter vector, ``cuda_name`` and whether
+the model is ``discrete``: the model's struct in ``ops/csrc/models.cuh``
+holds its device functions ``f`` (the continuous dynamics) and ``fxfu``
+(their Jacobians), or for a discrete model (the car) ``step``, its exact
+map, which the kernels take in place of an integrator step
+(rollout.py:680-683 of the JAX package). The kernel
 launchers built for it are exported as ``cddp_<kernel>_<cuda_name>_<f32|f64>``
 (the Riccati kernel, which needs no model, as ``..._<nx>x<nu>_...``). A model
 that is not in the table is not eligible for the kernels: its problems run
 the plain driver on the tensors' device. A registered model is eligible for
 a kernel only where that kernel is instantiated for it: each kernel's
-module keeps that table (``CLDDP_MODELS`` here for kernels 2 and 3,
+module keeps that table (``ROLLOUT_MODELS`` here for kernel 2, ``CLDDP_MODELS``
+for kernel 3 and kernel 2's tracking form,
 ``riccati.KERNEL_SHAPES``, ``ip_rollout.KERNEL_ROWS``, ``mega_ipddp.BOX_ROWS``,
 ``ipddp_riccati.KERNEL_SHAPES``, the layouts of ``mega_ipddp``), and a
 problem outside it runs the plain version of that kernel, on the tensors'
@@ -34,7 +38,8 @@ from typing import Callable, List, Optional
 
 import torch
 
-from cddp_tpu_torch.models import HCW, CartPole, DynamicalSystem, Pendulum, Unicycle
+from cddp_tpu_torch.models import (HCW, Car, CartPole, DynamicalSystem, Forklift, Pendulum,
+                                   Unicycle)
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.linalg import true_div
 
@@ -47,6 +52,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_double)]
 class ModelEntry:
     params: Callable[[DynamicalSystem], List[float]]  # CUDA parameter vector
     cuda_name: str
+    discrete: bool = False  # the struct's exact map ``step`` replaces the integrator
 
     @property
     def tag(self) -> str:
@@ -68,10 +74,17 @@ _REGISTRY = {
     CartPole: ModelEntry(params=_buffers("cart_mass", "pole_mass", "pole_length", "gravity",
                                          "damping"), cuda_name="cartpole"),
     HCW: ModelEntry(params=_buffers("mean_motion", "mass"), cuda_name="hcw"),
+    Car: ModelEntry(params=_buffers("wheelbase"), cuda_name="car", discrete=True),
+    Forklift: ModelEntry(params=lambda m: [float(m.wheelbase), m.steer_sign],
+                         cuda_name="forklift"),
 }
-# The models the line-search rollout (kernel 2) and the whole CLDDP solve
-# (kernel 3) are instantiated for, each in the goal and the tracking form.
+# The models the whole CLDDP solve (kernel 3) is instantiated for, in the
+# goal and the tracking form, and the line-search rollout (kernel 2) in its
+# tracking form. The JAX whole solve refuses discrete models
+# (mega_clddp.py:843 of the JAX package).
 CLDDP_MODELS = ("unicycle", "pendulum", "cartpole")
+# The models kernel 2's goal form is instantiated for: kernel 3's and the car.
+ROLLOUT_MODELS = CLDDP_MODELS + ("car",)
 
 
 def model_entry(model: DynamicalSystem) -> Optional[ModelEntry]:
@@ -115,8 +128,17 @@ class LaneConsts:
 
     @property
     def clddp(self) -> bool:
-        """Whether kernels 2 and 3 are instantiated for the model."""
+        """Whether kernel 3 is instantiated for the model."""
         return self.entry.cuda_name in CLDDP_MODELS
+
+    @property
+    def rollout(self) -> bool:
+        """Whether kernel 2 is instantiated for the model and objective."""
+        return self.entry.cuda_name in (ROLLOUT_MODELS if self.refs is None else CLDDP_MODELS)
+
+    def step(self, x, u, dt):
+        """One step of the kernels' model lane (``lane_step``)."""
+        return lane_step(self.model, self.entry, self.integrator, x, u, dt)
 
     def running_ref(self, t: int):
         """Step t's running reference: row t of ``refs``, or the goal."""
@@ -145,12 +167,24 @@ class LaneConsts:
         return [self.dt] + flat.tolist() + [float(p) for p in self.entry.params(self.model)]
 
 
+def lane_integrator(model, entry: Optional[ModelEntry]) -> Optional[str]:
+    """The stepper a registered model's lane takes: its integrator when that
+    is one of the four explicit steppers, "euler" (unread) for a discrete
+    model, whose exact map needs none (ip_rollout.py:227 of the JAX
+    package); None when the model has no lane."""
+    if entry is None:
+        return None
+    if entry.discrete:
+        return "euler"
+    return model.integration_type if model.integration_type in INTEGRATORS else None
+
+
 def lane_consts(problem) -> Optional[LaneConsts]:
     """The kernels' view of a problem, or None when its model is not in the
-    registry or its integrator is not one of the four explicit steppers."""
+    registry or has no lane (``lane_integrator``)."""
     entry = model_entry(problem.model)
-    integrator = problem.model.integration_type
-    if entry is None or integrator not in INTEGRATORS:
+    integrator = lane_integrator(problem.model, entry)
+    if integrator is None:
         return None
     obj = problem.objective
     cc = problem.get_constraint("ControlConstraint")
@@ -187,15 +221,24 @@ def integrate_lane(f, kind: str, x, u, dt):
     raise ValueError(f"unknown integrator {kind!r}")
 
 
+def lane_step(model, entry: ModelEntry, kind: str, x, u, dt):
+    """One step of a registered model's lane: its exact discrete map for a
+    discrete model (the kernels' ``Car::step``), else ``integrate_lane``
+    over its continuous dynamics."""
+    if entry.discrete:
+        return model.discrete_dynamics(x, u, None, dt)
+    return integrate_lane(lambda x_, u_: model(x_, u_, None), kind, x, u, dt)
+
+
 def forward_rollout_plain(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
-    """Port of ``rollout.py::_scan_forward_single``. Batch-first: Xb
+    """Port of ``rollout.py::_scan_forward_single`` (a discrete model
+    steps its exact map, :901-902). Batch-first: Xb
     (B,N,nx) nominal states x_0..x_{N-1}, Ub/k (B,N,nu), K (B,N,nu,nx),
     x0 (B,nx), alpha (B,). Returns (X tail (B,N,nx) = x_1..x_N,
     U (B,N,nu), J (B,)). Step t's running cost tracks
     ``consts.running_ref(t)``, the terminal cost the goal."""
     N = Xb.shape[1]
     dt = torch.tensor(consts.dt, dtype=Xb.dtype, device=Xb.device)
-    f = lambda x, u: consts.model(x, u, None)  # noqa: E731
     Q, R, Qf, goal = consts.Q, consts.R, consts.Qf, consts.goal
     a = alpha[:, None]
     x, J = x0, Xb.new_zeros(Xb.shape[0])
@@ -206,7 +249,7 @@ def forward_rollout_plain(consts: LaneConsts, Xb, Ub, k, K, x0, alpha):
             u = torch.minimum(torch.maximum(u, consts.lower), consts.upper)
         e = x - consts.running_ref(t)
         J = J + ((e @ Q) * e).sum(-1) + ((u @ R) * u).sum(-1)
-        x = integrate_lane(f, consts.integrator, x, u, dt)
+        x = consts.step(x, u, dt)
         xs.append(x)
         us.append(u)
     ef = x - goal

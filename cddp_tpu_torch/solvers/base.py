@@ -20,7 +20,9 @@ from cddp_tpu_torch.problem import Problem
 def discrete_jacobians(problem: Problem, X, U):
     """A_t = I + dt*Fx, B_t = dt*Fu of the continuous dynamics for every
     step (cddp_solver_base.cpp:319-358): the linearization is Euler whatever
-    integrator rolls the trajectory. Returns (B, N, nx, nx), (B, N, nx, nu)."""
+    integrator rolls the trajectory. Returns (B, N, nx, nx), (B, N, nx, nu),
+    row-major: forward-mode AD gives its Jacobians column-major, and the
+    condensed backward kernel reads a block's values evenly spaced."""
     dt, N, nx, nu = problem.timestep, problem.horizon, problem.state_dim, problem.control_dim
     Bsz = X.shape[0]
     t = (torch.arange(N, dtype=X.dtype, device=X.device) * dt).repeat(Bsz)
@@ -29,7 +31,8 @@ def discrete_jacobians(problem: Problem, X, U):
     )
     eye = torch.eye(nx, dtype=X.dtype, device=X.device)
     A = dt * Fx + eye
-    return A.reshape(Bsz, N, nx, nx), (dt * Fu).reshape(Bsz, N, nx, nu)
+    return (A.reshape(Bsz, N, nx, nx).contiguous(),
+            (dt * Fu).reshape(Bsz, N, nx, nu).contiguous())
 
 
 def running_cost_derivatives(problem: Problem, X, U):

@@ -40,10 +40,10 @@ class BackwardPassResult(NamedTuple):
 
 
 def _use_kernels(problem: Problem, options: CDDPOptions) -> bool:
-    """Whether the backward pass launches the Riccati kernel: a registered
-    model of a shape it is instantiated for."""
+    """Whether the backward pass launches the Riccati kernel: a problem of
+    a shape it is instantiated for, whatever its model (the kernel reads A
+    and B, and the JAX op gates on shape alone, riccati.py:491-497)."""
     return (options.backward_engine != "scan"
-            and rollout_ops.model_entry(problem.model) is not None
             and (problem.state_dim, problem.control_dim) in KERNEL_SHAPES)
 
 
@@ -143,7 +143,7 @@ def _solve(problem: Problem, options: CDDPOptions, X0, U0, k0, K0) -> Solution:
     alphas = line_search_alphas(options.line_search)
     consts = (rollout_ops.lane_consts(problem)
               if options.backward_engine != "scan" else None)
-    if consts is not None and not consts.clddp:
+    if consts is not None and not consts.rollout:
         consts = None
 
     X, U, k, K = X0, U0, k0, K0

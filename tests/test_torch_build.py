@@ -99,14 +99,14 @@ INSTANTIATIONS = {
                                 for v in ("m4_ti1", "m4_ti2", "m4_te3", "m4_te3_ti1")}
     | {"cddp_ipddp_solve_hcw_m6_te6"},
     "ipddp_backward.cu": {f"cddp_ipddp_backward_3x2x{m}" for m in (4, 5, 6, 10)}
-    | {"cddp_ipddp_backward_2x1x2"},
+    | {"cddp_ipddp_backward_2x1x2", "cddp_ipddp_backward_4x2x4"},
     "ip_forward.cu": {f"cddp_ip_forward_{v}{t}"
                       for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2",
                                 "hcw_m6")
-                      for t in ("", "_track")},
+                      for t in ("", "_track")} | {"cddp_ip_forward_car_m4"},
     "forward_rollout.cu": {f"cddp_forward_rollout_{m}{t}" for m in ("unicycle", "pendulum",
                                                                      "cartpole")
-                           for t in ("", "_track")},
+                           for t in ("", "_track")} | {"cddp_forward_rollout_car"},
     "clddp_solve.cu": {f"cddp_clddp_solve_{m}{t}" for m in ("unicycle", "pendulum", "cartpole")
                        for t in ("", "_track")},
     "logddp_solve.cu": {f"cddp_logddp_solve_{v}{t}"
@@ -115,9 +115,10 @@ INSTANTIATIONS = {
     "msipddp_solve.cu": {f"cddp_msipddp_solve_{v}{t}"
                          for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2")
                          for t in ("", "_track")},
-    "riccati_backward.cu": {f"cddp_riccati_backward_{s}" for s in ("3x2", "2x1", "4x1")},
+    "riccati_backward.cu": {f"cddp_riccati_backward_{s}" for s in ("3x2", "2x1", "4x1", "4x2")},
     "open_loop_rollout.cu": {f"cddp_open_loop_rollout_{m}"
-                             for m in ("unicycle", "pendulum", "cartpole", "hcw")},
+                             for m in ("unicycle", "pendulum", "cartpole", "hcw", "car",
+                                       "forklift")},
 }
 
 

@@ -47,3 +47,47 @@ def test_phase_14_entries_name_built_launchers_and_logged_kernels():
             assert logged == ipddp_riccati.dispatch_name(*shapes[model])
         else:
             assert logged == name and logged.endswith("@" + model)
+
+
+def test_phase_15_entries_name_built_launchers_and_logged_kernels():
+    """Each phase-15 entry's launcher is one the kernel library builds, its
+    dispatch_log name the one its kernel's wrapper logs for the car's,
+    the forklift's or the LTISystem's shapes, and its launch count is read
+    from a run of phase 15's main path."""
+    import chip_smoke
+    from cddp_tpu_torch.models import Car, Forklift
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati, riccati
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    built = {stem for stems in chip_smoke.launchers().values() for stem in stems}
+    tags = {"car": rollout_ops.model_entry(Car()).tag,
+            "forklift": rollout_ops.model_entry(Forklift()).tag}
+    names = set()
+    for name, logged, kernel, model, launcher in chip_smoke.DISCRETE_ENTRIES:
+        assert launcher in built, launcher
+        names.add(name)
+        if kernel == "riccati_backward":
+            assert logged == riccati.dispatch_name(4, 2)
+        elif kernel == "ipddp_backward":
+            assert logged == ipddp_riccati.dispatch_name(4, 2, 4)
+        else:
+            assert logged == kernel + tags[model] == name
+    assert names == {"riccati_backward@car", "riccati_backward@lti", "forward_rollout@car",
+                     "open_loop_rollout@car", "open_loop_rollout@forklift", "ip_forward@car",
+                     "ipddp_backward@car"}
+
+
+def test_whole_solve_plain_drivers_are_timed_at_b_check():
+    """Phases 4-13 time each whole solve's plain driver on the first B_CHECK
+    instances of the main path's seeds, and say so ("plain_at")."""
+    import chip_smoke
+
+    p = chip_smoke.flagship_problem(__import__("cddp_tpu_torch"), torch.float64, "cpu")
+    x0 = torch.zeros(chip_smoke.B_CHECK + 5, 3, dtype=torch.float64)
+    seeds = (x0, x0[:, :2], torch.tensor(1.0))
+    pc, sc = chip_smoke.check_slice(p.replace(x0=x0), seeds)
+    assert pc.x0.shape[0] == chip_smoke.B_CHECK
+    assert [tuple(t.shape) for t in sc] == [(chip_smoke.B_CHECK, 3), (chip_smoke.B_CHECK, 2), ()]
+    assert chip_smoke.plain_at().startswith(f"B={chip_smoke.B_CHECK}, float32")
+    assert chip_smoke.fleet_batch("plain driver", x0).shape[0] == chip_smoke.B_CHECK
+    assert chip_smoke.fleet_batch("whole-solve kernel", x0).shape[0] == x0.shape[0]

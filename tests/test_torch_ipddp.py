@@ -219,8 +219,12 @@ def test_dispatch_and_unported_options():
         tt.solve(p, "IPDDP", opts.replace(ipddp=tt.IPDDPOptions(forward_engine="pallas")))
     with pytest.raises(TypeError, match="terminal constraint 'goal' has unsupported type"):
         tt.solve(p.add_terminal_constraint("goal", object()), "IPDDP", opts)
-    with pytest.raises(NotImplementedError, match="without path constraints"):
-        tt.solve(p.replace(constraints={}), "IPDDP", opts)
+    # Without path constraints the plain driver solves (the regime of
+    # tests/test_torch_ipddp_unconstrained.py); no whole-solve kernel takes it.
+    free = p.replace(constraints={})
+    assert not mega_ipddp.mega_eligible(free, opts)
+    sol = tt.solve(free, "IPDDP", opts)
+    assert sol.dual_trajectories is None and int(sol.iterations_completed) >= 1
 
 
 def test_options_and_problem_carried_across():

@@ -1,10 +1,12 @@
-"""The port's Pendulum, CartPole and HCW against the JAX package's models
-(CPU, float64): the continuous dynamics against the JAX models and the
-reference formulas of tests/test_model_oracles.py, the Jacobians against
-the JAX ``jacobians`` and against finite differences, each model's
-parameter vector against the JAX lane registry's, one step of each of the
-four lane integrators against the JAX lane integrator, and ``interop``
-carrying each JAX model across with its parameters. ``model_params`` is
+"""The port's Pendulum, CartPole, HCW, Car, Forklift and LTISystem against
+the JAX package's models (CPU, float64): the continuous dynamics against
+the JAX models and the reference formulas and pins of
+tests/test_model_oracles.py, the Jacobians against the JAX ``jacobians``
+and against finite differences, the car's exact map against the JAX model
+and lane, each model's parameter vector against the JAX lane registry's,
+one step of each of the four lane integrators against the JAX lane
+integrator, ``interop`` carrying each JAX model across with its parameters,
+and the CUDA structs of ``models.cuh`` built for the host. ``model_params`` is
 how the other parity tests give a JAX problem's model to the port."""
 
 import jax.numpy as jnp
@@ -18,7 +20,7 @@ from cddp_tpu.models import Pendulum as JPendulum
 from cddp_tpu.ops.pallas import rollout as jlane
 from cddp_tpu.utils.fd import finite_difference_jacobian
 from cddp_tpu_torch.interop import problem_from_arrays
-from cddp_tpu_torch.models import HCW, CartPole, Pendulum
+from cddp_tpu_torch.models import HCW, Car, CartPole, Forklift, LTISystem, Pendulum
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 
 torch.set_num_threads(1)
@@ -30,14 +32,29 @@ INTEGRATORS = ("euler", "heun", "rk3", "rk4")
 def model_params(jax_model) -> np.ndarray:
     """A JAX model's parameter vector in the JAX lane registry's order
     (cddp_tpu/ops/pallas/rollout.py:138-203), which the port's registry and
-    ``interop.problem_from_arrays`` take."""
+    ``interop.problem_from_arrays`` take; an LTISystem's A and B flattened
+    and concatenated (it has no lane)."""
+    if type(jax_model).__name__ == "LTISystem":
+        return np.concatenate([np.asarray(jax_model.A, np.float64).ravel(),
+                               np.asarray(jax_model.B, np.float64).ravel()])
     return np.asarray(jlane._REGISTRY[type(jax_model).__name__][1](jax_model), np.float64)
 
 
 def port_model(jax_model):
     """The port's copy of a JAX model, with its parameters and integrator."""
-    cls = {"Pendulum": Pendulum, "CartPole": CartPole, "HCW": HCW}[type(jax_model).__name__]
-    return cls(*model_params(jax_model).tolist(), integration_type=jax_model.integration_type)
+    name, kind = type(jax_model).__name__, jax_model.integration_type
+    p = model_params(jax_model).tolist()
+    if name == "Car":
+        return Car(p[0], timestep=jax_model.timestep, integration_type=kind)
+    if name == "Forklift":
+        return Forklift(p[0], jax_model.max_steering_angle, jax_model.rear_steer,
+                        integration_type=kind)
+    if name == "LTISystem":
+        return LTISystem(torch.as_tensor(np.asarray(jax_model.A, np.float64)),
+                         torch.as_tensor(np.asarray(jax_model.B, np.float64)),
+                         jax_model.timestep, integration_type=kind)
+    cls = {"Pendulum": Pendulum, "CartPole": CartPole, "HCW": HCW}[name]
+    return cls(*p, integration_type=kind)
 
 
 # (JAX model with non-default parameters, x, u): states away from the
@@ -277,7 +294,7 @@ def host_structs(tmp_path_factory):
         pytest.skip("no g++ to build the CUDA structs for the host")
     d = tmp_path_factory.mktemp("host_structs")
     (d / "cuda_runtime.h").write_text(STAND_IN)
-    (d / "eval.cpp").write_text(_HOST_EVAL)
+    (d / "eval.cpp").write_text(_HOST_EVAL + _HOST_EVAL_NEW.replace('#include "models.cuh"', ""))
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off",
                     "-DCDDP_F64", f"-I{d}", f"-I{build.CSRC}", str(d / "eval.cpp"), "-o",
                     str(d / "eval.so")], check=True, capture_output=True)
@@ -302,6 +319,214 @@ def test_cuda_struct_matches_plain_model(case, host_structs):
     X, U = np.ascontiguousarray(X), np.ascontiguousarray(U)
     getattr(host_structs, f"eval_{case}")(ptr(X), ptr(U), ptr(p), ptr(dx), ptr(Fx), ptr(Fu),
                                           ctypes.c_int(B))
+    want_Fx, want_Fu = model.jacobians(torch.as_tensor(X), torch.as_tensor(U), 0.0)
+    np.testing.assert_allclose(dx, model(torch.as_tensor(X), torch.as_tensor(U), None).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(Fx, want_Fx.numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(Fu, want_Fu.numpy(), rtol=1e-12, atol=1e-12)
+
+
+# --- the car, the forklift and the LTISystem -----------------------------------------
+
+from cddp_tpu.models import Car as JCar  # noqa: E402
+from cddp_tpu.models import Forklift as JForklift  # noqa: E402
+from cddp_tpu.models import lti_system as jlti_system  # noqa: E402
+from cddp_tpu_torch.models import lti_system  # noqa: E402
+
+# (JAX model with non-default parameters, x, u, dt of its discrete map).
+NEW_CASES = {
+    "car": (JCar(wheelbase=2.3, timestep=0.04), [0.3, -0.2, 0.7, 1.5], [0.2, 0.6], 0.04),
+    "forklift": (JForklift(wheelbase=1.7, rear_steer=True), [0.3, -0.2, 0.7, 1.1, 0.3],
+                 [0.4, -0.2], 0.05),
+    "forklift_front": (JForklift(wheelbase=1.7, rear_steer=False), [0.3, -0.2, 0.7, 1.1, 0.3],
+                       [0.4, -0.2], 0.05),
+    "lti": (jlti_system(0.1), [1.0, -0.5, 0.2, 0.8], [0.3, -0.1], 0.1),
+}
+
+
+def _new_batch(case, B=6, seed=0):
+    _, x, u, _ = NEW_CASES[case]
+    rng = np.random.default_rng(seed)
+    X = np.asarray(x) + 0.2 * rng.standard_normal((B, len(x)))
+    U = np.asarray(u) + 0.1 * rng.standard_normal((B, len(u)))
+    return X, U
+
+
+@pytest.mark.parametrize("case", sorted(NEW_CASES))
+def test_new_models_match_jax(case):
+    """forward (the continuous form: the car's and the LTISystem's finite
+    difference of their map over their own timestep), the Jacobians (by
+    AD, as the JAX models give theirs) and the discrete map, 1e-12."""
+    jm, _, _, dt = NEW_CASES[case]
+    X, U = _new_batch(case)
+    model = port_model(jm)
+    Xt, Ut = torch.as_tensor(X), torch.as_tensor(U)
+    np.testing.assert_allclose(model(Xt, Ut, None).numpy(), _jax_rows(
+        lambda x, u: jm.continuous_dynamics(x, u, 0.0), X, U), **TOL)
+    Fx, Fu = model.jacobians(Xt, Ut, 0.0)
+    np.testing.assert_allclose(Fx.numpy(), _jax_rows(lambda x, u: jm.jacobians(x, u, 0.0)[0],
+                                                     X, U), **TOL)
+    np.testing.assert_allclose(Fu.numpy(), _jax_rows(lambda x, u: jm.jacobians(x, u, 0.0)[1],
+                                                     X, U), **TOL)
+    np.testing.assert_allclose(model.discrete_dynamics(Xt, Ut, 0.0, dt).numpy(), _jax_rows(
+        lambda x, u: jm.discrete_dynamics(x, u, 0.0, dt), X, U), **TOL)
+
+
+def test_car_map_is_the_jax_lane():
+    """The car's exact map on a tensor dt, as the kernels' plain versions
+    step it (``rollout.lane_step``), against the JAX lane function
+    (rollout.py:183-194) on the registry's parameter vector."""
+    jm, _, _, dt = NEW_CASES["car"]
+    X, U = _new_batch("car", seed=2)
+    model = port_model(jm)
+    entry = rollout_ops.model_entry(model)
+    got = rollout_ops.lane_step(model, entry, "rk4", torch.as_tensor(X), torch.as_tensor(U),
+                                torch.tensor(dt, dtype=torch.float64)).numpy()
+    lane_f = jlane._REGISTRY["Car"][2]
+    want = np.stack([np.asarray(v) for v in lane_f(
+        [jnp.asarray(X[:, i]) for i in range(4)], [jnp.asarray(U[:, i]) for i in range(2)],
+        jnp.asarray(model_params(jm)), jnp.full(X.shape[0], dt))], -1)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_car_and_forklift_pins():
+    """tests/test_model_oracles.py:32-47 (test_car.cpp:66-81, the MATLAB
+    demo's steps) and :150-171 (test_forklift.cpp's straight line, steering
+    rate, acceleration and the rear-steer sign) on the port's models."""
+    f = lambda *v: torch.tensor([v], dtype=torch.float64)  # noqa: E731
+    car = Car(wheelbase=2.0, timestep=0.03)
+    np.testing.assert_allclose(car.discrete_dynamics(
+        f(1.0, 1.0, 3 * np.pi / 2, 0.0), f(0.01, 0.01), 0.0, 0.03)[0].numpy(),
+        [1.0, 1.0, 4.7124, 0.0003], atol=1e-4)
+    np.testing.assert_allclose(car.discrete_dynamics(
+        f(1.0, 1.0, 3 * np.pi / 2, 1.0), f(0.3, 0.1), 0.0, 0.03)[0].numpy(),
+        [1.0, 0.9713, 4.7168, 1.0030], atol=1e-4)
+    fl = Forklift(wheelbase=2.0, rear_steer=True)
+    step = lambda m, x, u: m.discrete_dynamics(f(*x), f(*u), 0.0, 0.01)[0].numpy()  # noqa: E731
+    np.testing.assert_allclose(step(fl, (0.0, 0.0, 0.0, 1.0, 0.0), (0.0, 0.0)),
+                               [0.01, 0, 0, 1.0, 0], atol=1e-6)
+    assert abs(step(fl, (0.0,) * 5, (0.0, 0.5))[4] - 0.005) < 1e-6
+    assert abs(step(fl, (0.0,) * 5, (2.0, 0.0))[3] - 0.02) < 1e-6
+    x = (0.0, 0.0, 0.0, 1.0, np.pi / 6)
+    tr = step(fl, x, (0.0, 0.0))[2]
+    tf = step(Forklift(wheelbase=2.0, rear_steer=False), x, (0.0, 0.0))[2]
+    assert abs(tr + tf) < 1e-6 and abs(tf) > 0
+
+
+def test_lti_builder_matches_jax():
+    """The default 4x2 system (expm(dt A0), dt B0; lti_system.cpp:15-31),
+    user matrices as given, and the seeded random path: skew-symmetric
+    continuous A, so A_d is orthogonal, B within dt of zero."""
+    jm = jlti_system(0.05)
+    sys = lti_system(0.05, device="cpu")
+    np.testing.assert_allclose(sys.A.numpy(), np.asarray(jm.A), **TOL)
+    np.testing.assert_allclose(sys.B.numpy(), np.asarray(jm.B), **TOL)
+    assert (sys.state_dim, sys.control_dim) == (4, 2)
+    user = lti_system(1.0, A=np.eye(1), B=2.0 * np.eye(1), device="cpu")
+    assert user.A.item() == 1.0 and user.B.item() == 2.0 and user.state_dim == 1
+    rnd = lti_system(0.1, generator=torch.Generator().manual_seed(3), state_dim=3,
+                     control_dim=2, device="cpu")
+    np.testing.assert_allclose((rnd.A @ rnd.A.T).numpy(), np.eye(3), atol=1e-12)
+    assert rnd.B.shape == (3, 2) and float(rnd.B.abs().max()) <= 0.1
+    again = lti_system(0.1, generator=torch.Generator().manual_seed(3), state_dim=3,
+                       control_dim=2, device="cpu")
+    assert torch.equal(again.A, rnd.A) and torch.equal(again.B, rnd.B)
+    with pytest.raises(ValueError, match="square"):
+        lti_system(0.1, A=np.ones((2, 3)), B=np.ones((2, 1)), device="cpu")
+
+
+@pytest.mark.parametrize("case", ["car", "forklift", "forklift_front"])
+def test_new_registry_parameters_are_the_jax_lanes(case):
+    jm = NEW_CASES[case][0]
+    entry = rollout_ops.model_entry(port_model(jm))
+    name = case.split("_")[0]
+    assert entry.cuda_name == name and entry.tag == "@" + name
+    assert entry.discrete == (name == "car")
+    np.testing.assert_array_equal(entry.params(port_model(jm)), model_params(jm))
+    assert len(model_params(jm)) == jlane._REGISTRY[type(jm).__name__][0]
+    assert len(jlane._REGISTRY[type(jm).__name__]) == (4 if name == "car" else 3)
+    assert rollout_ops.model_entry(port_model(NEW_CASES["lti"][0])) is None
+
+
+@pytest.mark.parametrize("case", sorted(NEW_CASES))
+def test_interop_carries_the_new_models(case):
+    """The car takes the problem's timestep, the forklift its steering
+    convention from the sign, the LTISystem its A and B."""
+    jm, _, _, dt = NEW_CASES[case]
+    nx, nu = jm.state_dim, jm.control_dim
+    p = problem_from_arrays(
+        type(jm).__name__, model_params(jm), np.eye(nx), np.eye(nu), np.eye(nx),
+        np.zeros(nx), -np.ones(nu), np.ones(nu), np.zeros(nx), 5, dt, "euler",
+        device="cpu", dtype=torch.float64)
+    assert type(p.model) is type(port_model(jm))
+    X, U = _new_batch(case, seed=3)
+    np.testing.assert_allclose(
+        p.model(torch.as_tensor(X), torch.as_tensor(U), None).numpy(),
+        _jax_rows(lambda x, u: jm.continuous_dynamics(x, u, 0.0), X, U), **TOL)
+    with pytest.raises(ValueError, match="takes"):
+        problem_from_arrays(type(jm).__name__, model_params(jm)[:-1], np.eye(nx), np.eye(nu),
+                            np.eye(nx), np.zeros(nx), None, None, np.zeros(nx), 5, dt,
+                            "euler", device="cpu", dtype=torch.float64)
+
+
+_HOST_EVAL_NEW = r"""
+#include "models.cuh"
+
+extern "C" {
+void eval_forklift(const double* x, const double* u, const double* p, double* dx, double* Fx,
+                   double* Fu, int B) { eval<cddp::Forklift>(x, u, p, dx, Fx, Fu, B); }
+// integrate()'s discrete branch: Car::step in place of the stepper `kind`.
+void step_car(const double* x, const double* u, const double* p, double dt, int kind,
+              double* out, int B) {
+  using M = cddp::Car;
+  for (int b = 0; b < B; ++b) {
+    double xb[M::NX], ub[M::NU], o[M::NX];
+    for (int i = 0; i < M::NX; ++i) xb[i] = x[b * M::NX + i];
+    for (int i = 0; i < M::NU; ++i) ub[i] = u[b * M::NU + i];
+    cddp::integrate<double, M>(kind, xb, ub, p, dt, o);
+    for (int i = 0; i < M::NX; ++i) out[b * M::NX + i] = o[i];
+  }
+}
+}
+"""
+
+
+def test_cuda_car_step_matches_plain_map(host_structs):
+    """``integrate<Car>`` takes ``Car::step`` whatever the stepper code, and
+    it rounds like the plain map (1e-12: the host libm against torch's
+    sin, cos, sqrt and asin); past the map's reach both are NaN."""
+    import ctypes
+
+    jm, _, _, dt = NEW_CASES["car"]
+    model = port_model(jm)
+    X, U = _new_batch("car", B=64, seed=4)
+    X[0, 3], U[0, 0] = 400.0, 0.5  # |dt v sin(delta)| > d: NaN
+    X, U = np.ascontiguousarray(X), np.ascontiguousarray(U)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    p = np.asarray(rollout_ops.model_entry(model).params(model), np.float64)
+    want = model.discrete_dynamics(torch.as_tensor(X), torch.as_tensor(U), None, dt).numpy()
+    assert np.isnan(want[0, 0])
+    for kind in range(4):
+        out = np.zeros_like(X)
+        host_structs.step_car(ptr(X), ptr(U), ptr(p), ctypes.c_double(dt), ctypes.c_int(kind),
+                              ptr(out), ctypes.c_int(X.shape[0]))
+        np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", ["forklift", "forklift_front"])
+def test_cuda_forklift_struct_matches_plain_model(case, host_structs):
+    import ctypes
+
+    jm = NEW_CASES[case][0]
+    model = port_model(jm)
+    X, U = _new_batch(case, B=64, seed=5)
+    X, U = np.ascontiguousarray(X), np.ascontiguousarray(U)
+    B, nx, nu = X.shape[0], 5, 2
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    p = np.asarray(rollout_ops.model_entry(model).params(model), np.float64)
+    dx, Fx, Fu = np.zeros((B, nx)), np.zeros((B, nx, nx)), np.zeros((B, nx, nu))
+    host_structs.eval_forklift(ptr(X), ptr(U), ptr(p), ptr(dx), ptr(Fx), ptr(Fu),
+                               ctypes.c_int(B))
     want_Fx, want_Fu = model.jacobians(torch.as_tensor(X), torch.as_tensor(U), 0.0)
     np.testing.assert_allclose(dx, model(torch.as_tensor(X), torch.as_tensor(U), None).numpy(),
                                rtol=1e-12, atol=1e-12)

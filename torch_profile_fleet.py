@@ -7,6 +7,7 @@
     python3 torch_profile_fleet.py --save-outputs PATH [--batch B]
     python3 torch_profile_fleet.py --compare-outputs A B
     python3 torch_profile_fleet.py --compare-sass TREE_A TREE_B
+    python3 torch_profile_fleet.py --model-kernels [--batch 262144]
 
 For the flagship fleet (cold control-limited unicycle MPC, H=20, 10
 iterations, tolerance 1e-4, float32, x0 ~ U(-0.5, 0.5)) under each solver
@@ -56,6 +57,16 @@ run the first in each tree, the second once. ``--compare-sass TREE_A
 TREE_B`` says whether every kernel of the first tree's built library
 compiles to the same SASS instructions in the second's (``cuobjdump``;
 exit status 1 if not).
+
+``--model-kernels`` profiles the model-lane kernels 2 and 4 of the models
+past the unicycle alone, in a process that runs nothing else: the line-search
+rollout (kernel 2) on the pendulum's and the cart-pole's fleets in the goal
+and the tracking forms and on the car's, the open-loop rollout (kernel 4)
+on the pendulum, the cart-pole, HCW and the car, on the
+operands ``chip_smoke.py`` times them on (``stage_inputs`` about the
+fleet's problem; random controls in the box; the car's fleet at
+``chip_smoke.CAR_B``). Each kernel's device ms a launch by the profiler,
+its wrapper ms by CUDA events, and its bound from the same operands.
 """
 
 import argparse
@@ -323,6 +334,57 @@ def compare_sass(a, b):
     return int(bool(bad))
 
 
+def model_kernels(tt, batch, smi, dev=None):
+    """``--model-kernels``: kernels 2 and 4 of the pendulum, the cart-pole,
+    HCW and the car, each timed alone (see the module text), on ``dev``
+    (the card when None)."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    dev = dev or torch.device("cuda", 0)
+    cases = [(f"forward_rollout{'_track' if tr else ''}@{m}",
+              chip_smoke.zoo_problem(tt, torch.float32, dev, m, tracking=tr), batch)
+             for m in ("pendulum", "cartpole") for tr in (False, True)]
+    cases.append(("forward_rollout@car", chip_smoke.car_problem(tt, torch.float32, dev),
+                  chip_smoke.CAR_B))
+    cases += [(f"open_loop_rollout@{m}", chip_smoke.zoo_problem(tt, torch.float32, dev, m),
+               batch) for m in ("pendulum", "cartpole", "hcw")]
+    cases.append(("open_loop_rollout@car", chip_smoke.car_problem(tt, torch.float32, dev),
+                  chip_smoke.CAR_B))
+    for name, prob, B in cases:
+        gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+        if name.startswith("forward_rollout"):
+            X, U, back, alpha = chip_smoke.stage_inputs(prob, B, gen)
+            consts = rollout_ops.lane_consts(prob)
+            k, K = riccati._launch(*back)[:2]
+            args = (X[:, :-1], U, k, K, X[:, 0], alpha)
+            fn = lambda consts=consts, args=args: rollout_ops._launch(consts, *args)  # noqa: E731
+            ins = args + chip_smoke.reference_read(prob)
+            ops = chip_smoke.count_ops(rollout_ops.forward_rollout_plain, consts,
+                                       *chip_smoke.one(args))
+        else:
+            x0 = chip_smoke.fleet_x0(prob, B, gen)
+            cc = prob.get_constraint("ControlConstraint")
+            U = (2.0 * torch.rand(B, prob.horizon, prob.control_dim, generator=gen,
+                                  device=dev) - 1.0) * cc.upper
+            entry, dt = rollout_ops.model_entry(prob.model), prob.timestep
+            model = prob.model.to(torch.float32)
+            fn = (lambda model=model, entry=entry, x0=x0, U=U, dt=dt:  # noqa: E731
+                  ip_rollout._launch_open_loop(model, entry, x0, U, dt))
+            ins = (x0, U)
+            ops = chip_smoke.count_ops(ip_rollout.open_loop_rollout_plain, model, x0[:1], U[:1],
+                                       dt)
+        out = fn()
+        outs = out if isinstance(out, tuple) else (out[:, 1:],)
+        nbytes = chip_smoke.unique_bytes(ins) + chip_smoke.unique_bytes(outs)
+        b_ms, b_by = chip_smoke.bound(nbytes, ops * B, torch.float32)
+        ms = chip_smoke.cuda_ms(fn, 20)
+        dev_ms, source = chip_smoke.device_ms(fn, name.split("@")[0].replace("_track", ""), 20)
+        print(f"[model kernels] {name} at B={B}, N={prob.horizon}: {dev_ms:.4f} ms device "
+              f"({source}), {ms:.4f} ms with the wrapper (CUDA events), bound {b_ms:.4f} ms "
+              f"by {b_by} ({nbytes / 1e9:.4f} GB); device / bound {dev_ms / b_ms:.2f}  [{smi}]")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=chip_smoke.B_MAIN)
@@ -335,6 +397,7 @@ def main():
     ap.add_argument("--save-outputs", metavar="PATH")
     ap.add_argument("--compare-outputs", nargs=2, metavar=("A", "B"))
     ap.add_argument("--compare-sass", nargs=2, metavar=("TREE_A", "TREE_B"))
+    ap.add_argument("--model-kernels", action="store_true")
     args = ap.parse_args()
     if args.compare_outputs:
         raise SystemExit(compare_outputs(*args.compare_outputs))
@@ -348,6 +411,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.model_kernels:
+        return model_kernels(tt, args.batch, smi)
     chip_smoke.print_kernel_attributes(smi)
     if args.save_outputs:
         return save_outputs(args.save_outputs, args.batch, smi)
