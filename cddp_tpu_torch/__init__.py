@@ -5,9 +5,11 @@ of the JAX package (boxes, keep-out balls, linear, pole, cone and thrust
 constraints), or none, and both terminal types (linear inequalities A x_N <= b and
 equalities x_N = target); LogDDP and MSIPDDP with control and state boxes;
 over the unicycle, the pendulum, the cart-pole, the
-Hill-Clohessy-Wiltshire spacecraft, the forklift, the discrete car and any
-discrete linear system (``LTISystem``, ``lti_system``; all in
-``cddp_tpu_torch.models``), as the JAX package solves them, towards a goal or along a per-step reference
+Hill-Clohessy-Wiltshire spacecraft, the forklift, the discrete car, any
+discrete linear system (``LTISystem``, ``lti_system``) and the quadrotor
+with rotor-force or body-rate controls (``Quadrotor``, ``quadrotor``,
+``QuadrotorRate``; all in ``cddp_tpu_torch.models``, the attitude
+conversions in ``cddp_tpu_torch.utils.rotations``), as the JAX package solves them, towards a goal or along a per-step reference
 trajectory (``reference_states``); and batch-first receding-horizon MPC
 (``make_mpc_controller``), warm-started from a trajectory or from the
 interior-point solvers' state (``IPDDPSolverState``,
@@ -55,7 +57,8 @@ from cddp_tpu_torch.constraints.terminal import (
     terminal_inequality_constraint,
 )
 from cddp_tpu_torch.costs.objective import QuadraticObjective, quadratic_objective
-from cddp_tpu_torch.models import Car, Forklift, LTISystem, lti_system
+from cddp_tpu_torch.models import (Car, Forklift, LTISystem, Quadrotor, QuadrotorRate,
+                                   lti_system, quadrotor)
 from cddp_tpu_torch.options import (
     BarrierOptions,
     BarrierStrategy,
@@ -74,7 +77,7 @@ from cddp_tpu_torch.solvers.msipddp import MSIPDDPSolverState
 
 __all__ = [
     "BallConstraint", "BarrierOptions", "BarrierStrategy", "CDDPOptions", "Car",
-    "Forklift", "LTISystem", "lti_system",
+    "Forklift", "LTISystem", "lti_system", "Quadrotor", "QuadrotorRate", "quadrotor",
     "ControlConstraint", "IPDDPOptions", "IPDDPSolverState", "MSIPDDPSolverState", "LinearConstraint", "LogBarrierOptions",
     "MPCState", "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
     "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",

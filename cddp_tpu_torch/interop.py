@@ -17,7 +17,8 @@ import torch
 from cddp_tpu_torch import devices
 from cddp_tpu_torch.constraints import path, terminal
 from cddp_tpu_torch.costs.objective import QuadraticObjective
-from cddp_tpu_torch.models import HCW, Car, CartPole, Forklift, LTISystem, Pendulum, Unicycle
+from cddp_tpu_torch.models import (HCW, Car, CartPole, Forklift, LTISystem, Pendulum,
+                                   Quadrotor, QuadrotorRate, Unicycle)
 from cddp_tpu_torch.options import CDDPOptions
 from cddp_tpu_torch.problem import Problem
 
@@ -28,8 +29,10 @@ from cddp_tpu_torch.problem import Problem
 # damping, gravity), the cart-pole's (cart_mass, pole_mass, pole_length,
 # gravity, damping), HCW's (mean_motion, mass), the car's (wheelbase; its
 # timestep is the problem's), the forklift's (wheelbase, steer_sign, -1
-# rear-steered); the unicycle has none. An LTISystem, which has no lane,
-# takes its discrete A (nx, nx) and B (nx, nu) flattened and concatenated.
+# rear-steered), the quadrotor's (mass, arm_length, gravity, inertia (9,
+# row-major)), QuadrotorRate's (mass, gravity); the unicycle has none. An
+# LTISystem, which has no lane, takes its discrete A (nx, nx) and B (nx,
+# nu) flattened and concatenated.
 _MODELS = {
     "Unicycle": (lambda p, dt, nx, nu: Unicycle(), lambda nx, nu: 0),
     "Pendulum": (lambda p, dt, nx, nu: Pendulum(*p), lambda nx, nu: 4),
@@ -38,6 +41,12 @@ _MODELS = {
     "Car": (lambda p, dt, nx, nu: Car(p[0], timestep=dt), lambda nx, nu: 1),
     "Forklift": (lambda p, dt, nx, nu: Forklift(p[0], rear_steer=p[1] < 0.0),
                  lambda nx, nu: 2),
+    "Quadrotor": (lambda p, dt, nx, nu: Quadrotor(
+        mass=p[0], arm_length=p[1], gravity=p[2], inertia=np.reshape(p[3:], (3, 3)),
+        device="cpu"), lambda nx, nu: 12),
+    "QuadrotorRate": (lambda p, dt, nx, nu: QuadrotorRate(mass=p[0], gravity=p[1],
+                                                          device="cpu"),
+                      lambda nx, nu: 2),
     "LTISystem": (lambda p, dt, nx, nu: LTISystem(
         torch.tensor(p[:nx * nx], dtype=torch.float64).reshape(nx, nx),
         torch.tensor(p[nx * nx:], dtype=torch.float64).reshape(nx, nu), dt),
@@ -108,8 +117,9 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
 
     items.update(build(_PATH, constraints))
     model = make_model(params, float(timestep), nx, nu)
-    if isinstance(model, LTISystem):
-        model = model.to(device)  # A and B are matrices the solve reads on its device
+    if isinstance(model, (LTISystem, Quadrotor, QuadrotorRate)):
+        # A and B, the inertia: tensors the solve reads on its device.
+        model = model.to(device)
     model.integration_type = integrator
     return Problem(
         model=model,

@@ -7,7 +7,10 @@
 // feedback gains K = -H_free^-1 Qux, dV, and the value-function update
 // (clddp_solver.cpp:96-203). The 3^NU configurations are a compile-time
 // table walked by template recursion, in itertools.product order; the first
-// valid configuration wins, as at riccati.py:175-176.
+// valid configuration wins, as at riccati.py:175-176. From NU = 3 on (the
+// quadrotors' NU = 4: 81 configurations) a runtime loop walks them instead
+// (boxqp_enum_loop): unrolled, their code took nvcc and ptxas over ten
+// minutes at nx = 13.
 #pragma once
 
 #include "small_linalg.cuh"
@@ -115,6 +118,72 @@ __device__ __forceinline__ void boxqp_enum(const T (&H)[NU][NU], const T (&g)[NU
   }
 }
 
+// The walk of boxqp_enum as a runtime loop over the configurations, in the
+// same order (used from NU = 3 on). Each free block is solved as the
+// identity-padded NU x NU system the plain version solves
+// (ops/boxqp.py::_masked_free_hessian): its Leibniz determinant, cofactors
+// and leading minors have the compact block's terms in the same order,
+// times exact ones, beside exact zeros, so the selection, k and the free
+// block's inverse are those of the compact walk, bit for bit, with the
+// inverse zero off the free rows and columns.
+template <typename T, int NU>
+__device__ __forceinline__ void boxqp_enum_loop(const T (&H)[NU][NU], const T (&g)[NU],
+                                                const T (&lb)[NU], const T (&ub)[NU],
+                                                BoxQPSel<T, NU>& sel) {
+#pragma unroll 1
+  for (int C = 0; C < pow3(NU); ++C) {
+    int d[NU];
+    int rest = C;
+#pragma unroll
+    for (int i = NU - 1; i >= 0; --i) {
+      d[i] = rest % 3;
+      rest /= 3;
+    }
+    T x[NU], Hff[NU][NU], rhs[NU];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) x[i] = d[i] == 0 ? T(0) : (d[i] == 1 ? lb[i] : ub[i]);
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      T s = T(0);
+#pragma unroll
+      for (int b = 0; b < NU; ++b) {
+        Hff[a][b] = (d[a] == 0 && d[b] == 0) ? H[a][b] : (a == b ? T(1) : T(0));
+        s = d[b] != 0 ? s + H[a][b] * x[b] : s;
+      }
+      rhs[a] = d[a] == 0 ? -(g[a] + s) : T(0);
+    }
+    T Hinv[NU][NU], xf[NU];
+    inverse<T, NU>(Hff, Hinv);
+    bool valid = leading_minors_pd<T, NU>(Hff);
+    matvec<T, NU, NU>(Hinv, rhs, xf);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) x[i] = d[i] == 0 ? xf[i] : x[i];
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      T grad = T(0);
+#pragma unroll
+      for (int j = 0; j < NU; ++j) grad = grad + H[i][j] * x[j];
+      grad = g[i] + grad;
+      if (d[i] == 0) {
+        valid = valid & (x[i] >= lb[i]) & (x[i] <= ub[i]);
+      } else if (d[i] == 1) {
+        valid = valid & (grad >= T(0));
+      } else {
+        valid = valid & (grad <= T(0));
+      }
+    }
+    const bool take = valid & !sel.taken;
+    sel.taken = sel.taken | valid;
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      sel.k[i] = take ? x[i] : sel.k[i];
+#pragma unroll
+      for (int j = 0; j < NU; ++j)
+        sel.Hinv[i][j] = take ? (d[i] == 0 && d[j] == 0 ? Hinv[i][j] : T(0)) : sel.Hinv[i][j];
+    }
+  }
+}
+
 // Outputs of one step; Vx and Vxx are updated in place.
 template <typename T, int NX, int NU>
 struct StepOut {
@@ -177,7 +246,17 @@ __device__ __forceinline__ void clddp_backward_step(
     for (int j = 0; j < NU; ++j) sel.Hinv[i][j] = T(0);
   }
   sel.taken = false;
-  boxqp_enum<T, NU, 0>(Quu_reg, Qu, lb, ub, sel);
+  // The two walks give the same bits. With the loop at NU = 2 as well (an
+  // A/B of torch_profile_fleet.py on the unicycle fleet, B = 262144, float32,
+  // NVIDIA H100 80GB HBM3 at 700 W) the whole CLDDP solve kept its device
+  // time (8.199 / 8.402 ms against 8.194 / 8.392) and the per-pass Riccati
+  // kernel took 1.1% more (3.923 / 3.912 ms against 3.873 / 3.878), so the
+  // unrolled walk stays below NU = 3.
+  if constexpr (NU >= 3) {
+    boxqp_enum_loop<T, NU>(Quu_reg, Qu, lb, ub, sel);
+  } else {
+    boxqp_enum<T, NU, 0>(Quu_reg, Qu, lb, ub, sel);
+  }
   out.fail = !pd_all | !sel.taken;
 
   // K = -Hfree^-1 Qux on free rows.

@@ -103,3 +103,5 @@ CDDP_FORWARD_ROLLOUT(pendulum, Pendulum, true, _track)
 CDDP_FORWARD_ROLLOUT(cartpole, CartPole, false, )
 CDDP_FORWARD_ROLLOUT(cartpole, CartPole, true, _track)
 CDDP_FORWARD_ROLLOUT(car, Car, false, )
+CDDP_FORWARD_ROLLOUT(quadrotor, Quadrotor, false, )
+CDDP_FORWARD_ROLLOUT(quadrotor_rate, QuadrotorRate, false, )

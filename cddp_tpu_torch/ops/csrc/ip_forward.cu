@@ -134,9 +134,10 @@ int launch_ip_forward(const T* const* in, T* const* out, const T* refs, const do
 }  // namespace cddp
 
 // m (ip_rollout.KERNEL_ROWS): a control box (4), a state box (6) or both
-// (10) on the unicycle, the control box on the pendulum (2) and on HCW (6),
-// and in the goal form only the car's control box (4, its exact map in
-// place of the integrator step, ip_rollout.py:341-344);
+// (10) on the unicycle, the control box on the pendulum (2), on HCW (6) and
+// on the quadrotor (8: its four rotor forces), and in the goal form only the
+// car's control box (4, its exact map in place of the integrator step,
+// ip_rollout.py:341-344) and QuadrotorRate's thrust and rate box (8);
 // the goal form and (TRACK true, suffix _track) the tracking form, whose
 // `refs` is the shared (N, nx) reference (NULL and unread in the goal form).
 #define CDDP_IP_FORWARD(MODEL, STRUCT, M, TRACK, SUFFIX)                               \
@@ -172,3 +173,6 @@ CDDP_IP_FORWARD(pendulum, Pendulum, 2, true, _track)
 CDDP_IP_FORWARD(hcw, HCW, 6, false, )
 CDDP_IP_FORWARD(hcw, HCW, 6, true, _track)
 CDDP_IP_FORWARD(car, Car, 4, false, )
+CDDP_IP_FORWARD(quadrotor, Quadrotor, 8, false, )
+CDDP_IP_FORWARD(quadrotor, Quadrotor, 8, true, _track)
+CDDP_IP_FORWARD(quadrotor_rate, QuadrotorRate, 8, false, )

@@ -32,7 +32,9 @@
 // 3. Occupancy (kept): blocks of kBackThreads, and __launch_bounds__ asking
 //    for kBackMinBlocks blocks an SM, which lets ptxas take up to 168
 //    registers in float32 (it takes 128 unasked, which was slower, as were
-//    blocks of 256 threads).
+//    blocks of 256 threads). A shape whose tiles do not fit a block at that
+//    size takes half or a quarter of it (back_threads: the quadrotor's
+//    13x4x8 in blocks of 64 threads in float32, 32 in float64).
 //
 // Every thread runs ipddp_step.cuh's per-step math on the same values in
 // the same order, so the outputs are bit for bit those of the batch-last
@@ -42,14 +44,16 @@
 
 namespace cddp {
 
-// Block size: 128 threads in float32, 64 in float64, so that the tiles of
-// every operand layout at m <= 10 fit a block's shared memory (see the
-// static_assert below).
+// Largest block size: 128 threads in float32, 64 in float64, so that the
+// tiles of every operand layout of the unicycle's and the pendulum's shapes
+// at m <= 10 fit a block's shared memory (see the static_assert below).
 #ifdef CDDP_F64
 constexpr int kBackThreads = 64;
 #else
 constexpr int kBackThreads = 128;
 #endif
+// Shared memory a block may take on an H100.
+constexpr int kBlockSmem = 232448;
 // Resident blocks an SM is to hold: in float32 ptxas may then take up to
 // 168 registers, where it takes 128 unasked.
 constexpr int kBackMinBlocks = 3;
@@ -72,22 +76,34 @@ struct BackwardArgs {
   int V, W, N, B;  // per-instance and per-step values a step (TileStage), steps, batch
 };
 
-template <typename T>
-using BackIn = TileStage<T, kBackThreads>;
-
-// The per-pass driver's layout: the cost Hessians and constraint Jacobians
-// constant, everything else per instance.
+// The per-pass driver's layout at a block of `threads`: the cost Hessians
+// and constraint Jacobians constant, everything else per instance.
 template <typename T, int NX, int NU, int M>
-constexpr int ipddp_backward_main_smem() {
+constexpr int ipddp_backward_main_smem(int threads) {
   using Sh = BackwardShape<NX, NU, M>;
-  return BackIn<T>::bytes(
+  return tile_stage_bytes<T>(
+      threads,
       Sh::D[0] + Sh::D[1] + Sh::D[2] + Sh::D[3] + Sh::D[6] + Sh::D[7] + Sh::D[8] + Sh::D[9],
       0, Sh::D[4] + Sh::D[5] + Sh::D[10] + Sh::D[11]);
 }
 
-// Start copying step t of instance b into the stage; the caller commits.
+// The shape's block size: kBackThreads, halved (down to 32) until the
+// per-pass driver's layout fits a block's shared memory. Every shape before
+// the quadrotors' keeps kBackThreads.
 template <typename T, int NX, int NU, int M>
-__device__ void stage_step(const BackIn<T>& in, const BackwardArgs<T>& a, int t, int stage,
+constexpr int back_threads() {
+  int threads = kBackThreads;
+  while (threads > 32 && ipddp_backward_main_smem<T, NX, NU, M>(threads) > kBlockSmem)
+    threads /= 2;
+  return threads;
+}
+
+template <typename T, int TH>
+using BackIn = TileStage<T, TH>;
+
+// Start copying step t of instance b into the stage; the caller commits.
+template <typename T, int NX, int NU, int M, int TH>
+__device__ void stage_step(const BackIn<T, TH>& in, const BackwardArgs<T>& a, int t, int stage,
                            int b) {
   using Sh = BackwardShape<NX, NU, M>;
   in.template fetch<Sh::D[0]>(a.in[0], a.op[0], stage, t, b, a.B);
@@ -104,13 +120,14 @@ __device__ void stage_step(const BackIn<T>& in, const BackwardArgs<T>& a, int t,
   in.template fetch<Sh::D[11]>(a.in[11], a.op[11], stage, t, b, a.B);
 }
 
-template <typename T, int NX, int NU, int M>
-__global__ void __launch_bounds__(kBackThreads, kBackMinBlocks) ipddp_backward_kernel(
+// TH: the shape's block size (back_threads).
+template <typename T, int NX, int NU, int M, int TH>
+__global__ void __launch_bounds__(TH, kBackMinBlocks) ipddp_backward_kernel(
     const __grid_constant__ BackwardArgs<T> a) {
   using Sh = BackwardShape<NX, NU, M>;
   extern __shared__ __align__(16) unsigned char cddp_smem[];
-  const BackIn<T> in{reinterpret_cast<T*>(cddp_smem), a.V, a.W};
-  const int b = blockIdx.x * kBackThreads + threadIdx.x, N = a.N;
+  const BackIn<T, TH> in{reinterpret_cast<T*>(cddp_smem), a.V, a.W};
+  const int b = blockIdx.x * TH + threadIdx.x, N = a.N;
   const bool live = b < a.B;
 
   // The block stages its constants and every thread its last step, then
@@ -119,7 +136,7 @@ __global__ void __launch_bounds__(kBackThreads, kBackMinBlocks) ipddp_backward_k
   in.template fetch_constant<Sh::D[5]>(a.in[5], a.op[5]);
   in.template fetch_constant<Sh::D[10]>(a.in[10], a.op[10]);
   in.template fetch_constant<Sh::D[11]>(a.in[11], a.op[11]);
-  stage_step<T, NX, NU, M>(in, a, N - 1, 0, b);
+  stage_step<T, NX, NU, M, TH>(in, a, N - 1, 0, b);
   cp_async_commit();
 
   T Vx[NX] = {}, Vxx[NX][NX] = {}, m = T(0), r = T(0);
@@ -141,7 +158,7 @@ __global__ void __launch_bounds__(kBackThreads, kBackMinBlocks) ipddp_backward_k
     const int s = (N - 1 - t) & 1;
     // Stage step t - 1 while step t computes; the stage it fills was last
     // read before the barrier that closed step t + 1.
-    if (t > 0) stage_step<T, NX, NU, M>(in, a, t - 1, s ^ 1, b);
+    if (t > 0) stage_step<T, NX, NU, M, TH>(in, a, t - 1, s ^ 1, b);
     cp_async_commit();
     cp_async_wait_prior();
     __syncthreads();
@@ -227,22 +244,27 @@ constexpr int ipddp_backward_worst_smem() {
   using Sh = BackwardShape<NX, NU, M>;
   int V = 0;
   for (int o = 0; o < 12; ++o) V += Sh::D[o];
-  return BackIn<T>::bytes(V, 0, 0);
+  return tile_stage_bytes<T>(back_threads<T, NX, NU, M>(), V, 0, 0);
 }
-// Each build checks its own type (float64 blocks are narrower).
-static_assert(ipddp_backward_worst_smem<scalar_t, 3, 2, 10>() <= 232448 &&
-                  ipddp_backward_worst_smem<scalar_t, 3, 2, 5>() <= 232448 &&
-                  ipddp_backward_worst_smem<scalar_t, 2, 1, 2>() <= 232448,
+// Each build checks its own type (float64 blocks are narrower). At the
+// quadrotors' shapes only the per-pass driver's layout is asserted to fit
+// (launch_ipddp_backward): a layout with more per-instance operands there
+// is refused at launch (cudaFuncSetAttribute), and the wrapper raises.
+static_assert(ipddp_backward_worst_smem<scalar_t, 3, 2, 10>() <= kBlockSmem &&
+                  ipddp_backward_worst_smem<scalar_t, 3, 2, 5>() <= kBlockSmem &&
+                  ipddp_backward_worst_smem<scalar_t, 2, 1, 2>() <= kBlockSmem,
               "the tiles of a fully per-instance layout must fit a block's shared memory");
 
 // in: the 16 inputs; strides: each one's (batch, step, value) strides in
 // elements, its values (the inner block, row-major) evenly spaced; the step
 // stride of Vx, Vxx, mu and reg unused; out: the 9 contiguous batch-last
 // outputs, (N, ..., B) and stats (7, B).
-template <typename T, int NX, int NU, int M>
+template <typename T, int NX, int NU, int M, int TH = back_threads<T, NX, NU, M>()>
 int launch_ipddp_backward(const T* const* in, const long long* strides, T* const* out, int N,
                           int B, cudaStream_t stream) {
   using Sh = BackwardShape<NX, NU, M>;
+  static_assert(ipddp_backward_main_smem<T, NX, NU, M>(TH) <= kBlockSmem,
+                "the per-pass driver's layout must fit a block's shared memory");
   BackwardArgs<T> a{};
   int C;
   tile_layout(Sh::D, strides, a.op, a.V, a.W, C);
@@ -252,13 +274,13 @@ int launch_ipddp_backward(const T* const* in, const long long* strides, T* const
   for (int i = 0; i < 9; ++i) a.out[i] = out[i];
   a.N = N;
   a.B = B;
-  const int blocks = (B + kBackThreads - 1) / kBackThreads;
-  const int smem = BackIn<T>::bytes(a.V, a.W, C);
+  const int blocks = (B + TH - 1) / TH;
+  const int smem = BackIn<T, TH>::bytes(a.V, a.W, C);
   const cudaError_t err = cudaFuncSetAttribute(
-      (const void*)ipddp_backward_kernel<T, NX, NU, M>,
+      (const void*)ipddp_backward_kernel<T, NX, NU, M, TH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ipddp_backward_kernel<T, NX, NU, M><<<blocks, kBackThreads, smem, stream>>>(a);
+  ipddp_backward_kernel<T, NX, NU, M, TH><<<blocks, TH, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,8 +288,10 @@ int launch_ipddp_backward(const T* const* in, const long long* strides, T* const
 
 // (nx, nu, m) of ipddp_riccati.KERNEL_SHAPES: the unicycle with a control
 // box (m=4), a state box (6), both (10), or a control box and a keep-out
-// ball (5); the pendulum with its control box (2, 1, 2). Registered with the
-// per-pass driver's layout of a box stack.
+// ball (5); the pendulum with its control box (2, 1, 2); the car's (4, 2,
+// 4); the quadrotor's (13, 4, 8) and QuadrotorRate's (10, 4, 8) boxes.
+// Registered with the shape's block size (TH, in a namespace of the
+// launcher's name) and the per-pass driver's layout of a box stack.
 #define CDDP_IPDDP_BACKWARD(NX, NU, M)                                                 \
   extern "C" int CDDP_EXPORT(cddp_ipddp_backward_##NX##x##NU##x##M)(                   \
       const scalar_t* const* in, const long long* strides, scalar_t* const* out, int N, \
@@ -275,9 +299,12 @@ int launch_ipddp_backward(const T* const* in, const long long* strides, T* const
     return cddp::launch_ipddp_backward<scalar_t, NX, NU, M>(                           \
         in, strides, out, N, B, static_cast<cudaStream_t>(stream));                    \
   }                                                                                    \
+  namespace cddp_ipddp_backward_##NX##x##NU##x##M {                                    \
+  constexpr int TH = cddp::back_threads<scalar_t, NX, NU, M>();                        \
   CDDP_REGISTER(cddp_ipddp_backward_##NX##x##NU##x##M,                                 \
-                (cddp::ipddp_backward_kernel<scalar_t, NX, NU, M>), cddp::kBackThreads, \
-                (cddp::ipddp_backward_main_smem<scalar_t, NX, NU, M>()))
+                (cddp::ipddp_backward_kernel<scalar_t, NX, NU, M, TH>), TH,             \
+                (cddp::ipddp_backward_main_smem<scalar_t, NX, NU, M>(TH)))             \
+  }
 
 CDDP_IPDDP_BACKWARD(3, 2, 4)
 CDDP_IPDDP_BACKWARD(3, 2, 5)
@@ -285,3 +312,5 @@ CDDP_IPDDP_BACKWARD(3, 2, 6)
 CDDP_IPDDP_BACKWARD(3, 2, 10)
 CDDP_IPDDP_BACKWARD(2, 1, 2)
 CDDP_IPDDP_BACKWARD(4, 2, 4)
+CDDP_IPDDP_BACKWARD(13, 4, 8)
+CDDP_IPDDP_BACKWARD(10, 4, 8)

@@ -294,6 +294,99 @@ struct Forklift {
   }
 };
 
+// Quadrotor with quaternion attitude and rotor-force controls
+// (cddp_tpu_torch/models/quadrotor.py; quadrotor.py:26-78 of the JAX
+// package): x = (p, q wxyz, v, omega), u = the four rotor forces. p = (mass,
+// arm_length, gravity, I (9, row-major), inv(I) (9, row-major)): the JAX
+// lane vector (rollout.py:161-169), then the inverse inertia passed
+// precomputed, the plain model's own (Quadrotor.inertia_inverse, LU as the
+// JAX model's jnp.linalg.inv), not rebuilt here: the JAX lane's adjugate
+// rounds apart from it. The expressions are the plain model's in its order:
+// the guarded normalization divides (it does not multiply by an inverse
+// norm), q_dot, the body torques, the third column of R, then inv(I) (tau
+// - omega x I omega); the cross product and q_dot, whose terms cancel, are
+// never contracted (mul_rn, sub_rn). No fxfu: no whole-solve kernel is
+// built for it, and the per-pass kernels take A and B from the plain glue.
+// Its Consts hold dense 13x13 Q and Qf: 3,176 bytes of kernel parameters
+// in float64, within the 32,764 that CUDA 12.1+ allows on sm_70 and newer.
+struct Quadrotor {
+  static constexpr int NX = 13;
+  static constexpr int NU = 4;
+  static constexpr int NP = 21;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p,
+                           T (&dx)[NX]) {
+    const T mass = p[0], arm = p[1], grav = p[2];
+    const T* I = p + 3;
+    const T* Ii = p + 12;
+    const T wx = x[10], wy = x[11], wz = x[12];
+    const T norm = dsqrt(x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6]);
+    const bool safe = norm > T(1e-6);
+    const T den = norm > T(1e-6) ? norm : T(1e-6);
+    const T qw = safe ? x[3] / den : T(1), qx = safe ? x[4] / den : T(0);
+    const T qy = safe ? x[5] / den : T(0), qz = safe ? x[6] / den : T(0);
+
+    dx[0] = x[7];
+    dx[1] = x[8];
+    dx[2] = x[9];
+    dx[3] = T(0.5) * -add_rn(add_rn(mul_rn(qx, wx), mul_rn(qy, wy)), mul_rn(qz, wz));
+    dx[4] = T(0.5) * sub_rn(add_rn(mul_rn(qw, wx), mul_rn(qy, wz)), mul_rn(qz, wy));
+    dx[5] = T(0.5) * add_rn(sub_rn(mul_rn(qw, wy), mul_rn(qx, wz)), mul_rn(qz, wx));
+    dx[6] = T(0.5) * sub_rn(add_rn(mul_rn(qw, wz), mul_rn(qx, wy)), mul_rn(qy, wx));
+
+    const T f1 = u[0], f2 = u[1], f3 = u[2], f4 = u[3];
+    const T thrust = f1 + f2 + f3 + f4;
+    const T tau[3] = {arm * (f1 - f3), arm * (f2 - f4), T(0.1) * (f1 - f2 + f3 - f4)};
+    const T tm = thrust / mass;
+    dx[7] = tm * (T(2) * (qx * qz + qw * qy));
+    dx[8] = tm * (T(2) * (qy * qz - qw * qx));
+    dx[9] = tm * (T(1) - T(2) * (qx * qx + qy * qy)) - grav;
+
+    T Iw[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) Iw[i] = I[3 * i] * wx + I[3 * i + 1] * wy + I[3 * i + 2] * wz;
+    const T r[3] = {tau[0] - sub_rn(mul_rn(wy, Iw[2]), mul_rn(wz, Iw[1])),
+                    tau[1] - sub_rn(mul_rn(wz, Iw[0]), mul_rn(wx, Iw[2])),
+                    tau[2] - sub_rn(mul_rn(wx, Iw[1]), mul_rn(wy, Iw[0]))};
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      dx[10 + i] = Ii[3 * i] * r[0] + Ii[3 * i + 1] * r[1] + Ii[3 * i + 2] * r[2];
+  }
+};
+
+// Quadrotor with body-rate and collective-thrust controls
+// (cddp_tpu_torch/models/quadrotor_rate.py; quadrotor_rate.py:25-46 of the
+// JAX package): x = (p, v, q wxyz), u = (thrust, wx, wy, wz); p = (mass,
+// gravity). The plain model's order: q divided by its norm without a guard,
+// the acceleration R(q) [0, 0, T] / m + [0, 0, -g], whose product is the
+// third column of R times T exactly (its other terms are zeros), then
+// q_dot = 0.5 Omega(w) q, never contracted. No fxfu, as the quadrotor's.
+struct QuadrotorRate {
+  static constexpr int NX = 10;
+  static constexpr int NU = 4;
+  static constexpr int NP = 2;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p,
+                           T (&dx)[NX]) {
+    const T mass = p[0], grav = p[1];
+    const T norm = dsqrt(x[6] * x[6] + x[7] * x[7] + x[8] * x[8] + x[9] * x[9]);
+    const T qw = x[6] / norm, qx = x[7] / norm, qy = x[8] / norm, qz = x[9] / norm;
+    const T thrust = u[0], wx = u[1], wy = u[2], wz = u[3];
+    dx[0] = x[3];
+    dx[1] = x[4];
+    dx[2] = x[5];
+    dx[3] = T(2) * (qx * qz + qy * qw) * thrust / mass;
+    dx[4] = T(2) * (qy * qz - qx * qw) * thrust / mass;
+    dx[5] = (T(1) - T(2) * (qx * qx + qy * qy)) * thrust / mass - grav;
+    dx[6] = T(0.5) * sub_rn(sub_rn(mul_rn(-wx, qx), mul_rn(wy, qy)), mul_rn(wz, qz));
+    dx[7] = T(0.5) * sub_rn(add_rn(mul_rn(wx, qw), mul_rn(wz, qy)), mul_rn(wy, qz));
+    dx[8] = T(0.5) * add_rn(sub_rn(mul_rn(wy, qw), mul_rn(wz, qx)), mul_rn(wx, qz));
+    dx[9] = T(0.5) * sub_rn(add_rn(mul_rn(wz, qw), mul_rn(wy, qx)), mul_rn(wx, qy));
+  }
+};
+
 enum Integrator { kEuler = 0, kHeun = 1, kRk3 = 2, kRk4 = 3 };
 
 // Whether a model struct is discrete (declares DISCRETE true); a struct

@@ -82,3 +82,5 @@ CDDP_OPEN_LOOP_ROLLOUT(cartpole, CartPole)
 CDDP_OPEN_LOOP_ROLLOUT(hcw, HCW)
 CDDP_OPEN_LOOP_ROLLOUT(car, Car)
 CDDP_OPEN_LOOP_ROLLOUT(forklift, Forklift)
+CDDP_OPEN_LOOP_ROLLOUT(quadrotor, Quadrotor)
+CDDP_OPEN_LOOP_ROLLOUT(quadrotor_rate, QuadrotorRate)

@@ -154,9 +154,14 @@ int cddp_kernel_attributes(const char* name, int* out) {
   CDDP_REGISTER(cddp_riccati_backward_##NX##x##NU,                                     \
                 (cddp::riccati_backward_kernel<scalar_t, NX, NU>), cddp::kThreads, 0)
 
-// (nx, nu) of the model registry's CLDDP models (riccati.KERNEL_SHAPES):
-// the unicycle (3, 2), the pendulum (2, 1) and the cart-pole (4, 1).
+// (nx, nu) of riccati.KERNEL_SHAPES: the unicycle (3, 2), the pendulum (2,
+// 1), the cart-pole (4, 1), the car and the default LTISystem (4, 2), the
+// quadrotor (13, 4) and QuadrotorRate (10, 4). At nu = 4 the BoxQP walks 81
+// active sets, and at nx = 13 the step's operands (A, lxx, Vxx: 3 x 169
+// values) outgrow the registers: the kernel spills to local memory.
 CDDP_RICCATI_BACKWARD(3, 2)
 CDDP_RICCATI_BACKWARD(2, 1)
 CDDP_RICCATI_BACKWARD(4, 1)
 CDDP_RICCATI_BACKWARD(4, 2)
+CDDP_RICCATI_BACKWARD(13, 4)
+CDDP_RICCATI_BACKWARD(10, 4)

@@ -179,6 +179,13 @@ inline void tile_layout(const int (&D)[NOPS], const long long* strides,
   }
 }
 
+// Bytes of a TileStage of `threads` threads: two stages of V per-instance
+// values a thread and W broadcast values, then C constants.
+template <typename T>
+__host__ __device__ constexpr int tile_stage_bytes(int threads, int V, int W, int C) {
+  return (2 * (V * threads + W) + C) * int(sizeof(T));
+}
+
 // Two stages of one step each, then the constants, at base: in stage s,
 // value v of thread x of a per-instance operand at s * stage_elems + v * TH
 // + x; value v of a per-step broadcast at s * stage_elems + V * TH + v; a
@@ -189,7 +196,7 @@ struct TileStage {
   int V, W;
 
   __host__ __device__ static constexpr int bytes(int V, int W, int C) {
-    return (2 * (V * TH + W) + C) * int(sizeof(T));
+    return tile_stage_bytes<T>(TH, V, W, C);
   }
   __device__ int stage_elems() const { return V * TH + W; }
   __device__ T* consts() const { return base + 2 * stage_elems(); }

@@ -22,6 +22,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -66,24 +68,30 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcddp_kernels_{_digest()}.so"
 
 
+def _compile(cmd):
+    """(return code, nvcc's output, seconds) of one object's compile."""
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return run.returncode, run.stdout, time.perf_counter() - t0
+
+
 def _build(target: Path) -> None:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        jobs = []
+        objs, cmds = [], []
         for src in KERNEL_SOURCES:
             for tag, flags in DTYPE_FLAGS.items():
-                obj = Path(tmp) / f"{Path(src).stem}_{tag}.o"
-                cmd = [nvcc, *COMMON_FLAGS, *flags, "-c", str(CSRC / src),
-                       "-o", str(obj)]
-                jobs.append((obj, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)))
+                objs.append(Path(tmp) / f"{Path(src).stem}_{tag}.o")
+                cmds.append([nvcc, *COMMON_FLAGS, *flags, "-c", str(CSRC / src),
+                             "-o", str(objs[-1])])
+        # Every object at once; each one's own seconds go to the log.
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            results = list(pool.map(_compile, cmds))
         logs, failed = [], []
-        for obj, proc in jobs:
-            out, _ = proc.communicate()
-            logs.append(f"== {obj.name}\n{out}")
-            if proc.returncode != 0:
+        for obj, (rc, out, secs) in zip(objs, results):
+            logs.append(f"== {obj.name} ({secs:.1f} s)\n{out}")
+            if rc != 0:
                 failed.append(obj.name)
         log = "\n".join(logs)
         (BUILD_DIR / f"{target.stem}.log").write_text(log)
@@ -91,7 +99,7 @@ def _build(target: Path) -> None:
             raise RuntimeError(f"nvcc failed for {failed}:\n{log[-8000:]}")
         tmp_so = Path(tmp) / target.name
         link = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp_so), *(str(o) for o, _ in jobs)],
+            [nvcc, "-shared", "-o", str(tmp_so), *(str(o) for o in objs)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if link.returncode != 0:

@@ -45,12 +45,13 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_double)] * 2
 
 # Box-stack sizes m the forward kernel (5) is instantiated for, by model:
 # in the tracking form the unicycle's control box, state box or both, the
-# pendulum's control box and HCW's (the rendezvous fleet's per-pass
-# trials); in the goal form those and the car's control box. The
+# pendulum's control box, HCW's (the rendezvous fleet's per-pass trials)
+# and the quadrotor's rotor box (the figure-8); in the goal form those and
+# the control boxes of the car and QuadrotorRate. The
 # open-loop rollout (4) takes every registered model; the whole solves'
 # box tables are mega_ipddp.BOX_ROWS.
-TRACK_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,), "hcw": (6,)}
-KERNEL_ROWS = {**TRACK_ROWS, "car": (4,)}
+TRACK_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,), "hcw": (6,), "quadrotor": (8,)}
+KERNEL_ROWS = {**TRACK_ROWS, "car": (4,), "quadrotor_rate": (8,)}
 
 
 def _mv(M, v):
@@ -101,7 +102,7 @@ def _launch_open_loop(model, entry, x0, U, dt):
     fn = build.function(name, _OL_ARGTYPES)
     Ul, x0l = (t.movedim(0, -1).contiguous() for t in (U, x0))
     X = x0.new_empty(N, nx, Bsz)
-    host = [float(dt)] + [float(p) for p in entry.params(model)]
+    host = [float(dt)] + entry.kernel_params(model)
     err = fn(build.ptr(Ul), build.ptr(x0l), build.ptr(X), build.doubles(host),
              N, Bsz, rollout_ops.INTEGRATORS.index(rollout_ops.lane_integrator(model, entry)),
              build.stream_ptr(x0.device))

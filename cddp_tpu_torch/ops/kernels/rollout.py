@@ -39,7 +39,7 @@ from typing import Callable, List, Optional
 import torch
 
 from cddp_tpu_torch.models import (HCW, Car, CartPole, DynamicalSystem, Forklift, Pendulum,
-                                   Unicycle)
+                                   Quadrotor, QuadrotorRate, Unicycle)
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.linalg import true_div
 
@@ -50,7 +50,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_double)]
 
 @dataclass(frozen=True)
 class ModelEntry:
-    params: Callable[[DynamicalSystem], List[float]]  # CUDA parameter vector
+    params: Callable[[DynamicalSystem], List[float]]  # the JAX lane's parameter vector
     cuda_name: str
     discrete: bool = False  # the struct's exact map ``step`` replaces the integrator
 
@@ -59,6 +59,15 @@ class ModelEntry:
         """What a launch's ``dispatch_log`` name carries after the kernel's:
         "" for the unicycle, "@<cuda_name>" for every other model."""
         return "" if self.cuda_name == "unicycle" else "@" + self.cuda_name
+
+    def kernel_params(self, model: DynamicalSystem) -> List[float]:
+        """The struct's parameter vector ``p`` (its NP values): the lane
+        vector; the quadrotor's struct reads the plain model's own hoisted
+        inverse inertia after it (models.cuh::Quadrotor)."""
+        out = [float(v) for v in self.params(model)]
+        if isinstance(model, Quadrotor):
+            out += model.inertia_inverse().reshape(-1).tolist()
+        return out
 
 
 def _buffers(*names):
@@ -77,14 +86,26 @@ _REGISTRY = {
     Car: ModelEntry(params=_buffers("wheelbase"), cuda_name="car", discrete=True),
     Forklift: ModelEntry(params=lambda m: [float(m.wheelbase), m.steer_sign],
                          cuda_name="forklift"),
+    # [mass, arm_length, gravity, I (9, row-major)] (rollout.py:161-169); the
+    # struct also reads inv(I), the plain model's own hoisted inverse.
+    Quadrotor: ModelEntry(
+        params=lambda m: _buffers("mass", "arm_length", "gravity")(m)
+        + m.inertia.reshape(-1).tolist(),
+        cuda_name="quadrotor"),
+    QuadrotorRate: ModelEntry(params=_buffers("mass", "gravity"), cuda_name="quadrotor_rate"),
 }
 # The models the whole CLDDP solve (kernel 3) is instantiated for, in the
 # goal and the tracking form, and the line-search rollout (kernel 2) in its
 # tracking form. The JAX whole solve refuses discrete models
 # (mega_clddp.py:843 of the JAX package).
 CLDDP_MODELS = ("unicycle", "pendulum", "cartpole")
-# The models kernel 2's goal form is instantiated for: kernel 3's and the car.
-ROLLOUT_MODELS = CLDDP_MODELS + ("car",)
+# The models kernel 2's goal form is instantiated for: kernel 3's, the car
+# and the two quadrotors. Kernel 3 leaves the quadrotors out: the JAX
+# package's whole CLDDP solve refuses them at the horizons their users run
+# (its VMEM estimate at the golden's N = 60: 57.2 MiB against a 12 MiB
+# budget; QuadrotorRate 15.9 MiB already at N = 20), so their CLDDP runs per
+# pass there, and here.
+ROLLOUT_MODELS = CLDDP_MODELS + ("car", "quadrotor", "quadrotor_rate")
 
 
 def model_entry(model: DynamicalSystem) -> Optional[ModelEntry]:
@@ -164,7 +185,7 @@ class LaneConsts:
         hi = self.upper if self.upper is not None else self.R.new_zeros(nu)
         flat = torch.cat([t.reshape(-1).double().cpu()
                           for t in (self.Q, self.R, self.Qf, self.goal, lo, hi)])
-        return [self.dt] + flat.tolist() + [float(p) for p in self.entry.params(self.model)]
+        return [self.dt] + flat.tolist() + self.entry.kernel_params(self.model)
 
 
 def lane_integrator(model, entry: Optional[ModelEntry]) -> Optional[str]:

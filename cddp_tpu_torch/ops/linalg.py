@@ -29,57 +29,77 @@ def _check_small(n: int) -> None:
         raise ValueError(f"closed-form small-matrix algebra supports n<={_SMALL_N}, got {n}")
 
 
+def _entries(H: torch.Tensor):
+    """H's entries as a nested list of (...,) views, E[i][j] = H[..., i, j],
+    taken once (a row at a time) so that the unrolled expansions below read
+    them without an indexing op per use."""
+    return [row.unbind(-1) for row in H.unbind(-2)]
+
+
 def det_small(H: torch.Tensor) -> torch.Tensor:
     """Determinant of a trailing (n, n), n <= 4, in closed form."""
     n = H.shape[-1]
     _check_small(n)
+    return _det_entries(_entries(H), n)
+
+
+def _det_entries(E, n: int) -> torch.Tensor:
+    """``det_small`` on H's entries."""
     if n == 1:
-        return H[..., 0, 0]
+        return E[0][0]
     if n == 2:
-        return H[..., 0, 0] * H[..., 1, 1] - H[..., 0, 1] * H[..., 1, 0]
+        return E[0][0] * E[1][1] - E[0][1] * E[1][0]
     if n == 3:
-        a, b, c = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
-        d, e, f = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
-        g, h, i = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
+        a, b, c = E[0]
+        d, e, f = E[1]
+        g, h, i = E[2]
         return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
-    m01 = H[..., 0, 0] * H[..., 1, 1] - H[..., 0, 1] * H[..., 1, 0]
-    m02 = H[..., 0, 0] * H[..., 1, 2] - H[..., 0, 2] * H[..., 1, 0]
-    m03 = H[..., 0, 0] * H[..., 1, 3] - H[..., 0, 3] * H[..., 1, 0]
-    m12 = H[..., 0, 1] * H[..., 1, 2] - H[..., 0, 2] * H[..., 1, 1]
-    m13 = H[..., 0, 1] * H[..., 1, 3] - H[..., 0, 3] * H[..., 1, 1]
-    m23 = H[..., 0, 2] * H[..., 1, 3] - H[..., 0, 3] * H[..., 1, 2]
-    n01 = H[..., 2, 0] * H[..., 3, 1] - H[..., 2, 1] * H[..., 3, 0]
-    n02 = H[..., 2, 0] * H[..., 3, 2] - H[..., 2, 2] * H[..., 3, 0]
-    n03 = H[..., 2, 0] * H[..., 3, 3] - H[..., 2, 3] * H[..., 3, 0]
-    n12 = H[..., 2, 1] * H[..., 3, 2] - H[..., 2, 2] * H[..., 3, 1]
-    n13 = H[..., 2, 1] * H[..., 3, 3] - H[..., 2, 3] * H[..., 3, 1]
-    n23 = H[..., 2, 2] * H[..., 3, 3] - H[..., 2, 3] * H[..., 3, 2]
+    m01 = E[0][0] * E[1][1] - E[0][1] * E[1][0]
+    m02 = E[0][0] * E[1][2] - E[0][2] * E[1][0]
+    m03 = E[0][0] * E[1][3] - E[0][3] * E[1][0]
+    m12 = E[0][1] * E[1][2] - E[0][2] * E[1][1]
+    m13 = E[0][1] * E[1][3] - E[0][3] * E[1][1]
+    m23 = E[0][2] * E[1][3] - E[0][3] * E[1][2]
+    n01 = E[2][0] * E[3][1] - E[2][1] * E[3][0]
+    n02 = E[2][0] * E[3][2] - E[2][2] * E[3][0]
+    n03 = E[2][0] * E[3][3] - E[2][3] * E[3][0]
+    n12 = E[2][1] * E[3][2] - E[2][2] * E[3][1]
+    n13 = E[2][1] * E[3][3] - E[2][3] * E[3][1]
+    n23 = E[2][2] * E[3][3] - E[2][3] * E[3][2]
     return m01 * n23 - m02 * n13 + m03 * n12 + m12 * n03 - m13 * n02 + m23 * n01
 
 
 def _det_idx(H, rows, cols):
     """Determinant of H[rows, cols] by the unrolled Leibniz expansion."""
+    return _leibniz(_entries(H), rows, cols)
+
+
+def _leibniz(E, rows, cols):
+    """``_det_idx`` on H's entries E: each term the product of its entries
+    in row order, the terms summed in permutation order, the odd ones
+    subtracted (adding the negated term rounds the same)."""
     n = len(rows)
-    if n == 0:
-        return H.new_ones(H.shape[:-2])
     total = None
     for perm in permutations(range(n)):
         inv = sum(1 for a in range(n) for b in range(a + 1, n)
                   if perm[a] > perm[b])
-        term = H[..., rows[0], cols[perm[0]]]
+        term = E[rows[0]][cols[perm[0]]]
         for a in range(1, n):
-            term = term * H[..., rows[a], cols[perm[a]]]
-        term = -term if inv % 2 else term
-        total = term if total is None else total + term
+            term = term * E[rows[a]][cols[perm[a]]]
+        if total is None:
+            total = term  # the identity permutation, even
+        else:
+            total = total - term if inv % 2 else total + term
     return total
 
 
 def inv_small(H: torch.Tensor) -> torch.Tensor:
     """Adjugate inverse of a trailing (n, n), n <= 4."""
     n = H.shape[-1]
-    det = det_small(H)
     if n == 1:
         return 1.0 / H
+    E = _entries(H)
+    det = _det_entries(E, n)
     idx = list(range(n))
     adj_rows = []
     for j in range(n):
@@ -87,7 +107,8 @@ def inv_small(H: torch.Tensor) -> torch.Tensor:
         for i in range(n):
             rs = tuple(r for r in idx if r != i)
             cs = tuple(c for c in idx if c != j)
-            row.append((-1.0) ** (i + j) * _det_idx(H, rs, cs))
+            minor = _leibniz(E, rs, cs)
+            row.append(-minor if (i + j) % 2 else minor)
         adj_rows.append(torch.stack(row, dim=-1))
     adj = torch.stack(adj_rows, dim=-2)  # adj[j, i] = cofactor(i, j)
     return adj / det[..., None, None]
@@ -108,10 +129,11 @@ def is_pd(H: torch.Tensor) -> torch.Tensor:
     """Sylvester's criterion: every leading principal minor > 0, and H finite."""
     n = H.shape[-1]
     _check_small(n)
-    ok = H[..., 0, 0] > 0
+    E = _entries(H)
+    ok = E[0][0] > 0
     for k in range(2, n + 1):
         idx = tuple(range(k))
-        ok = ok & (_det_idx(H, idx, idx) > 0)
+        ok = ok & (_leibniz(E, idx, idx) > 0)
     return ok & torch.isfinite(H).all(dim=-1).all(dim=-1)
 
 

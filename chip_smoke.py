@@ -10,7 +10,8 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 1. start: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device -> exit nonzero with no result (no CPU fallback);
 2. build: compile the nine CUDA kernels from ``cddp_tpu_torch/ops/csrc``
-   (float32 and float64; goal, tracking and terminal variants), printing ptxas registers and spills, and for
+   (float32 and float64; goal, tracking and terminal variants), printing
+   each object's compile seconds, ptxas registers and spills, and for
    every launcher what the card reports of its kernel (registers, spill
    bytes, shared memory, resident blocks per SM; ``print_kernel_attributes``);
 3. the CLDDP kernels against their plain PyTorch versions on the card, at
@@ -174,13 +175,31 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    unconstrained pendulum and the scalar terminal equality at B_CHECK
    (no kernel but 4's seed), each run with its exact launch counts,
    converged share, iterations, ms and distance of x_N to its target; then
-   every entry's times and bound on its run's operands.
+   every entry's times and bound on its run's operands;
+16. the quadrotor and QuadrotorRate (``phase_quadrotor``): (a) every new
+   instantiation (kernel 1 at 13x4 and 10x4, kernels 2 and 4 on both
+   models, kernel 5 at m = 8 on both and in the quadrotor's tracking form,
+   kernel 6 at 13x4x8 and 10x4x8) against its plain version at B_CHECK,
+   float64 within 1e-9 + 1e-12 |v| plus twice the plain version's one-ulp
+   move and float32 by ``check``'s rule, and both models' per-pass CLDDP
+   and IPDDP against their plain drivers in float64 (every status and
+   iteration equal); (b) the ``quadrotor_ipddp`` golden per pass against
+   the plain driver on the card and against the golden file; (c)
+   ``bench_quadrotor.py``'s single solve (N = 100, float32, B = 1): status,
+   iterations, ms a solve and, with the timings, its split per iteration;
+   (d) the quadrotor fleet (N = 60, B = 65,536) per pass under IPDDP and
+   CLDDP and on the plain MSIPDDP and LogDDP drivers at B_CHECK; (e) the
+   QuadrotorRate fleet (N = 50) per pass; the figure-8 anchor
+   (tests/test_parity_anchors.py:72-120) held to its bounds; each run with
+   its launch counts, converged share, iterations, ms and peak memory.
 
-Phases 14 and 15 run right after phase 3, their checks and fleets first
-and both phases' timings after them, then phases 4-13: their plain drivers
-launch tens of thousands of small torch operations, each of which takes
-1.6-1.7x as long once the profiler has run in the process (measured on
-an H100 machine; PERF.md).
+Phases 14, 15 and 16 run right after phase 3, their checks and fleets
+first and phases 14 and 15's timings after them, then phases 4-13, then
+phase 16's timings: the plain drivers launch tens of thousands of small
+torch operations, each of which takes 1.6-1.7x as long once the profiler
+has run in the process, and after phase 16's timing sessions beside
+phases 14-15's the profiler recorded no kernel-6 launch in any later
+session (both measured on an H100 machine; PERF.md).
 
 Phases 4-13 time each whole solve's plain driver, and run their fleets'
 plain-driver engine, on the first B_CHECK instances of the main path's
@@ -202,10 +221,11 @@ carries the obstacle run under "obstacle", kernel 6's under "obstacle_m5",
 kernel 5's its 0 launches there; each tracking variant is an entry of its
 own, named with the suffix "_track", and each terminal variant one named
 as dispatch_log names it, "ipddp_solve_ti2" for instance; kernels 7, 8 and
-9 carry phase 13's warm seeds under "warm"; phase 14's and phase 15's
-instantiations are entries named with their model, ``clddp_solve@pendulum``
-or ``forward_rollout@car`` for instance; every entry's "plain_at" says where
-its plain time was taken); the last line is
+9 carry phase 13's warm seeds under "warm"; phase 14's, 15's and 16's
+instantiations are entries named with their model, ``clddp_solve@pendulum``,
+``forward_rollout@car`` or ``ip_forward_track@quadrotor`` for instance;
+every entry's "plain_at" says where its plain time was taken); the last
+line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -215,7 +235,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -330,7 +352,8 @@ def fleet_x0(prob, B, gen):
     U(-0.5, 0.5); the pendulum's (pi, 0) + U(-0.1, 0.1); the cart-pole's
     U(-0.05, 0.05); the car's (1, 1, 1.5 pi, 0) + U(-0.1, 0.1); the
     LTISystem's x0 + U(-0.5, 0.5); HCW's x0 + U(-1, 1) scaled by
-    ``HCW_X0_SCALE`` (bench_ipddp_fleet.py:124-132)."""
+    ``HCW_X0_SCALE`` (bench_ipddp_fleet.py:124-132); the quadrotors' x0
+    (hover) + U(-0.5, 0.5)^3 on the position alone."""
     dev, dtype, nx = prob.x0.device, prob.x0.dtype, prob.state_dim
     u = torch.rand(B, nx, generator=gen, device=dev, dtype=dtype)
     name = type(prob.model).__name__
@@ -344,6 +367,8 @@ def fleet_x0(prob, B, gen):
         return prob.x0 + 0.1 * (2.0 * u - 1.0)
     if name == "LTISystem":
         return prob.x0 + 0.5 * (2.0 * u - 1.0)
+    if name in ("Quadrotor", "QuadrotorRate"):
+        return prob.x0 + torch.cat([u[:, :3] - 0.5, torch.zeros_like(u[:, 3:])], -1)
     return prob.x0 + torch.tensor(HCW_X0_SCALE, device=dev, dtype=dtype) * (2.0 * u - 1.0)
 
 
@@ -406,17 +431,19 @@ def device_ms(fn, kernel, reps, events_ok=False):
     return ms, "cuda_events"
 
 
-def stage_inputs(prob, B, gen):
+def stage_inputs(prob, B, gen, U=None):
     """Backward- and forward-pass inputs as the per-pass driver builds them,
     linearized about random nominal trajectories of the problem: x0 from
-    ``fleet_x0``, controls uniform in three quarters of the box."""
+    ``fleet_x0``, the controls ``U`` (B, N, nu), uniform in three quarters
+    of the box when None."""
     from cddp_tpu_torch.models import rollout
 
     dev, dtype = prob.x0.device, prob.x0.dtype
     rand = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=dtype)  # noqa: E731
     cc = prob.get_constraint("ControlConstraint")
     x0 = fleet_x0(prob, B, gen)
-    U = (2.0 * rand(B, prob.horizon, prob.control_dim) - 1.0) * cc.upper * 0.75
+    if U is None:
+        U = (2.0 * rand(B, prob.horizon, prob.control_dim) - 1.0) * cc.upper * 0.75
     X = rollout(prob.model, x0, U, prob.timestep)
     back = clddp_backward_inputs(prob, X, U, 10.0 ** (-6.0 + 4.0 * rand(B)))
     alphas = torch.tensor([1.0, 0.5, 0.25, 0.125], device=dev, dtype=dtype)
@@ -462,7 +489,21 @@ def abs_err(a, b):
     return torch.where(a.isnan() & b.isnan(), torch.zeros_like(b), (a - b).abs())
 
 
-def check(name, got, want, truth=None, gate=True, rtol=0.0, moved=None, quantiles=False):
+# A float32 enumerated BoxQP leaves the float64 active set where a step's
+# solution lies within rounding of a bound, and which instances it does so
+# on is a matter of rounding (the discontinuous K then moves every earlier
+# step). On the quadrotor's N = 60 operands of phase 16 (a), on an NVIDIA
+# H100, kernel 1 left float64 by more than TIE_ERR (scaled, ``check``) on 11
+# of 1024 instances and its plain version on 4 others; on 1024 operands of
+# the CPU the kernel's code built for the host did so on 3 (contracted) and 8
+# (not) and the plain version on 7, each a different set, the float64 check
+# exact on all. A kernel that misread its operands would leave it on most.
+TIE_ERR = 1e-2
+TIE_SHARE = 0.02
+
+
+def check(name, got, want, truth=None, gate=True, rtol=0.0, moved=None, quantiles=False,
+          ties=False):
     """Hold a kernel's outputs against its plain version's; returns the max
     abs error between them. Flags must be equal everywhere.
 
@@ -487,7 +528,11 @@ def check(name, got, want, truth=None, gate=True, rtol=0.0, moved=None, quantile
     fleet's inputs, the cart-pole's N = 200, where a few instances' float32
     rollouts leave the float64 one in both versions and the largest error
     is one such instance's) the rule holds per instance, on the median and
-    the 99th percentile of e over the batch instead of its largest value."""
+    the 99th percentile of e over the batch instead of its largest value.
+    With ``ties`` (the enumerated BoxQP at a fleet's horizon, phase 16) it
+    holds the median, and in place of the 99th percentile the share of
+    instances whose e exceeds TIE_ERR (a changed active set) is at most
+    TIE_SHARE."""
     worst = 0.0
     for i, (g, w) in enumerate(zip(got, want)):
         if not g.is_floating_point():
@@ -511,7 +556,17 @@ def check(name, got, want, truth=None, gate=True, rtol=0.0, moved=None, quantile
         def per(x):  # e of each instance
             return (abs_err(x, t) / scale).nan_to_num(0.0).reshape(t.shape[0], -1).amax(-1)
 
-        stats = ((("max", 1.0),) if not quantiles else (("median", 0.5), ("99th percentile", 0.99)))
+        stats = ((("max", 1.0),) if not quantiles else (("median", 0.5),) if ties
+                 else (("median", 0.5), ("99th percentile", 0.99)))
+        if ties:
+            share = [float((per(x) > TIE_ERR).double().mean()) for x in (g, w)]
+            print(f"[kernels float32] {name}[{i}] share of instances off float64 by more than "
+                  f"{TIE_ERR:g} (held to {TIE_SHARE:g}): kernel {share[0]:.4%}, plain "
+                  f"{share[1]:.4%}; 99th percentile (not held): kernel "
+                  f"{float(per(g).quantile(0.99)):.3e}, plain {float(per(w).quantile(0.99)):.3e}")
+            if gate and not share[0] <= TIE_SHARE:
+                raise AssertionError(f"{name}[{i}]: {share[0]:.4%} of instances off float64 by "
+                                     f"more than {TIE_ERR:g}")
         if quantiles:
             print(f"[kernels float32] {name}[{i}] scaled error against float64 (max, not held):"
                   f" kernel {float(per(g).max()):.3e}, plain {float(per(w).max()):.3e}")
@@ -608,11 +663,12 @@ def check_solve_f64(label, kern, plain, min_share=1.0, traj_tol=1e-8, moved=None
     of instances (all, unless a case allows ties), X and U within
     ``traj_tol`` where they are equal, and the cost within 1e-8 on every
     instance; given ``moved`` (the plain driver's solution from x0 one ulp
-    up), each within that plus ``MOVE_FACTOR`` times the largest move of
-    the plain driver's field (on a long horizon a one-ulp change moves the
-    cart-pole's plain X by 1e-8 and its U and cost by 1e-7 over 10
-    iterations, so rounding alone exceeds 1e-8 there). Returns the status
-    counts."""
+    up, or a function that returns it, called only when a field exceeds its
+    tolerance without it), each within that plus ``MOVE_FACTOR`` times the
+    largest move of the plain driver's field (on a long horizon a one-ulp
+    change moves the cart-pole's plain X by 1e-8 and its U and cost by 1e-7
+    over 10 iterations, so rounding alone exceeds 1e-8 there). Returns the
+    status counts."""
     same = ((kern.status_code == plain.status_code)
             & (kern.iterations_completed == plain.iterations_completed))
     share = float(same.double().mean())
@@ -622,6 +678,10 @@ def check_solve_f64(label, kern, plain, min_share=1.0, traj_tol=1e-8, moved=None
     errs, bad = {}, []
     fields = lambda s: (s.state_trajectory, s.control_trajectory, s.final_objective)  # noqa: E731
     every = torch.ones_like(same)
+    if callable(moved):
+        over = any(float((g - w)[rows].abs().max()) > tol for g, w, tol, rows in zip(
+            fields(kern), fields(plain), (traj_tol, traj_tol, 1e-8), (same, same, every)))
+        moved = moved() if over else None
     for nm, g, w, m, tol, rows in zip(("X", "U", "cost"), fields(kern), fields(plain),
                                       fields(moved or plain), (traj_tol, traj_tol, 1e-8),
                                       (same, same, every)):
@@ -1035,15 +1095,17 @@ def ip_problem(tt, dtype, device, horizon=HORIZON, state_box=False, goal=None):
     return prob
 
 
-def ip_seeds(prob, opts, x0):
-    """The cold-start batch ``ipddp.solve`` builds for x0: (problem,
-    (X, U, Y, S, G, Lambda, mu0, k_u0, K_u0))."""
+def ip_seeds(prob, opts, x0, U0=None):
+    """The cold-start batch ``ipddp.solve`` builds for x0 from the controls
+    U0 (B, N, nu) (zeros when None): (problem, (X, U, Y, S, G, Lambda, mu0,
+    k_u0, K_u0))."""
     from cddp_tpu_torch.constraints.stack import PathStacker
     from cddp_tpu_torch.solvers import ipddp
 
     p = prob.replace(x0=x0)
     B, N, nu, nx = x0.shape[0], p.horizon, p.control_dim, p.state_dim
-    seeds = ipddp._initialize(p, opts, PathStacker(p), x0.new_zeros(B, N, nu))
+    U0 = x0.new_zeros(B, N, nu) if U0 is None else U0
+    seeds = ipddp._initialize(p, opts, PathStacker(p), U0)
     return p, seeds + (x0.new_zeros(B, N, nu), x0.new_zeros(B, N, nu, nx))
 
 
@@ -1053,7 +1115,7 @@ def plain_ip_options(tt, opts):
         opts.ipddp, forward_engine="scan"))
 
 
-def stage_ip_inputs(tt, prob, B, gen, opts, iterations=4):
+def stage_ip_inputs(tt, prob, B, gen, opts, iterations=4, U0=None):
     """Inputs of the open-loop rollout, condensed backward and forward trial
     kernels as the per-pass driver stages them: the plain driver takes
     ``iterations`` (phase 14 takes one on its long horizons) from cold
@@ -1063,7 +1125,9 @@ def stage_ip_inputs(tt, prob, B, gen, opts, iterations=4):
     at a random ladder step capped by the fraction-to-boundary maxima. On
     a quarter of the batch the caps are tripled, so that the trial's
     fraction-to-boundary test fails on part of it; the slack SOC flag is
-    set on half. Returns (problem, (x0, U), backward args, forward args)."""
+    set on half. ``U0``: the cold starts' controls, (N, nu) for every
+    instance (zeros when None). Returns (problem, (x0, U), backward args,
+    forward args)."""
     from cddp_tpu_torch.constraints.stack import PathStacker
     from cddp_tpu_torch.options import line_search_alphas
     from cddp_tpu_torch.solvers import ipddp
@@ -1071,7 +1135,7 @@ def stage_ip_inputs(tt, prob, B, gen, opts, iterations=4):
     dev, dtype = prob.x0.device, prob.x0.dtype
     rand = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=dtype)  # noqa: E731
     x0 = fleet_x0(prob, B, gen)
-    p, seeds = ip_seeds(prob, opts, x0)
+    p, seeds = ip_seeds(prob, opts, x0, None if U0 is None else U0.expand(B, -1, -1))
     stk = PathStacker(p)
     sol = ipddp._drive(p, plain_ip_options(tt, opts.replace(max_iterations=iterations)), *seeds)
     X, U, Lam = sol.state_trajectory, sol.control_trajectory, sol.costate_trajectory
@@ -3675,13 +3739,13 @@ def phase_zoo_barrier_kernels(tt, dev, errs, plain):
                 errs[tag][f"{k}{sfx}@pendulum"] = r[k]
 
 
-def zoo_fleet_run(label, prob, x0, solver, opts, want, mega=None):
-    """One main-path run of a phase-14 fleet through ``batched_solve``, the
-    launch counts zeroed just before it and read just after; they must be
-    ``want``: these counts, or for a set these kernels, each at least once.
-    With ``mega`` the whole-solve launch goes through ``count_work``.
-    Returns (Solution, launches, host ms, (wrapper ms, work, divergence) or
-    None)."""
+def zoo_fleet_run(label, prob, x0, solver, opts, want, mega=None, U0=None):
+    """One main-path run of a phase-14 fleet through ``batched_solve`` (from
+    the controls ``U0`` (B, N, nu), zeros when None), the launch counts
+    zeroed just before it and read just after; they must be ``want``: these
+    counts, or for a set these kernels, each at least once. With ``mega``
+    the whole-solve launch goes through ``count_work``. Returns (Solution,
+    launches, host ms, (wrapper ms, work, divergence) or None)."""
     from cddp_tpu_torch.ops.kernels import dispatch_log
     from cddp_tpu_torch.parallel.batch import batched_solve
 
@@ -3689,11 +3753,11 @@ def zoo_fleet_run(label, prob, x0, solver, opts, want, mega=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if mega is None:
-        sol = batched_solve(prob, x0, solver, opts)
+        sol = batched_solve(prob, x0, solver, opts, U0_batch=U0)
         work = None
     else:
         with count_work(mega) as rec:
-            sol = batched_solve(prob, x0, solver, opts)
+            sol = batched_solve(prob, x0, solver, opts, U0_batch=U0)
         work = rec[0]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
@@ -4381,6 +4445,824 @@ def phase_discrete(tt, dev, smi):
     return launches, errs, fleets
 
 
+# --- the quadrotor family (phase 16) ------------------------------------------------
+
+QUAD_B = 65536  # the quadrotor and QuadrotorRate fleets' batch
+QUAD_N = 60  # the quadrotor golden's horizon (tests/make_goldens.py:69-84)
+RATE_N = 50  # the QuadrotorRate fleet's
+BENCH_N = 100  # bench_quadrotor.py's single solve
+FIG8_N = 150  # the figure-8 anchor (tests/test_parity_anchors.py:72-120)
+QUAD_ITERS = 10
+QUAD_CHECK_ITERS = 5  # (a)'s per-pass IPDDP solves against the plain driver, float64
+# (a)'s per-pass CLDDP solves: their plain driver's line search rolls the
+# plain rk4 model out trial by trial, 28k small torch launches a trial at N
+# = 60, so over five iterations each model's check took 20-40 s of an H100
+# host; three iterations hold the same kernels and driver paths.
+QUAD_CLDDP_CHECK_ITERS = 3
+# (a)'s checks of kernels 1, 2 and 4 run at the fleets' horizons on the
+# first QUAD_KERNEL_B instances: the plain Riccati recursion's 81-set BoxQP
+# moves (B, 81, 4, 4) tensors a step, and at B_CHECK and N = 60 its four
+# runs a model took 24 s more than at N = 20 on an H100's host.
+QUAD_KERNEL_B = 1024
+# (a)'s per-pass solves run on the first QUAD_CHECK_B of B_CHECK instances:
+# their plain drivers at B_CHECK took most of (a)'s 148 s on an H100's host.
+QUAD_CHECK_B = 1024
+QUAD_PLAIN_ITERS = 5  # the quadrotor's MSIPDDP and LogDDP plain drivers at B_CHECK
+QUAD_DRIVE_ITERS = 2  # the QuadrotorRate CLDDP run that drives kernels 1 and 2 at 10x4
+FIG8_ITERS = 300  # the figure-8 anchor's budget
+# The single solve takes 3.5 s at B = 1 on an H100 (kernel 6 walks the
+# horizon on one thread): the median of BENCH_REPS after a warm-up. Its
+# plain drivers took 40.5 and 46.1 s for five iterations there (tens of
+# thousands of small torch launches an iteration at B = 1), so they are not
+# run: the per-pass path is held to the plain driver in (a) and (b), and
+# the float32 solve to the float64 one (``phase_quad_single``).
+BENCH_REPS = 10
+# Seeds of the staged operands (``quad_stage``): hover controls, each
+# entry moved by up to this share of its box width, so that A and B differ
+# between instances and steps (hover seeds keep every instance at hover:
+# x0 moves only the position, and hover thrust cancels gravity).
+STAGE_WIDTH = 1.0 / 16.0
+GOLDEN = Path(__file__).resolve().parent / "tests" / "goldens" / "quadrotor_ipddp.npz"
+# Phase 16's kernels, each an entry of the kernels' JSON line: (entry name,
+# dispatch_log name, kernel, model, launcher without its type suffix).
+QUAD_ENTRIES = tuple(
+    (name, logged or name, name.split("@")[0].replace("_track", ""), name.split("@")[1],
+     launcher)
+    for name, logged, launcher in (
+        ("riccati_backward@quadrotor", "riccati_backward@13x4", "cddp_riccati_backward_13x4"),
+        ("riccati_backward@quadrotor_rate", "riccati_backward@10x4",
+         "cddp_riccati_backward_10x4"),
+        ("forward_rollout@quadrotor", None, "cddp_forward_rollout_quadrotor"),
+        ("forward_rollout@quadrotor_rate", None, "cddp_forward_rollout_quadrotor_rate"),
+        ("open_loop_rollout@quadrotor", None, "cddp_open_loop_rollout_quadrotor"),
+        ("open_loop_rollout@quadrotor_rate", None, "cddp_open_loop_rollout_quadrotor_rate"),
+        ("ip_forward@quadrotor", None, "cddp_ip_forward_quadrotor_m8"),
+        ("ip_forward_track@quadrotor", None, "cddp_ip_forward_quadrotor_m8_track"),
+        ("ip_forward@quadrotor_rate", None, "cddp_ip_forward_quadrotor_rate_m8"),
+        ("ipddp_backward@quadrotor", "ipddp_backward@13x4x8", "cddp_ipddp_backward_13x4x8"),
+        ("ipddp_backward@quadrotor_rate", "ipddp_backward@10x4x8",
+         "cddp_ipddp_backward_10x4x8"),
+    ))
+
+
+def quad_problem(tt, dtype, device, horizon=None, goal=(1.5, 0.0, 1.0), box=9.0,
+                 tracking=False):
+    """The quadrotor golden's problem (tests/make_goldens.py:69-84): rk4,
+    mass 1, inertia diag(0.01, 0.01, 0.02), arm 0.2; N = QUAD_N, dt = 0.02,
+    Q = 0.1 on the quaternion's vector part, R = 0.1 I, Qf = diag(500 x3, 1
+    x4, 10 x3, 0 x3), from hover at the origin to ``goal`` at hover, the
+    rotor box [0, ``box``]^4 (bench_quadrotor.py's single solve: N = 100,
+    the goal (3, 0, 2), the box [0, 5]). ``tracking``: the straight line
+    from x0 to the goal as the per-step reference. Its tensors and model
+    are in ``dtype``, as a solve casts them (the kernels' plain versions
+    take the problem as it is)."""
+    from cddp_tpu_torch.models import quadrotor
+    from cddp_tpu_torch.solvers.base import canonicalize_problem_dtype
+
+    N = horizon or QUAD_N
+    kw = dict(device=device, dtype=dtype)
+    f64 = lambda v: torch.as_tensor(v, dtype=torch.float64)  # noqa: E731
+    x0 = f64([0.0, 0.0, 0.0, 1.0] + [0.0] * 9)
+    g = x0.clone()
+    g[:3] = f64(goal)
+    Q = f64([0.0] * 4 + [0.1] * 3 + [0.0] * 6).diag()
+    Qf = f64([500.0] * 3 + [1.0] * 4 + [10.0] * 3 + [0.0] * 3).diag()
+    frac = torch.linspace(0.0, 1.0, N + 1, dtype=torch.float64)[:, None]
+    obj = tt.quadratic_objective(Q, 0.1 * torch.eye(4, dtype=torch.float64), Qf, g, 0.02,
+                                 reference_states=x0 * (1.0 - frac) + g * frac if tracking
+                                 else None, **kw)
+    model = quadrotor(mass=1.0, inertia=f64([0.01, 0.01, 0.02]).diag(), arm_length=0.2,
+                      integration_type="rk4", device=device)
+    prob = tt.problem(model, obj, x0, N, 0.02, **kw).add_constraint(
+        "ControlConstraint", tt.control_constraint([0.0] * 4, [box] * 4, **kw))
+    return canonicalize_problem_dtype(prob)
+
+
+def bench_problem(tt, dtype, device):
+    """bench_quadrotor.py's problem (:17-40): the golden's quadrotor at N =
+    BENCH_N to (3, 0, 2), the rotor box [0, 5]^4."""
+    return quad_problem(tt, dtype, device, BENCH_N, goal=(3.0, 0.0, 2.0), box=5.0)
+
+
+def rate_problem(tt, dtype, device, horizon=None):
+    """(e)'s QuadrotorRate fleet: rk4 (mass 1, gravity 9.81), N = RATE_N,
+    dt = 0.02, from hover with q = (1, 0, 0, 0) to (1, 0, 1) at hover, Q =
+    0.1 I on position and velocity, R = 0.1 I, Qf = diag(100 x3, 10 x3, 1
+    x4), the box [0, 20] x [-5, 5]^3 (the model's max_thrust and max_rate)."""
+    from cddp_tpu_torch.models import QuadrotorRate
+    from cddp_tpu_torch.solvers.base import canonicalize_problem_dtype
+
+    kw = dict(device=device, dtype=dtype)
+    f64 = lambda v: torch.as_tensor(v, dtype=torch.float64)  # noqa: E731
+    x0 = f64([0.0] * 6 + [1.0, 0.0, 0.0, 0.0])
+    g = x0.clone()
+    g[0], g[2] = 1.0, 1.0
+    obj = tt.quadratic_objective(f64([0.1] * 6 + [0.0] * 4).diag(),
+                                 0.1 * torch.eye(4, dtype=torch.float64),
+                                 f64([100.0] * 3 + [10.0] * 3 + [1.0] * 4).diag(), g, 0.02, **kw)
+    prob = tt.problem(QuadrotorRate(integration_type="rk4", device=device), obj, x0,
+                      horizon or RATE_N, 0.02, **kw).add_constraint(
+        "ControlConstraint", tt.control_constraint([0.0, -5.0, -5.0, -5.0],
+                                                   [20.0, 5.0, 5.0, 5.0], **kw))
+    return canonicalize_problem_dtype(prob)
+
+
+def figure8_problem(tt, dtype, device, horizon=None):
+    """The figure-8 anchor (tests/test_parity_anchors.py:72-120): the
+    quadrotor (mass 1.2, inertia diag(7.782e-3, 7.782e-3, 1.439e-2), arm
+    0.165, rk4) tracking a figure-8 of 3 m at 2 m altitude over N = FIG8_N
+    steps of 0.02 s, Q = Qf = I on position and quaternion, R = 0.01 I, the
+    rotor box [0, 4]^4, x0 the reference's first point."""
+    from cddp_tpu_torch.models import quadrotor
+
+    N = horizon or FIG8_N
+    kw = dict(device=device, dtype=dtype)
+    Q = torch.tensor([1.0] * 7 + [0.0] * 6, dtype=torch.float64).diag()
+    omega = 2.0 * math.pi / (N * 0.02)
+    ts = torch.arange(N + 1, dtype=torch.float64) * 0.02
+    refs = torch.zeros(N + 1, 13, dtype=torch.float64)
+    refs[:, 0] = 3.0 * torch.cos(omega * ts)
+    refs[:, 1] = 3.0 * torch.sin(omega * ts) * torch.cos(omega * ts)
+    refs[:, 2], refs[:, 3] = 2.0, 1.0
+    obj = tt.quadratic_objective(Q, 0.01 * torch.eye(4, dtype=torch.float64), Q, refs[-1],
+                                 0.02, reference_states=refs, **kw)
+    model = quadrotor(mass=1.2, inertia=torch.tensor([7.782e-3, 7.782e-3, 1.439e-2],
+                                                     dtype=torch.float64).diag(),
+                      arm_length=0.165, integration_type="rk4", device=device)
+    return tt.problem(model, obj, refs[0], N, 0.02, **kw).add_constraint(
+        "ControlConstraint", tt.control_constraint([0.0] * 4, [4.0] * 4, **kw))
+
+
+def quad_options(tt, iterations):
+    """The quadrotor golden's options (make_goldens.py:151-158): tolerance
+    1e-4, acceptable 1e-5, initial regularization 1e-4; ``iterations``."""
+    from cddp_tpu_torch.options import RegularizationOptions
+
+    return tt.CDDPOptions(max_iterations=iterations, tolerance=1e-4, acceptable_tolerance=1e-5,
+                          regularization=RegularizationOptions(initial_value=1e-4))
+
+
+def bench_options(tt, iterations=150):
+    """bench_quadrotor.py's options (:59-71): 150 iterations, tolerance 1e-4,
+    no acceptable exit, 15 line-search rungs, initial regularization 1e-4,
+    the best merit over the ladder (``enable_parallel``), the fused backward
+    engine, the IPOPT barrier rule with mu_update_factor 0.2."""
+    from cddp_tpu_torch.options import LineSearchOptions, RegularizationOptions
+
+    return tt.CDDPOptions(
+        max_iterations=iterations, tolerance=1e-4, acceptable_tolerance=0.0,
+        line_search=LineSearchOptions(max_iterations=15),
+        regularization=RegularizationOptions(initial_value=1e-4), enable_parallel=True,
+        backward_engine="fused", ipddp=tt.IPDDPOptions(barrier=tt.BarrierOptions(
+            strategy=tt.BarrierStrategy.IPOPT, mu_update_factor=0.2)))
+
+
+def hover(prob, B=None):
+    """Hover controls of the problem's model, (N, nu), or (B, N, nu) given
+    B: each rotor m g / 4 for the quadrotor (bench_quadrotor.py:72), the
+    thrust m g and no rates for QuadrotorRate."""
+    m = prob.model
+    w = float(m.mass) * float(m.gravity)
+    u = [w / 4.0] * 4 if type(m).__name__ == "Quadrotor" else [w, 0.0, 0.0, 0.0]
+    U = torch.tensor(u, dtype=prob.x0.dtype, device=prob.x0.device).expand(prob.horizon, -1)
+    return U if B is None else U.expand(B, -1, -1)
+
+
+def near_hover(prob, B, gen, width=STAGE_WIDTH):
+    """Controls (B, N, nu): hover, each entry moved by up to ``width`` / 2
+    of its box's width, uniformly."""
+    cc = prob.get_constraint("ControlConstraint")
+    noise = torch.rand(B, prob.horizon, prob.control_dim, generator=gen,
+                       device=prob.x0.device, dtype=prob.x0.dtype) - 0.5
+    return hover(prob, B) + width * (cc.upper - cc.lower) * noise
+
+
+def assert_varies(label, *ts):
+    """Each (B, N, ...) operand differs from instance 0's at every other
+    instance and from step 0's at every other step, so that a kernel that
+    read another instance's or step's values would not pass its check."""
+    for t in ts:
+        by_instance = (t != t[:1]).flatten(1).any(1)[1:]
+        by_step = (t != t[:, :1]).flatten(2).any(2)[:, 1:]
+        if not (bool(by_instance.all()) and bool(by_step.all())):
+            raise AssertionError(f"{label}: an operand of shape {tuple(t.shape)} repeats across "
+                                 f"{int((~by_instance).sum())} instances and "
+                                 f"{int((~by_step).sum())} (instance, step) pairs")
+
+
+def quad_stage(prob, B, gen):
+    """Kernels 1 and 2's operands (``stage_inputs``) about trajectories from
+    ``fleet_x0`` under ``near_hover`` controls, which stay near hover over
+    the fleets' horizons (controls a quarter of the box width from hover
+    tumbled the quadrotor within N = 60 steps), at random regularizations
+    with a random ladder step; A and B differ between instances and steps
+    (``assert_varies``). Returns (X, U, backward args, alpha)."""
+    X, U, back, alpha = stage_inputs(prob, B, gen, near_hover(prob, B, gen))
+    assert_varies(f"{type(prob.model).__name__} CLDDP operands", back[0], back[1])
+    return X, U, back, alpha
+
+
+def quad_ip_stage(tt, prob, B, gen, opts):
+    """Kernels 4, 5 and 6's operands as a fleet's IPDDP run gives them after
+    its first iteration: ``stage_ip_inputs`` with one plain iteration from
+    ``near_hover`` seeds, A and B differing between instances and steps."""
+    staged = stage_ip_inputs(tt, prob, B, gen, opts, iterations=1, U0=near_hover(prob, B, gen))
+    assert_varies(f"{type(prob.model).__name__} IPDDP operands", *staged[2][:2])
+    return staged
+
+
+QUAD_MODELS = ("quadrotor", "quadrotor_rate")
+
+
+def quad_maker(model):
+    """The problem builder of a phase-16 model's fleet."""
+    return quad_problem if model == "quadrotor" else rate_problem
+
+
+def phase_quad_kernels(tt, dev, errs):
+    """(a) every new instantiation against its plain version, in float64
+    (within 1e-9 + ZOO_RTOL |v| plus twice the plain version's move from
+    inputs one ulp up, ``check``) and float32 (``check``'s float64-truth
+    rule on the median and the 99th percentile; kernel 1's tail by its share
+    of BoxQP ties, ``ties``), at the fleets' horizons, on operands that differ between
+    instances and steps: kernels 1 and 2 on QUAD_KERNEL_B instances about
+    trajectories near hover (``quad_stage``), kernel 4 from them, kernels 5 (with and without the slack SOC) and 6 at B_CHECK on the
+    operands the plain IPDDP driver stages after an iteration
+    (``quad_ip_stage``; kernel 6 on both drivers' layouts, same bits), on
+    the quadrotor and on QuadrotorRate, and kernel 5's tracking form on the
+    quadrotor's operands with a line from x0 to the goal as its reference."""
+    from cddp_tpu_torch.models import rollout
+    from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    as64 = lambda ts: tuple(t.double() if isinstance(t, torch.Tensor)  # noqa: E731
+                            and t.is_floating_point() else t for t in ts)
+    t0 = time.perf_counter()
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        exact = dtype == torch.float64
+        gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+
+        def forward_checks(prob, fwd, name, opts):
+            err = 0.0
+            for soc in (False, True):
+                fc = forward_consts(prob, opts, soc)
+                got = ip_rollout._launch_forward(fc, *fwd)
+                err = max(err, check(
+                    f"{name} slack_soc={soc}", got, ip_rollout.ip_forward_plain(fc, *fwd),
+                    None if exact else ip_rollout.ip_forward_plain(
+                        forward_consts(prob, opts, soc, f64=True), *as64(fwd)),
+                    rtol=ZOO_RTOL, quantiles=not exact,
+                    moved=ip_rollout.ip_forward_plain(fc, *ulp_up(fwd)) if exact else None))
+                print(f"[quadrotor {tag}] {name} slack_soc={soc}: feasible on "
+                      f"{float(got[-1].double().mean()):.2%} of {B_CHECK}")
+            errs[tag][name] = err
+
+        for model in QUAD_MODELS:
+            prob = quad_maker(model)(tt, dtype, dev)
+            X, U, back, alpha = quad_stage(prob, QUAD_KERNEL_B, gen)
+            want = riccati.riccati_backward_plain(*back)
+            errs[tag][f"riccati_backward@{model}"] = check(
+                f"riccati_backward@{model}", riccati._launch(*back), want,
+                None if exact else riccati.riccati_backward_plain(*as64(back)), rtol=ZOO_RTOL,
+                quantiles=not exact, ties=not exact,
+                moved=riccati.riccati_backward_plain(*ulp_up(back)) if exact else None)
+            consts = rollout_ops.lane_consts(prob)
+            fwd = (X[:, :-1], U, want[0], want[1], X[:, 0], alpha)
+            errs[tag][f"forward_rollout@{model}"] = check(
+                f"forward_rollout@{model}", rollout_ops._launch(consts, *fwd),
+                rollout_ops.forward_rollout_plain(consts, *fwd),
+                None if exact else rollout_ops.forward_rollout_plain(
+                    dataclasses.replace(consts_f64(consts), model=copy.deepcopy(
+                        prob.model).double()), *as64(fwd)),
+                rtol=ZOO_RTOL, quantiles=not exact,
+                moved=rollout_ops.forward_rollout_plain(consts, *ulp_up(fwd)) if exact else None)
+            mdl, dt, entry = prob.model, prob.timestep, rollout_ops.model_entry(prob.model)
+            got = ip_rollout._launch_open_loop(mdl, entry, X[:, 0], U, dt)
+            if not torch.equal(got, rollout(mdl, X[:, 0], U, dt)):
+                raise AssertionError(f"open_loop_rollout@{model}: the public rollout differs")
+            errs[tag][f"open_loop_rollout@{model}"] = check(
+                f"open_loop_rollout@{model}", (got,),
+                (ip_rollout.open_loop_rollout_plain(mdl, X[:, 0], U, dt),),
+                None if exact else (ip_rollout.open_loop_rollout_plain(
+                    copy.deepcopy(mdl).double(), X[:, 0].double(), U.double(), dt),),
+                rtol=ZOO_RTOL, quantiles=not exact, moved=(ip_rollout.open_loop_rollout_plain(
+                    mdl, *ulp_up((X[:, 0], U)), dt),) if exact else None)
+            opts = quad_options(tt, QUAD_ITERS)
+            p, _, back, fwd = quad_ip_stage(tt, prob, B_CHECK, gen, opts)
+            forward_checks(p, fwd, f"ip_forward@{model}", opts)
+            if model == "quadrotor":
+                track = quad_problem(tt, dtype, dev, tracking=True).replace(x0=p.x0)
+                forward_checks(track, fwd, "ip_forward_track@quadrotor", opts)
+            got = ric._launch(*back)
+            errs[tag][f"ipddp_backward@{model}"] = check(
+                f"ipddp_backward@{model}", got, ric.ipddp_backward_plain(*back),
+                None if exact else ric.ipddp_backward_plain(*as64(back)), rtol=ZOO_RTOL,
+                quantiles=not exact,
+                moved=ric.ipddp_backward_plain(*ulp_up(back)) if exact else None)
+            if not all(torch.equal(a, b) for a, b in zip(got, ric._launch(*per_pass_layout(back)))):
+                raise AssertionError(f"ipddp_backward@{model}: the per-pass driver's layout "
+                                     "gives other bits")
+        print(f"[quadrotor {tag}] kernels held at {time.perf_counter() - t0:.1f} s")
+
+
+def quad_check_seeds(tt, model, dev):
+    """(a)'s per-pass solves' problem (float64), x0 (QUAD_CHECK_B seeded
+    ``fleet_x0``) and hover controls, as both processes build them."""
+    prob = quad_maker(model)(tt, torch.float64, dev)
+    x0 = fleet_x0(prob, QUAD_CHECK_B, torch.Generator(device=dev).manual_seed(SEED + 63))
+    return prob, x0, hover(prob, QUAD_CHECK_B)
+
+
+def quad_check_options(tt, solver):
+    """(a)'s per-pass options of ``solver`` and its plain driver's."""
+    opts = quad_options(tt, QUAD_CLDDP_CHECK_ITERS if solver == "CLDDP" else QUAD_CHECK_ITERS)
+    plain = (opts.replace(backward_engine="scan") if solver == "CLDDP"
+             else plain_ip_options(tt, opts))
+    return opts, plain
+
+
+def quad_plain_refs(tt, dev):
+    """The plain drivers' solutions that phase 16 holds its per-pass float64
+    solves to: (a)'s CLDDP (and from x0 one ulp up) and IPDDP on each
+    model's ``quad_check_seeds``, and (b)'s golden. Returns {key: value}."""
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    out = {}
+    t0 = time.perf_counter()
+    prob = quad_problem(tt, torch.float64, dev)
+    out["golden"] = tt.solve(prob.replace(x0=prob.x0[None]), "IPDDP",
+                             plain_ip_options(tt, quad_options(tt, 120)), U0=hover(prob, 1))
+    print(f"golden's plain driver done at {time.perf_counter() - t0:.1f} s", flush=True)
+    for model in QUAD_MODELS:
+        prob, x0, U0 = quad_check_seeds(tt, model, dev)
+        out[("x0", model)] = x0
+        for solver in ("CLDDP", "IPDDP"):
+            plain = quad_check_options(tt, solver)[1]
+            out[(solver, model)] = batched_solve(prob, x0, solver, plain, U0_batch=U0)
+        out[("CLDDP moved", model)] = batched_solve(
+            prob, ulp_up((x0,))[0], "CLDDP", quad_check_options(tt, "CLDDP")[1], U0_batch=U0)
+        print(f"{model}'s plain drivers done at {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+class QuadPlainRefs:
+    """``quad_plain_refs`` in a process of its own (this script with
+    ``--quad-plain-refs PATH``) on the same card, started before (a): the
+    plain drivers' tens of thousands of small torch launches run beside
+    the kernel checks, the anchor and the float64 single solve instead of
+    after them, none of which is timed against the card."""
+
+    def __init__(self):
+        self._dir = tempfile.TemporaryDirectory(prefix="chip_smoke_refs_")
+        self._path = Path(self._dir.name) / "refs.pt"
+        self._log = open(Path(self._dir.name) / "log.txt", "w+")
+        self._proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--quad-plain-refs",
+             str(self._path)], stdout=self._log, stderr=subprocess.STDOUT)
+
+    def result(self, dev):
+        """The references on ``dev``, once the process has ended."""
+        rc = self._proc.wait(timeout=900)
+        self._log.seek(0)
+        for line in self._log.read().splitlines():
+            print(f"[quadrotor refs] {line}")
+        if rc != 0:
+            raise AssertionError(f"the plain references' process exited with status {rc}")
+        return torch.load(self._path, map_location=dev, weights_only=False)
+
+    def close(self):
+        """End the process if it still runs, and remove its files."""
+        if self._proc.poll() is None:
+            self._proc.kill()
+            self._proc.wait()
+        self._log.close()
+        self._dir.cleanup()
+
+
+def start_quad_plain_refs(tt, dev):
+    """Start phase 16's plain references (``QuadPlainRefs``)."""
+    return QuadPlainRefs()
+
+
+def quad_plain_refs_main(path):
+    """The ``--quad-plain-refs PATH`` process: ``quad_plain_refs`` on the
+    card, saved to ``path``."""
+    import cddp_tpu_torch as tt
+
+    out = quad_plain_refs(tt, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    torch.save(out, path)
+
+
+def quad_kernel_solves(tt, dev):
+    """(a)'s per-pass float64 solves, CLDDP (kernels 1 and 2) and IPDDP
+    (kernels 4, 6 and 5), of both models on ``quad_check_seeds``, each run's
+    launches checked. Returns {(solver, model): (Solution, launches, x0)}."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    out = {}
+    for model in QUAD_MODELS:
+        prob, x0, U0 = quad_check_seeds(tt, model, dev)
+        nx = prob.state_dim
+        for solver, want in (("CLDDP", {f"riccati_backward@{nx}x4", f"forward_rollout@{model}"}),
+                             ("IPDDP", {f"open_loop_rollout@{model}", f"ipddp_backward@{nx}x4x8",
+                                        f"ip_forward@{model}"})):
+            dispatch_log.reset()
+            sol = batched_solve(prob, x0, solver, quad_check_options(tt, solver)[0], U0_batch=U0)
+            torch.cuda.synchronize()
+            counts = dict(dispatch_log.launches)
+            if set(counts) != want:
+                raise AssertionError(f"{model} {solver} per pass, float64: launches {counts}, "
+                                     f"not {sorted(want)}")
+            out[(solver, model)] = (sol, counts, x0)
+    return out
+
+
+def check_quad_solves(solves, refs):
+    """(a)'s per-pass solves against the plain drivers: every status and
+    iteration count equal, X, U and cost within 1e-8 (CLDDP plus
+    MOVE_FACTOR times the plain driver's move from x0 one ulp up), the
+    duals, slacks and mu too for IPDDP."""
+    for (solver, model), (kern, counts, x0) in solves.items():
+        if not torch.equal(x0, refs[("x0", model)]):
+            raise AssertionError(f"{model}: the plain references ran from other x0")
+        plain = refs[(solver, model)]
+        if solver == "CLDDP":
+            check_solve_f64(f"{model} per-pass", kern, plain,
+                            moved=lambda model=model: refs[("CLDDP moved", model)])
+        else:
+            check_ip_solve(f"{model} per-pass", kern, plain, True, dual_rtol=1e-8)
+        iters = QUAD_CLDDP_CHECK_ITERS if solver == "CLDDP" else QUAD_CHECK_ITERS
+        print(f"[quadrotor float64] {model} {solver} per pass at N="
+              f"{kern.state_trajectory.shape[1] - 1}, B={x0.shape[0]}, {iters} iterations: "
+              f"launches {counts}; iterations "
+              f"{torch.bincount(kern.iterations_completed.long()).tolist()}")
+
+
+def quad_golden_kernel(tt, dev):
+    """(b)'s per-pass run: the quadrotor_ipddp golden's problem and options
+    (tests/make_goldens.py:69-84, :151-158) in float64 through ``tt.solve``
+    from hover controls, its launches (kernels 4, 6 and 5) counted. Returns
+    (Solution, launches, host ms)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+
+    prob = quad_problem(tt, torch.float64, dev)
+    dispatch_log.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kern = tt.solve(prob.replace(x0=prob.x0[None]), "IPDDP", quad_options(tt, 120),
+                    U0=hover(prob, 1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(dispatch_log.launches)
+    want = {"open_loop_rollout@quadrotor", "ipddp_backward@13x4x8", "ip_forward@quadrotor"}
+    if set(counts) != want or counts["open_loop_rollout@quadrotor"] != 1:
+        raise AssertionError(f"the quadrotor golden per pass: launches {counts}")
+    return kern, counts, ms
+
+
+def check_quad_golden(golden, plain):
+    """(b): the per-pass golden run against the plain driver on the card
+    (``check_ip_solve``: status and iterations equal, values within 1e-8),
+    at the golden's status and iteration count, and its deviation from
+    tests/goldens/quadrotor_ipddp.npz."""
+    import numpy as np
+
+    kern, counts, ms = golden
+    check_ip_solve("quadrotor golden per-pass", kern, plain, True, dual_rtol=1e-8)
+    g = np.load(GOLDEN)
+    status, its = int(kern.status_code[0]), int(kern.iterations_completed[0])
+    if (status, its) != (int(g["status"]), int(g["iterations"])):
+        raise AssertionError(f"the quadrotor golden on the card: status {status} after {its} "
+                             f"iterations, the golden's {int(g['status'])} after "
+                             f"{int(g['iterations'])}")
+    dev_of = lambda t, w: float(np.abs(t[0].cpu().numpy() - w).max())  # noqa: E731
+    print(f"[quadrotor] golden quadrotor_ipddp, float64, per pass: status {status}, {its} "
+          f"iterations (the golden's), {ms:.1f} ms (beside the plain references' process); "
+          f"launches {counts}; against the golden: cost {float(kern.final_objective[0]):.10f} "
+          f"({float(g['cost']):.10f}), max |X - X_g| {dev_of(kern.state_trajectory, g['X']):.3e}"
+          f", max |U - U_g| {dev_of(kern.control_trajectory, g['U']):.3e}")
+
+
+def quad_single64(tt, dev):
+    """(c)'s reference: bench_quadrotor.py's single solve per pass in
+    float64 (kernels 4, 6 and 5 in their float64 builds)."""
+    p64 = bench_problem(tt, torch.float64, dev)
+    return tt.solve(p64.replace(x0=p64.x0[None]), "IPDDP", bench_options(tt), U0=hover(p64, 1))
+
+
+# (c)'s rule for the float32 single solve against the float64 one: the same
+# status, and the final cost within this relative distance (``cost_share``'s
+# rule of equal cost). The two ran 49 and 53 iterations to costs 7.9e-7
+# apart on an H100 (PERF.md).
+SINGLE_COST_RTOL = 1e-4
+
+
+def phase_quad_single(tt, dev, smi, sol64):
+    """(c) bench_quadrotor.py's single solve (``bench_problem``,
+    ``bench_options``, float32, from hover controls) per pass: its launches
+    (kernels 4, 6 and 5), status, iterations, final cost, goal error and ms
+    a solve, the median of BENCH_REPS on the host clock after a warm-up;
+    held to its float64 run ``sol64`` (``quad_single64``): the same status
+    and the final cost within SINGLE_COST_RTOL. Returns (the problem,
+    options, controls, solution, median ms, launches)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+
+    prob = bench_problem(tt, torch.float32, dev)
+    p1, U0, opts = prob.replace(x0=prob.x0[None]), hover(prob, 1), bench_options(tt)
+    ms = []
+    for rep in range(BENCH_REPS + 1):
+        dispatch_log.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = tt.solve(p1, "IPDDP", opts, U0=U0)
+        torch.cuda.synchronize()
+        if rep == 0:  # the warm-up
+            counts = dict(dispatch_log.launches)
+        else:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    if set(counts) != {"open_loop_rollout@quadrotor", "ipddp_backward@13x4x8",
+                       "ip_forward@quadrotor"}:
+        raise AssertionError(f"the single solve: launches {counts}")
+    med = sorted(ms)[len(ms) // 2]
+    goal = prob.objective.reference_state
+    err = float((sol.state_trajectory[0, -1, :3] - goal[:3]).norm())
+    its = int(sol.iterations_completed[0])
+    print(f"[quadrotor] single solve (bench_quadrotor.py, N={prob.horizon}, float32, per pass):"
+          f" status {sol.status_messages()[0]} ({int(sol.status_code[0])}), {its} iterations, "
+          f"final cost {float(sol.final_objective[0]):.6f}, goal error {err:.4e}; "
+          f"{med:.2f} ms a solve (median of {BENCH_REPS} after a warm-up; min {min(ms):.2f}, "
+          f"max {max(ms):.2f}); launches {counts}  [{smi}]")
+    if not bool(sol.state_trajectory.isfinite().all()):
+        raise AssertionError("the single solve: non-finite states")
+
+    rel = abs(float(sol.final_objective[0]) - float(sol64.final_objective[0])) / abs(
+        float(sol64.final_objective[0]))
+    dx = float((sol.state_trajectory.double() - sol64.state_trajectory).abs().max())
+    print(f"[quadrotor] single solve per pass in float64: status {int(sol64.status_code[0])}, "
+          f"{int(sol64.iterations_completed[0])} iterations, cost "
+          f"{float(sol64.final_objective[0]):.7f}, goal error "
+          f"{float((sol64.state_trajectory[0, -1, :3] - goal[:3].double()).norm()):.4e}; "
+          f"float32 against it: rel cost {rel:.3e} (<= {SINGLE_COST_RTOL:g}, status equal), "
+          f"max |dX| {dx:.3e}")
+    if int(sol.status_code[0]) != int(sol64.status_code[0]) or not rel <= SINGLE_COST_RTOL:
+        raise AssertionError(f"the float32 single solve: status {int(sol.status_code[0])}, rel "
+                             f"cost {rel:.3e} against float64's status "
+                             f"{int(sol64.status_code[0])}")
+    return p1, opts, U0, sol, med, counts
+
+
+def quad_fleet_run(label, prob, x0, solver, opts, want, smi):
+    """``zoo_fleet_run`` from hover controls, with the run's converged
+    share, iterations, ms, solves/s, peak device memory and distance of
+    the final position to the goal. Returns (Solution, launches)."""
+    B = x0.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    sol, counts, ms, _ = zoo_fleet_run(label, prob, x0, solver, opts, want, U0=hover(prob, B))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    conv = (sol.status_code == 1) | (sol.status_code == 2)
+    its = sol.iterations_completed.double()
+    dist = (sol.state_trajectory[:, -1, :3] - prob.objective.reference_state[:3]).norm(dim=-1)
+    print(f"[quadrotor] {label}, B={B}, {opts.max_iterations} iterations: converged "
+          f"{float(conv.double().mean()):.4%}, statuses "
+          f"{torch.bincount(sol.status_code.long(), minlength=5).tolist()}, iterations mean "
+          f"{float(its.mean()):.3f} max {int(its.max())}; {ms:.2f} ms ({B / ms * 1e3:.1f} "
+          f"solves/s); peak device memory {peak:.2f} GiB; launches {counts}; position error "
+          f"median {float(dist.median()):.3e}, max {float(dist.max()):.3e}  [{smi}]")
+    return sol, counts
+
+
+def quad_figure8(tt, dev, smi):
+    """The figure-8 anchor on the card (``figure8_problem``, float64, IPDDP
+    per pass from hover thrust, the anchor's options: FIG8_ITERS = 300
+    iterations, tolerance 1e-6, acceptable 1e-5, initial regularization
+    1e-4), held to
+    its assertions: position error at the end < 0.5, every quaternion norm
+    within 0.1 of 1, mean tracking error < 2. Returns its launches (kernel
+    5's tracking form among them)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.options import RegularizationOptions
+
+    prob = figure8_problem(tt, torch.float64, dev)
+    p1 = prob.replace(x0=prob.x0[None])
+    opts = tt.CDDPOptions(max_iterations=FIG8_ITERS, tolerance=1e-6, acceptable_tolerance=1e-5,
+                          regularization=RegularizationOptions(initial_value=1e-4))
+    dispatch_log.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = tt.solve(p1, "IPDDP", opts, U0=hover(prob, 1))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(dispatch_log.launches)
+    if set(counts) != {"open_loop_rollout@quadrotor", "ipddp_backward@13x4x8",
+                       "ip_forward_track@quadrotor"}:
+        raise AssertionError(f"the figure-8 anchor: launches {counts}")
+    X, refs = sol.state_trajectory[0], prob.objective.reference_states
+    pos = float((X[-1, :3] - refs[-1, :3]).norm())
+    qdev = float((X[:, 3:7].norm(dim=-1) - 1.0).abs().max())
+    track = float((X[:, :3] - refs[:, :3]).norm(dim=-1).mean())
+    print(f"[quadrotor] figure-8 anchor (float64, N={prob.horizon}, per pass): "
+          f"{sol.status_messages()[0]} after {int(sol.iterations_completed[0])} iterations, "
+          f"position error {pos:.4f} (< 0.5), max |norm(q) - 1| {qdev:.3e} (< 0.1), mean "
+          f"tracking error {track:.4f} (< 2); {ms:.1f} ms (beside the plain references' "
+          f"process); launches {counts}  [{smi}]")
+    if not (pos < 0.5 and qdev < 0.1 and track < 2.0):
+        raise AssertionError("the figure-8 anchor fails its assertions")
+    return counts
+
+
+def phase_quad_fleets(tt, dev, smi, sol64):
+    """(c)-(e), each run with the launch counts zeroed just before it and
+    read just after: the single solve (held to ``sol64``); the quadrotor
+    fleet (the golden's problem from hover + U(-0.5, 0.5)^3 position
+    offsets, float32, QUAD_ITERS iterations of the golden's options) at
+    QUAD_B under IPDDP per pass (kernels 4, 6, 5) and CLDDP per pass
+    (kernels 1, 2), and at B_CHECK under MSIPDDP and LogDDP on their plain
+    drivers over QUAD_PLAIN_ITERS (kernel 4's seed alone); the
+    QuadrotorRate fleet at QUAD_B under IPDDP per pass and a
+    QUAD_DRIVE_ITERS CLDDP run that drives kernels 1 and 2 at 10x4. Returns
+    (launches {entry: n}, the single solve)."""
+    launches = {}
+    t0 = time.perf_counter()
+    single = phase_quad_single(tt, dev, smi, sol64)
+    print(f"[quadrotor] (c) done in {time.perf_counter() - t0:.1f} s")
+    quad = quad_problem(tt, torch.float32, dev)
+    x0 = fleet_x0(quad, QUAD_B, torch.Generator(device=dev).manual_seed(SEED))
+    ol, k5, k6 = "open_loop_rollout@quadrotor", "ip_forward@quadrotor", "ipddp_backward@13x4x8"
+    for solver, B, iters, want, drives in (
+            ("IPDDP", QUAD_B, QUAD_ITERS, {ol, k6, k5},
+             {ol: ol, k5: k5, "ipddp_backward@quadrotor": k6}),
+            ("CLDDP", QUAD_B, QUAD_ITERS, {"riccati_backward@13x4", "forward_rollout@quadrotor"},
+             {"riccati_backward@quadrotor": "riccati_backward@13x4",
+              "forward_rollout@quadrotor": "forward_rollout@quadrotor"}),
+            ("MSIPDDP", B_CHECK, QUAD_PLAIN_ITERS, {ol: 1}, {}),
+            ("LogDDP", B_CHECK, QUAD_PLAIN_ITERS, {ol: 1}, {})):
+        how = "plain driver" if B == B_CHECK else "per pass"
+        _, counts = quad_fleet_run(f"quadrotor {solver} fleet ({how})", quad, x0[:B], solver,
+                                   quad_options(tt, iters), want, smi)
+        launches.update({entry: counts[logged] for entry, logged in drives.items()})
+    print(f"[quadrotor] (d) done in {time.perf_counter() - t0:.1f} s")
+    rate = rate_problem(tt, torch.float32, dev)
+    xr = fleet_x0(rate, QUAD_B, torch.Generator(device=dev).manual_seed(SEED))
+    ol = "open_loop_rollout@quadrotor_rate"
+    for solver, iters, want in (
+            ("IPDDP", QUAD_ITERS, {ol, "ipddp_backward@10x4x8", "ip_forward@quadrotor_rate"}),
+            ("CLDDP", QUAD_DRIVE_ITERS, {"riccati_backward@10x4",
+                                         "forward_rollout@quadrotor_rate"})):
+        _, counts = quad_fleet_run(f"QuadrotorRate {solver} fleet (per pass)", rate, xr, solver,
+                                   quad_options(tt, iters), want, smi)
+        for name, logged, _, model, _ in QUAD_ENTRIES:
+            if model == "quadrotor_rate" and logged in counts:
+                launches[name] = counts[logged]
+    print(f"[quadrotor] (e) done in {time.perf_counter() - t0:.1f} s")
+    return launches, single
+
+
+def time_quad_kernels(tt, dev, single, smi):
+    """Every phase-16 entry's wrapper and device ms, plain ms and bound at
+    QUAD_B on the operands of the fleet that drives it, staged as in (a)
+    (``quad_stage``, ``quad_ip_stage``): kernels 1 and 2 on the CLDDP
+    operands, kernels 4, 5 and 6 on the IPDDP ones, on each
+    model, and kernel 5's tracking form on the quadrotor's with a line as
+    its reference; then the single solve's split (``time_quad_single``).
+    Returns {entry: timing tuple}."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    out, t0 = {}, time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for model in QUAD_MODELS:
+        prob = quad_maker(model)(tt, torch.float32, dev)
+        X, U, back, alpha = quad_stage(prob, QUAD_B, gen)
+        out1 = riccati._launch(*back)
+        consts = rollout_ops.lane_consts(prob)
+        fwd2 = (X[:, :-1], U, out1[0], out1[1], X[:, 0], alpha)
+        out2 = rollout_ops._launch(consts, *fwd2)
+        opts = quad_options(tt, QUAD_ITERS)
+        p, ol, back6d, fwd5 = quad_ip_stage(tt, prob, QUAD_B, gen, opts)
+        back6, fc, entry = per_pass_layout(back6d), forward_consts(p, opts, False), \
+            rollout_ops.model_entry(p.model)
+        out4 = ip_rollout._launch_open_loop(p.model, entry, *ol, p.timestep)
+        out5, out6 = ip_rollout._launch_forward(fc, *fwd5), ric._launch(*back6)
+        # The plain recursions take seconds a call at these shapes: one call
+        # each, without a warm-up.
+        runs = {
+            "riccati_backward": (lambda: riccati._launch(*back), 10,
+                                 lambda: riccati.riccati_backward_plain(*back), 1),
+            "forward_rollout": (lambda: rollout_ops._launch(consts, *fwd2), 20,
+                                lambda: rollout_ops.forward_rollout_plain(consts, *fwd2), 1),
+            "open_loop_rollout": (
+                lambda: ip_rollout._launch_open_loop(p.model, entry, *ol, p.timestep), 20,
+                lambda: ip_rollout.open_loop_rollout_plain(p.model, *ol, p.timestep), 1),
+            "ip_forward": (lambda: ip_rollout._launch_forward(fc, *fwd5), 20,
+                           lambda: ip_rollout.ip_forward_plain(fc, *fwd5), 1),
+            "ipddp_backward": (lambda: ric._launch(*back6), 10,
+                               lambda: ric.ipddp_backward_plain(*back6), 1),
+        }
+        work = {
+            "riccati_backward": (back, out1, count_ops(
+                riccati.riccati_backward_plain, *one(back)) * QUAD_B),
+            "forward_rollout": (fwd2, out2, count_ops(
+                rollout_ops.forward_rollout_plain, consts, *one(fwd2)) * QUAD_B),
+            "open_loop_rollout": (ol, (out4[:, 1:],), count_ops(
+                ip_rollout.open_loop_rollout_plain, p.model, *one(ol), p.timestep) * QUAD_B),
+            "ip_forward": (fwd5, out5, count_ops(ip_rollout.ip_forward_plain, fc,
+                                                  *one(fwd5)) * QUAD_B),
+            "ipddp_backward": (backward_operands_read(back6), out6, count_ops(
+                ric.ipddp_backward_plain, *one(back6)) * QUAD_B),
+        }
+        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper", batch=QUAD_B)
+        out.update({f"{k}@{model}": v for k, v in timing.items()})
+        print(f"[quadrotor] {model}'s entries timed at {time.perf_counter() - t0:.1f} s")
+        if model == "quadrotor":
+            staged = (p, fwd5)
+    # The tracking form on the quadrotor's operands, a line as its reference.
+    p, fwd5 = staged
+    prob = quad_problem(tt, torch.float32, dev, tracking=True).replace(x0=p.x0)
+    fc = forward_consts(prob, opts, False)
+    out5 = ip_rollout._launch_forward(fc, *fwd5)
+    timing = time_kernels(
+        {"ip_forward": (lambda: ip_rollout._launch_forward(fc, *fwd5), 20,
+                        lambda: ip_rollout.ip_forward_plain(fc, *fwd5), 1)},
+        {"ip_forward": (fwd5 + reference_read(prob), out5, count_ops(
+            ip_rollout.ip_forward_plain, fc, *one(fwd5)) * QUAD_B)},
+        torch.float32, smi, label=" (tracking form)", events_ok="wrapper", batch=QUAD_B)
+    out["ip_forward_track@quadrotor"] = timing["ip_forward"]
+    print(f"[quadrotor] entries timed at {time.perf_counter() - t0:.1f} s")
+    time_quad_single(tt, dev, single, smi)
+    print(f"[quadrotor] timings done at {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def time_quad_single(tt, dev, single, smi):
+    """The single solve's split per iteration: kernels 6 and 5's device ms
+    at B = 1 on the solve's operands (staged by the plain driver from hover
+    controls) times their launches an iteration in the solve, kernel 4's
+    once, and the rest of the median host ms as glue; and kernel 6 at B = 1
+    against its plain sweep (``backward_engine="scan"``) at B = 1 (ROADMAP
+    B.3)."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+
+    p1, opts, U0, sol, med, counts = single
+    its = int(sol.iterations_completed[0])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prob = bench_problem(tt, torch.float32, dev)
+    p, _, back, fwd = stage_ip_inputs(tt, prob, 1, gen, opts, iterations=0, U0=hover(prob))
+    back, fc = per_pass_layout(back), forward_consts(p, opts, False)
+    k6 = lambda: ric._launch(*back)  # noqa: E731
+    k5 = lambda: ip_rollout._launch_forward(fc, *fwd)  # noqa: E731
+    ms6, src6 = device_ms(k6, "ipddp_backward", 10, "wrapper")
+    ms5, src5 = device_ms(k5, "ip_forward", 10, "wrapper")
+    n6, n5 = counts["ipddp_backward@13x4x8"] / its, counts["ip_forward@quadrotor"] / its
+    plain_ms = cuda_ms(lambda: ric.ipddp_backward_plain(*back), 1, warm=False)
+    print(f"[quadrotor] single solve split, {its} iterations, {med:.2f} ms a solve: per "
+          f"iteration kernel 6 {ms6 * n6:.3f} ms device ({n6:.2f} launches of {ms6:.4f} ms, "
+          f"{src6}), kernel 5 {ms5 * n5:.3f} ms device ({n5:.2f} launches of {ms5:.4f} ms, "
+          f"{src5}), glue {med / its - ms6 * n6 - ms5 * n5:.3f} ms (the median solve's ms "
+          f"an iteration less the two kernels'); kernel 6 at B=1 {ms6:.4f} ms against its "
+          f"plain sweep at B=1 {plain_ms:.3f} ms ({plain_ms / ms6:.1f}x)  [{smi}]")
+
+
+def phase_quadrotor(tt, dev, smi):
+    """Phase 16, the quadrotor and QuadrotorRate. Beside the plain
+    references' process (``QuadPlainRefs``): (a) every new instantiation
+    against its plain version, float64 and float32, and both models'
+    per-pass float64 solves; (b)'s per-pass golden run; the figure-8
+    anchor; (c)'s float64 single solve. Then (a)'s and (b)'s solves against
+    the plain drivers, and (c)-(e) alone on the card: the single solve and
+    the fleets (each entry's times and bound follow in
+    ``time_quad_kernels``). Returns ({entry: launches}, {dtype: {entry:
+    err}}, the single solve)."""
+    t0 = time.perf_counter()
+    errs = {"float64": {}, "float32": {}}
+    refs = start_quad_plain_refs(tt, dev)
+    try:
+        phase_quad_kernels(tt, dev, errs)
+        print(f"[quadrotor] (a)'s kernels done in {time.perf_counter() - t0:.1f} s")
+        solves = quad_kernel_solves(tt, dev)
+        golden = quad_golden_kernel(tt, dev)
+        anchor = quad_figure8(tt, dev, smi)
+        sol64 = quad_single64(tt, dev)
+        print(f"[quadrotor] per-pass solves, golden, anchor and float64 single solve done in "
+              f"{time.perf_counter() - t0:.1f} s")
+        plain = refs.result(dev)
+    finally:
+        refs.close()
+    print(f"[quadrotor] plain references in at {time.perf_counter() - t0:.1f} s")
+    check_quad_solves(solves, plain)
+    check_quad_golden(golden, plain["golden"])
+    print(f"[quadrotor] (a) and (b) done in {time.perf_counter() - t0:.1f} s")
+    launches, single = phase_quad_fleets(tt, dev, smi, sol64)
+    launches["ip_forward_track@quadrotor"] = anchor["ip_forward_track@quadrotor"]
+    print(f"[quadrotor] checks and fleets done in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, single
+
+
 def main():
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -4418,14 +5300,16 @@ def main():
     # --- phase 3: kernels against their plain versions -----------------------
     errs = phase_kernels(tt, dev)
 
-    # --- phases 14 and 15 come next, their timings after both: their checks
-    # and fleets run the plain drivers, and every torch launch of a plain
-    # driver takes 1.6-1.7x as long once the profiler has run in the
-    # process (PERF.md).
+    # --- phases 14, 15 and 16 come next, their checks and fleets before any
+    # timing: they run the plain drivers, and every torch launch of a plain
+    # driver takes 1.6-1.7x as long once the profiler has run in the process
+    # (PERF.md).
     zoo_launches, zoo_errs, zoo_fleets, zoo_plain, zoo_plain_at = phase_zoo(tt, dev, smi)
     print(f"[clock] phase 14 checks and fleets done at {time.perf_counter() - t_start:.1f} s")
     dis_launches, dis_errs, dis_fleets = phase_discrete(tt, dev, smi)
     print(f"[clock] phase 15 checks and fleets done at {time.perf_counter() - t_start:.1f} s")
+    quad_launches, quad_errs, quad_single = phase_quadrotor(tt, dev, smi)
+    print(f"[clock] phase 16 checks and fleets done at {time.perf_counter() - t_start:.1f} s")
     zoo_timing = time_zoo_kernels(tt, zoo_fleets, zoo_plain, smi)
     dis_timing, dis_at = time_discrete_kernels(tt, dis_fleets, smi)
     print(f"[clock] phases 14-15 timings done at {time.perf_counter() - t_start:.1f} s")
@@ -4563,6 +5447,14 @@ def main():
     # --- phase 13: warm starts --------------------------------------------------------
     warm_entries, certified = phase_warm(tt, dev, smi)
     print(f"[clock] phase 13 done at {time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 16's timings come last: with them beside phases 14-15's, the
+    # profiler recorded no launch of kernel 6 in any later session (phase 6's
+    # included) on an H100 machine, a limit of the profiler's sessions a
+    # process can hold; here kernel 6 falls back to CUDA events around its
+    # wrapper, which copies nothing.
+    quad_timing = time_quad_kernels(tt, dev, quad_single, smi)
+    print(f"[clock] phase 16 timings done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
@@ -4728,6 +5620,28 @@ def main():
             "registers": a["registers"], "spill_bytes": a["spill_bytes"],
             "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
             "blocks_per_sm": a["blocks_per_sm"]})
+    # Phase 16's instantiations, each an entry of its own named with its
+    # model (kernels 1 and 6 log their shape, "dispatch_name"): launches in
+    # the phase's run that drives it (the quadrotor and QuadrotorRate
+    # fleets, the figure-8 anchor for kernel 5's tracking form), errors
+    # from (a), times, plain ms and bound at QUAD_B on that fleet's operands,
+    # taken last in the run (the plain ms after every profiler session).
+    for name, logged, kernel, model, launcher in QUAD_ENTRIES:
+        ms, plain_ms, b_ms, b_by, dev_ms, source = quad_timing[name]
+        a = build.kernel_attributes(f"{launcher}_f32")
+        src, rep = sources[kernel]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "variant_of": kernel,
+            "model": model, "dispatch_name": logged, "launches": quad_launches[name],
+            "max_abs_err": quad_errs["float32"][name],
+            "max_abs_err_f64": quad_errs["float64"][name],
+            "ms": ms, "device_ms": dev_ms, "device_ms_source": source, "plain_ms": plain_ms,
+            "plain_at": f"B={QUAD_B}, float32, after phases 4-13", "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "registers": a["registers"], "spill_bytes": a["spill_bytes"],
+            "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
+            "blocks_per_sm": a["blocks_per_sm"]})
     print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in rates.items()) + "; IPDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in ip_rates.items()) + "".join(
@@ -4740,4 +5654,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--quad-plain-refs"] and len(sys.argv) == 3:
+        quad_plain_refs_main(sys.argv[2])
+    else:
+        main()

@@ -88,8 +88,11 @@ def test_launchers_are_exported_and_registered(kernel):
 # terminal inequality rows (ti1, ti2), the terminal equality (te3), both.
 # Beside the unicycle: the pendulum (kernels 1-3 at (2, 1), kernels 4, 5, 7,
 # 8 and 9 on its control box m = 2, kernel 6 at (2, 1, 2)), the cart-pole
-# (kernels 1-4 at (4, 1)) and HCW (kernel 4, kernel 5 on its control box m
-# = 6 in both forms, kernel 7's rendezvous m6_te6).
+# (kernels 1-4 at (4, 1)), HCW (kernel 4, kernel 5 on its control box m
+# = 6 in both forms, kernel 7's rendezvous m6_te6), the car (kernels 1 and 6
+# at (4, 2), 2, 4 and 5), the forklift (kernel 4), the quadrotor (kernels 1
+# and 6 at (13, 4), 2, 4 and 5 on its rotor box m = 8 in both forms) and
+# QuadrotorRate (kernels 1 and 6 at (10, 4), 2, 4 and 5 goal form m = 8).
 INSTANTIATIONS = {
     "ipddp_solve.cu": {f"cddp_ipddp_solve_unicycle_{v}"
                        for v in ("m4", "m6", "m10", "m5_ball0", "m5_ball4", "m4_track",
@@ -99,14 +102,17 @@ INSTANTIATIONS = {
                                 for v in ("m4_ti1", "m4_ti2", "m4_te3", "m4_te3_ti1")}
     | {"cddp_ipddp_solve_hcw_m6_te6"},
     "ipddp_backward.cu": {f"cddp_ipddp_backward_3x2x{m}" for m in (4, 5, 6, 10)}
-    | {"cddp_ipddp_backward_2x1x2", "cddp_ipddp_backward_4x2x4"},
+    | {"cddp_ipddp_backward_2x1x2", "cddp_ipddp_backward_4x2x4",
+       "cddp_ipddp_backward_13x4x8", "cddp_ipddp_backward_10x4x8"},
     "ip_forward.cu": {f"cddp_ip_forward_{v}{t}"
                       for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2",
-                                "hcw_m6")
-                      for t in ("", "_track")} | {"cddp_ip_forward_car_m4"},
+                                "hcw_m6", "quadrotor_m8")
+                      for t in ("", "_track")}
+    | {"cddp_ip_forward_car_m4", "cddp_ip_forward_quadrotor_rate_m8"},
     "forward_rollout.cu": {f"cddp_forward_rollout_{m}{t}" for m in ("unicycle", "pendulum",
                                                                      "cartpole")
-                           for t in ("", "_track")} | {"cddp_forward_rollout_car"},
+                           for t in ("", "_track")}
+    | {f"cddp_forward_rollout_{m}" for m in ("car", "quadrotor", "quadrotor_rate")},
     "clddp_solve.cu": {f"cddp_clddp_solve_{m}{t}" for m in ("unicycle", "pendulum", "cartpole")
                        for t in ("", "_track")},
     "logddp_solve.cu": {f"cddp_logddp_solve_{v}{t}"
@@ -115,10 +121,11 @@ INSTANTIATIONS = {
     "msipddp_solve.cu": {f"cddp_msipddp_solve_{v}{t}"
                          for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2")
                          for t in ("", "_track")},
-    "riccati_backward.cu": {f"cddp_riccati_backward_{s}" for s in ("3x2", "2x1", "4x1", "4x2")},
+    "riccati_backward.cu": {f"cddp_riccati_backward_{s}"
+                            for s in ("3x2", "2x1", "4x1", "4x2", "13x4", "10x4")},
     "open_loop_rollout.cu": {f"cddp_open_loop_rollout_{m}"
                              for m in ("unicycle", "pendulum", "cartpole", "hcw", "car",
-                                       "forklift")},
+                                       "forklift", "quadrotor", "quadrotor_rate")},
 }
 
 

@@ -1,12 +1,15 @@
-"""The pendulum, cart-pole, scalar terminal-equality and car-parking
-goldens (tests/goldens/, made by tests/make_goldens.py:49-67, :87-97,
+"""The pendulum, cart-pole, quadrotor, scalar terminal-equality and
+car-parking goldens (tests/goldens/, made by tests/make_goldens.py:49-97,
 :110-124 and :135-189) through the port's ``tt.solve`` on CPU tensors in
 float64, at ``test_golden``'s tolerances (tests/test_goldens.py:51-60):
 cost rtol 1e-9, X and U rtol 1e-7 and atol 1e-9, status and iteration count
 exact. The four pendulum goldens run N = 100, the cart-pole's N = 200 over
-177 iterations (about 50 s on one core), the car's MSIPDDP N = 300 over 49
+177 iterations (about 50 s on one core), the quadrotor's IPDDP N = 60 over
+26 iterations from hover controls, the car's MSIPDDP N = 300 over 49
 iterations (about 17 s), the scalar LTISystem's IPDDP without path
-constraints N = 8 (the reduced LQR of its terminal equality)."""
+constraints N = 8 (the reduced LQR of its terminal equality). The
+quadrotor figure-8 anchor (tests/test_parity_anchors.py:72-120) runs as its
+JAX test does, marked slow."""
 
 from pathlib import Path
 
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 import cddp_tpu_torch as tt
-from cddp_tpu_torch.models import Car, CartPole, LTISystem, Pendulum
+from cddp_tpu_torch.models import Car, CartPole, LTISystem, Pendulum, quadrotor
 from cddp_tpu_torch.options import RegularizationOptions
 
 torch.set_num_threads(1)
@@ -43,6 +46,25 @@ def cartpole_problem():
                                  [0.0, np.pi, 0.0, 0.0], 0.02, **KW)
     p = tt.problem(CartPole(), obj, np.zeros(4), 200, 0.02, **KW)
     return p.add_constraint("ControlConstraint", tt.control_constraint([-100.0], [100.0], **KW))
+
+
+def quadrotor_problem():
+    """make_goldens.py:69-84: the quadrotor (rk4, inertia diag(0.01, 0.01,
+    0.02)), N = 60, dt = 0.02, from hover at the origin to (1.5, 0, 1), the
+    rotor box [0, 9]^4."""
+    goal = np.zeros(13)
+    goal[[0, 2, 3]] = (1.5, 1.0, 1.0)
+    Q = np.zeros((13, 13))
+    Q[[4, 5, 6], [4, 5, 6]] = 0.1
+    Qf = np.diag([500.0, 500.0, 500.0, 1.0, 1.0, 1.0, 1.0, 10.0, 10.0, 10.0, 0.0, 0.0, 0.0])
+    obj = tt.quadratic_objective(_t(Q), _t(0.1 * np.eye(4)), _t(Qf), goal, 0.02, **KW)
+    model = quadrotor(mass=1.0, inertia=np.diag([0.01, 0.01, 0.02]), arm_length=0.2,
+                      integration_type="rk4", device="cpu")
+    x0 = np.zeros(13)
+    x0[3] = 1.0
+    p = tt.problem(model, obj, x0, 60, 0.02, **KW)
+    return p.add_constraint("ControlConstraint",
+                            tt.control_constraint(np.zeros(4), np.full(4, 9.0), **KW))
 
 
 def scalar_terminal_eq_problem():
@@ -77,6 +99,10 @@ CASES = {
     "cartpole_clddp": (cartpole_problem, "CLDDP",
                        dict(max_iterations=300, tolerance=1e-4, acceptable_tolerance=1e-6),
                        dict),
+    "quadrotor_ipddp": (quadrotor_problem, "IPDDP",
+                        dict(max_iterations=120, tolerance=1e-4, acceptable_tolerance=1e-5,
+                             regularization=RegularizationOptions(initial_value=1e-4)),
+                        lambda: {"U0": _t(np.full((60, 4), 9.81 / 4.0))}),
     "scalar_terminal_eq_ipddp": (
         scalar_terminal_eq_problem, "IPDDP",
         dict(max_iterations=60, tolerance=1e-6, acceptable_tolerance=1e-6,
@@ -100,3 +126,37 @@ def test_golden(name):
     np.testing.assert_allclose(float(sol.final_objective), g["cost"], rtol=1e-9)
     np.testing.assert_allclose(sol.state_trajectory.numpy(), g["X"], rtol=1e-7, atol=1e-9)
     np.testing.assert_allclose(sol.control_trajectory.numpy(), g["U"], rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.slow
+def test_quadrotor_figure8():
+    """tests/test_parity_anchors.py:72-120 through the port: the quadrotor
+    (mass 1.2, inertia diag(7.782e-3, 7.782e-3, 1.439e-2), arm 0.165, rk4)
+    tracking a figure-8 of 3 m at 2 m altitude over N = 150 steps of 0.02 s
+    with the rotor box [0, 4]^4, IPDDP from hover thrust, tolerance 1e-6;
+    the reference's assertions: final position error < 0.5 and every
+    quaternion norm within 0.1 of 1, and the mean tracking error < 2."""
+    dt, N, mass = 0.02, 150, 1.2
+    model = quadrotor(mass=mass, inertia=np.diag([7.782e-3, 7.782e-3, 1.439e-2]),
+                      arm_length=0.165, integration_type="rk4", device="cpu")
+    Q = np.zeros((13, 13))
+    Q[np.arange(7), np.arange(7)] = 1.0
+    omega = 2.0 * np.pi / (N * dt)
+    ts = np.arange(N + 1) * dt
+    refs = np.zeros((N + 1, 13))
+    refs[:, 0] = 3.0 * np.cos(omega * ts)
+    refs[:, 1] = 3.0 * np.sin(omega * ts) * np.cos(omega * ts)
+    refs[:, 2] = 2.0
+    refs[:, 3] = 1.0
+    obj = tt.quadratic_objective(_t(Q), _t(0.01 * np.eye(4)), _t(Q), refs[-1], dt,
+                                 reference_states=_t(refs), **KW)
+    p = tt.problem(model, obj, refs[0], N, dt, **KW).add_constraint(
+        "ControlConstraint", tt.control_constraint(np.zeros(4), np.full(4, 4.0), **KW))
+    sol = tt.solve(p, "IPDDP", tt.CDDPOptions(
+        max_iterations=300, tolerance=1e-6, acceptable_tolerance=1e-5,
+        regularization=RegularizationOptions(initial_value=1e-4)),
+        U0=_t(np.full((N, 4), mass * 9.81 / 4.0)))
+    X = sol.state_trajectory.numpy()
+    assert np.linalg.norm(X[-1, :3] - refs[-1, :3]) < 0.5, sol.status_messages()
+    assert np.abs(np.linalg.norm(X[:, 3:7], axis=1) - 1.0).max() < 0.1
+    assert np.linalg.norm(X[:, :3] - refs[:, :3], axis=1).mean() < 2.0

@@ -209,9 +209,9 @@ def test_interop_carries_the_model_and_its_parameters(case):
 
 
 def test_interop_names_the_ported_models():
-    with pytest.raises(ValueError, match="CartPole.*HCW.*Pendulum.*Unicycle"):
-        problem_from_arrays("Quadrotor", [], np.eye(13), np.eye(4), np.eye(13), np.zeros(13),
-                            None, None, np.zeros(13), 5, 0.1, "euler", device="cpu",
+    with pytest.raises(ValueError, match="CartPole.*HCW.*Pendulum.*Quadrotor.*Unicycle"):
+        problem_from_arrays("Acrobot", [], np.eye(4), np.eye(2), np.eye(4), np.zeros(4),
+                            None, None, np.zeros(4), 5, 0.1, "euler", device="cpu",
                             dtype=torch.float64)
 
 
