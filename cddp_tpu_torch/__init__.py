@@ -8,8 +8,10 @@ over the unicycle, the pendulum, the cart-pole, the
 Hill-Clohessy-Wiltshire spacecraft, the forklift, the discrete car, any
 discrete linear system (``LTISystem``, ``lti_system``) and the quadrotor
 with rotor-force or body-rate controls (``Quadrotor``, ``quadrotor``,
-``QuadrotorRate``; all in ``cddp_tpu_torch.models``, the attitude
-conversions in ``cddp_tpu_torch.utils.rotations``), as the JAX package solves them, towards a goal or along a per-step reference
+``QuadrotorRate``), the rigid-body attitude trio under body torques
+(``EulerAttitude``, ``QuaternionAttitude``, ``MrpAttitude`` and their
+factories; all in ``cddp_tpu_torch.models``, the attitude conversions in
+``cddp_tpu_torch.utils.rotations``), as the JAX package solves them, towards a goal or along a per-step reference
 trajectory (``reference_states``); and batch-first receding-horizon MPC
 (``make_mpc_controller``), warm-started from a trajectory or from the
 interior-point solvers' state (``IPDDPSolverState``,
@@ -57,8 +59,9 @@ from cddp_tpu_torch.constraints.terminal import (
     terminal_inequality_constraint,
 )
 from cddp_tpu_torch.costs.objective import QuadraticObjective, quadratic_objective
-from cddp_tpu_torch.models import (Car, Forklift, LTISystem, Quadrotor, QuadrotorRate,
-                                   lti_system, quadrotor)
+from cddp_tpu_torch.models import (Car, EulerAttitude, Forklift, LTISystem, MrpAttitude,
+                                   Quadrotor, QuadrotorRate, QuaternionAttitude, euler_attitude,
+                                   lti_system, mrp_attitude, quadrotor, quaternion_attitude)
 from cddp_tpu_torch.options import (
     BarrierOptions,
     BarrierStrategy,
@@ -78,6 +81,8 @@ from cddp_tpu_torch.solvers.msipddp import MSIPDDPSolverState
 __all__ = [
     "BallConstraint", "BarrierOptions", "BarrierStrategy", "CDDPOptions", "Car",
     "Forklift", "LTISystem", "lti_system", "Quadrotor", "QuadrotorRate", "quadrotor",
+    "EulerAttitude", "MrpAttitude", "QuaternionAttitude", "euler_attitude", "mrp_attitude",
+    "quaternion_attitude",
     "ControlConstraint", "IPDDPOptions", "IPDDPSolverState", "MSIPDDPSolverState", "LinearConstraint", "LogBarrierOptions",
     "MPCState", "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
     "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",

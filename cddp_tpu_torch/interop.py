@@ -17,8 +17,10 @@ import torch
 from cddp_tpu_torch import devices
 from cddp_tpu_torch.constraints import path, terminal
 from cddp_tpu_torch.costs.objective import QuadraticObjective
-from cddp_tpu_torch.models import (HCW, Car, CartPole, Forklift, LTISystem, Pendulum,
-                                   Quadrotor, QuadrotorRate, Unicycle)
+from cddp_tpu_torch.models import (HCW, Car, CartPole, EulerAttitude, Forklift, LTISystem,
+                                   MrpAttitude, Pendulum, Quadrotor, QuadrotorRate,
+                                   QuaternionAttitude, Unicycle)
+from cddp_tpu_torch.models.attitude import _RigidBody
 from cddp_tpu_torch.options import CDDPOptions
 from cddp_tpu_torch.problem import Problem
 
@@ -30,7 +32,8 @@ from cddp_tpu_torch.problem import Problem
 # gravity, damping), HCW's (mean_motion, mass), the car's (wheelbase; its
 # timestep is the problem's), the forklift's (wheelbase, steer_sign, -1
 # rear-steered), the quadrotor's (mass, arm_length, gravity, inertia (9,
-# row-major)), QuadrotorRate's (mass, gravity); the unicycle has none. An
+# row-major)), QuadrotorRate's (mass, gravity), the attitude trio's
+# inertia (9, row-major); the unicycle has none. An
 # LTISystem, which has no lane, takes its discrete A (nx, nx) and B (nx,
 # nu) flattened and concatenated.
 _MODELS = {
@@ -47,6 +50,9 @@ _MODELS = {
     "QuadrotorRate": (lambda p, dt, nx, nu: QuadrotorRate(mass=p[0], gravity=p[1],
                                                           device="cpu"),
                       lambda nx, nu: 2),
+    **{cls.__name__: (lambda p, dt, nx, nu, cls=cls: cls(np.reshape(p, (3, 3)), device="cpu"),
+                      lambda nx, nu: 9)
+       for cls in (EulerAttitude, QuaternionAttitude, MrpAttitude)},
     "LTISystem": (lambda p, dt, nx, nu: LTISystem(
         torch.tensor(p[:nx * nx], dtype=torch.float64).reshape(nx, nx),
         torch.tensor(p[nx * nx:], dtype=torch.float64).reshape(nx, nu), dt),
@@ -117,7 +123,7 @@ def problem_from_arrays(model_name: str, model_params, Q, R, Qf, goal, lower,
 
     items.update(build(_PATH, constraints))
     model = make_model(params, float(timestep), nx, nu)
-    if isinstance(model, (LTISystem, Quadrotor, QuadrotorRate)):
+    if isinstance(model, (LTISystem, Quadrotor, QuadrotorRate, _RigidBody)):
         # A and B, the inertia: tensors the solve reads on its device.
         model = model.to(device)
     model.integration_type = integrator

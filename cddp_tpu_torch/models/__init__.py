@@ -1,3 +1,5 @@
+from cddp_tpu_torch.models.attitude import (EulerAttitude, MrpAttitude, QuaternionAttitude,
+                                            euler_attitude, mrp_attitude, quaternion_attitude)
 from cddp_tpu_torch.models.base import DynamicalSystem, rollout
 from cddp_tpu_torch.models.car import Car
 from cddp_tpu_torch.models.cartpole import CartPole
@@ -9,5 +11,7 @@ from cddp_tpu_torch.models.quadrotor_rate import QuadrotorRate
 from cddp_tpu_torch.models.spacecraft import HCW
 from cddp_tpu_torch.models.unicycle import Unicycle
 
-__all__ = ["Car", "CartPole", "DynamicalSystem", "Forklift", "HCW", "LTISystem", "Pendulum",
-           "Quadrotor", "QuadrotorRate", "Unicycle", "lti_system", "quadrotor", "rollout"]
+__all__ = ["Car", "CartPole", "DynamicalSystem", "EulerAttitude", "Forklift", "HCW", "LTISystem",
+           "MrpAttitude", "Pendulum", "Quadrotor", "QuadrotorRate", "QuaternionAttitude",
+           "Unicycle", "euler_attitude", "lti_system", "mrp_attitude", "quadrotor",
+           "quaternion_attitude", "rollout"]

@@ -94,8 +94,8 @@ int launch_forward_rollout(const T* Xb, const T* Ub, const T* k, const T* K,
                 (cddp::forward_rollout_kernel<scalar_t, cddp::STRUCT, TRACK>),           \
                 cddp::kThreads, 0)
 
-// The models of rollout.ROLLOUT_MODELS (goal form) and rollout.CLDDP_MODELS
-// (tracking form).
+// The models of rollout.ROLLOUT_MODELS (goal form) and
+// rollout.CLDDP_TRACK_MODELS (tracking form).
 CDDP_FORWARD_ROLLOUT(unicycle, Unicycle, false, )
 CDDP_FORWARD_ROLLOUT(unicycle, Unicycle, true, _track)
 CDDP_FORWARD_ROLLOUT(pendulum, Pendulum, false, )
@@ -105,3 +105,6 @@ CDDP_FORWARD_ROLLOUT(cartpole, CartPole, true, _track)
 CDDP_FORWARD_ROLLOUT(car, Car, false, )
 CDDP_FORWARD_ROLLOUT(quadrotor, Quadrotor, false, )
 CDDP_FORWARD_ROLLOUT(quadrotor_rate, QuadrotorRate, false, )
+CDDP_FORWARD_ROLLOUT(euler_attitude, EulerAttitude, false, )
+CDDP_FORWARD_ROLLOUT(quaternion_attitude, QuaternionAttitude, false, )
+CDDP_FORWARD_ROLLOUT(mrp_attitude, MrpAttitude, false, )

@@ -137,7 +137,8 @@ int launch_ip_forward(const T* const* in, T* const* out, const T* refs, const do
 // (10) on the unicycle, the control box on the pendulum (2), on HCW (6) and
 // on the quadrotor (8: its four rotor forces), and in the goal form only the
 // car's control box (4, its exact map in place of the integrator step,
-// ip_rollout.py:341-344) and QuadrotorRate's thrust and rate box (8);
+// ip_rollout.py:341-344), QuadrotorRate's thrust and rate box (8) and the
+// attitude trio's torque box (6);
 // the goal form and (TRACK true, suffix _track) the tracking form, whose
 // `refs` is the shared (N, nx) reference (NULL and unread in the goal form).
 #define CDDP_IP_FORWARD(MODEL, STRUCT, M, TRACK, SUFFIX)                               \
@@ -176,3 +177,6 @@ CDDP_IP_FORWARD(car, Car, 4, false, )
 CDDP_IP_FORWARD(quadrotor, Quadrotor, 8, false, )
 CDDP_IP_FORWARD(quadrotor, Quadrotor, 8, true, _track)
 CDDP_IP_FORWARD(quadrotor_rate, QuadrotorRate, 8, false, )
+CDDP_IP_FORWARD(euler_attitude, EulerAttitude, 6, false, )
+CDDP_IP_FORWARD(quaternion_attitude, QuaternionAttitude, 6, false, )
+CDDP_IP_FORWARD(mrp_attitude, MrpAttitude, 6, false, )

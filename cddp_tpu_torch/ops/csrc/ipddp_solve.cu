@@ -5,7 +5,7 @@
 // On the unicycle a control box (m4), a state box (m6), both (m10), and a
 // control box with a ball sorted before it (m5_ball0) or after it
 // (m5_ball4), in the goal form and (suffix _track) the tracking form; on the
-// pendulum its control box (m2) in both forms (mega_ipddp.BOX_ROWS).
+// pendulum its control box (m2) in both forms (mega_ipddp.IP_BOX_ROWS).
 CDDP_IPDDP_SOLVE(unicycle, Unicycle, 4, -1, false, 0, 0, m4)
 CDDP_IPDDP_SOLVE(unicycle, Unicycle, 6, -1, false, 0, 0, m6)
 CDDP_IPDDP_SOLVE(unicycle, Unicycle, 10, -1, false, 0, 0, m10)

@@ -1345,8 +1345,22 @@ struct IpSolver {
   }
 };
 
-template <typename T, class Mdl, int M, int BALL, bool TRACK, int MT, int PT>
-__global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_solve_kernel(
+// Threads of a block: kSolveThreads, halved while the block's two stages of
+// the step's values outgrow its shared memory (232,448 bytes): the
+// quaternion attitude's m = 6 in float64 stages 115 values a thread, 235,520
+// bytes at 128 threads, and runs in blocks of 64.
+template <typename T, class Mdl, int M, int BALL>
+constexpr int ipddp_solve_threads() {
+  int threads = kSolveThreads;
+  while (threads > 32 &&
+         stage_bytes<T>(IpSolver<T, Mdl, M, BALL, false>::kValues, threads) > 232448)
+    threads /= 2;
+  return threads;
+}
+
+template <typename T, class Mdl, int M, int BALL, bool TRACK, int MT, int PT,
+          int TH = ipddp_solve_threads<T, Mdl, M, BALL>()>
+__global__ void __launch_bounds__(TH, solve_min_blocks<T>()) ipddp_solve_kernel(
     T* __restrict__ X, T* __restrict__ U, T* __restrict__ Y, T* __restrict__ S,
     T* __restrict__ G, T* __restrict__ L, T* __restrict__ k, T* __restrict__ K,
     T* __restrict__ kl, T* __restrict__ Kl, T* __restrict__ stats, const T* __restrict__ refs,
@@ -1544,7 +1558,8 @@ __global__ void __launch_bounds__(kSolveThreads, solve_min_blocks<T>()) ipddp_so
 
 template <typename T, class Mdl, int M, int BALL>
 constexpr int ipddp_solve_smem() {
-  return stage_bytes<T>(IpSolver<T, Mdl, M, BALL, false>::kValues, kSolveThreads);
+  return stage_bytes<T>(IpSolver<T, Mdl, M, BALL, false>::kValues,
+                        ipddp_solve_threads<T, Mdl, M, BALL>());
 }
 
 template <typename T, class Mdl, int M, int BALL, bool TRACK, int MT, int PT>
@@ -1562,13 +1577,14 @@ int launch_ipddp_solve(T* const* buf, const T* refs, const double* consts, const
   if constexpr (MT > 0 || PT > 0)
     term = {term_c, term_state[0], term_state[1], term_state[2], term_state[3], T(cfg[27]),
             T(cfg[28])};
-  const int blocks = (B + kSolveThreads - 1) / kSolveThreads;
+  constexpr int TH = ipddp_solve_threads<T, Mdl, M, BALL>();
+  const int blocks = (B + TH - 1) / TH;
   const int smem = ipddp_solve_smem<T, Mdl, M, BALL>();
   const cudaError_t err = cudaFuncSetAttribute(
-      (const void*)ipddp_solve_kernel<T, Mdl, M, BALL, TRACK, MT, PT>,
+      (const void*)ipddp_solve_kernel<T, Mdl, M, BALL, TRACK, MT, PT, TH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ipddp_solve_kernel<T, Mdl, M, BALL, TRACK, MT, PT><<<blocks, kSolveThreads, smem, stream>>>(
+  ipddp_solve_kernel<T, Mdl, M, BALL, TRACK, MT, PT, TH><<<blocks, TH, smem, stream>>>(
       buf[0], buf[1], buf[2], buf[3], buf[4], buf[5], buf[6], buf[7], buf[8], buf[9],
       buf[10], refs, c, r, bl, sc, N, B, term);
   return static_cast<int>(cudaGetLastError());
@@ -1601,6 +1617,9 @@ int launch_ipddp_solve(T* const* buf, const T* refs, const double* consts, const
         buf, refs, consts, rows, ball, cfg, alphas, ints, term_c, term_state,          \
         static_cast<cudaStream_t>(stream));                                            \
   }                                                                                    \
+  namespace cddp_ipddp_solve_##MODEL##_##NAME {                                        \
+  constexpr int TH = cddp::ipddp_solve_threads<scalar_t, cddp::STRUCT, M, BALL>();      \
   CDDP_REGISTER(cddp_ipddp_solve_##MODEL##_##NAME,                                     \
-                (cddp::ipddp_solve_kernel<scalar_t, cddp::STRUCT, M, BALL, TRACK, MT, PT>), \
-                cddp::kSolveThreads, (cddp::ipddp_solve_smem<scalar_t, cddp::STRUCT, M, BALL>()))
+                (cddp::ipddp_solve_kernel<scalar_t, cddp::STRUCT, M, BALL, TRACK, MT, PT, TH>), \
+                TH, (cddp::ipddp_solve_smem<scalar_t, cddp::STRUCT, M, BALL>()))           \
+  }

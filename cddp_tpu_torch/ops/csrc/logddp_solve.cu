@@ -571,7 +571,8 @@ int launch_logddp_solve(T* const* buf, const T* refs, const double* consts, cons
 }  // namespace cddp
 
 // m (mega_ipddp.BOX_ROWS): a control box (4), a state box (6) or both
-// (10) on the unicycle, the control box (2) on the pendulum; the goal form
+// (10) on the unicycle, the control box (2) on the pendulum, the torque box
+// (6) on the attitude trio (goal form only); the goal form
 // and (TRACK true, suffix _track) the tracking form, whose `refs` is the
 // shared (N, nx) reference (NULL and unread in the goal form).
 #define CDDP_LOGDDP_SOLVE(MODEL, STRUCT, M, TRACK, SUFFIX)                             \
@@ -598,6 +599,10 @@ CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 6, true, _track)
 CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 10, true, _track)
 CDDP_LOGDDP_SOLVE(pendulum, Pendulum, 2, false, )
 CDDP_LOGDDP_SOLVE(pendulum, Pendulum, 2, true, _track)
+CDDP_LOGDDP_SOLVE(euler_attitude, EulerAttitude, 6, false, )
+CDDP_LOGDDP_SOLVE(quaternion_attitude, QuaternionAttitude, 6, false, )
+CDDP_LOGDDP_SOLVE(mrp_attitude, MrpAttitude, 6, false, )
 static_assert(cddp::logddp_solve_smem<double, cddp::Unicycle>() <= 232448 &&
-                  cddp::logddp_solve_smem<double, cddp::Pendulum>() <= 232448,
+                  cddp::logddp_solve_smem<double, cddp::Pendulum>() <= 232448 &&
+                  cddp::logddp_solve_smem<double, cddp::QuaternionAttitude>() <= 232448,
               "a block's staging must fit its shared memory");

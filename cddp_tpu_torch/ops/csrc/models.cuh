@@ -387,6 +387,294 @@ struct QuadrotorRate {
   }
 };
 
+// The rigid-body attitude trio (cddp_tpu_torch/models/attitude.py;
+// attitude.py:24-89 of the JAX package), nu = 3 body torques. p = (I (9,
+// row-major), the JAX lane vector (rollout.py:547-553); LU (9, row-major) and
+// pivots (3, 0-based): the plain model's torch.linalg.lu_factor of I,
+// passed precomputed (_RigidBody.lu_factors)). The JAX lane inverts I by its
+// adjugate (rollout.py:220-242), which rounds apart from the plain model's
+// LU solve; here the plain model's substitution is repeated term by term on
+// its own factors, and every sum of products is written in its order and
+// never contracted (mul_rn, add_rn, sub_rn), so that f rounds like the
+// plain model in both types (Euler's transcendental functions aside).
+// fxfu is the analytic continuous Jacobian (the whole solves' Euler
+// linearization A = I + dt Fx, B = dt Fu), which the plain model takes by
+// forward-mode AD: held to it within rounding, not bit for bit.
+namespace rigid {
+
+template <typename T>
+__device__ __forceinline__ T dot3(T a0, T b0, T a1, T b1, T a2, T b2) {
+  return add_rn(add_rn(mul_rn(a0, b0), mul_rn(a1, b1)), mul_rn(a2, b2));
+}
+
+// x with I x = b by the plain model's LU factors and 0-based pivots: the row
+// swaps in order, the unit lower factor forward, U backward.
+template <typename T>
+__device__ __forceinline__ void lu_substitute(const T* p, const T (&b_in)[3], T (&x)[3]) {
+  const T* LU = p + 9;
+  T b[3] = {b_in[0], b_in[1], b_in[2]};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int j = static_cast<int>(p[18 + i]);
+#pragma unroll
+    for (int k = i + 1; k < 3; ++k) {
+      if (j == k) {
+        const T t = b[i];
+        b[i] = b[k];
+        b[k] = t;
+      }
+    }
+  }
+  const T y1 = sub_rn(b[1], mul_rn(LU[3], b[0]));
+  const T y2 = sub_rn(sub_rn(b[2], mul_rn(LU[6], b[0])), mul_rn(LU[7], y1));
+  x[2] = y2 / LU[8];
+  x[1] = sub_rn(y1, mul_rn(LU[5], x[2])) / LU[4];
+  x[0] = sub_rn(sub_rn(b[0], mul_rn(LU[1], x[1])), mul_rn(LU[2], x[2])) / LU[0];
+}
+
+// d omega / dt = I^-1 (tau - omega x (I omega)).
+template <typename T>
+__device__ __forceinline__ void omega_dot(const T* p, T wx, T wy, T wz, const T (&u)[3],
+                                          T (&out)[3]) {
+  T Iw[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) Iw[i] = dot3(p[3 * i], wx, p[3 * i + 1], wy, p[3 * i + 2], wz);
+  const T b[3] = {sub_rn(u[0], sub_rn(mul_rn(wy, Iw[2]), mul_rn(wz, Iw[1]))),
+                  sub_rn(u[1], sub_rn(mul_rn(wz, Iw[0]), mul_rn(wx, Iw[2]))),
+                  sub_rn(u[2], sub_rn(mul_rn(wx, Iw[1]), mul_rn(wy, Iw[0])))};
+  lu_substitute(p, b, out);
+}
+
+// The rotational rows of the Jacobian: d(omega_dot)/d omega into Fx[W + i][W
+// + j] and d(omega_dot)/d tau = I^-1 into Fu[W + i][j], where W is the
+// first rate's index; column j of the first is I^-1 of -(e_j x I omega +
+// omega x I e_j).
+template <int NX, typename T>
+__device__ __forceinline__ void omega_jacobians(const T* p, int W, T wx, T wy, T wz,
+                                                T (&Fx)[NX][NX], T (&Fu)[NX][3]) {
+  const T w[3] = {wx, wy, wz};
+  T Iw[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) Iw[i] = p[3 * i] * wx + p[3 * i + 1] * wy + p[3 * i + 2] * wz;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    T ej[3] = {T(0), T(0), T(0)};
+    ej[j] = T(1);
+    const T a[3] = {p[j], p[3 + j], p[6 + j]};  // I e_j
+    const T m[3] = {-((ej[1] * Iw[2] - ej[2] * Iw[1]) + (w[1] * a[2] - w[2] * a[1])),
+                    -((ej[2] * Iw[0] - ej[0] * Iw[2]) + (w[2] * a[0] - w[0] * a[2])),
+                    -((ej[0] * Iw[1] - ej[1] * Iw[0]) + (w[0] * a[1] - w[1] * a[0]))};
+    T col[3], inv[3];
+    lu_substitute(p, m, col);
+    lu_substitute(p, ej, inv);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      Fx[W + i][W + j] = col[i];
+      Fu[W + i][j] = inv[i];
+    }
+  }
+}
+
+template <int NX, typename T>
+__device__ __forceinline__ void zero(T (&Fx)[NX][NX], T (&Fu)[NX][3]) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Fx[i][j] = T(0);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) Fu[i][j] = T(0);
+  }
+}
+
+}  // namespace rigid
+
+// ZYX Euler angles and body rates, x = (psi, theta, phi, omega): the JAX
+// model's guard on cos(theta) (sign(c) 1e-9 + [c == 0] 1e-9 where |c| <
+// 1e-9); tan(theta) as the model takes it (the JAX lane's sin/cos is
+// Mosaic's want of a tan).
+struct EulerAttitude {
+  static constexpr int NX = 6;
+  static constexpr int NU = 3;
+  static constexpr int NP = 21;
+
+  template <typename T>
+  __device__ static T c_safe(T c) {
+    if (dabs(c) < T(1e-9)) {
+      const T sign = c > T(0) ? T(1) : (c < T(0) ? T(-1) : T(0));
+      return sign * T(1e-9) + (c == T(0) ? T(1) : T(0)) * T(1e-9);
+    }
+    return c;
+  }
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    const T wx = x[3], wy = x[4], wz = x[5];
+    const T cph = dcos(x[2]), sph = dsin(x[2]);
+    const T tth = dtan(x[1]), cs = c_safe(dcos(x[1]));
+    dx[0] = add_rn(mul_rn(sph / cs, wy), mul_rn(cph / cs, wz));
+    dx[1] = sub_rn(mul_rn(cph, wy), mul_rn(sph, wz));
+    dx[2] = add_rn(add_rn(wx, mul_rn(mul_rn(sph, tth), wy)), mul_rn(mul_rn(cph, tth), wz));
+    T wd[3];
+    rigid::omega_dot(p, wx, wy, wz, u, wd);
+    dx[3] = wd[0];
+    dx[4] = wd[1];
+    dx[5] = wd[2];
+  }
+
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T wx = x[3], wy = x[4], wz = x[5];
+    const T cph = dcos(x[2]), sph = dsin(x[2]);
+    const T cth = dcos(x[1]), tth = dtan(x[1]);
+    const T cs = c_safe(cth);
+    const bool guarded = dabs(cth) < T(1e-9);
+    rigid::zero<NX>(Fx, Fu);
+    const T a = sph * wy + cph * wz, d = cph * wy - sph * wz;
+    Fx[0][1] = guarded ? T(0) : a * dsin(x[1]) / (cs * cs);
+    Fx[0][2] = d / cs;
+    Fx[0][4] = sph / cs;
+    Fx[0][5] = cph / cs;
+    Fx[1][2] = -sph * wy - cph * wz;
+    Fx[1][4] = cph;
+    Fx[1][5] = -sph;
+    Fx[2][1] = a * (T(1) + tth * tth);
+    Fx[2][2] = d * tth;
+    Fx[2][3] = T(1);
+    Fx[2][4] = sph * tth;
+    Fx[2][5] = cph * tth;
+    rigid::omega_jacobians<NX>(p, 3, wx, wy, wz, Fx, Fu);
+  }
+};
+
+// Quaternion [w, x, y, z] and body rates: q divided by its norm (the
+// clamped norm, as the model's torch.clamp), (1, 0, 0, 0) at a norm of 1e-9
+// or less; q_dot = 0.5 Omega(omega) q.
+struct QuaternionAttitude {
+  static constexpr int NX = 7;
+  static constexpr int NU = 3;
+  static constexpr int NP = 21;
+
+  // The normalized quaternion; returns the norm, 0 where the guard holds.
+  template <typename T>
+  __device__ static T unit(const T (&x)[NX], T (&q)[4]) {
+    const T n = dsqrt(add_rn(add_rn(add_rn(mul_rn(x[0], x[0]), mul_rn(x[1], x[1])),
+                                    mul_rn(x[2], x[2])), mul_rn(x[3], x[3])));
+    const bool safe = n > T(1e-9);
+    const T den = safe ? n : T(1e-9);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = safe ? x[i] / den : (i == 0 ? T(1) : T(0));
+    return safe ? n : T(0);
+  }
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    const T wx = x[4], wy = x[5], wz = x[6];
+    T q[4];
+    unit(x, q);
+    dx[0] = T(0.5) * sub_rn(sub_rn(mul_rn(-wx, q[1]), mul_rn(wy, q[2])), mul_rn(wz, q[3]));
+    dx[1] = T(0.5) * sub_rn(add_rn(mul_rn(wx, q[0]), mul_rn(wz, q[2])), mul_rn(wy, q[3]));
+    dx[2] = T(0.5) * add_rn(sub_rn(mul_rn(wy, q[0]), mul_rn(wz, q[1])), mul_rn(wx, q[3]));
+    dx[3] = T(0.5) * sub_rn(add_rn(mul_rn(wz, q[0]), mul_rn(wy, q[1])), mul_rn(wx, q[2]));
+    T wd[3];
+    rigid::omega_dot(p, wx, wy, wz, u, wd);
+    dx[4] = wd[0];
+    dx[5] = wd[1];
+    dx[6] = wd[2];
+  }
+
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T wx = x[4], wy = x[5], wz = x[6];
+    T q[4];
+    const T n = unit(x, q);
+    rigid::zero<NX>(Fx, Fu);
+    // Omega(omega), q_dot = 0.5 Omega q.
+    const T Om[4][4] = {{T(0), -wx, -wy, -wz}, {wx, T(0), wz, -wy},
+                        {wy, -wz, T(0), wx}, {wz, wy, -wx, T(0)}};
+    if (n > T(0)) {
+      // d q_dot / d q_j = (0.5 Omega e_j - q_dot q_j) / n.
+      T qd[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qd[i] = T(0.5) * (Om[i][0] * q[0] + Om[i][1] * q[1] + Om[i][2] * q[2] + Om[i][3] * q[3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Fx[i][j] = (T(0.5) * Om[i][j] - qd[i] * q[j]) / n;
+    }
+    // d q_dot / d omega.
+    Fx[0][4] = T(-0.5) * q[1];
+    Fx[0][5] = T(-0.5) * q[2];
+    Fx[0][6] = T(-0.5) * q[3];
+    Fx[1][4] = T(0.5) * q[0];
+    Fx[1][5] = T(-0.5) * q[3];
+    Fx[1][6] = T(0.5) * q[2];
+    Fx[2][4] = T(0.5) * q[3];
+    Fx[2][5] = T(0.5) * q[0];
+    Fx[2][6] = T(-0.5) * q[1];
+    Fx[3][4] = T(-0.5) * q[2];
+    Fx[3][5] = T(0.5) * q[1];
+    Fx[3][6] = T(0.5) * q[0];
+    rigid::omega_jacobians<NX>(p, 4, wx, wy, wz, Fx, Fu);
+  }
+};
+
+// Modified Rodrigues parameters and body rates: sigma_dot = 0.25 B(s) omega,
+// B = (1 - s's) I + 2 skew(s) + 2 s s'.
+struct MrpAttitude {
+  static constexpr int NX = 6;
+  static constexpr int NU = 3;
+  static constexpr int NP = 21;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    const T s0 = x[0], s1 = x[1], s2 = x[2], wx = x[3], wy = x[4], wz = x[5];
+    const T c = T(1) - add_rn(add_rn(mul_rn(s0, s0), mul_rn(s1, s1)), mul_rn(s2, s2));
+    const T two = T(2);
+    const T B[3][3] = {
+        {add_rn(c, two * mul_rn(s0, s0)), add_rn(-two * s2, two * mul_rn(s0, s1)),
+         add_rn(two * s1, two * mul_rn(s0, s2))},
+        {add_rn(two * s2, two * mul_rn(s1, s0)), add_rn(c, two * mul_rn(s1, s1)),
+         add_rn(-two * s0, two * mul_rn(s1, s2))},
+        {add_rn(-two * s1, two * mul_rn(s2, s0)), add_rn(two * s0, two * mul_rn(s2, s1)),
+         add_rn(c, two * mul_rn(s2, s2))}};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) dx[i] = T(0.25) * rigid::dot3(B[i][0], wx, B[i][1], wy, B[i][2], wz);
+    T wd[3];
+    rigid::omega_dot(p, wx, wy, wz, u, wd);
+    dx[3] = wd[0];
+    dx[4] = wd[1];
+    dx[5] = wd[2];
+  }
+
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T s[3] = {x[0], x[1], x[2]}, w[3] = {x[3], x[4], x[5]};
+    const T ss = s[0] * s[0] + s[1] * s[1] + s[2] * s[2];
+    const T sw = s[0] * w[0] + s[1] * w[1] + s[2] * w[2];
+    const T sk[3][3] = {{T(0), -s[2], s[1]}, {s[2], T(0), -s[0]}, {-s[1], s[0], T(0)}};
+    const T wk[3][3] = {{T(0), -w[2], w[1]}, {w[2], T(0), -w[0]}, {-w[1], w[0], T(0)}};
+    rigid::zero<NX>(Fx, Fu);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        // d sigma_dot_i / d omega_j = 0.25 B_ij; d / d s_j = 0.25 (-2 s_j w_i
+        // + 2 (e_j x w)_i + 2 [i == j] s'w + 2 s_i w_j), (e_j x w)_i =
+        // -skew(w)_ij.
+        const T b = (i == j ? T(1) - ss : T(0)) + T(2) * sk[i][j] + T(2) * s[i] * s[j];
+        Fx[i][3 + j] = T(0.25) * b;
+        Fx[i][j] = T(0.25) * (T(-2) * s[j] * w[i] - T(2) * wk[i][j]
+                              + (i == j ? T(2) * sw : T(0)) + T(2) * s[i] * w[j]);
+      }
+    }
+    rigid::omega_jacobians<NX>(p, 3, w[0], w[1], w[2], Fx, Fu);
+  }
+};
+
 enum Integrator { kEuler = 0, kHeun = 1, kRk3 = 2, kRk4 = 3 };
 
 // Whether a model struct is discrete (declares DISCRETE true); a struct

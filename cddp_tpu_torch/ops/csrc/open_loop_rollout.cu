@@ -84,3 +84,6 @@ CDDP_OPEN_LOOP_ROLLOUT(car, Car)
 CDDP_OPEN_LOOP_ROLLOUT(forklift, Forklift)
 CDDP_OPEN_LOOP_ROLLOUT(quadrotor, Quadrotor)
 CDDP_OPEN_LOOP_ROLLOUT(quadrotor_rate, QuadrotorRate)
+CDDP_OPEN_LOOP_ROLLOUT(euler_attitude, EulerAttitude)
+CDDP_OPEN_LOOP_ROLLOUT(quaternion_attitude, QuaternionAttitude)
+CDDP_OPEN_LOOP_ROLLOUT(mrp_attitude, MrpAttitude)

@@ -156,12 +156,16 @@ int cddp_kernel_attributes(const char* name, int* out) {
 
 // (nx, nu) of riccati.KERNEL_SHAPES: the unicycle (3, 2), the pendulum (2,
 // 1), the cart-pole (4, 1), the car and the default LTISystem (4, 2), the
-// quadrotor (13, 4) and QuadrotorRate (10, 4). At nu = 4 the BoxQP walks 81
-// active sets, and at nx = 13 the step's operands (A, lxx, Vxx: 3 x 169
-// values) outgrow the registers: the kernel spills to local memory.
+// quadrotor (13, 4) and QuadrotorRate (10, 4), the attitude trio (6, 3:
+// Euler angles and MRPs; 7, 3: the quaternion). From nu = 3 the BoxQP walks
+// its 27 or 81 active sets in a runtime loop, and at nx = 13 the step's
+// operands (A, lxx, Vxx: 3 x 169 values) outgrow the registers: the kernel
+// spills to local memory.
 CDDP_RICCATI_BACKWARD(3, 2)
 CDDP_RICCATI_BACKWARD(2, 1)
 CDDP_RICCATI_BACKWARD(4, 1)
 CDDP_RICCATI_BACKWARD(4, 2)
 CDDP_RICCATI_BACKWARD(13, 4)
 CDDP_RICCATI_BACKWARD(10, 4)
+CDDP_RICCATI_BACKWARD(6, 3)
+CDDP_RICCATI_BACKWARD(7, 3)

@@ -36,6 +36,7 @@ from cddp_tpu_torch.constraints.path import (BallConstraint, ControlConstraint,
                                              StateConstraint)
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+from cddp_tpu_torch.ops.kernels.rollout import ATTITUDE_MODELS
 from cddp_tpu_torch.solvers.base import ftb_ok
 
 _OL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_double)]
@@ -47,11 +48,12 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_double)] * 2
 # in the tracking form the unicycle's control box, state box or both, the
 # pendulum's control box, HCW's (the rendezvous fleet's per-pass trials)
 # and the quadrotor's rotor box (the figure-8); in the goal form those and
-# the control boxes of the car and QuadrotorRate. The
+# the control boxes of the car, QuadrotorRate and the attitude trio. The
 # open-loop rollout (4) takes every registered model; the whole solves'
 # box tables are mega_ipddp.BOX_ROWS.
 TRACK_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,), "hcw": (6,), "quadrotor": (8,)}
-KERNEL_ROWS = {**TRACK_ROWS, "car": (4,), "quadrotor_rate": (8,)}
+KERNEL_ROWS = {**TRACK_ROWS, "car": (4,), "quadrotor_rate": (8,),
+               **{m: (6,) for m in ATTITUDE_MODELS}}
 
 
 def _mv(M, v):

@@ -50,11 +50,12 @@ EPS_SLACK = 1e-10
 # per-step Jacobians and folded lxx the kernel reads materialised); the
 # pendulum with its control box; the car with its control box (4x2, m = 4);
 # the quadrotor (13x4) and QuadrotorRate (10x4) with their rotor or thrust
-# and rate boxes (m = 8).
+# and rate boxes (m = 8); the attitude trio with its torque box (6x3 and
+# 7x3, m = 6).
 # Never at m = 0: a problem without path constraints runs the plain
 # recursion, as the JAX gate requires m > 0 (ipddp.py:547).
 KERNEL_SHAPES = ((3, 2, 4), (3, 2, 5), (3, 2, 6), (3, 2, 10), (2, 1, 2), (4, 2, 4),
-                 (13, 4, 8), (10, 4, 8))
+                 (13, 4, 8), (10, 4, 8), (6, 3, 6), (7, 3, 6))
 
 
 def dispatch_name(nx: int, nu: int, m: int) -> str:

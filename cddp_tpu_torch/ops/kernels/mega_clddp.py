@@ -39,7 +39,9 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_clddp.py:821-865 of the JAX package,
     without its TPU scratch-memory gate): a registered model with an explicit
     integrator the kernel is instantiated for (``rollout.CLDDP_MODELS``;
-    never a discrete model, mega_clddp.py:843), the
+    never a discrete model, mega_clddp.py:843) at a horizon it takes
+    (``rollout.whole_horizon_ok``: the attitude trio's follows the JAX
+    gate's), the
     quadratic objective (the goal or a tracked ``reference_states``,
     mega_clddp.py:825,884), a control box with the enum BoxQP, and none of
     the driver features the kernel does not model."""
@@ -59,6 +61,7 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
         # update_factor <= 1 never reaches the regularization limit, so the
         # retry loop would have no bound.
         and options.regularization.update_factor > 1.0
+        and rollout_ops.whole_horizon_ok("clddp_solve", lane, problem.horizon)
     )
 
 

@@ -84,8 +84,18 @@ TERMINAL_LAYOUTS = {"unicycle": {"m4": ((1, 0), (2, 0), (0, 3), (1, 3))},
 # so JAX runs them per pass (IPDDP) or on the plain drivers, and so does
 # the port. Those gates are not ported, so below about N = 10, where JAX
 # would admit QuadrotorRate, the two packages take different routes to the
-# same result (ROADMAP C).
-BOX_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,)}
+# same result (ROADMAP C). The attitude trio's torque box (m = 6) is in for
+# kernel 9 (its JAX gate admits it at the MPC horizon N = 20), not for
+# kernel 8 (``MS_BOX_ROWS``), whose JAX gate refuses it there (15.6 and
+# 18.2 MiB against 10), and for kernel 7 (``IP_BOX_ROWS``) on the
+# quaternion and MRP models only: on the Euler model's box kernel 7 agreed
+# in float32 with the plain driver on 96.78% of the plain driver's own
+# stable instances (ROADMAP C.12), so the Euler model's IPDDP runs per pass
+# (kernels 4, 6, 5).
+BOX_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,),
+            **{m: (6,) for m in rollout_ops.ATTITUDE_MODELS}}
+IP_BOX_ROWS = {k: v for k, v in BOX_ROWS.items() if k != "euler_attitude"}
+MS_BOX_ROWS = {k: v for k, v in BOX_ROWS.items() if k not in rollout_ops.ATTITUDE_MODELS}
 
 
 def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
@@ -117,23 +127,25 @@ def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
     )
 
 
-def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
+def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str,
+                       table=BOX_ROWS) -> bool:
     """What the MSIPDDP and LogDDP whole-solve kernels (8, 9) require:
     ``driver_eligible``, no terminal constraints (mega_msipddp.py:1281-1284,
     mega_logddp.py:773 of the JAX package) and a box-only path stack of a
-    size they are built for (``BOX_ROWS``)."""
+    size the kernel is built for (``table``: ``BOX_ROWS``, or kernel 8's
+    ``MS_BOX_ROWS``)."""
     lane = rollout_ops.lane_consts(problem)
     rows = ip_rollout.box_rows(problem, PathStacker(problem))
     return (not problem.terminal_constraints
             and lane is not None and rows is not None
-            and rows.m in BOX_ROWS.get(lane.entry.cuda_name, ())
+            and rows.m in table.get(lane.entry.cuda_name, ())
             and driver_eligible(problem, options, lqr_backend))
 
 
 def solve_variant(problem, ball: bool = True):
     """Kernel 7's launcher suffix for the problem's stack, objective and
     terminal constraints, or None when the kernel is not instantiated for
-    them: "m{m}" for a box stack of a size in ``BOX_ROWS``,
+    them: "m{m}" for a box stack of a size in ``IP_BOX_ROWS``,
     "m{m}_ball{row}" for a layout of ``BALL_LAYOUTS``, each followed by
     "_track" for a tracking objective on a layout of ``TRACK_LAYOUTS``, or
     by "_te{p}" and "_ti{mT}" for terminal constraints of a shape in
@@ -147,7 +159,7 @@ def solve_variant(problem, ball: bool = True):
         return None if not ball else _terminal_variant(problem, lane, rows)
     name, balls = lane.entry.cuda_name, rows.ball_rows
     layout = None
-    if not balls and rows.m in BOX_ROWS.get(name, ()):
+    if not balls and rows.m in IP_BOX_ROWS.get(name, ()):
         layout = f"m{rows.m}"
     elif len(balls) == 1 and (rows.m, balls[0]) in BALL_LAYOUTS.get(name, ()):
         layout = f"m{rows.m}_ball{balls[0]}"
@@ -178,8 +190,10 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
     rows, the only equality type ``TerminalStacker`` takes),
     ``driver_eligible``, no IPDDP option the kernel does not model
     (explicit ``slack_soc=True`` or ``use_constraint_hessians=True``: the
-    kernel carries only the "auto" latch), and a filter that fits the
-    kernel's slots."""
+    kernel carries only the "auto" latch), a filter that fits the
+    kernel's slots, and a horizon the kernel takes
+    (``rollout.whole_horizon_ok``: the attitude trio's follows the JAX
+    gate's)."""
     ip = options.ipddp
     return (
         solve_variant(problem) is not None
@@ -188,6 +202,8 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
         and ip.use_constraint_hessians is not True
         and not ip.check_state_stationarity
         and ip.max_filter_size < FILTER_SLOTS
+        and rollout_ops.whole_horizon_ok("ipddp_solve", rollout_ops.lane_consts(problem),
+                                         problem.horizon)
     )
 
 

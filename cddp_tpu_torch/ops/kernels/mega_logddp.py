@@ -40,8 +40,12 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_double)] * 4
 def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_logddp.py:756-789 of the JAX package,
     restricted to the slice and without its TPU scratch-memory gate):
-    ``mega_ipddp.box_solve_eligible`` with LogDDP's ``lqr_backend``."""
-    return box_solve_eligible(problem, options, options.log_barrier.lqr_backend)
+    ``mega_ipddp.box_solve_eligible`` with LogDDP's ``lqr_backend``, at a
+    horizon the kernel takes (``rollout.whole_horizon_ok``: the attitude
+    trio's follows the JAX gate's)."""
+    return (box_solve_eligible(problem, options, options.log_barrier.lqr_backend)
+            and rollout_ops.whole_horizon_ok("logddp_solve", rollout_ops.lane_consts(problem),
+                                             problem.horizon))
 
 
 def _solve_cfg(options: CDDPOptions):

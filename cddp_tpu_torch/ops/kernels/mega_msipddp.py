@@ -32,7 +32,7 @@ from cddp_tpu_torch.constraints.stack import PathStacker, TerminalStacker
 from cddp_tpu_torch.ops.kernels import dispatch_log, ip_rollout
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 from cddp_tpu_torch.ops.kernels.mega_clddp import backward_retry_bound
-from cddp_tpu_torch.ops.kernels.mega_ipddp import box_solve_eligible
+from cddp_tpu_torch.ops.kernels.mega_ipddp import MS_BOX_ROWS, box_solve_eligible
 from cddp_tpu_torch.options import BarrierStrategy, CDDPOptions, line_search_alphas
 from cddp_tpu_torch.solution import Solution
 
@@ -46,15 +46,15 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_msipddp.py:1266-1302 of the JAX
     package, restricted to the slice and without its TPU scratch-memory
     gate): ``mega_ipddp.box_solve_eligible`` with MSIPDDP's
-    ``lqr_backend``, and a rollout type the kernel knows. Terminal
-    constraints are declined."""
+    ``lqr_backend`` on the kernel's own table (``MS_BOX_ROWS``), and a
+    rollout type the kernel knows. Terminal constraints are declined."""
     ms = options.msipddp
     if options.solve_engine == "xla" or rollout_ops.lane_consts(problem) is None:
         return False
     # The JAX predicate builds a TerminalStacker here, so an unsupported
     # terminal type raises its TypeError before the stack is looked at.
     TerminalStacker(problem)
-    return (box_solve_eligible(problem, options, ms.lqr_backend)
+    return (box_solve_eligible(problem, options, ms.lqr_backend, MS_BOX_ROWS)
             and ms.rollout_type in ROLLOUT_TYPES)
 
 

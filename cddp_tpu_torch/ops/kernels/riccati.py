@@ -25,10 +25,11 @@ from cddp_tpu_torch.ops.kernels import dispatch_log
 _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # (nx, nu) the kernel is instantiated for: the unicycle, the pendulum and
 # the cart-pole of the model registry, the car's and the default
-# LTISystem's 4x2, the quadrotor's 13x4 and QuadrotorRate's 10x4. The
+# LTISystem's 4x2, the quadrotor's 13x4, QuadrotorRate's 10x4, and the
+# attitude trio's 6x3 (Euler angles, MRPs) and 7x3 (the quaternion). The
 # kernel reads A and B, so any model of these shapes takes it (the JAX gate
 # is nu <= 4 alone, riccati.py:491-497).
-KERNEL_SHAPES = ((3, 2), (2, 1), (4, 1), (4, 2), (13, 4), (10, 4))
+KERNEL_SHAPES = ((3, 2), (2, 1), (4, 1), (4, 2), (13, 4), (10, 4), (6, 3), (7, 3))
 
 
 def dispatch_name(nx: int, nu: int) -> str:

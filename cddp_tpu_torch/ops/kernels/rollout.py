@@ -20,7 +20,7 @@ that is not in the table is not eligible for the kernels: its problems run
 the plain driver on the tensors' device. A registered model is eligible for
 a kernel only where that kernel is instantiated for it: each kernel's
 module keeps that table (``ROLLOUT_MODELS`` here for kernel 2, ``CLDDP_MODELS``
-for kernel 3 and kernel 2's tracking form,
+for kernel 3, ``CLDDP_TRACK_MODELS`` for the tracking forms of both,
 ``riccati.KERNEL_SHAPES``, ``ip_rollout.KERNEL_ROWS``, ``mega_ipddp.BOX_ROWS``,
 ``ipddp_riccati.KERNEL_SHAPES``, the layouts of ``mega_ipddp``), and a
 problem outside it runs the plain version of that kernel, on the tensors'
@@ -38,8 +38,9 @@ from typing import Callable, List, Optional
 
 import torch
 
-from cddp_tpu_torch.models import (HCW, Car, CartPole, DynamicalSystem, Forklift, Pendulum,
-                                   Quadrotor, QuadrotorRate, Unicycle)
+from cddp_tpu_torch.models import (HCW, Car, CartPole, DynamicalSystem, EulerAttitude,
+                                   Forklift, MrpAttitude, Pendulum, Quadrotor, QuadrotorRate,
+                                   QuaternionAttitude, Unicycle)
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.linalg import true_div
 
@@ -63,11 +64,21 @@ class ModelEntry:
     def kernel_params(self, model: DynamicalSystem) -> List[float]:
         """The struct's parameter vector ``p`` (its NP values): the lane
         vector; the quadrotor's struct reads the plain model's own hoisted
-        inverse inertia after it (models.cuh::Quadrotor)."""
+        inverse inertia after it (models.cuh::Quadrotor), the attitude
+        models' the plain model's LU factors of the inertia and its 0-based
+        pivots (models.cuh::RigidBody)."""
         out = [float(v) for v in self.params(model)]
         if isinstance(model, Quadrotor):
             out += model.inertia_inverse().reshape(-1).tolist()
+        if isinstance(model, (EulerAttitude, QuaternionAttitude, MrpAttitude)):
+            LU, piv = model.lu_factors()
+            out += LU.reshape(-1).tolist() + [float(v - 1) for v in piv.tolist()]
         return out
+
+
+def _inertia(model) -> List[float]:
+    """The inertia's nine entries, row-major."""
+    return model.inertia.reshape(-1).tolist()
 
 
 def _buffers(*names):
@@ -93,19 +104,61 @@ _REGISTRY = {
         + m.inertia.reshape(-1).tolist(),
         cuda_name="quadrotor"),
     QuadrotorRate: ModelEntry(params=_buffers("mass", "gravity"), cuda_name="quadrotor_rate"),
+    # I (9, row-major), the JAX lane's ``_inertia_params`` (rollout.py:547-553).
+    # The struct does not invert I by the lane's adjugate (``_inv3_apply``,
+    # :220-242), which rounds apart from the plain model's LU solve: it reads
+    # the plain model's own LU factors after the lane vector
+    # (``kernel_params``), so that kernel and plain version solve with one
+    # factorization, term by term alike.
+    EulerAttitude: ModelEntry(params=_inertia, cuda_name="euler_attitude"),
+    QuaternionAttitude: ModelEntry(params=_inertia, cuda_name="quaternion_attitude"),
+    MrpAttitude: ModelEntry(params=_inertia, cuda_name="mrp_attitude"),
 }
-# The models the whole CLDDP solve (kernel 3) is instantiated for, in the
-# goal and the tracking form, and the line-search rollout (kernel 2) in its
-# tracking form. The JAX whole solve refuses discrete models
-# (mega_clddp.py:843 of the JAX package).
-CLDDP_MODELS = ("unicycle", "pendulum", "cartpole")
-# The models kernel 2's goal form is instantiated for: kernel 3's, the car
-# and the two quadrotors. Kernel 3 leaves the quadrotors out: the JAX
-# package's whole CLDDP solve refuses them at the horizons their users run
-# (its VMEM estimate at the golden's N = 60: 57.2 MiB against a 12 MiB
-# budget; QuadrotorRate 15.9 MiB already at N = 20), so their CLDDP runs per
-# pass there, and here.
-ROLLOUT_MODELS = CLDDP_MODELS + ("car", "quadrotor", "quadrotor_rate")
+# The attitude trio, which the whole solves of CLDDP, IPDDP and LogDDP
+# (kernels 3, 7, 9) take at their users' MPC horizon (N = 20; the JAX
+# package's gates admit them there), but not MSIPDDP's (kernel 8, whose JAX
+# gate refuses them at N = 20: 15.6 and 18.2 MiB against 10), and not two
+# float32 variants that fork from their plain drivers (ROADMAP C.12): kernel
+# 3 on the MRP model and kernel 7 on the Euler model (``mega_ipddp``).
+ATTITUDE_MODELS = ("euler_attitude", "quaternion_attitude", "mrp_attitude")
+# The models the whole CLDDP solve (kernel 3) and the line-search rollout
+# (kernel 2) are instantiated for in the tracking form, and kernel 3 in the
+# goal form: those and the Euler and quaternion attitude models (no fleet
+# of theirs tracks). The JAX whole solve refuses discrete models
+# (mega_clddp.py:843 of the JAX package). The MRP model is left out: in
+# float32 kernel 3 agreed with the plain driver on 97.41% of the plain
+# driver's own stable instances at N = 20 (ROADMAP C.12), so its CLDDP
+# runs per pass (kernels 1 and 2).
+CLDDP_TRACK_MODELS = ("unicycle", "pendulum", "cartpole")
+CLDDP_MODELS = CLDDP_TRACK_MODELS + ("euler_attitude", "quaternion_attitude")
+# The models kernel 2's goal form is instantiated for: the tracking form's,
+# the attitude trio, the car and the two quadrotors. Kernel 3 leaves the
+# quadrotors out: the JAX package's whole CLDDP solve refuses them at the
+# horizons their users run (its VMEM estimate at the golden's N = 60: 57.2
+# MiB against a 12 MiB budget; QuadrotorRate 15.9 MiB already at N = 20),
+# so their CLDDP runs per pass there, and here.
+ROLLOUT_MODELS = CLDDP_TRACK_MODELS + ATTITUDE_MODELS + ("car", "quadrotor", "quadrotor_rate")
+# The longest horizon at which the JAX package's whole solves of CLDDP,
+# IPDDP and LogDDP (kernels 3, 7, 9) take each attitude model: their
+# scratch-memory gates (mega_clddp.py:864, mega_ipddp.py:2527 and
+# mega_logddp.py:788 of the JAX package; tests/test_torch_attitude.py
+# holds this table to them). Past it JAX runs per pass, and so does the
+# port (``whole_horizon_ok``): in float32, kernel 3 on the quaternion slew
+# at N = 200 forked from its plain driver (97.58% of the plain driver's
+# stable instances, ROADMAP C.12). The other models' whole solves keep no
+# such limit (ROADMAP C.11).
+WHOLE_MAX_HORIZON = {
+    "clddp_solve": {"euler_attitude": 29, "quaternion_attitude": 25},
+    "ipddp_solve": {"quaternion_attitude": 25, "mrp_attitude": 27},
+    "logddp_solve": {"euler_attitude": 34, "quaternion_attitude": 30, "mrp_attitude": 34},
+}
+
+
+def whole_horizon_ok(kernel: str, lane: "LaneConsts", horizon: int) -> bool:
+    """Whether ``WHOLE_MAX_HORIZON`` lets the whole-solve ``kernel`` take the
+    lane's model at ``horizon``."""
+    limit = WHOLE_MAX_HORIZON.get(kernel, {}).get(lane.entry.cuda_name)
+    return limit is None or horizon <= limit
 
 
 def model_entry(model: DynamicalSystem) -> Optional[ModelEntry]:
@@ -149,13 +202,15 @@ class LaneConsts:
 
     @property
     def clddp(self) -> bool:
-        """Whether kernel 3 is instantiated for the model."""
-        return self.entry.cuda_name in CLDDP_MODELS
+        """Whether kernel 3 is instantiated for the model and objective."""
+        return self.entry.cuda_name in (CLDDP_MODELS if self.refs is None
+                                        else CLDDP_TRACK_MODELS)
 
     @property
     def rollout(self) -> bool:
         """Whether kernel 2 is instantiated for the model and objective."""
-        return self.entry.cuda_name in (ROLLOUT_MODELS if self.refs is None else CLDDP_MODELS)
+        return self.entry.cuda_name in (ROLLOUT_MODELS if self.refs is None
+                                        else CLDDP_TRACK_MODELS)
 
     def step(self, x, u, dt):
         """One step of the kernels' model lane (``lane_step``)."""

@@ -191,15 +191,38 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    CLDDP and on the plain MSIPDDP and LogDDP drivers at B_CHECK; (e) the
    QuadrotorRate fleet (N = 50) per pass; the figure-8 anchor
    (tests/test_parity_anchors.py:72-120) held to its bounds; each run with
-   its launch counts, converged share, iterations, ms and peak memory.
+   its launch counts, converged share, iterations, ms and peak memory;
+17. the attitude trio, EulerAttitude, QuaternionAttitude and MrpAttitude
+   (``phase_attitude``, ``attitude_problem``: the MRP slew of
+   examples/spacecraft_examples.py:59-82, nu = 3 torques in a box of +-2):
+   (a) every new instantiation against its plain version: kernels 1, 2
+   and 4 at the slew's N = 200 on ATT_KERNEL_B instances, 5 and 6 at
+   B_CHECK (float64 within 1e-9 + 1e-12 |v| plus twice the plain
+   version's one-ulp move, float32 by ``check``'s rule, kernel 1's tail by
+   its BoxQP ties), the whole solves 3, 7 and 9 (but ATT_LEFT_OUT's) at
+   N = 20 and at the longest horizon each takes (the JAX gates', past
+   which they run per pass) over ATT_WHOLE_ITERS (float64 every status
+   and iteration equal, values within 1e-8; float32 99% of the plain
+   driver's stable instances, those on which it agrees with its own run
+   from x0 one ulp up) and the per-pass CLDDP and IPDDP at N = 200
+   (float64) against their plain drivers, which a second process runs
+   beside the kernels' build; (b) the slew fleets (B = 65,536, N = 200,
+   per pass; MSIPDDP and LogDDP on their plain drivers at B_CHECK), (c)
+   the attitude-MPC fleets (B = 262,144, N = 20: one launch
+   of kernel 3, 7 or 9 each, or per pass where ATT_LEFT_OUT leaves the
+   whole solve out), (d) the example's single slew (per pass at B = 1,
+   held to its float64 run), each with its exact launch counts;
+   (e) every entry's times and bound.
 
-Phases 14, 15 and 16 run right after phase 3, their checks and fleets
-first and phases 14 and 15's timings after them, then phases 4-13, then
-phase 16's timings: the plain drivers launch tens of thousands of small
+Phases 14-17 run right after phase 3, their checks and fleets first and
+phases 14 and 15's timings after them, then phases 4-13, then phases 16
+and 17's timings: the plain drivers launch tens of thousands of small
 torch operations, each of which takes 1.6-1.7x as long once the profiler
 has run in the process, and after phase 16's timing sessions beside
 phases 14-15's the profiler recorded no kernel-6 launch in any later
-session (both measured on an H100 machine; PERF.md).
+session (both measured on an H100 machine; PERF.md). Phases 16 and 17's
+plain references (``Side``) run in processes of their own, started
+before the build: they run plain drivers only.
 
 Phases 4-13 time each whole solve's plain driver, and run their fleets'
 plain-driver engine, on the first B_CHECK instances of the main path's
@@ -237,6 +260,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -246,7 +270,10 @@ B_MAIN = 262144
 HORIZON = 20
 DT = 0.05
 SEED = 0
-TIMING_BUDGET_MS = 1000.0  # CUDA-event timing of one kernel: at most this, after one call
+# CUDA-event timing of one kernel: at most this, after one call (at least
+# three calls). At 1000 ms the script's 64 kernel timings took about 130 s
+# of its run on an NVIDIA H100 80GB HBM3 at 700 W.
+TIMING_BUDGET_MS = 200.0
 HCW_X0_SCALE = (0.5, 0.5, 0.5, 0.005, 0.005, 0.005)  # the rendezvous fleet's x0 spread
 
 
@@ -266,26 +293,35 @@ def launchers():
     after the goal forms."""
     from cddp_tpu_torch.ops.kernels.ip_rollout import KERNEL_ROWS, TRACK_ROWS
     from cddp_tpu_torch.ops.kernels.ipddp_riccati import KERNEL_SHAPES
-    from cddp_tpu_torch.ops.kernels.mega_ipddp import (BALL_LAYOUTS, BOX_ROWS,
-                                                       TERMINAL_LAYOUTS, TRACK_LAYOUTS)
+    from cddp_tpu_torch.ops.kernels.mega_ipddp import (BALL_LAYOUTS, BOX_ROWS, IP_BOX_ROWS,
+                                                       MS_BOX_ROWS, TERMINAL_LAYOUTS,
+                                                       TRACK_LAYOUTS)
     from cddp_tpu_torch.ops.kernels.riccati import KERNEL_SHAPES as RICCATI_SHAPES
-    from cddp_tpu_torch.ops.kernels.rollout import _REGISTRY, CLDDP_MODELS, ROLLOUT_MODELS
+    from cddp_tpu_torch.ops.kernels.rollout import (_REGISTRY, ATTITUDE_MODELS, CLDDP_MODELS,
+                                                    CLDDP_TRACK_MODELS, ROLLOUT_MODELS)
 
     balls = [f"m{m}_ball{row}" for m, row in BALL_LAYOUTS["unicycle"]]
     track = lambda stems: stems + [f"{s}_track" for s in stems]  # noqa: E731
     by_model = lambda stem, table: [  # noqa: E731
         f"{stem}_{model}_m{m}" for model, rows in table.items() for m in rows]
+    # The attitude trio's kernels 6 and 7 live in translation units of their own.
+    box = {m: rows for m, rows in BOX_ROWS.items() if m not in ATTITUDE_MODELS}
+    attitude_shapes = ((6, 3), (7, 3))
     return {
         "riccati_backward": [f"cddp_riccati_backward_{nx}x{nu}" for nx, nu in RICCATI_SHAPES],
         "forward_rollout": [f"cddp_forward_rollout_{m}" for m in ROLLOUT_MODELS]
-        + [f"cddp_forward_rollout_{m}_track" for m in CLDDP_MODELS],
-        "clddp_solve": track([f"cddp_clddp_solve_{m}" for m in CLDDP_MODELS]),
+        + [f"cddp_forward_rollout_{m}_track" for m in CLDDP_TRACK_MODELS],
+        "clddp_solve": [f"cddp_clddp_solve_{m}" for m in CLDDP_MODELS]
+        + [f"cddp_clddp_solve_{m}_track" for m in CLDDP_TRACK_MODELS],
         "open_loop_rollout": [f"cddp_open_loop_rollout_{e.cuda_name}" for e in _REGISTRY.values()],
         "ip_forward": by_model("cddp_ip_forward", KERNEL_ROWS)
         + [f"{s}_track" for s in by_model("cddp_ip_forward", TRACK_ROWS)],
         "ipddp_backward": [f"cddp_ipddp_backward_{nx}x{nu}x{m}"
-                           for nx, nu, m in KERNEL_SHAPES],
-        "ipddp_solve": by_model("cddp_ipddp_solve", BOX_ROWS)
+                           for nx, nu, m in KERNEL_SHAPES if (nx, nu) not in attitude_shapes],
+        "ipddp_backward_attitude": [f"cddp_ipddp_backward_{nx}x{nu}x{m}"
+                                    for nx, nu, m in KERNEL_SHAPES
+                                    if (nx, nu) in attitude_shapes],
+        "ipddp_solve": by_model("cddp_ipddp_solve", box)
         + [f"cddp_ipddp_solve_unicycle_{v}" for v in balls]
         + [f"cddp_ipddp_solve_{model}_{v}_track" for model, layouts in TRACK_LAYOUTS.items()
            for v in layouts],
@@ -294,8 +330,11 @@ def launchers():
             + (f"_ti{mT}" if mT else "")
             for model, layouts in TERMINAL_LAYOUTS.items()
             for layout, shapes in layouts.items() for mT, p in shapes],
-        "msipddp_solve": track(by_model("cddp_msipddp_solve", BOX_ROWS)),
-        "logddp_solve": track(by_model("cddp_logddp_solve", BOX_ROWS)),
+        "ipddp_solve_attitude": [f"cddp_ipddp_solve_{m}_m6" for m in ATTITUDE_MODELS
+                                 if m in IP_BOX_ROWS],
+        "msipddp_solve": track(by_model("cddp_msipddp_solve", MS_BOX_ROWS)),
+        "logddp_solve": track(by_model("cddp_logddp_solve", box))
+        + [f"cddp_logddp_solve_{m}_m6" for m in ATTITUDE_MODELS],
     }
 
 
@@ -353,7 +392,9 @@ def fleet_x0(prob, B, gen):
     U(-0.05, 0.05); the car's (1, 1, 1.5 pi, 0) + U(-0.1, 0.1); the
     LTISystem's x0 + U(-0.5, 0.5); HCW's x0 + U(-1, 1) scaled by
     ``HCW_X0_SCALE`` (bench_ipddp_fleet.py:124-132); the quadrotors' x0
-    (hover) + U(-0.5, 0.5)^3 on the position alone."""
+    (hover) + U(-0.5, 0.5)^3 on the position alone; the attitude trio's at
+    rest, at an MRP from U(-0.3, 0.3)^3 in the model's coordinates
+    (``attitude_state``)."""
     dev, dtype, nx = prob.x0.device, prob.x0.dtype, prob.state_dim
     u = torch.rand(B, nx, generator=gen, device=dev, dtype=dtype)
     name = type(prob.model).__name__
@@ -369,6 +410,8 @@ def fleet_x0(prob, B, gen):
         return prob.x0 + 0.5 * (2.0 * u - 1.0)
     if name in ("Quadrotor", "QuadrotorRate"):
         return prob.x0 + torch.cat([u[:, :3] - 0.5, torch.zeros_like(u[:, 3:])], -1)
+    if name in ATT_CLASSES:
+        return attitude_state(ATT_CLASSES[name], ATT_X0_WIDTH * (2.0 * u[:, :3] - 1.0))
     return prob.x0 + torch.tensor(HCW_X0_SCALE, device=dev, dtype=dtype) * (2.0 * u - 1.0)
 
 
@@ -650,10 +693,7 @@ def solve_pair(tt, p, opts):
     from cddp_tpu_torch.ops.kernels import mega_clddp
     from cddp_tpu_torch.solvers import clddp
 
-    x0, N, nu = p.x0, p.horizon, p.control_dim
-    U0 = x0.new_zeros(x0.shape[0], N, nu)
-    seeds = (x0[:, None].expand(-1, N + 1, -1).contiguous(), U0, U0.clone(),
-             x0.new_zeros(x0.shape[0], N, nu, x0.shape[1]))
+    seeds = clddp_solve_seeds(p.x0, p)
     return (mega_clddp._launch(p, opts, *seeds),
             timed_plain(lambda: clddp._solve(p, opts.replace(backward_engine="scan"), *seeds)))
 
@@ -882,12 +922,8 @@ def check_clddp_f32_accuracy(tt, dev, make_problem, label, p, opts, kern, plain)
     p64 = make_problem(tt, torch.float64, dev).replace(x0=p.x0.double())
     same = float(((kern.status_code == plain.status_code)
                   & (kern.iterations_completed == plain.iterations_completed)).double().mean())
-    N, nu, nx = p64.horizon, p64.control_dim, p64.state_dim
-    x0 = p64.x0
-    U0 = x0.new_zeros(x0.shape[0], N, nu)
     truth = clddp._solve(p64, opts.replace(backward_engine="scan"),
-                         x0[:, None].expand(-1, N + 1, -1).contiguous(), U0, U0.clone(),
-                         x0.new_zeros(x0.shape[0], N, nu, nx)).final_objective
+                         *clddp_solve_seeds(p64.x0, p64)).final_objective
     errs = {}
     for name, sol in (("kernel", kern), ("plain", plain)):
         rel = (sol.final_objective.double() - truth).abs() / truth.abs()
@@ -1008,6 +1044,43 @@ def one(args):
     return tuple(a[:1] if isinstance(a, torch.Tensor) and a.dim() else a for a in args)
 
 
+def clddp_solve_seeds(x0, prob):
+    """The cold seeds ``clddp.solve`` builds for x0: X the tiled x0, zero
+    controls and gains."""
+    B, N, nu, nx = x0.shape[0], prob.horizon, prob.control_dim, prob.state_dim
+    return (x0[:, None].expand(-1, N + 1, -1).contiguous(), x0.new_zeros(B, N, nu),
+            x0.new_zeros(B, N, nu), x0.new_zeros(B, N, nu, nx))
+
+
+def clddp_solve_work(p, opts, seeds):
+    """Kernel 3's (inputs, outputs, operations) for its bound from one
+    counted launch on ``seeds``: the plain versions' operations per backward
+    attempt (the backward's inputs and the Riccati recursion) and per
+    rollout, counted at B=1 on the first instance's seeds, times this
+    launch's work."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, riccati
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    B, dev = p.x0.shape[0], p.x0.device
+    sol3, work = mega_clddp.launch_counting_work(p, opts, *seeds)
+    p1, (X1, U1, k1, K1) = p.replace(x0=p.x0[:1]), one(seeds)
+    reg1 = X1.new_full((1,), opts.regularization.initial_value)
+    ops_back = count_ops(lambda: riccati.riccati_backward_plain(*clddp_backward_inputs(
+        p1, X1, U1, reg1)))
+    ops2 = count_ops(rollout_ops.forward_rollout_plain, rollout_ops.lane_consts(p1),
+                     X1[:, :-1], U1, k1, K1, X1[:, 0], X1.new_ones(1))
+    attempts, rollouts = (float(w.double().sum()) for w in work)
+    ops3 = attempts * ops_back + rollouts * ops2
+    print(f"[divergence] clddp_solve at B={B}: mean over warps of max / mean lane work "
+          f"(backward attempts + rollouts) {warp_divergence(work):.4f}")
+    print(f"[bound] operations per instance: clddp_solve {ops3 / B:.0f} on average "
+          f"({attempts / B:.3f} backward attempts x {ops_back} + {rollouts / B:.3f} "
+          f"rollouts x {ops2})")
+    outs = (sol3.state_trajectory, sol3.control_trajectory, sol3.feedforward_gains,
+            sol3.feedback_gains, torch.empty(6, B, device=dev))
+    return tuple(seeds) + reference_read(p), outs, ops3
+
+
 def time_clddp_kernels(prob, x0, opts, smi,
                        names=("riccati_backward", "forward_rollout", "clddp_solve"),
                        plain_ms=None, events_ok=False):
@@ -1020,47 +1093,32 @@ def time_clddp_kernels(prob, x0, opts, smi,
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
     from cddp_tpu_torch.solvers import clddp
 
-    dev, N, nu, nx = x0.device, prob.horizon, prob.control_dim, prob.state_dim
+    dev = x0.device
     X, U, back, alpha = stage_inputs(prob, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
     out1 = riccati._launch(*back)
     k, K = out1[0], out1[1]
     consts = rollout_ops.lane_consts(prob)
     fwd = (consts, X[:, :-1], U, k, K, X[:, 0], alpha)
     out2 = rollout_ops._launch(*fwd)
-    seeds = (x0[:, None].expand(-1, N + 1, -1).contiguous(),
-             x0.new_zeros(B_MAIN, N, nu), x0.new_zeros(B_MAIN, N, nu),
-             x0.new_zeros(B_MAIN, N, nu, nx))
+    seeds = clddp_solve_seeds(x0, prob)
     p = prob.replace(x0=x0)
-    sol3, work = mega_clddp.launch_counting_work(p, opts, *seeds)
     plain_opts = opts.replace(backward_engine="scan")
     pc, sc = check_slice(p, seeds)
     # Operations per instance, counted on the plain versions at B=1; the
     # whole solve's from this run's backward attempts and rollouts.
-    p1 = p.replace(x0=x0[:1])
     ops1 = count_ops(riccati.riccati_backward_plain, *one(back))
     ops2 = count_ops(rollout_ops.forward_rollout_plain, consts, *one(fwd[1:]))
-    ops_back = count_ops(lambda: riccati.riccati_backward_plain(*clddp_backward_inputs(
-        p1, X[:1], U[:1], back[-1][:1])))
-    attempts, rollouts = (float(w.double().sum()) for w in work)
-    ops3 = attempts * ops_back + rollouts * ops2
-    print(f"[divergence] clddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
-          f"(backward attempts + rollouts) {warp_divergence(work):.4f}")
-    print(f"[bound] operations per instance: riccati_backward {ops1}, forward_rollout "
-          f"{ops2}; clddp_solve {ops3 / B_MAIN:.0f} on average ({attempts / B_MAIN:.3f} "
-          f"backward attempts x {ops_back} + {rollouts / B_MAIN:.3f} rollouts x {ops2})")
-    refs = reference_read(prob)
+    print(f"[bound] operations per instance: riccati_backward {ops1}, forward_rollout {ops2}")
     work_items = {
         "riccati_backward": (back, out1, ops1 * B_MAIN),
-        "forward_rollout": (fwd[1:] + refs, out2, ops2 * B_MAIN),
-        "clddp_solve": (seeds + refs, (sol3.state_trajectory, sol3.control_trajectory,
-                                       sol3.feedforward_gains, sol3.feedback_gains,
-                                       torch.empty(6, B_MAIN, device=dev)), ops3),
+        "forward_rollout": (fwd[1:] + reference_read(prob), out2, ops2 * B_MAIN),
+        "clddp_solve": clddp_solve_work(p, opts, seeds),
     }
     runs = {
         "riccati_backward": (lambda: riccati._launch(*back), 20,
-                             lambda: riccati.riccati_backward_plain(*back), 2),
+                             lambda: riccati.riccati_backward_plain(*back), 1),
         "forward_rollout": (lambda: rollout_ops._launch(*fwd), 20,
-                            lambda: rollout_ops.forward_rollout_plain(*fwd), 2),
+                            lambda: rollout_ops.forward_rollout_plain(*fwd), 1),
         "clddp_solve": (lambda: mega_clddp._launch(p, opts, *seeds), 20,
                         lambda: clddp._solve(pc, plain_opts, *sc), 1),
     }
@@ -1115,7 +1173,7 @@ def plain_ip_options(tt, opts):
         opts.ipddp, forward_engine="scan"))
 
 
-def stage_ip_inputs(tt, prob, B, gen, opts, iterations=4, U0=None):
+def stage_ip_inputs(tt, prob, B, gen, opts, iterations=4, U0=None, kernels=False):
     """Inputs of the open-loop rollout, condensed backward and forward trial
     kernels as the per-pass driver stages them: the plain driver takes
     ``iterations`` (phase 14 takes one on its long horizons) from cold
@@ -1126,8 +1184,10 @@ def stage_ip_inputs(tt, prob, B, gen, opts, iterations=4, U0=None):
     a quarter of the batch the caps are tripled, so that the trial's
     fraction-to-boundary test fails on part of it; the slack SOC flag is
     set on half. ``U0``: the cold starts' controls, (N, nu) for every
-    instance (zeros when None). Returns (problem, (x0, U), backward args,
-    forward args)."""
+    instance (zeros when None). ``kernels``: the iterations and the trial's
+    gains by the per-pass driver with its kernels (4, 6, 5) in place of the
+    plain driver (phase 17's long horizons, whose plain iteration takes
+    seconds). Returns (problem, (x0, U), backward args, forward args)."""
     from cddp_tpu_torch.constraints.stack import PathStacker
     from cddp_tpu_torch.options import line_search_alphas
     from cddp_tpu_torch.solvers import ipddp
@@ -1137,15 +1197,16 @@ def stage_ip_inputs(tt, prob, B, gen, opts, iterations=4, U0=None):
     x0 = fleet_x0(prob, B, gen)
     p, seeds = ip_seeds(prob, opts, x0, None if U0 is None else U0.expand(B, -1, -1))
     stk = PathStacker(p)
-    sol = ipddp._drive(p, plain_ip_options(tt, opts.replace(max_iterations=iterations)), *seeds)
+    drive = opts.replace(max_iterations=iterations)
+    sol = ipddp._drive(p, drive if kernels else plain_ip_options(tt, drive), *seeds)
     X, U, Lam = sol.state_trajectory, sol.control_trajectory, sol.costate_trajectory
     Y = torch.cat([sol.dual_trajectories[n] for n in stk.names], -1)
     S = torch.cat([sol.slack_trajectories[n] for n in stk.names], -1)
     G = ipddp._eval_path(stk, X, U)
     mu, reg = sol.barrier_mu, sol.final_regularization
     back = ipddp.backward_inputs(p, stk, X, U, Y, S, G, mu, reg)
-    bp = ipddp._backward_condensed(p, opts.replace(backward_engine="scan"), stk, X, U,
-                                   Y, S, G, mu, reg)
+    bp = ipddp._backward_condensed(p, opts if kernels else opts.replace(backward_engine="scan"),
+                                   stk, X, U, Y, S, G, mu, reg)
     a_pr_max, a_du_max = ipddp._max_step_sizes(S, Y, bp.dS, bp.dY, mu, opts)
     ladder = torch.tensor(line_search_alphas(opts.line_search)[:4], device=dev, dtype=dtype)
     alpha = ladder[torch.randint(0, len(ladder), (B,), generator=gen, device=dev)]
@@ -1176,12 +1237,27 @@ def forward_consts(prob, opts, slack_soc, f64=False):
     return dataclasses.replace(fc, lane=consts_f64(fc.lane)) if f64 else fc
 
 
+def cost_agree(a, b):
+    """Per instance: status, iteration count and cost (rel 1e-4) equal in
+    two solutions."""
+    same = (a.status_code == b.status_code) & (a.iterations_completed == b.iterations_completed)
+    rel = (a.final_objective - b.final_objective).abs() / b.final_objective.abs()
+    return same & (rel <= 1e-4)
+
+
 def cost_share(a, b):
     """Share of instances whose status, iteration count and cost (rel
     1e-4) are equal in two solutions."""
-    same = (a.status_code == b.status_code) & (a.iterations_completed == b.iterations_completed)
-    rel = (a.final_objective - b.final_objective).abs() / b.final_objective.abs()
-    return float((same & (rel <= 1e-4)).double().mean())
+    return float(cost_agree(a, b).double().mean())
+
+
+def checked_errs(phase, errs):
+    """``errs``, a phase's check errors {dtype: {entry: err}} that ``run``
+    took earlier, refused where a dtype has none: checks that returned
+    nothing fail here, not later."""
+    if not all(errs.get(tag) for tag in ("float64", "float32")):
+        raise AssertionError(f"{phase}: its checks returned no errors ({errs!r})")
+    return errs
 
 
 def check_ip_solve(label, kern, plain, exact, tol=1e-8, min_share=0.99, dual_rtol=0.0):
@@ -1631,11 +1707,11 @@ def time_ip_kernels(tt, prob, x0, smi, names=("open_loop_rollout", "ip_forward",
     # name: (kernel, its reps, plain version, its reps)
     runs = {
         "open_loop_rollout": (lambda: ip_rollout._launch_open_loop(p.model, entry, *ol, dt), 20,
-                              lambda: ip_rollout.open_loop_rollout_plain(p.model, *ol, dt), 5),
+                              lambda: ip_rollout.open_loop_rollout_plain(p.model, *ol, dt), 1),
         "ip_forward": (lambda: ip_rollout._launch_forward(fc, *fwd), 20,
-                       lambda: ip_rollout.ip_forward_plain(fc, *fwd), 3),
+                       lambda: ip_rollout.ip_forward_plain(fc, *fwd), 1),
         "ipddp_backward": (lambda: ric._launch(*back), 20,
-                           lambda: ric.ipddp_backward_plain(*back), 2),
+                           lambda: ric.ipddp_backward_plain(*back), 1),
         "ipddp_solve": (lambda: mega_ipddp._launch(pw, opts, *seeds), 10,
                         lambda: ipddp._drive(pc, plain_opts, *sc), 1),
     }
@@ -1691,22 +1767,21 @@ def time_kernels(runs, work_items, dtype, smi, label="", events_ok=False, plain_
                  batch=None):
     """Time each kernel of ``runs`` ({name: (kernel, reps, plain version,
     reps)}) by CUDA events around its wrapper and by the profiler's device
-    time, its plain version by CUDA events (unless ``plain_ms`` gives its
-    time, measured elsewhere), and its bound from ``work_items`` ({name:
-    (inputs, outputs, operations)}). Returns {name: (ms, plain_ms,
-    bound_ms, bound_by, device_ms, device_ms_source)}. A plain version timed
-    once is a whole-solve plain driver, which its fleet's phase has just run
-    at these shapes: it gets no warm-up. ``batch``: the kernels' batch, when
-    not B_MAIN."""
+    time, its plain version by CUDA events without a warm-up (unless
+    ``plain_ms`` gives its time, measured elsewhere), and its bound from
+    ``work_items`` ({name: (inputs, outputs, operations)}). Returns {name:
+    (ms, plain_ms, bound_ms, bound_by, device_ms, device_ms_source)}.
+    ``batch``: the kernels' batch, when not B_MAIN."""
     out, batch = {}, batch or B_MAIN
     for name, (kernel, reps, plain, plain_reps) in runs.items():
         # A kernel that runs for seconds (phase 14's long solves) takes as
         # many timed calls as fit TIMING_BUDGET_MS; the profiler takes at
         # least three (it can miss a session's only launch).
-        reps = max(1, min(reps, int(TIMING_BUDGET_MS / max(cuda_ms(kernel, 1), 1e-3))))
+        reps = max(3, min(reps, int(TIMING_BUDGET_MS / max(cuda_ms(kernel, 1), 1e-3))))
         ms = cuda_ms(kernel, reps, warm=False)
-        plain_ms_ = ((plain_ms or {}).get(name)
-                     or cuda_ms(plain, plain_reps, warm=plain_reps > 1))
+        # No warm-up for the plain versions (seconds a call on the long
+        # horizons): their kernels' checks have run them at these shapes.
+        plain_ms_ = (plain_ms or {}).get(name) or cuda_ms(plain, plain_reps, warm=False)
         dev_ms, source = device_ms(kernel, name.split("@")[0], max(reps // 2, 3), events_ok)
         ins, outs, ops = work_items[name]
         nbytes = unique_bytes(ins) + unique_bytes(outs)
@@ -1992,7 +2067,7 @@ def time_obstacle_kernels(tt, prob, x0, smi, plain_ms=None):
         dtype, smi, label=" (obstacle, m5_ball0)", plain_ms=plain_ms)
     out.update(time_kernels(
         {"ipddp_backward": (lambda: ric._launch(*back), 20,
-                            lambda: ric.ipddp_backward_plain(*back), 2)},
+                            lambda: ric.ipddp_backward_plain(*back), 1)},
         {"ipddp_backward": (backward_operands_read(back), out6, ops6 * B_MAIN)}, dtype, smi,
         label=" (obstacle, m=5)", events_ok=True))
     # luu and Gu are one value at every instance and step here; handed to
@@ -2416,28 +2491,20 @@ def phase_barrier_fleets(tt, dev, smi):
     return launches, default, rates, prob, x0
 
 
-def time_barrier_kernels(tt, prob, x0, smi, opts=None, plain_ms=None, events_ok=False):
-    """Kernels 9 and 8 at the main path's batch and shapes, under ``opts``
-    (10 iterations, tolerance 1e-4 unless given): kernel and plain driver
-    times (``plain_ms`` gives them where measured elsewhere) and each one's
-    bound from this run's inputs and work (``time_kernels``)."""
-    from cddp_tpu_torch.constraints.stack import PathStacker
-    from cddp_tpu_torch.ops.kernels import mega_logddp, mega_msipddp
-    from cddp_tpu_torch.options import line_search_alphas
-    from cddp_tpu_torch.solvers import logddp, msipddp
+def logddp_solve_work(tt, p, opts, seeds):
+    """Kernel 9's (inputs, outputs, operations) for its bound from one
+    counted launch on ``seeds`` (the problem ``p`` at x0): the operations of
+    the plain version per backward attempt, per trajectory sweep and per
+    nominal refresh (one an iteration), counted at B=1 on the first
+    instance's seeds, times this launch's work."""
+    from cddp_tpu_torch.ops.kernels import mega_logddp
+    from cddp_tpu_torch.solvers import logddp
 
-    dtype = prob.x0.dtype
-    opts = opts or tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
-    p = prob.replace(x0=x0)
-    p1 = prob.replace(x0=x0[:1])
-
-    # Operations per instance, counted on the plain versions at B=1 from the
-    # cold seed; the whole solves' totals from this run's backward attempts
-    # and trajectory sweeps (and LogDDP's one nominal refresh per iteration).
-    seeds9 = barrier_seeds("LogDDP", p, opts)
-    sol9, work9 = mega_logddp.launch_counting_work(p, opts, *seeds9)
-    s1 = one(seeds9)
-    mu1 = torch.full((1,), opts.log_barrier.barrier.mu_initial, dtype=dtype, device=x0.device)
+    B, dtype, dev = p.x0.shape[0], p.x0.dtype, p.x0.device
+    p1 = p.replace(x0=p.x0[:1])
+    sol9, work9 = mega_logddp.launch_counting_work(p, opts, *seeds)
+    s1 = one(seeds)
+    mu1 = torch.full((1,), opts.log_barrier.barrier.mu_initial, dtype=dtype, device=dev)
     bar1 = logddp._barrier(opts, mu1)
     reg1 = torch.full_like(mu1, opts.regularization.initial_value)
     ops_back9 = count_ops(lambda: logddp._backward_pass(p1, opts, bar1, s1[0], s1[1], reg1))
@@ -2449,23 +2516,38 @@ def time_barrier_kernels(tt, prob, x0, smi, opts=None, plain_ms=None, events_ok=
     attempts, sweeps = (float(w.double().sum()) for w in work9)
     iters = float(sol9.iterations_completed.double().sum())
     ops9 = attempts * ops_back9 + sweeps * ops_sweep9 + iters * ops_ref9
-    print(f"[divergence] logddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
+    print(f"[divergence] logddp_solve at B={B}: mean over warps of max / mean lane work "
           f"(backward attempts + sweeps) {warp_divergence(work9):.4f}")
-    print(f"[bound] operations per instance: logddp_solve {ops9 / B_MAIN:.0f} on average "
-          f"({attempts / B_MAIN:.3f} backward attempts x {ops_back9} + {sweeps / B_MAIN:.3f} "
-          f"sweeps x {ops_sweep9} + {iters / B_MAIN:.3f} refreshes x {ops_ref9})")
+    print(f"[bound] operations per instance: logddp_solve {ops9 / B:.0f} on average "
+          f"({attempts / B:.3f} backward attempts x {ops_back9} + {sweeps / B:.3f} "
+          f"sweeps x {ops_sweep9} + {iters / B:.3f} refreshes x {ops_ref9})")
     outs9 = (sol9.state_trajectory, sol9.control_trajectory, sol9.feedforward_gains,
-             sol9.feedback_gains, torch.empty(8, B_MAIN, device=x0.device))
+             sol9.feedback_gains, torch.empty(8, B, device=dev))
+    return tuple(seeds) + reference_read(p), outs9, ops9
 
-    seeds8 = barrier_seeds("MSIPDDP", p, opts)
-    sol8, st8, work8 = mega_msipddp.launch_counting_work(p, opts, *seeds8)
+
+def msipddp_solve_work(tt, p, opts, seeds):
+    """Kernel 8's (inputs, outputs, operations) for its bound from one
+    counted launch on ``seeds``: the plain version's operations per backward
+    attempt, line-search trial (with the whole dual-step ladder), commit
+    (the accepted trial with its one dual step) and nominal reset, counted
+    at B=1, times this launch's work, and the initial cost once an
+    instance."""
+    from cddp_tpu_torch.constraints.stack import PathStacker
+    from cddp_tpu_torch.ops.kernels import mega_msipddp
+    from cddp_tpu_torch.options import line_search_alphas
+    from cddp_tpu_torch.solvers import filter as flt
+    from cddp_tpu_torch.solvers import msipddp
+
+    B, dtype, dev = p.x0.shape[0], p.x0.dtype, p.x0.device
+    p1 = p.replace(x0=p.x0[:1])
+    sol8, st8, work8 = mega_msipddp.launch_counting_work(p, opts, *seeds)
     stk1 = PathStacker(p1)
-    m1 = one(seeds8)
+    m1 = one(seeds)
+    reg1 = torch.full((1,), opts.regularization.initial_value, dtype=dtype, device=dev)
     st1 = dict(X=m1[0], U=m1[1], Y=m1[2], S=m1[3], G=m1[4], F=m1[5], Lambda=m1[6], mu=m1[7],
                cost=p1.objective.evaluate(m1[0], m1[1]))
-    from cddp_tpu_torch.solvers import filter as flt
-
-    st1["filt"], _ = flt.accept_entry(flt.empty_filter(1, 7, dtype, x0.device),
+    st1["filt"], _ = flt.accept_entry(flt.empty_filter(1, 7, dtype, dev),
                                       st1["cost"], torch.zeros_like(st1["cost"]))
     ops_back8 = count_ops(lambda: msipddp._backward_pass(p1, stk1, st1, reg1))
     bp8 = msipddp._backward_pass(p1, stk1, st1, reg1)
@@ -2485,28 +2567,42 @@ def time_barrier_kernels(tt, prob, x0, smi, opts=None, plain_ms=None, events_ok=
     ops_init8 = count_ops(p1.objective.evaluate, st1["X"], st1["U"])
     attempts, trials, commits, resets = (float(w.double().sum()) for w in work8)
     ops8 = (attempts * ops_back8 + trials * ops_trial8 + commits * ops_commit8
-            + resets * ops_reset8 + B_MAIN * ops_init8)
-    print(f"[divergence] msipddp_solve at B={B_MAIN}: mean over warps of max / mean lane work "
+            + resets * ops_reset8 + B * ops_init8)
+    print(f"[divergence] msipddp_solve at B={B}: mean over warps of max / mean lane work "
           f"(backward attempts + trials + commits + resets) {warp_divergence(work8):.4f}")
-    print(f"[bound] operations per instance: msipddp_solve {ops8 / B_MAIN:.0f} on average "
-          f"({attempts / B_MAIN:.3f} backward attempts x {ops_back8} + {trials / B_MAIN:.3f} "
-          f"trials x {ops_trial8} + {commits / B_MAIN:.3f} commits x {ops_commit8} + "
-          f"{resets / B_MAIN:.3f} resets x {ops_reset8} + the initial cost {ops_init8})")
+    print(f"[bound] operations per instance: msipddp_solve {ops8 / B:.0f} on average "
+          f"({attempts / B:.3f} backward attempts x {ops_back8} + {trials / B:.3f} "
+          f"trials x {ops_trial8} + {commits / B:.3f} commits x {ops_commit8} + "
+          f"{resets / B:.3f} resets x {ops_reset8} + the initial cost {ops_init8})")
     outs8 = (sol8.state_trajectory, sol8.control_trajectory, sol8.feedforward_gains,
              sol8.feedback_gains, st8.Y, st8.S, st8.F, st8.Lambda,
-             torch.empty(9, B_MAIN, device=x0.device))
+             torch.empty(9, B, device=dev))
+    return tuple(seeds[:4]) + tuple(seeds[5:]) + reference_read(p), outs8, ops8
 
-    refs = reference_read(prob)
-    work_items = {"logddp_solve": (seeds9 + refs, outs9, ops9),
-                  "msipddp_solve": (seeds8[:4] + seeds8[5:] + refs, outs8, ops8)}
-    (p9, s9), (p8, s8) = check_slice(p, seeds9), check_slice(p, seeds8)
-    runs = {
-        "logddp_solve": (lambda: mega_logddp._launch(p, opts, *seeds9), 10,
-                         lambda: logddp._drive(p9, opts, *s9), 1),
-        "msipddp_solve": (lambda: mega_msipddp._launch(p, opts, *seeds8), 10,
-                          lambda: msipddp._drive(p8, opts, *s8), 1),
-    }
-    return time_kernels(runs, work_items, dtype, smi, plain_ms=plain_ms, events_ok=events_ok)
+
+def time_barrier_kernels(tt, prob, x0, smi, opts=None, plain_ms=None, events_ok=False):
+    """Kernels 9 and 8 at the main path's batch and shapes, under ``opts``
+    (10 iterations, tolerance 1e-4 unless given):
+    kernel and plain driver times (``plain_ms`` gives them where measured
+    elsewhere) and each one's bound from this run's inputs and work
+    (``time_kernels``; ``logddp_solve_work``, ``msipddp_solve_work``)."""
+    from cddp_tpu_torch.ops.kernels import mega_logddp, mega_msipddp
+    from cddp_tpu_torch.solvers import logddp, msipddp
+
+    opts = opts or tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
+    p = prob.replace(x0=x0)
+    work_items, runs = {}, {}
+    for name, solver, mega, drive in (("logddp_solve", "LogDDP", mega_logddp, logddp._drive),
+                                      ("msipddp_solve", "MSIPDDP", mega_msipddp,
+                                       msipddp._drive)):
+        seeds = barrier_seeds(solver, p, opts)
+        work_items[name] = (logddp_solve_work if name == "logddp_solve"
+                            else msipddp_solve_work)(tt, p, opts, seeds)
+        pc, sc = check_slice(p, seeds)
+        runs[name] = (lambda mega=mega, seeds=seeds: mega._launch(p, opts, *seeds), 10,
+                      lambda drive=drive, pc=pc, sc=sc: drive(pc, opts, *sc), 1)
+    return time_kernels(runs, work_items, prob.x0.dtype, smi, plain_ms=plain_ms,
+                        events_ok=events_ok)
 
 
 # --- tracking MPC (per-step reference trajectories) --------------------------------
@@ -2984,13 +3080,20 @@ def phase_terminal_fleets(tt, dev, smi):
     return launches, timing, work, attrs
 
 
-def phase_terminal(tt, dev, smi):
-    """Phase 12, terminal constraints: (a) kernel 7's terminal variants
-    against the plain driver, (b) the per-pass engine on both fleets, (c)
-    the fleets at B_MAIN. Returns (launches, {dtype: errs}, timing, work,
-    attributes)."""
+def terminal_checks(tt, dev):
+    """Phase 12's (a) and (b); returns (a)'s {dtype: errs}."""
     errs = phase_terminal_kernels(tt, dev)
     phase_terminal_per_pass(tt, dev)
+    return errs
+
+
+def phase_terminal(tt, dev, smi, errs):
+    """Phase 12, terminal constraints: (a) kernel 7's terminal variants
+    against the plain driver and (b) the per-pass engine on both fleets
+    (``terminal_checks``, which ``run`` takes earlier: ``errs`` is (a)'s),
+    (c) the fleets at B_MAIN. Returns (launches, {dtype: errs}, timing,
+    work, attributes)."""
+    errs = checked_errs("phase 12", errs)
     launches, timing, work, attrs = phase_terminal_fleets(tt, dev, smi)
     return launches, errs, timing, work, attrs
 
@@ -3434,12 +3537,34 @@ def phase_certified_fleet(tt, dev, smi):
     return counts, summary
 
 
+def seed_ipddp_work(tt, p, opts, seeds):
+    """Kernel 7's (inputs, outputs, operations) on ``seeds`` (cold or warm)
+    for its bound (``ipddp_solve_work``), its forward trial's operations counted on
+    a trial at B=1 from the first instance's seeds with zero gains (the
+    count reads shapes, not values)."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+
+    fc = forward_consts(p, opts, False)
+    X, U, Y, S, _, L = one(seeds)[:6]
+    N, nu, nx, m = U.shape[1], U.shape[2], X.shape[2], Y.shape[2]
+    z = lambda *shape: X.new_zeros(1, *shape)  # noqa: E731
+    one_ = X.new_ones(1)
+    fwd1 = (X[:, :-1], U, Y, S, z(N, nu), z(N, nu, nx), z(N, nx), z(N, nx, nx), L[:, :-1],
+            z(N, m), z(N, m, nx), z(N, m), z(N, m, nx), X[:, 0], one_, one_, 0.99 * one_,
+            torch.zeros(1, dtype=torch.bool, device=X.device))
+    ops5 = count_ops(ip_rollout.ip_forward_plain, fc, *fwd1)
+    out5 = ip_rollout.ip_forward_plain(fc, *fwd1)
+    return ipddp_solve_work(tt, p, opts, seeds, ops5, out5, reference_read(p))
+
+
 def time_warm_kernels(tt, dev, smi):
     """Device ms of kernels 7 and 8 on the warm MPC fleet's tick-1 seeds
     (the tracking problem at B_MAIN, float32: a cold solve and one tick) and
     of kernel 9 from warm gains on the box fleet, each by the profiler
-    (``device_ms``) after a CUDA-event warm-up. Returns {kernel: (ms with
-    the wrapper, device ms, source)}."""
+    (``device_ms``) after a CUDA-event warm-up, and each one's bound from
+    those seeds and one counted launch's work (``seed_ipddp_work``,
+    ``msipddp_solve_work``, ``logddp_solve_work``). Returns {kernel: (ms
+    with the wrapper, device ms, source, bound ms, bound by)}."""
     from cddp_tpu_torch.ops.kernels import mega_ipddp, mega_logddp, mega_msipddp
 
     opts = tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
@@ -3452,38 +3577,45 @@ def time_warm_kernels(tt, dev, smi):
     x1, _, U1, st = tick(tt, "IPDDP", prob, opts, x0)
     p, seeds, term = ip_warm_seeds(st, U1)(prob, wopts, x1)
     runs = {"ipddp_solve": lambda: mega_ipddp._launch(p, opts, *seeds, terminal=term)}
+    work = {"ipddp_solve": lambda: seed_ipddp_work(tt, p, opts, seeds)}
     x1m, X1m, U1m, stm = tick(tt, "MSIPDDP", prob, opts, x0)
     pm = prob.replace(x0=x1m)
     seeds_m = ms_warm_seeds(stm, X1m, U1m)(pm, wopts)
     runs["msipddp_solve"] = lambda: mega_msipddp._launch(pm, opts, *seeds_m)
+    work["msipddp_solve"] = lambda: msipddp_solve_work(tt, pm, opts, seeds_m)
     x1l, _, U1l, gains = tick(tt, "LogDDP", box, opts, x0)
     pl = box.replace(x0=x1l)
     seeds_l = log_warm_seeds(U1l, gains)(pl, wopts)
     runs["logddp_solve"] = lambda: mega_logddp._launch(pl, opts, *seeds_l)
+    work["logddp_solve"] = lambda: logddp_solve_work(tt, pl, opts, seeds_l)
     for name, fn in runs.items():
         ms = cuda_ms(fn, 5)
         dev_ms, source = device_ms(fn, name, 3)
-        out[name] = (ms, dev_ms, source)
+        ins, outs, ops = work[name]()
+        nbytes = unique_bytes(ins) + unique_bytes(outs)
+        b_ms, b_by = bound(nbytes, ops, torch.float32)
+        out[name] = (ms, dev_ms, source, b_ms, b_by)
         print(f"[timing] {name} from warm seeds at B={B_MAIN}: {ms:.3f} ms with the wrapper, "
-              f"{dev_ms:.3f} ms device ({source})  [{smi}]")
+              f"{dev_ms:.3f} ms device ({source}), bound {b_ms:.4f} ms by {b_by} "
+              f"({nbytes / 1e9:.3f} GB, {ops / 1e9:.3f} G operations)  [{smi}]")
     return out
 
 
-def phase_warm(tt, dev, smi):
-    """Phase 13, warm starts: (a) ``phase_warm_kernels``, (b)
-    ``phase_warm_mpc``, (c) ``phase_certified_fleet``, and the warm
-    kernels' device times. Returns ({kernel: warm entry}, certified
-    summary)."""
-    errs = phase_warm_kernels(tt, dev)
+def phase_warm(tt, dev, smi, errs):
+    """Phase 13, warm starts: (a) ``phase_warm_kernels`` (which ``run``
+    takes earlier: ``errs`` is its result), (b) ``phase_warm_mpc``, (c)
+    ``phase_certified_fleet``, and the warm kernels' device times. Returns
+    ({kernel: warm entry}, certified summary)."""
+    errs = checked_errs("phase 13", errs)
     launches, ms_runs, its_runs = phase_warm_mpc(tt, dev, smi)
     polish_launches, summary = phase_certified_fleet(tt, dev, smi)
     timing = time_warm_kernels(tt, dev, smi)
     entries = {}
     for name in ("ipddp_solve", "msipddp_solve", "logddp_solve"):
-        ms, dev_ms, source = timing[name]
+        ms, dev_ms, source, b_ms, b_by = timing[name]
         key = name + ("_track" if name != "logddp_solve" else "")
         entries[name] = {"launches": launches.get(key, 0), "ms": ms, "device_ms": dev_ms,
-                         "device_ms_source": source,
+                         "device_ms_source": source, "bound_ms": b_ms, "bound_by": b_by,
                          "max_abs_err": errs["float32"].get(name),
                          "max_abs_err_f64": errs["float64"].get(name)}
     entries["ipddp_solve"]["polish_f64_launches"] = polish_launches.get("ipddp_solve", 0)
@@ -3904,7 +4036,8 @@ def phase_zoo_fleets(tt, dev, smi):
         ("pendulum MSIPDDP tracking", "pendulum", True, True, "MSIPDDP", "auto",
          {ol["pendulum"], "msipddp_solve_track@pendulum"}, ("msipddp_solve_track@pendulum",)),
         ("hcw IPDDP tracking per-pass", "hcw", True, False, "IPDDP", "xla",
-         {ol["hcw"], "ip_forward_track@hcw"}, ("ip_forward_track@hcw",)),
+         {ol["hcw"], "ipddp_backward@6x3x6", "ip_forward_track@hcw"},
+         ("ip_forward_track@hcw",)),
     )
     for label, model, tracking, terminal, solver, engine, want, driven in drive:
         p = zoo_problem(tt, torch.float32, dev, model, tracking, terminal)
@@ -3945,7 +4078,7 @@ def time_open_loop(prob, x0, smi):
     kernel = lambda: ip_rollout._launch_open_loop(prob.model, entry, x0, U, dt)  # noqa: E731
     ops = count_ops(ip_rollout.open_loop_rollout_plain, prob.model, x0[:1], U[:1], dt)
     runs = {"open_loop_rollout": (kernel, 20, lambda: ip_rollout.open_loop_rollout_plain(
-        prob.model, x0, U, dt), 3)}
+        prob.model, x0, U, dt), 1)}
     work = {"open_loop_rollout": ((x0, U), (kernel()[:, 1:],), ops * B_MAIN)}
     return time_kernels(runs, work, x0.dtype, smi, events_ok="wrapper")["open_loop_rollout"]
 
@@ -4008,14 +4141,10 @@ def time_zoo_kernels(tt, fleets, plain, smi):
     return out
 
 
-def phase_zoo(tt, dev, smi):
-    """Phase 14, the pendulum, the cart-pole and HCW: (a) every new
-    instantiation against its plain version at B_CHECK, float64 and
-    float32; (b)-(d) the fleets at B_MAIN and the runs that drive the other
-    instantiations (each entry's times and bound at B_MAIN follow in
-    ``time_zoo_kernels``). Returns ({entry: launches}, {dtype: {entry:
-    err}}, {fleet: (problem, x0, options)}, {entry: plain ms}, {entry:
-    plain-driver batch and iterations})."""
+def zoo_checks(tt, dev):
+    """Phase 14's (a): every new instantiation against its plain version at
+    B_CHECK, float64 and float32. Returns ({dtype: {entry: err}}, {entry:
+    float32 plain ms})."""
     t0 = time.perf_counter()
     errs, plain = {"float64": {}, "float32": {}}, {}
     phase_zoo_clddp_kernels(tt, dev, errs, plain)
@@ -4023,6 +4152,21 @@ def phase_zoo(tt, dev, smi):
     phase_zoo_barrier_kernels(tt, dev, errs, plain)
     print(f"[zoo] (a) done in {time.perf_counter() - t0:.1f} s; plain drivers at B={B_CHECK}, "
           f"float32: " + ", ".join(f"{k} {v:.1f} ms" for k, v in plain.items()))
+    return errs, plain
+
+
+def phase_zoo(tt, dev, smi, checked):
+    """Phase 14, the pendulum, the cart-pole and HCW: (a) every new
+    instantiation against its plain version at B_CHECK, float64 and
+    float32; (b)-(d) the fleets at B_MAIN and the runs that drive the other
+    instantiations (each entry's times and bound at B_MAIN follow in
+    ``time_zoo_kernels``); ``checked``: (a)'s results (``zoo_checks``),
+    which ``main`` runs earlier. Returns ({entry: launches}, {dtype: {entry:
+    err}}, {fleet: (problem, x0, options)}, {entry: plain ms}, {entry:
+    plain-driver batch and iterations})."""
+    t0 = time.perf_counter()
+    errs, plain = checked
+    checked_errs("phase 14", errs)
     launches, fleets = phase_zoo_fleets(tt, dev, smi)
     plain_at = {k: f"B={B_CHECK}, float32, "
                    f"{ZOO_TRACK_ITERS if '_track' in k else ZOO_ITERS[k.split('@')[1]]} iterations"
@@ -4047,8 +4191,9 @@ CAR_F32_QUANTILES = ("ip_forward", "ipddp_backward")
 CAR_CHECK_ITERS = 5
 # Iterations of the car's MSIPDDP and LogDDP fleets on their plain drivers
 # (B_CHECK, N = 300): at ten they took 28.0 and 14.6 s of a full run on an
-# H100's host, beyond the script's time.
-CAR_PLAIN_ITERS = 5
+# H100's host, beyond the script's time; at five 5.8 and 4.4 s (NVIDIA
+# H100 80GB HBM3, 700 W).
+CAR_PLAIN_ITERS = 2
 # Phase 15's kernels, each an entry of the kernels' JSON line: (entry name,
 # dispatch_log name, kernel, model, launcher without its type suffix).
 DISCRETE_ENTRIES = tuple(
@@ -4406,7 +4551,7 @@ def time_discrete_kernels(tt, fleets, smi):
                   ip_rollout._launch_open_loop(mdl, entry, xs, Us, dt))
         ops = count_ops(ip_rollout.open_loop_rollout_plain, mdl, xs[:1], Us[:1], dt)
         runs = {name: (kernel, 20, lambda mdl=mdl, xs=xs, Us=Us, dt=dt:
-                       ip_rollout.open_loop_rollout_plain(mdl, xs, Us, dt), 3)}
+                       ip_rollout.open_loop_rollout_plain(mdl, xs, Us, dt), 1)}
         work = {name: ((xs, Us), (kernel()[:, 1:],), ops * B)}
         out.update(time_kernels(runs, work, torch.float32, smi, events_ok="wrapper", batch=B))
         at[name] = B
@@ -4416,7 +4561,7 @@ def time_discrete_kernels(tt, fleets, smi):
     fc = forward_consts(p, opts, False)
     out5, out6 = ip_rollout._launch_forward(fc, *fwd), ric._launch(*back)
     runs = {"ip_forward@car": (lambda: ip_rollout._launch_forward(fc, *fwd), 20,
-                               lambda: ip_rollout.ip_forward_plain(fc, *fwd), 2),
+                               lambda: ip_rollout.ip_forward_plain(fc, *fwd), 1),
             "ipddp_backward@car": (lambda: ric._launch(*back), 20,
                                    lambda: ric.ipddp_backward_plain(*back), 1)}
     work = {"ip_forward@car": (fwd, out5, count_ops(ip_rollout.ip_forward_plain, fc,
@@ -4428,18 +4573,26 @@ def time_discrete_kernels(tt, fleets, smi):
     return out, at
 
 
-def phase_discrete(tt, dev, smi):
+def discrete_checks(tt, dev):
+    """Phase 15's (a); returns {dtype: {entry: err}}."""
+    t0 = time.perf_counter()
+    errs = {"float64": {}, "float32": {}}
+    phase_discrete_kernels(tt, dev, errs)
+    print(f"[discrete] (a) done in {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def phase_discrete(tt, dev, smi, errs):
     """Phase 15, the discrete car, the forklift, the LTISystem and the IPDDP
     regime without path constraints: (a) every new instantiation against
     its plain version at B_CHECK, float64 and float32, and the car's
     per-pass solves against the plain drivers; (b)-(d) the fleets (each
     entry's times and bound on its run's operands follow in
-    ``time_discrete_kernels``). Returns ({entry: launches}, {dtype: {entry:
+    ``time_discrete_kernels``); ``errs``: (a)'s (``discrete_checks``), which
+    ``main`` runs earlier. Returns ({entry: launches}, {dtype: {entry:
     err}}, {entry: (problem, x0) of the run that drives it})."""
     t0 = time.perf_counter()
-    errs = {"float64": {}, "float32": {}}
-    phase_discrete_kernels(tt, dev, errs)
-    print(f"[discrete] (a) done in {time.perf_counter() - t0:.1f} s")
+    errs = checked_errs("phase 15", errs)
     launches, fleets = phase_discrete_fleets(tt, dev, smi)
     print(f"[discrete] checks and fleets done in {time.perf_counter() - t0:.1f} s")
     return launches, errs, fleets
@@ -4467,7 +4620,9 @@ QUAD_KERNEL_B = 1024
 # (a)'s per-pass solves run on the first QUAD_CHECK_B of B_CHECK instances:
 # their plain drivers at B_CHECK took most of (a)'s 148 s on an H100's host.
 QUAD_CHECK_B = 1024
-QUAD_PLAIN_ITERS = 5  # the quadrotor's MSIPDDP and LogDDP plain drivers at B_CHECK
+# The quadrotor's MSIPDDP and LogDDP plain drivers at B_CHECK (at five
+# iterations 4.0 and 3.8 s of an NVIDIA H100 80GB HBM3 machine at 700 W).
+QUAD_PLAIN_ITERS = 2
 QUAD_DRIVE_ITERS = 2  # the QuadrotorRate CLDDP run that drives kernels 1 and 2 at 10x4
 FIG8_ITERS = 300  # the figure-8 anchor's budget
 # The single solve takes 3.5 s at B = 1 on an H100 (kernel 6 walks the
@@ -4475,8 +4630,10 @@ FIG8_ITERS = 300  # the figure-8 anchor's budget
 # plain drivers took 40.5 and 46.1 s for five iterations there (tens of
 # thousands of small torch launches an iteration at B = 1), so they are not
 # run: the per-pass path is held to the plain driver in (a) and (b), and
-# the float32 solve to the float64 one (``phase_quad_single``).
-BENCH_REPS = 10
+# the float32 solve to the float64 one (``phase_quad_single``). Ten
+# timed solves took 43.3 s of the script (NVIDIA H100 80GB HBM3, 700 W);
+# three give the median.
+BENCH_REPS = 3
 # Seeds of the staged operands (``quad_stage``): hover controls, each
 # entry moved by up to this share of its box width, so that A and B differ
 # between instances and steps (hover seeds keep every instance at hover:
@@ -4680,6 +4837,20 @@ def quad_maker(model):
 
 
 def phase_quad_kernels(tt, dev, errs):
+    """Phase 16's (a) kernel checks (``phase_lane_kernels``) on the
+    quadrotor and QuadrotorRate: kernels 1, 2 and 4 on QUAD_KERNEL_B
+    instances about trajectories near hover (``quad_stage``), kernels 5 and
+    6 after one plain IPDDP iteration from such seeds (``quad_ip_stage``),
+    and kernel 5's tracking form on the quadrotor's operands with a line
+    from x0 to the goal as its reference."""
+    phase_lane_kernels(tt, dev, errs, "quadrotor", QUAD_MODELS, quad_maker, quad_stage,
+                       quad_ip_stage, lambda: quad_options(tt, QUAD_ITERS), QUAD_KERNEL_B,
+                       SEED + 61, track={"quadrotor": lambda dtype: quad_problem(
+                           tt, dtype, dev, tracking=True)})
+
+
+def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, options,
+                       kernel_b, seed, track=None):
     """(a) every new instantiation against its plain version, in float64
     (within 1e-9 + ZOO_RTOL |v| plus twice the plain version's move from
     inputs one ulp up, ``check``) and float32 (``check``'s float64-truth
@@ -4689,8 +4860,11 @@ def phase_quad_kernels(tt, dev, errs):
     trajectories near hover (``quad_stage``), kernel 4 from them, kernels 5 (with and without the slack SOC) and 6 at B_CHECK on the
     operands the plain IPDDP driver stages after an iteration
     (``quad_ip_stage``; kernel 6 on both drivers' layouts, same bits), on
-    the quadrotor and on QuadrotorRate, and kernel 5's tracking form on the
-    quadrotor's operands with a line from x0 to the goal as its reference."""
+    each of ``models`` (``maker(model)`` builds its problem, ``stage`` and
+    ``ip_stage`` its operands, ``options()`` its IPDDP options), and kernel
+    5's tracking form on the operands of each model of ``track`` ({model:
+    its tracking problem in a dtype}); errors into ``errs`` under
+    "<kernel>@<model>"."""
     from cddp_tpu_torch.models import rollout
     from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
     from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
@@ -4702,7 +4876,7 @@ def phase_quad_kernels(tt, dev, errs):
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
         exact = dtype == torch.float64
-        gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+        gen = torch.Generator(device=dev).manual_seed(seed)
 
         def forward_checks(prob, fwd, name, opts):
             err = 0.0
@@ -4715,13 +4889,13 @@ def phase_quad_kernels(tt, dev, errs):
                         forward_consts(prob, opts, soc, f64=True), *as64(fwd)),
                     rtol=ZOO_RTOL, quantiles=not exact,
                     moved=ip_rollout.ip_forward_plain(fc, *ulp_up(fwd)) if exact else None))
-                print(f"[quadrotor {tag}] {name} slack_soc={soc}: feasible on "
+                print(f"[{label} {tag}] {name} slack_soc={soc}: feasible on "
                       f"{float(got[-1].double().mean()):.2%} of {B_CHECK}")
             errs[tag][name] = err
 
-        for model in QUAD_MODELS:
-            prob = quad_maker(model)(tt, dtype, dev)
-            X, U, back, alpha = quad_stage(prob, QUAD_KERNEL_B, gen)
+        for model in models:
+            prob = maker(model)(tt, dtype, dev)
+            X, U, back, alpha = stage(prob, kernel_b, gen)
             want = riccati.riccati_backward_plain(*back)
             errs[tag][f"riccati_backward@{model}"] = check(
                 f"riccati_backward@{model}", riccati._launch(*back), want,
@@ -4749,12 +4923,12 @@ def phase_quad_kernels(tt, dev, errs):
                     copy.deepcopy(mdl).double(), X[:, 0].double(), U.double(), dt),),
                 rtol=ZOO_RTOL, quantiles=not exact, moved=(ip_rollout.open_loop_rollout_plain(
                     mdl, *ulp_up((X[:, 0], U)), dt),) if exact else None)
-            opts = quad_options(tt, QUAD_ITERS)
-            p, _, back, fwd = quad_ip_stage(tt, prob, B_CHECK, gen, opts)
+            opts = options()
+            p, _, back, fwd = ip_stage(tt, prob, B_CHECK, gen, opts)
             forward_checks(p, fwd, f"ip_forward@{model}", opts)
-            if model == "quadrotor":
-                track = quad_problem(tt, dtype, dev, tracking=True).replace(x0=p.x0)
-                forward_checks(track, fwd, "ip_forward_track@quadrotor", opts)
+            if model in (track or {}):
+                forward_checks(track[model](dtype).replace(x0=p.x0), fwd,
+                               f"ip_forward_track@{model}", opts)
             got = ric._launch(*back)
             errs[tag][f"ipddp_backward@{model}"] = check(
                 f"ipddp_backward@{model}", got, ric.ipddp_backward_plain(*back),
@@ -4764,7 +4938,7 @@ def phase_quad_kernels(tt, dev, errs):
             if not all(torch.equal(a, b) for a, b in zip(got, ric._launch(*per_pass_layout(back)))):
                 raise AssertionError(f"ipddp_backward@{model}: the per-pass driver's layout "
                                      "gives other bits")
-        print(f"[quadrotor {tag}] kernels held at {time.perf_counter() - t0:.1f} s")
+        print(f"[{label} {tag}] kernels held at {time.perf_counter() - t0:.1f} s")
 
 
 def quad_check_seeds(tt, model, dev):
@@ -4807,19 +4981,23 @@ def quad_plain_refs(tt, dev):
     return out
 
 
-class QuadPlainRefs:
-    """``quad_plain_refs`` in a process of its own (this script with
-    ``--quad-plain-refs PATH``) on the same card, started before (a): the
-    plain drivers' tens of thousands of small torch launches run beside
-    the kernel checks, the anchor and the float64 single solve instead of
-    after them, none of which is timed against the card."""
+class Side:
+    """Work of ``SIDE_RUNS[kind]`` in a process of its own (this script with
+    ``--side KIND PATH``) on the same card, whose result ``main`` reads when
+    it needs it: phase 16's and phase 17's plain references
+    (``quad_plain_refs``, ``attitude_plain_refs``: plain drivers only,
+    started beside the kernels' build) and phases 7, 9, 12, 13 and 15's
+    kernel checks (``side_checks``, started after it). Each runs tens of thousands
+    of small torch launches beside the main process's checks instead of
+    after them, and none of it is timed against the card."""
 
-    def __init__(self):
+    def __init__(self, kind):
+        self._kind = kind
         self._dir = tempfile.TemporaryDirectory(prefix="chip_smoke_refs_")
         self._path = Path(self._dir.name) / "refs.pt"
         self._log = open(Path(self._dir.name) / "log.txt", "w+")
         self._proc = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--quad-plain-refs",
+            [sys.executable, str(Path(__file__).resolve()), "--side", kind,
              str(self._path)], stdout=self._log, stderr=subprocess.STDOUT)
 
     def result(self, dev):
@@ -4827,31 +5005,38 @@ class QuadPlainRefs:
         rc = self._proc.wait(timeout=900)
         self._log.seek(0)
         for line in self._log.read().splitlines():
-            print(f"[quadrotor refs] {line}")
+            print(f"[{self._kind} side] {line}")
         if rc != 0:
-            raise AssertionError(f"the plain references' process exited with status {rc}")
-        return torch.load(self._path, map_location=dev, weights_only=False)
+            raise AssertionError(f"the {self._kind} side process exited with status {rc}")
+        out = torch.load(self._path, map_location=dev, weights_only=False)
+        if not out:
+            raise AssertionError(f"the {self._kind} side process returned nothing")
+        return out
 
     def close(self):
-        """End the process if it still runs, and remove its files."""
+        """End the process if it still runs, and remove its files (once)."""
         if self._proc.poll() is None:
             self._proc.kill()
             self._proc.wait()
-        self._log.close()
-        self._dir.cleanup()
+        if not self._log.closed:
+            self._log.close()
+            self._dir.cleanup()
 
 
-def start_quad_plain_refs(tt, dev):
-    """Start phase 16's plain references (``QuadPlainRefs``)."""
-    return QuadPlainRefs()
-
-
-def quad_plain_refs_main(path):
-    """The ``--quad-plain-refs PATH`` process: ``quad_plain_refs`` on the
-    card, saved to ``path``."""
+def side_main(kind, path):
+    """The ``--side KIND PATH`` process: ``SIDE_RUNS[kind]`` on the card,
+    its result saved to ``path``. The plain references run plain drivers
+    only and build no kernel: ``main`` starts them beside the kernels'
+    build."""
     import cddp_tpu_torch as tt
+    from cddp_tpu_torch.ops.kernels import build
 
-    out = quad_plain_refs(tt, torch.device("cuda", 0))
+    def refuse():
+        raise RuntimeError("the plain references' process builds and launches no kernel")
+
+    if kind != "checks":
+        build.library = refuse
+    out = SIDE_RUNS[kind](tt, torch.device("cuda", 0))
     torch.cuda.synchronize()
     torch.save(out, path)
 
@@ -5129,59 +5314,15 @@ def time_quad_kernels(tt, dev, single, smi):
     model, and kernel 5's tracking form on the quadrotor's with a line as
     its reference; then the single solve's split (``time_quad_single``).
     Returns {entry: timing tuple}."""
-    from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
-    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
-    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+    from cddp_tpu_torch.ops.kernels import ip_rollout
 
-    out, t0 = {}, time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    for model in QUAD_MODELS:
-        prob = quad_maker(model)(tt, torch.float32, dev)
-        X, U, back, alpha = quad_stage(prob, QUAD_B, gen)
-        out1 = riccati._launch(*back)
-        consts = rollout_ops.lane_consts(prob)
-        fwd2 = (X[:, :-1], U, out1[0], out1[1], X[:, 0], alpha)
-        out2 = rollout_ops._launch(consts, *fwd2)
-        opts = quad_options(tt, QUAD_ITERS)
-        p, ol, back6d, fwd5 = quad_ip_stage(tt, prob, QUAD_B, gen, opts)
-        back6, fc, entry = per_pass_layout(back6d), forward_consts(p, opts, False), \
-            rollout_ops.model_entry(p.model)
-        out4 = ip_rollout._launch_open_loop(p.model, entry, *ol, p.timestep)
-        out5, out6 = ip_rollout._launch_forward(fc, *fwd5), ric._launch(*back6)
-        # The plain recursions take seconds a call at these shapes: one call
-        # each, without a warm-up.
-        runs = {
-            "riccati_backward": (lambda: riccati._launch(*back), 10,
-                                 lambda: riccati.riccati_backward_plain(*back), 1),
-            "forward_rollout": (lambda: rollout_ops._launch(consts, *fwd2), 20,
-                                lambda: rollout_ops.forward_rollout_plain(consts, *fwd2), 1),
-            "open_loop_rollout": (
-                lambda: ip_rollout._launch_open_loop(p.model, entry, *ol, p.timestep), 20,
-                lambda: ip_rollout.open_loop_rollout_plain(p.model, *ol, p.timestep), 1),
-            "ip_forward": (lambda: ip_rollout._launch_forward(fc, *fwd5), 20,
-                           lambda: ip_rollout.ip_forward_plain(fc, *fwd5), 1),
-            "ipddp_backward": (lambda: ric._launch(*back6), 10,
-                               lambda: ric.ipddp_backward_plain(*back6), 1),
-        }
-        work = {
-            "riccati_backward": (back, out1, count_ops(
-                riccati.riccati_backward_plain, *one(back)) * QUAD_B),
-            "forward_rollout": (fwd2, out2, count_ops(
-                rollout_ops.forward_rollout_plain, consts, *one(fwd2)) * QUAD_B),
-            "open_loop_rollout": (ol, (out4[:, 1:],), count_ops(
-                ip_rollout.open_loop_rollout_plain, p.model, *one(ol), p.timestep) * QUAD_B),
-            "ip_forward": (fwd5, out5, count_ops(ip_rollout.ip_forward_plain, fc,
-                                                  *one(fwd5)) * QUAD_B),
-            "ipddp_backward": (backward_operands_read(back6), out6, count_ops(
-                ric.ipddp_backward_plain, *one(back6)) * QUAD_B),
-        }
-        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper", batch=QUAD_B)
-        out.update({f"{k}@{model}": v for k, v in timing.items()})
-        print(f"[quadrotor] {model}'s entries timed at {time.perf_counter() - t0:.1f} s")
-        if model == "quadrotor":
-            staged = (p, fwd5)
+    t0 = time.perf_counter()
+    out, staged = time_lane_kernels(tt, dev, smi, "quadrotor", QUAD_MODELS, quad_maker,
+                                    quad_stage, quad_ip_stage,
+                                    lambda: quad_options(tt, QUAD_ITERS), QUAD_B)
+    opts = quad_options(tt, QUAD_ITERS)
     # The tracking form on the quadrotor's operands, a line as its reference.
-    p, fwd5 = staged
+    p, fwd5 = staged["quadrotor"]
     prob = quad_problem(tt, torch.float32, dev, tracking=True).replace(x0=p.x0)
     fc = forward_consts(prob, opts, False)
     out5 = ip_rollout._launch_forward(fc, *fwd5)
@@ -5196,6 +5337,75 @@ def time_quad_kernels(tt, dev, single, smi):
     time_quad_single(tt, dev, single, smi)
     print(f"[quadrotor] timings done at {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def time_lane_kernels(tt, dev, smi, label, models, maker, stage, ip_stage, options, batch,
+                      plain_b=None):
+    """Kernels 1, 2, 4, 5 and 6 of each of a family's ``models`` at ``batch``
+    (wrapper and device ms, plain ms, bound), on operands staged as its (a)
+    stages them (``stage``, ``ip_stage``; ``options()`` the IPDDP options):
+    kernels 1 and 2 on the CLDDP operands, then, those freed, kernels 4, 5
+    and 6 on the IPDDP ones; the plain versions on all of them, or on the
+    first ``plain_b``. Returns ({"<kernel>@<model>": timing tuple}, {model:
+    (the IPDDP operands' problem, kernel 5's inputs)})."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    def cut(ts):
+        return tuple(t[:plain_b] if plain_b and isinstance(t, torch.Tensor) and t.dim()
+                     and t.shape[0] == batch else t for t in ts)
+
+    def timed(runs, work):
+        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper", batch=batch)
+        out.update({f"{k}@{model}": v for k, v in timing.items()})
+
+    out, staged, t0 = {}, {}, time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for model in models:
+        prob = maker(model)(tt, torch.float32, dev)
+        X, U, back, alpha = stage(prob, batch, gen)
+        out1 = riccati._launch(*back)
+        consts = rollout_ops.lane_consts(prob)
+        fwd2 = (X[:, :-1], U, out1[0], out1[1], X[:, 0], alpha)
+        out2 = rollout_ops._launch(consts, *fwd2)
+        # The plain recursions take seconds a call at these shapes: one call
+        # each, without a warm-up.
+        timed({"riccati_backward": (lambda: riccati._launch(*back), 10,
+                                    lambda: riccati.riccati_backward_plain(*cut(back)), 1),
+               "forward_rollout": (lambda: rollout_ops._launch(consts, *fwd2), 20,
+                                   lambda: rollout_ops.forward_rollout_plain(consts,
+                                                                             *cut(fwd2)), 1)},
+              {"riccati_backward": (back, out1, count_ops(
+                  riccati.riccati_backward_plain, *one(back)) * batch),
+               "forward_rollout": (fwd2, out2, count_ops(
+                   rollout_ops.forward_rollout_plain, consts, *one(fwd2)) * batch)})
+        del X, U, back, alpha, out1, fwd2, out2
+        torch.cuda.empty_cache()
+        opts = options()
+        p, ol, back6d, fwd5 = ip_stage(tt, prob, batch, gen, opts)
+        back6, fc, entry = per_pass_layout(back6d), forward_consts(p, opts, False), \
+            rollout_ops.model_entry(p.model)
+        out4 = ip_rollout._launch_open_loop(p.model, entry, *ol, p.timestep)
+        out5, out6 = ip_rollout._launch_forward(fc, *fwd5), ric._launch(*back6)
+        timed({"open_loop_rollout": (
+                  lambda: ip_rollout._launch_open_loop(p.model, entry, *ol, p.timestep), 20,
+                  lambda: ip_rollout.open_loop_rollout_plain(p.model, *cut(ol), p.timestep), 1),
+               "ip_forward": (lambda: ip_rollout._launch_forward(fc, *fwd5), 20,
+                              lambda: ip_rollout.ip_forward_plain(fc, *cut(fwd5)), 1),
+               "ipddp_backward": (lambda: ric._launch(*back6), 10,
+                                  lambda: ric.ipddp_backward_plain(*cut(back6)), 1)},
+              {"open_loop_rollout": (ol, (out4[:, 1:],), count_ops(
+                  ip_rollout.open_loop_rollout_plain, p.model, *one(ol), p.timestep) * batch),
+               "ip_forward": (fwd5, out5, count_ops(ip_rollout.ip_forward_plain, fc,
+                                                     *one(fwd5)) * batch),
+               "ipddp_backward": (backward_operands_read(back6), out6, count_ops(
+                   ric.ipddp_backward_plain, *one(back6)) * batch)})
+        print(f"[{label}] {model}'s entries timed at {time.perf_counter() - t0:.1f} s")
+        staged[model] = (p, fwd5)
+        del back6d, back6, out4, out5, out6
+        torch.cuda.empty_cache()
+    return out, staged
 
 
 def time_quad_single(tt, dev, single, smi):
@@ -5228,19 +5438,13 @@ def time_quad_single(tt, dev, single, smi):
           f"plain sweep at B=1 {plain_ms:.3f} ms ({plain_ms / ms6:.1f}x)  [{smi}]")
 
 
-def phase_quadrotor(tt, dev, smi):
-    """Phase 16, the quadrotor and QuadrotorRate. Beside the plain
-    references' process (``QuadPlainRefs``): (a) every new instantiation
-    against its plain version, float64 and float32, and both models'
-    per-pass float64 solves; (b)'s per-pass golden run; the figure-8
-    anchor; (c)'s float64 single solve. Then (a)'s and (b)'s solves against
-    the plain drivers, and (c)-(e) alone on the card: the single solve and
-    the fleets (each entry's times and bound follow in
-    ``time_quad_kernels``). Returns ({entry: launches}, {dtype: {entry:
-    err}}, the single solve)."""
+def quad_checks(tt, dev, smi, refs):
+    """Phase 16's (a) and (b), the figure-8 anchor and (c)'s float64 single
+    solve beside the plain references' process (``refs``, a ``Side``),
+    then (a)'s and (b)'s solves held to the references. Returns (errs, the
+    anchor's launches, the float64 single solve)."""
     t0 = time.perf_counter()
     errs = {"float64": {}, "float32": {}}
-    refs = start_quad_plain_refs(tt, dev)
     try:
         phase_quad_kernels(tt, dev, errs)
         print(f"[quadrotor] (a)'s kernels done in {time.perf_counter() - t0:.1f} s")
@@ -5257,10 +5461,657 @@ def phase_quadrotor(tt, dev, smi):
     check_quad_solves(solves, plain)
     check_quad_golden(golden, plain["golden"])
     print(f"[quadrotor] (a) and (b) done in {time.perf_counter() - t0:.1f} s")
+    return errs, anchor, sol64
+
+
+def phase_quadrotor(tt, dev, smi, checked):
+    """Phase 16, the quadrotor and QuadrotorRate. Beside the plain
+    references' process (``Side``): (a) every new instantiation
+    against its plain version, float64 and float32, and both models'
+    per-pass float64 solves; (b)'s per-pass golden run; the figure-8
+    anchor; (c)'s float64 single solve. Then (a)'s and (b)'s solves against
+    the plain drivers, and (c)-(e) alone on the card: the single solve and
+    the fleets (each entry's times and bound follow in
+    ``time_quad_kernels``); ``checked``: ``quad_checks``' results, which
+    ``main`` takes earlier. Returns ({entry: launches}, {dtype: {entry:
+    err}}, the single solve)."""
+    t0 = time.perf_counter()
+    errs, anchor, sol64 = checked
+    checked_errs("phase 16", errs)
     launches, single = phase_quad_fleets(tt, dev, smi, sol64)
     launches["ip_forward_track@quadrotor"] = anchor["ip_forward_track@quadrotor"]
     print(f"[quadrotor] checks and fleets done in {time.perf_counter() - t0:.1f} s")
     return launches, errs, single
+
+
+# --- the rigid-body attitude trio (phase 17) -----------------------------------------
+
+ATT_MODELS = ("euler_attitude", "quaternion_attitude", "mrp_attitude")
+ATT_CLASSES = {"EulerAttitude": "euler_attitude", "QuaternionAttitude": "quaternion_attitude",
+               "MrpAttitude": "mrp_attitude"}
+ATT_INERTIA = (10.0, 15.0, 20.0)  # examples/spacecraft_examples.py:61
+SLEW_X0 = (0.3, 0.2, -0.25)  # the example's MRP at rest (:67)
+SLEW_N = 200  # the example's horizon (:60)
+MPC_N = 20  # the onboard attitude MPC's horizon, where the whole solves run
+SLEW_B = 65536  # the slew fleets' batch (the quadrotor fleets')
+ATT_X0_WIDTH = 0.3  # the fleets' start attitudes: MRPs from U(-0.3, 0.3)^3, at rest
+ATT_ITERS = 10  # the fleets' budget
+SINGLE_ITERS = 150  # the example's single slew (:73)
+SINGLE_REPS = 3  # its timed runs after a warm-up
+# (a) holds the whole solves at N = 20 and at the longest horizon each
+# takes (``attitude_whole_cases``) on B_CHECK instances over
+# ATT_WHOLE_ITERS, and the per-pass solves at N = 200 on QUAD_CHECK_B over
+# ATT_CHECK_ITERS, to their plain drivers: the plain drivers' runs are the
+# phase's largest cost (an iteration of the N = 20 fleet's took about 1 s
+# of an NVIDIA H100 80GB HBM3 machine's host at 700 W, the plain drivers
+# being torch launches), so a second process runs them
+# (``attitude_plain_refs``) beside the kernels' build.
+ATT_WHOLE_ITERS = 5
+ATT_CHECK_ITERS = 2
+ATT_KERNEL_B = 1024  # (a)'s kernels 1, 2 and 4 at N = 200
+# (b)'s MSIPDDP and LogDDP fleets on their plain drivers at B_CHECK: one
+# iteration after kernel 4's seed (an iteration at N = 200 is seconds of
+# torch launches).
+ATT_PLAIN_ITERS = 1
+# The whole solves the kernel tables leave out (rollout.CLDDP_MODELS,
+# mega_ipddp.IP_BOX_ROWS; ROADMAP C.12): in float32 each agreed with its
+# plain driver on less than 99% of the plain driver's stable instances (those
+# on which it agrees with its own run from x0 one ulp up) at N = 20 on
+# B_CHECK instances, kernel 3 on the MRP model on 97.41%, kernel 7 on the
+# Euler model on 96.78%; those fleets run per pass.
+ATT_LEFT_OUT = {("clddp_solve", "mrp_attitude"), ("ipddp_solve", "euler_attitude")}
+# Phase 17's kernels, each an entry of the kernels' JSON line: (entry name,
+# dispatch_log name, kernel, model, launcher without its type suffix).
+ATT_ENTRIES = tuple(
+    (f"{kernel}@{model}", logged, kernel, model, launcher)
+    for model in ATT_MODELS
+    for kernel, logged, launcher in (
+        ("riccati_backward", f"riccati_backward@{6 + (model[0] == 'q')}x3",
+         f"cddp_riccati_backward_{6 + (model[0] == 'q')}x3"),
+        ("forward_rollout", f"forward_rollout@{model}", f"cddp_forward_rollout_{model}"),
+        ("clddp_solve", f"clddp_solve@{model}", f"cddp_clddp_solve_{model}"),
+        ("open_loop_rollout", f"open_loop_rollout@{model}",
+         f"cddp_open_loop_rollout_{model}"),
+        ("ip_forward", f"ip_forward@{model}", f"cddp_ip_forward_{model}_m6"),
+        ("ipddp_backward", f"ipddp_backward@{6 + (model[0] == 'q')}x3x6",
+         f"cddp_ipddp_backward_{6 + (model[0] == 'q')}x3x6"),
+        ("ipddp_solve", f"ipddp_solve@{model}", f"cddp_ipddp_solve_{model}_m6"),
+        ("logddp_solve", f"logddp_solve@{model}", f"cddp_logddp_solve_{model}_m6"),
+    ) if (kernel, model) not in ATT_LEFT_OUT)
+
+
+def attitude_state(model, sigma):
+    """States (B, nx) at rest at the attitudes ``sigma`` (B, 3), MRPs, in the
+    model's coordinates (``utils/rotations.py``): the MRP itself, its
+    quaternion, or its ZYX Euler angles."""
+    from cddp_tpu_torch.utils import rotations
+
+    if model == "mrp_attitude":
+        att = sigma
+    elif model == "quaternion_attitude":
+        att = rotations.mrp_to_quat(sigma)
+    else:
+        att = rotations.rotation_matrix_to_euler_zyx(rotations.mrp_to_rotation_matrix(sigma))
+    return torch.cat([att, torch.zeros_like(sigma)], -1)
+
+
+def attitude_problem(tt, dtype, device, model, horizon=None):
+    """The MRP slew of examples/spacecraft_examples.py:59-82 on ``model``:
+    rk4, inertia diag(10, 15, 20), dt = 0.05, N = SLEW_N (or ``horizon``), Q
+    = 0.1 diag(1, 1, 1, 0.1, 0.1, 0.1), R = 0.01 I, Qf = diag(500 x3, 50 x3)
+    (the quaternion's attitude weight repeated over its four entries), the
+    torque box +-2, from the example's attitude at rest to the identity at
+    rest. Its tensors and model are in ``dtype``, as a solve casts them."""
+    from cddp_tpu_torch import models
+    from cddp_tpu_torch.solvers.base import canonicalize_problem_dtype
+
+    kw = dict(device=device, dtype=dtype)
+    f64 = lambda v: torch.as_tensor(v, dtype=torch.float64)  # noqa: E731
+    n_att = 4 if model == "quaternion_attitude" else 3
+    goal = attitude_state(model, torch.zeros(1, 3, dtype=torch.float64))[0]
+    x0 = attitude_state(model, f64([SLEW_X0]))[0]
+    obj = tt.quadratic_objective(0.1 * f64([1.0] * n_att + [0.1] * 3).diag(),
+                                 0.01 * torch.eye(3, dtype=torch.float64),
+                                 f64([500.0] * n_att + [50.0] * 3).diag(), goal, DT, **kw)
+    mdl = getattr(models, model)(inertia=f64(ATT_INERTIA).diag(), integration_type="rk4",
+                                 device=device)
+    prob = tt.problem(mdl, obj, x0, horizon or SLEW_N, DT, **kw).add_constraint(
+        "ControlConstraint", tt.control_constraint([-2.0] * 3, [2.0] * 3, **kw))
+    return canonicalize_problem_dtype(prob)
+
+
+def attitude_options(tt, iterations):
+    """The example's options (:71-72): tolerance 1e-5, acceptable 1e-6;
+    ``iterations``."""
+    return tt.CDDPOptions(max_iterations=iterations, tolerance=1e-5, acceptable_tolerance=1e-6)
+
+
+def attitude_maker(model, horizon=None):
+    """``attitude_problem`` as a ``make_problem(tt, dtype, device)``."""
+    return lambda tt, dtype, dev: attitude_problem(tt, dtype, dev, model, horizon)
+
+
+def attitude_ip_stage(tt, prob, B, gen, opts):
+    """Kernels 4, 5 and 6's operands after one IPDDP iteration of the
+    per-pass engine from the fleet's cold seeds (``stage_ip_inputs``), A
+    differing between instances and steps (B = dt [0; I^-1] is the same
+    everywhere: the torques enter the rates alone, through the constant
+    inertia)."""
+    staged = stage_ip_inputs(tt, prob, B, gen, opts, iterations=1, kernels=True)
+    assert_varies(f"{type(prob.model).__name__} IPDDP operands", staged[2][0])
+    return staged
+
+
+def attitude_stage(prob, B, gen):
+    """Kernels 1 and 2's operands (``stage_inputs``: controls uniform in
+    three quarters of the box) about rollouts from the fleet's x0, A
+    differing between instances and steps (B is constant,
+    ``attitude_ip_stage``)."""
+    X, U, back, alpha = stage_inputs(prob, B, gen)
+    assert_varies(f"{type(prob.model).__name__} CLDDP operands", back[0])
+    return X, U, back, alpha
+
+
+ATT_WHOLE = {"CLDDP": "clddp_solve", "IPDDP": "ipddp_solve", "LogDDP": "logddp_solve"}
+
+
+def attitude_whole_solvers(model):
+    """The solvers whose whole-solve kernel takes ``model`` (not
+    ATT_LEFT_OUT's)."""
+    return tuple(solver for solver, kernel in ATT_WHOLE.items()
+                 if (kernel, model) not in ATT_LEFT_OUT)
+
+
+def attitude_whole_cases():
+    """(a)'s whole solves: (model, horizon, iterations, solvers), each model
+    at the MPC horizon, and each kernel on each model it takes at the
+    longest horizon it takes it (``rollout.WHOLE_MAX_HORIZON``, the JAX
+    gates'; past it the solves run per pass, which (a)'s per-pass solves
+    hold at N = SLEW_N)."""
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    edge = {}
+    for solver, kernel in ATT_WHOLE.items():
+        for model, horizon in rollout_ops.WHOLE_MAX_HORIZON[kernel].items():
+            edge.setdefault((model, horizon), []).append(solver)
+    return ([(model, MPC_N, ATT_WHOLE_ITERS, attitude_whole_solvers(model))
+             for model in ATT_MODELS]
+            + [(model, horizon, ATT_WHOLE_ITERS, tuple(solvers))
+               for (model, horizon), solvers in sorted(edge.items())])
+
+
+def attitude_whole_x0(tt, dev, model, dtype, horizon):
+    """(a)'s whole solves' problem (N = ``horizon``) in ``dtype`` and x0:
+    B_CHECK seeded ``fleet_x0`` drawn in float32 and cast, so that the
+    float64 plain runs are also the float32 ones' truth."""
+    prob = attitude_problem(tt, dtype, dev, model, horizon)
+    p32 = prob if dtype == torch.float32 else attitude_problem(tt, torch.float32, dev, model,
+                                                               horizon)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    return prob, fleet_x0(p32, B_CHECK, gen).to(dtype)
+
+
+def attitude_whole_run(tt, prob, x0, solver, plain, iterations):
+    """One of (a)'s whole solves from x0's cold seeds (each solver's
+    ``solve`` builds them), ``iterations`` of the example's options: the
+    kernel's launch, or with ``plain`` its plain driver."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
+    from cddp_tpu_torch.solvers import clddp, ipddp, logddp
+
+    opts = attitude_options(tt, iterations)
+    if solver == "IPDDP":
+        # The seed's rollout by the plain version, in both processes: the
+        # references' process builds no kernel.
+        p, seeds = ip_seeds(prob, plain_ip_options(tt, opts), x0)
+        if plain:
+            return ipddp._drive(p, plain_ip_options(tt, opts), *seeds)
+        return mega_ipddp._launch(p, opts, *seeds)
+    p = prob.replace(x0=x0)
+    if solver == "LogDDP":
+        seeds = barrier_seeds("LogDDP", p, opts)
+        return logddp._drive(p, opts, *seeds) if plain else mega_logddp._launch(p, opts, *seeds)
+    seeds = clddp_solve_seeds(x0, p)
+    if plain:
+        return clddp._solve(p, opts.replace(backward_engine="scan"), *seeds)
+    return mega_clddp._launch(p, opts, *seeds)
+
+
+def attitude_whole_refs(tt, dev, out):
+    """Into ``out``, the plain drivers' runs that (a)'s whole solves are held
+    to (``attitude_whole_run``): each case of ``attitude_whole_cases`` and
+    solver in float64, and in float32 from x0 and from x0 one ulp up, with
+    the float32 run's host ms."""
+    for model, horizon, iters, solvers in attitude_whole_cases():
+        for dtype in (torch.float64, torch.float32):
+            tag = str(dtype).replace("torch.", "")
+            prob, x0 = attitude_whole_x0(tt, dev, model, dtype, horizon)
+            for solver in solvers:
+                key = (solver, model, horizon)
+                out[("whole", *key, tag)] = timed_plain(
+                    lambda: attitude_whole_run(tt, prob, x0, solver, True, iters))
+                if dtype == torch.float32:
+                    out[("whole ms", *key)] = LAST_PLAIN_MS[0]
+                    out[("whole up", *key)] = attitude_whole_run(
+                        tt, prob, ulp_up((x0,))[0], solver, True, iters)
+
+
+def solution_rows(sol, rows):
+    """The status, iteration count and cost of ``sol``'s instances ``rows``,
+    as the float32 checks read them."""
+    return types.SimpleNamespace(status_code=sol.status_code[rows],
+                                 iterations_completed=sol.iterations_completed[rows],
+                                 final_objective=sol.final_objective[rows])
+
+
+def check_attitude_whole(tt, dev, refs, errs, plain):
+    """(a) the whole solves 3, 7 and 9 (``attitude_whole_cases``) on
+    B_CHECK instances against their plain drivers' runs in ``refs``
+    (``attitude_whole_refs``): float64 every status and iteration count
+    equal, X, U and cost within 1e-8 (IPDDP also duals, slacks and mu;
+    LogDDP the gains); float32 status, iterations and cost (rel 1e-4) equal
+    on >= 99% of the plain driver's stable instances, those on which it
+    agrees so with its own run from x0 one ulp up (all of them where its
+    float32 solve does not fork within these iterations; ROADMAP C.12),
+    and kernel 7 as accurate against float64 as its plain driver within 2x
+    over all instances. Every case is checked and printed before a failure
+    is raised. Errors at N = MPC_N into ``errs``, each whole solve's
+    float32 plain ms there into ``plain``."""
+    def fields(sol):
+        return sol, {"X": sol.state_trajectory, "U": sol.control_trajectory,
+                     "k": sol.feedforward_gains, "K": sol.feedback_gains,
+                     "cost": sol.final_objective}
+
+    failed = []
+    for model, horizon, iters, solvers in attitude_whole_cases():
+        for dtype in (torch.float64, torch.float32):
+            tag = str(dtype).replace("torch.", "")
+            prob, x0 = attitude_whole_x0(tt, dev, model, dtype, horizon)
+            for solver in solvers:
+                kernel = ATT_WHOLE[solver]
+                name, key = f"{kernel}@{model}", (solver, model, horizon)
+                label = f"{name} N={horizon}, {iters} iterations"
+                kern = attitude_whole_run(tt, prob, x0, solver, False, iters)
+                ref = refs[("whole", *key, tag)]
+                same = ((kern.status_code == ref.status_code)
+                        & (kern.iterations_completed == ref.iterations_completed))
+                err = float((kern.final_objective - ref.final_objective)[same].abs().max())
+                if horizon == MPC_N:
+                    errs[tag][name] = err
+                if dtype == torch.float64:
+                    if solver == "CLDDP":
+                        check_solve_f64(label, kern, ref)
+                    elif solver == "IPDDP":
+                        check_ip_solve(label, kern, ref, True, dual_rtol=1e-8)
+                    else:
+                        check_barrier(solver, label, fields(kern), fields(ref), True)
+                    continue
+                if horizon == MPC_N:
+                    plain[name] = refs[("whole ms", *key)]
+                stable = cost_agree(refs[("whole up", *key)], ref)
+                print(f"[kernels float32] {label}: the kernel agrees with the plain driver on "
+                      f"{float(cost_agree(kern, ref).double().mean()):.4%} of {x0.shape[0]}; "
+                      f"the plain driver with itself from x0 one ulp up on "
+                      f"{int(stable.sum())} (its stable instances, "
+                      f"{float(stable.double().mean()):.4%}), held at 99% there")
+                k, r = solution_rows(kern, stable), solution_rows(ref, stable)
+                try:
+                    if solver == "CLDDP":
+                        check_solve_f32(f"{label}, stable instances", k, r, 0.99)
+                    elif solver == "LogDDP":
+                        check_barrier(solver, f"{label}, stable instances", (k, None),
+                                      (r, None), False)
+                    else:
+                        check_ip_solve(f"{label}, stable instances", k, r, False)
+                except AssertionError as e:
+                    failed.append(str(e))
+                truth = refs[("whole", *key, "float64")].final_objective
+                rel = {n: (s.final_objective.double() - truth).abs() / truth.abs()
+                       for n, s in (("kernel", kern), ("plain", ref))}
+                q = {n: (float(r.median()), float(r.quantile(0.99))) for n, r in rel.items()}
+                print(f"[kernels float32] {label} against the float64 plain driver: median rel "
+                      f"cost err kernel {q['kernel'][0]:.3e}, plain {q['plain'][0]:.3e}; 99th "
+                      f"percentile kernel {q['kernel'][1]:.3e}, plain {q['plain'][1]:.3e}")
+                if solver == "IPDDP" and not all(
+                        q["kernel"][i] <= 2.0 * q["plain"][i] + 1e-6 for i in (0, 1)):
+                    failed.append(f"{label}: rel cost err against float64 {q['kernel']} "
+                                  f"exceeds twice the plain driver's {q['plain']}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def attitude_check_seeds(tt, model, dev):
+    """(a)'s per-pass solves' problem (float64, N = SLEW_N) and x0
+    (QUAD_CHECK_B seeded ``fleet_x0``), as both processes build them."""
+    prob = attitude_problem(tt, torch.float64, dev, model)
+    return prob, fleet_x0(prob, QUAD_CHECK_B,
+                          torch.Generator(device=dev).manual_seed(SEED + 75))
+
+
+def attitude_check_options(tt, solver):
+    """(a)'s per-pass options of ``solver`` (ATT_CHECK_ITERS) and its plain
+    driver's."""
+    opts = attitude_options(tt, ATT_CHECK_ITERS).replace(solve_engine="xla")
+    return opts, (opts.replace(backward_engine="scan") if solver == "CLDDP"
+                  else plain_ip_options(tt, opts))
+
+
+def attitude_plain_refs(tt, dev):
+    """The plain drivers' solutions phase 17 holds its kernels to: (a)'s
+    whole solves (``attitude_whole_refs``), then its per-pass float64
+    CLDDP and IPDDP on each model's ``attitude_check_seeds``. Returns {key:
+    value}."""
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    out, t0 = {}, time.perf_counter()
+    attitude_whole_refs(tt, dev, out)
+    print(f"the whole solves' plain drivers done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for model in ATT_MODELS:
+        prob, x0 = attitude_check_seeds(tt, model, dev)
+        out[("x0", model)] = x0
+        for solver in ("CLDDP", "IPDDP"):
+            out[(solver, model)] = batched_solve(prob, x0, solver,
+                                                 attitude_check_options(tt, solver)[1])
+        print(f"{model}'s per-pass plain drivers done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return out
+
+
+def attitude_kernel_solves(tt, dev):
+    """(a)'s per-pass float64 solves at N = SLEW_N, CLDDP (kernels 1 and 2)
+    and IPDDP (kernels 4, 6 and 5), of each model on
+    ``attitude_check_seeds``, each run's launches checked. Returns
+    {(solver, model): (Solution, launches, x0)}."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    out = {}
+    for model in ATT_MODELS:
+        prob, x0 = attitude_check_seeds(tt, model, dev)
+        nx = prob.state_dim
+        for solver, want in (("CLDDP", {f"riccati_backward@{nx}x3", f"forward_rollout@{model}"}),
+                             ("IPDDP", {f"open_loop_rollout@{model}", f"ipddp_backward@{nx}x3x6",
+                                        f"ip_forward@{model}"})):
+            dispatch_log.reset()
+            sol = batched_solve(prob, x0, solver, attitude_check_options(tt, solver)[0])
+            torch.cuda.synchronize()
+            counts = dict(dispatch_log.launches)
+            if set(counts) != want:
+                raise AssertionError(f"{model} {solver} per pass, float64: launches {counts}, "
+                                     f"not {sorted(want)}")
+            out[(solver, model)] = (sol, counts, x0)
+    return out
+
+
+def check_attitude_solves(tt, dev, solves, refs):
+    """(a)'s per-pass solves against the plain drivers: every status and
+    iteration count equal, X, U and cost within 1e-8 (CLDDP plus
+    MOVE_FACTOR times the plain driver's move from x0 one ulp up, run here
+    only where 1e-8 alone is exceeded), the duals, slacks and mu too for
+    IPDDP."""
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    for (solver, model), (kern, counts, x0) in solves.items():
+        if not torch.equal(x0, refs[("x0", model)]):
+            raise AssertionError(f"{model}: the plain references ran from other x0")
+        plain = refs[(solver, model)]
+        if solver == "CLDDP":
+            prob = attitude_check_seeds(tt, model, dev)[0]
+            check_solve_f64(f"{model} per-pass", kern, plain, moved=lambda prob=prob, x0=x0:
+                            batched_solve(prob, ulp_up((x0,))[0], "CLDDP",
+                                          attitude_check_options(tt, "CLDDP")[1]))
+        else:
+            check_ip_solve(f"{model} per-pass", kern, plain, True, dual_rtol=1e-8)
+        print(f"[attitude float64] {model} {solver} per pass at N={SLEW_N}, B={x0.shape[0]}, "
+              f"{ATT_CHECK_ITERS} iterations: launches {counts}; iterations "
+              f"{torch.bincount(kern.iterations_completed.long()).tolist()}")
+
+
+def slew_single(tt, dev, dtype):
+    """(d) the example's single slew through ``tt.solve`` as the example
+    calls it (x0 of shape (nx,), X0 the tiled x0, SINGLE_ITERS iterations),
+    its launches counted. Returns (Solution, launches, host ms)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+
+    prob = attitude_problem(tt, dtype, dev, "mrp_attitude")
+    X0 = prob.x0.expand(SLEW_N + 1, -1)
+    dispatch_log.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = tt.solve(prob, "CLDDP", attitude_options(tt, SINGLE_ITERS), X0=X0)
+    torch.cuda.synchronize()
+    return sol, dict(dispatch_log.launches), (time.perf_counter() - t0) * 1e3
+
+
+def phase_slew_single(tt, dev, smi, sol64):
+    """(d) the example's single slew in float32 at B = 1, per pass (kernels
+    1 and 2: kernel 3 leaves the MRP model out, ATT_LEFT_OUT): status,
+    iterations, the final state's distance to the goal, max |u| and ms a
+    solve (the median of SINGLE_REPS after a warm-up), held to its float64
+    run ``sol64``: the same status and the final cost within
+    SINGLE_COST_RTOL."""
+    runs = [slew_single(tt, dev, torch.float32) for _ in range(SINGLE_REPS + 1)]
+    sol, counts, _ = runs[0]
+    if set(counts) != {"riccati_backward@6x3", "forward_rollout@mrp_attitude"}:
+        raise AssertionError(f"the single slew: launches {counts}")
+    ms = sorted(r[2] for r in runs[1:])
+    err = float(sol.state_trajectory[-1].norm())
+    rel = abs(float(sol.final_objective) - float(sol64.final_objective)) / abs(
+        float(sol64.final_objective))
+    print(f"[attitude] the example's slew (MrpAttitude, CLDDP, N={SLEW_N}, float32, B=1): "
+          f"status {int(sol.status_code)}, {int(sol.iterations_completed)} iterations, err "
+          f"{err:.4f}, max |u| {float(sol.control_trajectory.abs().max()):.3f}, cost "
+          f"{float(sol.final_objective):.6f}; {ms[len(ms) // 2]:.2f} ms a solve (median of "
+          f"{SINGLE_REPS} after a warm-up; min {ms[0]:.2f}, max {ms[-1]:.2f}); launches "
+          f"{counts}  [{smi}]")
+    print(f"[attitude] the slew in float64 (kernels 1 and 2's float64 builds): status "
+          f"{int(sol64.status_code)}, {int(sol64.iterations_completed)} iterations, err "
+          f"{float(sol64.state_trajectory[-1].norm()):.4f}, cost "
+          f"{float(sol64.final_objective):.7f}; float32 against it: rel cost {rel:.3e} (<= "
+          f"{SINGLE_COST_RTOL:g}, status equal)")
+    if not bool(sol.state_trajectory.isfinite().all()):
+        raise AssertionError("the single slew: non-finite states")
+    if int(sol.status_code) != int(sol64.status_code) or not rel <= SINGLE_COST_RTOL:
+        raise AssertionError(f"the float32 slew: status {int(sol.status_code)}, rel cost "
+                             f"{rel:.3e} against float64's status {int(sol64.status_code)}")
+
+
+def attitude_fleet_run(label, prob, x0, solver, opts, want, smi, mega=None):
+    """``zoo_fleet_run`` with the run's converged share, iterations, ms,
+    solves/s, peak device memory, the kernel's work and warp divergence
+    (``mega``), and the final states' distance to the goal. Returns
+    launches."""
+    B = x0.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    sol, counts, ms, work = zoo_fleet_run(label, prob, x0, solver, opts, want, mega)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    conv = (sol.status_code == 1) | (sol.status_code == 2)
+    its = sol.iterations_completed.double()
+    dist = (sol.state_trajectory[:, -1] - prob.objective.reference_state).norm(dim=-1)
+    extra = ("" if work is None else f"; the kernel's wrapper {work[0]:.2f} ms, mean work per "
+             f"instance {work[1]}, warp divergence {work[2]:.4f}")
+    print(f"[attitude] {label}, B={B}, {opts.max_iterations} iterations: converged "
+          f"{float(conv.double().mean()):.4%}, statuses "
+          f"{torch.bincount(sol.status_code.long(), minlength=5).tolist()}, iterations mean "
+          f"{float(its.mean()):.3f} max {int(its.max())}; {ms:.2f} ms ({B / ms * 1e3:.1f} "
+          f"solves/s); peak device memory {peak:.2f} GiB; launches {counts}; |x_N - goal| "
+          f"median {float(dist.median()):.3e}, max {float(dist.max()):.3e}{extra}  [{smi}]")
+    return counts
+
+
+def phase_attitude_fleets(tt, dev, smi, sol64):
+    """(b)-(d), each run with the launch counts zeroed just before it and
+    read just after: on each model, the slew fleet (N = SLEW_N, SLEW_B,
+    float32, ATT_ITERS) under CLDDP per pass (kernels 1, 2) and IPDDP per
+    pass (kernels 4, 6, 5), and at B_CHECK under MSIPDDP (kernel 8 refuses
+    the trio) and LogDDP (``solve_engine="xla"``) on their plain drivers
+    over ATT_PLAIN_ITERS (kernel 4's seed alone); the MPC fleet (N =
+    MPC_N, B_MAIN, float32, ATT_ITERS) under CLDDP (one launch of kernel 3),
+    IPDDP and LogDDP (kernel 4's seed and one launch of kernel 7 or 9), per
+    pass where ATT_LEFT_OUT leaves the whole solve out; then the example's
+    single slew (``phase_slew_single``). Returns (launches
+    {entry: n}, {(fleet, model): (problem, x0)} for the timings)."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
+
+    launches, fleets, t0 = {}, {}, time.perf_counter()
+    for model in ATT_MODELS:
+        prob = attitude_problem(tt, torch.float32, dev, model)
+        x0 = fleet_x0(prob, SLEW_B, torch.Generator(device=dev).manual_seed(SEED))
+        fleets[("slew", model)] = (prob, x0)
+        nx = prob.state_dim
+        ol, k1, k2 = (f"open_loop_rollout@{model}", f"riccati_backward@{nx}x3",
+                      f"forward_rollout@{model}")
+        k5, k6 = f"ip_forward@{model}", f"ipddp_backward@{nx}x3x6"
+        for solver, B, iters, engine, want, drives in (
+                ("CLDDP", SLEW_B, ATT_ITERS, "xla", {k1, k2},
+                 {f"riccati_backward@{model}": k1, k2: k2}),
+                ("IPDDP", SLEW_B, ATT_ITERS, "xla", {ol, k6, k5},
+                 {ol: ol, k5: k5, f"ipddp_backward@{model}": k6}),
+                ("MSIPDDP", B_CHECK, ATT_PLAIN_ITERS, "auto", {ol: 1}, {}),
+                ("LogDDP", B_CHECK, ATT_PLAIN_ITERS, "xla", {ol: 1}, {})):
+            how = "plain driver" if B == B_CHECK else "per pass"
+            opts = attitude_options(tt, iters).replace(solve_engine=engine)
+            counts = attitude_fleet_run(f"{model} slew {solver} fleet ({how})", prob, x0[:B],
+                                        solver, opts, want, smi)
+            launches.update({entry: counts[logged] for entry, logged in drives.items()})
+    print(f"[attitude] (b) done in {time.perf_counter() - t0:.1f} s")
+    opts = attitude_options(tt, ATT_ITERS)
+    for model in ATT_MODELS:
+        prob = attitude_problem(tt, torch.float32, dev, model, MPC_N)
+        x0 = fleet_x0(prob, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
+        fleets[("mpc", model)] = (prob, x0)
+        nx = prob.state_dim
+        per_pass = {"CLDDP": {f"riccati_backward@{nx}x3", f"forward_rollout@{model}"},
+                    "IPDDP": {f"open_loop_rollout@{model}", f"ipddp_backward@{nx}x3x6",
+                              f"ip_forward@{model}"}}
+        for solver, kernel, mega in (("CLDDP", "clddp_solve", mega_clddp),
+                                     ("IPDDP", "ipddp_solve", mega_ipddp),
+                                     ("LogDDP", "logddp_solve", mega_logddp)):
+            name = f"{kernel}@{model}"
+            label = f"{model} MPC {solver} fleet (N={MPC_N})"
+            if (kernel, model) in ATT_LEFT_OUT:
+                attitude_fleet_run(f"{label}, per pass", prob, x0, solver, opts,
+                                   per_pass[solver], smi)
+                continue
+            want = ({name: 1} if solver == "CLDDP"
+                    else {name: 1, f"open_loop_rollout@{model}": 1})
+            counts = attitude_fleet_run(label, prob, x0, solver, opts, want, smi, mega)
+            launches[name] = counts[name]
+    print(f"[attitude] (c) done in {time.perf_counter() - t0:.1f} s")
+    phase_slew_single(tt, dev, smi, sol64)
+    print(f"[attitude] (d) done in {time.perf_counter() - t0:.1f} s")
+    return launches, fleets
+
+
+def attitude_checks(tt, dev, smi, refs):
+    """Phase 17's (a) and (d)'s float64 slew beside the plain references'
+    process (``refs``, a ``Side``), then the whole and per-pass solves held
+    to its runs. Returns (errs, {entry: float32 plain ms}, the float64
+    slew)."""
+    t0 = time.perf_counter()
+    errs, plain = {"float64": {}, "float32": {}}, {}
+    try:
+        phase_lane_kernels(tt, dev, errs, "attitude", ATT_MODELS, attitude_maker, attitude_stage,
+                           attitude_ip_stage, lambda: attitude_options(tt, ATT_ITERS),
+                           ATT_KERNEL_B, SEED + 77)
+        print(f"[attitude] (a)'s per-pass kernels done in {time.perf_counter() - t0:.1f} s")
+        solves = attitude_kernel_solves(tt, dev)
+        sol64 = slew_single(tt, dev, torch.float64)[0]
+        print(f"[attitude] per-pass solves and the float64 slew done in "
+              f"{time.perf_counter() - t0:.1f} s")
+        refs_out = refs.result(dev)
+    finally:
+        refs.close()
+    print(f"[attitude] plain references in at {time.perf_counter() - t0:.1f} s")
+    check_attitude_whole(tt, dev, refs_out, errs, plain)
+    print(f"[attitude] (a)'s whole solves done in {time.perf_counter() - t0:.1f} s")
+    check_attitude_solves(tt, dev, solves, refs_out)
+    return errs, plain, sol64
+
+
+def phase_attitude(tt, dev, smi, checked):
+    """Phase 17, the attitude trio. Beside the plain references' process
+    (``Side("attitude")``, which runs (a)'s plain drivers): (a) every
+    new instantiation of kernels 1, 2, 4, 5 and 6 against its plain version
+    at the slew's horizon (``phase_lane_kernels``), the per-pass float64
+    solves at N = SLEW_N, and (d)'s float64 slew. Then the whole solves 3, 7
+    and 9 (``attitude_whole_cases``) against their plain drivers' runs
+    (``check_attitude_whole``), the per-pass solves against theirs, and
+    (b)-(d) alone on the card (each entry's times and bound follow in
+    ``time_attitude_kernels``); ``checked``: ``attitude_checks``' results,
+    which ``main`` takes earlier. Returns ({entry: launches}, {dtype:
+    {entry: err}}, {(fleet, model): (problem, x0)}, {entry: plain ms})."""
+    t0 = time.perf_counter()
+    errs, plain, sol64 = checked
+    checked_errs("phase 17", errs)
+    launches, fleets = phase_attitude_fleets(tt, dev, smi, sol64)
+    print(f"[attitude] checks and fleets done in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, fleets, plain
+
+
+def time_attitude_kernels(tt, dev, fleets, plain, smi):
+    """(e) every phase-17 entry's wrapper and device ms, plain ms and bound:
+    kernels 1, 2, 4, 5 and 6 at SLEW_B on the slew's operands, staged as in
+    (a) by the per-pass kernels (``time_lane_kernels``; their plain versions
+    timed on the first ATT_KERNEL_B instances), the whole solves at B_MAIN
+    on the MPC fleets' cold seeds, each one's bound from one counted
+    launch's work (their plain drivers' float32 ms from (a), ``plain``).
+    Returns {entry: timing tuple}."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
+
+    t0 = time.perf_counter()
+    out, _ = time_lane_kernels(
+        tt, dev, smi, "attitude", ATT_MODELS, attitude_maker,
+        lambda prob, B, gen: stage_inputs(prob, B, gen),
+        lambda tt, prob, B, gen, opts: stage_ip_inputs(tt, prob, B, gen, opts, iterations=1,
+                                                       kernels=True),
+        lambda: attitude_options(tt, ATT_ITERS), SLEW_B, plain_b=ATT_KERNEL_B)
+    opts = attitude_options(tt, ATT_ITERS)
+    for model in ATT_MODELS:
+        prob, x0 = fleets[("mpc", model)]
+        p = prob.replace(x0=x0)
+        seeds3, (p7, seeds7), seeds9 = (clddp_solve_seeds(x0, prob), ip_seeds(prob, opts, x0),
+                                        barrier_seeds("LogDDP", p, opts))
+        runs = {"clddp_solve": (lambda: mega_clddp._launch(p, opts, *seeds3), 10, None, 1),
+                "ipddp_solve": (lambda: mega_ipddp._launch(p7, opts, *seeds7), 10, None, 1),
+                "logddp_solve": (lambda: mega_logddp._launch(p, opts, *seeds9), 10, None, 1)}
+        work = {"clddp_solve": lambda: clddp_solve_work(p, opts, seeds3),
+                "ipddp_solve": lambda: seed_ipddp_work(tt, p7, opts, seeds7),
+                "logddp_solve": lambda: logddp_solve_work(tt, p, opts, seeds9)}
+        kept = [ATT_WHOLE[solver] for solver in attitude_whole_solvers(model)]
+        runs, work = {k: runs[k] for k in kept}, {k: work[k]() for k in kept}
+        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper",
+                              plain_ms={k: plain[f"{k}@{model}"] for k in runs})
+        out.update({f"{k}@{model}": v for k, v in timing.items()})
+        print(f"[attitude] {model}'s whole solves timed at {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def side_checks(tt, dev):
+    """Phases 7, 9, 12, 13 and 15's kernel-against-plain checks, which a
+    side process runs while the main process runs phases 3, 14, 16 and
+    17's: kernel 7's ball variants and kernel 6 at m = 5
+    (``phase_obstacle_kernels``), kernels 9 and 8
+    (``phase_barrier_kernels``), kernel 7's terminal variants and the
+    per-pass engine on the terminal fleets (``terminal_checks``), the warm
+    seeds (``phase_warm_kernels``), and the discrete models'
+    (``discrete_checks``). Returns their errors by phase."""
+    t0 = time.perf_counter()
+    out = {"discrete": discrete_checks(tt, dev)}
+    print(f"phase 15's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["obstacle"] = phase_obstacle_kernels(tt, dev)
+    print(f"phase 7's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["barrier"] = phase_barrier_kernels(tt, dev)
+    print(f"phase 9's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["terminal"] = terminal_checks(tt, dev)
+    print(f"phase 12's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["warm"] = phase_warm_kernels(tt, dev)
+    print(f"phase 13's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+SIDE_RUNS = {"quadrotor": quad_plain_refs, "attitude": attitude_plain_refs,
+             "checks": side_checks}
 
 
 def main():
@@ -5277,7 +6128,19 @@ def main():
     print(f"device: {kind}")
     if torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("TF32 must stay off (float32 matmul precision 'highest')")
+    # Phases 16 and 17's plain references run plain drivers only: their
+    # processes start now, beside the kernels' build, and are done before
+    # the phases read them.
+    refs = {kind: Side(kind) for kind in ("quadrotor", "attitude")}
+    try:
+        run(t_start, smi, dev, kind, refs)
+    finally:
+        for r in refs.values():
+            r.close()
 
+
+def run(t_start, smi, dev, kind, refs):
+    """Phases 2-17 and the result lines (``main``)."""
     import cddp_tpu_torch as tt
     from cddp_tpu_torch.ops.kernels import build, dispatch_log
     from cddp_tpu_torch.parallel.batch import batched_solve
@@ -5296,20 +6159,36 @@ def main():
                     or line.startswith("==")):
                 print(f"[ptxas] {line.strip()}")
     attrs = print_kernel_attributes(smi)
+    print(f"[clock] phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 3: kernels against their plain versions -----------------------
-    errs = phase_kernels(tt, dev)
-
-    # --- phases 14, 15 and 16 come next, their checks and fleets before any
-    # timing: they run the plain drivers, and every torch launch of a plain
-    # driver takes 1.6-1.7x as long once the profiler has run in the process
-    # (PERF.md).
-    zoo_launches, zoo_errs, zoo_fleets, zoo_plain, zoo_plain_at = phase_zoo(tt, dev, smi)
-    print(f"[clock] phase 14 checks and fleets done at {time.perf_counter() - t_start:.1f} s")
-    dis_launches, dis_errs, dis_fleets = phase_discrete(tt, dev, smi)
-    print(f"[clock] phase 15 checks and fleets done at {time.perf_counter() - t_start:.1f} s")
-    quad_launches, quad_errs, quad_single = phase_quadrotor(tt, dev, smi)
-    print(f"[clock] phase 16 checks and fleets done at {time.perf_counter() - t_start:.1f} s")
+    # --- phases 3, 14, 16 and 17's kernel checks, while a side process runs
+    # phases 7, 9, 12, 13 and 15's (``side_checks``); the fleets and every
+    # timing come after both, with the card to themselves. They run the
+    # plain drivers, and every torch launch of a plain driver takes 1.6-1.7x
+    # as long once the profiler has run in the process (PERF.md).
+    side = Side("checks")
+    try:
+        errs = phase_kernels(tt, dev)
+        print(f"[clock] phase 3 done at {time.perf_counter() - t_start:.1f} s")
+        zoo_checked = zoo_checks(tt, dev)
+        quad_checked = quad_checks(tt, dev, smi, refs["quadrotor"])
+        att_checked = attitude_checks(tt, dev, smi, refs["attitude"])
+        print(f"[clock] phases 14, 16 and 17's checks done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        side_errs = side.result(dev)
+    finally:
+        side.close()
+    print(f"[clock] the side process's checks in at {time.perf_counter() - t_start:.1f} s")
+    zoo_launches, zoo_errs, zoo_fleets, zoo_plain, zoo_plain_at = phase_zoo(tt, dev, smi,
+                                                                            zoo_checked)
+    print(f"[clock] phase 14 fleets done at {time.perf_counter() - t_start:.1f} s")
+    dis_launches, dis_errs, dis_fleets = phase_discrete(tt, dev, smi, side_errs["discrete"])
+    print(f"[clock] phase 15 fleets done at {time.perf_counter() - t_start:.1f} s")
+    quad_launches, quad_errs, quad_single = phase_quadrotor(tt, dev, smi, checked=quad_checked)
+    print(f"[clock] phase 16 fleets done at {time.perf_counter() - t_start:.1f} s")
+    att_launches, att_errs, att_fleets, att_plain = phase_attitude(tt, dev, smi,
+                                                                   checked=att_checked)
+    print(f"[clock] phase 17 fleets done at {time.perf_counter() - t_start:.1f} s")
     zoo_timing = time_zoo_kernels(tt, zoo_fleets, zoo_plain, smi)
     dis_timing, dis_at = time_discrete_kernels(tt, dis_fleets, smi)
     print(f"[clock] phases 14-15 timings done at {time.perf_counter() - t_start:.1f} s")
@@ -5412,8 +6291,9 @@ def main():
                                   plain_ms={"ipddp_solve": plain_run_ms(ip_rates)}))
     print(f"[clock] phases 1-6 done at {time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 7: kernel 7's ball variant and kernel 6 at m = 5 -------------------
-    obstacle_errs = phase_obstacle_kernels(tt, dev)
+    # --- phase 7: kernel 7's ball variant and kernel 6 at m = 5 (checked by
+    # the side process) -------------------------------------------------------
+    obstacle_errs = side_errs["obstacle"]
     print(f"[clock] phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     # --- phase 8: the IPDDP obstacle fleet through batched_solve -----------------
@@ -5423,8 +6303,9 @@ def main():
                                       plain_ms={"ipddp_solve": plain_run_ms(ob_rates)})
     print(f"[clock] phase 8 done at {time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 9: kernels 9 and 8 against their plain drivers -------------------
-    errs.update({k: {**errs[k], **v} for k, v in phase_barrier_kernels(tt, dev).items()})
+    # --- phase 9: kernels 9 and 8 against their plain drivers (the side
+    # process) ----------------------------------------------------------------
+    errs.update({k: {**errs[k], **v} for k, v in side_errs["barrier"].items()})
     print(f"[clock] phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
     # --- phase 10: the LogDDP and MSIPDDP box fleets through batched_solve -------
@@ -5441,11 +6322,12 @@ def main():
     print(f"[clock] phase 11 done at {time.perf_counter() - t_start:.1f} s")
 
     # --- phase 12: terminal constraints ---------------------------------------------
-    te_launches, te_errs, te_timing, te_work, te_attrs = phase_terminal(tt, dev, smi)
+    te_launches, te_errs, te_timing, te_work, te_attrs = phase_terminal(tt, dev, smi,
+                                                                        side_errs["terminal"])
     print(f"[clock] phase 12 done at {time.perf_counter() - t_start:.1f} s")
 
     # --- phase 13: warm starts --------------------------------------------------------
-    warm_entries, certified = phase_warm(tt, dev, smi)
+    warm_entries, certified = phase_warm(tt, dev, smi, side_errs["warm"])
     print(f"[clock] phase 13 done at {time.perf_counter() - t_start:.1f} s")
 
     # --- phase 16's timings come last: with them beside phases 14-15's, the
@@ -5455,6 +6337,9 @@ def main():
     # wrapper, which copies nothing.
     quad_timing = time_quad_kernels(tt, dev, quad_single, smi)
     print(f"[clock] phase 16 timings done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    att_timing = time_attitude_kernels(tt, dev, att_fleets, att_plain, smi)
+    print(f"[clock] phase 17 timings done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
@@ -5642,6 +6527,34 @@ def main():
             "registers": a["registers"], "spill_bytes": a["spill_bytes"],
             "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
             "blocks_per_sm": a["blocks_per_sm"]})
+    # Phase 17's instantiations, each an entry of its own named with its
+    # model (kernels 1 and 6 log their shape, "dispatch_name"): launches in
+    # the phase's run that drives it (the slew fleets per pass for kernels 1,
+    # 2, 4, 5 and 6, the MPC fleets for the whole solves), errors from (a),
+    # times and bound on that run's operands (kernels 1-6 at SLEW_B and N =
+    # SLEW_N, the whole solves at B_MAIN and N = MPC_N), the whole solves'
+    # plain ms their plain drivers' at B_CHECK in (a) ("plain_at").
+    for name, logged, kernel, model, launcher in ATT_ENTRIES:
+        ms, plain_ms, b_ms, b_by, dev_ms, source = att_timing[name]
+        a = build.kernel_attributes(f"{launcher}_f32")
+        src, rep = sources[kernel]
+        if kernel == "ipddp_solve":
+            src = "cddp_tpu_torch/ops/csrc/ipddp_solve_attitude.cu"
+        whole = kernel in WHOLE_SOLVES
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "variant_of": kernel,
+            "model": model, "dispatch_name": logged, "launches": att_launches[name],
+            "max_abs_err": att_errs["float32"][name], "max_abs_err_f64": att_errs["float64"][name],
+            "ms": ms, "device_ms": dev_ms, "device_ms_source": source, "plain_ms": plain_ms,
+            "plain_at": (f"B={B_CHECK}, float32, {ATT_WHOLE_ITERS} iterations, N={MPC_N}, "
+                         "beside the kernels' build" if whole
+                         else f"B={ATT_KERNEL_B} (the first of the slew's operands), float32, "
+                         f"N={SLEW_N}, after phases 4-16"),
+            "batch": B_MAIN if whole else SLEW_B, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "registers": a["registers"], "spill_bytes": a["spill_bytes"],
+            "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
+            "blocks_per_sm": a["blocks_per_sm"]})
     print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in rates.items()) + "; IPDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in ip_rates.items()) + "".join(
@@ -5654,7 +6567,7 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--quad-plain-refs"] and len(sys.argv) == 3:
-        quad_plain_refs_main(sys.argv[2])
+    if sys.argv[1:2] == ["--side"] and len(sys.argv) == 4:
+        side_main(sys.argv[2], sys.argv[3])
     else:
         main()

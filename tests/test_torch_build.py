@@ -91,8 +91,13 @@ def test_launchers_are_exported_and_registered(kernel):
 # (kernels 1-4 at (4, 1)), HCW (kernel 4, kernel 5 on its control box m
 # = 6 in both forms, kernel 7's rendezvous m6_te6), the car (kernels 1 and 6
 # at (4, 2), 2, 4 and 5), the forklift (kernel 4), the quadrotor (kernels 1
-# and 6 at (13, 4), 2, 4 and 5 on its rotor box m = 8 in both forms) and
-# QuadrotorRate (kernels 1 and 6 at (10, 4), 2, 4 and 5 goal form m = 8).
+# and 6 at (13, 4), 2, 4 and 5 on its rotor box m = 8 in both forms),
+# QuadrotorRate (kernels 1 and 6 at (10, 4), 2, 4 and 5 goal form m = 8) and
+# the attitude trio (kernels 1 and 6 at (6, 3) and (7, 3), 2, 4, 5 and 9 on
+# the torque box m = 6, goal form, kernel 3 but on the MRP model and kernel
+# 7 but on the Euler model; kernels 6 and 7 in translation units of their
+# own).
+ATTITUDE = ("euler_attitude", "quaternion_attitude", "mrp_attitude")
 INSTANTIATIONS = {
     "ipddp_solve.cu": {f"cddp_ipddp_solve_unicycle_{v}"
                        for v in ("m4", "m6", "m10", "m5_ball0", "m5_ball4", "m4_track",
@@ -101,31 +106,34 @@ INSTANTIATIONS = {
     "ipddp_solve_terminal.cu": {f"cddp_ipddp_solve_unicycle_{v}"
                                 for v in ("m4_ti1", "m4_ti2", "m4_te3", "m4_te3_ti1")}
     | {"cddp_ipddp_solve_hcw_m6_te6"},
+    "ipddp_solve_attitude.cu": {f"cddp_ipddp_solve_{m}_m6" for m in ATTITUDE[1:]},
     "ipddp_backward.cu": {f"cddp_ipddp_backward_3x2x{m}" for m in (4, 5, 6, 10)}
     | {"cddp_ipddp_backward_2x1x2", "cddp_ipddp_backward_4x2x4",
        "cddp_ipddp_backward_13x4x8", "cddp_ipddp_backward_10x4x8"},
+    "ipddp_backward_attitude.cu": {"cddp_ipddp_backward_6x3x6", "cddp_ipddp_backward_7x3x6"},
     "ip_forward.cu": {f"cddp_ip_forward_{v}{t}"
                       for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2",
                                 "hcw_m6", "quadrotor_m8")
                       for t in ("", "_track")}
-    | {"cddp_ip_forward_car_m4", "cddp_ip_forward_quadrotor_rate_m8"},
+    | {"cddp_ip_forward_car_m4", "cddp_ip_forward_quadrotor_rate_m8"}
+    | {f"cddp_ip_forward_{m}_m6" for m in ATTITUDE},
     "forward_rollout.cu": {f"cddp_forward_rollout_{m}{t}" for m in ("unicycle", "pendulum",
                                                                      "cartpole")
                            for t in ("", "_track")}
-    | {f"cddp_forward_rollout_{m}" for m in ("car", "quadrotor", "quadrotor_rate")},
+    | {f"cddp_forward_rollout_{m}" for m in ("car", "quadrotor", "quadrotor_rate") + ATTITUDE},
     "clddp_solve.cu": {f"cddp_clddp_solve_{m}{t}" for m in ("unicycle", "pendulum", "cartpole")
-                       for t in ("", "_track")},
+                       for t in ("", "_track")} | {f"cddp_clddp_solve_{m}" for m in ATTITUDE[:2]},
     "logddp_solve.cu": {f"cddp_logddp_solve_{v}{t}"
                         for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2")
-                        for t in ("", "_track")},
+                        for t in ("", "_track")} | {f"cddp_logddp_solve_{m}_m6" for m in ATTITUDE},
     "msipddp_solve.cu": {f"cddp_msipddp_solve_{v}{t}"
                          for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2")
                          for t in ("", "_track")},
     "riccati_backward.cu": {f"cddp_riccati_backward_{s}"
-                            for s in ("3x2", "2x1", "4x1", "4x2", "13x4", "10x4")},
+                            for s in ("3x2", "2x1", "4x1", "4x2", "13x4", "10x4", "6x3", "7x3")},
     "open_loop_rollout.cu": {f"cddp_open_loop_rollout_{m}"
                              for m in ("unicycle", "pendulum", "cartpole", "hcw", "car",
-                                       "forklift", "quadrotor", "quadrotor_rate")},
+                                       "forklift", "quadrotor", "quadrotor_rate") + ATTITUDE},
 }
 
 
@@ -152,8 +160,8 @@ def test_ball_variants_are_the_layouts_the_wrapper_names():
             for model, layouts in mega_ipddp.TERMINAL_LAYOUTS.items()
             for layout, shapes in layouts.items()
             for mT, p in shapes} == launchers_of("ipddp_solve_terminal.cu")[0]
-    assert launchers_of("ipddp_backward.cu")[0] == {
-        f"cddp_ipddp_backward_{nx}x{nu}x{m}" for nx, nu, m in ipddp_riccati.KERNEL_SHAPES}
+    assert launchers_of("ipddp_backward.cu")[0] | launchers_of("ipddp_backward_attitude.cu")[0] \
+        == {f"cddp_ipddp_backward_{nx}x{nu}x{m}" for nx, nu, m in ipddp_riccati.KERNEL_SHAPES}
 
 
 def call_args(text, start):
@@ -234,8 +242,8 @@ def test_launch_shapes_see_a_mismatch():
     shapes = launch_shapes(text)["logddp_solve_kernel"]
     assert shapes[0] == "kThreads" and shapes[1]
     # One launch; m = 4, 6, 10 on the unicycle and 2 on the pendulum, in the
-    # goal and the tracking form.
-    assert len(shapes[2]) == 1 and len(shapes[3]) == 8
+    # goal and the tracking form, and 6 on the attitude trio, goal form.
+    assert len(shapes[2]) == 1 and len(shapes[3]) == 11
     for old, new in (("kThreads, smem, stream>>>", "kSolveThreads, smem, stream>>>"),
                      ("kThreads, smem, stream>>>", "kThreads, 0, stream>>>"),
                      ("cddp::kThreads,      \\", "cddp::kSolveThreads, \\")):

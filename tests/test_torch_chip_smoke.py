@@ -234,9 +234,9 @@ def test_phase_16_dry_run(monkeypatch, tmp_path):
         def close(self):
             pass
 
-    monkeypatch.setattr(chip_smoke, "start_quad_plain_refs",
-                        lambda tt, dev: Refs(chip_smoke.quad_plain_refs(tt, dev)))
-    launches, errs, single = chip_smoke.phase_quadrotor(tt, dev, "dry run")
+    checked = chip_smoke.quad_checks(tt, dev, "dry run",
+                                     Refs(chip_smoke.quad_plain_refs(tt, dev)))
+    launches, errs, single = chip_smoke.phase_quadrotor(tt, dev, "dry run", checked)
     timing = chip_smoke.time_quad_kernels(tt, dev, single, "dry run")
     names = {e[0] for e in chip_smoke.QUAD_ENTRIES}
     assert set(launches) == names and all(n >= 1 for n in launches.values())
@@ -249,15 +249,163 @@ def test_phase_16_dry_run(monkeypatch, tmp_path):
 
 
 def test_quad_plain_refs_process_failure_is_raised():
-    """The plain references' process (``chip_smoke.py --quad-plain-refs``)
+    """The plain references' process (``chip_smoke.py --side quadrotor``)
     needs the card: here it exits with an error, which ``result`` raises,
     and ``close`` removes its files."""
     import chip_smoke
 
-    refs = chip_smoke.QuadPlainRefs()
+    refs = chip_smoke.Side("quadrotor")
     try:
         with pytest.raises(AssertionError, match="exited with status"):
             refs.result(torch.device("cpu"))
     finally:
         refs.close()
     assert not Path(refs._dir.name).exists()
+
+
+@pytest.mark.parametrize("errs", [{}, {"float64": {"k": 0.0}, "float32": {}},
+                                  {"float64": {}, "float32": {"k": 0.0}}])
+def test_checks_that_returned_nothing_are_refused(errs):
+    """A phase given check errors with no entry for a dtype (a side process
+    or check that returned nothing) fails before its fleets run."""
+    import chip_smoke
+
+    with pytest.raises(AssertionError, match="returned no errors"):
+        chip_smoke.phase_discrete(None, None, "dry run", errs)
+    full = {"float64": {"k": 0.0}, "float32": {"k": 1.0}}
+    assert chip_smoke.checked_errs("phase 15", full) is full
+
+
+def test_phase_17_entries_name_built_launchers_and_logged_kernels():
+    """Each phase-17 entry's launcher is one the kernel library builds, its
+    dispatch_log name the one its kernel's wrapper logs for the attitude
+    model (6x3 or 7x3; m = 6), and the entries are the eight kernels of the
+    trio's path on each model but the whole solves the tables leave out
+    (``ATT_LEFT_OUT``: kernel 3 on the MRP model, kernel 7 on the Euler
+    model)."""
+    import chip_smoke
+    from cddp_tpu_torch.models import EulerAttitude, MrpAttitude, QuaternionAttitude
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati, mega_ipddp, riccati
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    built = {stem for stems in chip_smoke.launchers().values() for stem in stems}
+    models = {"euler_attitude": EulerAttitude, "quaternion_attitude": QuaternionAttitude,
+              "mrp_attitude": MrpAttitude}
+    kernels = ("riccati_backward", "forward_rollout", "clddp_solve", "open_loop_rollout",
+               "ip_forward", "ipddp_backward", "ipddp_solve", "logddp_solve")
+    assert {e[0] for e in chip_smoke.ATT_ENTRIES} == {
+        f"{k}@{m}" for k in kernels for m in models if (k, m) not in chip_smoke.ATT_LEFT_OUT}
+    for m in models:
+        assert (m in rollout_ops.CLDDP_MODELS) == (("clddp_solve", m) not in
+                                                   chip_smoke.ATT_LEFT_OUT)
+        assert (m in mega_ipddp.IP_BOX_ROWS) == (("ipddp_solve", m) not in
+                                                 chip_smoke.ATT_LEFT_OUT)
+        assert m in rollout_ops.ROLLOUT_MODELS and m in mega_ipddp.BOX_ROWS
+        for kernel in ("clddp_solve", "ipddp_solve", "logddp_solve"):
+            assert (m in rollout_ops.WHOLE_MAX_HORIZON[kernel]) == ((kernel, m) not in
+                                                                  chip_smoke.ATT_LEFT_OUT)
+    for name, logged, kernel, model, launcher in chip_smoke.ATT_ENTRIES:
+        assert launcher in built, launcher
+        mdl = models[model](device="cpu")
+        nx = mdl.state_dim
+        assert rollout_ops.model_entry(mdl).tag == "@" + model
+        if kernel == "riccati_backward":
+            assert logged == riccati.dispatch_name(nx, 3)
+        elif kernel == "ipddp_backward":
+            assert logged == ipddp_riccati.dispatch_name(nx, 3, 6)
+        else:
+            assert logged == name
+    assert set(mega_ipddp.MS_BOX_ROWS).isdisjoint(models)
+
+
+def _plain_whole_solves(monkeypatch):
+    """The whole-solve kernels 3, 7 and 9 replaced by their plain drivers,
+    which record a launch under the name the kernel logs and return work
+    rows of ones; the dispatchers call them on CPU tensors too."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log, mega_clddp, mega_ipddp, mega_logddp
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+    from cddp_tpu_torch.solvers import clddp, ipddp, logddp
+
+    def counted(name, sol, B, rows):
+        dispatch_log.launched(name, B)
+        return sol, torch.ones(rows, B)
+
+    def k3(p, o, X, U, k, K):
+        lane = rollout_ops.lane_consts(p)
+        return counted("clddp_solve" + lane.variant + lane.tag,
+                       clddp._solve(p, o.replace(backward_engine="scan"), X, U, k, K),
+                       X.shape[0], 2)
+
+    def k7(p, o, X, U, Y, S, G, L, mu0, ku0, Ku0, terminal=None):
+        sol = ipddp._drive(p, o.replace(backward_engine="scan", ipddp=dataclasses.replace(
+            o.ipddp, forward_engine="scan")), X, U, Y, S, G, L, mu0, ku0, Ku0, terminal=terminal)
+        return counted(mega_ipddp.dispatch_name(p), sol, X.shape[0], 13)
+
+    def k9(p, o, X, U, k, K):
+        lane = rollout_ops.lane_consts(p)
+        return counted("logddp_solve" + lane.variant + lane.tag, logddp._drive(p, o, X, U, k, K),
+                       X.shape[0], 2)
+
+    import dataclasses
+
+    monkeypatch.setattr(mega_clddp, "launch_counting_work", k3)
+    monkeypatch.setattr(mega_clddp, "clddp_solve", lambda *a: mega_clddp._launch(*a))
+    monkeypatch.setattr(mega_ipddp, "_run", k7)
+    monkeypatch.setattr(mega_ipddp, "ipddp_solve", lambda *a, **k: mega_ipddp._launch(*a, **k))
+    monkeypatch.setattr(mega_logddp, "launch_counting_work", k9)
+    monkeypatch.setattr(mega_logddp, "logddp_solve", lambda *a: mega_logddp._launch(*a))
+    monkeypatch.setattr(torch.cuda, "Event", lambda **k: type(
+        "Event", (), {"record": lambda self: None, "elapsed_time": lambda self, o: 1.0})())
+
+
+def test_phase_17_dry_run(monkeypatch):
+    """Phase 17's plumbing on the CPU at tiny sizes (B_CHECK = B_MAIN = SLEW_B
+    = 16, N = 5 and 3, every solve at most 2 iterations): the per-pass
+    kernels replaced by their plain versions that count a launch
+    (``_plain_kernels``), the whole solves by their plain drivers
+    (``_plain_whole_solves``), the plain references computed in this
+    process; each check (the whole solves' longest horizons cut to 4),
+    fleet, the single slew and the timings run through; every entry of
+    ``ATT_ENTRIES`` gets its launches from a fleet that drives it, its
+    errors from (a) and its timing tuple."""
+    import chip_smoke
+    import cddp_tpu_torch as tt
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    for name, value in (("B_CHECK", 16), ("B_MAIN", 16), ("SLEW_B", 16), ("SLEW_N", 5),
+                        ("MPC_N", 3), ("QUAD_CHECK_B", 8), ("ATT_KERNEL_B", 8), ("ATT_ITERS", 2),
+                        ("ATT_WHOLE_ITERS", 2), ("ATT_CHECK_ITERS", 2), ("ATT_PLAIN_ITERS", 2),
+                        ("SINGLE_ITERS", 2), ("SINGLE_REPS", 1), ("TIMING_BUDGET_MS", 1.0)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    # The whole solves' longest horizons cut with the rest (N = 4).
+    monkeypatch.setattr(rollout_ops, "WHOLE_MAX_HORIZON", {
+        k: dict.fromkeys(v, 4) for k, v in rollout_ops.WHOLE_MAX_HORIZON.items()})
+    _plain_kernels(monkeypatch)
+    _plain_whole_solves(monkeypatch)
+
+    class Refs:  # the plain references computed in this process
+        def __init__(self, out):
+            self.out = out
+
+        def result(self, dev):
+            return self.out
+
+        def close(self):
+            pass
+
+    dev = torch.device("cpu")
+    checked = chip_smoke.attitude_checks(tt, dev, "dry run",
+                                         Refs(chip_smoke.attitude_plain_refs(tt, dev)))
+    launches, errs, fleets, plain = chip_smoke.phase_attitude(tt, dev, "dry run", checked)
+    timing = chip_smoke.time_attitude_kernels(tt, dev, fleets, plain, "dry run")
+    names = {e[0] for e in chip_smoke.ATT_ENTRIES}
+    assert set(launches) == names and all(n >= 1 for n in launches.values())
+    for model in chip_smoke.ATT_MODELS:
+        assert launches[f"open_loop_rollout@{model}"] == 1
+        assert launches[f"ipddp_backward@{model}"] == 2  # one a per-pass iteration
+        for kernel in ("clddp_solve", "ipddp_solve", "logddp_solve"):
+            if (kernel, model) not in chip_smoke.ATT_LEFT_OUT:
+                assert launches[f"{kernel}@{model}"] == 1
+    for tag in ("float64", "float32"):
+        assert set(errs[tag]) == names
+    assert set(timing) == names and all(len(v) == 6 for v in timing.values())

@@ -429,10 +429,11 @@ def test_eligibility_tables():
     pend, cart = port_zoo_problem(pendulum_box(6)), port_zoo_problem(cartpole_box(6))
     hcw_te, hcw = port_zoo_problem(hcw_box(6)), port_zoo_problem(hcw_box(6, terminal=False))
     # Kernels 1-3: the pendulum and the cart-pole, goal and tracking forms;
-    # HCW is registered but has no CLDDP instantiation.
+    # HCW is registered but has no CLDDP instantiation: kernel 1 takes its
+    # 6x3 shape (the Euler and MRP attitude models'), which it gates on.
     for p, ok in ((pend, True), (cart, True), (hcw, False)):
         assert mega_clddp.mega_eligible(p, opts) == ok
-        assert clddp._use_kernels(p, opts) == ok
+        assert clddp._use_kernels(p, opts) == (ok or p is hcw)
         assert rollout_ops.lane_consts(p).clddp == ok
     assert mega_clddp.mega_eligible(_tracking(pendulum_box(6)), opts)
     assert (2, 1) in riccati.KERNEL_SHAPES and (4, 1) in riccati.KERNEL_SHAPES
@@ -456,7 +457,7 @@ def test_eligibility_tables():
     for p, ok in ((pend, True), (hcw, True), (cart, False)):
         assert (ip_rollout.resolve_ip_forward(p, opts, PathStacker(p)) is not None) == ok
     assert (2, 1, 2) in ipddp_riccati.KERNEL_SHAPES
-    assert (6, 3, 6) not in ipddp_riccati.KERNEL_SHAPES
+    assert (6, 3, 6) in ipddp_riccati.KERNEL_SHAPES  # HCW's box: the attitude trio's shape
     # Kernels 8 and 9: the pendulum only.
     for p, ok in ((pend, True), (hcw, False), (cart, False)):
         assert mega_logddp.mega_eligible(p, opts) == ok
@@ -469,14 +470,16 @@ def test_eligibility_tables():
     ("pendulum", "CLDDP", "auto", ["clddp_solve@pendulum", "riccati_backward@2x1",
                                    "forward_rollout@pendulum"]),
     ("cartpole", "CLDDP", "xla", ["riccati_backward@4x1", "forward_rollout@cartpole"]),
-    ("hcw", "CLDDP", "auto", []),
-    ("hcw", "CLDDP", "xla", []),
+    ("hcw", "CLDDP", "auto", ["riccati_backward@6x3"]),
+    ("hcw", "CLDDP", "xla", ["riccati_backward@6x3"]),
     ("hcw", "LogDDP", "auto", ["open_loop_rollout@hcw"]),
     ("cartpole", "IPDDP", "auto", ["open_loop_rollout@cartpole"]),
     ("pendulum", "IPDDP", "xla", ["open_loop_rollout@pendulum", "ip_forward@pendulum",
                                   "ipddp_backward@2x1x2"]),
-    ("hcw", "IPDDP", "xla", ["open_loop_rollout@hcw", "ip_forward@hcw"]),
-    ("hcw", "IPDDP", "auto", ["open_loop_rollout@hcw", "ip_forward@hcw"]),
+    ("hcw", "IPDDP", "xla", ["open_loop_rollout@hcw", "ip_forward@hcw",
+                             "ipddp_backward@6x3x6"]),
+    ("hcw", "IPDDP", "auto", ["open_loop_rollout@hcw", "ip_forward@hcw",
+                              "ipddp_backward@6x3x6"]),
     ("hcw_te", "IPDDP", "auto", ["open_loop_rollout@hcw", "ipddp_solve_te6@hcw",
                                  "ip_forward@hcw"]),
 ])
