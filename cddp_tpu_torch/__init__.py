@@ -10,9 +10,12 @@ discrete linear system (``LTISystem``, ``lti_system``) and the quadrotor
 with rotor-force or body-rate controls (``Quadrotor``, ``quadrotor``,
 ``QuadrotorRate``), the rigid-body attitude trio under body torques
 (``EulerAttitude``, ``QuaternionAttitude``, ``MrpAttitude`` and their
-factories; all in ``cddp_tpu_torch.models``, the attitude conversions in
-``cddp_tpu_torch.utils.rotations``), as the JAX package solves them, towards a goal or along a per-step reference
-trajectory (``reference_states``); and batch-first receding-horizon MPC
+factories), the other spacecraft models (``SpacecraftLinearFuel``,
+``SpacecraftNonlinear``, ``SpacecraftLanding2D``, ``SpacecraftTwobody``; all
+in ``cddp_tpu_torch.models``, the attitude conversions in
+``cddp_tpu_torch.utils.rotations``), as the JAX package solves them,
+towards a goal or along a per-step reference trajectory
+(``reference_states``); and batch-first receding-horizon MPC
 (``make_mpc_controller``), warm-started from a trajectory or from the
 interior-point solvers' state (``IPDDPSolverState``,
 ``MSIPDDPSolverState``), and the float64 ``polish`` of a float32 fleet.
@@ -60,8 +63,10 @@ from cddp_tpu_torch.constraints.terminal import (
 )
 from cddp_tpu_torch.costs.objective import QuadraticObjective, quadratic_objective
 from cddp_tpu_torch.models import (Car, EulerAttitude, Forklift, LTISystem, MrpAttitude,
-                                   Quadrotor, QuadrotorRate, QuaternionAttitude, euler_attitude,
-                                   lti_system, mrp_attitude, quadrotor, quaternion_attitude)
+                                   Quadrotor, QuadrotorRate, QuaternionAttitude,
+                                   SpacecraftLanding2D, SpacecraftLinearFuel, SpacecraftNonlinear,
+                                   SpacecraftTwobody, euler_attitude, lti_system, mrp_attitude,
+                                   quadrotor, quaternion_attitude)
 from cddp_tpu_torch.options import (
     BarrierOptions,
     BarrierStrategy,
@@ -82,7 +87,8 @@ __all__ = [
     "BallConstraint", "BarrierOptions", "BarrierStrategy", "CDDPOptions", "Car",
     "Forklift", "LTISystem", "lti_system", "Quadrotor", "QuadrotorRate", "quadrotor",
     "EulerAttitude", "MrpAttitude", "QuaternionAttitude", "euler_attitude", "mrp_attitude",
-    "quaternion_attitude",
+    "quaternion_attitude", "SpacecraftLanding2D", "SpacecraftLinearFuel", "SpacecraftNonlinear",
+    "SpacecraftTwobody",
     "ControlConstraint", "IPDDPOptions", "IPDDPSolverState", "MSIPDDPSolverState", "LinearConstraint", "LogBarrierOptions",
     "MPCState", "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
     "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",

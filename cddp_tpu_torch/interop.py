@@ -19,7 +19,8 @@ from cddp_tpu_torch.constraints import path, terminal
 from cddp_tpu_torch.costs.objective import QuadraticObjective
 from cddp_tpu_torch.models import (HCW, Car, CartPole, EulerAttitude, Forklift, LTISystem,
                                    MrpAttitude, Pendulum, Quadrotor, QuadrotorRate,
-                                   QuaternionAttitude, Unicycle)
+                                   QuaternionAttitude, SpacecraftLanding2D, SpacecraftLinearFuel,
+                                   SpacecraftNonlinear, SpacecraftTwobody, Unicycle)
 from cddp_tpu_torch.models.attitude import _RigidBody
 from cddp_tpu_torch.options import CDDPOptions
 from cddp_tpu_torch.problem import Problem
@@ -33,7 +34,10 @@ from cddp_tpu_torch.problem import Problem
 # timestep is the problem's), the forklift's (wheelbase, steer_sign, -1
 # rear-steered), the quadrotor's (mass, arm_length, gravity, inertia (9,
 # row-major)), QuadrotorRate's (mass, gravity), the attitude trio's
-# inertia (9, row-major); the unicycle has none. An
+# inertia (9, row-major), SpacecraftLinearFuel's (mean_motion, isp, g0,
+# epsilon), SpacecraftNonlinear's (mass, mu), SpacecraftLanding2D's (mass,
+# length, max_thrust, gravity, inertia: the last must be the model's own
+# (1/12) m L^2), SpacecraftTwobody's (mu, mass); the unicycle has none. An
 # LTISystem, which has no lane, takes its discrete A (nx, nx) and B (nx,
 # nu) flattened and concatenated.
 _MODELS = {
@@ -53,11 +57,29 @@ _MODELS = {
     **{cls.__name__: (lambda p, dt, nx, nu, cls=cls: cls(np.reshape(p, (3, 3)), device="cpu"),
                       lambda nx, nu: 9)
        for cls in (EulerAttitude, QuaternionAttitude, MrpAttitude)},
+    "SpacecraftLinearFuel": (lambda p, dt, nx, nu: SpacecraftLinearFuel(*p),
+                             lambda nx, nu: 4),
+    "SpacecraftNonlinear": (lambda p, dt, nx, nu: SpacecraftNonlinear(mass=p[0], mu=p[1]),
+                            lambda nx, nu: 2),
+    "SpacecraftLanding2D": (lambda p, dt, nx, nu: _landing2d(p), lambda nx, nu: 5),
+    "SpacecraftTwobody": (lambda p, dt, nx, nu: SpacecraftTwobody(*p), lambda nx, nu: 2),
     "LTISystem": (lambda p, dt, nx, nu: LTISystem(
         torch.tensor(p[:nx * nx], dtype=torch.float64).reshape(nx, nx),
         torch.tensor(p[nx * nx:], dtype=torch.float64).reshape(nx, nu), dt),
         lambda nx, nu: nx * nx + nx * nu),
 }
+
+
+def _landing2d(p) -> SpacecraftLanding2D:
+    """The lander from its lane vector (mass, length, max_thrust, gravity,
+    inertia); raises when the inertia is not the model's (1/12) m L^2."""
+    model = SpacecraftLanding2D(*p[:4])
+    if float(model.inertia) != p[4]:
+        raise ValueError(f"SpacecraftLanding2D: inertia {p[4]!r} is not (1/12) m L^2 = "
+                         f"{float(model.inertia)!r}")
+    return model
+
+
 _BOXES = {"control": path.ControlConstraint, "state": path.StateConstraint}
 # The other path-constraint types, by the JAX package's type names; each is
 # built from its fields, which carry the JAX type's names.

@@ -8,10 +8,12 @@ from cddp_tpu_torch.models.lti_system import LTISystem, lti_system
 from cddp_tpu_torch.models.pendulum import Pendulum
 from cddp_tpu_torch.models.quadrotor import Quadrotor, quadrotor
 from cddp_tpu_torch.models.quadrotor_rate import QuadrotorRate
-from cddp_tpu_torch.models.spacecraft import HCW
+from cddp_tpu_torch.models.spacecraft import (HCW, SpacecraftLanding2D, SpacecraftLinearFuel,
+                                              SpacecraftNonlinear, SpacecraftTwobody)
 from cddp_tpu_torch.models.unicycle import Unicycle
 
 __all__ = ["Car", "CartPole", "DynamicalSystem", "EulerAttitude", "Forklift", "HCW", "LTISystem",
            "MrpAttitude", "Pendulum", "Quadrotor", "QuadrotorRate", "QuaternionAttitude",
-           "Unicycle", "euler_attitude", "lti_system", "mrp_attitude", "quadrotor",
-           "quaternion_attitude", "rollout"]
+           "SpacecraftLanding2D", "SpacecraftLinearFuel", "SpacecraftNonlinear",
+           "SpacecraftTwobody", "Unicycle", "euler_attitude", "lti_system", "mrp_attitude",
+           "quadrotor", "quaternion_attitude", "rollout"]

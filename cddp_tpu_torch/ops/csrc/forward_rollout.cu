@@ -108,3 +108,7 @@ CDDP_FORWARD_ROLLOUT(quadrotor_rate, QuadrotorRate, false, )
 CDDP_FORWARD_ROLLOUT(euler_attitude, EulerAttitude, false, )
 CDDP_FORWARD_ROLLOUT(quaternion_attitude, QuaternionAttitude, false, )
 CDDP_FORWARD_ROLLOUT(mrp_attitude, MrpAttitude, false, )
+CDDP_FORWARD_ROLLOUT(sc_linear_fuel, SpacecraftLinearFuel, false, )
+CDDP_FORWARD_ROLLOUT(sc_nonlinear, SpacecraftNonlinear, false, )
+CDDP_FORWARD_ROLLOUT(sc_landing2d, SpacecraftLanding2D, false, )
+CDDP_FORWARD_ROLLOUT(sc_twobody, SpacecraftTwobody, false, )

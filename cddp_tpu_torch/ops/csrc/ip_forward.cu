@@ -138,7 +138,8 @@ int launch_ip_forward(const T* const* in, T* const* out, const T* refs, const do
 // on the quadrotor (8: its four rotor forces), and in the goal form only the
 // car's control box (4, its exact map in place of the integrator step,
 // ip_rollout.py:341-344), QuadrotorRate's thrust and rate box (8) and the
-// attitude trio's torque box (6);
+// attitude trio's torque box (6), the thrust boxes of the other spacecraft
+// models (6) and the lander's thrust and gimbal box (4);
 // the goal form and (TRACK true, suffix _track) the tracking form, whose
 // `refs` is the shared (N, nx) reference (NULL and unread in the goal form).
 #define CDDP_IP_FORWARD(MODEL, STRUCT, M, TRACK, SUFFIX)                               \
@@ -180,3 +181,7 @@ CDDP_IP_FORWARD(quadrotor_rate, QuadrotorRate, 8, false, )
 CDDP_IP_FORWARD(euler_attitude, EulerAttitude, 6, false, )
 CDDP_IP_FORWARD(quaternion_attitude, QuaternionAttitude, 6, false, )
 CDDP_IP_FORWARD(mrp_attitude, MrpAttitude, 6, false, )
+CDDP_IP_FORWARD(sc_linear_fuel, SpacecraftLinearFuel, 6, false, )
+CDDP_IP_FORWARD(sc_nonlinear, SpacecraftNonlinear, 6, false, )
+CDDP_IP_FORWARD(sc_landing2d, SpacecraftLanding2D, 4, false, )
+CDDP_IP_FORWARD(sc_twobody, SpacecraftTwobody, 6, false, )

@@ -675,6 +675,254 @@ struct MrpAttitude {
   }
 };
 
+// The other spacecraft models (cddp_tpu_torch/models/spacecraft.py;
+// spacecraft.py:44-164 of the JAX package). f follows the JAX lanes
+// (rollout.py:363-416), which round apart from the plain models in two
+// places: the nonlinear model's s sqrt(s) against its (s)^1.5 and the
+// two-body model's r2 sqrt(r2) against its |p|^3 (torch.linalg.norm, then
+// the cube); every other expression is the plain model's in its order, so
+// the float64 build rounds like it there. The kernels' checks hold each
+// struct to its plain model within ZOO_RTOL plus the plain version's move
+// from inputs one ulp up (chip_smoke.py), not bit for bit. fxfu is the
+// analytic continuous Jacobian (the whole solves' A = I + dt Fx, B = dt
+// Fu), which the plain models take by forward-mode AD: held to it within
+// rounding on the host (tests/test_torch_spacecraft.py).
+namespace spacecraft {
+
+template <int NX, int NU, typename T>
+__device__ __forceinline__ void zero(T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Fx[i][j] = T(0);
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Fu[i][j] = T(0);
+  }
+}
+
+}  // namespace spacecraft
+
+// HCW with the live mass x[6], which divides the thrust, its depletion
+// -sqrt(|u|^2 + eps) / (isp g0) and the accumulated effort 0.5 |u|^2 (x[7]);
+// p = (mean_motion, isp, g0, epsilon). |u|^2 is summed in order, as the
+// plain model's u @ u.
+struct SpacecraftLinearFuel {
+  static constexpr int NX = 8;
+  static constexpr int NU = 3;
+  static constexpr int NP = 4;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    const T n = p[0], isp = p[1], g0 = p[2], eps = p[3];
+    const T mass = x[6];
+    const T ts = u[0] * u[0] + u[1] * u[1] + u[2] * u[2];
+    dx[0] = x[3];
+    dx[1] = x[4];
+    dx[2] = x[5];
+    dx[3] = T(2) * n * x[4] + T(3) * n * n * x[0] + u[0] / mass;
+    dx[4] = T(-2) * n * x[3] + u[1] / mass;
+    dx[5] = -n * n * x[2] + u[2] / mass;
+    dx[6] = -dsqrt(ts + eps) / (isp * g0);
+    dx[7] = T(0.5) * ts;
+  }
+
+  // d(u_i / m)/dm = -(u_i / m) / m; d sqrt(|u|^2 + eps) / du_j = u_j /
+  // sqrt(|u|^2 + eps): smooth at u = 0, where eps keeps it finite.
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T n = p[0], isp = p[1], g0 = p[2], eps = p[3];
+    const T mass = x[6];
+    const T nrm = dsqrt(u[0] * u[0] + u[1] * u[1] + u[2] * u[2] + eps);
+    spacecraft::zero<NX, NU>(Fx, Fu);
+    Fx[0][3] = T(1);
+    Fx[1][4] = T(1);
+    Fx[2][5] = T(1);
+    Fx[3][0] = T(3) * n * n;
+    Fx[3][4] = T(2) * n;
+    Fx[4][3] = T(-2) * n;
+    Fx[5][2] = -n * n;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      Fx[3 + j][6] = -(u[j] / mass) / mass;
+      Fu[3 + j][j] = T(1) / mass;
+      Fu[6][j] = -(u[j] / nrm) / (isp * g0);
+      Fu[7][j] = u[j];
+    }
+  }
+};
+
+// Nonlinear relative motion about the chief's orbit, x = (p (3), v (3),
+// r0, theta, dr0, dtheta); p = (mass, mu).
+struct SpacecraftNonlinear {
+  static constexpr int NX = 10;
+  static constexpr int NU = 3;
+  static constexpr int NP = 2;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    const T mass = p[0], mu = p[1];
+    const T px = x[0], py = x[1], pz = x[2], vx = x[3], vy = x[4], vz = x[5];
+    const T r0 = x[6], dr0 = x[8], dth = x[9];
+    const T a = r0 + px;
+    const T s = a * a + py * py + pz * pz;
+    const T den = s * dsqrt(s);
+    const T r0_sq = r0 * r0;
+    const T ddr0 = -mu / r0_sq + r0 * dth * dth;
+    const T ddth = T(-2) * dr0 * dth / r0;
+    dx[0] = vx;
+    dx[1] = vy;
+    dx[2] = vz;
+    dx[3] = T(2) * dth * vy + ddth * py + dth * dth * px - mu * (px + r0) / den + mu / r0_sq
+            + u[0] / mass;
+    dx[4] = T(-2) * dth * vx - ddth * px + dth * dth * py - mu * py / den + u[1] / mass;
+    dx[5] = -mu * pz / den + u[2] / mass;
+    dx[6] = dr0;
+    dx[7] = dth;
+    dx[8] = ddr0;
+    dx[9] = ddth;
+  }
+
+  // With a = r0 + px, s = a^2 + py^2 + pz^2, g = mu / s^1.5 and h = 3 g /
+  // s: d(-mu q / s^1.5)/dw = -g dq/dw + h q (a da/dw + py dpy/dw + pz
+  // dpz/dw).
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T mass = p[0], mu = p[1];
+    const T px = x[0], py = x[1], pz = x[2], vx = x[3], vy = x[4];
+    const T r0 = x[6], dr0 = x[8], dth = x[9];
+    const T a = r0 + px;
+    const T s = a * a + py * py + pz * pz;
+    const T g = mu / (s * dsqrt(s));
+    const T h = T(3) * g / s;
+    const T ddth = T(-2) * dr0 * dth / r0;
+    const T ddth_r0 = T(2) * dr0 * dth / (r0 * r0);  // d ddth / d r0
+    const T ddth_dr0 = T(-2) * dth / r0;
+    const T ddth_dth = T(-2) * dr0 / r0;
+    const T w2 = dth * dth;
+    const T im = T(1) / mass;
+    spacecraft::zero<NX, NU>(Fx, Fu);
+    Fx[0][3] = T(1);
+    Fx[1][4] = T(1);
+    Fx[2][5] = T(1);
+    // ddx = 2 dth vy + ddth py + dth^2 px - mu a / s^1.5 + mu / r0^2 + u0 / m
+    Fx[3][0] = w2 - g + h * a * a;
+    Fx[3][1] = ddth + h * a * py;
+    Fx[3][2] = h * a * pz;
+    Fx[3][4] = T(2) * dth;
+    Fx[3][6] = ddth_r0 * py - g + h * a * a - T(2) * mu / (r0 * r0 * r0);
+    Fx[3][8] = ddth_dr0 * py;
+    Fx[3][9] = T(2) * vy + ddth_dth * py + T(2) * dth * px;
+    // ddy = -2 dth vx - ddth px + dth^2 py - mu py / s^1.5 + u1 / m
+    Fx[4][0] = -ddth + h * py * a;
+    Fx[4][1] = w2 - g + h * py * py;
+    Fx[4][2] = h * py * pz;
+    Fx[4][3] = T(-2) * dth;
+    Fx[4][6] = -ddth_r0 * px + h * py * a;
+    Fx[4][8] = -ddth_dr0 * px;
+    Fx[4][9] = T(-2) * vx - ddth_dth * px + T(2) * dth * py;
+    // ddz = -mu pz / s^1.5 + u2 / m
+    Fx[5][0] = h * pz * a;
+    Fx[5][1] = h * pz * py;
+    Fx[5][2] = -g + h * pz * pz;
+    Fx[5][6] = h * pz * a;
+    Fx[6][8] = T(1);
+    Fx[7][9] = T(1);
+    // ddr0 = -mu / r0^2 + r0 dth^2
+    Fx[8][6] = T(2) * mu / (r0 * r0 * r0) + w2;
+    Fx[8][9] = T(2) * r0 * dth;
+    Fx[9][6] = ddth_r0;
+    Fx[9][8] = ddth_dr0;
+    Fx[9][9] = ddth_dth;
+    Fu[3][0] = im;
+    Fu[4][1] = im;
+    Fu[5][2] = im;
+  }
+};
+
+// The planar lander, x = (x, x_dot, y, y_dot, theta, theta_dot), u =
+// (thrust percent, gimbal angle); p = (mass, length, max_thrust, gravity,
+// inertia (1/12) m L^2 as the plain model computes it).
+struct SpacecraftLanding2D {
+  static constexpr int NX = 6;
+  static constexpr int NU = 2;
+  static constexpr int NP = 5;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    const T mass = p[0], length = p[1], max_thrust = p[2], grav = p[3], inertia = p[4];
+    const T total = u[1] + x[4];
+    const T thrust = max_thrust * u[0];
+    dx[0] = x[1];
+    dx[1] = thrust * dsin(total) / mass;
+    dx[2] = x[3];
+    dx[3] = thrust * dcos(total) / mass - grav;
+    dx[4] = x[5];
+    dx[5] = -length / T(2) * thrust * dsin(u[1]) / inertia;
+  }
+
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T mass = p[0], length = p[1], max_thrust = p[2], inertia = p[4];
+    const T total = u[1] + x[4];
+    const T thrust = max_thrust * u[0];
+    const T st = dsin(total), ct = dcos(total);
+    const T arm = -length / T(2);
+    spacecraft::zero<NX, NU>(Fx, Fu);
+    Fx[0][1] = T(1);
+    Fx[2][3] = T(1);
+    Fx[4][5] = T(1);
+    Fx[1][4] = thrust * ct / mass;
+    Fx[3][4] = -(thrust * st) / mass;
+    Fu[1][0] = max_thrust * st / mass;
+    Fu[1][1] = thrust * ct / mass;
+    Fu[3][0] = max_thrust * ct / mass;
+    Fu[3][1] = -(thrust * st) / mass;
+    Fu[5][0] = arm * max_thrust * dsin(u[1]) / inertia;
+    Fu[5][1] = arm * thrust * dcos(u[1]) / inertia;
+  }
+};
+
+// Inertial two-body motion under thrust, x = (p (3), v (3)); p = (mu,
+// mass).
+struct SpacecraftTwobody {
+  static constexpr int NX = 6;
+  static constexpr int NU = 3;
+  static constexpr int NP = 2;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    const T mu = p[0], mass = p[1];
+    const T r2 = x[0] * x[0] + x[1] * x[1] + x[2] * x[2];
+    const T r3 = r2 * dsqrt(r2);
+    dx[0] = x[3];
+    dx[1] = x[4];
+    dx[2] = x[5];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) dx[3 + i] = -mu * x[i] / r3 + u[i] / mass;
+  }
+
+  // d(-mu p_i / r^3)/dp_j = -mu [i == j] / r^3 + 3 mu p_i p_j / r^5.
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T mu = p[0], mass = p[1];
+    const T r2 = x[0] * x[0] + x[1] * x[1] + x[2] * x[2];
+    const T r3 = r2 * dsqrt(r2);
+    const T g = mu / r3, h = T(3) * g / r2;
+    spacecraft::zero<NX, NU>(Fx, Fu);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      Fx[i][3 + i] = T(1);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) Fx[3 + i][j] = h * x[i] * x[j] - (i == j ? g : T(0));
+      Fu[3 + i][i] = T(1) / mass;
+    }
+  }
+};
+
 enum Integrator { kEuler = 0, kHeun = 1, kRk3 = 2, kRk4 = 3 };
 
 // Whether a model struct is discrete (declares DISCRETE true); a struct

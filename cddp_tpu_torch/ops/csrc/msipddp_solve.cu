@@ -859,7 +859,7 @@ int launch_msipddp_solve(T* const* buf, const T* refs, const double* consts, con
 
 }  // namespace cddp
 
-// m (mega_ipddp.BOX_ROWS): a control box (4), a state box (6) or both
+// m (mega_ipddp.MS_BOX_ROWS): a control box (4), a state box (6) or both
 // (10) on the unicycle, the control box (2) on the pendulum; the goal form
 // and (TRACK true, suffix _track) the tracking form, whose `refs` is the
 // shared (N, nx) reference (NULL and unread in the goal form). The kernel

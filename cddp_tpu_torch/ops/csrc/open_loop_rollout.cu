@@ -87,3 +87,7 @@ CDDP_OPEN_LOOP_ROLLOUT(quadrotor_rate, QuadrotorRate)
 CDDP_OPEN_LOOP_ROLLOUT(euler_attitude, EulerAttitude)
 CDDP_OPEN_LOOP_ROLLOUT(quaternion_attitude, QuaternionAttitude)
 CDDP_OPEN_LOOP_ROLLOUT(mrp_attitude, MrpAttitude)
+CDDP_OPEN_LOOP_ROLLOUT(sc_linear_fuel, SpacecraftLinearFuel)
+CDDP_OPEN_LOOP_ROLLOUT(sc_nonlinear, SpacecraftNonlinear)
+CDDP_OPEN_LOOP_ROLLOUT(sc_landing2d, SpacecraftLanding2D)
+CDDP_OPEN_LOOP_ROLLOUT(sc_twobody, SpacecraftTwobody)

@@ -157,7 +157,9 @@ int cddp_kernel_attributes(const char* name, int* out) {
 // (nx, nu) of riccati.KERNEL_SHAPES: the unicycle (3, 2), the pendulum (2,
 // 1), the cart-pole (4, 1), the car and the default LTISystem (4, 2), the
 // quadrotor (13, 4) and QuadrotorRate (10, 4), the attitude trio (6, 3:
-// Euler angles and MRPs; 7, 3: the quaternion). From nu = 3 the BoxQP walks
+// Euler angles and MRPs; 7, 3: the quaternion), the spacecraft models (8,
+// 3: SpacecraftLinearFuel; 10, 3: SpacecraftNonlinear; 6, 2:
+// SpacecraftLanding2D; SpacecraftTwobody takes 6, 3). From nu = 3 the BoxQP walks
 // its 27 or 81 active sets in a runtime loop, and at nx = 13 the step's
 // operands (A, lxx, Vxx: 3 x 169 values) outgrow the registers: the kernel
 // spills to local memory.
@@ -169,3 +171,6 @@ CDDP_RICCATI_BACKWARD(13, 4)
 CDDP_RICCATI_BACKWARD(10, 4)
 CDDP_RICCATI_BACKWARD(6, 3)
 CDDP_RICCATI_BACKWARD(7, 3)
+CDDP_RICCATI_BACKWARD(8, 3)
+CDDP_RICCATI_BACKWARD(10, 3)
+CDDP_RICCATI_BACKWARD(6, 2)

@@ -71,31 +71,40 @@ TRACK_LAYOUTS = {"unicycle": ("m4", "m6", "m10", "m5_ball0"), "pendulum": ("m2",
 TERMINAL_LAYOUTS = {"unicycle": {"m4": ((1, 0), (2, 0), (0, 3), (1, 3))},
                     "hcw": {"m6": ((0, 6),)}}
 # The box-only stacks (m) the whole solves of IPDDP, MSIPDDP and LogDDP
-# (kernels 7, 8, 9) are instantiated for, by model, in the goal form and
-# (kernel 7: on TRACK_LAYOUTS) the tracking form. HCW's control box alone
-# is not among them: kernel 7 runs it in float32 at the barrier merit's
-# resolution, where it forks from the plain driver far more often than the
-# plain driver from itself (ROADMAP C.10); HCW runs kernel 7 with the
-# rendezvous's terminal equality (TERMINAL_LAYOUTS). The quadrotors are in
-# none of these tables: the JAX package's scratch-memory gates refuse them
-# at the horizons their users run (at the quadrotor golden's N = 60 its
-# whole IPDDP solve needs 104.1 MiB against a 12 MiB budget, MSIPDDP 117.3
-# and LogDDP 40.0 against 10; QuadrotorRate is refused already at N = 20),
-# so JAX runs them per pass (IPDDP) or on the plain drivers, and so does
-# the port. Those gates are not ported, so below about N = 10, where JAX
-# would admit QuadrotorRate, the two packages take different routes to the
-# same result (ROADMAP C). The attitude trio's torque box (m = 6) is in for
-# kernel 9 (its JAX gate admits it at the MPC horizon N = 20), not for
-# kernel 8 (``MS_BOX_ROWS``), whose JAX gate refuses it there (15.6 and
-# 18.2 MiB against 10), and for kernel 7 (``IP_BOX_ROWS``) on the
-# quaternion and MRP models only: on the Euler model's box kernel 7 agreed
-# in float32 with the plain driver on 96.78% of the plain driver's own
-# stable instances (ROADMAP C.12), so the Euler model's IPDDP runs per pass
-# (kernels 4, 6, 5).
-BOX_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,),
-            **{m: (6,) for m in rollout_ops.ATTITUDE_MODELS}}
-IP_BOX_ROWS = {k: v for k, v in BOX_ROWS.items() if k != "euler_attitude"}
-MS_BOX_ROWS = {k: v for k, v in BOX_ROWS.items() if k not in rollout_ops.ATTITUDE_MODELS}
+# are instantiated for, by model, one table for each kernel: kernel 7
+# (``IP_BOX_ROWS``, the goal form, and on TRACK_LAYOUTS the tracking form),
+# kernel 8 (``MS_BOX_ROWS``) and kernel 9 (``LOG_BOX_ROWS``). A model with
+# a box stack outside a kernel's table runs that solver per pass (IPDDP) or
+# on its plain driver.
+# - HCW's control box alone is in none: kernel 7 runs it in float32 at the
+#   barrier merit's resolution, where it forks from the plain driver far
+#   more often than the plain driver from itself (ROADMAP C.10); HCW runs
+#   kernel 7 with the rendezvous's terminal equality (TERMINAL_LAYOUTS).
+# - The quadrotors are in none: the JAX package's scratch-memory gates
+#   refuse them at the horizons their users run (at the quadrotor golden's
+#   N = 60 its whole IPDDP solve needs 104.1 MiB against a 12 MiB budget,
+#   MSIPDDP 117.3 and LogDDP 40.0 against 10; QuadrotorRate is refused
+#   already at N = 20). Those gates are not ported, so below about N = 10,
+#   where JAX would admit QuadrotorRate, the two packages take different
+#   routes to the same result (ROADMAP C.11).
+# - The attitude trio's torque box (m = 6): kernel 9 takes all three (its
+#   JAX gate admits them at the MPC horizon N = 20), kernel 8 none (its JAX
+#   gate refuses them there: 15.6 and 18.2 MiB against 10), kernel 7 the
+#   quaternion and MRP models: on the Euler model's box it agreed in
+#   float32 with the plain driver on 96.78% of the plain driver's own
+#   stable instances (ROADMAP C.12).
+# - The other spacecraft models' control boxes (``rollout.SPACECRAFT_ROWS``)
+#   up to the JAX gates' horizons (``rollout.WHOLE_MAX_HORIZON``): kernel 7
+#   takes the nonlinear model's, kernel 9 the fuel model's; the other pairs
+#   forked from their plain drivers in float32 or were held on too few
+#   stable instances (kernel 7 on the two-body model; ROADMAP C.13). Kernel
+#   8 takes none: its JAX gate refuses each at N = 20 (it would take them
+#   below N = 9, 7, 15 and 13; ROADMAP C.11).
+IP_BOX_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,), "quaternion_attitude": (6,),
+               "mrp_attitude": (6,), "sc_nonlinear": (6,)}
+MS_BOX_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,)}
+LOG_BOX_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,),
+                **{m: (6,) for m in rollout_ops.ATTITUDE_MODELS}, "sc_linear_fuel": (6,)}
 
 
 def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
@@ -127,13 +136,12 @@ def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
     )
 
 
-def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str,
-                       table=BOX_ROWS) -> bool:
+def box_solve_eligible(problem, options: CDDPOptions, lqr_backend: str, table) -> bool:
     """What the MSIPDDP and LogDDP whole-solve kernels (8, 9) require:
     ``driver_eligible``, no terminal constraints (mega_msipddp.py:1281-1284,
     mega_logddp.py:773 of the JAX package) and a box-only path stack of a
-    size the kernel is built for (``table``: ``BOX_ROWS``, or kernel 8's
-    ``MS_BOX_ROWS``)."""
+    size the kernel is built for (``table``: kernel 8's ``MS_BOX_ROWS`` or
+    kernel 9's ``LOG_BOX_ROWS``)."""
     lane = rollout_ops.lane_consts(problem)
     rows = ip_rollout.box_rows(problem, PathStacker(problem))
     return (not problem.terminal_constraints

@@ -29,7 +29,7 @@ from cddp_tpu_torch.constraints.stack import PathStacker
 from cddp_tpu_torch.ops.kernels import dispatch_log, ip_rollout
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 from cddp_tpu_torch.ops.kernels.mega_clddp import backward_retry_bound
-from cddp_tpu_torch.ops.kernels.mega_ipddp import box_solve_eligible
+from cddp_tpu_torch.ops.kernels.mega_ipddp import LOG_BOX_ROWS, box_solve_eligible
 from cddp_tpu_torch.options import CDDPOptions, line_search_alphas
 from cddp_tpu_torch.solution import Solution
 
@@ -43,7 +43,8 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
     ``mega_ipddp.box_solve_eligible`` with LogDDP's ``lqr_backend``, at a
     horizon the kernel takes (``rollout.whole_horizon_ok``: the attitude
     trio's follows the JAX gate's)."""
-    return (box_solve_eligible(problem, options, options.log_barrier.lqr_backend)
+    return (box_solve_eligible(problem, options, options.log_barrier.lqr_backend,
+                               LOG_BOX_ROWS)
             and rollout_ops.whole_horizon_ok("logddp_solve", rollout_ops.lane_consts(problem),
                                              problem.horizon))
 

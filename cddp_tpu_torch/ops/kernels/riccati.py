@@ -26,10 +26,22 @@ _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_
 # (nx, nu) the kernel is instantiated for: the unicycle, the pendulum and
 # the cart-pole of the model registry, the car's and the default
 # LTISystem's 4x2, the quadrotor's 13x4, QuadrotorRate's 10x4, and the
-# attitude trio's 6x3 (Euler angles, MRPs) and 7x3 (the quaternion). The
-# kernel reads A and B, so any model of these shapes takes it (the JAX gate
-# is nu <= 4 alone, riccati.py:491-497).
-KERNEL_SHAPES = ((3, 2), (2, 1), (4, 1), (4, 2), (13, 4), (10, 4), (6, 3), (7, 3))
+# attitude trio's 6x3 (Euler angles, MRPs) and 7x3 (the quaternion), and the
+# spacecraft models' 8x3 (SpacecraftLinearFuel), 10x3 (SpacecraftNonlinear)
+# and 6x2 (SpacecraftLanding2D; HCW shares 6x3). The kernel reads A and B,
+# so any model of these shapes takes it (the JAX gate is nu <= 4 alone,
+# riccati.py:491-497) but those of LEFT_OUT_MODELS.
+KERNEL_SHAPES = ((3, 2), (2, 1), (4, 1), (4, 2), (13, 4), (10, 4), (6, 3), (7, 3), (8, 3),
+                 (10, 3), (6, 2))
+# Registered models (``rollout.ModelEntry.cuda_name``) whose CLDDP runs the
+# plain Riccati recursion although their shape is in KERNEL_SHAPES: float32
+# cannot carry SpacecraftTwobody's recursion (states near 7000 km, velocity
+# weights of 1e4) even at its MPC horizon N = 20. On 1,024 of its fleet's
+# operands on an NVIDIA H100 80GB HBM3 the kernel left float64 by more than
+# 1e-2 (scaled) on 34.2% of the instances at N = 20 and 100% at N = 100,
+# the plain version on 32.2% and 100%, where the kernel is held to 2%
+# (ROADMAP C.13).
+LEFT_OUT_MODELS = ("sc_twobody",)
 
 
 def dispatch_name(nx: int, nu: int) -> str:

@@ -21,8 +21,9 @@ the plain driver on the tensors' device. A registered model is eligible for
 a kernel only where that kernel is instantiated for it: each kernel's
 module keeps that table (``ROLLOUT_MODELS`` here for kernel 2, ``CLDDP_MODELS``
 for kernel 3, ``CLDDP_TRACK_MODELS`` for the tracking forms of both,
-``riccati.KERNEL_SHAPES``, ``ip_rollout.KERNEL_ROWS``, ``mega_ipddp.BOX_ROWS``,
-``ipddp_riccati.KERNEL_SHAPES``, the layouts of ``mega_ipddp``), and a
+``riccati.KERNEL_SHAPES``, ``ip_rollout.KERNEL_ROWS``,
+``ipddp_riccati.KERNEL_SHAPES``, ``mega_ipddp.IP_BOX_ROWS``, ``MS_BOX_ROWS``
+and ``LOG_BOX_ROWS``, the layouts of ``mega_ipddp``), and a
 problem outside it runs the plain version of that kernel, on the tensors'
 device, before any launch is tried. Launches of a model other than the
 unicycle log the model's name after the kernel's (``clddp_solve@pendulum``,
@@ -40,7 +41,8 @@ import torch
 
 from cddp_tpu_torch.models import (HCW, Car, CartPole, DynamicalSystem, EulerAttitude,
                                    Forklift, MrpAttitude, Pendulum, Quadrotor, QuadrotorRate,
-                                   QuaternionAttitude, Unicycle)
+                                   QuaternionAttitude, SpacecraftLanding2D, SpacecraftLinearFuel,
+                                   SpacecraftNonlinear, SpacecraftTwobody, Unicycle)
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.linalg import true_div
 
@@ -113,6 +115,16 @@ _REGISTRY = {
     EulerAttitude: ModelEntry(params=_inertia, cuda_name="euler_attitude"),
     QuaternionAttitude: ModelEntry(params=_inertia, cuda_name="quaternion_attitude"),
     MrpAttitude: ModelEntry(params=_inertia, cuda_name="mrp_attitude"),
+    # The other spacecraft models (rollout.py:526-545): the lanes' scalar
+    # fields; the lander's fifth value is its inertia (1/12) m L^2 as the
+    # model computes it.
+    SpacecraftLinearFuel: ModelEntry(params=_buffers("mean_motion", "isp", "g0", "epsilon"),
+                                     cuda_name="sc_linear_fuel"),
+    SpacecraftNonlinear: ModelEntry(params=_buffers("mass", "mu"), cuda_name="sc_nonlinear"),
+    SpacecraftLanding2D: ModelEntry(
+        params=lambda m: _buffers("mass", "length", "max_thrust", "gravity")(m)
+        + [float(m.inertia)], cuda_name="sc_landing2d"),
+    SpacecraftTwobody: ModelEntry(params=_buffers("mu", "mass"), cuda_name="sc_twobody"),
 }
 # The attitude trio, which the whole solves of CLDDP, IPDDP and LogDDP
 # (kernels 3, 7, 9) take at their users' MPC horizon (N = 20; the JAX
@@ -121,36 +133,53 @@ _REGISTRY = {
 # float32 variants that fork from their plain drivers (ROADMAP C.12): kernel
 # 3 on the MRP model and kernel 7 on the Euler model (``mega_ipddp``).
 ATTITUDE_MODELS = ("euler_attitude", "quaternion_attitude", "mrp_attitude")
+# The other spacecraft models. MSIPDDP's whole solve (kernel 8) takes none
+# of them: its JAX gate refuses each at N = 20 (21.0, 27.1, 13.5 and 15.6
+# MiB against 10). Of the whole solves of CLDDP, IPDDP and LogDDP (kernels
+# 3, 7, 9), which the JAX gates admit up to ``WHOLE_MAX_HORIZON``, three
+# take them: kernel 3 and kernel 7 the nonlinear model (to N = 18 and 19),
+# kernel 9 the fuel model (to 27). Eight other pairs forked from their
+# plain drivers in float32, and kernel 7 on the two-body model was held on
+# too few of its plain driver's stable instances (ROADMAP C.13); they run
+# per pass (CLDDP, IPDDP) or on the plain driver (LogDDP).
+SPACECRAFT_MODELS = ("sc_linear_fuel", "sc_nonlinear", "sc_landing2d", "sc_twobody")
+# Their control boxes' row counts m, the box stacks kernel 5 is built for:
+# the thrust box (6), the lander's thrust and gimbal box (4).
+SPACECRAFT_ROWS = {"sc_linear_fuel": (6,), "sc_nonlinear": (6,), "sc_landing2d": (4,),
+                   "sc_twobody": (6,)}
 # The models the whole CLDDP solve (kernel 3) and the line-search rollout
 # (kernel 2) are instantiated for in the tracking form, and kernel 3 in the
-# goal form: those and the Euler and quaternion attitude models (no fleet
-# of theirs tracks). The JAX whole solve refuses discrete models
-# (mega_clddp.py:843 of the JAX package). The MRP model is left out: in
-# float32 kernel 3 agreed with the plain driver on 97.41% of the plain
-# driver's own stable instances at N = 20 (ROADMAP C.12), so its CLDDP
-# runs per pass (kernels 1 and 2).
+# goal form: those, the Euler and quaternion attitude models and the
+# nonlinear spacecraft model (no fleet of theirs tracks). The JAX whole
+# solve refuses discrete models (mega_clddp.py:843 of the JAX package). The
+# MRP model is left out: in float32 kernel 3 agreed with the plain driver
+# on 97.41% of the plain driver's own stable instances at N = 20 (ROADMAP
+# C.12), so its CLDDP runs per pass (kernels 1 and 2), as do the other
+# spacecraft models' but the nonlinear one's (ROADMAP C.13).
 CLDDP_TRACK_MODELS = ("unicycle", "pendulum", "cartpole")
-CLDDP_MODELS = CLDDP_TRACK_MODELS + ("euler_attitude", "quaternion_attitude")
+CLDDP_MODELS = CLDDP_TRACK_MODELS + ("euler_attitude", "quaternion_attitude", "sc_nonlinear")
 # The models kernel 2's goal form is instantiated for: the tracking form's,
-# the attitude trio, the car and the two quadrotors. Kernel 3 leaves the
+# the spacecraft models, the car and the two quadrotors. Kernel 3 leaves the
 # quadrotors out: the JAX package's whole CLDDP solve refuses them at the
 # horizons their users run (its VMEM estimate at the golden's N = 60: 57.2
 # MiB against a 12 MiB budget; QuadrotorRate 15.9 MiB already at N = 20),
 # so their CLDDP runs per pass there, and here.
-ROLLOUT_MODELS = CLDDP_TRACK_MODELS + ATTITUDE_MODELS + ("car", "quadrotor", "quadrotor_rate")
+ROLLOUT_MODELS = (CLDDP_TRACK_MODELS + ATTITUDE_MODELS + SPACECRAFT_MODELS
+                  + ("car", "quadrotor", "quadrotor_rate"))
 # The longest horizon at which the JAX package's whole solves of CLDDP,
-# IPDDP and LogDDP (kernels 3, 7, 9) take each attitude model: their
-# scratch-memory gates (mega_clddp.py:864, mega_ipddp.py:2527 and
-# mega_logddp.py:788 of the JAX package; tests/test_torch_attitude.py
-# holds this table to them). Past it JAX runs per pass, and so does the
-# port (``whole_horizon_ok``): in float32, kernel 3 on the quaternion slew
-# at N = 200 forked from its plain driver (97.58% of the plain driver's
-# stable instances, ROADMAP C.12). The other models' whole solves keep no
-# such limit (ROADMAP C.11).
+# IPDDP and LogDDP (kernels 3, 7, 9) take each attitude and spacecraft
+# model: their scratch-memory gates (mega_clddp.py:864, mega_ipddp.py:2527
+# and mega_logddp.py:788 of the JAX package; tests/test_torch_attitude.py
+# and tests/test_torch_spacecraft.py hold this table to them). Past it JAX
+# runs per pass, and so does the port (``whole_horizon_ok``): in float32,
+# kernel 3 on the quaternion slew at N = 200 forked from its plain driver
+# (97.58% of the plain driver's stable instances, ROADMAP C.12). The other
+# models' whole solves keep no such limit (ROADMAP C.11).
 WHOLE_MAX_HORIZON = {
-    "clddp_solve": {"euler_attitude": 29, "quaternion_attitude": 25},
-    "ipddp_solve": {"quaternion_attitude": 25, "mrp_attitude": 27},
-    "logddp_solve": {"euler_attitude": 34, "quaternion_attitude": 30, "mrp_attitude": 34},
+    "clddp_solve": {"euler_attitude": 29, "quaternion_attitude": 25, "sc_nonlinear": 18},
+    "ipddp_solve": {"quaternion_attitude": 25, "mrp_attitude": 27, "sc_nonlinear": 19},
+    "logddp_solve": {"euler_attitude": 34, "quaternion_attitude": 30, "mrp_attitude": 34,
+                     "sc_linear_fuel": 27},
 }
 
 

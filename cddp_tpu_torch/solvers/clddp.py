@@ -21,6 +21,7 @@ from cddp_tpu_torch.ops.boxqp import enum_applies
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 from cddp_tpu_torch.ops.kernels.riccati import (
     KERNEL_SHAPES,
+    LEFT_OUT_MODELS,
     q_expansion,
     riccati_backward,
     riccati_backward_plain,
@@ -42,9 +43,12 @@ class BackwardPassResult(NamedTuple):
 def _use_kernels(problem: Problem, options: CDDPOptions) -> bool:
     """Whether the backward pass launches the Riccati kernel: a problem of
     a shape it is instantiated for, whatever its model (the kernel reads A
-    and B, and the JAX op gates on shape alone, riccati.py:491-497)."""
+    and B, and the JAX op gates on shape alone, riccati.py:491-497), but a
+    registered model of ``LEFT_OUT_MODELS``."""
+    entry = rollout_ops.model_entry(problem.model)
     return (options.backward_engine != "scan"
-            and (problem.state_dim, problem.control_dim) in KERNEL_SHAPES)
+            and (problem.state_dim, problem.control_dim) in KERNEL_SHAPES
+            and (entry is None or entry.cuda_name not in LEFT_OUT_MODELS))
 
 
 def _backward_pass(problem: Problem, options: CDDPOptions, X, U, reg

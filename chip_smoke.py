@@ -199,7 +199,8 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    and 4 at the slew's N = 200 on ATT_KERNEL_B instances, 5 and 6 at
    B_CHECK (float64 within 1e-9 + 1e-12 |v| plus twice the plain
    version's one-ulp move, float32 by ``check``'s rule, kernel 1's tail by
-   its BoxQP ties), the whole solves 3, 7 and 9 (but ATT_LEFT_OUT's) at
+   its BoxQP ties), the whole solves 3, 7 and 9 (where their tables take
+   the model, ``whole_takes``) at
    N = 20 and at the longest horizon each takes (the JAX gates', past
    which they run per pass) over ATT_WHOLE_ITERS (float64 every status
    and iteration equal, values within 1e-8; float32 99% of the plain
@@ -209,7 +210,7 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    beside the kernels' build; (b) the slew fleets (B = 65,536, N = 200,
    per pass; MSIPDDP and LogDDP on their plain drivers at B_CHECK), (c)
    the attitude-MPC fleets (B = 262,144, N = 20: one launch
-   of kernel 3, 7 or 9 each, or per pass where ATT_LEFT_OUT leaves the
+   of kernel 3, 7 or 9 each, or per pass where its table leaves the
    whole solve out), (d) the example's single slew (per pass at B = 1,
    held to its float64 run), each with its exact launch counts;
    (e) every entry's times and bound.
@@ -256,11 +257,13 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
 import types
+import typing
 from pathlib import Path
 
 import torch
@@ -293,35 +296,43 @@ def launchers():
     after the goal forms."""
     from cddp_tpu_torch.ops.kernels.ip_rollout import KERNEL_ROWS, TRACK_ROWS
     from cddp_tpu_torch.ops.kernels.ipddp_riccati import KERNEL_SHAPES
-    from cddp_tpu_torch.ops.kernels.mega_ipddp import (BALL_LAYOUTS, BOX_ROWS, IP_BOX_ROWS,
+    from cddp_tpu_torch.ops.kernels.mega_ipddp import (BALL_LAYOUTS, IP_BOX_ROWS, LOG_BOX_ROWS,
                                                        MS_BOX_ROWS, TERMINAL_LAYOUTS,
                                                        TRACK_LAYOUTS)
     from cddp_tpu_torch.ops.kernels.riccati import KERNEL_SHAPES as RICCATI_SHAPES
     from cddp_tpu_torch.ops.kernels.rollout import (_REGISTRY, ATTITUDE_MODELS, CLDDP_MODELS,
-                                                    CLDDP_TRACK_MODELS, ROLLOUT_MODELS)
+                                                    CLDDP_TRACK_MODELS, ROLLOUT_MODELS,
+                                                    SPACECRAFT_MODELS)
 
     balls = [f"m{m}_ball{row}" for m, row in BALL_LAYOUTS["unicycle"]]
     track = lambda stems: stems + [f"{s}_track" for s in stems]  # noqa: E731
     by_model = lambda stem, table: [  # noqa: E731
         f"{stem}_{model}_m{m}" for model, rows in table.items() for m in rows]
-    # The attitude trio's kernels 6 and 7 live in translation units of their own.
-    box = {m: rows for m, rows in BOX_ROWS.items() if m not in ATTITUDE_MODELS}
-    attitude_shapes = ((6, 3), (7, 3))
+    # The attitude trio's kernels 6 and 7 and the other spacecraft models'
+    # kernels 3, 6, 7 and 9 live in translation units of their own.
+    own = lambda table, models: {m: r for m, r in table.items() if m in models}  # noqa: E731
+    rest = lambda table: {m: r for m, r in table.items()  # noqa: E731
+                          if m not in ATTITUDE_MODELS + SPACECRAFT_MODELS}
+    attitude_shapes, spacecraft_shapes = ((6, 3), (7, 3)), ((8, 3), (10, 3), (6, 2))
+    backward = lambda shapes: [f"cddp_ipddp_backward_{nx}x{nu}x{m}"  # noqa: E731
+                               for nx, nu, m in KERNEL_SHAPES if (nx, nu) in shapes]
     return {
         "riccati_backward": [f"cddp_riccati_backward_{nx}x{nu}" for nx, nu in RICCATI_SHAPES],
         "forward_rollout": [f"cddp_forward_rollout_{m}" for m in ROLLOUT_MODELS]
         + [f"cddp_forward_rollout_{m}_track" for m in CLDDP_TRACK_MODELS],
-        "clddp_solve": [f"cddp_clddp_solve_{m}" for m in CLDDP_MODELS]
+        "clddp_solve": [f"cddp_clddp_solve_{m}" for m in CLDDP_MODELS
+                        if m not in SPACECRAFT_MODELS]
         + [f"cddp_clddp_solve_{m}_track" for m in CLDDP_TRACK_MODELS],
+        "clddp_solve_spacecraft": [f"cddp_clddp_solve_{m}" for m in SPACECRAFT_MODELS
+                                   if m in CLDDP_MODELS],
         "open_loop_rollout": [f"cddp_open_loop_rollout_{e.cuda_name}" for e in _REGISTRY.values()],
         "ip_forward": by_model("cddp_ip_forward", KERNEL_ROWS)
         + [f"{s}_track" for s in by_model("cddp_ip_forward", TRACK_ROWS)],
-        "ipddp_backward": [f"cddp_ipddp_backward_{nx}x{nu}x{m}"
-                           for nx, nu, m in KERNEL_SHAPES if (nx, nu) not in attitude_shapes],
-        "ipddp_backward_attitude": [f"cddp_ipddp_backward_{nx}x{nu}x{m}"
-                                    for nx, nu, m in KERNEL_SHAPES
-                                    if (nx, nu) in attitude_shapes],
-        "ipddp_solve": by_model("cddp_ipddp_solve", box)
+        "ipddp_backward": [f"cddp_ipddp_backward_{nx}x{nu}x{m}" for nx, nu, m in KERNEL_SHAPES
+                           if (nx, nu) not in attitude_shapes + spacecraft_shapes],
+        "ipddp_backward_attitude": backward(attitude_shapes),
+        "ipddp_backward_spacecraft": backward(spacecraft_shapes),
+        "ipddp_solve": by_model("cddp_ipddp_solve", rest(IP_BOX_ROWS))
         + [f"cddp_ipddp_solve_unicycle_{v}" for v in balls]
         + [f"cddp_ipddp_solve_{model}_{v}_track" for model, layouts in TRACK_LAYOUTS.items()
            for v in layouts],
@@ -332,9 +343,12 @@ def launchers():
             for layout, shapes in layouts.items() for mT, p in shapes],
         "ipddp_solve_attitude": [f"cddp_ipddp_solve_{m}_m6" for m in ATTITUDE_MODELS
                                  if m in IP_BOX_ROWS],
+        "ipddp_solve_spacecraft": by_model("cddp_ipddp_solve", own(IP_BOX_ROWS, SPACECRAFT_MODELS)),
         "msipddp_solve": track(by_model("cddp_msipddp_solve", MS_BOX_ROWS)),
-        "logddp_solve": track(by_model("cddp_logddp_solve", box))
-        + [f"cddp_logddp_solve_{m}_m6" for m in ATTITUDE_MODELS],
+        "logddp_solve": track(by_model("cddp_logddp_solve", rest(LOG_BOX_ROWS)))
+        + by_model("cddp_logddp_solve", own(LOG_BOX_ROWS, ATTITUDE_MODELS)),
+        "logddp_solve_spacecraft": by_model("cddp_logddp_solve",
+                                            own(LOG_BOX_ROWS, SPACECRAFT_MODELS)),
     }
 
 
@@ -394,7 +408,8 @@ def fleet_x0(prob, B, gen):
     ``HCW_X0_SCALE`` (bench_ipddp_fleet.py:124-132); the quadrotors' x0
     (hover) + U(-0.5, 0.5)^3 on the position alone; the attitude trio's at
     rest, at an MRP from U(-0.3, 0.3)^3 in the model's coordinates
-    (``attitude_state``)."""
+    (``attitude_state``); the other spacecraft models' x0 + widths (U(0, 1)
+    - 0.5) (``SC_SPECS``)."""
     dev, dtype, nx = prob.x0.device, prob.x0.dtype, prob.state_dim
     u = torch.rand(B, nx, generator=gen, device=dev, dtype=dtype)
     name = type(prob.model).__name__
@@ -412,6 +427,9 @@ def fleet_x0(prob, B, gen):
         return prob.x0 + torch.cat([u[:, :3] - 0.5, torch.zeros_like(u[:, 3:])], -1)
     if name in ATT_CLASSES:
         return attitude_state(ATT_CLASSES[name], ATT_X0_WIDTH * (2.0 * u[:, :3] - 1.0))
+    if name in SC_CLASSES:
+        widths = torch.tensor(SC_SPECS[SC_CLASSES[name]][2], device=dev, dtype=dtype)
+        return prob.x0 + widths * (u - 0.5)
     return prob.x0 + torch.tensor(HCW_X0_SCALE, device=dev, dtype=dtype) * (2.0 * u - 1.0)
 
 
@@ -994,6 +1012,27 @@ def count_ops(fn, *args):
     with Count():
         fn(*args)
     return total[0]
+
+
+def count_ops_steps(fn, *args):
+    """``count_ops(fn, *args)`` for a recursion over the horizon N of its
+    batch-first arguments (those with a step axis 1 of N or N + 1 rows,
+    N > 16): the plain versions do the same operations at every step, so
+    the count is c(2) + (N - 2) (c(3) - c(2)) from the arguments cut to
+    two and three steps, exactly the full count
+    (tests/test_torch_chip_smoke.py holds the two equal) in a fraction of
+    its time: at N = 100-300 each full count took 1.4-2 s of host time."""
+    steps = {a.shape[1] for a in args if isinstance(a, torch.Tensor) and a.dim() >= 3}
+    N = max(steps, default=0)
+    if N <= 16:
+        return count_ops(fn, *args)
+
+    def cut(n):
+        return tuple(a[:, :n + (a.shape[1] - N)] if isinstance(a, torch.Tensor) and a.dim() >= 2
+                     and a.shape[1] in (N, N + 1) else a for a in args)
+
+    c2, c3 = count_ops(fn, *cut(2)), count_ops(fn, *cut(3))
+    return c2 + (N - 2) * (c3 - c2)
 
 
 def unique_bytes(tensors):
@@ -1635,7 +1674,8 @@ def phase_ip_fleet(tt, dev, smi, obstacle=False):
         raise AssertionError(f"whole-solve and plain IPDDP statuses agree on {agree:.4%} "
                              f"(need >= 99%)")
 
-    reps = {"whole-solve kernel": 10, "per-pass kernels": 2}
+    # The per-pass engine's one timed run: the obstacle fleet's takes 6 s.
+    reps = {"whole-solve kernel": 10, "per-pass kernels": 1}
     rates = {}
     for name, o in engines.items():
         def run(o=o):
@@ -2804,12 +2844,9 @@ def phase_tracking_fleets(tt, dev, smi):
     return launches, default, prob, x0
 
 
-def phase_tracking(tt, dev, smi):
-    """Phase 11, tracking MPC: every tracking variant against its plain
-    version at B_CHECK, the tracking MPC fleet, the tracking fleets that
-    drive each variant, and each variant's times and bound at B_MAIN.
-    Returns (launches, default-engine launches, {dtype: {variant: err}},
-    {variant: timing})."""
+def tracking_checks(tt, dev):
+    """Phase 11's (a): every tracking variant against its plain version at
+    B_CHECK. Returns {dtype: {variant: err}}."""
     errs = {"float64": {}, "float32": {}}
     for tag, r in phase_kernels(tt, dev, tracking_problem, "tracking").items():
         errs[tag].update({TRACKING[k]: r[k] for k in ("forward_rollout", "clddp_solve")})
@@ -2817,6 +2854,17 @@ def phase_tracking(tt, dev, smi):
         errs[tag].update(r)
     for tag, r in phase_barrier_kernels(tt, dev, tracking_problem, "tracking").items():
         errs[tag].update({TRACKING[k]: r[k] for k in ("logddp_solve", "msipddp_solve")})
+    return errs
+
+
+def phase_tracking(tt, dev, smi, errs):
+    """Phase 11, tracking MPC: ``errs``, every tracking variant against its
+    plain version at B_CHECK (``tracking_checks``, which a side process
+    runs earlier), then the tracking MPC fleet, the tracking fleets that
+    drive each variant, and each variant's times and bound at B_MAIN.
+    Returns (launches, default-engine launches, {dtype: {variant: err}},
+    {variant: timing})."""
+    checked_errs("phase 11", errs)
     launches, ms = phase_tracking_mpc(tt, dev, smi)
     default = {"tracking MPC fleet": dict(launches)}
     fleet_launches, fleet_default, prob, x0 = phase_tracking_fleets(tt, dev, smi)
@@ -3552,7 +3600,7 @@ def seed_ipddp_work(tt, p, opts, seeds):
     fwd1 = (X[:, :-1], U, Y, S, z(N, nu), z(N, nu, nx), z(N, nx), z(N, nx, nx), L[:, :-1],
             z(N, m), z(N, m, nx), z(N, m), z(N, m, nx), X[:, 0], one_, one_, 0.99 * one_,
             torch.zeros(1, dtype=torch.bool, device=X.device))
-    ops5 = count_ops(ip_rollout.ip_forward_plain, fc, *fwd1)
+    ops5 = count_ops_steps(ip_rollout.ip_forward_plain, fc, *fwd1)
     out5 = ip_rollout.ip_forward_plain(fc, *fwd1)
     return ipddp_solve_work(tt, p, opts, seeds, ops5, out5, reference_read(p))
 
@@ -4076,7 +4124,7 @@ def time_open_loop(prob, x0, smi):
                           device=x0.device) - 1.0) * cc.upper
     entry, dt = rollout_ops.model_entry(prob.model), prob.timestep
     kernel = lambda: ip_rollout._launch_open_loop(prob.model, entry, x0, U, dt)  # noqa: E731
-    ops = count_ops(ip_rollout.open_loop_rollout_plain, prob.model, x0[:1], U[:1], dt)
+    ops = count_ops_steps(ip_rollout.open_loop_rollout_plain, prob.model, x0[:1], U[:1], dt)
     runs = {"open_loop_rollout": (kernel, 20, lambda: ip_rollout.open_loop_rollout_plain(
         prob.model, x0, U, dt), 1)}
     work = {"open_loop_rollout": ((x0, U), (kernel()[:, 1:],), ops * B_MAIN)}
@@ -4526,7 +4574,7 @@ def time_discrete_kernels(tt, fleets, smi):
         runs = {f"riccati_backward@{label}": (lambda back=back: riccati._launch(*back), 20,
                                               lambda back=back: riccati.riccati_backward_plain(
                                                   *back), 1)}
-        work = {f"riccati_backward@{label}": (back, out1, count_ops(
+        work = {f"riccati_backward@{label}": (back, out1, count_ops_steps(
             riccati.riccati_backward_plain, *one(back)) * B)}
         if label == "car":
             consts = rollout_ops.lane_consts(prob)
@@ -4535,7 +4583,7 @@ def time_discrete_kernels(tt, fleets, smi):
             runs["forward_rollout@car"] = (lambda: rollout_ops._launch(consts, *fwd), 20,
                                            lambda: rollout_ops.forward_rollout_plain(consts,
                                                                                      *fwd), 2)
-            work["forward_rollout@car"] = (fwd, out2, count_ops(
+            work["forward_rollout@car"] = (fwd, out2, count_ops_steps(
                 rollout_ops.forward_rollout_plain, consts, *one(fwd)) * B)
         out.update(time_kernels(runs, work, torch.float32, smi, events_ok="wrapper", batch=B))
         at.update({k: B for k in runs})
@@ -4549,7 +4597,7 @@ def time_discrete_kernels(tt, fleets, smi):
         entry = rollout_ops.model_entry(mdl)
         kernel = (lambda mdl=mdl, entry=entry, xs=xs, Us=Us, dt=dt:  # noqa: E731
                   ip_rollout._launch_open_loop(mdl, entry, xs, Us, dt))
-        ops = count_ops(ip_rollout.open_loop_rollout_plain, mdl, xs[:1], Us[:1], dt)
+        ops = count_ops_steps(ip_rollout.open_loop_rollout_plain, mdl, xs[:1], Us[:1], dt)
         runs = {name: (kernel, 20, lambda mdl=mdl, xs=xs, Us=Us, dt=dt:
                        ip_rollout.open_loop_rollout_plain(mdl, xs, Us, dt), 1)}
         work = {name: ((xs, Us), (kernel()[:, 1:],), ops * B)}
@@ -4564,9 +4612,9 @@ def time_discrete_kernels(tt, fleets, smi):
                                lambda: ip_rollout.ip_forward_plain(fc, *fwd), 1),
             "ipddp_backward@car": (lambda: ric._launch(*back), 20,
                                    lambda: ric.ipddp_backward_plain(*back), 1)}
-    work = {"ip_forward@car": (fwd, out5, count_ops(ip_rollout.ip_forward_plain, fc,
+    work = {"ip_forward@car": (fwd, out5, count_ops_steps(ip_rollout.ip_forward_plain, fc,
                                                     *one(fwd)) * CAR_B),
-            "ipddp_backward@car": (backward_operands_read(back), out6, count_ops(
+            "ipddp_backward@car": (backward_operands_read(back), out6, count_ops_steps(
                 ric.ipddp_backward_plain, *one(back)) * CAR_B)}
     out.update(time_kernels(runs, work, torch.float32, smi, events_ok="wrapper", batch=CAR_B))
     at.update({k: CAR_B for k in runs})
@@ -4850,7 +4898,7 @@ def phase_quad_kernels(tt, dev, errs):
 
 
 def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, options,
-                       kernel_b, seed, track=None):
+                       kernel_b, seed, track=None, riccati_f32_n=None):
     """(a) every new instantiation against its plain version, in float64
     (within 1e-9 + ZOO_RTOL |v| plus twice the plain version's move from
     inputs one ulp up, ``check``) and float32 (``check``'s float64-truth
@@ -4863,7 +4911,10 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
     each of ``models`` (``maker(model)`` builds its problem, ``stage`` and
     ``ip_stage`` its operands, ``options()`` its IPDDP options), and kernel
     5's tracking form on the operands of each model of ``track`` ({model:
-    its tracking problem in a dtype}); errors into ``errs`` under
+    its tracking problem in a dtype}); kernel 1 not on a model it leaves out
+    (``riccati.LEFT_OUT_MODELS``), and in float32 on each model of
+    ``riccati_f32_n`` ({model: N}) on operands staged at that horizon
+    (``maker(model, N)``, their own generator); errors into ``errs`` under
     "<kernel>@<model>"."""
     from cddp_tpu_torch.models import rollout
     from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
@@ -4897,11 +4948,17 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
             prob = maker(model)(tt, dtype, dev)
             X, U, back, alpha = stage(prob, kernel_b, gen)
             want = riccati.riccati_backward_plain(*back)
-            errs[tag][f"riccati_backward@{model}"] = check(
-                f"riccati_backward@{model}", riccati._launch(*back), want,
-                None if exact else riccati.riccati_backward_plain(*as64(back)), rtol=ZOO_RTOL,
-                quantiles=not exact, ties=not exact,
-                moved=riccati.riccati_backward_plain(*ulp_up(back)) if exact else None)
+            k1 = back
+            if not exact and model in (riccati_f32_n or {}):
+                k1 = stage(maker(model, riccati_f32_n[model])(tt, dtype, dev), kernel_b,
+                           torch.Generator(device=dev).manual_seed(seed + 1))[2]
+            if rollout_ops.model_entry(prob.model).cuda_name not in riccati.LEFT_OUT_MODELS:
+                errs[tag][f"riccati_backward@{model}"] = check(
+                    f"riccati_backward@{model} (N={k1[0].shape[1]})", riccati._launch(*k1),
+                    riccati.riccati_backward_plain(*k1),
+                    None if exact else riccati.riccati_backward_plain(*as64(k1)), rtol=ZOO_RTOL,
+                    quantiles=not exact, ties=not exact,
+                    moved=riccati.riccati_backward_plain(*ulp_up(k1)) if exact else None)
             consts = rollout_ops.lane_consts(prob)
             fwd = (X[:, :-1], U, want[0], want[1], X[:, 0], alpha)
             errs[tag][f"forward_rollout@{model}"] = check(
@@ -4984,33 +5041,60 @@ def quad_plain_refs(tt, dev):
 class Side:
     """Work of ``SIDE_RUNS[kind]`` in a process of its own (this script with
     ``--side KIND PATH``) on the same card, whose result ``main`` reads when
-    it needs it: phase 16's and phase 17's plain references
-    (``quad_plain_refs``, ``attitude_plain_refs``: plain drivers only,
-    started beside the kernels' build) and phases 7, 9, 12, 13 and 15's
-    kernel checks (``side_checks``, started after it). Each runs tens of thousands
-    of small torch launches beside the main process's checks instead of
-    after them, and none of it is timed against the card."""
+    it needs it: phases 16, 17 and 18's plain references
+    (``quad_plain_refs``, ``attitude_plain_refs``, ``sc_plain_refs``: plain
+    drivers only, started beside the kernels' build) and phases 7, 9, 12,
+    13, 14 and 15's kernel checks (``side_checks``, ``zoo_side_checks``,
+    started after it). Each runs tens of thousands of small torch launches
+    beside the main process's checks instead of after them, and none of it
+    is timed against the card."""
 
     def __init__(self, kind):
-        self._kind = kind
+        self.kind = kind
         self._dir = tempfile.TemporaryDirectory(prefix="chip_smoke_refs_")
         self._path = Path(self._dir.name) / "refs.pt"
         self._log = open(Path(self._dir.name) / "log.txt", "w+")
         self._proc = subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--side", kind,
              str(self._path)], stdout=self._log, stderr=subprocess.STDOUT)
+        self._out, self._seen = None, 0
+
+    def _echo(self):
+        """Print the lines the process has logged since the last call."""
+        self._log.seek(self._seen)
+        text = self._log.read()
+        self._seen = self._log.tell()
+        for line in text.splitlines():
+            print(f"[{self.kind} side] {line}")
+
+    def part(self, key):
+        """A view of one part of a process that runs several
+        (``SIDE_PARTS``): ``result`` is that part, read as soon as the
+        process has saved it; ``close`` leaves the process to the view's
+        owner."""
+        def result(dev):
+            saved = part_path(self._path, key)
+            while not saved.exists() and self._proc.poll() is None:
+                time.sleep(0.5)
+            if saved.exists():
+                self._echo()
+                return torch.load(saved, map_location=dev, weights_only=False)
+            return self.result(dev)[key]  # the process ended without it: its log and status
+
+        return types.SimpleNamespace(result=result, close=lambda: None)
 
     def result(self, dev):
         """The references on ``dev``, once the process has ended."""
+        if self._out is not None:
+            return self._out
         rc = self._proc.wait(timeout=900)
-        self._log.seek(0)
-        for line in self._log.read().splitlines():
-            print(f"[{self._kind} side] {line}")
+        self._echo()
         if rc != 0:
-            raise AssertionError(f"the {self._kind} side process exited with status {rc}")
+            raise AssertionError(f"the {self.kind} side process exited with status {rc}")
         out = torch.load(self._path, map_location=dev, weights_only=False)
         if not out:
-            raise AssertionError(f"the {self._kind} side process returned nothing")
+            raise AssertionError(f"the {self.kind} side process returned nothing")
+        self._out = out
         return out
 
     def close(self):
@@ -5023,20 +5107,34 @@ class Side:
             self._dir.cleanup()
 
 
+def part_path(path, part):
+    """Where a side process saves one part of its result (``SIDE_PARTS``)."""
+    return Path(path).with_name(f"{part}.pt")
+
+
 def side_main(kind, path):
-    """The ``--side KIND PATH`` process: ``SIDE_RUNS[kind]`` on the card,
-    its result saved to ``path``. The plain references run plain drivers
-    only and build no kernel: ``main`` starts them beside the kernels'
-    build."""
+    """The ``--side KIND PATH`` process: ``SIDE_RUNS[kind]`` on the card (or
+    each of ``SIDE_PARTS[kind]`` in turn, by name), its result saved to
+    ``path``. The plain references run plain drivers only and build no
+    kernel: ``main`` starts them beside the kernels' build."""
     import cddp_tpu_torch as tt
     from cddp_tpu_torch.ops.kernels import build
 
     def refuse():
         raise RuntimeError("the plain references' process builds and launches no kernel")
 
-    if kind != "checks":
+    if kind not in CHECK_SIDES:
         build.library = refuse
-    out = SIDE_RUNS[kind](tt, torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    if kind in SIDE_PARTS:
+        out = {}
+        for part in SIDE_PARTS[kind]:
+            out[part] = SIDE_RUNS[part](tt, dev)
+            torch.cuda.synchronize()
+            torch.save(out[part], f"{path}.{part}")
+            os.replace(f"{path}.{part}", part_path(path, part))  # whole, once there
+    else:
+        out = SIDE_RUNS[kind](tt, dev)
     torch.cuda.synchronize()
     torch.save(out, path)
 
@@ -5329,7 +5427,7 @@ def time_quad_kernels(tt, dev, single, smi):
     timing = time_kernels(
         {"ip_forward": (lambda: ip_rollout._launch_forward(fc, *fwd5), 20,
                         lambda: ip_rollout.ip_forward_plain(fc, *fwd5), 1)},
-        {"ip_forward": (fwd5 + reference_read(prob), out5, count_ops(
+        {"ip_forward": (fwd5 + reference_read(prob), out5, count_ops_steps(
             ip_rollout.ip_forward_plain, fc, *one(fwd5)) * QUAD_B)},
         torch.float32, smi, label=" (tracking form)", events_ok="wrapper", batch=QUAD_B)
     out["ip_forward_track@quadrotor"] = timing["ip_forward"]
@@ -5365,21 +5463,26 @@ def time_lane_kernels(tt, dev, smi, label, models, maker, stage, ip_stage, optio
     for model in models:
         prob = maker(model)(tt, torch.float32, dev)
         X, U, back, alpha = stage(prob, batch, gen)
+        # The rollout's gains: kernel 1's launch (on a model it leaves out,
+        # ``riccati.LEFT_OUT_MODELS``, an untimed staging launch).
         out1 = riccati._launch(*back)
         consts = rollout_ops.lane_consts(prob)
         fwd2 = (X[:, :-1], U, out1[0], out1[1], X[:, 0], alpha)
         out2 = rollout_ops._launch(consts, *fwd2)
         # The plain recursions take seconds a call at these shapes: one call
         # each, without a warm-up.
-        timed({"riccati_backward": (lambda: riccati._launch(*back), 10,
-                                    lambda: riccati.riccati_backward_plain(*cut(back)), 1),
-               "forward_rollout": (lambda: rollout_ops._launch(consts, *fwd2), 20,
-                                   lambda: rollout_ops.forward_rollout_plain(consts,
-                                                                             *cut(fwd2)), 1)},
-              {"riccati_backward": (back, out1, count_ops(
-                  riccati.riccati_backward_plain, *one(back)) * batch),
-               "forward_rollout": (fwd2, out2, count_ops(
-                   rollout_ops.forward_rollout_plain, consts, *one(fwd2)) * batch)})
+        runs = {"riccati_backward": (lambda: riccati._launch(*back), 10,
+                                     lambda: riccati.riccati_backward_plain(*cut(back)), 1),
+                "forward_rollout": (lambda: rollout_ops._launch(consts, *fwd2), 20,
+                                    lambda: rollout_ops.forward_rollout_plain(consts,
+                                                                              *cut(fwd2)), 1)}
+        work = {"riccati_backward": (back, out1, count_ops_steps(
+                    riccati.riccati_backward_plain, *one(back)) * batch),
+                "forward_rollout": (fwd2, out2, count_ops_steps(
+                    rollout_ops.forward_rollout_plain, consts, *one(fwd2)) * batch)}
+        if consts.entry.cuda_name in riccati.LEFT_OUT_MODELS:
+            del runs["riccati_backward"], work["riccati_backward"]
+        timed(runs, work)
         del X, U, back, alpha, out1, fwd2, out2
         torch.cuda.empty_cache()
         opts = options()
@@ -5395,11 +5498,11 @@ def time_lane_kernels(tt, dev, smi, label, models, maker, stage, ip_stage, optio
                               lambda: ip_rollout.ip_forward_plain(fc, *cut(fwd5)), 1),
                "ipddp_backward": (lambda: ric._launch(*back6), 10,
                                   lambda: ric.ipddp_backward_plain(*cut(back6)), 1)},
-              {"open_loop_rollout": (ol, (out4[:, 1:],), count_ops(
+              {"open_loop_rollout": (ol, (out4[:, 1:],), count_ops_steps(
                   ip_rollout.open_loop_rollout_plain, p.model, *one(ol), p.timestep) * batch),
-               "ip_forward": (fwd5, out5, count_ops(ip_rollout.ip_forward_plain, fc,
+               "ip_forward": (fwd5, out5, count_ops_steps(ip_rollout.ip_forward_plain, fc,
                                                      *one(fwd5)) * batch),
-               "ipddp_backward": (backward_operands_read(back6), out6, count_ops(
+               "ipddp_backward": (backward_operands_read(back6), out6, count_ops_steps(
                    ric.ipddp_backward_plain, *one(back6)) * batch)})
         print(f"[{label}] {model}'s entries timed at {time.perf_counter() - t0:.1f} s")
         staged[model] = (p, fwd5)
@@ -5499,7 +5602,7 @@ ATT_ITERS = 10  # the fleets' budget
 SINGLE_ITERS = 150  # the example's single slew (:73)
 SINGLE_REPS = 3  # its timed runs after a warm-up
 # (a) holds the whole solves at N = 20 and at the longest horizon each
-# takes (``attitude_whole_cases``) on B_CHECK instances over
+# takes (``whole_cases``) on B_CHECK instances over
 # ATT_WHOLE_ITERS, and the per-pass solves at N = 200 on QUAD_CHECK_B over
 # ATT_CHECK_ITERS, to their plain drivers: the plain drivers' runs are the
 # phase's largest cost (an iteration of the N = 20 fleet's took about 1 s
@@ -5513,31 +5616,28 @@ ATT_KERNEL_B = 1024  # (a)'s kernels 1, 2 and 4 at N = 200
 # iteration after kernel 4's seed (an iteration at N = 200 is seconds of
 # torch launches).
 ATT_PLAIN_ITERS = 1
-# The whole solves the kernel tables leave out (rollout.CLDDP_MODELS,
-# mega_ipddp.IP_BOX_ROWS; ROADMAP C.12): in float32 each agreed with its
-# plain driver on less than 99% of the plain driver's stable instances (those
-# on which it agrees with its own run from x0 one ulp up) at N = 20 on
-# B_CHECK instances, kernel 3 on the MRP model on 97.41%, kernel 7 on the
-# Euler model on 96.78%; those fleets run per pass.
-ATT_LEFT_OUT = {("clddp_solve", "mrp_attitude"), ("ipddp_solve", "euler_attitude")}
-# Phase 17's kernels, each an entry of the kernels' JSON line: (entry name,
-# dispatch_log name, kernel, model, launcher without its type suffix).
-ATT_ENTRIES = tuple(
-    (f"{kernel}@{model}", logged, kernel, model, launcher)
-    for model in ATT_MODELS
-    for kernel, logged, launcher in (
-        ("riccati_backward", f"riccati_backward@{6 + (model[0] == 'q')}x3",
-         f"cddp_riccati_backward_{6 + (model[0] == 'q')}x3"),
-        ("forward_rollout", f"forward_rollout@{model}", f"cddp_forward_rollout_{model}"),
-        ("clddp_solve", f"clddp_solve@{model}", f"cddp_clddp_solve_{model}"),
-        ("open_loop_rollout", f"open_loop_rollout@{model}",
-         f"cddp_open_loop_rollout_{model}"),
-        ("ip_forward", f"ip_forward@{model}", f"cddp_ip_forward_{model}_m6"),
-        ("ipddp_backward", f"ipddp_backward@{6 + (model[0] == 'q')}x3x6",
-         f"cddp_ipddp_backward_{6 + (model[0] == 'q')}x3x6"),
-        ("ipddp_solve", f"ipddp_solve@{model}", f"cddp_ipddp_solve_{model}_m6"),
-        ("logddp_solve", f"logddp_solve@{model}", f"cddp_logddp_solve_{model}_m6"),
-    ) if (kernel, model) not in ATT_LEFT_OUT)
+def att_entries():
+    """Phase 17's kernels, each an entry of the kernels' JSON line: (entry
+    name, dispatch_log name, kernel, model, launcher without its type
+    suffix); the whole solves where their tables take the model
+    (``whole_takes``: kernel 3 leaves the MRP model out, kernel 7 the Euler
+    model, ROADMAP C.12)."""
+    return tuple(
+        (f"{kernel}@{model}", logged, kernel, model, launcher)
+        for model in ATT_MODELS
+        for kernel, logged, launcher in (
+            ("riccati_backward", f"riccati_backward@{6 + (model[0] == 'q')}x3",
+             f"cddp_riccati_backward_{6 + (model[0] == 'q')}x3"),
+            ("forward_rollout", f"forward_rollout@{model}", f"cddp_forward_rollout_{model}"),
+            ("clddp_solve", f"clddp_solve@{model}", f"cddp_clddp_solve_{model}"),
+            ("open_loop_rollout", f"open_loop_rollout@{model}",
+             f"cddp_open_loop_rollout_{model}"),
+            ("ip_forward", f"ip_forward@{model}", f"cddp_ip_forward_{model}_m6"),
+            ("ipddp_backward", f"ipddp_backward@{6 + (model[0] == 'q')}x3x6",
+             f"cddp_ipddp_backward_{6 + (model[0] == 'q')}x3x6"),
+            ("ipddp_solve", f"ipddp_solve@{model}", f"cddp_ipddp_solve_{model}_m6"),
+            ("logddp_solve", f"logddp_solve@{model}", f"cddp_logddp_solve_{model}_m6"),
+        ) if kernel not in WHOLE_KERNELS.values() or whole_takes(kernel, model))
 
 
 def attitude_state(model, sigma):
@@ -5612,53 +5712,106 @@ def attitude_stage(prob, B, gen):
     return X, U, back, alpha
 
 
-ATT_WHOLE = {"CLDDP": "clddp_solve", "IPDDP": "ipddp_solve", "LogDDP": "logddp_solve"}
+WHOLE_KERNELS = {"CLDDP": "clddp_solve", "IPDDP": "ipddp_solve", "LogDDP": "logddp_solve"}
 
 
-def attitude_whole_solvers(model):
-    """The solvers whose whole-solve kernel takes ``model`` (not
-    ATT_LEFT_OUT's)."""
-    return tuple(solver for solver, kernel in ATT_WHOLE.items()
-                 if (kernel, model) not in ATT_LEFT_OUT)
-
-
-def attitude_whole_cases():
-    """(a)'s whole solves: (model, horizon, iterations, solvers), each model
-    at the MPC horizon, and each kernel on each model it takes at the
-    longest horizon it takes it (``rollout.WHOLE_MAX_HORIZON``, the JAX
-    gates'; past it the solves run per pass, which (a)'s per-pass solves
-    hold at N = SLEW_N)."""
+def whole_takes(kernel, model):
+    """Whether the whole-solve ``kernel`` (3, 7 or 9) is instantiated for
+    ``model``'s control box: its table (``rollout.CLDDP_MODELS``,
+    ``mega_ipddp.IP_BOX_ROWS``, ``mega_ipddp.LOG_BOX_ROWS``), which leaves
+    out the pairs that forked in float32 (ROADMAP C.12, C.13). The horizons
+    it takes the model at are ``rollout.WHOLE_MAX_HORIZON``'s."""
+    from cddp_tpu_torch.ops.kernels import mega_ipddp
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 
-    edge = {}
-    for solver, kernel in ATT_WHOLE.items():
-        for model, horizon in rollout_ops.WHOLE_MAX_HORIZON[kernel].items():
-            edge.setdefault((model, horizon), []).append(solver)
-    return ([(model, MPC_N, ATT_WHOLE_ITERS, attitude_whole_solvers(model))
-             for model in ATT_MODELS]
-            + [(model, horizon, ATT_WHOLE_ITERS, tuple(solvers))
-               for (model, horizon), solvers in sorted(edge.items())])
+    return model in {"clddp_solve": rollout_ops.CLDDP_MODELS,
+                     "ipddp_solve": mega_ipddp.IP_BOX_ROWS,
+                     "logddp_solve": mega_ipddp.LOG_BOX_ROWS}[kernel]
 
 
-def attitude_whole_x0(tt, dev, model, dtype, horizon):
+class Family(typing.NamedTuple):
+    """A model family whose whole solves 3, 7 and 9 phases 17 and 18 hold
+    to their plain drivers (where ``whole_takes``): its ``models``,
+    ``problem(tt, dtype, device, model, horizon)``, ``options(tt,
+    iterations)``, its MPC fleets' horizon, (a)'s iterations and the seed
+    of (a)'s x0."""
+
+    label: str
+    models: tuple
+    problem: typing.Callable
+    options: typing.Callable
+    mpc_n: int
+    whole_iters: int
+    seed: int
+
+
+def attitude_family():
+    """Phase 17's family, read when called (the dry runs cut its sizes)."""
+    return Family("attitude", ATT_MODELS, attitude_problem, attitude_options, MPC_N,
+                  ATT_WHOLE_ITERS, SEED + 71)
+
+
+def whole_solvers(fam, model):
+    """The solvers whose whole-solve kernel takes ``model``
+    (``whole_takes``)."""
+    return tuple(solver for solver, kernel in WHOLE_KERNELS.items()
+                 if whole_takes(kernel, model))
+
+
+def fleet_horizon(fam, kernel, model):
+    """The horizon of the MPC fleet that drives the whole-solve ``kernel`` on
+    ``model``: the family's MPC horizon, or the longest the kernel takes the
+    model at (``rollout.WHOLE_MAX_HORIZON``, the JAX gates') where that is
+    shorter."""
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    return min(fam.mpc_n, rollout_ops.WHOLE_MAX_HORIZON[kernel].get(model, fam.mpc_n))
+
+
+def whole_cases(fam):
+    """(a)'s whole solves: (model, horizon, iterations, solvers), each model
+    at the MPC horizon with the solvers whose kernel takes it there, then
+    each kernel on each model it takes at the horizon of its fleet where
+    that is shorter (``fleet_horizon``) and at the longest horizon it takes
+    it (``rollout.WHOLE_MAX_HORIZON``, the JAX gates'; past it the solves run
+    per pass)."""
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    at_mpc, edge = {}, {}
+    for solver, kernel in WHOLE_KERNELS.items():
+        for model in fam.models:
+            if not whole_takes(kernel, model):
+                continue
+            limit = rollout_ops.WHOLE_MAX_HORIZON[kernel].get(model)
+            for horizon in {fleet_horizon(fam, kernel, model), limit} - {None}:
+                (at_mpc if horizon == fam.mpc_n else edge).setdefault(
+                    (model, horizon), []).append(solver)
+    order = {solver: i for i, solver in enumerate(WHOLE_KERNELS)}
+    pick = lambda cases, key: tuple(sorted(cases[key], key=order.get))  # noqa: E731
+    return ([(model, fam.mpc_n, fam.whole_iters, pick(at_mpc, (model, fam.mpc_n)))
+             for model in fam.models if (model, fam.mpc_n) in at_mpc]
+            + [(model, horizon, fam.whole_iters, pick(edge, (model, horizon)))
+               for model, horizon in sorted(edge)])
+
+
+def whole_x0(tt, dev, fam, model, dtype, horizon):
     """(a)'s whole solves' problem (N = ``horizon``) in ``dtype`` and x0:
     B_CHECK seeded ``fleet_x0`` drawn in float32 and cast, so that the
     float64 plain runs are also the float32 ones' truth."""
-    prob = attitude_problem(tt, dtype, dev, model, horizon)
-    p32 = prob if dtype == torch.float32 else attitude_problem(tt, torch.float32, dev, model,
-                                                               horizon)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    prob = fam.problem(tt, dtype, dev, model, horizon)
+    p32 = prob if dtype == torch.float32 else fam.problem(tt, torch.float32, dev, model, horizon)
+    gen = torch.Generator(device=dev).manual_seed(fam.seed)
     return prob, fleet_x0(p32, B_CHECK, gen).to(dtype)
 
 
-def attitude_whole_run(tt, prob, x0, solver, plain, iterations):
+def whole_run(tt, fam, prob, x0, solver, plain, iterations):
     """One of (a)'s whole solves from x0's cold seeds (each solver's
-    ``solve`` builds them), ``iterations`` of the example's options: the
+    ``solve`` builds them), ``iterations`` of the family's options: the
     kernel's launch, or with ``plain`` its plain driver."""
     from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
     from cddp_tpu_torch.solvers import clddp, ipddp, logddp
 
-    opts = attitude_options(tt, iterations)
+    opts = fam.options(tt, iterations)
     if solver == "IPDDP":
         # The seed's rollout by the plain version, in both processes: the
         # references' process builds no kernel.
@@ -5676,23 +5829,23 @@ def attitude_whole_run(tt, prob, x0, solver, plain, iterations):
     return mega_clddp._launch(p, opts, *seeds)
 
 
-def attitude_whole_refs(tt, dev, out):
+def whole_refs(tt, dev, fam, out):
     """Into ``out``, the plain drivers' runs that (a)'s whole solves are held
-    to (``attitude_whole_run``): each case of ``attitude_whole_cases`` and
-    solver in float64, and in float32 from x0 and from x0 one ulp up, with
-    the float32 run's host ms."""
-    for model, horizon, iters, solvers in attitude_whole_cases():
+    to (``whole_run``): each case of ``whole_cases`` and solver in float64,
+    and in float32 from x0 and from x0 one ulp up, with the float32 run's
+    host ms."""
+    for model, horizon, iters, solvers in whole_cases(fam):
         for dtype in (torch.float64, torch.float32):
             tag = str(dtype).replace("torch.", "")
-            prob, x0 = attitude_whole_x0(tt, dev, model, dtype, horizon)
+            prob, x0 = whole_x0(tt, dev, fam, model, dtype, horizon)
             for solver in solvers:
                 key = (solver, model, horizon)
                 out[("whole", *key, tag)] = timed_plain(
-                    lambda: attitude_whole_run(tt, prob, x0, solver, True, iters))
+                    lambda: whole_run(tt, fam, prob, x0, solver, True, iters))
                 if dtype == torch.float32:
                     out[("whole ms", *key)] = LAST_PLAIN_MS[0]
-                    out[("whole up", *key)] = attitude_whole_run(
-                        tt, prob, ulp_up((x0,))[0], solver, True, iters)
+                    out[("whole up", *key)] = whole_run(
+                        tt, fam, prob, ulp_up((x0,))[0], solver, True, iters)
 
 
 def solution_rows(sol, rows):
@@ -5703,49 +5856,53 @@ def solution_rows(sol, rows):
                                  final_objective=sol.final_objective[rows])
 
 
-def check_attitude_whole(tt, dev, refs, errs, plain):
-    """(a) the whole solves 3, 7 and 9 (``attitude_whole_cases``) on
-    B_CHECK instances against their plain drivers' runs in ``refs``
-    (``attitude_whole_refs``): float64 every status and iteration count
-    equal, X, U and cost within 1e-8 (IPDDP also duals, slacks and mu;
-    LogDDP the gains); float32 status, iterations and cost (rel 1e-4) equal
-    on >= 99% of the plain driver's stable instances, those on which it
-    agrees so with its own run from x0 one ulp up (all of them where its
-    float32 solve does not fork within these iterations; ROADMAP C.12),
-    and kernel 7 as accurate against float64 as its plain driver within 2x
-    over all instances. Every case is checked and printed before a failure
-    is raised. Errors at N = MPC_N into ``errs``, each whole solve's
-    float32 plain ms there into ``plain``."""
+def check_whole(tt, dev, fam, refs, errs, plain):
+    """(a) the whole solves 3, 7 and 9 (``whole_cases``) on B_CHECK
+    instances against their plain drivers' runs in ``refs``
+    (``whole_refs``): float64 every status and iteration count equal, X, U
+    and cost within 1e-8 (IPDDP also duals, slacks and mu; LogDDP the
+    gains); float32 status, iterations and cost (rel 1e-4) equal on >= 99%
+    of the plain driver's stable instances, those on which it agrees so
+    with its own run from x0 one ulp up (all of them where its float32
+    solve does not fork within these iterations; ROADMAP C.12), and kernel
+    7 as accurate against float64 as its plain driver within 2x over all
+    instances. Every case is checked and printed before a failure is
+    raised. Errors at each kernel's fleet horizon (``fleet_horizon``) into
+    ``errs``, each whole solve's float32 plain ms there into ``plain``."""
     def fields(sol):
         return sol, {"X": sol.state_trajectory, "U": sol.control_trajectory,
                      "k": sol.feedforward_gains, "K": sol.feedback_gains,
                      "cost": sol.final_objective}
 
     failed = []
-    for model, horizon, iters, solvers in attitude_whole_cases():
+    for model, horizon, iters, solvers in whole_cases(fam):
         for dtype in (torch.float64, torch.float32):
             tag = str(dtype).replace("torch.", "")
-            prob, x0 = attitude_whole_x0(tt, dev, model, dtype, horizon)
+            prob, x0 = whole_x0(tt, dev, fam, model, dtype, horizon)
             for solver in solvers:
-                kernel = ATT_WHOLE[solver]
+                kernel = WHOLE_KERNELS[solver]
                 name, key = f"{kernel}@{model}", (solver, model, horizon)
                 label = f"{name} N={horizon}, {iters} iterations"
-                kern = attitude_whole_run(tt, prob, x0, solver, False, iters)
+                fleet = horizon == fleet_horizon(fam, kernel, model)
+                kern = whole_run(tt, fam, prob, x0, solver, False, iters)
                 ref = refs[("whole", *key, tag)]
                 same = ((kern.status_code == ref.status_code)
                         & (kern.iterations_completed == ref.iterations_completed))
                 err = float((kern.final_objective - ref.final_objective)[same].abs().max())
-                if horizon == MPC_N:
+                if fleet:
                     errs[tag][name] = err
                 if dtype == torch.float64:
-                    if solver == "CLDDP":
-                        check_solve_f64(label, kern, ref)
-                    elif solver == "IPDDP":
-                        check_ip_solve(label, kern, ref, True, dual_rtol=1e-8)
-                    else:
-                        check_barrier(solver, label, fields(kern), fields(ref), True)
+                    try:
+                        if solver == "CLDDP":
+                            check_solve_f64(label, kern, ref)
+                        elif solver == "IPDDP":
+                            check_ip_solve(label, kern, ref, True, dual_rtol=1e-8)
+                        else:
+                            check_barrier(solver, label, fields(kern), fields(ref), True)
+                    except AssertionError as e:
+                        failed.append(str(e))
                     continue
-                if horizon == MPC_N:
+                if fleet:
                     plain[name] = refs[("whole ms", *key)]
                 stable = cost_agree(refs[("whole up", *key)], ref)
                 print(f"[kernels float32] {label}: the kernel agrees with the plain driver on "
@@ -5797,13 +5954,13 @@ def attitude_check_options(tt, solver):
 
 def attitude_plain_refs(tt, dev):
     """The plain drivers' solutions phase 17 holds its kernels to: (a)'s
-    whole solves (``attitude_whole_refs``), then its per-pass float64
+    whole solves (``whole_refs``), then its per-pass float64
     CLDDP and IPDDP on each model's ``attitude_check_seeds``. Returns {key:
     value}."""
     from cddp_tpu_torch.parallel.batch import batched_solve
 
     out, t0 = {}, time.perf_counter()
-    attitude_whole_refs(tt, dev, out)
+    whole_refs(tt, dev, attitude_family(), out)
     print(f"the whole solves' plain drivers done at {time.perf_counter() - t0:.1f} s",
           flush=True)
     for model in ATT_MODELS:
@@ -5885,7 +6042,7 @@ def slew_single(tt, dev, dtype):
 
 def phase_slew_single(tt, dev, smi, sol64):
     """(d) the example's single slew in float32 at B = 1, per pass (kernels
-    1 and 2: kernel 3 leaves the MRP model out, ATT_LEFT_OUT): status,
+    1 and 2: kernel 3 leaves the MRP model out, ``whole_takes``): status,
     iterations, the final state's distance to the goal, max |u| and ms a
     solve (the median of SINGLE_REPS after a warm-up), held to its float64
     run ``sol64``: the same status and the final cost within
@@ -5916,11 +6073,11 @@ def phase_slew_single(tt, dev, smi, sol64):
                              f"{rel:.3e} against float64's status {int(sol64.status_code)}")
 
 
-def attitude_fleet_run(label, prob, x0, solver, opts, want, smi, mega=None):
+def family_fleet_run(label, prob, x0, solver, opts, want, smi, mega=None, tag="attitude"):
     """``zoo_fleet_run`` with the run's converged share, iterations, ms,
     solves/s, peak device memory, the kernel's work and warp divergence
-    (``mega``), and the final states' distance to the goal. Returns
-    launches."""
+    (``mega``), and the final states' distance to the goal, printed under
+    ``tag``. Returns launches."""
     B = x0.shape[0]
     torch.cuda.reset_peak_memory_stats()
     sol, counts, ms, work = zoo_fleet_run(label, prob, x0, solver, opts, want, mega)
@@ -5930,7 +6087,7 @@ def attitude_fleet_run(label, prob, x0, solver, opts, want, smi, mega=None):
     dist = (sol.state_trajectory[:, -1] - prob.objective.reference_state).norm(dim=-1)
     extra = ("" if work is None else f"; the kernel's wrapper {work[0]:.2f} ms, mean work per "
              f"instance {work[1]}, warp divergence {work[2]:.4f}")
-    print(f"[attitude] {label}, B={B}, {opts.max_iterations} iterations: converged "
+    print(f"[{tag}] {label}, B={B}, {opts.max_iterations} iterations: converged "
           f"{float(conv.double().mean()):.4%}, statuses "
           f"{torch.bincount(sol.status_code.long(), minlength=5).tolist()}, iterations mean "
           f"{float(its.mean()):.3f} max {int(its.max())}; {ms:.2f} ms ({B / ms * 1e3:.1f} "
@@ -5948,7 +6105,7 @@ def phase_attitude_fleets(tt, dev, smi, sol64):
     over ATT_PLAIN_ITERS (kernel 4's seed alone); the MPC fleet (N =
     MPC_N, B_MAIN, float32, ATT_ITERS) under CLDDP (one launch of kernel 3),
     IPDDP and LogDDP (kernel 4's seed and one launch of kernel 7 or 9), per
-    pass where ATT_LEFT_OUT leaves the whole solve out; then the example's
+    pass where its table leaves the whole solve out; then the example's
     single slew (``phase_slew_single``). Returns (launches
     {entry: n}, {(fleet, model): (problem, x0)} for the timings)."""
     from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
@@ -5971,7 +6128,7 @@ def phase_attitude_fleets(tt, dev, smi, sol64):
                 ("LogDDP", B_CHECK, ATT_PLAIN_ITERS, "xla", {ol: 1}, {})):
             how = "plain driver" if B == B_CHECK else "per pass"
             opts = attitude_options(tt, iters).replace(solve_engine=engine)
-            counts = attitude_fleet_run(f"{model} slew {solver} fleet ({how})", prob, x0[:B],
+            counts = family_fleet_run(f"{model} slew {solver} fleet ({how})", prob, x0[:B],
                                         solver, opts, want, smi)
             launches.update({entry: counts[logged] for entry, logged in drives.items()})
     print(f"[attitude] (b) done in {time.perf_counter() - t0:.1f} s")
@@ -5989,13 +6146,13 @@ def phase_attitude_fleets(tt, dev, smi, sol64):
                                      ("LogDDP", "logddp_solve", mega_logddp)):
             name = f"{kernel}@{model}"
             label = f"{model} MPC {solver} fleet (N={MPC_N})"
-            if (kernel, model) in ATT_LEFT_OUT:
-                attitude_fleet_run(f"{label}, per pass", prob, x0, solver, opts,
+            if not whole_takes(kernel, model):
+                family_fleet_run(f"{label}, per pass", prob, x0, solver, opts,
                                    per_pass[solver], smi)
                 continue
             want = ({name: 1} if solver == "CLDDP"
                     else {name: 1, f"open_loop_rollout@{model}": 1})
-            counts = attitude_fleet_run(label, prob, x0, solver, opts, want, smi, mega)
+            counts = family_fleet_run(label, prob, x0, solver, opts, want, smi, mega)
             launches[name] = counts[name]
     print(f"[attitude] (c) done in {time.perf_counter() - t0:.1f} s")
     phase_slew_single(tt, dev, smi, sol64)
@@ -6023,7 +6180,7 @@ def attitude_checks(tt, dev, smi, refs):
     finally:
         refs.close()
     print(f"[attitude] plain references in at {time.perf_counter() - t0:.1f} s")
-    check_attitude_whole(tt, dev, refs_out, errs, plain)
+    check_whole(tt, dev, attitude_family(), refs_out, errs, plain)
     print(f"[attitude] (a)'s whole solves done in {time.perf_counter() - t0:.1f} s")
     check_attitude_solves(tt, dev, solves, refs_out)
     return errs, plain, sol64
@@ -6035,8 +6192,8 @@ def phase_attitude(tt, dev, smi, checked):
     new instantiation of kernels 1, 2, 4, 5 and 6 against its plain version
     at the slew's horizon (``phase_lane_kernels``), the per-pass float64
     solves at N = SLEW_N, and (d)'s float64 slew. Then the whole solves 3, 7
-    and 9 (``attitude_whole_cases``) against their plain drivers' runs
-    (``check_attitude_whole``), the per-pass solves against theirs, and
+    and 9 (``whole_cases``) against their plain drivers' runs
+    (``check_whole``), the per-pass solves against theirs, and
     (b)-(d) alone on the card (each entry's times and bound follow in
     ``time_attitude_kernels``); ``checked``: ``attitude_checks``' results,
     which ``main`` takes earlier. Returns ({entry: launches}, {dtype:
@@ -6078,7 +6235,7 @@ def time_attitude_kernels(tt, dev, fleets, plain, smi):
         work = {"clddp_solve": lambda: clddp_solve_work(p, opts, seeds3),
                 "ipddp_solve": lambda: seed_ipddp_work(tt, p7, opts, seeds7),
                 "logddp_solve": lambda: logddp_solve_work(tt, p, opts, seeds9)}
-        kept = [ATT_WHOLE[solver] for solver in attitude_whole_solvers(model)]
+        kept = [WHOLE_KERNELS[solver] for solver in whole_solvers(attitude_family(), model)]
         runs, work = {k: runs[k] for k in kept}, {k: work[k]() for k in kept}
         timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper",
                               plain_ms={k: plain[f"{k}@{model}"] for k in runs})
@@ -6087,20 +6244,370 @@ def time_attitude_kernels(tt, dev, fleets, plain, smi):
     return out
 
 
+# --- phase 18: the other spacecraft models ----------------------------------------
+
+SC_MODELS = ("sc_linear_fuel", "sc_nonlinear", "sc_landing2d", "sc_twobody")
+SC_CLASSES = {"SpacecraftLinearFuel": "sc_linear_fuel", "SpacecraftNonlinear": "sc_nonlinear",
+              "SpacecraftLanding2D": "sc_landing2d", "SpacecraftTwobody": "sc_twobody"}
+# (nx, nu, m: the control box's rows) of each model.
+SC_SHAPES = {"sc_linear_fuel": (8, 3, 6), "sc_nonlinear": (10, 3, 6),
+             "sc_landing2d": (6, 2, 4), "sc_twobody": (6, 3, 6)}
+TWOBODY_MU = 398600.4418  # km^3/s^2, SpacecraftTwobody's default
+TWOBODY_R = 7000.0  # km: the circular LEO of tests/test_model_lanes.py:64-65
+# Each model's MPC problem: (dt, x0 (None: the circular LEO), x0 widths, Q,
+# R and Qf diagonals, the control box's lower and upper bounds); a fleet's
+# x0 is x0 + widths (U(0, 1) - 0.5) (``fleet_x0``) and its goal 0, but the
+# two-body model's, the circular orbit's state at t = N dt.
+# sc_linear_fuel: the JAX rendezvous bench's HCW problem
+#   (bench_ipddp_fleet.py:63-81, x0 spread :127-129: +-0.5 on positions,
+#   +-0.005 on velocities) with the mass and effort states appended
+#   (weight 0), without its terminal equality; rendezvous planners that
+#   track propellant.
+# sc_nonlinear: normalised units, mass = mu = 1 (tests/test_model_lanes.py:
+#   58-60), the chief on its circular orbit; formation keeping.
+# sc_landing2d: the default lander from tests/test_model_lanes.py:61-63's
+#   state, dispersed; powered-descent guidance.
+# sc_twobody: station keeping of a LEO constellation.
+SC_SPECS = {
+    "sc_linear_fuel": (30.0, (10.0, 5.0, 2.0, 0.0, 0.0, 0.0, 1.0, 0.0),
+                       (1.0,) * 3 + (0.01,) * 3 + (0.0,) * 2, (1e-4,) * 6 + (0.0,) * 2,
+                       (1e-2,) * 3, (1.0,) * 6 + (0.0,) * 2, (-0.004,) * 3, (0.004,) * 3),
+    "sc_nonlinear": (0.01, (0.0,) * 6 + (1.0, 0.0, 0.0, 1.0), (0.02,) * 3 + (0.0,) * 7,
+                     (0.0,) * 10, (1.0,) * 3, (1e3,) * 6 + (0.0,) * 4, (-0.05,) * 3,
+                     (0.05,) * 3),
+    "sc_landing2d": (0.5, (0.0, 10.0, 1000.0, -30.0, 0.05, 0.01),
+                     (20.0, 2.0, 100.0, 5.0, 0.05, 0.01), (1e-2,) * 4 + (1.0,) * 2, (1.0, 10.0),
+                     (10.0,) * 4 + (1e3,) * 2, (0.4, -0.3), (1.0, 0.3)),
+    "sc_twobody": (10.0, None, (1.0,) * 3 + (1e-3,) * 3, (0.0,) * 6, (1.0,) * 3,
+                   (1.0,) * 3 + (1e4,) * 3, (-1e-3,) * 3, (1e-3,) * 3),
+}
+SC_LONG_N = 100  # (c)'s long-horizon fleets, per pass past every JAX gate
+SC_LONG_B = 65536
+SC_ITERS = 10  # the fleets' budget, at tolerance 1e-4
+SC_KERNEL_B = 1024  # (a)'s kernels 1, 2 and 4 at N = SC_LONG_N
+SC_WHOLE_ITERS = 5  # (a)'s whole solves
+# (a)'s kernel 1 in float32 on the lander at the MPC horizon, in float64 at
+# SC_LONG_N: float32 cannot carry the lander's Riccati recursion over N =
+# 100 (on 1,024 staged operands on an NVIDIA H100 80GB HBM3, kernel and
+# plain version each left float64 by more than TIE_ERR on 54.2% of the
+# instances at N = 100, on none at N = 20; ROADMAP C.13). Kernel 1 leaves
+# the two-body model out (``riccati.LEFT_OUT_MODELS``).
+SC_RICCATI_F32_N = {"sc_landing2d": MPC_N}
+def sc_entries():
+    """Phase 18's kernels, each an entry of the kernels' JSON line: (entry
+    name, dispatch_log name, kernel, model, launcher without its type
+    suffix); kernels 1 and 6 log their shape; the whole solves where their
+    tables take the model (``whole_takes``, ROADMAP C.13)."""
+    out = []
+    for model in SC_MODELS:
+        nx, nu, m = SC_SHAPES[model]
+        for kernel, logged, launcher in (
+                ("riccati_backward", f"riccati_backward@{nx}x{nu}",
+                 f"cddp_riccati_backward_{nx}x{nu}"),
+                ("forward_rollout", f"forward_rollout@{model}", f"cddp_forward_rollout_{model}"),
+                ("clddp_solve", f"clddp_solve@{model}", f"cddp_clddp_solve_{model}"),
+                ("open_loop_rollout", f"open_loop_rollout@{model}",
+                 f"cddp_open_loop_rollout_{model}"),
+                ("ip_forward", f"ip_forward@{model}", f"cddp_ip_forward_{model}_m{m}"),
+                ("ipddp_backward", f"ipddp_backward@{nx}x{nu}x{m}",
+                 f"cddp_ipddp_backward_{nx}x{nu}x{m}"),
+                ("ipddp_solve", f"ipddp_solve@{model}", f"cddp_ipddp_solve_{model}_m{m}"),
+                ("logddp_solve", f"logddp_solve@{model}", f"cddp_logddp_solve_{model}_m{m}")):
+            if (kernel not in WHOLE_KERNELS.values() or whole_takes(kernel, model)) and (
+                    kernel != "riccati_backward" or riccati_takes(model)):
+                out.append((f"{kernel}@{model}", logged, kernel, model, launcher))
+    return tuple(out)
+
+
+def riccati_takes(model):
+    """Whether kernel 1 takes ``model``'s CLDDP (``riccati.LEFT_OUT_MODELS``
+    leaves the two-body model out)."""
+    from cddp_tpu_torch.ops.kernels import riccati
+
+    return model not in riccati.LEFT_OUT_MODELS
+
+
+def circular_state(t):
+    """The circular LEO's state (km, km/s) at time t (s): radius TWOBODY_R in
+    the x-y plane, at x on the x axis at t = 0."""
+    v = math.sqrt(TWOBODY_MU / TWOBODY_R)
+    a = v / TWOBODY_R * t
+    return (TWOBODY_R * math.cos(a), TWOBODY_R * math.sin(a), 0.0,
+            -v * math.sin(a), v * math.cos(a), 0.0)
+
+
+def sc_problem(tt, dtype, device, model, horizon=None):
+    """``model``'s MPC problem (``SC_SPECS``) at N = ``horizon`` (SC_LONG_N
+    when None): rk4, the model's default parameters. Its tensors and model
+    are in ``dtype``, as a solve casts them."""
+    from cddp_tpu_torch import models
+    from cddp_tpu_torch.solvers.base import canonicalize_problem_dtype
+
+    N = horizon or SC_LONG_N
+    dt, x0, _, Q, R, Qf, lower, upper = SC_SPECS[model]
+    kw = dict(device=device, dtype=dtype)
+    diag = lambda v: torch.as_tensor(v, dtype=torch.float64).diag()  # noqa: E731
+    twobody = model == "sc_twobody"
+    goal = circular_state(N * dt) if twobody else (0.0,) * len(Q)
+    x0 = circular_state(0.0) if twobody else x0
+    cls = next(c for c, m in SC_CLASSES.items() if m == model)
+    obj = tt.quadratic_objective(diag(Q), diag(R), diag(Qf), list(goal), dt, **kw)
+    prob = tt.problem(getattr(models, cls)(integration_type="rk4"), obj, list(x0), N, dt,
+                      **kw).add_constraint("ControlConstraint",
+                                           tt.control_constraint(list(lower), list(upper), **kw))
+    return canonicalize_problem_dtype(prob)
+
+
+def sc_options(tt, iterations):
+    """The fleets' options: tolerance 1e-4, ``iterations``."""
+    return tt.CDDPOptions(max_iterations=iterations, tolerance=1e-4)
+
+
+def sc_maker(model, horizon=None):
+    """``sc_problem`` as a ``make_problem(tt, dtype, device)``."""
+    return lambda tt, dtype, dev: sc_problem(tt, dtype, dev, model, horizon)
+
+
+def sc_family():
+    """Phase 18's family, read when called (the dry run cuts its sizes)."""
+    return Family("spacecraft", SC_MODELS, sc_problem, sc_options, MPC_N, SC_WHOLE_ITERS,
+                  SEED + 81)
+
+
+def sc_stage(prob, B, gen):
+    """Kernels 1 and 2's operands (``stage_inputs``) about rollouts from the
+    fleet's x0 under controls uniform in the middle three quarters of the
+    box, A differing between instances and steps."""
+    cc = prob.get_constraint("ControlConstraint")
+    r = torch.rand(B, prob.horizon, prob.control_dim, generator=gen, device=prob.x0.device,
+                   dtype=prob.x0.dtype)
+    X, U, back, alpha = stage_inputs(prob, B, gen, U=cc.lower + (cc.upper - cc.lower) * (
+        0.125 + 0.75 * r))
+    assert_varies(f"{type(prob.model).__name__} CLDDP operands", back[0])
+    return X, U, back, alpha
+
+
+def sc_ip_stage(tt, prob, B, gen, opts):
+    """Kernels 4, 5 and 6's operands after one IPDDP iteration of the
+    per-pass engine from cold seeds at the fleet's x0 and the box's
+    midpoint (zero but for the lander's thrust, whose box excludes 0), A
+    differing between instances and steps."""
+    cc = prob.get_constraint("ControlConstraint")
+    mid = ((cc.lower + cc.upper) / 2).expand(prob.horizon, -1)
+    staged = stage_ip_inputs(tt, prob, B, gen, opts, iterations=1, U0=mid, kernels=True)
+    assert_varies(f"{type(prob.model).__name__} IPDDP operands", staged[2][0])
+    return staged
+
+
+def sc_lane_checks(tt, dev, models):
+    """(a) every new instantiation of kernels 1, 2, 4, 5 and 6 on ``models``
+    against its plain version at N = SC_LONG_N (``phase_lane_kernels``:
+    float64 within ZOO_RTOL plus twice the plain version's one-ulp move,
+    float32 by ``check``'s rule, kernel 1 with ``ties``, on the lander at
+    SC_RICCATI_F32_N, not on the two-body model). Returns {dtype: {entry:
+    err}}."""
+    errs = {"float64": {}, "float32": {}}
+    phase_lane_kernels(tt, dev, errs, "spacecraft", models, sc_maker, sc_stage, sc_ip_stage,
+                       lambda: sc_options(tt, SC_ITERS), SC_KERNEL_B,
+                       SEED + 83 + SC_MODELS.index(models[0]),
+                       riccati_f32_n=SC_RICCATI_F32_N)
+    return errs
+
+
+def sc_mpc_x0(tt, dev, model, horizon, B):
+    """The MPC fleet's problem (float32, N = ``horizon``) and its B x0
+    (``fleet_x0`` from SEED), as both processes draw them."""
+    prob = sc_problem(tt, torch.float32, dev, model, horizon)
+    return prob, fleet_x0(prob, B, torch.Generator(device=dev).manual_seed(SEED))
+
+
+def sc_plain_refs(tt, dev):
+    """The plain drivers phase 18 holds its whole solves to
+    (``whole_refs``), and (b)'s MSIPDDP fleets on their plain driver (the
+    JAX gate refuses kernel 8 the four models at N = MPC_N): the first
+    B_CHECK of each MPC fleet's x0, SC_ITERS iterations, no kernel
+    (``solve_engine="xla"``, ``backward_engine="scan"``), with its host ms.
+    Returns {key: value}."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    out, t0 = {}, time.perf_counter()
+    whole_refs(tt, dev, sc_family(), out)
+    print(f"the whole solves' plain drivers done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    opts = sc_options(tt, SC_ITERS).replace(solve_engine="xla", backward_engine="scan")
+    for model in SC_MODELS:
+        prob, x0 = sc_mpc_x0(tt, dev, model, MPC_N, B_MAIN)
+        dispatch_log.reset()
+        sol = timed_plain(lambda: batched_solve(prob, x0[:B_CHECK], "MSIPDDP", opts))
+        out[("msipddp", model)] = (sol, LAST_PLAIN_MS[0], dict(dispatch_log.launches))
+        print(f"{model}'s MSIPDDP fleet done at {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def sc_checks(tt, dev, refs):
+    """Phase 18's (a): kernels 1, 2, 4, 5 and 6 (``sc_lane_checks``), then
+    the whole solves 3, 7 and 9 (``whole_cases``) against the plain
+    references' process's runs (``refs``, a ``Side``). Returns (errs,
+    {entry: float32 plain ms}, the references)."""
+    t0 = time.perf_counter()
+    try:
+        errs = sc_lane_checks(tt, dev, SC_MODELS)
+        print(f"[spacecraft] (a)'s kernels done in {time.perf_counter() - t0:.1f} s")
+        refs_out = refs.result(dev)
+    finally:
+        refs.close()
+    print(f"[spacecraft] plain references in at {time.perf_counter() - t0:.1f} s")
+    plain = {}
+    check_whole(tt, dev, sc_family(), refs_out, errs, plain)
+    print(f"[spacecraft] (a)'s whole solves done in {time.perf_counter() - t0:.1f} s")
+    return errs, plain, refs_out
+
+
+def sc_per_pass(model):
+    """The kernels a per-pass CLDDP and IPDDP run of ``model`` launches."""
+    nx, nu, m = SC_SHAPES[model]
+    clddp = {f"forward_rollout@{model}"}
+    if riccati_takes(model):
+        clddp.add(f"riccati_backward@{nx}x{nu}")
+    return {"CLDDP": clddp,
+            "IPDDP": {f"open_loop_rollout@{model}", f"ipddp_backward@{nx}x{nu}x{m}",
+                      f"ip_forward@{model}"},
+            "LogDDP": {f"open_loop_rollout@{model}": 1}}
+
+
+def phase_sc_fleets(tt, dev, smi, refs):
+    """(b) the MPC fleets (N = MPC_N, B_MAIN, float32, SC_ITERS at
+    tolerance 1e-4) under CLDDP, IPDDP and LogDDP through the default
+    engine, each with the launch counts zeroed just before it and read
+    just after: one whole-solve launch (kernel 4's seed before kernels 7 and
+    9) where the tables take the model at N = MPC_N, else per pass (LogDDP:
+    the plain driver at B_CHECK after kernel 4's seed); each
+    whole solve the tables take only at a shorter horizon (the nonlinear
+    model's kernels 3 and 7) on the same fleet at that horizon; the
+    MSIPDDP fleets on their plain driver (the side process's, ``refs``).
+    (c) the long-horizon fleets (N = SC_LONG_N, SC_LONG_B) under CLDDP and
+    IPDDP per pass, as JAX runs them there. Returns (launches {entry: n},
+    {fleet key: (problem, x0)} for the timings)."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
+
+    megas = {"CLDDP": mega_clddp, "IPDDP": mega_ipddp, "LogDDP": mega_logddp}
+    fam, opts = sc_family(), sc_options(tt, SC_ITERS)
+    launches, fleets, t0 = {}, {}, time.perf_counter()
+    for model in SC_MODELS:
+        per_pass = sc_per_pass(model)
+        for solver, kernel in WHOLE_KERNELS.items():
+            name = f"{kernel}@{model}"
+            whole = whole_takes(kernel, model)
+            at = fleet_horizon(fam, kernel, model) if whole else None
+            for N in sorted({MPC_N, at} - {None}):
+                prob, x0 = sc_mpc_x0(tt, dev, model, N, B_MAIN)
+                label = f"{model} MPC {solver} fleet (N={N})"
+                if N != at:
+                    # LogDDP without its kernel is the plain driver (kernel 4
+                    # seeds it): at B_CHECK, as phase 17's plain fleets.
+                    how = ", plain driver" if solver == "LogDDP" else ", per pass"
+                    family_fleet_run(label + how, prob, x0[:B_CHECK] if solver == "LogDDP" else x0,
+                                     solver, opts, per_pass[solver], smi, tag="spacecraft")
+                    continue
+                fleets[("mpc", kernel, model)] = (prob, x0)
+                want = ({name: 1} if solver == "CLDDP"
+                        else {name: 1, f"open_loop_rollout@{model}": 1})
+                counts = family_fleet_run(label, prob, x0, solver, opts, want, smi,
+                                          megas[solver], tag="spacecraft")
+                launches[name] = counts[name]
+        sol, ms, counts = refs[("msipddp", model)]
+        if counts:
+            raise AssertionError(f"{model} MSIPDDP plain fleet: launches {counts}")
+        conv = (sol.status_code == 1) | (sol.status_code == 2)
+        print(f"[spacecraft] {model} MPC MSIPDDP fleet (N={MPC_N}, plain driver, the side "
+              f"process), B={sol.status_code.numel()}, {SC_ITERS} iterations: converged "
+              f"{float(conv.double().mean()):.4%}, statuses "
+              f"{torch.bincount(sol.status_code.long(), minlength=5).tolist()}, iterations mean "
+              f"{float(sol.iterations_completed.double().mean()):.3f}; {ms:.2f} ms; launches "
+              f"{{}}  [{smi}]")
+    print(f"[spacecraft] (b) done in {time.perf_counter() - t0:.1f} s")
+    for model in SC_MODELS:
+        prob, x0 = sc_mpc_x0(tt, dev, model, SC_LONG_N, SC_LONG_B)
+        per_pass = sc_per_pass(model)
+        for solver in ("CLDDP", "IPDDP"):
+            counts = family_fleet_run(f"{model} N={SC_LONG_N} {solver} fleet, per pass", prob,
+                                      x0, solver, opts, per_pass[solver], smi, tag="spacecraft")
+            launches.update({e[0]: counts[e[1]] for e in sc_entries()
+                             if e[3] == model and e[1] in per_pass[solver]})
+        del prob, x0
+        torch.cuda.empty_cache()
+    print(f"[spacecraft] (c) done in {time.perf_counter() - t0:.1f} s")
+    return launches, fleets
+
+
+def phase_spacecraft(tt, dev, smi, checked):
+    """Phase 18, the other spacecraft models. (a) ran before it
+    (``sc_checks``: ``checked``); then (b) and (c) alone on the card
+    (``phase_sc_fleets``; every entry's times and bound follow in
+    ``time_sc_kernels``). Returns ({entry: launches}, {dtype: {entry:
+    err}}, {fleet key: (problem, x0)}, {entry: plain ms})."""
+    t0 = time.perf_counter()
+    errs, plain, refs = checked
+    checked_errs("phase 18", errs)
+    launches, fleets = phase_sc_fleets(tt, dev, smi, refs)
+    print(f"[spacecraft] fleets done in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, fleets, plain
+
+
+def time_sc_kernels(tt, dev, fleets, plain, smi):
+    """(d) every phase-18 entry's wrapper and device ms, plain ms and bound:
+    kernels 1, 2, 4, 5 and 6 at SC_LONG_B on (c)'s operands, staged as in
+    (a) (``time_lane_kernels``; their plain versions timed on the first
+    SC_KERNEL_B instances), the whole solves at B_MAIN on their MPC fleets'
+    cold seeds, each one's bound from one counted launch's work (their
+    plain drivers' float32 ms from (a), ``plain``). Returns {entry: timing
+    tuple}."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
+
+    t0 = time.perf_counter()
+    out, _ = time_lane_kernels(tt, dev, smi, "spacecraft", SC_MODELS, sc_maker, sc_stage,
+                               sc_ip_stage, lambda: sc_options(tt, SC_ITERS), SC_LONG_B,
+                               plain_b=SC_KERNEL_B)
+    opts = sc_options(tt, SC_ITERS)
+    for model in SC_MODELS:
+        runs, work = {}, {}
+        for solver in whole_solvers(sc_family(), model):
+            kernel = WHOLE_KERNELS[solver]
+            prob, x0 = fleets[("mpc", kernel, model)]
+            p = prob.replace(x0=x0)
+            if solver == "CLDDP":
+                seeds = clddp_solve_seeds(x0, prob)
+                runs[kernel] = (lambda p=p, s=seeds: mega_clddp._launch(p, opts, *s), 10, None, 1)
+                work[kernel] = clddp_solve_work(p, opts, seeds)
+            elif solver == "IPDDP":
+                p7, seeds = ip_seeds(prob, opts, x0)
+                runs[kernel] = (lambda p=p7, s=seeds: mega_ipddp._launch(p, opts, *s), 10, None,
+                                1)
+                work[kernel] = seed_ipddp_work(tt, p7, opts, seeds)
+            else:
+                seeds = barrier_seeds("LogDDP", p, opts)
+                runs[kernel] = (lambda p=p, s=seeds: mega_logddp._launch(p, opts, *s), 10, None,
+                                1)
+                work[kernel] = logddp_solve_work(tt, p, opts, seeds)
+        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper",
+                              plain_ms={k: plain[f"{k}@{model}"] for k in runs})
+        out.update({f"{k}@{model}": v for k, v in timing.items()})
+        print(f"[spacecraft] {model}'s whole solves timed at {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def side_checks(tt, dev):
-    """Phases 7, 9, 12, 13 and 15's kernel-against-plain checks, which a
-    side process runs while the main process runs phases 3, 14, 16 and
-    17's: kernel 7's ball variants and kernel 6 at m = 5
-    (``phase_obstacle_kernels``), kernels 9 and 8
+    """Phases 9, 12, 13 and 15's kernel-against-plain checks, which a side
+    process runs while the main process runs phases 3, 16, 17 and 18's and
+    a second one phases 7, 11 and 14's (``zoo_side_checks``): the discrete
+    models' (``discrete_checks``), kernels 9 and 8
     (``phase_barrier_kernels``), kernel 7's terminal variants and the
-    per-pass engine on the terminal fleets (``terminal_checks``), the warm
-    seeds (``phase_warm_kernels``), and the discrete models'
-    (``discrete_checks``). Returns their errors by phase."""
+    per-pass engine on the terminal fleets (``terminal_checks``) and the
+    warm seeds (``phase_warm_kernels``). Returns their errors by phase."""
     t0 = time.perf_counter()
     out = {"discrete": discrete_checks(tt, dev)}
     print(f"phase 15's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
-    out["obstacle"] = phase_obstacle_kernels(tt, dev)
-    print(f"phase 7's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
     out["barrier"] = phase_barrier_kernels(tt, dev)
     print(f"phase 9's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
     out["terminal"] = terminal_checks(tt, dev)
@@ -6110,8 +6617,32 @@ def side_checks(tt, dev):
     return out
 
 
+def zoo_side_checks(tt, dev):
+    """Phases 7, 11 and 14's kernel-against-plain checks, which a second
+    side process runs beside ``side_checks``: kernel 7's ball variants and
+    kernel 6 at m = 5 (``phase_obstacle_kernels``), the tracking variants
+    (``tracking_checks``) and phase 14's (a) (``zoo_checks``). Returns
+    their results by phase."""
+    t0 = time.perf_counter()
+    out = {"zoo": zoo_checks(tt, dev)}
+    print(f"phase 14's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["obstacle"] = phase_obstacle_kernels(tt, dev)
+    print(f"phase 7's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["tracking"] = tracking_checks(tt, dev)
+    print(f"phase 11's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 SIDE_RUNS = {"quadrotor": quad_plain_refs, "attitude": attitude_plain_refs,
-             "checks": side_checks}
+             "spacecraft": sc_plain_refs, "checks": side_checks, "zoo": zoo_side_checks}
+# The side processes that check kernels (and so build the library); the
+# others run plain drivers only.
+CHECK_SIDES = ("checks", "zoo")
+# Side processes that run several of SIDE_RUNS in turn, each part's result
+# under its name: phase 16's plain references are in by 120-180 s, well
+# before they are read, so phase 18's follow them in the same process (one
+# process fewer sharing the card and the host's cores).
+SIDE_PARTS = {"quadrotor+spacecraft": ("quadrotor", "spacecraft")}
 
 
 def main():
@@ -6131,7 +6662,7 @@ def main():
     # Phases 16 and 17's plain references run plain drivers only: their
     # processes start now, beside the kernels' build, and are done before
     # the phases read them.
-    refs = {kind: Side(kind) for kind in ("quadrotor", "attitude")}
+    refs = {kind: Side(kind) for kind in ("quadrotor+spacecraft", "attitude")}
     try:
         run(t_start, smi, dev, kind, refs)
     finally:
@@ -6140,7 +6671,7 @@ def main():
 
 
 def run(t_start, smi, dev, kind, refs):
-    """Phases 2-17 and the result lines (``main``)."""
+    """Phases 2-18 and the result lines (``main``)."""
     import cddp_tpu_torch as tt
     from cddp_tpu_torch.ops.kernels import build, dispatch_log
     from cddp_tpu_torch.parallel.batch import batched_solve
@@ -6161,26 +6692,31 @@ def run(t_start, smi, dev, kind, refs):
     attrs = print_kernel_attributes(smi)
     print(f"[clock] phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
-    # --- phases 3, 14, 16 and 17's kernel checks, while a side process runs
-    # phases 7, 9, 12, 13 and 15's (``side_checks``); the fleets and every
-    # timing come after both, with the card to themselves. They run the
-    # plain drivers, and every torch launch of a plain driver takes 1.6-1.7x
-    # as long once the profiler has run in the process (PERF.md).
-    side = Side("checks")
+    # --- phases 3, 16, 17 and 18's kernel checks, while two side processes
+    # run phases 9, 12, 13 and 15's (``side_checks``) and 7, 11 and 14's
+    # (``zoo_side_checks``); the fleets and every timing come after all
+    # three, with the card to themselves. They run the plain drivers, and
+    # every torch launch of a plain driver takes 1.6-1.7x as long once the
+    # profiler has run in the process (PERF.md).
+    sides = [Side(kind) for kind in CHECK_SIDES]
     try:
         errs = phase_kernels(tt, dev)
         print(f"[clock] phase 3 done at {time.perf_counter() - t_start:.1f} s")
-        zoo_checked = zoo_checks(tt, dev)
-        quad_checked = quad_checks(tt, dev, smi, refs["quadrotor"])
+        quad_checked = quad_checks(tt, dev, smi, refs["quadrotor+spacecraft"].part("quadrotor"))
         att_checked = attitude_checks(tt, dev, smi, refs["attitude"])
-        print(f"[clock] phases 14, 16 and 17's checks done at "
+        sc_checked = sc_checks(tt, dev, refs["quadrotor+spacecraft"].part("spacecraft"))
+        print(f"[clock] phases 16, 17 and 18's checks done at "
               f"{time.perf_counter() - t_start:.1f} s")
-        side_errs = side.result(dev)
+        side_errs = {}
+        for side in sides:
+            side_errs.update(side.result(dev))
+            print(f"[clock] the {side.kind} side process's checks in at "
+                  f"{time.perf_counter() - t_start:.1f} s")
     finally:
-        side.close()
-    print(f"[clock] the side process's checks in at {time.perf_counter() - t_start:.1f} s")
+        for side in sides:
+            side.close()
     zoo_launches, zoo_errs, zoo_fleets, zoo_plain, zoo_plain_at = phase_zoo(tt, dev, smi,
-                                                                            zoo_checked)
+                                                                            side_errs["zoo"])
     print(f"[clock] phase 14 fleets done at {time.perf_counter() - t_start:.1f} s")
     dis_launches, dis_errs, dis_fleets = phase_discrete(tt, dev, smi, side_errs["discrete"])
     print(f"[clock] phase 15 fleets done at {time.perf_counter() - t_start:.1f} s")
@@ -6189,6 +6725,8 @@ def run(t_start, smi, dev, kind, refs):
     att_launches, att_errs, att_fleets, att_plain = phase_attitude(tt, dev, smi,
                                                                    checked=att_checked)
     print(f"[clock] phase 17 fleets done at {time.perf_counter() - t_start:.1f} s")
+    sc_launches, sc_errs, sc_fleets, sc_plain = phase_spacecraft(tt, dev, smi, sc_checked)
+    print(f"[clock] phase 18 fleets done at {time.perf_counter() - t_start:.1f} s")
     zoo_timing = time_zoo_kernels(tt, zoo_fleets, zoo_plain, smi)
     dis_timing, dis_at = time_discrete_kernels(tt, dis_fleets, smi)
     print(f"[clock] phases 14-15 timings done at {time.perf_counter() - t_start:.1f} s")
@@ -6318,7 +6856,8 @@ def run(t_start, smi, dev, kind, refs):
     print(f"[clock] phase 10 done at {time.perf_counter() - t_start:.1f} s")
 
     # --- phase 11: tracking MPC --------------------------------------------------
-    tr_launches, tr_default, tr_errs, tr_timing = phase_tracking(tt, dev, smi)
+    tr_launches, tr_default, tr_errs, tr_timing = phase_tracking(tt, dev, smi,
+                                                                 side_errs["tracking"])
     print(f"[clock] phase 11 done at {time.perf_counter() - t_start:.1f} s")
 
     # --- phase 12: terminal constraints ---------------------------------------------
@@ -6340,6 +6879,9 @@ def run(t_start, smi, dev, kind, refs):
     torch.cuda.empty_cache()
     att_timing = time_attitude_kernels(tt, dev, att_fleets, att_plain, smi)
     print(f"[clock] phase 17 timings done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    sc_timing = time_sc_kernels(tt, dev, sc_fleets, sc_plain, smi)
+    print(f"[clock] phase 18 timings done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
@@ -6534,7 +7076,7 @@ def run(t_start, smi, dev, kind, refs):
     # times and bound on that run's operands (kernels 1-6 at SLEW_B and N =
     # SLEW_N, the whole solves at B_MAIN and N = MPC_N), the whole solves'
     # plain ms their plain drivers' at B_CHECK in (a) ("plain_at").
-    for name, logged, kernel, model, launcher in ATT_ENTRIES:
+    for name, logged, kernel, model, launcher in att_entries():
         ms, plain_ms, b_ms, b_by, dev_ms, source = att_timing[name]
         a = build.kernel_attributes(f"{launcher}_f32")
         src, rep = sources[kernel]
@@ -6552,6 +7094,42 @@ def run(t_start, smi, dev, kind, refs):
                          f"N={SLEW_N}, after phases 4-16"),
             "batch": B_MAIN if whole else SLEW_B, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
+            "registers": a["registers"], "spill_bytes": a["spill_bytes"],
+            "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
+            "blocks_per_sm": a["blocks_per_sm"]})
+    # Phase 18's instantiations, each an entry of its own named with its
+    # model (kernels 1 and 6 log their shape, "dispatch_name"): launches in
+    # the phase's run that drives it (the long-horizon fleets per pass for
+    # kernels 1, 2, 4, 5 and 6, the MPC fleets for the whole solves, the
+    # nonlinear model's kernels 3 and 7 at the JAX gates' horizons), errors
+    # from (a), times and bound on that run's operands (kernels 1-6 at
+    # SC_LONG_B and N = SC_LONG_N, the whole solves at B_MAIN), the whole
+    # solves' plain ms their plain drivers' at B_CHECK in (a) ("plain_at").
+    sc_sources = {"clddp_solve": "clddp_solve_spacecraft.cu",
+                  "ipddp_solve": "ipddp_solve_spacecraft.cu",
+                  "logddp_solve": "logddp_solve_spacecraft.cu"}
+    for name, logged, kernel, model, launcher in sc_entries():
+        ms, plain_ms, b_ms, b_by, dev_ms, source = sc_timing[name]
+        a = build.kernel_attributes(f"{launcher}_f32")
+        src, rep = sources[kernel]
+        if kernel in sc_sources:
+            src = "cddp_tpu_torch/ops/csrc/" + sc_sources[kernel]
+        elif kernel == "ipddp_backward":
+            src = "cddp_tpu_torch/ops/csrc/ipddp_backward_" + (
+                "attitude.cu" if SC_SHAPES[model][:2] == (6, 3) else "spacecraft.cu")
+        whole = kernel in WHOLE_SOLVES
+        horizon = fleet_horizon(sc_family(), kernel, model) if whole else SC_LONG_N
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "variant_of": kernel,
+            "model": model, "dispatch_name": logged, "launches": sc_launches[name],
+            "max_abs_err": sc_errs["float32"][name], "max_abs_err_f64": sc_errs["float64"][name],
+            "ms": ms, "device_ms": dev_ms, "device_ms_source": source, "plain_ms": plain_ms,
+            "plain_at": (f"B={B_CHECK}, float32, {SC_WHOLE_ITERS} iterations, N={horizon}, "
+                         "beside the kernels' build" if whole
+                         else f"B={SC_KERNEL_B} (the first of the operands), float32, "
+                         f"N={SC_LONG_N}, after phases 4-17"),
+            "batch": B_MAIN if whole else SC_LONG_B, "horizon": horizon,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "registers": a["registers"], "spill_bytes": a["spill_bytes"],
             "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
             "blocks_per_sm": a["blocks_per_sm"]})

@@ -281,8 +281,8 @@ def test_phase_17_entries_name_built_launchers_and_logged_kernels():
     dispatch_log name the one its kernel's wrapper logs for the attitude
     model (6x3 or 7x3; m = 6), and the entries are the eight kernels of the
     trio's path on each model but the whole solves the tables leave out
-    (``ATT_LEFT_OUT``: kernel 3 on the MRP model, kernel 7 on the Euler
-    model)."""
+    (``whole_takes``: kernel 3 on the MRP model, kernel 7 on the Euler
+    model), which then take no horizon in ``rollout.WHOLE_MAX_HORIZON``."""
     import chip_smoke
     from cddp_tpu_torch.models import EulerAttitude, MrpAttitude, QuaternionAttitude
     from cddp_tpu_torch.ops.kernels import ipddp_riccati, mega_ipddp, riccati
@@ -293,18 +293,15 @@ def test_phase_17_entries_name_built_launchers_and_logged_kernels():
               "mrp_attitude": MrpAttitude}
     kernels = ("riccati_backward", "forward_rollout", "clddp_solve", "open_loop_rollout",
                "ip_forward", "ipddp_backward", "ipddp_solve", "logddp_solve")
-    assert {e[0] for e in chip_smoke.ATT_ENTRIES} == {
-        f"{k}@{m}" for k in kernels for m in models if (k, m) not in chip_smoke.ATT_LEFT_OUT}
+    left_out = {("clddp_solve", "mrp_attitude"), ("ipddp_solve", "euler_attitude")}
+    assert {e[0] for e in chip_smoke.att_entries()} == {
+        f"{k}@{m}" for k in kernels for m in models if (k, m) not in left_out}
     for m in models:
-        assert (m in rollout_ops.CLDDP_MODELS) == (("clddp_solve", m) not in
-                                                   chip_smoke.ATT_LEFT_OUT)
-        assert (m in mega_ipddp.IP_BOX_ROWS) == (("ipddp_solve", m) not in
-                                                 chip_smoke.ATT_LEFT_OUT)
-        assert m in rollout_ops.ROLLOUT_MODELS and m in mega_ipddp.BOX_ROWS
         for kernel in ("clddp_solve", "ipddp_solve", "logddp_solve"):
-            assert (m in rollout_ops.WHOLE_MAX_HORIZON[kernel]) == ((kernel, m) not in
-                                                                  chip_smoke.ATT_LEFT_OUT)
-    for name, logged, kernel, model, launcher in chip_smoke.ATT_ENTRIES:
+            assert chip_smoke.whole_takes(kernel, m) == ((kernel, m) not in left_out)
+            assert (m in rollout_ops.WHOLE_MAX_HORIZON[kernel]) == ((kernel, m) not in left_out)
+        assert m in rollout_ops.ROLLOUT_MODELS and m in mega_ipddp.LOG_BOX_ROWS
+    for name, logged, kernel, model, launcher in chip_smoke.att_entries():
         assert launcher in built, launcher
         mdl = models[model](device="cpu")
         nx = mdl.state_dim
@@ -366,7 +363,7 @@ def test_phase_17_dry_run(monkeypatch):
     (``_plain_whole_solves``), the plain references computed in this
     process; each check (the whole solves' longest horizons cut to 4),
     fleet, the single slew and the timings run through; every entry of
-    ``ATT_ENTRIES`` gets its launches from a fleet that drives it, its
+    ``att_entries`` gets its launches from a fleet that drives it, its
     errors from (a) and its timing tuple."""
     import chip_smoke
     import cddp_tpu_torch as tt
@@ -398,14 +395,174 @@ def test_phase_17_dry_run(monkeypatch):
                                          Refs(chip_smoke.attitude_plain_refs(tt, dev)))
     launches, errs, fleets, plain = chip_smoke.phase_attitude(tt, dev, "dry run", checked)
     timing = chip_smoke.time_attitude_kernels(tt, dev, fleets, plain, "dry run")
-    names = {e[0] for e in chip_smoke.ATT_ENTRIES}
+    names = {e[0] for e in chip_smoke.att_entries()}
     assert set(launches) == names and all(n >= 1 for n in launches.values())
     for model in chip_smoke.ATT_MODELS:
         assert launches[f"open_loop_rollout@{model}"] == 1
         assert launches[f"ipddp_backward@{model}"] == 2  # one a per-pass iteration
         for kernel in ("clddp_solve", "ipddp_solve", "logddp_solve"):
-            if (kernel, model) not in chip_smoke.ATT_LEFT_OUT:
+            if chip_smoke.whole_takes(kernel, model):
                 assert launches[f"{kernel}@{model}"] == 1
     for tag in ("float64", "float32"):
         assert set(errs[tag]) == names
     assert set(timing) == names and all(len(v) == 6 for v in timing.values())
+
+
+def test_phase_18_entries_name_built_launchers_and_logged_kernels():
+    """Each phase-18 entry's launcher is one the kernel library builds, its
+    dispatch_log name the one its kernel's wrapper logs for the spacecraft
+    model (kernels 1 and 6 at its shape, with its control box's m), and the
+    entries are the eight kernels of the models' path on each model but any
+    whole solve the tables leave out (``whole_takes``), which then takes no
+    horizon in ``rollout.WHOLE_MAX_HORIZON``, and kernel 1 on the model it
+    leaves out (``riccati.LEFT_OUT_MODELS``); kernel 8 takes none of the
+    four."""
+    import chip_smoke
+    from cddp_tpu_torch import models
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati, ip_rollout, mega_ipddp, riccati
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    built = {stem for stems in chip_smoke.launchers().values() for stem in stems}
+    kernels = ("riccati_backward", "forward_rollout", "clddp_solve", "open_loop_rollout",
+               "ip_forward", "ipddp_backward", "ipddp_solve", "logddp_solve")
+    left_out = {("clddp_solve", "sc_linear_fuel"), ("clddp_solve", "sc_landing2d"),
+                ("clddp_solve", "sc_twobody"), ("ipddp_solve", "sc_linear_fuel"),
+                ("ipddp_solve", "sc_landing2d"), ("ipddp_solve", "sc_twobody"),
+                ("logddp_solve", "sc_nonlinear"), ("logddp_solve", "sc_landing2d"),
+                ("logddp_solve", "sc_twobody"), ("riccati_backward", "sc_twobody")}
+    assert {e[0] for e in chip_smoke.sc_entries()} == {
+        f"{k}@{m}" for k in kernels for m in chip_smoke.SC_MODELS if (k, m) not in left_out}
+    assert riccati.LEFT_OUT_MODELS == ("sc_twobody",)
+    for cls, m in chip_smoke.SC_CLASSES.items():
+        mdl = getattr(models, cls)()
+        nx, nu, rows = chip_smoke.SC_SHAPES[m]
+        assert (mdl.state_dim, mdl.control_dim) == (nx, nu)
+        assert rollout_ops.model_entry(mdl).tag == "@" + m
+        for kernel in ("clddp_solve", "ipddp_solve", "logddp_solve"):
+            assert chip_smoke.whole_takes(kernel, m) == ((kernel, m) not in left_out)
+            assert (m in rollout_ops.WHOLE_MAX_HORIZON[kernel]) == ((kernel, m) not in left_out)
+        assert m in rollout_ops.ROLLOUT_MODELS
+        assert ip_rollout.KERNEL_ROWS[m] == (rows,) and m not in mega_ipddp.MS_BOX_ROWS
+    for name, logged, kernel, model, launcher in chip_smoke.sc_entries():
+        assert launcher in built, launcher
+        nx, nu, rows = chip_smoke.SC_SHAPES[model]
+        if kernel == "riccati_backward":
+            assert logged == riccati.dispatch_name(nx, nu)
+        elif kernel == "ipddp_backward":
+            assert logged == ipddp_riccati.dispatch_name(nx, nu, rows)
+        else:
+            assert logged == name
+
+
+def test_phase_18_dry_run(monkeypatch):
+    """Phase 18's plumbing on the CPU at tiny sizes (B_CHECK = B_MAIN =
+    SC_LONG_B = 16, N = 5 and 3, every solve at most 2 iterations; kernels
+    1, 2 and 4 checked on 64 instances, so that one instance off float64
+    stays within ``check``'s TIE_SHARE): the
+    per-pass kernels replaced by their plain versions that count a launch
+    (``_plain_kernels``), the whole solves by their plain drivers
+    (``_plain_whole_solves``), the side process's work (the plain
+    references) done in this process;
+    the whole solves' longest horizons cut to 4, the nonlinear model's
+    kernels 3 and 7 to 2, below the MPC horizon, as at full size; each
+    check, fleet and timing runs through, and every entry of
+    ``sc_entries`` gets its launches from a fleet that drives it, its
+    errors from (a) and its timing tuple."""
+    import chip_smoke
+    import cddp_tpu_torch as tt
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    for name, value in (("B_CHECK", 16), ("B_MAIN", 16), ("SC_LONG_B", 16), ("SC_LONG_N", 5),
+                        ("MPC_N", 3), ("SC_KERNEL_B", 64), ("SC_ITERS", 2),
+                        ("SC_WHOLE_ITERS", 2), ("TIMING_BUDGET_MS", 1.0)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    horizons = {k: dict.fromkeys(v, 4) for k, v in rollout_ops.WHOLE_MAX_HORIZON.items()}
+    horizons["clddp_solve"]["sc_nonlinear"] = horizons["ipddp_solve"]["sc_nonlinear"] = 2
+    monkeypatch.setattr(rollout_ops, "WHOLE_MAX_HORIZON", horizons)
+    _plain_kernels(monkeypatch)
+    _plain_whole_solves(monkeypatch)
+
+    class Refs:  # the plain references computed in this process
+        def __init__(self, out):
+            self.out = out
+
+        def result(self, dev):
+            return self.out
+
+        def close(self):
+            pass
+
+    dev = torch.device("cpu")
+    checked = chip_smoke.sc_checks(tt, dev, Refs(chip_smoke.sc_plain_refs(tt, dev)))
+    launches, errs, fleets, plain = chip_smoke.phase_spacecraft(tt, dev, "dry run", checked)
+    timing = chip_smoke.time_sc_kernels(tt, dev, fleets, plain, "dry run")
+    names = {e[0] for e in chip_smoke.sc_entries()}
+    assert set(launches) == names and all(n >= 1 for n in launches.values())
+    for model in chip_smoke.SC_MODELS:
+        assert launches[f"open_loop_rollout@{model}"] == 1
+        assert launches[f"ipddp_backward@{model}"] == 2  # one a per-pass iteration
+        for kernel in ("clddp_solve", "ipddp_solve", "logddp_solve"):
+            if chip_smoke.whole_takes(kernel, model):
+                assert launches[f"{kernel}@{model}"] == 1
+    assert ("mpc", "clddp_solve", "sc_nonlinear") in fleets
+    assert fleets[("mpc", "clddp_solve", "sc_nonlinear")][0].horizon == 2
+    for tag in ("float64", "float32"):
+        assert set(errs[tag]) == names
+    assert set(timing) == names and all(len(v) == 6 for v in timing.values())
+
+
+@pytest.mark.parametrize("model", ["sc_nonlinear", "sc_landing2d", "mrp_attitude"])
+def test_count_ops_steps_is_the_full_count(model):
+    """The op count from two- and three-step cuts (``count_ops_steps``, what
+    the long-horizon timings take) equals the full count for each per-pass
+    kernel's plain version at N = 24, the quadrotor's tracking forward
+    trial included."""
+    import chip_smoke
+    import cddp_tpu_torch as tt
+    from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    dev, gen = torch.device("cpu"), torch.Generator().manual_seed(0)
+    if model.startswith("sc_"):
+        prob = chip_smoke.sc_problem(tt, torch.float64, dev, model, 24)
+        X, U, back, alpha = chip_smoke.sc_stage(prob, 2, gen)
+        opts = chip_smoke.sc_options(tt, 3)
+    else:
+        prob = chip_smoke.attitude_problem(tt, torch.float64, dev, model, 24)
+        X, U, back, alpha = chip_smoke.stage_inputs(prob, 2, gen)
+        opts = chip_smoke.attitude_options(tt, 3)
+    consts = rollout_ops.lane_consts(prob)
+    k, K = riccati.riccati_backward_plain(*back)[:2]
+    p, ol, back6, fwd5 = chip_smoke.stage_ip_inputs(tt, prob, 2, gen, opts, iterations=1)
+    fc = chip_smoke.forward_consts(p, opts, False)
+    runs = [(riccati.riccati_backward_plain, back),
+            (lambda *a: rollout_ops.forward_rollout_plain(consts, *a),
+             (X[:, :-1], U, k, K, X[:, 0], alpha)),
+            (lambda *a: ip_rollout.open_loop_rollout_plain(p.model, *a, p.timestep), ol),
+            (lambda *a: ip_rollout.ip_forward_plain(fc, *a), fwd5),
+            (ric.ipddp_backward_plain, chip_smoke.per_pass_layout(back6))]
+    if model == "mrp_attitude":
+        quad = chip_smoke.quad_problem(tt, torch.float64, dev, horizon=24, tracking=True)
+        qp, _, _, qfwd = chip_smoke.quad_ip_stage(tt, quad, 2, gen, chip_smoke.quad_options(tt, 3))
+        qfc = chip_smoke.forward_consts(qp, chip_smoke.quad_options(tt, 3), False)
+        runs.append((lambda *a: ip_rollout.ip_forward_plain(qfc, *a), qfwd))
+    for fn, args in runs:
+        args = chip_smoke.one(args)
+        assert chip_smoke.count_ops_steps(fn, *args) == chip_smoke.count_ops(fn, *args) > 0
+
+
+def test_side_part_process_failure_is_raised():
+    """A part of a side process that runs several (``SIDE_PARTS``: phase 16's
+    and phase 18's plain references) is raised as the process's failure
+    when the process ends without saving it (here it needs the card)."""
+    import chip_smoke
+
+    refs = chip_smoke.Side("quadrotor+spacecraft")
+    try:
+        for part in chip_smoke.SIDE_PARTS["quadrotor+spacecraft"]:
+            with pytest.raises(AssertionError, match="exited with status"):
+                refs.part(part).result(torch.device("cpu"))
+    finally:
+        refs.close()
+    assert not Path(refs._dir.name).exists()

@@ -204,7 +204,8 @@ def test_lane_rows_of_the_obstacle_stack(ball_name, row):
     stk = PathStacker(p)
     assert ip_rollout.box_rows(p, stk) is None
     assert mega_ipddp.solve_variant(p, ball=False) is None
-    assert not mega_ipddp.box_solve_eligible(p, tt.CDDPOptions(), "sequential")
+    for table in (mega_ipddp.MS_BOX_ROWS, mega_ipddp.LOG_BOX_ROWS):
+        assert not mega_ipddp.box_solve_eligible(p, tt.CDDPOptions(), "sequential", table)
     rows = ip_rollout.box_rows(p, stk, ball=True)
     assert rows.m == 5 and rows.ball_rows == [row]
     host = np.asarray(rows.host).reshape(5, 4)
