@@ -11,8 +11,10 @@ with rotor-force or body-rate controls (``Quadrotor``, ``quadrotor``,
 ``QuadrotorRate``), the rigid-body attitude trio under body torques
 (``EulerAttitude``, ``QuaternionAttitude``, ``MrpAttitude`` and their
 factories), the other spacecraft models (``SpacecraftLinearFuel``,
-``SpacecraftNonlinear``, ``SpacecraftLanding2D``, ``SpacecraftTwobody``; all
-in ``cddp_tpu_torch.models``, the attitude conversions in
+``SpacecraftNonlinear``, ``SpacecraftLanding2D``, ``SpacecraftTwobody``), the
+small models of the JAX registry (``Bicycle``, ``DubinsCar``,
+``DreyfusRocket``, ``Acrobot``; all in ``cddp_tpu_torch.models``, the
+attitude conversions in
 ``cddp_tpu_torch.utils.rotations``), as the JAX package solves them,
 towards a goal or along a per-step reference trajectory
 (``reference_states``); and batch-first receding-horizon MPC
@@ -62,11 +64,12 @@ from cddp_tpu_torch.constraints.terminal import (
     terminal_inequality_constraint,
 )
 from cddp_tpu_torch.costs.objective import QuadraticObjective, quadratic_objective
-from cddp_tpu_torch.models import (Car, EulerAttitude, Forklift, LTISystem, MrpAttitude,
-                                   Quadrotor, QuadrotorRate, QuaternionAttitude,
-                                   SpacecraftLanding2D, SpacecraftLinearFuel, SpacecraftNonlinear,
-                                   SpacecraftTwobody, euler_attitude, lti_system, mrp_attitude,
-                                   quadrotor, quaternion_attitude)
+from cddp_tpu_torch.models import (Acrobot, Bicycle, Car, DreyfusRocket, DubinsCar,
+                                   EulerAttitude, Forklift, LTISystem, MrpAttitude, Quadrotor,
+                                   QuadrotorRate, QuaternionAttitude, SpacecraftLanding2D,
+                                   SpacecraftLinearFuel, SpacecraftNonlinear, SpacecraftTwobody,
+                                   euler_attitude, lti_system, mrp_attitude, quadrotor,
+                                   quaternion_attitude)
 from cddp_tpu_torch.options import (
     BarrierOptions,
     BarrierStrategy,
@@ -88,7 +91,7 @@ __all__ = [
     "Forklift", "LTISystem", "lti_system", "Quadrotor", "QuadrotorRate", "quadrotor",
     "EulerAttitude", "MrpAttitude", "QuaternionAttitude", "euler_attitude", "mrp_attitude",
     "quaternion_attitude", "SpacecraftLanding2D", "SpacecraftLinearFuel", "SpacecraftNonlinear",
-    "SpacecraftTwobody",
+    "SpacecraftTwobody", "Acrobot", "Bicycle", "DreyfusRocket", "DubinsCar",
     "ControlConstraint", "IPDDPOptions", "IPDDPSolverState", "MSIPDDPSolverState", "LinearConstraint", "LogBarrierOptions",
     "MPCState", "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
     "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",

@@ -17,10 +17,11 @@ import torch
 from cddp_tpu_torch import devices
 from cddp_tpu_torch.constraints import path, terminal
 from cddp_tpu_torch.costs.objective import QuadraticObjective
-from cddp_tpu_torch.models import (HCW, Car, CartPole, EulerAttitude, Forklift, LTISystem,
-                                   MrpAttitude, Pendulum, Quadrotor, QuadrotorRate,
-                                   QuaternionAttitude, SpacecraftLanding2D, SpacecraftLinearFuel,
-                                   SpacecraftNonlinear, SpacecraftTwobody, Unicycle)
+from cddp_tpu_torch.models import (HCW, Acrobot, Bicycle, Car, CartPole, DreyfusRocket,
+                                   DubinsCar, EulerAttitude, Forklift, LTISystem, MrpAttitude,
+                                   Pendulum, Quadrotor, QuadrotorRate, QuaternionAttitude,
+                                   SpacecraftLanding2D, SpacecraftLinearFuel, SpacecraftNonlinear,
+                                   SpacecraftTwobody, Unicycle)
 from cddp_tpu_torch.models.attitude import _RigidBody
 from cddp_tpu_torch.options import CDDPOptions
 from cddp_tpu_torch.problem import Problem
@@ -37,7 +38,10 @@ from cddp_tpu_torch.problem import Problem
 # inertia (9, row-major), SpacecraftLinearFuel's (mean_motion, isp, g0,
 # epsilon), SpacecraftNonlinear's (mass, mu), SpacecraftLanding2D's (mass,
 # length, max_thrust, gravity, inertia: the last must be the model's own
-# (1/12) m L^2), SpacecraftTwobody's (mu, mass); the unicycle has none. An
+# (1/12) m L^2), SpacecraftTwobody's (mu, mass), the bicycle's (wheelbase),
+# DubinsCar's (speed), DreyfusRocket's (thrust_acceleration,
+# gravity_acceleration), the acrobot's (l1, l2, m1, m2, J1, J2, gravity,
+# friction); the unicycle has none. An
 # LTISystem, which has no lane, takes its discrete A (nx, nx) and B (nx,
 # nu) flattened and concatenated.
 _MODELS = {
@@ -63,6 +67,10 @@ _MODELS = {
                             lambda nx, nu: 2),
     "SpacecraftLanding2D": (lambda p, dt, nx, nu: _landing2d(p), lambda nx, nu: 5),
     "SpacecraftTwobody": (lambda p, dt, nx, nu: SpacecraftTwobody(*p), lambda nx, nu: 2),
+    "Bicycle": (lambda p, dt, nx, nu: Bicycle(*p), lambda nx, nu: 1),
+    "DubinsCar": (lambda p, dt, nx, nu: DubinsCar(*p), lambda nx, nu: 1),
+    "DreyfusRocket": (lambda p, dt, nx, nu: DreyfusRocket(*p), lambda nx, nu: 2),
+    "Acrobot": (lambda p, dt, nx, nu: Acrobot(*p), lambda nx, nu: 8),
     "LTISystem": (lambda p, dt, nx, nu: LTISystem(
         torch.tensor(p[:nx * nx], dtype=torch.float64).reshape(nx, nx),
         torch.tensor(p[nx * nx:], dtype=torch.float64).reshape(nx, nu), dt),

@@ -1,5 +1,6 @@
-// The whole CLDDP solve's instantiations but the spacecraft models' (the
-// kernel template: clddp_solve.cuh; those in clddp_solve_spacecraft.cu).
+// The whole CLDDP solve's instantiations but the spacecraft and small
+// models' (the kernel template: clddp_solve.cuh; those in
+// clddp_solve_spacecraft.cu and clddp_solve_small.cu).
 #include "clddp_solve.cuh"
 
 // The models of rollout.CLDDP_MODELS (goal form) and

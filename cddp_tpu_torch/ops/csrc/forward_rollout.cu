@@ -112,3 +112,7 @@ CDDP_FORWARD_ROLLOUT(sc_linear_fuel, SpacecraftLinearFuel, false, )
 CDDP_FORWARD_ROLLOUT(sc_nonlinear, SpacecraftNonlinear, false, )
 CDDP_FORWARD_ROLLOUT(sc_landing2d, SpacecraftLanding2D, false, )
 CDDP_FORWARD_ROLLOUT(sc_twobody, SpacecraftTwobody, false, )
+CDDP_FORWARD_ROLLOUT(bicycle, Bicycle, false, )
+CDDP_FORWARD_ROLLOUT(dubins_car, DubinsCar, false, )
+CDDP_FORWARD_ROLLOUT(dreyfus_rocket, DreyfusRocket, false, )
+CDDP_FORWARD_ROLLOUT(acrobot, Acrobot, false, )

@@ -139,7 +139,8 @@ int launch_ip_forward(const T* const* in, T* const* out, const T* refs, const do
 // car's control box (4, its exact map in place of the integrator step,
 // ip_rollout.py:341-344), QuadrotorRate's thrust and rate box (8) and the
 // attitude trio's torque box (6), the thrust boxes of the other spacecraft
-// models (6) and the lander's thrust and gimbal box (4);
+// models (6), the lander's thrust and gimbal box (4) and the small models'
+// control boxes (the bicycle's 4, the others' 2);
 // the goal form and (TRACK true, suffix _track) the tracking form, whose
 // `refs` is the shared (N, nx) reference (NULL and unread in the goal form).
 #define CDDP_IP_FORWARD(MODEL, STRUCT, M, TRACK, SUFFIX)                               \
@@ -185,3 +186,7 @@ CDDP_IP_FORWARD(sc_linear_fuel, SpacecraftLinearFuel, 6, false, )
 CDDP_IP_FORWARD(sc_nonlinear, SpacecraftNonlinear, 6, false, )
 CDDP_IP_FORWARD(sc_landing2d, SpacecraftLanding2D, 4, false, )
 CDDP_IP_FORWARD(sc_twobody, SpacecraftTwobody, 6, false, )
+CDDP_IP_FORWARD(bicycle, Bicycle, 4, false, )
+CDDP_IP_FORWARD(dubins_car, DubinsCar, 2, false, )
+CDDP_IP_FORWARD(dreyfus_rocket, DreyfusRocket, 2, false, )
+CDDP_IP_FORWARD(acrobot, Acrobot, 2, false, )

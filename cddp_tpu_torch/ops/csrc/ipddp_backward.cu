@@ -3,7 +3,8 @@
 // ball (5); the pendulum with its control box (2, 1, 2); the car's (4, 2,
 // 4); the quadrotor's (13, 4, 8) and QuadrotorRate's (10, 4, 8) boxes (the
 // attitude trio's in ipddp_backward_attitude.cu, the other spacecraft
-// models' in ipddp_backward_spacecraft.cu). The kernel template:
+// models' in ipddp_backward_spacecraft.cu, the small models' in
+// ipddp_backward_small.cu). The kernel template:
 // ipddp_backward.cuh.
 #include "ipddp_backward.cuh"
 

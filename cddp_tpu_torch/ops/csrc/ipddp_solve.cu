@@ -1,5 +1,6 @@
-// The whole IPDDP solve's instantiations without terminal constraints
-// (the kernel template: ipddp_solve.cuh).
+// The whole IPDDP solve's instantiations without terminal constraints but
+// the attitude, spacecraft and small models' (the kernel template:
+// ipddp_solve.cuh; those in ipddp_solve_{attitude,spacecraft,small}.cu).
 #include "ipddp_solve.cuh"
 
 // On the unicycle a control box (m4), a state box (m6), both (m10), and a

@@ -1,5 +1,6 @@
-// The whole LogDDP solve's instantiations but the spacecraft models' (the
-// kernel template: logddp_solve.cuh; those in logddp_solve_spacecraft.cu).
+// The whole LogDDP solve's instantiations but the spacecraft and small
+// models' (the kernel template: logddp_solve.cuh; those in
+// logddp_solve_spacecraft.cu and logddp_solve_small.cu).
 #include "logddp_solve.cuh"
 
 CDDP_LOGDDP_SOLVE(unicycle, Unicycle, 4, false, )

@@ -574,7 +574,8 @@ int launch_logddp_solve(T* const* buf, const T* refs, const double* consts, cons
 
 // m (mega_ipddp.LOG_BOX_ROWS): a control box (4), a state box (6) or both
 // (10) on the unicycle, the control box (2) on the pendulum, the torque box
-// (6) on the attitude trio and the fuel model (goal form only); the goal form
+// (6) on the attitude trio and the fuel model, the small models' control
+// boxes (the bicycle's 4, the others' 2; goal form only); the goal form
 // and (TRACK true, suffix _track) the tracking form, whose `refs` is the
 // shared (N, nx) reference (NULL and unread in the goal form).
 #define CDDP_LOGDDP_SOLVE(MODEL, STRUCT, M, TRACK, SUFFIX)                             \

@@ -923,6 +923,185 @@ struct SpacecraftTwobody {
   }
 };
 
+// The small models of the JAX lane registry (cddp_tpu_torch/models/
+// {bicycle,dubins_car,dreyfus_rocket,acrobot}.py; rollout.py:245-292 of the
+// JAX package). f is the plain model's expression in its order of
+// operations, so the float64 build (--fmad=false) rounds like it: the
+// bicycle's (v / L) tan(delta) (the JAX model's; its lane's sin / cos
+// rounds apart), the acrobot's mass matrix solved by Cramer's rule (the
+// JAX lane's; the JAX model's LU solve rounds apart). fxfu is the analytic
+// continuous Jacobian the whole solves linearize with (A = I + dt Fx, B =
+// dt Fu): the bicycle's and DubinsCar's the JAX analytic lanes'
+// (mega_clddp.py:149-183), DreyfusRocket's and the acrobot's written here
+// (the JAX kernels take theirs by jvp of the lane, mega_clddp.py:217). The
+// plain models take theirs by forward-mode AD; tests/test_torch_ground_models.py
+// holds each fxfu to them within rounding on the host.
+
+// x = (x, y, theta, v), u = (a, delta); p = (wheelbase).
+struct Bicycle {
+  static constexpr int NX = 4;
+  static constexpr int NU = 2;
+  static constexpr int NP = 1;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    const T v = x[3];
+    dx[0] = v * dcos(x[2]);
+    dx[1] = v * dsin(x[2]);
+    dx[2] = (v / p[0]) * dtan(u[1]);
+    dx[3] = u[0];
+  }
+
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T L = p[0], v = x[3];
+    const T s = dsin(x[2]), c = dcos(x[2]);
+    const T cd = dcos(u[1]);
+    const T td = dsin(u[1]) / cd;
+    spacecraft::zero<NX, NU>(Fx, Fu);
+    Fx[0][2] = -v * s;
+    Fx[0][3] = c;
+    Fx[1][2] = v * c;
+    Fx[1][3] = s;
+    Fx[2][3] = td / L;
+    Fu[2][1] = v / (L * cd * cd);
+    Fu[3][0] = T(1);
+  }
+};
+
+// x = (x, y, theta), u = (omega); p = (speed).
+struct DubinsCar {
+  static constexpr int NX = 3;
+  static constexpr int NU = 1;
+  static constexpr int NP = 1;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    dx[0] = p[0] * dcos(x[2]);
+    dx[1] = p[0] * dsin(x[2]);
+    dx[2] = u[0];
+  }
+
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    spacecraft::zero<NX, NU>(Fx, Fu);
+    Fx[0][2] = -p[0] * dsin(x[2]);
+    Fx[1][2] = p[0] * dcos(x[2]);
+    Fu[2][0] = T(1);
+  }
+};
+
+// x = (altitude, its rate), u = (thrust angle); p = (thrust_acceleration,
+// gravity_acceleration).
+struct DreyfusRocket {
+  static constexpr int NX = 2;
+  static constexpr int NU = 1;
+  static constexpr int NP = 2;
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    dx[0] = x[1];
+    dx[1] = p[0] * dcos(u[0]) - p[1];
+  }
+
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    spacecraft::zero<NX, NU>(Fx, Fu);
+    Fx[0][1] = T(1);
+    Fu[1][0] = -(p[0] * dsin(u[0]));
+  }
+};
+
+// x = (theta1, theta2, dtheta1, dtheta2), u = (tau2); p = (l1, l2, m1, m2,
+// J1, J2, gravity, friction). ddq = M^-1 r, M = [[m11, m12], [m12, m22]]
+// (M depends on theta2 alone), r = (-b1 - g1 - fric dth1, tau2 - b2 - g2 -
+// fric dth2).
+struct Acrobot {
+  static constexpr int NX = 4;
+  static constexpr int NU = 1;
+  static constexpr int NP = 8;
+
+  // The mass matrix, r and ddq at (x, u), as the plain model forms them.
+  template <typename T>
+  struct Terms {
+    T s1, c1, s2, c2, s12, c12, m11, m12, m22, tmp, det, dd1, dd2;
+
+    __device__ Terms(const T (&x)[NX], const T (&u)[NU], const T* p) {
+      const T l1 = p[0], l2 = p[1], m1 = p[2], m2 = p[3], J1 = p[4], J2 = p[5], g = p[6],
+              fric = p[7];
+      const T dth1 = x[2], dth2 = x[3];
+      s1 = dsin(x[0]);
+      c1 = dcos(x[0]);
+      s2 = dsin(x[1]);
+      c2 = dcos(x[1]);
+      s12 = dsin(x[0] + x[1]);
+      c12 = dcos(x[0] + x[1]);
+      m11 = m1 * (l1 * l1) + J1 + m2 * (l1 * l1 + l2 * l2 + T(2) * l1 * l2 * c2) + J2;
+      m12 = m2 * (l2 * l2 + l1 * l2 * c2) + J2;
+      m22 = (l2 * l2) * m2 + J2;
+      tmp = l1 * l2 * m2 * s2;
+      const T b1 = -(T(2) * dth1 * dth2 + dth2 * dth2) * tmp;
+      const T b2 = tmp * dth1 * dth1;
+      const T g1 = ((m1 + m2) * l1 * c1 + m2 * l2 * c12) * g;
+      const T g2 = m2 * l2 * c12 * g;
+      const T r1 = -b1 - g1 - fric * dth1;
+      const T r2 = u[0] - b2 - g2 - fric * dth2;
+      det = m11 * m22 - m12 * m12;
+      dd1 = (m22 * r1 - m12 * r2) / det;
+      dd2 = (m11 * r2 - m12 * r1) / det;
+    }
+
+    // M^-1 (v1, v2) into rows 2 and 3 of column j of F.
+    template <int NC>
+    __device__ void solve(T v1, T v2, T (&F)[NX][NC], int j) const {
+      F[2][j] = (m22 * v1 - m12 * v2) / det;
+      F[3][j] = (m11 * v2 - m12 * v1) / det;
+    }
+  };
+
+  template <typename T>
+  __device__ static void f(const T (&x)[NX], const T (&u)[NU], const T* p, T (&dx)[NX]) {
+    const Terms<T> a(x, u, p);
+    dx[0] = x[2];
+    dx[1] = x[3];
+    dx[2] = a.dd1;
+    dx[3] = a.dd2;
+  }
+
+  // d ddq / dz = M^-1 (dr/dz - dM/dz ddq), column by column; dM/dtheta2 =
+  // -m2 l1 l2 s2 [[2, 1], [1, 0]], zero for the other variables.
+  template <typename T>
+  __device__ static void fxfu(const T (&x)[NX], const T (&u)[NU], const T* p,
+                              T (&Fx)[NX][NX], T (&Fu)[NX][NU]) {
+    const T l1 = p[0], l2 = p[1], m1 = p[2], m2 = p[3], g = p[6], fric = p[7];
+    const T dth1 = x[2], dth2 = x[3];
+    const Terms<T> a(x, u, p);
+    spacecraft::zero<NX, NU>(Fx, Fu);
+    Fx[0][2] = T(1);
+    Fx[1][3] = T(1);
+    // theta1: only the gravity terms move.
+    const T dg2_1 = -(m2 * l2 * a.s12 * g);
+    const T dg1_1 = -((m1 + m2) * l1 * a.s1 * g) + dg2_1;
+    a.solve(-dg1_1, -dg2_1, Fx, 0);
+    // theta2: tmp, the gravity terms and M.
+    const T dtmp = l1 * l2 * m2 * a.c2;
+    const T db1_2 = -(T(2) * dth1 * dth2 + dth2 * dth2) * dtmp;
+    const T db2_2 = dtmp * dth1 * dth1;
+    const T dg_2 = -(m2 * l2 * a.s12 * g);
+    const T dm12 = -(m2 * l1 * l2 * a.s2), dm11 = T(2) * dm12;
+    a.solve(-db1_2 - dg_2 - (dm11 * a.dd1 + dm12 * a.dd2), -db2_2 - dg_2 - dm12 * a.dd1, Fx,
+            1);
+    // dtheta1 and dtheta2: the Coriolis terms and friction.
+    a.solve(T(2) * dth2 * a.tmp - fric, -(T(2) * a.tmp * dth1), Fx, 2);
+    a.solve((T(2) * dth1 + T(2) * dth2) * a.tmp, -fric, Fx, 3);
+    // tau2.
+    a.solve(T(0), T(1), Fu, 0);
+  }
+};
+
 enum Integrator { kEuler = 0, kHeun = 1, kRk3 = 2, kRk4 = 3 };
 
 // Whether a model struct is discrete (declares DISCRETE true); a struct

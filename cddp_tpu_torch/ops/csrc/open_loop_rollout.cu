@@ -91,3 +91,7 @@ CDDP_OPEN_LOOP_ROLLOUT(sc_linear_fuel, SpacecraftLinearFuel)
 CDDP_OPEN_LOOP_ROLLOUT(sc_nonlinear, SpacecraftNonlinear)
 CDDP_OPEN_LOOP_ROLLOUT(sc_landing2d, SpacecraftLanding2D)
 CDDP_OPEN_LOOP_ROLLOUT(sc_twobody, SpacecraftTwobody)
+CDDP_OPEN_LOOP_ROLLOUT(bicycle, Bicycle)
+CDDP_OPEN_LOOP_ROLLOUT(dubins_car, DubinsCar)
+CDDP_OPEN_LOOP_ROLLOUT(dreyfus_rocket, DreyfusRocket)
+CDDP_OPEN_LOOP_ROLLOUT(acrobot, Acrobot)

@@ -159,8 +159,9 @@ int cddp_kernel_attributes(const char* name, int* out) {
 // quadrotor (13, 4) and QuadrotorRate (10, 4), the attitude trio (6, 3:
 // Euler angles and MRPs; 7, 3: the quaternion), the spacecraft models (8,
 // 3: SpacecraftLinearFuel; 10, 3: SpacecraftNonlinear; 6, 2:
-// SpacecraftLanding2D; SpacecraftTwobody takes 6, 3). From nu = 3 the BoxQP walks
-// its 27 or 81 active sets in a runtime loop, and at nx = 13 the step's
+// SpacecraftLanding2D; SpacecraftTwobody takes 6, 3) and DubinsCar (3, 1;
+// the other small models take 4, 2, 2, 1 and 4, 1). From nu = 3 the BoxQP
+// walks its 27 or 81 active sets in a runtime loop, and at nx = 13 the step's
 // operands (A, lxx, Vxx: 3 x 169 values) outgrow the registers: the kernel
 // spills to local memory.
 CDDP_RICCATI_BACKWARD(3, 2)
@@ -174,3 +175,4 @@ CDDP_RICCATI_BACKWARD(7, 3)
 CDDP_RICCATI_BACKWARD(8, 3)
 CDDP_RICCATI_BACKWARD(10, 3)
 CDDP_RICCATI_BACKWARD(6, 2)
+CDDP_RICCATI_BACKWARD(3, 1)

@@ -32,14 +32,16 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
 
 KERNEL_SOURCES = ("riccati_backward.cu", "forward_rollout.cu", "clddp_solve.cu",
-                  "clddp_solve_spacecraft.cu", "open_loop_rollout.cu", "ip_forward.cu",
-                  "ipddp_backward.cu", "ipddp_backward_attitude.cu",
-                  "ipddp_backward_spacecraft.cu", "ipddp_solve.cu", "ipddp_solve_terminal.cu",
-                  "ipddp_solve_attitude.cu", "ipddp_solve_spacecraft.cu", "logddp_solve.cu",
-                  "logddp_solve_spacecraft.cu", "msipddp_solve.cu")
+                  "clddp_solve_spacecraft.cu", "clddp_solve_small.cu", "open_loop_rollout.cu",
+                  "ip_forward.cu", "ipddp_backward.cu", "ipddp_backward_attitude.cu",
+                  "ipddp_backward_spacecraft.cu", "ipddp_backward_small.cu", "ipddp_solve.cu",
+                  "ipddp_solve_terminal.cu", "ipddp_solve_attitude.cu",
+                  "ipddp_solve_spacecraft.cu", "ipddp_solve_small.cu", "logddp_solve.cu",
+                  "logddp_solve_spacecraft.cu", "logddp_solve_small.cu", "msipddp_solve.cu",
+                  "msipddp_solve_small.cu")
 HEADERS = ("small_linalg.cuh", "clddp_step.cuh", "models.cuh", "ipddp_step.cuh",
            "ip_filter.cuh", "sweep_stage.cuh", "ipddp_solve.cuh", "ipddp_backward.cuh",
-           "clddp_solve.cuh", "logddp_solve.cuh")
+           "clddp_solve.cuh", "logddp_solve.cuh", "msipddp_solve.cuh")
 
 COMMON_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",

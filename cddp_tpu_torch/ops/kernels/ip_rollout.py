@@ -36,7 +36,7 @@ from cddp_tpu_torch.constraints.path import (BallConstraint, ControlConstraint,
                                              StateConstraint)
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
-from cddp_tpu_torch.ops.kernels.rollout import ATTITUDE_MODELS, SPACECRAFT_ROWS
+from cddp_tpu_torch.ops.kernels.rollout import ATTITUDE_MODELS, SMALL_ROWS, SPACECRAFT_ROWS
 from cddp_tpu_torch.solvers.base import ftb_ok
 
 _OL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_double)]
@@ -50,12 +50,12 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_double)] * 2
 # and the quadrotor's rotor box (the figure-8); in the goal form those and
 # the control boxes of the car, QuadrotorRate, the attitude trio and the
 # other spacecraft models (m = 6; the lander's thrust and gimbal box, m =
-# 4). The open-loop rollout (4) takes every registered model; the whole
-# solves' box tables are mega_ipddp.IP_BOX_ROWS, MS_BOX_ROWS and
-# LOG_BOX_ROWS.
+# 4) and the small models (the bicycle's m = 4, the others' m = 2). The
+# open-loop rollout (4) takes every registered model; the whole solves' box
+# tables are mega_ipddp.IP_BOX_ROWS, MS_BOX_ROWS and LOG_BOX_ROWS.
 TRACK_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,), "hcw": (6,), "quadrotor": (8,)}
 KERNEL_ROWS = {**TRACK_ROWS, "car": (4,), "quadrotor_rate": (8,),
-               **{m: (6,) for m in ATTITUDE_MODELS}, **SPACECRAFT_ROWS}
+               **{m: (6,) for m in ATTITUDE_MODELS}, **SPACECRAFT_ROWS, **SMALL_ROWS}
 
 
 def _mv(M, v):

@@ -52,12 +52,14 @@ EPS_SLACK = 1e-10
 # the quadrotor (13x4) and QuadrotorRate (10x4) with their rotor or thrust
 # and rate boxes (m = 8); the attitude trio with its torque box (6x3 and
 # 7x3, m = 6); the spacecraft models with their control boxes (8x3x6,
-# 10x3x6, 6x2x4; SpacecraftTwobody and HCW's box share 6x3x6).
+# 10x3x6, 6x2x4; SpacecraftTwobody and HCW's box share 6x3x6); DubinsCar
+# and the acrobot with their one control's box (3x1x2, 4x1x2; the bicycle
+# and DreyfusRocket share 4x2x4 and 2x1x2).
 # Never at m = 0: a problem without path constraints runs the plain
 # recursion, as the JAX gate requires m > 0 (ipddp.py:547).
 KERNEL_SHAPES = ((3, 2, 4), (3, 2, 5), (3, 2, 6), (3, 2, 10), (2, 1, 2), (4, 2, 4),
                  (13, 4, 8), (10, 4, 8), (6, 3, 6), (7, 3, 6), (8, 3, 6), (10, 3, 6),
-                 (6, 2, 4))
+                 (6, 2, 4), (3, 1, 2), (4, 1, 2))
 
 
 def dispatch_name(nx: int, nu: int, m: int) -> str:

@@ -46,8 +46,10 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
     """Static dispatch predicate (mega_msipddp.py:1266-1302 of the JAX
     package, restricted to the slice and without its TPU scratch-memory
     gate): ``mega_ipddp.box_solve_eligible`` with MSIPDDP's
-    ``lqr_backend`` on the kernel's own table (``MS_BOX_ROWS``), and a
-    rollout type the kernel knows. Terminal constraints are declined."""
+    ``lqr_backend`` on the kernel's own table (``MS_BOX_ROWS``), a rollout
+    type the kernel knows, and a horizon the kernel takes
+    (``rollout.whole_horizon_ok``: the small models' follows the JAX
+    gate's). Terminal constraints are declined."""
     ms = options.msipddp
     if options.solve_engine == "xla" or rollout_ops.lane_consts(problem) is None:
         return False
@@ -55,7 +57,9 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
     # terminal type raises its TypeError before the stack is looked at.
     TerminalStacker(problem)
     return (box_solve_eligible(problem, options, ms.lqr_backend, MS_BOX_ROWS)
-            and ms.rollout_type in ROLLOUT_TYPES)
+            and ms.rollout_type in ROLLOUT_TYPES
+            and rollout_ops.whole_horizon_ok("msipddp_solve", rollout_ops.lane_consts(problem),
+                                             problem.horizon))
 
 
 def _solve_cfg(options: CDDPOptions, n_sd: int):

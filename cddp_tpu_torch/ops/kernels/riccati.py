@@ -28,11 +28,12 @@ _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_
 # LTISystem's 4x2, the quadrotor's 13x4, QuadrotorRate's 10x4, and the
 # attitude trio's 6x3 (Euler angles, MRPs) and 7x3 (the quaternion), and the
 # spacecraft models' 8x3 (SpacecraftLinearFuel), 10x3 (SpacecraftNonlinear)
-# and 6x2 (SpacecraftLanding2D; HCW shares 6x3). The kernel reads A and B,
-# so any model of these shapes takes it (the JAX gate is nu <= 4 alone,
-# riccati.py:491-497) but those of LEFT_OUT_MODELS.
+# and 6x2 (SpacecraftLanding2D; HCW shares 6x3), and DubinsCar's 3x1 (the
+# bicycle, DreyfusRocket and the acrobot share 4x2, 2x1 and 4x1). The
+# kernel reads A and B, so any model of these shapes takes it (the JAX gate
+# is nu <= 4 alone, riccati.py:491-497) but those of LEFT_OUT_MODELS.
 KERNEL_SHAPES = ((3, 2), (2, 1), (4, 1), (4, 2), (13, 4), (10, 4), (6, 3), (7, 3), (8, 3),
-                 (10, 3), (6, 2))
+                 (10, 3), (6, 2), (3, 1))
 # Registered models (``rollout.ModelEntry.cuda_name``) whose CLDDP runs the
 # plain Riccati recursion although their shape is in KERNEL_SHAPES: float32
 # cannot carry SpacecraftTwobody's recursion (states near 7000 km, velocity

@@ -39,8 +39,9 @@ from typing import Callable, List, Optional
 
 import torch
 
-from cddp_tpu_torch.models import (HCW, Car, CartPole, DynamicalSystem, EulerAttitude,
-                                   Forklift, MrpAttitude, Pendulum, Quadrotor, QuadrotorRate,
+from cddp_tpu_torch.models import (HCW, Acrobot, Bicycle, Car, CartPole, DreyfusRocket,
+                                   DubinsCar, DynamicalSystem, EulerAttitude, Forklift,
+                                   MrpAttitude, Pendulum, Quadrotor, QuadrotorRate,
                                    QuaternionAttitude, SpacecraftLanding2D, SpacecraftLinearFuel,
                                    SpacecraftNonlinear, SpacecraftTwobody, Unicycle)
 from cddp_tpu_torch.ops.kernels import dispatch_log
@@ -125,6 +126,14 @@ _REGISTRY = {
         params=lambda m: _buffers("mass", "length", "max_thrust", "gravity")(m)
         + [float(m.inertia)], cuda_name="sc_landing2d"),
     SpacecraftTwobody: ModelEntry(params=_buffers("mu", "mass"), cuda_name="sc_twobody"),
+    # The small models of the JAX lane registry (rollout.py:496-515): their
+    # scalar fields.
+    Bicycle: ModelEntry(params=_buffers("wheelbase"), cuda_name="bicycle"),
+    DubinsCar: ModelEntry(params=_buffers("speed"), cuda_name="dubins_car"),
+    DreyfusRocket: ModelEntry(params=_buffers("thrust_acceleration", "gravity_acceleration"),
+                              cuda_name="dreyfus_rocket"),
+    Acrobot: ModelEntry(params=_buffers("l1", "l2", "m1", "m2", "J1", "J2", "gravity",
+                                        "friction"), cuda_name="acrobot"),
 }
 # The attitude trio, which the whole solves of CLDDP, IPDDP and LogDDP
 # (kernels 3, 7, 9) take at their users' MPC horizon (N = 20; the JAX
@@ -147,6 +156,16 @@ SPACECRAFT_MODELS = ("sc_linear_fuel", "sc_nonlinear", "sc_landing2d", "sc_twobo
 # the thrust box (6), the lander's thrust and gimbal box (4).
 SPACECRAFT_ROWS = {"sc_linear_fuel": (6,), "sc_nonlinear": (6,), "sc_landing2d": (4,),
                    "sc_twobody": (6,)}
+# The small models (nx <= 4): the bicycle (4x2), DubinsCar (3x1),
+# DreyfusRocket (2x1) and the acrobot (4x1). Every kernel takes them, the
+# whole solves 3, 7, 8 and 9 up to the JAX gates' horizons
+# (``WHOLE_MAX_HORIZON``; kernel 8 is the first whole solve whose table
+# holds a horizon limit), in the goal form, but kernel 8 on the acrobot
+# (``mega_ipddp.MS_BOX_ROWS``, ROADMAP C.14).
+SMALL_MODELS = ("bicycle", "dubins_car", "dreyfus_rocket", "acrobot")
+# Their control boxes' row counts m: the bicycle's acceleration and
+# steering box (4), the others' one control (2).
+SMALL_ROWS = {"bicycle": (4,), "dubins_car": (2,), "dreyfus_rocket": (2,), "acrobot": (2,)}
 # The models the whole CLDDP solve (kernel 3) and the line-search rollout
 # (kernel 2) are instantiated for in the tracking form, and kernel 3 in the
 # goal form: those, the Euler and quaternion attitude models and the
@@ -157,7 +176,8 @@ SPACECRAFT_ROWS = {"sc_linear_fuel": (6,), "sc_nonlinear": (6,), "sc_landing2d":
 # C.12), so its CLDDP runs per pass (kernels 1 and 2), as do the other
 # spacecraft models' but the nonlinear one's (ROADMAP C.13).
 CLDDP_TRACK_MODELS = ("unicycle", "pendulum", "cartpole")
-CLDDP_MODELS = CLDDP_TRACK_MODELS + ("euler_attitude", "quaternion_attitude", "sc_nonlinear")
+CLDDP_MODELS = (CLDDP_TRACK_MODELS + ("euler_attitude", "quaternion_attitude", "sc_nonlinear")
+                + SMALL_MODELS)
 # The models kernel 2's goal form is instantiated for: the tracking form's,
 # the spacecraft models, the car and the two quadrotors. Kernel 3 leaves the
 # quadrotors out: the JAX package's whole CLDDP solve refuses them at the
@@ -165,21 +185,27 @@ CLDDP_MODELS = CLDDP_TRACK_MODELS + ("euler_attitude", "quaternion_attitude", "s
 # MiB against a 12 MiB budget; QuadrotorRate 15.9 MiB already at N = 20),
 # so their CLDDP runs per pass there, and here.
 ROLLOUT_MODELS = (CLDDP_TRACK_MODELS + ATTITUDE_MODELS + SPACECRAFT_MODELS
-                  + ("car", "quadrotor", "quadrotor_rate"))
+                  + ("car", "quadrotor", "quadrotor_rate") + SMALL_MODELS)
 # The longest horizon at which the JAX package's whole solves of CLDDP,
-# IPDDP and LogDDP (kernels 3, 7, 9) take each attitude and spacecraft
-# model: their scratch-memory gates (mega_clddp.py:864, mega_ipddp.py:2527
-# and mega_logddp.py:788 of the JAX package; tests/test_torch_attitude.py
-# and tests/test_torch_spacecraft.py hold this table to them). Past it JAX
-# runs per pass, and so does the port (``whole_horizon_ok``): in float32,
-# kernel 3 on the quaternion slew at N = 200 forked from its plain driver
-# (97.58% of the plain driver's stable instances, ROADMAP C.12). The other
-# models' whole solves keep no such limit (ROADMAP C.11).
+# IPDDP, MSIPDDP and LogDDP (kernels 3, 7, 8, 9) take each attitude,
+# spacecraft and small model: their scratch-memory gates
+# (mega_clddp.py:864, mega_ipddp.py:2527, mega_msipddp.py:1281 and
+# mega_logddp.py:788 of the JAX package; tests/test_torch_attitude.py,
+# tests/test_torch_spacecraft.py and tests/test_torch_ground_models.py hold
+# this table to them). Past it JAX runs per pass or on the plain driver,
+# and so does the port (``whole_horizon_ok``): in float32, kernel 3 on the
+# quaternion slew at N = 200 forked from its plain driver (97.58% of the
+# plain driver's stable instances, ROADMAP C.12). The other models' whole
+# solves keep no such limit (ROADMAP C.11).
 WHOLE_MAX_HORIZON = {
-    "clddp_solve": {"euler_attitude": 29, "quaternion_attitude": 25, "sc_nonlinear": 18},
-    "ipddp_solve": {"quaternion_attitude": 25, "mrp_attitude": 27, "sc_nonlinear": 19},
+    "clddp_solve": {"euler_attitude": 29, "quaternion_attitude": 25, "sc_nonlinear": 18,
+                    "bicycle": 55, "dubins_car": 107, "dreyfus_rocket": 144, "acrobot": 85},
+    "ipddp_solve": {"quaternion_attitude": 25, "mrp_attitude": 27, "sc_nonlinear": 19,
+                    "bicycle": 47, "dubins_car": 92, "dreyfus_rocket": 110, "acrobot": 79},
+    "msipddp_solve": {"bicycle": 22, "dubins_car": 37, "dreyfus_rocket": 52},
     "logddp_solve": {"euler_attitude": 34, "quaternion_attitude": 30, "mrp_attitude": 34,
-                     "sc_linear_fuel": 27},
+                     "sc_linear_fuel": 27, "bicycle": 65, "dubins_car": 124,
+                     "dreyfus_rocket": 167, "acrobot": 98},
 }
 
 

@@ -213,16 +213,30 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    of kernel 3, 7 or 9 each, or per pass where its table leaves the
    whole solve out), (d) the example's single slew (per pass at B = 1,
    held to its float64 run), each with its exact launch counts;
-   (e) every entry's times and bound.
+   (e) every entry's times and bound;
+18. the other spacecraft models (``phase_spacecraft``, ``SC_SPECS``), as
+   phase 17 runs the trio: (a) kernels 1, 2, 4, 5 and 6 at N = 100 and the
+   whole solves their tables take at N = 20 and at the JAX gates'
+   horizons; (b) the MPC fleets (N = 20, B = 262,144), (c) the N = 100
+   fleets (B = 65,536), per pass; (d) every entry's times and bound;
+19. the small models, Bicycle, DubinsCar, DreyfusRocket and Acrobot
+   (``phase_small``, ``SMALL_SPECS``): (a) kernels 1, 2, 4, 5 and 6 at N =
+   100 against their plain versions, and the whole solves 3, 7, 8 and 9
+   at N = 20 and at the JAX gates' horizons (kernel 8 over
+   MS_EXACT_ITERS) against their plain drivers, which run in a side
+   process; (b) the MPC fleets under the four solvers (N = 20, B =
+   262,144, float32), (c) the N = 100 fleets (B = 65,536) under CLDDP and
+   IPDDP by the gates' routes, and through the per-pass engine where the
+   route is whole; (d) every entry's times and bound.
 
-Phases 14-17 run right after phase 3, their checks and fleets first and
+Phases 14-19 run right after phase 3, their checks and fleets first and
 phases 14 and 15's timings after them, then phases 4-13, then phases 16
-and 17's timings: the plain drivers launch tens of thousands of small
+to 19's timings: the plain drivers launch tens of thousands of small
 torch operations, each of which takes 1.6-1.7x as long once the profiler
 has run in the process, and after phase 16's timing sessions beside
 phases 14-15's the profiler recorded no kernel-6 launch in any later
-session (both measured on an H100 machine; PERF.md). Phases 16 and 17's
-plain references (``Side``) run in processes of their own, started
+session (both measured on an H100 machine; PERF.md). Phases 16 to 19's
+plain references (``Side``) run in two processes of their own, started
 before the build: they run plain drivers only.
 
 Phases 4-13 time each whole solve's plain driver, and run their fleets'
@@ -302,18 +316,20 @@ def launchers():
     from cddp_tpu_torch.ops.kernels.riccati import KERNEL_SHAPES as RICCATI_SHAPES
     from cddp_tpu_torch.ops.kernels.rollout import (_REGISTRY, ATTITUDE_MODELS, CLDDP_MODELS,
                                                     CLDDP_TRACK_MODELS, ROLLOUT_MODELS,
-                                                    SPACECRAFT_MODELS)
+                                                    SMALL_MODELS, SPACECRAFT_MODELS)
 
     balls = [f"m{m}_ball{row}" for m, row in BALL_LAYOUTS["unicycle"]]
     track = lambda stems: stems + [f"{s}_track" for s in stems]  # noqa: E731
     by_model = lambda stem, table: [  # noqa: E731
         f"{stem}_{model}_m{m}" for model, rows in table.items() for m in rows]
-    # The attitude trio's kernels 6 and 7 and the other spacecraft models'
-    # kernels 3, 6, 7 and 9 live in translation units of their own.
+    # The attitude trio's kernels 6 and 7, the other spacecraft models'
+    # kernels 3, 6, 7 and 9 and the small models' kernels 3, 6, 7, 8 and 9
+    # live in translation units of their own.
     own = lambda table, models: {m: r for m, r in table.items() if m in models}  # noqa: E731
     rest = lambda table: {m: r for m, r in table.items()  # noqa: E731
-                          if m not in ATTITUDE_MODELS + SPACECRAFT_MODELS}
+                          if m not in ATTITUDE_MODELS + SPACECRAFT_MODELS + SMALL_MODELS}
     attitude_shapes, spacecraft_shapes = ((6, 3), (7, 3)), ((8, 3), (10, 3), (6, 2))
+    small_shapes = ((3, 1, 2), (4, 1, 2))
     backward = lambda shapes: [f"cddp_ipddp_backward_{nx}x{nu}x{m}"  # noqa: E731
                                for nx, nu, m in KERNEL_SHAPES if (nx, nu) in shapes]
     return {
@@ -321,17 +337,21 @@ def launchers():
         "forward_rollout": [f"cddp_forward_rollout_{m}" for m in ROLLOUT_MODELS]
         + [f"cddp_forward_rollout_{m}_track" for m in CLDDP_TRACK_MODELS],
         "clddp_solve": [f"cddp_clddp_solve_{m}" for m in CLDDP_MODELS
-                        if m not in SPACECRAFT_MODELS]
+                        if m not in SPACECRAFT_MODELS + SMALL_MODELS]
         + [f"cddp_clddp_solve_{m}_track" for m in CLDDP_TRACK_MODELS],
         "clddp_solve_spacecraft": [f"cddp_clddp_solve_{m}" for m in SPACECRAFT_MODELS
                                    if m in CLDDP_MODELS],
+        "clddp_solve_small": [f"cddp_clddp_solve_{m}" for m in SMALL_MODELS if m in CLDDP_MODELS],
         "open_loop_rollout": [f"cddp_open_loop_rollout_{e.cuda_name}" for e in _REGISTRY.values()],
         "ip_forward": by_model("cddp_ip_forward", KERNEL_ROWS)
         + [f"{s}_track" for s in by_model("cddp_ip_forward", TRACK_ROWS)],
         "ipddp_backward": [f"cddp_ipddp_backward_{nx}x{nu}x{m}" for nx, nu, m in KERNEL_SHAPES
-                           if (nx, nu) not in attitude_shapes + spacecraft_shapes],
+                           if (nx, nu) not in attitude_shapes + spacecraft_shapes
+                           and (nx, nu, m) not in small_shapes],
         "ipddp_backward_attitude": backward(attitude_shapes),
         "ipddp_backward_spacecraft": backward(spacecraft_shapes),
+        "ipddp_backward_small": [f"cddp_ipddp_backward_{nx}x{nu}x{m}"
+                                 for nx, nu, m in small_shapes],
         "ipddp_solve": by_model("cddp_ipddp_solve", rest(IP_BOX_ROWS))
         + [f"cddp_ipddp_solve_unicycle_{v}" for v in balls]
         + [f"cddp_ipddp_solve_{model}_{v}_track" for model, layouts in TRACK_LAYOUTS.items()
@@ -344,11 +364,14 @@ def launchers():
         "ipddp_solve_attitude": [f"cddp_ipddp_solve_{m}_m6" for m in ATTITUDE_MODELS
                                  if m in IP_BOX_ROWS],
         "ipddp_solve_spacecraft": by_model("cddp_ipddp_solve", own(IP_BOX_ROWS, SPACECRAFT_MODELS)),
-        "msipddp_solve": track(by_model("cddp_msipddp_solve", MS_BOX_ROWS)),
+        "ipddp_solve_small": by_model("cddp_ipddp_solve", own(IP_BOX_ROWS, SMALL_MODELS)),
+        "msipddp_solve": track(by_model("cddp_msipddp_solve", rest(MS_BOX_ROWS))),
+        "msipddp_solve_small": by_model("cddp_msipddp_solve", own(MS_BOX_ROWS, SMALL_MODELS)),
         "logddp_solve": track(by_model("cddp_logddp_solve", rest(LOG_BOX_ROWS)))
         + by_model("cddp_logddp_solve", own(LOG_BOX_ROWS, ATTITUDE_MODELS)),
         "logddp_solve_spacecraft": by_model("cddp_logddp_solve",
                                             own(LOG_BOX_ROWS, SPACECRAFT_MODELS)),
+        "logddp_solve_small": by_model("cddp_logddp_solve", own(LOG_BOX_ROWS, SMALL_MODELS)),
     }
 
 
@@ -408,8 +431,8 @@ def fleet_x0(prob, B, gen):
     ``HCW_X0_SCALE`` (bench_ipddp_fleet.py:124-132); the quadrotors' x0
     (hover) + U(-0.5, 0.5)^3 on the position alone; the attitude trio's at
     rest, at an MRP from U(-0.3, 0.3)^3 in the model's coordinates
-    (``attitude_state``); the other spacecraft models' x0 + widths (U(0, 1)
-    - 0.5) (``SC_SPECS``)."""
+    (``attitude_state``); the other spacecraft models' and the small
+    models' x0 + widths (U(0, 1) - 0.5) (``SC_SPECS``, ``SMALL_SPECS``)."""
     dev, dtype, nx = prob.x0.device, prob.x0.dtype, prob.state_dim
     u = torch.rand(B, nx, generator=gen, device=dev, dtype=dtype)
     name = type(prob.model).__name__
@@ -427,9 +450,10 @@ def fleet_x0(prob, B, gen):
         return prob.x0 + torch.cat([u[:, :3] - 0.5, torch.zeros_like(u[:, 3:])], -1)
     if name in ATT_CLASSES:
         return attitude_state(ATT_CLASSES[name], ATT_X0_WIDTH * (2.0 * u[:, :3] - 1.0))
-    if name in SC_CLASSES:
-        widths = torch.tensor(SC_SPECS[SC_CLASSES[name]][2], device=dev, dtype=dtype)
-        return prob.x0 + widths * (u - 0.5)
+    if name in SC_CLASSES or name in SMALL_CLASSES:
+        widths = (SC_SPECS[SC_CLASSES[name]][2] if name in SC_CLASSES
+                  else SMALL_SPECS[SMALL_CLASSES[name]].widths)
+        return prob.x0 + torch.tensor(widths, device=dev, dtype=dtype) * (u - 0.5)
     return prob.x0 + torch.tensor(HCW_X0_SCALE, device=dev, dtype=dtype) * (2.0 * u - 1.0)
 
 
@@ -1083,11 +1107,12 @@ def one(args):
     return tuple(a[:1] if isinstance(a, torch.Tensor) and a.dim() else a for a in args)
 
 
-def clddp_solve_seeds(x0, prob):
-    """The cold seeds ``clddp.solve`` builds for x0: X the tiled x0, zero
-    controls and gains."""
+def clddp_solve_seeds(x0, prob, U0=None):
+    """The cold seeds ``clddp.solve`` builds for x0: X the tiled x0, the
+    controls U0 (zeros when None), zero gains."""
     B, N, nu, nx = x0.shape[0], prob.horizon, prob.control_dim, prob.state_dim
-    return (x0[:, None].expand(-1, N + 1, -1).contiguous(), x0.new_zeros(B, N, nu),
+    return (x0[:, None].expand(-1, N + 1, -1).contiguous(),
+            x0.new_zeros(B, N, nu) if U0 is None else U0,
             x0.new_zeros(B, N, nu), x0.new_zeros(B, N, nu, nx))
 
 
@@ -2127,18 +2152,19 @@ def time_obstacle_kernels(tt, prob, x0, smi, plain_ms=None):
 STATUS_NAMES = 5  # statuses 0-4 (4: LogDDP's regularization-limit quirk)
 
 
-def barrier_seeds(solver, p, opts, defect=False):
+def barrier_seeds(solver, p, opts, defect=False, U0=None):
     """The cold-start batch ``logddp.solve`` or ``msipddp.solve`` builds for
-    p.x0 (X rolled open-loop from U = 0 by the plain version, which kernel 4
-    equals), or for MSIPDDP the defect-carrying seed of
-    ``msipddp.defect_seed``; zero gains."""
+    p.x0 from the controls U0 (zeros when None; X rolled open-loop from them
+    by the plain version, which kernel 4 equals), or for MSIPDDP the
+    defect-carrying seed of ``msipddp.defect_seed``; zero gains."""
     from cddp_tpu_torch.constraints.stack import PathStacker
     from cddp_tpu_torch.ops.kernels import ip_rollout
     from cddp_tpu_torch.solvers import msipddp
 
     x0 = p.x0
     B, N, nu, nx = x0.shape[0], p.horizon, p.control_dim, p.state_dim
-    U, gains = x0.new_zeros(B, N, nu), (x0.new_zeros(B, N, nu), x0.new_zeros(B, N, nu, nx))
+    U = x0.new_zeros(B, N, nu) if U0 is None else U0
+    gains = (x0.new_zeros(B, N, nu), x0.new_zeros(B, N, nu, nx))
     if solver == "LogDDP":
         return (ip_rollout.open_loop_rollout_plain(p.model, x0, U, p.timestep), U) + gains
     stk = PathStacker(p)
@@ -5716,25 +5742,28 @@ WHOLE_KERNELS = {"CLDDP": "clddp_solve", "IPDDP": "ipddp_solve", "LogDDP": "logd
 
 
 def whole_takes(kernel, model):
-    """Whether the whole-solve ``kernel`` (3, 7 or 9) is instantiated for
+    """Whether the whole-solve ``kernel`` (3, 7, 8 or 9) is instantiated for
     ``model``'s control box: its table (``rollout.CLDDP_MODELS``,
-    ``mega_ipddp.IP_BOX_ROWS``, ``mega_ipddp.LOG_BOX_ROWS``), which leaves
-    out the pairs that forked in float32 (ROADMAP C.12, C.13). The horizons
-    it takes the model at are ``rollout.WHOLE_MAX_HORIZON``'s."""
+    ``mega_ipddp.IP_BOX_ROWS``, ``MS_BOX_ROWS``, ``LOG_BOX_ROWS``), which
+    leaves out the pairs that forked in float32 (ROADMAP C.12-C.14). The
+    horizons it takes the model at are ``rollout.WHOLE_MAX_HORIZON``'s."""
     from cddp_tpu_torch.ops.kernels import mega_ipddp
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 
     return model in {"clddp_solve": rollout_ops.CLDDP_MODELS,
                      "ipddp_solve": mega_ipddp.IP_BOX_ROWS,
+                     "msipddp_solve": mega_ipddp.MS_BOX_ROWS,
                      "logddp_solve": mega_ipddp.LOG_BOX_ROWS}[kernel]
 
 
 class Family(typing.NamedTuple):
-    """A model family whose whole solves 3, 7 and 9 phases 17 and 18 hold
-    to their plain drivers (where ``whole_takes``): its ``models``,
-    ``problem(tt, dtype, device, model, horizon)``, ``options(tt,
-    iterations)``, its MPC fleets' horizon, (a)'s iterations and the seed
-    of (a)'s x0."""
+    """A model family whose whole solves (``kernels``, {solver: kernel}: 3,
+    7 and 9 in phases 17 and 18, and 8 too in phase 19) are held to their
+    plain drivers (where ``whole_takes``): its ``models``, ``problem(tt,
+    dtype, device, model, horizon)``, ``options(tt, iterations)``, its MPC
+    fleets' horizon, (a)'s iterations, the seed of (a)'s x0, and
+    ``controls(problem, B)``, the (B, N, nu) controls every solve of the
+    family starts from (None: zeros)."""
 
     label: str
     models: tuple
@@ -5743,6 +5772,13 @@ class Family(typing.NamedTuple):
     mpc_n: int
     whole_iters: int
     seed: int
+    kernels: dict = WHOLE_KERNELS
+    controls: typing.Optional[typing.Callable] = None
+
+
+def seed_controls(fam, prob, B):
+    """The family's seed controls for B instances of ``prob``, or None."""
+    return None if fam.controls is None else fam.controls(prob, B)
 
 
 def attitude_family():
@@ -5754,7 +5790,7 @@ def attitude_family():
 def whole_solvers(fam, model):
     """The solvers whose whole-solve kernel takes ``model``
     (``whole_takes``)."""
-    return tuple(solver for solver, kernel in WHOLE_KERNELS.items()
+    return tuple(solver for solver, kernel in fam.kernels.items()
                  if whole_takes(kernel, model))
 
 
@@ -5778,7 +5814,7 @@ def whole_cases(fam):
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 
     at_mpc, edge = {}, {}
-    for solver, kernel in WHOLE_KERNELS.items():
+    for solver, kernel in fam.kernels.items():
         for model in fam.models:
             if not whole_takes(kernel, model):
                 continue
@@ -5786,7 +5822,7 @@ def whole_cases(fam):
             for horizon in {fleet_horizon(fam, kernel, model), limit} - {None}:
                 (at_mpc if horizon == fam.mpc_n else edge).setdefault(
                     (model, horizon), []).append(solver)
-    order = {solver: i for i, solver in enumerate(WHOLE_KERNELS)}
+    order = {solver: i for i, solver in enumerate(fam.kernels)}
     pick = lambda cases, key: tuple(sorted(cases[key], key=order.get))  # noqa: E731
     return ([(model, fam.mpc_n, fam.whole_iters, pick(at_mpc, (model, fam.mpc_n)))
              for model in fam.models if (model, fam.mpc_n) in at_mpc]
@@ -5807,23 +5843,28 @@ def whole_x0(tt, dev, fam, model, dtype, horizon):
 def whole_run(tt, fam, prob, x0, solver, plain, iterations):
     """One of (a)'s whole solves from x0's cold seeds (each solver's
     ``solve`` builds them), ``iterations`` of the family's options: the
-    kernel's launch, or with ``plain`` its plain driver."""
-    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
-    from cddp_tpu_torch.solvers import clddp, ipddp, logddp
+    kernel's launch, or with ``plain`` its plain driver (MSIPDDP: a
+    (Solution, state) pair)."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp, mega_msipddp
+    from cddp_tpu_torch.solvers import clddp, ipddp, logddp, msipddp
 
     opts = fam.options(tt, iterations)
+    U0 = seed_controls(fam, prob, x0.shape[0])
     if solver == "IPDDP":
         # The seed's rollout by the plain version, in both processes: the
         # references' process builds no kernel.
-        p, seeds = ip_seeds(prob, plain_ip_options(tt, opts), x0)
+        p, seeds = ip_seeds(prob, plain_ip_options(tt, opts), x0, U0)
         if plain:
             return ipddp._drive(p, plain_ip_options(tt, opts), *seeds)
         return mega_ipddp._launch(p, opts, *seeds)
     p = prob.replace(x0=x0)
     if solver == "LogDDP":
-        seeds = barrier_seeds("LogDDP", p, opts)
+        seeds = barrier_seeds("LogDDP", p, opts, U0=U0)
         return logddp._drive(p, opts, *seeds) if plain else mega_logddp._launch(p, opts, *seeds)
-    seeds = clddp_solve_seeds(x0, p)
+    if solver == "MSIPDDP":
+        seeds = barrier_seeds("MSIPDDP", p, opts, U0=U0)
+        return msipddp._drive(p, opts, *seeds) if plain else mega_msipddp._launch(p, opts, *seeds)
+    seeds = clddp_solve_seeds(x0, p, U0)
     if plain:
         return clddp._solve(p, opts.replace(backward_engine="scan"), *seeds)
     return mega_clddp._launch(p, opts, *seeds)
@@ -5834,7 +5875,10 @@ def whole_refs(tt, dev, fam, out):
     to (``whole_run``): each case of ``whole_cases`` and solver in float64,
     and in float32 from x0 and from x0 one ulp up, with the float32 run's
     host ms."""
+    t0 = time.perf_counter()
     for model, horizon, iters, solvers in whole_cases(fam):
+        print(f"{fam.label}: {model} at N={horizon} from {time.perf_counter() - t0:.1f} s",
+              flush=True)
         for dtype in (torch.float64, torch.float32):
             tag = str(dtype).replace("torch.", "")
             prob, x0 = whole_x0(tt, dev, fam, model, dtype, horizon)
@@ -5844,8 +5888,71 @@ def whole_refs(tt, dev, fam, out):
                     lambda: whole_run(tt, fam, prob, x0, solver, True, iters))
                 if dtype == torch.float32:
                     out[("whole ms", *key)] = LAST_PLAIN_MS[0]
-                    out[("whole up", *key)] = whole_run(
-                        tt, fam, prob, ulp_up((x0,))[0], solver, True, iters)
+                    out[("whole up", *key)] = solution_of(whole_run(
+                        tt, fam, prob, ulp_up((x0,))[0], solver, True, iters))[0]
+
+
+def solution_of(run):
+    """(Solution, MSIPDDP state or None) of a whole solve's run
+    (``whole_run``)."""
+    return run if isinstance(run, tuple) else (run, None)
+
+
+def whole_fields(run):
+    """(Solution, {field: tensor}) of a whole solve's run, the fields that
+    ``check_whole`` holds a float64 LogDDP or MSIPDDP kernel to (X, U, the
+    gains and the cost; MSIPDDP also Y, S, F, Lambda and mu)."""
+    sol, st = solution_of(run)
+    f = {"X": sol.state_trajectory, "U": sol.control_trajectory,
+         "k": sol.feedforward_gains, "K": sol.feedback_gains, "cost": sol.final_objective}
+    if st is not None:
+        f.update(Y=st.Y, S=st.S, F=st.F, Lambda=st.Lambda, mu=sol.barrier_mu)
+    return sol, f
+
+
+def whole_timing(tt, solver, prob, x0, opts, U0=None):
+    """A whole solve's timed run and its work (``time_kernels``' two
+    items) on the fleet's cold seeds from the controls U0 (zeros when
+    None)."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp, mega_msipddp
+
+    p = prob.replace(x0=x0)
+    if solver == "CLDDP":
+        seeds = clddp_solve_seeds(x0, prob, U0)
+        return ((lambda: mega_clddp._launch(p, opts, *seeds), 10, None, 1),
+                clddp_solve_work(p, opts, seeds))
+    if solver == "IPDDP":
+        p7, seeds = ip_seeds(prob, opts, x0, U0)
+        return ((lambda: mega_ipddp._launch(p7, opts, *seeds), 10, None, 1),
+                seed_ipddp_work(tt, p7, opts, seeds))
+    seeds = barrier_seeds(solver, p, opts, U0=U0)
+    if solver == "MSIPDDP":
+        return ((lambda: mega_msipddp._launch(p, opts, *seeds), 10, None, 1),
+                msipddp_solve_work(tt, p, opts, seeds))
+    return ((lambda: mega_logddp._launch(p, opts, *seeds), 10, None, 1),
+            logddp_solve_work(tt, p, opts, seeds))
+
+
+def time_whole_solves(tt, fam, fleet, opts, plain, smi):
+    """Each whole solve the family's tables take (``whole_solvers``) at its
+    MPC fleet's batch on that fleet's cold seeds from the family's seed
+    controls (``fleet(kernel, model)``: (problem, x0)) under ``opts``: its
+    wrapper and device ms and its bound from one counted launch's work
+    (``whole_timing``), its plain driver's float32 ms from (a) (``plain``).
+    Returns {entry: timing tuple}."""
+    out, t0 = {}, time.perf_counter()
+    for model in fam.models:
+        runs, work = {}, {}
+        for solver in whole_solvers(fam, model):
+            kernel = fam.kernels[solver]
+            prob, x0 = fleet(kernel, model)
+            runs[kernel], work[kernel] = whole_timing(tt, solver, prob, x0, opts,
+                                                      seed_controls(fam, prob, x0.shape[0]))
+        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper",
+                              plain_ms={k: plain[f"{k}@{model}"] for k in runs})
+        out.update({f"{k}@{model}": v for k, v in timing.items()})
+        print(f"[{fam.label}] {model}'s whole solves timed at {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def solution_rows(sol, rows):
@@ -5857,11 +5964,12 @@ def solution_rows(sol, rows):
 
 
 def check_whole(tt, dev, fam, refs, errs, plain):
-    """(a) the whole solves 3, 7 and 9 (``whole_cases``) on B_CHECK
-    instances against their plain drivers' runs in ``refs``
-    (``whole_refs``): float64 every status and iteration count equal, X, U
-    and cost within 1e-8 (IPDDP also duals, slacks and mu; LogDDP the
-    gains); float32 status, iterations and cost (rel 1e-4) equal on >= 99%
+    """(a) the family's whole solves (``whole_cases``) on B_CHECK instances
+    against their plain drivers' runs in ``refs`` (``whole_refs``): float64
+    every status and iteration count equal, X, U and cost within 1e-8
+    (IPDDP also duals, slacks and mu; LogDDP the gains; MSIPDDP the gains,
+    Y, S, F, Lambda and mu, on all but MS_TIE_SHARE of the instances,
+    ``check_barrier``'s rule for kernel 8); float32 status, iterations and cost (rel 1e-4) equal on >= 99%
     of the plain driver's stable instances, those on which it agrees so
     with its own run from x0 one ulp up (all of them where its float32
     solve does not fork within these iterations; ROADMAP C.12), and kernel
@@ -5869,23 +5977,19 @@ def check_whole(tt, dev, fam, refs, errs, plain):
     instances. Every case is checked and printed before a failure is
     raised. Errors at each kernel's fleet horizon (``fleet_horizon``) into
     ``errs``, each whole solve's float32 plain ms there into ``plain``."""
-    def fields(sol):
-        return sol, {"X": sol.state_trajectory, "U": sol.control_trajectory,
-                     "k": sol.feedforward_gains, "K": sol.feedback_gains,
-                     "cost": sol.final_objective}
-
     failed = []
     for model, horizon, iters, solvers in whole_cases(fam):
         for dtype in (torch.float64, torch.float32):
             tag = str(dtype).replace("torch.", "")
             prob, x0 = whole_x0(tt, dev, fam, model, dtype, horizon)
             for solver in solvers:
-                kernel = WHOLE_KERNELS[solver]
+                kernel = fam.kernels[solver]
                 name, key = f"{kernel}@{model}", (solver, model, horizon)
                 label = f"{name} N={horizon}, {iters} iterations"
                 fleet = horizon == fleet_horizon(fam, kernel, model)
-                kern = whole_run(tt, fam, prob, x0, solver, False, iters)
-                ref = refs[("whole", *key, tag)]
+                kern_run = whole_run(tt, fam, prob, x0, solver, False, iters)
+                ref_run = refs[("whole", *key, tag)]
+                kern, ref = solution_of(kern_run)[0], solution_of(ref_run)[0]
                 same = ((kern.status_code == ref.status_code)
                         & (kern.iterations_completed == ref.iterations_completed))
                 err = float((kern.final_objective - ref.final_objective)[same].abs().max())
@@ -5898,7 +6002,10 @@ def check_whole(tt, dev, fam, refs, errs, plain):
                         elif solver == "IPDDP":
                             check_ip_solve(label, kern, ref, True, dual_rtol=1e-8)
                         else:
-                            check_barrier(solver, label, fields(kern), fields(ref), True)
+                            check_barrier(solver, label, whole_fields(kern_run),
+                                          whole_fields(ref_run), True,
+                                          min_share=(1.0 - MS_TIE_SHARE if solver == "MSIPDDP"
+                                                     else 0.99))
                     except AssertionError as e:
                         failed.append(str(e))
                     continue
@@ -5914,14 +6021,14 @@ def check_whole(tt, dev, fam, refs, errs, plain):
                 try:
                     if solver == "CLDDP":
                         check_solve_f32(f"{label}, stable instances", k, r, 0.99)
-                    elif solver == "LogDDP":
+                    elif solver in ("LogDDP", "MSIPDDP"):
                         check_barrier(solver, f"{label}, stable instances", (k, None),
                                       (r, None), False)
                     else:
                         check_ip_solve(f"{label}, stable instances", k, r, False)
                 except AssertionError as e:
                     failed.append(str(e))
-                truth = refs[("whole", *key, "float64")].final_objective
+                truth = solution_of(refs[("whole", *key, "float64")])[0].final_objective
                 rel = {n: (s.final_objective.double() - truth).abs() / truth.abs()
                        for n, s in (("kernel", kern), ("plain", ref))}
                 q = {n: (float(r.median()), float(r.quantile(0.99))) for n, r in rel.items()}
@@ -6073,14 +6180,15 @@ def phase_slew_single(tt, dev, smi, sol64):
                              f"{rel:.3e} against float64's status {int(sol64.status_code)}")
 
 
-def family_fleet_run(label, prob, x0, solver, opts, want, smi, mega=None, tag="attitude"):
-    """``zoo_fleet_run`` with the run's converged share, iterations, ms,
-    solves/s, peak device memory, the kernel's work and warp divergence
-    (``mega``), and the final states' distance to the goal, printed under
-    ``tag``. Returns launches."""
+def family_fleet_run(label, prob, x0, solver, opts, want, smi, mega=None, tag="attitude",
+                     U0=None):
+    """``zoo_fleet_run`` (from the controls ``U0``, zeros when None) with the
+    run's converged share, iterations, ms, solves/s, peak device memory, the
+    kernel's work and warp divergence (``mega``), and the final states'
+    distance to the goal, printed under ``tag``. Returns launches."""
     B = x0.shape[0]
     torch.cuda.reset_peak_memory_stats()
-    sol, counts, ms, work = zoo_fleet_run(label, prob, x0, solver, opts, want, mega)
+    sol, counts, ms, work = zoo_fleet_run(label, prob, x0, solver, opts, want, mega, U0)
     peak = torch.cuda.max_memory_allocated() / 2**30
     conv = (sol.status_code == 1) | (sol.status_code == 2)
     its = sol.iterations_completed.double()
@@ -6214,33 +6322,14 @@ def time_attitude_kernels(tt, dev, fleets, plain, smi):
     on the MPC fleets' cold seeds, each one's bound from one counted
     launch's work (their plain drivers' float32 ms from (a), ``plain``).
     Returns {entry: timing tuple}."""
-    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
-
-    t0 = time.perf_counter()
     out, _ = time_lane_kernels(
         tt, dev, smi, "attitude", ATT_MODELS, attitude_maker,
         lambda prob, B, gen: stage_inputs(prob, B, gen),
         lambda tt, prob, B, gen, opts: stage_ip_inputs(tt, prob, B, gen, opts, iterations=1,
                                                        kernels=True),
         lambda: attitude_options(tt, ATT_ITERS), SLEW_B, plain_b=ATT_KERNEL_B)
-    opts = attitude_options(tt, ATT_ITERS)
-    for model in ATT_MODELS:
-        prob, x0 = fleets[("mpc", model)]
-        p = prob.replace(x0=x0)
-        seeds3, (p7, seeds7), seeds9 = (clddp_solve_seeds(x0, prob), ip_seeds(prob, opts, x0),
-                                        barrier_seeds("LogDDP", p, opts))
-        runs = {"clddp_solve": (lambda: mega_clddp._launch(p, opts, *seeds3), 10, None, 1),
-                "ipddp_solve": (lambda: mega_ipddp._launch(p7, opts, *seeds7), 10, None, 1),
-                "logddp_solve": (lambda: mega_logddp._launch(p, opts, *seeds9), 10, None, 1)}
-        work = {"clddp_solve": lambda: clddp_solve_work(p, opts, seeds3),
-                "ipddp_solve": lambda: seed_ipddp_work(tt, p7, opts, seeds7),
-                "logddp_solve": lambda: logddp_solve_work(tt, p, opts, seeds9)}
-        kept = [WHOLE_KERNELS[solver] for solver in whole_solvers(attitude_family(), model)]
-        runs, work = {k: runs[k] for k in kept}, {k: work[k]() for k in kept}
-        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper",
-                              plain_ms={k: plain[f"{k}@{model}"] for k in runs})
-        out.update({f"{k}@{model}": v for k, v in timing.items()})
-        print(f"[attitude] {model}'s whole solves timed at {time.perf_counter() - t0:.1f} s")
+    out.update(time_whole_solves(tt, attitude_family(), lambda k, m: fleets[("mpc", m)],
+                                 attitude_options(tt, ATT_ITERS), plain, smi))
     return out
 
 
@@ -6374,29 +6463,30 @@ def sc_family():
                   SEED + 81)
 
 
-def sc_stage(prob, B, gen):
+def sc_stage(prob, B, gen, operands=lambda back: back[0]):
     """Kernels 1 and 2's operands (``stage_inputs``) about rollouts from the
     fleet's x0 under controls uniform in the middle three quarters of the
-    box, A differing between instances and steps."""
+    box, ``operands(back)`` (A) differing between instances and steps."""
     cc = prob.get_constraint("ControlConstraint")
     r = torch.rand(B, prob.horizon, prob.control_dim, generator=gen, device=prob.x0.device,
                    dtype=prob.x0.dtype)
     X, U, back, alpha = stage_inputs(prob, B, gen, U=cc.lower + (cc.upper - cc.lower) * (
         0.125 + 0.75 * r))
-    assert_varies(f"{type(prob.model).__name__} CLDDP operands", back[0])
+    assert_varies(f"{type(prob.model).__name__} CLDDP operands", operands(back))
     return X, U, back, alpha
 
 
-def sc_ip_stage(tt, prob, B, gen, opts):
+def sc_ip_stage(tt, prob, B, gen, opts, operands=lambda back: back[0]):
     """Kernels 4, 5 and 6's operands after one IPDDP iteration of the
     per-pass engine from cold seeds at the fleet's x0 and the box's
-    midpoint (zero but for the lander's thrust, whose box excludes 0), A
-    differing between instances and steps."""
+    midpoint (zero but for the lander's thrust, whose box excludes 0),
+    ``operands(back)`` (A) differing between instances and steps."""
     cc = prob.get_constraint("ControlConstraint")
     mid = ((cc.lower + cc.upper) / 2).expand(prob.horizon, -1)
     staged = stage_ip_inputs(tt, prob, B, gen, opts, iterations=1, U0=mid, kernels=True)
-    assert_varies(f"{type(prob.model).__name__} IPDDP operands", staged[2][0])
+    assert_varies(f"{type(prob.model).__name__} IPDDP operands", operands(staged[2]))
     return staged
+
 
 
 def sc_lane_checks(tt, dev, models):
@@ -6476,18 +6566,44 @@ def sc_per_pass(model):
             "LogDDP": {f"open_loop_rollout@{model}": 1}}
 
 
+def sc_fleet_x0(x0, solver, model):
+    """A per-pass or plain fleet's x0: its first B_CHECK under LogDDP's plain
+    driver and under CLDDP on a model whose recursion runs the plain version
+    (``riccati_takes``: 9.0 and 11.7 s a fleet at B = 262,144 and 65,536 on
+    an NVIDIA H100 80GB HBM3), all of them otherwise."""
+    plain = solver == "LogDDP" or (solver == "CLDDP" and not riccati_takes(model))
+    return x0[:B_CHECK] if plain else x0
+
+
+def plain_fleet_summary(label, run, tag, smi):
+    """Print a plain-driver fleet a side process ran ((Solution, host ms,
+    launches)): its converged share, statuses, iterations and ms; raises if
+    it launched a kernel."""
+    sol, ms, counts = run
+    if counts:
+        raise AssertionError(f"{label}: launches {counts}")
+    conv = (sol.status_code == 1) | (sol.status_code == 2)
+    print(f"[{tag}] {label}, B={sol.status_code.numel()}, at most "
+          f"{int(sol.iterations_completed.max())} iterations: converged {float(conv.double().mean()):.4%}, statuses "
+          f"{torch.bincount(sol.status_code.long(), minlength=5).tolist()}, iterations mean "
+          f"{float(sol.iterations_completed.double().mean()):.3f}; {ms:.2f} ms; launches "
+          f"{{}}  [{smi}]")
+
+
 def phase_sc_fleets(tt, dev, smi, refs):
     """(b) the MPC fleets (N = MPC_N, B_MAIN, float32, SC_ITERS at
     tolerance 1e-4) under CLDDP, IPDDP and LogDDP through the default
     engine, each with the launch counts zeroed just before it and read
     just after: one whole-solve launch (kernel 4's seed before kernels 7 and
     9) where the tables take the model at N = MPC_N, else per pass (LogDDP:
-    the plain driver at B_CHECK after kernel 4's seed); each
+    the plain driver at B_CHECK after kernel 4's seed; the two-body model's
+    CLDDP, whose Riccati recursion runs the plain version, at B_CHECK); each
     whole solve the tables take only at a shorter horizon (the nonlinear
     model's kernels 3 and 7) on the same fleet at that horizon; the
     MSIPDDP fleets on their plain driver (the side process's, ``refs``).
-    (c) the long-horizon fleets (N = SC_LONG_N, SC_LONG_B) under CLDDP and
-    IPDDP per pass, as JAX runs them there. Returns (launches {entry: n},
+    (c) the long-horizon fleets (N = SC_LONG_N, SC_LONG_B; the two-body
+    model's CLDDP at B_CHECK) under CLDDP and IPDDP per pass, as JAX runs
+    them there. Returns (launches {entry: n},
     {fleet key: (problem, x0)} for the timings)."""
     from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
 
@@ -6505,10 +6621,12 @@ def phase_sc_fleets(tt, dev, smi, refs):
                 label = f"{model} MPC {solver} fleet (N={N})"
                 if N != at:
                     # LogDDP without its kernel is the plain driver (kernel 4
-                    # seeds it): at B_CHECK, as phase 17's plain fleets.
+                    # seeds it), and CLDDP without kernel 1 runs the plain
+                    # Riccati recursion (the two-body model): at B_CHECK, as
+                    # phase 17's plain fleets.
                     how = ", plain driver" if solver == "LogDDP" else ", per pass"
-                    family_fleet_run(label + how, prob, x0[:B_CHECK] if solver == "LogDDP" else x0,
-                                     solver, opts, per_pass[solver], smi, tag="spacecraft")
+                    family_fleet_run(label + how, prob, sc_fleet_x0(x0, solver, model), solver,
+                                     opts, per_pass[solver], smi, tag="spacecraft")
                     continue
                 fleets[("mpc", kernel, model)] = (prob, x0)
                 want = ({name: 1} if solver == "CLDDP"
@@ -6516,23 +6634,16 @@ def phase_sc_fleets(tt, dev, smi, refs):
                 counts = family_fleet_run(label, prob, x0, solver, opts, want, smi,
                                           megas[solver], tag="spacecraft")
                 launches[name] = counts[name]
-        sol, ms, counts = refs[("msipddp", model)]
-        if counts:
-            raise AssertionError(f"{model} MSIPDDP plain fleet: launches {counts}")
-        conv = (sol.status_code == 1) | (sol.status_code == 2)
-        print(f"[spacecraft] {model} MPC MSIPDDP fleet (N={MPC_N}, plain driver, the side "
-              f"process), B={sol.status_code.numel()}, {SC_ITERS} iterations: converged "
-              f"{float(conv.double().mean()):.4%}, statuses "
-              f"{torch.bincount(sol.status_code.long(), minlength=5).tolist()}, iterations mean "
-              f"{float(sol.iterations_completed.double().mean()):.3f}; {ms:.2f} ms; launches "
-              f"{{}}  [{smi}]")
+        plain_fleet_summary(f"{model} MPC MSIPDDP fleet (N={MPC_N}, plain driver, the side "
+                            f"process)", refs[("msipddp", model)], "spacecraft", smi)
     print(f"[spacecraft] (b) done in {time.perf_counter() - t0:.1f} s")
     for model in SC_MODELS:
         prob, x0 = sc_mpc_x0(tt, dev, model, SC_LONG_N, SC_LONG_B)
         per_pass = sc_per_pass(model)
         for solver in ("CLDDP", "IPDDP"):
             counts = family_fleet_run(f"{model} N={SC_LONG_N} {solver} fleet, per pass", prob,
-                                      x0, solver, opts, per_pass[solver], smi, tag="spacecraft")
+                                      sc_fleet_x0(x0, solver, model), solver, opts,
+                                      per_pass[solver], smi, tag="spacecraft")
             launches.update({e[0]: counts[e[1]] for e in sc_entries()
                              if e[3] == model and e[1] in per_pass[solver]})
         del prob, x0
@@ -6563,37 +6674,349 @@ def time_sc_kernels(tt, dev, fleets, plain, smi):
     cold seeds, each one's bound from one counted launch's work (their
     plain drivers' float32 ms from (a), ``plain``). Returns {entry: timing
     tuple}."""
-    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
-
-    t0 = time.perf_counter()
     out, _ = time_lane_kernels(tt, dev, smi, "spacecraft", SC_MODELS, sc_maker, sc_stage,
                                sc_ip_stage, lambda: sc_options(tt, SC_ITERS), SC_LONG_B,
                                plain_b=SC_KERNEL_B)
-    opts = sc_options(tt, SC_ITERS)
-    for model in SC_MODELS:
-        runs, work = {}, {}
-        for solver in whole_solvers(sc_family(), model):
-            kernel = WHOLE_KERNELS[solver]
-            prob, x0 = fleets[("mpc", kernel, model)]
-            p = prob.replace(x0=x0)
-            if solver == "CLDDP":
-                seeds = clddp_solve_seeds(x0, prob)
-                runs[kernel] = (lambda p=p, s=seeds: mega_clddp._launch(p, opts, *s), 10, None, 1)
-                work[kernel] = clddp_solve_work(p, opts, seeds)
-            elif solver == "IPDDP":
-                p7, seeds = ip_seeds(prob, opts, x0)
-                runs[kernel] = (lambda p=p7, s=seeds: mega_ipddp._launch(p, opts, *s), 10, None,
-                                1)
-                work[kernel] = seed_ipddp_work(tt, p7, opts, seeds)
-            else:
-                seeds = barrier_seeds("LogDDP", p, opts)
-                runs[kernel] = (lambda p=p, s=seeds: mega_logddp._launch(p, opts, *s), 10, None,
-                                1)
-                work[kernel] = logddp_solve_work(tt, p, opts, seeds)
-        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper",
-                              plain_ms={k: plain[f"{k}@{model}"] for k in runs})
-        out.update({f"{k}@{model}": v for k, v in timing.items()})
-        print(f"[spacecraft] {model}'s whole solves timed at {time.perf_counter() - t0:.1f} s")
+    out.update(time_whole_solves(tt, sc_family(), lambda k, m: fleets[("mpc", k, m)],
+                                 sc_options(tt, SC_ITERS), plain, smi))
+    return out
+
+
+# --- phase 19: the small models ------------------------------------------------
+
+SMALL_MODELS = ("bicycle", "dubins_car", "dreyfus_rocket", "acrobot")
+SMALL_CLASSES = {"Bicycle": "bicycle", "DubinsCar": "dubins_car",
+                 "DreyfusRocket": "dreyfus_rocket", "Acrobot": "acrobot"}
+# (nx, nu, m: the control box's rows) of each model.
+SMALL_SHAPES = {"bicycle": (4, 2, 4), "dubins_car": (3, 1, 2), "dreyfus_rocket": (2, 1, 2),
+                "acrobot": (4, 1, 2)}
+
+
+class SmallSpec(typing.NamedTuple):
+    """A small model's MPC problem: the model's parameters (its class's
+    keywords), dt, x0 and its widths (a fleet's x0 is x0 + widths (U(0, 1)
+    - 0.5), ``fleet_x0``), the Q, R and Qf diagonals, the goal and the
+    control box."""
+
+    params: dict
+    dt: float
+    x0: tuple
+    widths: tuple
+    Q: tuple
+    R: tuple
+    Qf: tuple
+    goal: tuple
+    lower: tuple
+    upper: tuple
+
+
+# Parameters and x0 are the JAX package's lane tests'
+# (tests/test_model_lanes.py:40-47), rk4 throughout.
+# bicycle: lane-keeping and parking MPC for car-like robots: from 1 m/s at
+#   a heading of 0.3 rad to rest at (2, 1), heading 0; acceleration +-2
+#   m/s^2, steering +-0.5 rad.
+# dubins_car: fixed-speed UAV and boat heading: at 1.2 m/s onto the line y
+#   = 1 at heading 0 (x is free: the speed cannot stop at a point), turn
+#   rate +-1 rad/s.
+# dreyfus_rocket: ascent guidance (the defaults' 64 and 32 ft/s^2): to a
+#   hover 2 ft up, the thrust angle in [0, 1.5] rad.
+# acrobot: the JAX whole-solve case's costs, box and dt
+#   (tests/test_mega_clddp.py:364-376): swing toward 0 under a +-5 torque.
+SMALL_SPECS = {
+    "bicycle": SmallSpec({"wheelbase": 1.4}, 0.1, (0.0, 0.0, 0.3, 1.0), (0.5, 0.5, 0.2, 0.4),
+                         (1.0, 1.0, 0.1, 0.1), (0.1, 0.1), (50.0, 50.0, 5.0, 5.0),
+                         (2.0, 1.0, 0.0, 0.0), (-2.0, -0.5), (2.0, 0.5)),
+    "dubins_car": SmallSpec({"speed": 1.2}, 0.1, (0.0, 0.0, 0.2), (1.0, 1.0, 0.4),
+                            (0.0, 1.0, 0.1), (0.1,), (0.0, 10.0, 1.0), (0.0, 1.0, 0.0),
+                            (-1.0,), (1.0,)),
+    "dreyfus_rocket": SmallSpec({}, 0.05, (0.0, 0.0), (0.5, 1.0), (1.0, 0.1), (0.1,),
+                                (100.0, 10.0), (2.0, 0.0), (0.0,), (1.5,)),
+    "acrobot": SmallSpec({}, 0.05, (0.1, -0.2, 0.05, 0.1), (0.2,) * 4, (0.1,) * 4, (0.05,),
+                         (100.0,) * 4, (0.0,) * 4, (-5.0,), (5.0,)),
+}
+SMALL_KERNELS = {**WHOLE_KERNELS, "MSIPDDP": "msipddp_solve"}
+SMALL_LONG_N = 100  # (c)'s long-horizon fleets
+SMALL_LONG_B = 65536
+SMALL_ITERS = 10  # the fleets' budget, at tolerance 1e-4
+SMALL_KERNEL_B = 1024  # (a)'s kernels 1, 2 and 4 at N = SMALL_LONG_N
+# (a)'s whole solves: kernel 8's exact budget (its filter forks at roundoff
+# ties past it, ROADMAP C.1), the others' too.
+SMALL_WHOLE_ITERS = MS_EXACT_ITERS
+
+
+def small_entries():
+    """Phase 19's kernels, each an entry of the kernels' JSON line: (entry
+    name, dispatch_log name, kernel, model, launcher without its type
+    suffix); kernels 1 and 6 log their shape; the whole solves where their
+    tables take the model (``whole_takes``)."""
+    out = []
+    for model in SMALL_MODELS:
+        nx, nu, m = SMALL_SHAPES[model]
+        for kernel, logged, launcher in (
+                ("riccati_backward", f"riccati_backward@{nx}x{nu}",
+                 f"cddp_riccati_backward_{nx}x{nu}"),
+                ("forward_rollout", f"forward_rollout@{model}", f"cddp_forward_rollout_{model}"),
+                ("clddp_solve", f"clddp_solve@{model}", f"cddp_clddp_solve_{model}"),
+                ("open_loop_rollout", f"open_loop_rollout@{model}",
+                 f"cddp_open_loop_rollout_{model}"),
+                ("ip_forward", f"ip_forward@{model}", f"cddp_ip_forward_{model}_m{m}"),
+                ("ipddp_backward", f"ipddp_backward@{nx}x{nu}x{m}",
+                 f"cddp_ipddp_backward_{nx}x{nu}x{m}"),
+                ("ipddp_solve", f"ipddp_solve@{model}", f"cddp_ipddp_solve_{model}_m{m}"),
+                ("msipddp_solve", f"msipddp_solve@{model}", f"cddp_msipddp_solve_{model}_m{m}"),
+                ("logddp_solve", f"logddp_solve@{model}", f"cddp_logddp_solve_{model}_m{m}")):
+            if kernel not in SMALL_KERNELS.values() or whole_takes(kernel, model):
+                out.append((f"{kernel}@{model}", logged, kernel, model, launcher))
+    return tuple(out)
+
+
+def small_problem(tt, dtype, device, model, horizon=None):
+    """``model``'s MPC problem (``SMALL_SPECS``) at N = ``horizon``
+    (SMALL_LONG_N when None), rk4. Its tensors and model are in ``dtype``,
+    as a solve casts them."""
+    from cddp_tpu_torch import models
+    from cddp_tpu_torch.solvers.base import canonicalize_problem_dtype
+
+    s = SMALL_SPECS[model]
+    kw = dict(device=device, dtype=dtype)
+    diag = lambda v: torch.as_tensor(v, dtype=torch.float64).diag()  # noqa: E731
+    cls = next(c for c, m in SMALL_CLASSES.items() if m == model)
+    obj = tt.quadratic_objective(diag(s.Q), diag(s.R), diag(s.Qf), list(s.goal), s.dt, **kw)
+    prob = tt.problem(getattr(models, cls)(**s.params, integration_type="rk4"), obj,
+                      list(s.x0), horizon or SMALL_LONG_N, s.dt, **kw).add_constraint(
+        "ControlConstraint", tt.control_constraint(list(s.lower), list(s.upper), **kw))
+    return canonicalize_problem_dtype(prob)
+
+
+def small_options(tt, iterations):
+    """The fleets' options: tolerance 1e-4, ``iterations``."""
+    return tt.CDDPOptions(max_iterations=iterations, tolerance=1e-4)
+
+
+def small_maker(model, horizon=None):
+    """``small_problem`` as a ``make_problem(tt, dtype, device)``."""
+    return lambda tt, dtype, dev: small_problem(tt, dtype, dev, model, horizon)
+
+
+def box_midpoint(prob, B):
+    """(B, N, nu) controls at the control box's midpoint."""
+    cc = prob.get_constraint("ControlConstraint")
+    return ((cc.lower + cc.upper) / 2).expand(B, prob.horizon, -1).contiguous()
+
+
+def small_family():
+    """Phase 19's family, with kernel 8, every solve seeded at the box's
+    midpoint (read when called: the dry run cuts its sizes). The midpoint
+    is zero but for DreyfusRocket's thrust angle, where zero controls would
+    hold every solve still: cos has no slope there, so the backward pass
+    sees B = 0 and a gradient of 0, and CLDDP stops at its first iteration
+    with the cold seed's cost."""
+    return Family("small", SMALL_MODELS, small_problem, small_options, MPC_N,
+                  SMALL_WHOLE_ITERS, SEED + 91, SMALL_KERNELS, box_midpoint)
+
+
+def linearization(back):
+    """A, B and lx of a backward's operands side by side, (batch, N, nx (nx
+    + nu + 1)): DreyfusRocket's A and DubinsCar's B are the same at every
+    instance and step, and DreyfusRocket's B, one value, repeats by chance
+    among millions of float32 draws; the three together do not."""
+    return torch.cat([back[0].flatten(2), back[1].flatten(2), back[2]], -1)
+
+
+def small_stage(prob, B, gen):
+    """``sc_stage``'s operands, their linearization differing between
+    instances and steps."""
+    return sc_stage(prob, B, gen, linearization)
+
+
+def small_ip_stage(tt, prob, B, gen, opts):
+    """``sc_ip_stage``'s operands, their linearization differing between
+    instances and steps."""
+    return sc_ip_stage(tt, prob, B, gen, opts, linearization)
+
+
+def small_lane_checks(tt, dev, models):
+    """(a) every new instantiation of kernels 1, 2, 4, 5 and 6 on ``models``
+    against its plain version at N = SMALL_LONG_N, staged as phase 18
+    stages them (``small_stage``, ``small_ip_stage``; ``phase_lane_kernels``: float64 within ZOO_RTOL plus twice
+    the plain version's one-ulp move, float32 by ``check``'s rule, kernel 1
+    with ``ties``). Returns {dtype: {entry: err}}."""
+    errs = {"float64": {}, "float32": {}}
+    phase_lane_kernels(tt, dev, errs, "small", models, small_maker, small_stage, small_ip_stage,
+                       lambda: small_options(tt, SMALL_ITERS), SMALL_KERNEL_B,
+                       SEED + 93 + SMALL_MODELS.index(models[0]))
+    return errs
+
+
+def small_mpc_x0(tt, dev, model, horizon, B):
+    """The fleet's problem (float32, N = ``horizon``) and its B x0
+    (``fleet_x0`` from SEED)."""
+    prob = small_problem(tt, torch.float32, dev, model, horizon)
+    return prob, fleet_x0(prob, B, torch.Generator(device=dev).manual_seed(SEED))
+
+
+def small_plain_fleets():
+    """(model, solver) of (b)'s MPC fleets that run the plain driver: LogDDP
+    and MSIPDDP where the whole solve does not take the model at N = MPC_N
+    (kernel 8 on the acrobot, ROADMAP C.14)."""
+    fam = small_family()
+    return [(model, solver) for model in SMALL_MODELS for solver in ("LogDDP", "MSIPDDP")
+            if not (whole_takes(SMALL_KERNELS[solver], model)
+                    and fleet_horizon(fam, SMALL_KERNELS[solver], model) == MPC_N)]
+
+
+def small_plain_refs(tt, dev):
+    """The plain drivers phase 19 holds its whole solves to
+    (``whole_refs``), and (b)'s MPC fleets that run the plain driver
+    (``small_plain_fleets``), as phase 18's run in this process: the first
+    B_CHECK of the fleet's x0 from the box's midpoint, SMALL_ITERS
+    iterations, no kernel (``solve_engine="xla"``, ``backward_engine="scan"``),
+    with its host ms and launches. Returns {key: value}."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    out, t0 = {}, time.perf_counter()
+    fam = small_family()
+    whole_refs(tt, dev, fam, out)
+    print(f"the small models' whole solves' plain drivers done at "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    opts = small_options(tt, SMALL_ITERS).replace(solve_engine="xla", backward_engine="scan")
+    for model, solver in small_plain_fleets():
+        prob, x0 = small_mpc_x0(tt, dev, model, MPC_N, B_MAIN)
+        dispatch_log.reset()
+        sol = timed_plain(lambda: batched_solve(prob, x0[:B_CHECK], solver, opts,
+                                                U0_batch=seed_controls(fam, prob, B_CHECK)))
+        out[("plain fleet", model, solver)] = (sol, LAST_PLAIN_MS[0],
+                                               dict(dispatch_log.launches))
+    return out
+
+
+def small_checks(tt, dev, refs):
+    """Phase 19's (a) in the main process: the whole solves 3, 7, 8 and 9
+    (``whole_cases``) against the plain references' process's runs
+    (``refs``, a ``Side``); kernels 1, 2, 4, 5 and 6 are checked in a side
+    process (``small_lane_checks`` in ``zoo_side_checks``). Returns
+    ({dtype: {entry: err}}, {entry: float32 plain ms}, the references)."""
+    t0 = time.perf_counter()
+    try:
+        refs_out = refs.result(dev)
+    finally:
+        refs.close()
+    print(f"[small] plain references in at {time.perf_counter() - t0:.1f} s")
+    errs, plain = {"float64": {}, "float32": {}}, {}
+    check_whole(tt, dev, small_family(), refs_out, errs, plain)
+    print(f"[small] (a)'s whole solves done in {time.perf_counter() - t0:.1f} s")
+    return errs, plain, refs_out
+
+
+def small_per_pass(model):
+    """The kernels a per-pass CLDDP and IPDDP run of ``model`` launches."""
+    nx, nu, m = SMALL_SHAPES[model]
+    return {"CLDDP": {f"forward_rollout@{model}", f"riccati_backward@{nx}x{nu}"},
+            "IPDDP": {f"open_loop_rollout@{model}", f"ipddp_backward@{nx}x{nu}x{m}",
+                      f"ip_forward@{model}"}}
+
+
+def phase_small_fleets(tt, dev, smi, refs):
+    """(b) the MPC fleets (N = MPC_N, B_MAIN, float32, SMALL_ITERS at
+    tolerance 1e-4) under CLDDP, IPDDP, MSIPDDP and LogDDP through the
+    default engine, each with the launch counts zeroed just before it and
+    read just after: one whole-solve launch (kernel 4's seed before kernels
+    7, 8 and 9) where the tables take the model, else per pass (CLDDP,
+    IPDDP) or the plain driver (LogDDP, MSIPDDP: the side process's run at
+    B_CHECK, ``refs``); a whole solve the gates take only at a shorter
+    horizon, on the same fleet at that horizon (``fleet_horizon``; none at
+    full size).
+    (c) the long-horizon fleets (N = SMALL_LONG_N, SMALL_LONG_B)
+    under CLDDP and IPDDP through the default engine, whose route follows
+    the gates (``rollout.WHOLE_MAX_HORIZON``), and where that route is a
+    whole solve, again through the per-pass engine (``solve_engine="xla"``),
+    which then drives kernels 1, 2, 5 and 6. Returns (launches {entry: n},
+    {fleet key: (problem, x0)} for the timings)."""
+    from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp, mega_msipddp
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    megas = {"CLDDP": mega_clddp, "IPDDP": mega_ipddp, "MSIPDDP": mega_msipddp,
+             "LogDDP": mega_logddp}
+    fam, opts = small_family(), small_options(tt, SMALL_ITERS)
+    launches, fleets, t0 = {}, {}, time.perf_counter()
+
+    def run_(label, prob, x0, solver, o, want, mega=None):
+        return family_fleet_run(label, prob, x0, solver, o, want, smi, mega, tag="small",
+                                U0=seed_controls(fam, prob, x0.shape[0]))
+
+    def whole_run_(label, prob, x0, solver, kernel, model):
+        name = f"{kernel}@{model}"
+        want = ({name: 1} if solver == "CLDDP"
+                else {name: 1, f"open_loop_rollout@{model}": 1})
+        counts = run_(label, prob, x0, solver, opts, want, megas[solver])
+        launches[name] = launches.get(name, 0) + counts[name]
+
+    for model in SMALL_MODELS:
+        per_pass = small_per_pass(model)
+        for solver, kernel in SMALL_KERNELS.items():
+            at = fleet_horizon(fam, kernel, model) if whole_takes(kernel, model) else None
+            for N in sorted({MPC_N, at} - {None}):
+                prob, x0 = small_mpc_x0(tt, dev, model, N, B_MAIN)
+                label = f"{model} MPC {solver} fleet (N={N})"
+                if N == at:
+                    fleets[("mpc", kernel, model)] = (prob, x0)
+                    whole_run_(label, prob, x0, solver, kernel, model)
+                elif solver in ("CLDDP", "IPDDP"):
+                    run_(label + ", per pass", prob, x0, solver, opts, per_pass[solver])
+                else:
+                    plain_fleet_summary(f"{label}, plain driver, the side process",
+                                        refs[("plain fleet", model, solver)], "small", smi)
+    print(f"[small] (b) done in {time.perf_counter() - t0:.1f} s")
+    for model in SMALL_MODELS:
+        prob, x0 = small_mpc_x0(tt, dev, model, SMALL_LONG_N, SMALL_LONG_B)
+        per_pass = small_per_pass(model)
+        lane = rollout_ops.lane_consts(prob)
+        for solver, kernel in (("CLDDP", "clddp_solve"), ("IPDDP", "ipddp_solve")):
+            label = f"{model} N={SMALL_LONG_N} {solver} fleet"
+            whole = (whole_takes(kernel, model)
+                     and rollout_ops.whole_horizon_ok(kernel, lane, SMALL_LONG_N))
+            if whole:
+                whole_run_(label, prob, x0, solver, kernel, model)
+            counts = run_(label + ", per pass", prob, x0, solver,
+                          opts.replace(solve_engine="xla") if whole else opts, per_pass[solver])
+            launches.update({e[0]: counts[e[1]] for e in small_entries()
+                             if e[3] == model and e[1] in per_pass[solver]})
+        del prob, x0
+        torch.cuda.empty_cache()
+    print(f"[small] (c) done in {time.perf_counter() - t0:.1f} s")
+    return launches, fleets
+
+
+def phase_small(tt, dev, smi, checked, lane_errs):
+    """Phase 19, the small models. (a) ran before it (``small_checks``:
+    ``checked``; the side process's ``small_lane_checks``: ``lane_errs``);
+    then (b) and (c) alone on the card (``phase_small_fleets``; every
+    entry's times and bound follow in ``time_small_kernels``). Returns
+    ({entry: launches}, {dtype: {entry: err}}, {fleet key: (problem, x0)},
+    {entry: plain ms})."""
+    t0 = time.perf_counter()
+    (whole_errs, plain, refs), lane_errs = checked, checked_errs("phase 19", lane_errs)
+    errs = {tag: {**lane_errs[tag], **whole_errs[tag]} for tag in lane_errs}
+    checked_errs("phase 19", errs)
+    launches, fleets = phase_small_fleets(tt, dev, smi, refs)
+    print(f"[small] fleets done in {time.perf_counter() - t0:.1f} s")
+    return launches, errs, fleets, plain
+
+
+def time_small_kernels(tt, dev, fleets, plain, smi):
+    """(d) every phase-19 entry's wrapper and device ms, plain ms and bound:
+    kernels 1, 2, 4, 5 and 6 at SMALL_LONG_B on operands staged as in (a)
+    (``time_lane_kernels``; their plain versions timed on the first
+    SMALL_KERNEL_B instances), the whole solves at B_MAIN on their MPC
+    fleets' cold seeds, each one's bound from one counted launch's work
+    (their plain drivers' float32 ms from (a), ``plain``). Returns {entry:
+    timing tuple}."""
+    out, _ = time_lane_kernels(tt, dev, smi, "small", SMALL_MODELS, small_maker, small_stage,
+                               small_ip_stage, lambda: small_options(tt, SMALL_ITERS),
+                               SMALL_LONG_B, plain_b=SMALL_KERNEL_B)
+    out.update(time_whole_solves(tt, small_family(), lambda k, m: fleets[("mpc", k, m)],
+                                 small_options(tt, SMALL_ITERS), plain, smi))
     return out
 
 
@@ -6618,11 +7041,12 @@ def side_checks(tt, dev):
 
 
 def zoo_side_checks(tt, dev):
-    """Phases 7, 11 and 14's kernel-against-plain checks, which a second
+    """Phases 7, 11, 14 and 19's kernel-against-plain checks, which a second
     side process runs beside ``side_checks``: kernel 7's ball variants and
     kernel 6 at m = 5 (``phase_obstacle_kernels``), the tracking variants
-    (``tracking_checks``) and phase 14's (a) (``zoo_checks``). Returns
-    their results by phase."""
+    (``tracking_checks``), phase 14's (a) (``zoo_checks``) and phase 19's
+    kernels 1, 2, 4, 5 and 6 (``small_lane_checks``). Returns their results
+    by phase."""
     t0 = time.perf_counter()
     out = {"zoo": zoo_checks(tt, dev)}
     print(f"phase 14's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
@@ -6630,19 +7054,25 @@ def zoo_side_checks(tt, dev):
     print(f"phase 7's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
     out["tracking"] = tracking_checks(tt, dev)
     print(f"phase 11's checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["small"] = small_lane_checks(tt, dev, SMALL_MODELS)
+    print(f"phase 19's per-pass kernels' checks done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return out
 
 
 SIDE_RUNS = {"quadrotor": quad_plain_refs, "attitude": attitude_plain_refs,
-             "spacecraft": sc_plain_refs, "checks": side_checks, "zoo": zoo_side_checks}
+             "spacecraft": sc_plain_refs, "small": small_plain_refs, "checks": side_checks,
+             "zoo": zoo_side_checks}
 # The side processes that check kernels (and so build the library); the
 # others run plain drivers only.
 CHECK_SIDES = ("checks", "zoo")
 # Side processes that run several of SIDE_RUNS in turn, each part's result
 # under its name: phase 16's plain references are in by 120-180 s, well
-# before they are read, so phase 18's follow them in the same process (one
-# process fewer sharing the card and the host's cores).
-SIDE_PARTS = {"quadrotor+spacecraft": ("quadrotor", "spacecraft")}
+# before they are read, so phase 18's and 19's follow them in the same
+# process (one process fewer sharing the card and the host's cores; after
+# phase 17's, phase 19's held the main process up by 73 s on an NVIDIA
+# H100 80GB HBM3).
+SIDE_PARTS = {"quadrotor+spacecraft+small": ("quadrotor", "spacecraft", "small")}
 
 
 def main():
@@ -6662,7 +7092,7 @@ def main():
     # Phases 16 and 17's plain references run plain drivers only: their
     # processes start now, beside the kernels' build, and are done before
     # the phases read them.
-    refs = {kind: Side(kind) for kind in ("quadrotor+spacecraft", "attitude")}
+    refs = {kind: Side(kind) for kind in ("quadrotor+spacecraft+small", "attitude")}
     try:
         run(t_start, smi, dev, kind, refs)
     finally:
@@ -6671,7 +7101,7 @@ def main():
 
 
 def run(t_start, smi, dev, kind, refs):
-    """Phases 2-18 and the result lines (``main``)."""
+    """Phases 2-19 and the result lines (``main``)."""
     import cddp_tpu_torch as tt
     from cddp_tpu_torch.ops.kernels import build, dispatch_log
     from cddp_tpu_torch.parallel.batch import batched_solve
@@ -6702,10 +7132,12 @@ def run(t_start, smi, dev, kind, refs):
     try:
         errs = phase_kernels(tt, dev)
         print(f"[clock] phase 3 done at {time.perf_counter() - t_start:.1f} s")
-        quad_checked = quad_checks(tt, dev, smi, refs["quadrotor+spacecraft"].part("quadrotor"))
+        side_refs = refs["quadrotor+spacecraft+small"]
+        quad_checked = quad_checks(tt, dev, smi, side_refs.part("quadrotor"))
         att_checked = attitude_checks(tt, dev, smi, refs["attitude"])
-        sc_checked = sc_checks(tt, dev, refs["quadrotor+spacecraft"].part("spacecraft"))
-        print(f"[clock] phases 16, 17 and 18's checks done at "
+        sc_checked = sc_checks(tt, dev, side_refs.part("spacecraft"))
+        small_checked = small_checks(tt, dev, side_refs.part("small"))
+        print(f"[clock] phases 16, 17, 18 and 19's checks done at "
               f"{time.perf_counter() - t_start:.1f} s")
         side_errs = {}
         for side in sides:
@@ -6727,6 +7159,9 @@ def run(t_start, smi, dev, kind, refs):
     print(f"[clock] phase 17 fleets done at {time.perf_counter() - t_start:.1f} s")
     sc_launches, sc_errs, sc_fleets, sc_plain = phase_spacecraft(tt, dev, smi, sc_checked)
     print(f"[clock] phase 18 fleets done at {time.perf_counter() - t_start:.1f} s")
+    small_launches, small_errs, small_fleets, small_plain = phase_small(
+        tt, dev, smi, small_checked, side_errs["small"])
+    print(f"[clock] phase 19 fleets done at {time.perf_counter() - t_start:.1f} s")
     zoo_timing = time_zoo_kernels(tt, zoo_fleets, zoo_plain, smi)
     dis_timing, dis_at = time_discrete_kernels(tt, dis_fleets, smi)
     print(f"[clock] phases 14-15 timings done at {time.perf_counter() - t_start:.1f} s")
@@ -6882,6 +7317,9 @@ def run(t_start, smi, dev, kind, refs):
     torch.cuda.empty_cache()
     sc_timing = time_sc_kernels(tt, dev, sc_fleets, sc_plain, smi)
     print(f"[clock] phase 18 timings done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    small_timing = time_small_kernels(tt, dev, small_fleets, small_plain, smi)
+    print(f"[clock] phase 19 timings done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
@@ -7129,6 +7567,38 @@ def run(t_start, smi, dev, kind, refs):
                          else f"B={SC_KERNEL_B} (the first of the operands), float32, "
                          f"N={SC_LONG_N}, after phases 4-17"),
             "batch": B_MAIN if whole else SC_LONG_B, "horizon": horizon,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "registers": a["registers"], "spill_bytes": a["spill_bytes"],
+            "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
+            "blocks_per_sm": a["blocks_per_sm"]})
+    # Phase 19's instantiations, each an entry of its own named with its
+    # model (kernels 1 and 6 log their shape, "dispatch_name"): launches in
+    # the phase's runs that drive it (the long-horizon fleets, per pass where
+    # the gates route them so or through the per-pass engine, for kernels 1,
+    # 2, 4, 5 and 6; the MPC fleets and the long-horizon fleets the gates
+    # keep whole for the whole solves), errors from (a), times and bound on
+    # those runs' operands (kernels 1-6 at SMALL_LONG_B and N = SMALL_LONG_N,
+    # the whole solves at B_MAIN and N = MPC_N), the whole solves' plain ms
+    # their plain drivers' at B_CHECK in (a) ("plain_at").
+    built = launchers()
+    for name, logged, kernel, model, launcher in small_entries():
+        ms, plain_ms, b_ms, b_by, dev_ms, source = small_timing[name]
+        a = build.kernel_attributes(f"{launcher}_f32")
+        src, rep = sources[kernel]
+        if launcher in built.get(f"{kernel}_small", ()):
+            src = f"cddp_tpu_torch/ops/csrc/{kernel}_small.cu"
+        whole = kernel in WHOLE_SOLVES
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "variant_of": kernel,
+            "model": model, "dispatch_name": logged, "launches": small_launches[name],
+            "max_abs_err": small_errs["float32"][name],
+            "max_abs_err_f64": small_errs["float64"][name],
+            "ms": ms, "device_ms": dev_ms, "device_ms_source": source, "plain_ms": plain_ms,
+            "plain_at": (f"B={B_CHECK}, float32, {SMALL_WHOLE_ITERS} iterations, N={MPC_N}, "
+                         "beside the kernels' build" if whole
+                         else f"B={SMALL_KERNEL_B} (the first of the operands), float32, "
+                         f"N={SMALL_LONG_N}, after phases 4-18"),
+            "batch": B_MAIN if whole else SMALL_LONG_B, "horizon": MPC_N if whole else SMALL_LONG_N,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "registers": a["registers"], "spill_bytes": a["spill_bytes"],
             "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],

@@ -101,10 +101,16 @@ def test_launchers_are_exported_and_registered(kernel):
 # kernel 5 on the thrust box m = 6, the lander's m = 4; kernel 3 on the
 # nonlinear model, 7 on the nonlinear and two-body models (m6), 9 on the
 # fuel model (m6); goal form; kernels 3, 6, 7 and 9 in translation units of
-# their own).
+# their own) and the small models (kernel 1 at (3, 1), DubinsCar's, beside
+# the shapes the others share; kernel 6 at (3, 1, 2) and (4, 1, 2); kernels
+# 2 and 4; kernels 5, 7, 8 and 9 on the control box, the bicycle's m = 4,
+# the others' m = 2, kernel 8 not on the acrobot; kernel 3; goal form;
+# kernels 3, 6, 7, 8 and 9 in translation units of their own).
 ATTITUDE = ("euler_attitude", "quaternion_attitude", "mrp_attitude")
 SPACECRAFT = ("sc_linear_fuel", "sc_nonlinear", "sc_landing2d", "sc_twobody")
 SC_BOX = ("sc_linear_fuel_m6", "sc_nonlinear_m6", "sc_landing2d_m4", "sc_twobody_m6")
+SMALL = ("bicycle", "dubins_car", "dreyfus_rocket", "acrobot")
+SMALL_BOX = ("bicycle_m4", "dubins_car_m2", "dreyfus_rocket_m2", "acrobot_m2")
 INSTANTIATIONS = {
     "ipddp_solve.cu": {f"cddp_ipddp_solve_unicycle_{v}"
                        for v in ("m4", "m6", "m10", "m5_ball0", "m5_ball4", "m4_track",
@@ -115,41 +121,46 @@ INSTANTIATIONS = {
     | {"cddp_ipddp_solve_hcw_m6_te6"},
     "ipddp_solve_attitude.cu": {f"cddp_ipddp_solve_{m}_m6" for m in ATTITUDE[1:]},
     "ipddp_solve_spacecraft.cu": {"cddp_ipddp_solve_sc_nonlinear_m6"},
+    "ipddp_solve_small.cu": {f"cddp_ipddp_solve_{v}" for v in SMALL_BOX},
     "ipddp_backward.cu": {f"cddp_ipddp_backward_3x2x{m}" for m in (4, 5, 6, 10)}
     | {"cddp_ipddp_backward_2x1x2", "cddp_ipddp_backward_4x2x4",
        "cddp_ipddp_backward_13x4x8", "cddp_ipddp_backward_10x4x8"},
     "ipddp_backward_attitude.cu": {"cddp_ipddp_backward_6x3x6", "cddp_ipddp_backward_7x3x6"},
     "ipddp_backward_spacecraft.cu": {"cddp_ipddp_backward_8x3x6", "cddp_ipddp_backward_10x3x6",
                                      "cddp_ipddp_backward_6x2x4"},
+    "ipddp_backward_small.cu": {"cddp_ipddp_backward_3x1x2", "cddp_ipddp_backward_4x1x2"},
     "ip_forward.cu": {f"cddp_ip_forward_{v}{t}"
                       for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2",
                                 "hcw_m6", "quadrotor_m8")
                       for t in ("", "_track")}
     | {"cddp_ip_forward_car_m4", "cddp_ip_forward_quadrotor_rate_m8"}
     | {f"cddp_ip_forward_{m}_m6" for m in ATTITUDE}
-    | {f"cddp_ip_forward_{v}" for v in SC_BOX},
+    | {f"cddp_ip_forward_{v}" for v in SC_BOX + SMALL_BOX},
     "forward_rollout.cu": {f"cddp_forward_rollout_{m}{t}" for m in ("unicycle", "pendulum",
                                                                      "cartpole")
                            for t in ("", "_track")}
     | {f"cddp_forward_rollout_{m}" for m in ("car", "quadrotor", "quadrotor_rate") + ATTITUDE
-       + SPACECRAFT},
+       + SPACECRAFT + SMALL},
     "clddp_solve.cu": {f"cddp_clddp_solve_{m}{t}" for m in ("unicycle", "pendulum", "cartpole")
                        for t in ("", "_track")} | {f"cddp_clddp_solve_{m}" for m in ATTITUDE[:2]},
     "clddp_solve_spacecraft.cu": {"cddp_clddp_solve_sc_nonlinear"},
+    "clddp_solve_small.cu": {f"cddp_clddp_solve_{m}" for m in SMALL},
     "logddp_solve.cu": {f"cddp_logddp_solve_{v}{t}"
                         for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2")
                         for t in ("", "_track")} | {f"cddp_logddp_solve_{m}_m6" for m in ATTITUDE},
     "logddp_solve_spacecraft.cu": {"cddp_logddp_solve_sc_linear_fuel_m6"},
+    "logddp_solve_small.cu": {f"cddp_logddp_solve_{v}" for v in SMALL_BOX},
     "msipddp_solve.cu": {f"cddp_msipddp_solve_{v}{t}"
                          for v in ("unicycle_m4", "unicycle_m6", "unicycle_m10", "pendulum_m2")
                          for t in ("", "_track")},
+    "msipddp_solve_small.cu": {f"cddp_msipddp_solve_{v}" for v in SMALL_BOX[:3]},
     "riccati_backward.cu": {f"cddp_riccati_backward_{s}"
                             for s in ("3x2", "2x1", "4x1", "4x2", "13x4", "10x4", "6x3", "7x3",
-                                      "8x3", "10x3", "6x2")},
+                                      "8x3", "10x3", "6x2", "3x1")},
     "open_loop_rollout.cu": {f"cddp_open_loop_rollout_{m}"
                              for m in ("unicycle", "pendulum", "cartpole", "hcw", "car",
                                        "forklift", "quadrotor", "quadrotor_rate") + ATTITUDE
-                             + SPACECRAFT},
+                             + SPACECRAFT + SMALL},
 }
 
 
@@ -177,7 +188,8 @@ def test_ball_variants_are_the_layouts_the_wrapper_names():
             for layout, shapes in layouts.items()
             for mT, p in shapes} == launchers_of("ipddp_solve_terminal.cu")[0]
     assert (launchers_of("ipddp_backward.cu")[0] | launchers_of("ipddp_backward_attitude.cu")[0]
-            | launchers_of("ipddp_backward_spacecraft.cu")[0]) \
+            | launchers_of("ipddp_backward_spacecraft.cu")[0]
+            | launchers_of("ipddp_backward_small.cu")[0]) \
         == {f"cddp_ipddp_backward_{nx}x{nu}x{m}" for nx, nu, m in ipddp_riccati.KERNEL_SHAPES}
 
 

@@ -316,12 +316,14 @@ def test_phase_17_entries_name_built_launchers_and_logged_kernels():
 
 
 def _plain_whole_solves(monkeypatch):
-    """The whole-solve kernels 3, 7 and 9 replaced by their plain drivers,
-    which record a launch under the name the kernel logs and return work
-    rows of ones; the dispatchers call them on CPU tensors too."""
-    from cddp_tpu_torch.ops.kernels import dispatch_log, mega_clddp, mega_ipddp, mega_logddp
+    """The whole-solve kernels 3, 7, 8 and 9 replaced by their plain
+    drivers, which record a launch under the name the kernel logs and
+    return work rows of ones; the dispatchers call them on CPU tensors
+    too."""
+    from cddp_tpu_torch.ops.kernels import (dispatch_log, mega_clddp, mega_ipddp, mega_logddp,
+                                            mega_msipddp)
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
-    from cddp_tpu_torch.solvers import clddp, ipddp, logddp
+    from cddp_tpu_torch.solvers import clddp, ipddp, logddp, msipddp
 
     def counted(name, sol, B, rows):
         dispatch_log.launched(name, B)
@@ -343,6 +345,12 @@ def _plain_whole_solves(monkeypatch):
         return counted("logddp_solve" + lane.variant + lane.tag, logddp._drive(p, o, X, U, k, K),
                        X.shape[0], 2)
 
+    def k8(p, o, *seeds):
+        lane = rollout_ops.lane_consts(p)
+        sol, st = msipddp._drive(p, o, *seeds)
+        dispatch_log.launched("msipddp_solve" + lane.variant + lane.tag, sol.status_code.shape[0])
+        return sol, st, torch.ones(4, sol.status_code.shape[0])
+
     import dataclasses
 
     monkeypatch.setattr(mega_clddp, "launch_counting_work", k3)
@@ -351,6 +359,8 @@ def _plain_whole_solves(monkeypatch):
     monkeypatch.setattr(mega_ipddp, "ipddp_solve", lambda *a, **k: mega_ipddp._launch(*a, **k))
     monkeypatch.setattr(mega_logddp, "launch_counting_work", k9)
     monkeypatch.setattr(mega_logddp, "logddp_solve", lambda *a: mega_logddp._launch(*a))
+    monkeypatch.setattr(mega_msipddp, "launch_counting_work", k8)
+    monkeypatch.setattr(mega_msipddp, "msipddp_solve", lambda *a: mega_msipddp._launch(*a))
     monkeypatch.setattr(torch.cuda, "Event", lambda **k: type(
         "Event", (), {"record": lambda self: None, "elapsed_time": lambda self, o: 1.0})())
 
@@ -511,6 +521,115 @@ def test_phase_18_dry_run(monkeypatch):
     assert set(timing) == names and all(len(v) == 6 for v in timing.values())
 
 
+def test_phase_19_entries_name_built_launchers_and_logged_kernels():
+    """Each phase-19 entry's launcher is one the kernel library builds, its
+    dispatch_log name the one its kernel's wrapper logs for the small model
+    (kernels 1 and 6 at its shape, with its control box's m), and the
+    entries are the nine kernels of the models' path on each model, kernel
+    8 included, but any whole solve the tables leave out (``whole_takes``),
+    which then takes no horizon in ``rollout.WHOLE_MAX_HORIZON``; the new
+    shapes 3x1, 3x1x2 and 4x1x2 are built."""
+    import chip_smoke
+    from cddp_tpu_torch import models
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati, ip_rollout, mega_ipddp, riccati
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    built = {stem for stems in chip_smoke.launchers().values() for stem in stems}
+    assert {"cddp_riccati_backward_3x1", "cddp_ipddp_backward_3x1x2",
+            "cddp_ipddp_backward_4x1x2"} <= built
+    kernels = ("riccati_backward", "forward_rollout", "clddp_solve", "open_loop_rollout",
+               "ip_forward", "ipddp_backward", "ipddp_solve", "msipddp_solve", "logddp_solve")
+    whole = tuple(chip_smoke.SMALL_KERNELS.values())
+    left_out = {(k, m) for k in whole for m in chip_smoke.SMALL_MODELS
+                if not chip_smoke.whole_takes(k, m)}
+    assert {e[0] for e in chip_smoke.small_entries()} == {
+        f"{k}@{m}" for k in kernels for m in chip_smoke.SMALL_MODELS if (k, m) not in left_out}
+    assert set(whole) == {"clddp_solve", "ipddp_solve", "msipddp_solve", "logddp_solve"}
+    for cls, m in chip_smoke.SMALL_CLASSES.items():
+        mdl = getattr(models, cls)()
+        nx, nu, rows = chip_smoke.SMALL_SHAPES[m]
+        assert (mdl.state_dim, mdl.control_dim) == (nx, nu)
+        assert rollout_ops.model_entry(mdl).tag == "@" + m
+        for kernel in whole:
+            assert (m in rollout_ops.WHOLE_MAX_HORIZON[kernel]) == ((kernel, m) not in left_out)
+        assert m in rollout_ops.ROLLOUT_MODELS and m in rollout_ops.SMALL_MODELS
+        assert ip_rollout.KERNEL_ROWS[m] == (rows,)
+        assert mega_ipddp.MS_BOX_ROWS.get(m, (rows,)) == (rows,)
+    for name, logged, kernel, model, launcher in chip_smoke.small_entries():
+        assert launcher in built, launcher
+        nx, nu, rows = chip_smoke.SMALL_SHAPES[model]
+        if kernel == "riccati_backward":
+            assert logged == riccati.dispatch_name(nx, nu)
+        elif kernel == "ipddp_backward":
+            assert logged == ipddp_riccati.dispatch_name(nx, nu, rows)
+        else:
+            assert logged == name
+
+
+def test_phase_19_dry_run(monkeypatch):
+    """Phase 19's plumbing on the CPU at tiny sizes (B_CHECK = B_MAIN =
+    SMALL_LONG_B = 16, N = 5 and 3, every solve at most 2 iterations;
+    kernels 1, 2 and 4 checked on 64 instances, so that one instance off
+    float64 stays within ``check``'s TIE_SHARE): the per-pass kernels
+    replaced by their plain versions that count a launch
+    (``_plain_kernels``), the whole solves 3, 7, 8 and 9 by their plain
+    drivers (``_plain_whole_solves``), the side process's work (the plain
+    references) done in this process; the whole solves' longest horizons
+    cut to 4 (DreyfusRocket's CLDDP and IPDDP to 6, so that its N = 5 fleets
+    stay whole and the per-pass engine drives its kernels 1, 2, 5 and 6,
+    as at full size), kernel 8's on the bicycle to 2, below the MPC
+    horizon, where it then runs on the fleet at N = 2 (at full size every
+    gate takes the MPC horizon); each check, fleet and timing runs through,
+    and every entry of
+    ``small_entries`` gets its launches from a fleet that drives it, its
+    errors from (a) and its timing tuple."""
+    import chip_smoke
+    import cddp_tpu_torch as tt
+    from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
+
+    for name, value in (("B_CHECK", 16), ("B_MAIN", 16), ("SMALL_LONG_B", 16),
+                        ("SMALL_LONG_N", 5), ("MPC_N", 3), ("SMALL_KERNEL_B", 64),
+                        ("SMALL_ITERS", 2), ("SMALL_WHOLE_ITERS", 2), ("TIMING_BUDGET_MS", 1.0)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    horizons = {k: dict.fromkeys(v, 4) for k, v in rollout_ops.WHOLE_MAX_HORIZON.items()}
+    horizons["clddp_solve"]["dreyfus_rocket"] = horizons["ipddp_solve"]["dreyfus_rocket"] = 6
+    horizons["msipddp_solve"]["bicycle"] = 2
+    monkeypatch.setattr(rollout_ops, "WHOLE_MAX_HORIZON", horizons)
+    _plain_kernels(monkeypatch)
+    _plain_whole_solves(monkeypatch)
+
+    class Refs:  # the plain references computed in this process
+        def __init__(self, out):
+            self.out = out
+
+        def result(self, dev):
+            return self.out
+
+        def close(self):
+            pass
+
+    dev = torch.device("cpu")
+    lane_errs = chip_smoke.small_lane_checks(tt, dev, chip_smoke.SMALL_MODELS)
+    checked = chip_smoke.small_checks(tt, dev, Refs(chip_smoke.small_plain_refs(tt, dev)))
+    launches, errs, fleets, plain = chip_smoke.phase_small(tt, dev, "dry run", checked,
+                                                           lane_errs)
+    timing = chip_smoke.time_small_kernels(tt, dev, fleets, plain, "dry run")
+    names = {e[0] for e in chip_smoke.small_entries()}
+    assert set(launches) == names and all(n >= 1 for n in launches.values())
+    for model in chip_smoke.SMALL_MODELS:
+        assert launches[f"ipddp_backward@{model}"] == 2  # one a per-pass iteration
+        for kernel in chip_smoke.SMALL_KERNELS.values():
+            if chip_smoke.whole_takes(kernel, model):
+                # The MPC fleet, and DreyfusRocket's long fleets, which stay whole.
+                extra = model == "dreyfus_rocket" and kernel in ("clddp_solve", "ipddp_solve")
+                assert launches[f"{kernel}@{model}"] == 1 + extra
+    assert fleets[("mpc", "msipddp_solve", "bicycle")][0].horizon == 2
+    assert ("mpc", "msipddp_solve", "acrobot") not in fleets  # ROADMAP C.14
+    for tag in ("float64", "float32"):
+        assert set(errs[tag]) == names
+    assert set(timing) == names and all(len(v) == 6 for v in timing.values())
+
+
 @pytest.mark.parametrize("model", ["sc_nonlinear", "sc_landing2d", "mrp_attitude"])
 def test_count_ops_steps_is_the_full_count(model):
     """The op count from two- and three-step cuts (``count_ops_steps``, what
@@ -553,14 +672,14 @@ def test_count_ops_steps_is_the_full_count(model):
 
 
 def test_side_part_process_failure_is_raised():
-    """A part of a side process that runs several (``SIDE_PARTS``: phase 16's
-    and phase 18's plain references) is raised as the process's failure
+    """A part of a side process that runs several (``SIDE_PARTS``: phases
+    16, 18 and 19's plain references) is raised as the process's failure
     when the process ends without saving it (here it needs the card)."""
     import chip_smoke
 
-    refs = chip_smoke.Side("quadrotor+spacecraft")
+    refs = chip_smoke.Side("quadrotor+spacecraft+small")
     try:
-        for part in chip_smoke.SIDE_PARTS["quadrotor+spacecraft"]:
+        for part in chip_smoke.SIDE_PARTS["quadrotor+spacecraft+small"]:
             with pytest.raises(AssertionError, match="exited with status"):
                 refs.part(part).result(torch.device("cpu"))
     finally:

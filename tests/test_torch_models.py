@@ -209,8 +209,9 @@ def test_interop_carries_the_model_and_its_parameters(case):
 
 
 def test_interop_names_the_ported_models():
-    with pytest.raises(ValueError, match="CartPole.*HCW.*Pendulum.*Quadrotor.*Unicycle"):
-        problem_from_arrays("Acrobot", [], np.eye(4), np.eye(2), np.eye(4), np.zeros(4),
+    with pytest.raises(ValueError, match="Acrobot.*Bicycle.*CartPole.*DreyfusRocket.*DubinsCar"
+                                         ".*HCW.*Pendulum.*Quadrotor.*Unicycle"):
+        problem_from_arrays("Manipulator", [], np.eye(4), np.eye(2), np.eye(4), np.zeros(4),
                             None, None, np.zeros(4), 5, 0.1, "euler", device="cpu",
                             dtype=torch.float64)
 

@@ -473,7 +473,8 @@ def test_eligibility_tables():
     ("hcw", "CLDDP", "auto", ["riccati_backward@6x3"]),
     ("hcw", "CLDDP", "xla", ["riccati_backward@6x3"]),
     ("hcw", "LogDDP", "auto", ["open_loop_rollout@hcw"]),
-    ("cartpole", "IPDDP", "auto", ["open_loop_rollout@cartpole"]),
+    # Kernel 6 gates on shape: the acrobot's (4, 1, 2) takes the cart-pole's box.
+    ("cartpole", "IPDDP", "auto", ["open_loop_rollout@cartpole", "ipddp_backward@4x1x2"]),
     ("pendulum", "IPDDP", "xla", ["open_loop_rollout@pendulum", "ip_forward@pendulum",
                                   "ipddp_backward@2x1x2"]),
     ("hcw", "IPDDP", "xla", ["open_loop_rollout@hcw", "ip_forward@hcw",
@@ -487,9 +488,10 @@ def test_route_is_chosen_before_any_launch(case, solver, engine, plain_ops, capl
     """What a solve's dispatch decides, read from ``dispatch_log``'s records
     of the plain versions a CPU solve runs where a CUDA one would launch: a
     registered model whose (model, m, variant) has no kernel never reaches a
-    kernel wrapper (HCW's CLDDP, the cart-pole's IPDDP, HCW's LogDDP, kernel
-    6 at HCW's (6, 3, 6)), and one with a kernel reaches it under the
-    model's name."""
+    kernel wrapper (HCW's CLDDP, the cart-pole's forward trial, HCW's
+    LogDDP, kernel 6 at HCW's (6, 3, 6)), and one with a kernel reaches it
+    under the model's name, or for the shape-keyed kernels 1 and 6 under
+    its shape (the cart-pole's box at (4, 1, 2), the acrobot's)."""
     jp = {"pendulum": lambda: pendulum_box(6), "cartpole": lambda: cartpole_box(6),
           "hcw": lambda: hcw_box(6, terminal=False), "hcw_te": lambda: hcw_box(6)}[case]()
     p = port_zoo_problem(jp)
