@@ -17,7 +17,10 @@ small models of the JAX registry (``Bicycle``, ``DubinsCar``,
 attitude conversions in
 ``cddp_tpu_torch.utils.rotations``), as the JAX package solves them,
 towards a goal or along a per-step reference trajectory
-(``reference_states``); and batch-first receding-horizon MPC
+(``reference_states``), or with a nonlinear least-squares cost
+(``ResidualObjective``, Gauss-Newton derivatives; its tensors may carry
+one row per instance) or any cost by AD (``NonlinearObjective``); and
+batch-first receding-horizon MPC
 (``make_mpc_controller``), warm-started from a trajectory or from the
 interior-point solvers' state (``IPDDPSolverState``,
 ``MSIPDDPSolverState``), and the float64 ``polish`` of a float32 fleet.
@@ -28,7 +31,11 @@ interior-point forward pass, the condensed backward and the whole solve
 (box and keep-out-ball stacks, with the "auto" stall latch, and terminal
 constraints on the control box); the whole LogDDP and MSIPDDP solves. Each
 kernel is instantiated for the models and stacks its wrapper's table names;
-other problems run the plain driver. A discrete model (the car) steps its
+other problems run the plain driver. Users add model, cost and
+Gauss-Newton lanes with their own CUDA structs (``ip_rollout.
+register_model_lane``, ``register_cost_lane``, ``mega_ipddp.
+register_gn_cost_lane``): kernels 4, 5 and 7 are built for them at first
+use (the MPCC racing example, ``examples/mpcc_lib_torch.py``). A discrete model (the car) steps its
 exact map in place of an integrator in every kernel that steps a model
 (the rollouts and the interior-point forward pass); the whole solves
 refuse it, as the JAX package's do. CUDA tensors run the kernels; CPU
@@ -63,7 +70,8 @@ from cddp_tpu_torch.constraints.terminal import (
     terminal_equality_constraint,
     terminal_inequality_constraint,
 )
-from cddp_tpu_torch.costs.objective import QuadraticObjective, quadratic_objective
+from cddp_tpu_torch.costs.objective import (NonlinearObjective, Objective, QuadraticObjective,
+                                            ResidualObjective, quadratic_objective)
 from cddp_tpu_torch.models import (Acrobot, Bicycle, Car, DreyfusRocket, DubinsCar,
                                    EulerAttitude, Forklift, LTISystem, MrpAttitude, Quadrotor,
                                    QuadrotorRate, QuaternionAttitude, SpacecraftLanding2D,
@@ -94,7 +102,8 @@ __all__ = [
     "SpacecraftTwobody", "Acrobot", "Bicycle", "DreyfusRocket", "DubinsCar",
     "ControlConstraint", "IPDDPOptions", "IPDDPSolverState", "MSIPDDPSolverState", "LinearConstraint", "LogBarrierOptions",
     "MPCState", "MSIPDDPOptions", "MaxThrustMagnitudeConstraint", "MultiShootingOptions",
-    "PathConstraint", "PoleConstraint", "Problem", "QuadraticObjective",
+    "NonlinearObjective", "Objective", "PathConstraint", "PoleConstraint", "Problem",
+    "QuadraticObjective", "ResidualObjective",
     "SecondOrderConeConstraint", "Solution", "StateConstraint", "Status",
     "TerminalConstraint", "TerminalEqualityConstraint", "TerminalInequalityConstraint",
     "ThrustMagnitudeConstraint", "ball_constraint", "batched_solve",

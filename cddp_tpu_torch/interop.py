@@ -202,6 +202,21 @@ def solver_state_from_arrays(state, device=None, dtype=None):
                  for f in cls._fields))
 
 
+def track_from_arrays(cls, arrays, *, device, dtype=torch.float64):
+    """A track built elsewhere (the JAX package's ``mpcc_lib.Track`` or
+    ``LocalTrack``: their fields as numpy arrays, by name) as an instance
+    of the port's dataclass ``cls`` with the same fields
+    (``examples/mpcc_lib_torch.py``: the Fourier matrix, the samples, the
+    width and the length, or a window's coefficients, center, halfwidth,
+    width and length), on ``device`` in ``dtype``, so that both packages
+    read the same track. Raises on a missing field."""
+    missing = [f.name for f in dataclasses.fields(cls) if f.name not in arrays]
+    if missing:
+        raise ValueError(f"{cls.__name__}: missing fields {missing}")
+    return cls(**{f.name: torch.as_tensor(np.array(arrays[f.name]), device=device, dtype=dtype)
+                  for f in dataclasses.fields(cls)})
+
+
 def solution_to_numpy(sol, state=None) -> dict:
     """The fields a parity check compares, as numpy arrays. Solutions of the
     barrier solvers add mu and inf_pr (LogDDP: the violation), the

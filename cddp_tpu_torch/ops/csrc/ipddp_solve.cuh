@@ -86,12 +86,24 @@
 // apart (the Gramian against the driver's p+1 sweeps). The constants A, b
 // and the target are one read-only array beside Consts (TermArgs::c);
 // MT = PT = 0 compiles none of it.
+//
+// Gn (a user Gauss-Newton residual lane, lanes.cuh; mega_ipddp.py:603,
+// :647-720) makes the cost a lane's in place of the quadratic one: the
+// running cost sum r^2, the terminal cost sum r_T^2 + extra, and in the
+// backward lx = 2 Jx'r, lu = 2 Ju'r, lxx = 2 Jx'Jx, luu = 2 Ju'Ju, lux =
+// 2 Ju'Jx at each step and Vx = 2 J_T'r_T + grad extra, Vxx = sym(2 J_T'J_T)
+// at x_N, each residual Jacobian column by one forward-mode pass of the lane
+// (lanes.cuh::Dual), as the JAX kernel's jax.jvp takes them. The columns
+// are kept in local memory, each written once a step. The instances'
+// parameters cp (n_cp, B) and the lane's constants are CostArgs (by value).
+// Gn void (the quadratic cost) compiles none of it.
 #pragma once
 
 #include <type_traits>
 
 #include "ip_filter.cuh"
 #include "ipddp_step.cuh"
+#include "lanes.cuh"
 #include "models.cuh"
 #include "sweep_stage.cuh"
 
@@ -173,11 +185,15 @@ struct TermArgs<T, 0, 0> {};
 
 constexpr double kEpsDual = 1e-10;  // ipddp.EPS_DUAL
 
-template <typename T, class Mdl, int M, int BALL, bool TRACK, int MT = 0, int PT = 0>
+template <typename T, class Mdl, int M, int BALL, bool TRACK, int MT = 0, int PT = 0,
+          class Gn = void>
 struct IpSolver {
   static constexpr int NX = Mdl::NX, NU = Mdl::NU;
   static constexpr bool kBall = BALL >= 0;
   static constexpr bool kTerm = MT > 0 || PT > 0;
+  static constexpr bool kGn = !std::is_void_v<Gn>;
+  static_assert(!kGn || (!kBall && !TRACK && !kTerm),
+                "a GN lane's kernel takes a box stack, the goal form, no terminal rows");
   static_assert(PT == 0 || PT == NX, "the terminal equality is x_N = target: PT = nx");
   static_assert(PT == 0 || BALL < 0, "the terminal equality takes box stacks");
   // Staged values of one step (sweep_stage.cuh): Y, S, G, U always; X[t]
@@ -192,6 +208,7 @@ struct IpSolver {
   const BallRow<T, NX>& ball;
   const IpCfg<T>& cfg;
   const TermArgs<T, MT, PT>& term;
+  const CostArgs<T, Gn>& gn;
   const T* refs;
   T* X;
   T* U;
@@ -401,17 +418,138 @@ struct IpSolver {
     }
   }
 
+  // --- a GN lane (Gn) ----------------------------------------------------------
+  __device__ LaneParams<T> cp() const { return LaneParams<T>{gn.cp, Bs, b, gn.ncp}; }
+
+  // Step t's running cost: the quadratic one, or the lane's sum r^2.
+  __device__ T run_cost(int t, const T (&x)[NX], const T (&u)[NU]) const {
+    if constexpr (kGn) {
+      T r[Gn::NRES];
+      Gn::res(x, u, cp(), gn.w, t, r);
+      T s = T(0);
+#pragma unroll
+      for (int k2 = 0; k2 < Gn::NRES; ++k2) s = s + r[k2] * r[k2];
+      return s;
+    } else {
+      T rf[NX];
+      running_ref<TRACK>(c, refs, t, rf);
+      return running_cost(c, rf, x, u);
+    }
+  }
+
+  // The terminal cost: the quadratic one, or the lane's sum r_T^2 + extra.
+  __device__ T term_cost(const T (&x)[NX]) const {
+    if constexpr (kGn) {
+      T r[Gn::NTRES];
+      Gn::tres(x, cp(), gn.w, r);
+      T s = T(0);
+#pragma unroll
+      for (int k2 = 0; k2 < Gn::NTRES; ++k2) s = s + r[k2] * r[k2];
+      return s + Gn::textra(x, cp(), gn.w);
+    } else {
+      return terminal_cost(c, x);
+    }
+  }
+
+  // Column j of the Jacobians of the lane's residuals at (x, u): j < NX a
+  // state column, else control column j - NX (one forward-mode pass).
+  template <int NR>
+  __device__ void gn_column(int t, int j, const T (&x)[NX], const T (&u)[NU],
+                            T (&col)[NR]) const {
+    Dual<T> xd[NX], ud[NU], r[NR];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) xd[i] = Dual<T>{x[i], i == j ? T(1) : T(0)};
+#pragma unroll
+    for (int i = 0; i < NU; ++i) ud[i] = Dual<T>{u[i], i + NX == j ? T(1) : T(0)};
+    Gn::res(xd, ud, cp(), gn.w, t, r);
+#pragma unroll
+    for (int k2 = 0; k2 < NR; ++k2) col[k2] = r[k2].d;
+  }
+
+  // Step t's Gauss-Newton derivatives (ResidualObjective's): lx = 2 Jx'r,
+  // lu = 2 Ju'r, lxx = 2 Jx'Jx, luu = 2 Ju'Ju, lux = 2 Ju'Jx, each sum over
+  // the residuals in order, then doubled.
+  __device__ void gn_stage(int t, const T (&x)[NX], const T (&u)[NU], T (&lx)[NX], T (&lu)[NU],
+                           T (&lxx)[NX][NX], T (&luu)[NU][NU], T (&lux)[NU][NX]) const {
+    constexpr int NR = Gn::NRES;
+    T r0[NR], J[NX + NU][NR];
+    Gn::res(x, u, cp(), gn.w, t, r0);
+#pragma unroll 1
+    for (int j = 0; j < NX + NU; ++j) gn_column(t, j, x, u, J[j]);
+    auto dot = [&](const T (&a)[NR], const T (&b2)[NR]) {
+      T s = T(0);
+#pragma unroll
+      for (int k2 = 0; k2 < NR; ++k2) s = s + a[k2] * b2[k2];
+      return T(2) * s;
+    };
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      lx[i] = dot(J[i], r0);
+#pragma unroll
+      for (int j = 0; j < NX; ++j) lxx[i][j] = dot(J[i], J[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      lu[i] = dot(J[NX + i], r0);
+#pragma unroll
+      for (int j = 0; j < NU; ++j) luu[i][j] = dot(J[NX + i], J[NX + j]);
+#pragma unroll
+      for (int j = 0; j < NX; ++j) lux[i][j] = dot(J[NX + i], J[j]);
+    }
+  }
+
+  // The terminal value at x_N: Vx = 2 J_T'r_T + the extra's gradient, Vxx =
+  // sym(2 J_T'J_T) (the extra is affine).
+  __device__ void gn_terminal_value(const T (&xN)[NX], T (&Vx)[NX], T (&Vxx)[NX][NX]) const {
+    constexpr int NR = Gn::NTRES;
+    T r0[NR], J[NX][NR];
+    Gn::tres(xN, cp(), gn.w, r0);
+#pragma unroll 1
+    for (int j = 0; j < NX; ++j) {
+      Dual<T> xd[NX], r[NR];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xd[i] = Dual<T>{xN[i], i == j ? T(1) : T(0)};
+      Gn::tres(xd, cp(), gn.w, r);
+#pragma unroll
+      for (int k2 = 0; k2 < NR; ++k2) J[j][k2] = r[k2].d;
+      Vx[j] = Gn::textra(xd, cp(), gn.w).d;
+    }
+    T H[NX][NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      T a = T(0);
+#pragma unroll
+      for (int k2 = 0; k2 < NR; ++k2) a = a + J[i][k2] * r0[k2];
+      Vx[i] = T(2) * a + Vx[i];
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        T h = T(0);
+#pragma unroll
+        for (int k2 = 0; k2 < NR; ++k2) h = h + J[i][k2] * J[j][k2];
+        H[i][j] = T(2) * h;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Vxx[i][j] = T(0.5) * (H[i][j] + H[j][i]);
+  }
+
   __device__ T initial_cost() const {
     T J = T(0), x[NX], u[NU];
     for (int t = 0; t < N; ++t) {
       load(X, t, x);
       load(U, t, u);
-      T rf[NX];
-      running_ref<TRACK>(c, refs, t, rf);
-      J = J + running_cost(c, rf, x, u);
+      if constexpr (kGn) {
+        J = J + run_cost(t, x, u);
+      } else {
+        T rf[NX];
+        running_ref<TRACK>(c, refs, t, rf);
+        J = J + running_cost(c, rf, x, u);
+      }
     }
     load(X, N, x);
-    return J + terminal_cost(c, x);
+    return J + term_cost(x);
   }
 
   // inf_pr, inf_comp and theta of the nominal (Y, S, G) and its terminal
@@ -528,14 +666,19 @@ struct IpSolver {
   __device__ bool backward(T reg, T mu, T armed_w, BackStats<T>& bs) const {
     T xN[NX], Vx[NX], Vxx[NX][NX];
     load(X, N, xN);
+    if constexpr (kGn) {
+      gn_terminal_value(xN, Vx, Vxx);
+    } else {
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      T s = T(0);
+      for (int i = 0; i < NX; ++i) {
+        T s = T(0);
 #pragma unroll
-      for (int j = 0; j < NX; ++j) s = s + (xN[j] - c.goal[j]) * (T(2) * c.Qf[i][j]);
-      Vx[i] = s;
+        for (int j = 0; j < NX; ++j) s = s + (xN[j] - c.goal[j]) * (T(2) * c.Qf[i][j]);
+        Vx[i] = s;
 #pragma unroll
-      for (int j = 0; j < NX; ++j) Vxx[i][j] = T(0.5) * (T(2) * c.Qf[i][j] + T(2) * c.Qf[j][i]);
+        for (int j = 0; j < NX; ++j)
+          Vxx[i][j] = T(0.5) * (T(2) * c.Qf[i][j] + T(2) * c.Qf[j][i]);
+      }
     }
     T inf_pr_T = T(0), inf_comp_T = T(0);
     fold_terminal(xN, mu, Vx, Vxx, inf_pr_T, inf_comp_T);
@@ -546,16 +689,18 @@ struct IpSolver {
       for (int j = 0; j < NX; ++j) at(Kl, N, i, j, NX, NX) = Vxx[i][j];
     }
     T lxx[NX][NX], luu[NU][NU], lux[NU][NX];
+    if constexpr (!kGn) {
 #pragma unroll
-    for (int i = 0; i < NX; ++i)
+      for (int i = 0; i < NX; ++i)
 #pragma unroll
-      for (int j = 0; j < NX; ++j) lxx[i][j] = T(2) * c.Q[i][j];
+        for (int j = 0; j < NX; ++j) lxx[i][j] = T(2) * c.Q[i][j];
 #pragma unroll
-    for (int i = 0; i < NU; ++i) {
+      for (int i = 0; i < NU; ++i) {
 #pragma unroll
-      for (int j = 0; j < NU; ++j) luu[i][j] = T(2) * c.R[i][j];
+        for (int j = 0; j < NU; ++j) luu[i][j] = T(2) * c.R[i][j];
 #pragma unroll
-      for (int j = 0; j < NX; ++j) lux[i][j] = T(0);
+        for (int j = 0; j < NX; ++j) lux[i][j] = T(0);
+      }
     }
     bs = BackStats<T>{T(0), T(0), T(0), T(0), T(0), T(0)};
     bool ok = true;
@@ -570,21 +715,25 @@ struct IpSolver {
       st.get(stage, vS, s);
       st.get(stage, vG, g);
       linearize(x, u, A, Bm);
-      T rf[NX];
-      running_ref<TRACK>(c, refs, t, rf);
+      if constexpr (kGn) {
+        gn_stage(t, x, u, lx, lu, lxx, luu, lux);
+      } else {
+        T rf[NX];
+        running_ref<TRACK>(c, refs, t, rf);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        T a = T(0);
+        for (int i = 0; i < NX; ++i) {
+          T a = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) a = a + (x[j] - rf[j]) * (T(2) * c.Q[i][j]);
-        lx[i] = a;
-      }
+          for (int j = 0; j < NX; ++j) a = a + (x[j] - rf[j]) * (T(2) * c.Q[i][j]);
+          lx[i] = a;
+        }
 #pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        T a = T(0);
+        for (int i = 0; i < NU; ++i) {
+          T a = T(0);
 #pragma unroll
-        for (int j = 0; j < NU; ++j) a = a + u[j] * (T(2) * c.R[i][j]);
-        lu[i] = a;
+          for (int j = 0; j < NU; ++j) a = a + u[j] * (T(2) * c.R[i][j]);
+          lu[i] = a;
+        }
       }
       Condensed<T, M> cd;
       condense<T, M>(y, s, g, mu, cd);
@@ -1204,9 +1353,13 @@ struct IpSolver {
         for (int j = 0; j < NX; ++j) a = a + Kt[i][j] * dx[j];
         u[i] = st.get(stage, vU + i) + a_pr * kt[i] + a;
       }
-      T rf[NX];
-      running_ref<TRACK>(c, refs, t, rf);
-      o.J = o.J + running_cost(c, rf, x, u);
+      if constexpr (kGn) {
+        o.J = o.J + run_cost(t, x, u);
+      } else {
+        T rf[NX];
+        running_ref<TRACK>(c, refs, t, rf);
+        o.J = o.J + running_cost(c, rf, x, u);
+      }
       eval(x, u, g_n);
       if constexpr (kBall) {
         // The armed slack SOC (mega_ipddp.py:1729-1745): s := -g at the
@@ -1255,7 +1408,7 @@ struct IpSolver {
 #pragma unroll
       for (int i = 0; i < NX; ++i) x[i] = xn[i];
     }
-    o.J = o.J + terminal_cost(c, x);
+    o.J = o.J + term_cost(x);
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       T a = T(0);
@@ -1359,7 +1512,7 @@ constexpr int ipddp_solve_threads() {
 }
 
 template <typename T, class Mdl, int M, int BALL, bool TRACK, int MT, int PT,
-          int TH = ipddp_solve_threads<T, Mdl, M, BALL>()>
+          int TH = ipddp_solve_threads<T, Mdl, M, BALL>(), class Gn = void>
 __global__ void __launch_bounds__(TH, solve_min_blocks<T>()) ipddp_solve_kernel(
     T* __restrict__ X, T* __restrict__ U, T* __restrict__ Y, T* __restrict__ S,
     T* __restrict__ G, T* __restrict__ L, T* __restrict__ k, T* __restrict__ K,
@@ -1367,13 +1520,14 @@ __global__ void __launch_bounds__(TH, solve_min_blocks<T>()) ipddp_solve_kernel(
     const __grid_constant__ Consts<T, Mdl> c,
     const __grid_constant__ BoxRows<T, M, Mdl::NX, Mdl::NU> rows,
     const __grid_constant__ BallRow<T, Mdl::NX> ball, const __grid_constant__ IpCfg<T> cfg,
-    int N, int B, const __grid_constant__ TermArgs<T, MT, PT> term) {
+    int N, int B, const __grid_constant__ TermArgs<T, MT, PT> term,
+    const __grid_constant__ CostArgs<T, Gn> gn) {
   extern __shared__ __align__(16) unsigned char cddp_smem[];
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const size_t Bs = B;
-  using Sv = IpSolver<T, Mdl, M, BALL, TRACK, MT, PT>;
-  const Sv sv{c, rows, ball, cfg, term, refs, X, U, Y, S, G, L, k, K, kl, Kl, Bs, b, N,
+  using Sv = IpSolver<T, Mdl, M, BALL, TRACK, MT, PT, Gn>;
+  const Sv sv{c, rows, ball, cfg, term, gn, refs, X, U, Y, S, G, L, k, K, kl, Kl, Bs, b, N,
               Sv::Stage::make(cddp_smem)};
 
   T mu = stats[4 * Bs + b];
@@ -1562,11 +1716,12 @@ constexpr int ipddp_solve_smem() {
                         ipddp_solve_threads<T, Mdl, M, BALL>());
 }
 
-template <typename T, class Mdl, int M, int BALL, bool TRACK, int MT, int PT>
+template <typename T, class Mdl, int M, int BALL, bool TRACK, int MT, int PT, class Gn = void>
 int launch_ipddp_solve(T* const* buf, const T* refs, const double* consts, const double* rows,
                        const double* ball, const double* cfg, const double* alphas,
                        const int* ints, const T* term_c, T* const* term_state,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const T* cp = nullptr, int ncp = 0,
+                       const double* weights = nullptr) {
   const int N = ints[0], B = ints[1];
   if (ints[4] > kMaxAlpha) return static_cast<int>(cudaErrorInvalidValue);
   const Consts<T, Mdl> c = Consts<T, Mdl>::from_host(consts);
@@ -1577,16 +1732,17 @@ int launch_ipddp_solve(T* const* buf, const T* refs, const double* consts, const
   if constexpr (MT > 0 || PT > 0)
     term = {term_c, term_state[0], term_state[1], term_state[2], term_state[3], T(cfg[27]),
             T(cfg[28])};
+  const auto gn = CostArgs<T, Gn>::from_host(cp, ncp, weights);
   constexpr int TH = ipddp_solve_threads<T, Mdl, M, BALL>();
   const int blocks = (B + TH - 1) / TH;
   const int smem = ipddp_solve_smem<T, Mdl, M, BALL>();
   const cudaError_t err = cudaFuncSetAttribute(
-      (const void*)ipddp_solve_kernel<T, Mdl, M, BALL, TRACK, MT, PT, TH>,
+      (const void*)ipddp_solve_kernel<T, Mdl, M, BALL, TRACK, MT, PT, TH, Gn>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ipddp_solve_kernel<T, Mdl, M, BALL, TRACK, MT, PT, TH><<<blocks, TH, smem, stream>>>(
+  ipddp_solve_kernel<T, Mdl, M, BALL, TRACK, MT, PT, TH, Gn><<<blocks, TH, smem, stream>>>(
       buf[0], buf[1], buf[2], buf[3], buf[4], buf[5], buf[6], buf[7], buf[8], buf[9],
-      buf[10], refs, c, r, bl, sc, N, B, term);
+      buf[10], refs, c, r, bl, sc, N, B, term, gn);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1622,4 +1778,37 @@ int launch_ipddp_solve(T* const* buf, const T* refs, const double* consts, const
   CDDP_REGISTER(cddp_ipddp_solve_##MODEL##_##NAME,                                     \
                 (cddp::ipddp_solve_kernel<scalar_t, cddp::STRUCT, M, BALL, TRACK, MT, PT, TH>), \
                 TH, (cddp::ipddp_solve_smem<scalar_t, cddp::STRUCT, M, BALL>()))           \
+  }
+
+// A GN lane GN_STRUCT (lanes.cuh) on the model STRUCT's control box of M
+// rows, goal form, no terminal constraints: launcher
+// cddp_ipddp_solve_<MODEL>_<GN>_m<M>, whose arguments are the goal form's
+// (refs and the terminal pointers NULL and unread) then the instances' cost
+// parameters cp (n_cp, B), n_cp and the lane's weights.
+#define CDDP_IPDDP_SOLVE_GN(MODEL, STRUCT, GN, GN_STRUCT, M)                             \
+  extern "C" int CDDP_EXPORT(cddp_ipddp_solve_##MODEL##_##GN##_m##M)(                  \
+      scalar_t* X, scalar_t* U, scalar_t* Y, scalar_t* S, scalar_t* G, scalar_t* L,    \
+      scalar_t* k, scalar_t* K, scalar_t* kl, scalar_t* Kl, scalar_t* stats,           \
+      const scalar_t* refs, const scalar_t* term_c, scalar_t* ST, scalar_t* YT,        \
+      scalar_t* Lte, scalar_t* dL, const double* consts, const double* rows,           \
+      const double* ball, const double* cfg, const double* alphas, int N, int B,       \
+      int integrator, int max_iterations, int n_alpha, int bp_bound, int adaptive,     \
+      int theta_l2, int f_max, int soc_auto, int chess_auto, int soc_stall,            \
+      const scalar_t* cp, int ncp, const double* weights, void* stream) {              \
+    scalar_t* buf[11] = {X, U, Y, S, G, L, k, K, kl, Kl, stats};                       \
+    scalar_t* term_state[4] = {ST, YT, Lte, dL};                                       \
+    const int ints[12] = {N,        B,        integrator, max_iterations,              \
+                          n_alpha,  bp_bound, adaptive,   theta_l2,                    \
+                          f_max,    soc_auto, chess_auto, soc_stall};                  \
+    return cddp::launch_ipddp_solve<scalar_t, cddp::STRUCT, M, -1, false, 0, 0,        \
+                                    cddp::GN_STRUCT>(                                  \
+        buf, refs, consts, rows, ball, cfg, alphas, ints, term_c, term_state,          \
+        static_cast<cudaStream_t>(stream), cp, ncp, weights);                          \
+  }                                                                                    \
+  namespace cddp_ipddp_solve_##MODEL##_##GN##_m##M {                                   \
+  constexpr int TH = cddp::ipddp_solve_threads<scalar_t, cddp::STRUCT, M, -1>();       \
+  CDDP_REGISTER(cddp_ipddp_solve_##MODEL##_##GN##_m##M,                                \
+                (cddp::ipddp_solve_kernel<scalar_t, cddp::STRUCT, M, -1, false, 0, 0, TH, \
+                                          cddp::GN_STRUCT>),                           \
+                TH, (cddp::ipddp_solve_smem<scalar_t, cddp::STRUCT, M, -1>()))             \
   }

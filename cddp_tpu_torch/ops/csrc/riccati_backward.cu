@@ -13,8 +13,6 @@
 // enumerated BoxQP takes 3 active sets (clddp_step.cuh), at nu=2 nine. Every tensor is
 // batch-last ([t][i][j][b]), so the 32 threads of a warp read 32 consecutive
 // addresses and every load is fully coalesced.
-#include <cstring>
-
 #include "clddp_step.cuh"
 
 namespace cddp {
@@ -105,40 +103,8 @@ int launch_riccati_backward(const T* A, const T* Bm, const T* lx, const T* lu,
 
 }  // namespace cddp
 
-extern "C" {
-
-#ifndef CDDP_F64
-const char* cddp_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// What cudaFuncGetAttributes and the occupancy calculator report for the
-// kernel of the launcher `name` (with its type suffix) at the block size and
-// dynamic shared memory it launches with: out = {registers per thread, local
-// (spill) bytes per thread, static shared bytes, dynamic shared bytes,
-// resident blocks per SM, threads per block}. Returns a CUDA error code,
-// cudaErrorInvalidDeviceFunction for an unknown name.
-int cddp_kernel_attributes(const char* name, int* out) {
-  for (const cddp::KernelInfo* k = cddp::kernel_list(); k != nullptr; k = k->next) {
-    if (std::strcmp(k->name, name) != 0) continue;
-    cudaFuncAttributes a;
-    cudaError_t err = cudaFuncGetAttributes(&a, k->fn);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(k->fn, cudaFuncAttributeMaxDynamicSharedMemorySize, k->smem);
-    int blocks = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k->fn, k->threads, k->smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int vals[6] = {a.numRegs, int(a.localSizeBytes), int(a.sharedSizeBytes), k->smem,
-                         blocks, k->threads};
-    for (int i = 0; i < 6; ++i) out[i] = vals[i];
-    return 0;
-  }
-  return static_cast<int>(cudaErrorInvalidDeviceFunction);
-}
-#endif
-
-}  // extern "C"
+// The library's error-string and attribute exports (one copy per library).
+#include "library_exports.cuh"
 
 #define CDDP_RICCATI_BACKWARD(NX, NU)                                                  \
   extern "C" int CDDP_EXPORT(cddp_riccati_backward_##NX##x##NU)(                       \

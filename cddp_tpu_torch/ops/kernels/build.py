@@ -11,6 +11,17 @@ rounds like the plain PyTorch operations it is checked against. Never
 The shared library goes to ``.torch_ext_build/`` at the checkout root, named
 by a hash of the sources and flags: the first call after a source change
 builds, later calls load. Nothing here runs at import time.
+
+**Lane libraries.** The kernels of user lanes (``ip_rollout.
+register_model_lane``, ``register_cost_lane``, ``mega_ipddp.
+register_gn_cost_lane``) are built per header: ``lane_library(header)``
+instantiates, from the kernel templates of ``ops/csrc`` and the lanes'
+structs in ``header``, kernel 4 on each model lane registered with it and
+kernels 5 and 7 on each model lane with each cost and GN lane of the same
+header, on the model's control box (m = 2 nu), float32 and float64. Its
+name carries a digest of the header, the templates and the generated
+instantiations. ``build_all`` compiles the main library and lane libraries
+in one parallel compile. A failed build raises.
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ KERNEL_SOURCES = ("riccati_backward.cu", "forward_rollout.cu", "clddp_solve.cu",
                   "msipddp_solve_small.cu")
 HEADERS = ("small_linalg.cuh", "clddp_step.cuh", "models.cuh", "ipddp_step.cuh",
            "ip_filter.cuh", "sweep_stage.cuh", "ipddp_solve.cuh", "ipddp_backward.cuh",
-           "clddp_solve.cuh", "logddp_solve.cuh", "msipddp_solve.cuh")
+           "clddp_solve.cuh", "logddp_solve.cuh", "msipddp_solve.cuh", "lanes.cuh",
+           "open_loop_rollout.cuh", "ip_forward.cuh", "library_exports.cuh")
 
 COMMON_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
@@ -80,18 +92,25 @@ def _compile(cmd):
     return run.returncode, run.stdout, time.perf_counter() - t0
 
 
-def _build(target: Path) -> None:
+def _build(target: Path, sources=None, pool=None) -> None:
+    """Compile ``sources`` ({unit stem: path}; the main library's by
+    default) for both types into ``target``, every object at once (in
+    ``pool`` when given, which may be compiling another library too)."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = sources or {Path(src).stem: CSRC / src for src in KERNEL_SOURCES}
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, cmds = [], []
-        for src in KERNEL_SOURCES:
+        for stem, src in sources.items():
             for tag, flags in DTYPE_FLAGS.items():
-                objs.append(Path(tmp) / f"{Path(src).stem}_{tag}.o")
-                cmds.append([nvcc, *COMMON_FLAGS, *flags, "-c", str(CSRC / src),
+                objs.append(Path(tmp) / f"{stem}_{tag}.o")
+                cmds.append([nvcc, *COMMON_FLAGS, *flags, f"-I{CSRC}", "-c", str(src),
                              "-o", str(objs[-1])])
         # Every object at once; each one's own seconds go to the log.
-        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        if pool is None:
+            with ThreadPoolExecutor(max_workers=len(cmds)) as own:
+                results = list(own.map(_compile, cmds))
+        else:
             results = list(pool.map(_compile, cmds))
         logs, failed = [], []
         for obj, (rc, out, secs) in zip(objs, results):
@@ -112,22 +131,113 @@ def _build(target: Path) -> None:
         os.replace(tmp_so, target)
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if the sources changed."""
-    target = library_path()
-    if not target.exists():
-        _build(target)
+def _load(target: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(target))
     lib.cddp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cddp_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def function(name: str, argtypes) -> ctypes._CFuncPtr:
-    """A kernel launcher of the library; raises if it was not instantiated."""
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if the sources changed."""
+    target = library_path()
+    if not target.exists():
+        _build(target)
+    return _load(target)
+
+
+# --- lane libraries ------------------------------------------------------------------
+
+
+def lane_units(header) -> dict:
+    """The generated translation units of ``header``'s lane library, {stem:
+    text}: kernels 4 and 5 in one (with the library's exports), kernel 7
+    in the other, so that the two compile side by side."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout, mega_ipddp
+
+    header = Path(header).resolve()
+    models, costs = ip_rollout.registered_lanes(header)
+    gns = mega_ipddp.registered_gn_lanes(header)
+    if not models:
+        raise ValueError(f"no model lane is registered with {header}")
+    first = ["// Generated by cddp_tpu_torch/ops/kernels/build.py::lane_units."]
+    k45 = first + ['#include "library_exports.cuh"', '#include "open_loop_rollout.cuh"',
+                   '#include "ip_forward.cuh"', f'#include "{header}"', ""]
+    k7 = first + ['#include "ipddp_solve.cuh"', f'#include "{header}"', ""]
+    for name, struct, nu in models:
+        k45.append(f"CDDP_OPEN_LOOP_ROLLOUT({name}, {struct})")
+        k45 += [f"CDDP_IP_FORWARD_LANE({name}, {struct}, {c}, {cs}, {2 * nu})"
+                for c, cs in costs]
+        k7 += [f"CDDP_IPDDP_SOLVE_GN({name}, {struct}, {g}, {gs}, {2 * nu})" for g, gs in gns]
+    units = {"lanes_k45": "\n".join(k45) + "\n"}
+    if gns:
+        units["lanes_k7"] = "\n".join(k7) + "\n"
+    return units
+
+
+def lane_library_path(header) -> Path:
+    header = Path(header).resolve()
+    h = hashlib.sha256()
+    for name in HEADERS:
+        h.update((CSRC / name).read_bytes())
+    h.update(header.read_bytes())
+    h.update(repr((lane_units(header), COMMON_FLAGS, DTYPE_FLAGS)).encode())
+    return BUILD_DIR / f"liblanes_{header.stem}_{h.hexdigest()[:16]}.so"
+
+
+def _build_lanes(target: Path, header, pool=None) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src_dir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        fn = getattr(library(), name)
+        sources = {}
+        for stem, text in lane_units(header).items():
+            sources[stem] = src_dir / f"{stem}.cu"
+            sources[stem].write_text(text)
+        _build(target, sources, pool)
+    finally:
+        shutil.rmtree(src_dir, ignore_errors=True)
+
+
+@functools.cache
+def lane_library(header) -> ctypes.CDLL:
+    """The loaded lane library of ``header``, built first if it or the
+    kernel templates changed."""
+    target = lane_library_path(header)
+    if not target.exists():
+        _build_lanes(target, header)
+    return _load(target)
+
+
+def build_all(headers=()) -> float:
+    """Build the main library and the lane libraries of ``headers`` that are
+    missing, all their objects in one parallel compile, and load them;
+    returns the seconds it took."""
+    t0 = time.perf_counter()
+    headers = [Path(h).resolve() for h in headers]
+    jobs = []
+    if not library_path().exists():
+        jobs.append(lambda pool: _build(library_path(), pool=pool))
+    for header in headers:
+        if not lane_library_path(header).exists():
+            jobs.append(lambda pool, h=header: _build_lanes(lane_library_path(h), h, pool))
+    if jobs:
+        with ThreadPoolExecutor(max_workers=256) as pool, \
+                ThreadPoolExecutor(max_workers=len(jobs)) as drivers:
+            for f in [drivers.submit(job, pool) for job in jobs]:
+                f.result()
+    library()
+    for header in headers:
+        lane_library(header)
+    return time.perf_counter() - t0
+
+
+def function(name: str, argtypes, header=None) -> ctypes._CFuncPtr:
+    """A kernel launcher of the library (of ``header``'s lane library when
+    given); raises if it was not instantiated."""
+    lib = library() if header is None else lane_library(Path(header).resolve())
+    try:
+        fn = getattr(lib, name)
     except AttributeError as e:
         raise ValueError(f"no CUDA kernel {name!r} in the kernel library") from e
     fn.argtypes = argtypes
@@ -139,25 +249,27 @@ ATTRIBUTES = ("registers", "spill_bytes", "static_smem_bytes", "dynamic_smem_byt
               "blocks_per_sm", "threads")
 
 
-def kernel_attributes(name: str) -> dict:
+def kernel_attributes(name: str, header=None) -> dict:
     """What ``cudaFuncGetAttributes`` and the occupancy calculator report for
     the kernel of launcher ``name`` (with its ``_f32``/``_f64`` suffix) at the
     block size and dynamic shared memory it launches with: registers per
     thread, local (spill) bytes per thread, static and dynamic shared bytes
-    per block, resident blocks per SM, threads per block."""
-    lib = library()
+    per block, resident blocks per SM, threads per block; of ``header``'s lane
+    library when given."""
+    lib = library() if header is None else lane_library(Path(header).resolve())
     lib.cddp_kernel_attributes.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int)]
     lib.cddp_kernel_attributes.restype = ctypes.c_int
     out = (ctypes.c_int * len(ATTRIBUTES))()
-    check(lib.cddp_kernel_attributes(name.encode(), out), name)
+    check(lib.cddp_kernel_attributes(name.encode(), out), name, lib)
     return dict(zip(ATTRIBUTES, out))
 
 
-def check(err: int, name: str) -> None:
+def check(err: int, name: str, lib=None) -> None:
     """Raise if a launch returned a CUDA error (a refused launch never runs,
-    and a later synchronize would not report it)."""
+    and a later synchronize would not report it); ``lib`` the library that
+    launched it (the main one when None)."""
     if err != 0:
-        msg = library().cddp_cuda_error_string(err).decode()
+        msg = (lib or library()).cddp_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
 
 

@@ -20,20 +20,34 @@ the fraction-to-boundary tau, per instance:
   fraction-to-boundary test;
 - the stacked box rows g, the fraction-to-boundary and finiteness masks;
 - the quadratic running cost, against a tracking objective's row t at
-  step t (the ``_track`` launchers), and the model's step: its integrator,
-  or a discrete model's exact map.
+  step t (the ``_track`` launchers), or a registered cost lane's, and the
+  model's step: its integrator, or a discrete model's exact map.
+
+**The user lane registries** (ip_rollout.py:62-133 of the JAX package).
+``register_model_lane`` adds a model class's dynamics lane, the plain torch
+function beside its CUDA struct; ``register_cost_lane`` an objective
+class's running-cost lane, whose per-instance parameters cp (B, n_cp) the
+forward kernel reads (one row per instance, batch-last in device memory).
+Both match by exact class. The kernels of a header's lanes are built from
+it at first use (``build.lane_library``): kernel 4 on each model lane, and
+kernel 5 on each model lane with each cost lane of the same header, on the
+model's control box (m = 2 nu). The plain versions run the plain lane
+functions.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from pathlib import Path
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from cddp_tpu_torch.constraints.path import (BallConstraint, ControlConstraint,
                                              StateConstraint)
+from cddp_tpu_torch.costs.objective import QuadraticObjective
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 from cddp_tpu_torch.ops.kernels.rollout import ATTITUDE_MODELS, SMALL_ROWS, SPACECRAFT_ROWS
@@ -43,6 +57,11 @@ _OL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_double)]
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_double)] * 2
                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# A cost-lane launcher: the 26 tensors, cp (n_cp, B) and n_cp, the lane's
+# weights, then as above.
+_FWD_LANE_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.c_int]
+                      + [ctypes.POINTER(ctypes.c_double)] * 3 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
 
 # Box-stack sizes m the forward kernel (5) is instantiated for, by model:
 # in the tracking form the unicycle's control box, state box or both, the
@@ -60,6 +79,111 @@ KERNEL_ROWS = {**TRACK_ROWS, "car": (4,), "quadrotor_rate": (8,),
 
 def _mv(M, v):
     return (M @ v[..., None])[..., 0]
+
+
+# --- the user lane registries -----------------------------------------------------
+
+
+def register_model_lane(cls, n_params, param_fn, lane_f, *, header, struct, name):
+    """Register the dynamics lane of the model class ``cls`` (exact class):
+    ``param_fn(model)`` gives its ``n_params`` floats, ``lane_f(x (B, nx),
+    u (B, nu), p (n_params,)) -> dx (B, nx)`` is the plain torch lane, and
+    ``struct`` in ``header`` its CUDA model struct (NX, NU, NP = n_params,
+    f and fxfu, as ``ops/csrc/models.cuh``'s). ``name`` names its
+    launchers. Lanes are continuous-time: the port has no discrete user
+    lanes."""
+
+    def params(model):
+        p = [float(v) for v in param_fn(model)]
+        if len(p) != n_params:
+            raise ValueError(f"{cls.__name__} lane: {len(p)} parameters, registered {n_params}")
+        return p
+
+    rollout_ops.USER_MODELS[cls] = rollout_ops.ModelEntry(
+        params=params, cuda_name=name, lane_f=lane_f,
+        cuda=rollout_ops.CudaLane(Path(header).resolve(), struct))
+
+
+def model_lane(model) -> Optional[rollout_ops.ModelEntry]:
+    """The model's lane: a user lane of its exact class, else the built-in
+    registry's entry, else None."""
+    return rollout_ops.model_entry(model)
+
+
+@dataclass(frozen=True)
+class CostLane:
+    """A resolved running-cost lane of one objective: its per-instance
+    parameters ``params`` (n_cp,) or (B, n_cp); ``lane_f(x (B, nx), u (B,
+    nu), cp (B, n_cp), t) -> (B,)`` the plain torch lane; ``weights`` the
+    constants its CUDA struct reads besides cp. ``cost_lane`` fills in the
+    registration's CUDA struct (``header``, ``struct``) and launcher
+    ``name``."""
+
+    params: torch.Tensor
+    lane_f: Callable
+    weights: Tuple[float, ...]
+    header: Optional[Path] = None
+    struct: Optional[str] = None
+    name: Optional[str] = None
+
+    def cp(self, batch: int, like: torch.Tensor) -> torch.Tensor:
+        """The parameters as (B, n_cp) in ``like``'s dtype and device."""
+        return lane_params(self.params, batch, like)
+
+
+def lane_params(p, batch: int, like: torch.Tensor) -> torch.Tensor:
+    """A lane's parameters, (n_cp,) shared or (B, n_cp) per instance, as
+    (B, n_cp) in ``like``'s dtype and device; raises on another batch."""
+    p = p.to(like)
+    if p.dim() == 1:
+        return p.expand(batch, p.shape[-1])
+    if p.dim() != 2 or p.shape[0] != batch:
+        raise ValueError(f"lane parameters of shape {tuple(p.shape)} for a batch of {batch}")
+    return p
+
+
+# Exact objective class -> (factory, CUDA struct, launcher name).
+_COST_LANES = {}
+
+
+def register_cost_lane(cls, factory, *, header, struct, name):
+    """Register a running-cost lane for an objective class (exact class):
+    ``factory(objective)`` returns a :class:`CostLane` (its CUDA fields
+    unset), or None to decline; ``struct`` in ``header`` is its CUDA cost
+    struct, ``name`` names its launchers."""
+    _COST_LANES[cls] = (factory, rollout_ops.CudaLane(Path(header).resolve(), struct), name)
+
+
+def cost_lane(objective) -> Optional[CostLane]:
+    """The objective's resolved cost lane, or None."""
+    reg = _COST_LANES.get(type(objective))
+    lane = None if reg is None else reg[0](objective)
+    if lane is None:
+        return None
+    return dataclasses.replace(lane, weights=tuple(lane.weights), header=reg[1].header,
+                               struct=reg[1].struct, name=reg[2])
+
+
+def registered_lanes(header) -> Tuple[list, list]:
+    """(model lanes [(name, struct, nu)], cost lanes [(name, struct)])
+    registered with ``header``: what its lane library instantiates."""
+    header = Path(header).resolve()
+    models = [(e.cuda_name, e.cuda.struct, cls.control_dim)
+              for cls, e in rollout_ops.USER_MODELS.items() if e.cuda.header == header]
+    costs = [(name, cuda.struct) for _, cuda, name in _COST_LANES.values()
+             if cuda.header == header]
+    return models, costs
+
+
+def lane_box(problem, stk, header) -> Optional["BoxRows"]:
+    """The stack a user lane's kernels take: the model's control box alone
+    (m = 2 nu), under a model lane registered with ``header``; else None."""
+    entry = rollout_ops.model_entry(problem.model)
+    rows = box_rows(problem, stk)
+    if (entry is None or entry.cuda is None or entry.cuda.header != header
+            or rows is None or [k for k, _ in rows.items] != ["control"]):
+        return None
+    return rows
 
 
 # --- open-loop rollout (kernel 4) ---------------------------------------------
@@ -103,7 +227,7 @@ def _launch_open_loop(model, entry, x0, U, dt):
     nx = x0.shape[-1]
     tag = build.dtype_tag("open_loop_rollout", (x0, U), ((nx,), (N, nu)))
     name = f"cddp_open_loop_rollout_{entry.cuda_name}_{tag}"
-    fn = build.function(name, _OL_ARGTYPES)
+    fn = build.function(name, _OL_ARGTYPES, entry.cuda and entry.cuda.header)
     Ul, x0l = (t.movedim(0, -1).contiguous() for t in (U, x0))
     X = x0.new_empty(N, nx, Bsz)
     host = [float(dt)] + entry.kernel_params(model)
@@ -205,11 +329,19 @@ def box_rows(problem, stk, ball: bool = False) -> Optional[BoxRows]:
 
 @dataclass(frozen=True)
 class ForwardConsts:
-    """The forward kernel's view of a problem."""
+    """The forward kernel's view of a problem; ``cost`` a registered cost
+    lane in place of the quadratic cost."""
 
     lane: rollout_ops.LaneConsts
     rows: BoxRows
     slack_soc: bool
+    cost: Optional[CostLane] = None
+
+    @property
+    def tag(self) -> str:
+        """The ``dispatch_log`` name's suffix: the variant, the cost lane's
+        name and the model's tag ("ip_forward_mpcc@bicycle7")."""
+        return self.lane.variant + ("_" + self.cost.name if self.cost else "") + self.lane.tag
 
 
 def resolve_ip_forward(problem, options, stk) -> Optional[ForwardConsts]:
@@ -224,6 +356,15 @@ def resolve_ip_forward(problem, options, stk) -> Optional[ForwardConsts]:
     plain trial, ``solvers/ipddp.py::_forward_scan``."""
     if options.ipddp.forward_engine != "auto":
         return None
+    if not isinstance(problem.objective, QuadraticObjective):
+        # A registered cost lane on a user model lane of the same header.
+        cost = cost_lane(problem.objective)
+        rows = cost and lane_box(problem, stk, cost.header)
+        lane = rows and rollout_ops.lane_consts(problem, cost_lane=True)
+        if not lane:
+            return None
+        return ForwardConsts(lane=lane, rows=rows, cost=cost,
+                             slack_soc=options.ipddp.slack_soc is True)
     lane = rollout_ops.lane_consts(problem)
     rows = box_rows(problem, stk)
     table = KERNEL_ROWS if lane is None or lane.refs is None else TRACK_ROWS
@@ -247,6 +388,7 @@ def ip_forward_plain(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
     lc = fc.lane
     N = Xb.shape[1]
     dt = torch.tensor(lc.dt, dtype=Xb.dtype, device=Xb.device)
+    cp = None if fc.cost is None else fc.cost.cp(Xb.shape[0], Xb)
     apr, adu, tau_ = a_pr[:, None], a_du[:, None], tau[:, None]
     x = x0
     J = Xb.new_zeros(Xb.shape[0])
@@ -259,8 +401,11 @@ def ip_forward_plain(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
         s_new = s + apr * ks[:, t] + _mv(Ks[:, t], dx)
         y_new = y + adu * ky[:, t] + _mv(Ky[:, t], dx)
         u = Ub[:, t] + apr * ku[:, t] + _mv(Ku[:, t], dx)
-        e = x - lc.running_ref(t)
-        J = J + (((e @ lc.Q) * e).sum(-1) + ((u @ lc.R) * u).sum(-1))
+        if cp is not None:
+            J = J + fc.cost.lane_f(x, u, cp, t)
+        else:
+            e = x - lc.running_ref(t)
+            J = J + (((e @ lc.Q) * e).sum(-1) + ((u @ lc.R) * u).sum(-1))
         g = fc.rows.evaluate(x, u)
         if fc.slack_soc:
             ok_soc = ftb_ok(-g, s, tau_) & soc[:, None]
@@ -281,7 +426,7 @@ def ip_forward(fc: ForwardConsts, *args):
     """CUDA tensors launch the kernel; CPU tensors run the plain version."""
     Xb = args[0]
     if Xb.device.type == "cpu":
-        dispatch_log.plain("ip_forward" + fc.lane.variant + fc.lane.tag, Xb.shape[0])
+        dispatch_log.plain("ip_forward" + fc.tag, Xb.shape[0])
         return ip_forward_plain(fc, *args)
     return _launch_forward(fc, *args)
 
@@ -299,15 +444,24 @@ def _launch_forward(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
         (N, nx), (N, nu), (N, m), (N, m), (N, nu), (N, nu, nx), (N, nx),
         (N, nx, nx), (N, nx), (N, m), (N, m, nx), (N, m), (N, m, nx), (nx,),
         (), (), (), ()))
-    name = f"cddp_ip_forward_{fc.lane.entry.cuda_name}_m{m}{fc.lane.variant}_{tag}"
-    fn = build.function(name, _FWD_ARGTYPES)
     last = [t.movedim(0, -1).contiguous() for t in ins]
     X, U, Sn, Yn, G, Lam = (Xb.new_empty(N, d, Bsz) for d in (nx, nu, m, m, m, nx))
     J, F = Xb.new_empty(Bsz), Xb.new_empty(Bsz)
-    err = fn(*(build.ptr(t) for t in last + [X, U, Sn, Yn, G, Lam, J, F]),
-             fc.lane.refs_ptr(Xb), build.doubles(fc.lane.host), build.doubles(fc.rows.host), N, Bsz,
-             rollout_ops.INTEGRATORS.index(fc.lane.integrator), int(fc.slack_soc),
-             build.stream_ptr(Xb.device))
+    outs = [build.ptr(t) for t in last + [X, U, Sn, Yn, G, Lam, J, F]]
+    tail = (build.doubles(fc.lane.host), build.doubles(fc.rows.host), N, Bsz,
+            rollout_ops.INTEGRATORS.index(fc.lane.integrator), int(fc.slack_soc))
+    if fc.cost is None:
+        name = f"cddp_ip_forward_{fc.lane.entry.cuda_name}_m{m}{fc.lane.variant}_{tag}"
+        err = build.function(name, _FWD_ARGTYPES)(
+            *outs, fc.lane.refs_ptr(Xb), *tail, build.stream_ptr(Xb.device))
+    else:
+        # The lane kernel reads each instance's cost parameters batch-last,
+        # (n_cp, B), and the cost lane's weights beside them.
+        name = f"cddp_ip_forward_{fc.lane.entry.cuda_name}_{fc.cost.name}_m{m}_{tag}"
+        cp = fc.cost.cp(Bsz, Xb).movedim(0, -1).contiguous()
+        err = build.function(name, _FWD_LANE_ARGTYPES, fc.cost.header)(
+            *outs, build.ptr(cp), cp.shape[0], build.doubles(fc.cost.weights), *tail,
+            build.stream_ptr(Xb.device))
     build.check(err, name)
-    dispatch_log.launched("ip_forward" + fc.lane.variant + fc.lane.tag, Bsz)
+    dispatch_log.launched("ip_forward" + fc.tag, Bsz)
     return (*(t.movedim(-1, 0) for t in (X, U, Sn, Yn, G, Lam)), J, F > 0.5)

@@ -27,6 +27,18 @@ needed, as the JAX kernel does. The terminal inequalities' slacks and duals
 and the equality's multipliers are per-instance state beside them, and the
 constants A, b and the target one read-only array beside ``Consts``.
 
+**Gauss-Newton cost lanes** (mega_ipddp.py:103-165, :603, :647-720 of the
+JAX package). A residual objective whose class has a registered GN lane
+(``register_gn_cost_lane``) runs the kernel with its cost as a template
+policy: the running cost sum r^2 and the terminal cost sum r_T^2 + extra,
+gradients 2 J'r, Hessians 2 J'J, the residual Jacobians one tangent column
+at a time in forward mode (the lane's CUDA struct in its header, built by
+``build.lane_library``). Its per-instance cost parameters cp (B, n_cp) are
+one row per instance. The lane's kernel takes the model lane of the same
+header on its control box (m = 2 nu), the goal form, no terminal
+constraints, up to the JAX gate's horizon (``rollout.WHOLE_MAX_HORIZON``
+under "ipddp_solve_gn", by the model's name and n_cp).
+
 Its plain version is the per-pass driver ``solvers/ipddp.py::_drive``,
 which CPU tensors run.
 """
@@ -35,6 +47,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+from pathlib import Path
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,6 +70,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.POINTER(ctypes.c_double)] * 5
 # alpha_pr, iterations, status, backward attempts, sweeps, and (ball
 # variants only) the latch's final SOC-on and armed flags.
 STATS_ROWS = 13
+# A GN lane's launcher: the goal form's arguments, then cp (n_cp, B), n_cp
+# and the lane's weights.
+_GN_ARGTYPES = (_ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_double)] + [ctypes.c_void_p])
 # Ball layouts kernel 7 is instantiated for, by model: (m, the ball's stack
 # row). A control box and one keep-out ball, the ball's name sorted before
 # the box's or after it.
@@ -118,6 +136,101 @@ LOG_BOX_ROWS = {"unicycle": (4, 6, 10), "pendulum": (2,),
                 **rollout_ops.SMALL_ROWS}
 
 
+class GnCostSpec(NamedTuple):
+    """A GN lane's structure (mega_ipddp.py:115-134 of the JAX package):
+    ``n_cp`` parameters per instance. The residuals themselves are the CUDA
+    struct's; their plain version is the objective's own
+    ``running_residuals`` and ``terminal_residuals``, which the plain driver
+    runs."""
+
+    n_cp: int
+
+
+class GnCostEntry(NamedTuple):
+    """A resolved GN lane of one objective (mega_ipddp.py:137-147):
+    ``cp_fn(objective)`` gives its parameters (n_cp,) or (B, n_cp);
+    ``weights`` the constants its CUDA struct reads besides cp.
+    ``gn_cost_lane`` fills in the registration's CUDA struct (``header``,
+    ``struct``) and launcher ``name``."""
+
+    cp_fn: Callable
+    spec: GnCostSpec
+    weights: Tuple[float, ...]
+    header: Optional[Path] = None
+    struct: Optional[str] = None
+    name: Optional[str] = None
+
+    def cp(self, objective, batch: int, like: torch.Tensor) -> torch.Tensor:
+        """The parameters as (B, n_cp) in ``like``'s dtype and device."""
+        return ip_rollout.lane_params(self.cp_fn(objective), batch, like)
+
+
+# Exact objective class -> (factory, CUDA struct, launcher name).
+_GN_COST_LANES = {}
+
+
+def register_gn_cost_lane(cls, factory, *, header, struct, name):
+    """Register a Gauss-Newton residual lane for an objective class (exact
+    class): ``factory(objective)`` returns a :class:`GnCostEntry` (its
+    CUDA fields unset), or None to decline; ``struct`` in ``header`` is its
+    CUDA lane (``ipddp_solve.cuh``'s GN policy), ``name`` names its
+    launchers."""
+    _GN_COST_LANES[cls] = (factory, rollout_ops.CudaLane(Path(header).resolve(), struct),
+                           name)
+
+
+def gn_cost_lane(objective) -> Optional[GnCostEntry]:
+    """The objective's resolved GN lane, or None."""
+    reg = _GN_COST_LANES.get(type(objective))
+    entry = None if reg is None else reg[0](objective)
+    if entry is None:
+        return None
+    return entry._replace(weights=tuple(entry.weights), header=reg[1].header,
+                          struct=reg[1].struct, name=reg[2])
+
+
+def registered_gn_lanes(header) -> list:
+    """The GN lanes [(name, struct)] registered with ``header``."""
+    return [(name, cuda.struct) for _, cuda, name in _GN_COST_LANES.values()
+            if cuda.header == Path(header).resolve()]
+
+
+def gn_route(problem) -> Optional[GnCostEntry]:
+    """The GN lane kernel 7 runs the problem with, or None: a registered GN
+    lane, the model lane of its header with an explicit integrator on its
+    control box alone (``ip_rollout.lane_box``), no terminal constraints,
+    and a horizon the JAX gate takes (``WHOLE_MAX_HORIZON``)."""
+    if isinstance(problem.objective, QuadraticObjective) or problem.terminal_constraints:
+        return None
+    gn = gn_cost_lane(problem.objective)
+    if gn is None or ip_rollout.lane_box(problem, PathStacker(problem), gn.header) is None:
+        return None
+    lane = rollout_ops.lane_consts(problem, cost_lane=True)
+    limit = rollout_ops.WHOLE_MAX_HORIZON["ipddp_solve_gn"].get(
+        lane.entry.cuda_name, {}).get(gn.spec.n_cp) if lane is not None else None
+    if limit is None or problem.horizon > limit:
+        return None
+    return gn
+
+
+def _options_eligible(options: CDDPOptions, lqr_backend: str) -> bool:
+    """The options every whole-solve kernel (7, 8, 9) requires."""
+    return (
+        options.use_ilqr
+        and not options.enable_parallel
+        and lqr_backend == "sequential"
+        and options.backward_engine == "auto"
+        and options.solve_engine != "xla"
+        and not options.return_iteration_info
+        and not options.verbose
+        and not options.debug
+        and options.max_cpu_time <= 0
+        and options.max_iterations >= 1
+        and options.regularization.update_factor > 1.0
+        and len(line_search_alphas(options.line_search)) <= MAX_ALPHAS
+    )
+
+
 def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
     """What the interior-point and log-barrier whole-solve kernels (7, 8, 9)
     all require of a problem besides its stack and terminal constraints: a
@@ -132,18 +245,7 @@ def driver_eligible(problem, options: CDDPOptions, lqr_backend: str) -> bool:
         lane is not None
         and not lane.entry.discrete
         and isinstance(problem.objective, QuadraticObjective)
-        and options.use_ilqr
-        and not options.enable_parallel
-        and lqr_backend == "sequential"
-        and options.backward_engine == "auto"
-        and options.solve_engine != "xla"
-        and not options.return_iteration_info
-        and not options.verbose
-        and not options.debug
-        and options.max_cpu_time <= 0
-        and options.max_iterations >= 1
-        and options.regularization.update_factor > 1.0
-        and len(line_search_alphas(options.line_search)) <= MAX_ALPHAS
+        and _options_eligible(options, lqr_backend)
     )
 
 
@@ -214,6 +316,13 @@ def mega_eligible(problem, options: CDDPOptions) -> bool:
     (``rollout.whole_horizon_ok``: the attitude trio's follows the JAX
     gate's)."""
     ip = options.ipddp
+    if not isinstance(problem.objective, QuadraticObjective):
+        return (gn_route(problem) is not None
+                and _options_eligible(options, ip.lqr_backend)
+                and ip.slack_soc is not True
+                and ip.use_constraint_hessians is not True
+                and not ip.check_state_stationarity
+                and ip.max_filter_size < FILTER_SLOTS)
     return (
         solve_variant(problem) is not None
         and driver_eligible(problem, options, ip.lqr_backend)
@@ -252,6 +361,9 @@ def dispatch_name(problem) -> str:
     "ipddp_solve", with "_track" for a tracking objective, or the terminal
     suffix ("_ti2", "_te3", "_te3_ti1", ...) of a terminal variant, then the
     model's tag ("ipddp_solve_te6@hcw")."""
+    gn = gn_route(problem)
+    if gn is not None:
+        return f"ipddp_solve_{gn.name}" + rollout_ops.model_entry(problem.model).tag
     variant = solve_variant(problem) or ""
     lane = rollout_ops.lane_consts(problem)
     if problem.terminal_constraints:
@@ -316,7 +428,8 @@ def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0, terminal=None)
     from cddp_tpu_torch.solvers import ipddp
 
     stk, tstk = PathStacker(problem), TerminalStacker(problem)
-    lane = rollout_ops.lane_consts(problem)
+    gn = gn_route(problem)
+    lane = rollout_ops.lane_consts(problem, cost_lane=gn is not None)
     rows = ip_rollout.box_rows(problem, stk, ball=True)
     has_ball = bool(rows.ball_rows)
     ins = (X0, U0, Y0, S0, G0, L0, ku0, Ku0, mu0)
@@ -325,8 +438,12 @@ def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0, terminal=None)
     tag = build.dtype_tag("ipddp_solve", ins, (
         (N + 1, nx), (N, nu), (N, m), (N, m), (N, m), (N + 1, nx), (N, nu),
         (N, nu, nx), ()))
-    name = f"cddp_ipddp_solve_{lane.entry.cuda_name}_{solve_variant(problem)}_{tag}"
-    fn = build.function(name, _ARGTYPES)
+    if gn is None:
+        name = f"cddp_ipddp_solve_{lane.entry.cuda_name}_{solve_variant(problem)}_{tag}"
+        fn = build.function(name, _ARGTYPES)
+    else:
+        name = f"cddp_ipddp_solve_{lane.entry.cuda_name}_{gn.name}_m{m}_{tag}"
+        fn = build.function(name, _GN_ARGTYPES, gn.header)
     # The kernel updates its state in place: always fresh batch-last copies.
     last = lambda t: t.movedim(0, -1).clone(memory_format=torch.contiguous_format)  # noqa: E731
     X, U, Y, S, G, L, k, K = (last(t) for t in ins[:8])
@@ -351,11 +468,16 @@ def _run(problem, options, X0, U0, Y0, S0, G0, L0, mu0, ku0, Ku0, terminal=None)
             int(has_ball and ip.use_constraint_hessians == "auto"),
             ip.soc_stall_iterations)
     opt_ptr = lambda t: None if t is None or t.numel() == 0 else build.ptr(t)  # noqa: E731
+    # A GN lane's kernel takes each instance's cost parameters batch-last,
+    # (n_cp, B), and the lane's weights, after the goal form's arguments.
+    gn_args = () if gn is None else (
+        build.ptr(cp := gn.cp(problem.objective, Bsz, X0).movedim(0, -1).contiguous()),
+        cp.shape[0], build.doubles(gn.weights))
     err = fn(*(build.ptr(t) for t in (X, U, Y, S, G, L, k, K, klam, Klam, stats)),
              lane.refs_ptr(X0), *(opt_ptr(t) for t in (term_c, S_T, Y_T, Lte, dlam)),
              build.doubles(lane.host), build.doubles(rows.host),
              build.doubles(rows.ball), build.doubles(_solve_cfg(options)), build.doubles(alphas),
-             *ints, build.stream_ptr(X0.device))
+             *ints, *gn_args, build.stream_ptr(X0.device))
     build.check(err, name)
     dispatch_log.launched(dispatch_name(problem), Bsz)
     Yb, Sb = Y.movedim(-1, 0), S.movedim(-1, 0)

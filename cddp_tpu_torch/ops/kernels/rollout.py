@@ -35,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, List, Optional
 
 import torch
@@ -44,6 +45,7 @@ from cddp_tpu_torch.models import (HCW, Acrobot, Bicycle, Car, CartPole, Dreyfus
                                    MrpAttitude, Pendulum, Quadrotor, QuadrotorRate,
                                    QuaternionAttitude, SpacecraftLanding2D, SpacecraftLinearFuel,
                                    SpacecraftNonlinear, SpacecraftTwobody, Unicycle)
+from cddp_tpu_torch.costs.objective import QuadraticObjective
 from cddp_tpu_torch.ops.kernels import dispatch_log
 from cddp_tpu_torch.ops.linalg import true_div
 
@@ -53,10 +55,26 @@ _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_double)]
 
 
 @dataclass(frozen=True)
+class CudaLane:
+    """A lane's CUDA struct outside ``ops/csrc``: the header that defines it
+    and its qualified name. ``build.lane_library`` builds the kernels of
+    every lane registered with a header."""
+
+    header: Path
+    struct: str
+
+
+@dataclass(frozen=True)
 class ModelEntry:
     params: Callable[[DynamicalSystem], List[float]]  # the JAX lane's parameter vector
     cuda_name: str
     discrete: bool = False  # the struct's exact map ``step`` replaces the integrator
+    # A user lane (``ip_rollout.register_model_lane``): its plain torch lane
+    # function lane_f(x (B, nx), u (B, nu), p (n_params,)) -> dx (B, nx),
+    # which the plain versions step in place of the model's forward, and its
+    # CUDA struct.
+    lane_f: Optional[Callable] = None
+    cuda: Optional[CudaLane] = None
 
     @property
     def tag(self) -> str:
@@ -206,6 +224,12 @@ WHOLE_MAX_HORIZON = {
     "logddp_solve": {"euler_attitude": 34, "quaternion_attitude": 30, "mrp_attitude": 34,
                      "sc_linear_fuel": 27, "bicycle": 65, "dubins_car": 124,
                      "dreyfus_rocket": 167, "acrobot": 98},
+    # Kernel 7 with a user GN lane (``mega_ipddp.gn_route``), by the model
+    # lane's name and the lane's n_cp: the MPCC fleet's bicycle with its
+    # Chebyshev windows of M = 16, 32 and 64 coefficients (n_cp = 5 M + 3),
+    # where the JAX gate takes it up to N = 25, 24 and 23. Any other n_cp
+    # runs per pass.
+    "ipddp_solve_gn": {"bicycle7": {83: 25, 163: 24, 323: 23}},
 }
 
 
@@ -216,10 +240,16 @@ def whole_horizon_ok(kernel: str, lane: "LaneConsts", horizon: int) -> bool:
     return limit is None or horizon <= limit
 
 
+# The user model lanes (``ip_rollout.register_model_lane``), by exact class;
+# they take precedence over the built-in table.
+USER_MODELS = {}
+
+
 def model_entry(model: DynamicalSystem) -> Optional[ModelEntry]:
-    """Registry entry for an exact registered class (a subclass keeps the
-    plain path, so its overridden dynamics are honoured)."""
-    return _REGISTRY.get(type(model))
+    """Registry entry for an exact registered class, a user lane first (a
+    subclass keeps the plain path, so its overridden dynamics are
+    honoured)."""
+    return USER_MODELS.get(type(model)) or _REGISTRY.get(type(model))
 
 
 @dataclass(frozen=True)
@@ -310,23 +340,33 @@ def lane_integrator(model, entry: Optional[ModelEntry]) -> Optional[str]:
     return model.integration_type if model.integration_type in INTEGRATORS else None
 
 
-def lane_consts(problem) -> Optional[LaneConsts]:
+def lane_consts(problem, cost_lane: bool = False) -> Optional[LaneConsts]:
     """The kernels' view of a problem, or None when its model is not in the
-    registry or has no lane (``lane_integrator``)."""
+    registry or has no lane (``lane_integrator``), or its objective is not
+    a QuadraticObjective, the cost the kernels compute. With ``cost_lane``
+    the objective may be any: the kernels that take a registered cost lane
+    (kernels 5 and 7 with ``ip_rollout.cost_lane`` and
+    ``mega_ipddp.gn_cost_lane``) read the model's constants alone, and Q,
+    R, Qf and the goal are zeros."""
     entry = model_entry(problem.model)
     integrator = lane_integrator(problem.model, entry)
-    if integrator is None:
-        return None
     obj = problem.objective
+    quadratic = isinstance(obj, QuadraticObjective)
+    if integrator is None or not (quadratic or cost_lane):
+        return None
     cc = problem.get_constraint("ControlConstraint")
-    refs = obj.reference_states
+    if not quadratic:
+        nx, nu, like = problem.state_dim, problem.control_dim, problem.x0
+        Q, R, Qf, goal, refs = (like.new_zeros(nx, nx), like.new_zeros(nu, nu),
+                                like.new_zeros(nx, nx), like.new_zeros(nx), None)
+    else:
+        Q, R, Qf, goal, refs = obj.Q, obj.R, obj.Qf, obj.reference_state, obj.reference_states
     return LaneConsts(
         model=problem.model, entry=entry, integrator=integrator,
-        dt=problem.timestep, Q=obj.Q, R=obj.R, Qf=obj.Qf,
-        goal=obj.reference_state,
+        dt=problem.timestep, Q=Q, R=R, Qf=Qf, goal=goal,
         lower=cc.lower if cc is not None else None,
         upper=cc.upper if cc is not None else None,
-        refs=None if refs is None else refs[:problem.horizon].to(obj.Q.dtype).contiguous(),
+        refs=None if refs is None else refs[:problem.horizon].to(Q.dtype).contiguous(),
     )
 
 
@@ -358,6 +398,9 @@ def lane_step(model, entry: ModelEntry, kind: str, x, u, dt):
     over its continuous dynamics."""
     if entry.discrete:
         return model.discrete_dynamics(x, u, None, dt)
+    if entry.lane_f is not None:
+        p = torch.tensor(entry.params(model), dtype=x.dtype, device=x.device)
+        return integrate_lane(lambda x_, u_: entry.lane_f(x_, u_, p), kind, x, u, dt)
     return integrate_lane(lambda x_, u_: model(x_, u_, None), kind, x, u, dt)
 
 

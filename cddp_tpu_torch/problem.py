@@ -22,7 +22,7 @@ from cddp_tpu_torch.models.base import DynamicalSystem
 @dataclass(frozen=True)
 class Problem:
     model: DynamicalSystem
-    objective: QuadraticObjective
+    objective: object  # QuadraticObjective, or an Objective (costs/objective.py)
     x0: torch.Tensor
     horizon: int
     timestep: float

@@ -10,7 +10,9 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 1. start: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; no CUDA device -> exit nonzero with no result (no CPU fallback);
 2. build: compile the nine CUDA kernels from ``cddp_tpu_torch/ops/csrc``
-   (float32 and float64; goal, tracking and terminal variants), printing
+   (float32 and float64; goal, tracking and terminal variants;
+   ``build.build_all``), then start the MPCC lane library's compile
+   beside phases 3 and 16-19 (joined before phase 20), printing
    each object's compile seconds, ptxas registers and spills, and for
    every launcher what the card reports of its kernel (registers, spill
    bytes, shared memory, resident blocks per SM; ``print_kernel_attributes``);
@@ -228,14 +230,24 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    262,144, float32), (c) the N = 100 fleets (B = 65,536) under CLDDP and
    IPDDP by the gates' routes, and through the per-pass engine where the
    route is whole; (d) every entry's times and bound.
+20. the MPCC racing fleet (``phase_mpcc``, examples/mpcc_lib_torch.py,
+   BASELINE config 5; the lane library of examples/mpcc_lanes.cuh, built
+   beside phases 3 and 16-19's checks): (a) kernel 4 on the latch bicycle, kernels 6
+   (7x3x6) and 5 (the MPCC cost lane) on staged operands, kernel 7's
+   Gauss-Newton build against the plain driver (whose runs, and the plain
+   engine's tick, come from the plain references' process); (b) the cold
+   tick (M = 64, N = 20, 15 iterations, float32) at B = 1,024 on the three
+   engines and at 65,536 on two, and the warm fleet at both, their launch
+   counts proving each route; (c) the golden tick in float64; (d) every
+   entry's times and bound.
 
-Phases 14-19 run right after phase 3, their checks and fleets first and
+Phases 14-20 run right after phase 3, their checks and fleets first and
 phases 14 and 15's timings after them, then phases 4-13, then phases 16
 to 19's timings: the plain drivers launch tens of thousands of small
 torch operations, each of which takes 1.6-1.7x as long once the profiler
 has run in the process, and after phase 16's timing sessions beside
 phases 14-15's the profiler recorded no kernel-6 launch in any later
-session (both measured on an H100 machine; PERF.md). Phases 16 to 19's
+session (both measured on an H100 machine; PERF.md). Phases 16 to 20's
 plain references (``Side``) run in two processes of their own, started
 before the build: they run plain drivers only.
 
@@ -278,12 +290,19 @@ import tempfile
 import time
 import types
 import typing
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 B_CHECK = 4096
 B_MAIN = 262144
+# The per-pass fleets of phases 14-18 run on the first 1 / PER_PASS_SHARE of
+# their fleet: they prove the route by their launch counts and print their
+# rate, and their time scales with the batch (HCW's rendezvous fleet per
+# pass: 7535.15 ms at B = 262,144, 1756.09 ms at 65,536 on an NVIDIA H100
+# 80GB HBM3, 700.00 W). The timings still run at the fleet's batch.
+PER_PASS_SHARE = 4
 HORIZON = 20
 DT = 0.05
 SEED = 0
@@ -373,6 +392,17 @@ def launchers():
                                             own(LOG_BOX_ROWS, SPACECRAFT_MODELS)),
         "logddp_solve_small": by_model("cddp_logddp_solve", own(LOG_BOX_ROWS, SMALL_MODELS)),
     }
+
+
+def print_ptxas(library):
+    """Print each object's compile seconds and ptxas registers and spills
+    from ``library``'s build log, where it was built in this run."""
+    log = library.with_suffix(".log")
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if ("registers" in line or "spill" in line or "entry function" in line
+                    or line.startswith("==")):
+                print(f"[ptxas] {line.strip()}")
 
 
 def print_kernel_attributes(smi):
@@ -1008,12 +1038,19 @@ _NO_OPS = {
 _REDUCTIONS = {"sum", "amax", "amin", "all", "any", "max", "min", "mean", "prod"}
 
 
-def count_ops(fn, *args):
+# What forward-mode AD adds besides arithmetic: zero tangents, casts, the
+# stacking of tangent columns.
+_AD_MOVES = {"_efficientzerotensor", "_to_copy", "stack", "new_zeros", "copy_",
+             "_new_zeros_with_same_feature_meta", "scalar_tensor"}
+
+
+def count_ops(fn, *args, moves=()):
     """Arithmetic operations ``fn(*args)`` performs, counted at the aten
     level: 2 m n k for a matrix product, one per output element for an
     elementwise op (add, mul, compare, select, sin, log, ...), one per input
-    element for a reduction, none for data movement. Run on one instance,
-    it counts the plain version's arithmetic per instance."""
+    element for a reduction, none for data movement (``moves`` names more of
+    it). Run on one instance, it counts the plain version's arithmetic per
+    instance."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     total = [0]
@@ -1029,7 +1066,7 @@ def count_ops(fn, *args):
                 total[0] += 2 * a[1].numel() * a[2].shape[-1] + out.numel()
             elif name in _REDUCTIONS:
                 total[0] += a[0].numel()
-            elif name not in _NO_OPS and isinstance(out, torch.Tensor):
+            elif name not in _NO_OPS and name not in moves and isinstance(out, torch.Tensor):
                 total[0] += out.numel()
             return out
 
@@ -1100,6 +1137,17 @@ def bound(nbytes, ops, dtype):
     peak = H100_F64_PER_S if dtype == torch.float64 else H100_F32_PER_S
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def first_instance(p):
+    """The problem of ``p``'s first instance: x0's first row, and the first
+    row of a per-instance objective's tensors (``batched``)."""
+    from cddp_tpu_torch.costs import objective as objectives
+
+    obj = p.objective
+    if getattr(obj, "batched", False):
+        obj = objectives._with_leaves(obj, [t[:1] for t in objectives._leaves(obj)])
+    return p.replace(x0=p.x0[:1], objective=obj)
 
 
 def one(args):
@@ -1699,15 +1747,16 @@ def phase_ip_fleet(tt, dev, smi, obstacle=False):
         raise AssertionError(f"whole-solve and plain IPDDP statuses agree on {agree:.4%} "
                              f"(need >= 99%)")
 
-    # The per-pass engine's one timed run: the obstacle fleet's takes 6 s.
-    reps = {"whole-solve kernel": 10, "per-pass kernels": 1}
+    # The per-pass engine's timed run is its launch-count run above: the
+    # obstacle fleet's takes 5-6 s (NVIDIA H100 80GB HBM3).
+    reps = {"whole-solve kernel": 10}
     rates = {}
     for name, o in engines.items():
         def run(o=o):
             return batched_solve(prob, x0, "IPDDP", o).final_objective
 
-        if name == "plain driver":  # timed in its one run above
-            dt, n, n_reps = took[name], B_CHECK, 1
+        if name != "whole-solve kernel":  # timed in its one run above
+            dt, n, n_reps = took[name], B_CHECK if name == "plain driver" else B_MAIN, 1
         else:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1791,25 +1840,35 @@ def time_ip_kernels(tt, prob, x0, smi, names=("open_loop_rollout", "ip_forward",
     return out
 
 
-def ipddp_solve_work(tt, pw, opts, seeds, ops5, out5, refs):
+def ipddp_solve_work(tt, pw, opts, seeds, ops5, out5, refs, cost_ops=None):
     """Kernel 7's (inputs, outputs, operations) for its bound from one
     counted launch on ``seeds``: the operations of the plain version per
     backward attempt and per sweep (the forward trial, ``ops5`` of it, with
-    the merit, theta and residuals) at B=1, times this launch's work."""
+    the merit, theta and residuals) at B=1, times this launch's work.
+    ``cost_ops(p1, X, U)``, when given, counts the cost's derivatives in
+    place of the plain objective's (``mpcc_gn_cost_ops``)."""
     from cddp_tpu_torch.constraints.stack import PathStacker
     from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
     from cddp_tpu_torch.ops.kernels import mega_ipddp
-    from cddp_tpu_torch.solvers import ipddp
+    from cddp_tpu_torch.solvers import base, ipddp
 
     sol7, work = mega_ipddp.launch_counting_work(pw, opts, *seeds)
 
-    p1 = pw.replace(x0=pw.x0[:1])
+    p1 = first_instance(pw)
     s1 = one(seeds)
     stk1 = PathStacker(p1)
     mu1 = s1[6]
     reg1 = torch.full_like(mu1, 1e-6)
-    ops_back = count_ops(lambda: ric.ipddp_backward_plain(*ipddp.backward_inputs(
-        p1, stk1, s1[0], s1[1], s1[2], s1[3], s1[4], mu1, reg1)))
+    back1 = lambda: ipddp.backward_inputs(  # noqa: E731
+        p1, stk1, s1[0], s1[1], s1[2], s1[3], s1[4], mu1, reg1)
+    if cost_ops is None:
+        ops_back = count_ops(lambda: ric.ipddp_backward_plain(*back1()))
+    else:
+        inputs = back1()
+        ops_back = (count_ops(lambda: base.discrete_jacobians(p1, s1[0], s1[1]))
+                    + count_ops(lambda: stk1.jacobians(s1[0][:, :-1], s1[1]))
+                    + count_ops(lambda: ric.ipddp_backward_plain(*inputs))
+                    + cost_ops(p1, s1[0], s1[1]))
     ops_sweep = ops5 + count_ops(
         lambda t: (ipddp._barrier_merit(t[6], t[2], mu1), ipddp._theta(opts, t[4], t[2]),
                    ipddp._primal_comp(t[4], t[2], t[3], mu1)),
@@ -2539,11 +2598,13 @@ def phase_barrier_fleets(tt, dev, smi):
         if agree < 0.99:
             raise AssertionError(f"whole-solve and plain {solver} statuses agree on "
                                  f"{agree:.4%} (need >= 99%)")
-        reps = {"whole-solve kernel": 10, "per-pass driver": 1}
+        # The per-pass driver's timed run is its launch-count run above
+        # (MSIPDDP's 4.8 s, NVIDIA H100 80GB HBM3).
+        reps = {"whole-solve kernel": 10}
         rates[solver] = {}
         for name, o in engines.items():
-            if name == "plain driver":  # timed in its one run above
-                dt, n, n_reps = took[name], B_CHECK, 1
+            if name != "whole-solve kernel":  # timed in its one run above
+                dt, n, n_reps = took[name], B_CHECK if name == "plain driver" else B_MAIN, 1
             else:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -4031,11 +4092,12 @@ def phase_zoo_fleets(tt, dev, smi):
     x0 = fleet_x0(prob, B_MAIN, torch.Generator(device=dev).manual_seed(SEED))
     opts = zoo_options(tt, "hcw", "IPDDP")
     fleets["ipddp_solve_te6@hcw"] = (prob, x0, opts)
-    for engine, o, want in (
-            ("whole-solve", opts, {"open_loop_rollout@hcw": 1, "ipddp_solve_te6@hcw": 1}),
+    for engine, o, want, xs in (
+            ("whole-solve", opts, {"open_loop_rollout@hcw": 1, "ipddp_solve_te6@hcw": 1}, x0),
             ("per-pass", opts.replace(solve_engine="xla"), {"open_loop_rollout@hcw",
-                                                            "ip_forward@hcw"})):
-        sol, counts, ms, work = zoo_fleet_run(f"hcw rendezvous {engine}", prob, x0, "IPDDP", o,
+                                                            "ip_forward@hcw"},
+             x0[:B_MAIN // PER_PASS_SHARE])):
+        sol, counts, ms, work = zoo_fleet_run(f"hcw rendezvous {engine}", prob, xs, "IPDDP", o,
                                               want, mega_ipddp if engine == "whole-solve" else None)
         if engine == "whole-solve":
             launches.update(counts)
@@ -4346,10 +4408,17 @@ def forklift_case(B, dtype, device, gen):
     return Forklift(wheelbase=2.0).to(dtype), x0, U, 0.05
 
 
+# The unconstrained pendulum's budget in (d): its plain-engine iterations
+# took 34 s of the script at 200 and 23 s at 40 (on an NVIDIA H100 80GB
+# HBM3); it is a drive of the path without path rows, its convergence
+# printed, not held.
+UNCONSTRAINED_ITERS = 20
+
+
 def unconstrained_problems(tt, dtype, device):
     """(d)'s problems: the unconstrained pendulum of tests/test_ipddp.py:81-92
     (N = 100, dt = 0.02, Q = 0, R = 0.1, Qf = 100 I, no constraint, its
-    options: 200 iterations, tolerance 1e-5) and the scalar terminal
+    tolerance 1e-5, at UNCONSTRAINED_ITERS iterations of its 200) and the scalar terminal
     equality of make_goldens.py:87-97 (x+ = x + u, N = 8, x_N = 0.6, its
     options: 60 iterations, tolerance and acceptable 1e-6, mu_initial 0.1).
     {label: (problem, options, target of x_N)}."""
@@ -4367,7 +4436,8 @@ def unconstrained_problems(tt, dtype, device):
         "TerminalEqualityConstraint",
         tt.terminal_equality_constraint(torch.tensor([0.6], dtype=torch.float64), **kw))
     return {
-        "unconstrained pendulum": (pend, tt.CDDPOptions(max_iterations=200, tolerance=1e-5),
+        "unconstrained pendulum": (pend, tt.CDDPOptions(max_iterations=UNCONSTRAINED_ITERS,
+                                                        tolerance=1e-5),
                                    [0.0, 0.0]),
         "scalar terminal equality": (scalar, tt.CDDPOptions(
             max_iterations=60, tolerance=1e-6, acceptable_tolerance=1e-6,
@@ -4499,8 +4569,8 @@ def phase_discrete_kernels(tt, dev, errs):
 def phase_discrete_fleets(tt, dev, smi):
     """(b)-(d), each run with the launch counts zeroed just before it and read
     just after: (b) the car-parking fleet (x0 + U(-0.1, 0.1)^4, float32,
-    CAR_ITERS iterations of the golden's options) at CAR_B under CLDDP per
-    pass (kernels 1 and 2) and IPDDP per pass (kernels 4, 6 and 5), and at
+    CAR_ITERS iterations of the golden's options) at CAR_B / PER_PASS_SHARE
+    under CLDDP per pass (kernels 1 and 2) and IPDDP per pass (kernels 4, 6 and 5), and at
     B_CHECK under MSIPDDP (segments of 50, nonlinear) and LogDDP on their
     plain drivers over CAR_PLAIN_ITERS, seeded by kernel 4; the forklift's
     public rollout at
@@ -4517,10 +4587,11 @@ def phase_discrete_fleets(tt, dev, smi):
     car = car_problem(tt, torch.float32, dev)
     x0 = fleet_x0(car, CAR_B, torch.Generator(device=dev).manual_seed(SEED))
     runs = (  # solver, batch, launches it must make, the entries it drives
-        ("CLDDP", CAR_B, {"riccati_backward@4x2", "forward_rollout@car"},
+        ("CLDDP", CAR_B // PER_PASS_SHARE, {"riccati_backward@4x2", "forward_rollout@car"},
          {"riccati_backward@car": "riccati_backward@4x2",
           "forward_rollout@car": "forward_rollout@car"}),
-        ("IPDDP", CAR_B, {"open_loop_rollout@car", "ipddp_backward@4x2x4", "ip_forward@car"},
+        ("IPDDP", CAR_B // PER_PASS_SHARE, {"open_loop_rollout@car", "ipddp_backward@4x2x4",
+                                            "ip_forward@car"},
          {"open_loop_rollout@car": "open_loop_rollout@car", "ip_forward@car": "ip_forward@car",
           "ipddp_backward@car": "ipddp_backward@4x2x4"}),
         ("MSIPDDP", B_CHECK, {"open_loop_rollout@car": 1}, {}),
@@ -4529,7 +4600,7 @@ def phase_discrete_fleets(tt, dev, smi):
     for solver, B, want, drives in runs:
         label = f"car-parking {solver} fleet" + (" (plain driver)" if B == B_CHECK else
                                                  " (per pass)")
-        iters = CAR_ITERS if B == CAR_B else CAR_PLAIN_ITERS
+        iters = CAR_ITERS if B != B_CHECK else CAR_PLAIN_ITERS
         sol, counts, ms, _ = zoo_fleet_run(label, car, x0[:B], solver,
                                            car_options(tt, solver, iters), want)
         zoo_summary(label, sol, ms, None, smi)
@@ -4705,9 +4776,9 @@ FIG8_ITERS = 300  # the figure-8 anchor's budget
 # thousands of small torch launches an iteration at B = 1), so they are not
 # run: the per-pass path is held to the plain driver in (a) and (b), and
 # the float32 solve to the float64 one (``phase_quad_single``). Ten
-# timed solves took 43.3 s of the script (NVIDIA H100 80GB HBM3, 700 W);
-# three give the median.
-BENCH_REPS = 3
+# timed solves took 43.3 s of the script (NVIDIA H100 80GB HBM3, 700 W),
+# three 17.8 s with the warm-up; one is timed.
+BENCH_REPS = 1
 # Seeds of the staged operands (``quad_stage``): hover controls, each
 # entry moved by up to this share of its box width, so that A and B differ
 # between instances and steps (hover seeds keep every instance at hover:
@@ -4924,7 +4995,7 @@ def phase_quad_kernels(tt, dev, errs):
 
 
 def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, options,
-                       kernel_b, seed, track=None, riccati_f32_n=None):
+                       kernel_b, seed, track=None, riccati_f32_n=None, plain=None):
     """(a) every new instantiation against its plain version, in float64
     (within 1e-9 + ZOO_RTOL |v| plus twice the plain version's move from
     inputs one ulp up, ``check``) and float32 (``check``'s float64-truth
@@ -4941,7 +5012,9 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
     (``riccati.LEFT_OUT_MODELS``), and in float32 on each model of
     ``riccati_f32_n`` ({model: N}) on operands staged at that horizon
     (``maker(model, N)``, their own generator); errors into ``errs`` under
-    "<kernel>@<model>"."""
+    "<kernel>@<model>", and with ``plain`` each float32 plain version's
+    host ms there (``time_lane_kernels`` reads them: at these shapes each
+    takes about a second a call, a run of 5-6 s a model)."""
     from cddp_tpu_torch.models import rollout
     from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
     from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
@@ -4955,13 +5028,23 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
         exact = dtype == torch.float64
         gen = torch.Generator(device=dev).manual_seed(seed)
 
+        def plain_run(name, fn):
+            """fn(), its host ms into ``plain`` in the float32 pass."""
+            if exact or plain is None:
+                return fn()
+            out = timed_plain(fn)
+            plain[name] = LAST_PLAIN_MS[0]
+            return out
+
         def forward_checks(prob, fwd, name, opts):
             err = 0.0
             for soc in (False, True):
                 fc = forward_consts(prob, opts, soc)
                 got = ip_rollout._launch_forward(fc, *fwd)
+                want = (plain_run(name, lambda: ip_rollout.ip_forward_plain(fc, *fwd))
+                        if not soc else ip_rollout.ip_forward_plain(fc, *fwd))
                 err = max(err, check(
-                    f"{name} slack_soc={soc}", got, ip_rollout.ip_forward_plain(fc, *fwd),
+                    f"{name} slack_soc={soc}", got, want,
                     None if exact else ip_rollout.ip_forward_plain(
                         forward_consts(prob, opts, soc, f64=True), *as64(fwd)),
                     rtol=ZOO_RTOL, quantiles=not exact,
@@ -4979,9 +5062,11 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
                 k1 = stage(maker(model, riccati_f32_n[model])(tt, dtype, dev), kernel_b,
                            torch.Generator(device=dev).manual_seed(seed + 1))[2]
             if rollout_ops.model_entry(prob.model).cuda_name not in riccati.LEFT_OUT_MODELS:
-                errs[tag][f"riccati_backward@{model}"] = check(
+                name = f"riccati_backward@{model}"
+                errs[tag][name] = check(
                     f"riccati_backward@{model} (N={k1[0].shape[1]})", riccati._launch(*k1),
-                    riccati.riccati_backward_plain(*k1),
+                    plain_run(name, lambda: riccati.riccati_backward_plain(*k1)) if k1 is back
+                    else riccati.riccati_backward_plain(*k1),
                     None if exact else riccati.riccati_backward_plain(*as64(k1)), rtol=ZOO_RTOL,
                     quantiles=not exact, ties=not exact,
                     moved=riccati.riccati_backward_plain(*ulp_up(k1)) if exact else None)
@@ -4989,7 +5074,8 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
             fwd = (X[:, :-1], U, want[0], want[1], X[:, 0], alpha)
             errs[tag][f"forward_rollout@{model}"] = check(
                 f"forward_rollout@{model}", rollout_ops._launch(consts, *fwd),
-                rollout_ops.forward_rollout_plain(consts, *fwd),
+                plain_run(f"forward_rollout@{model}",
+                          lambda: rollout_ops.forward_rollout_plain(consts, *fwd)),
                 None if exact else rollout_ops.forward_rollout_plain(
                     dataclasses.replace(consts_f64(consts), model=copy.deepcopy(
                         prob.model).double()), *as64(fwd)),
@@ -5001,7 +5087,8 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
                 raise AssertionError(f"open_loop_rollout@{model}: the public rollout differs")
             errs[tag][f"open_loop_rollout@{model}"] = check(
                 f"open_loop_rollout@{model}", (got,),
-                (ip_rollout.open_loop_rollout_plain(mdl, X[:, 0], U, dt),),
+                (plain_run(f"open_loop_rollout@{model}",
+                           lambda: ip_rollout.open_loop_rollout_plain(mdl, X[:, 0], U, dt)),),
                 None if exact else (ip_rollout.open_loop_rollout_plain(
                     copy.deepcopy(mdl).double(), X[:, 0].double(), U.double(), dt),),
                 rtol=ZOO_RTOL, quantiles=not exact, moved=(ip_rollout.open_loop_rollout_plain(
@@ -5014,7 +5101,8 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
                                f"ip_forward_track@{model}", opts)
             got = ric._launch(*back)
             errs[tag][f"ipddp_backward@{model}"] = check(
-                f"ipddp_backward@{model}", got, ric.ipddp_backward_plain(*back),
+                f"ipddp_backward@{model}", got,
+                plain_run(f"ipddp_backward@{model}", lambda: ric.ipddp_backward_plain(*back)),
                 None if exact else ric.ipddp_backward_plain(*as64(back)), rtol=ZOO_RTOL,
                 quantiles=not exact,
                 moved=ric.ipddp_backward_plain(*ulp_up(back)) if exact else None)
@@ -5388,10 +5476,10 @@ def phase_quad_fleets(tt, dev, smi, sol64):
     read just after: the single solve (held to ``sol64``); the quadrotor
     fleet (the golden's problem from hover + U(-0.5, 0.5)^3 position
     offsets, float32, QUAD_ITERS iterations of the golden's options) at
-    QUAD_B under IPDDP per pass (kernels 4, 6, 5) and CLDDP per pass
+    QUAD_B / PER_PASS_SHARE under IPDDP per pass (kernels 4, 6, 5) and CLDDP per pass
     (kernels 1, 2), and at B_CHECK under MSIPDDP and LogDDP on their plain
     drivers over QUAD_PLAIN_ITERS (kernel 4's seed alone); the
-    QuadrotorRate fleet at QUAD_B under IPDDP per pass and a
+    QuadrotorRate fleet at QUAD_B / PER_PASS_SHARE under IPDDP per pass and a
     QUAD_DRIVE_ITERS CLDDP run that drives kernels 1 and 2 at 10x4. Returns
     (launches {entry: n}, the single solve)."""
     launches = {}
@@ -5402,9 +5490,10 @@ def phase_quad_fleets(tt, dev, smi, sol64):
     x0 = fleet_x0(quad, QUAD_B, torch.Generator(device=dev).manual_seed(SEED))
     ol, k5, k6 = "open_loop_rollout@quadrotor", "ip_forward@quadrotor", "ipddp_backward@13x4x8"
     for solver, B, iters, want, drives in (
-            ("IPDDP", QUAD_B, QUAD_ITERS, {ol, k6, k5},
+            ("IPDDP", QUAD_B // PER_PASS_SHARE, QUAD_ITERS, {ol, k6, k5},
              {ol: ol, k5: k5, "ipddp_backward@quadrotor": k6}),
-            ("CLDDP", QUAD_B, QUAD_ITERS, {"riccati_backward@13x4", "forward_rollout@quadrotor"},
+            ("CLDDP", QUAD_B // PER_PASS_SHARE, QUAD_ITERS,
+             {"riccati_backward@13x4", "forward_rollout@quadrotor"},
              {"riccati_backward@quadrotor": "riccati_backward@13x4",
               "forward_rollout@quadrotor": "forward_rollout@quadrotor"}),
             ("MSIPDDP", B_CHECK, QUAD_PLAIN_ITERS, {ol: 1}, {}),
@@ -5421,7 +5510,8 @@ def phase_quad_fleets(tt, dev, smi, sol64):
             ("IPDDP", QUAD_ITERS, {ol, "ipddp_backward@10x4x8", "ip_forward@quadrotor_rate"}),
             ("CLDDP", QUAD_DRIVE_ITERS, {"riccati_backward@10x4",
                                          "forward_rollout@quadrotor_rate"})):
-        _, counts = quad_fleet_run(f"QuadrotorRate {solver} fleet (per pass)", rate, xr, solver,
+        _, counts = quad_fleet_run(f"QuadrotorRate {solver} fleet (per pass)", rate,
+                                   xr[:QUAD_B // PER_PASS_SHARE], solver,
                                    quad_options(tt, iters), want, smi)
         for name, logged, _, model, _ in QUAD_ENTRIES:
             if model == "quadrotor_rate" and logged in counts:
@@ -5464,14 +5554,16 @@ def time_quad_kernels(tt, dev, single, smi):
 
 
 def time_lane_kernels(tt, dev, smi, label, models, maker, stage, ip_stage, options, batch,
-                      plain_b=None):
+                      plain_b=None, plain=None):
     """Kernels 1, 2, 4, 5 and 6 of each of a family's ``models`` at ``batch``
     (wrapper and device ms, plain ms, bound), on operands staged as its (a)
     stages them (``stage``, ``ip_stage``; ``options()`` the IPDDP options):
     kernels 1 and 2 on the CLDDP operands, then, those freed, kernels 4, 5
     and 6 on the IPDDP ones; the plain versions on all of them, or on the
-    first ``plain_b``. Returns ({"<kernel>@<model>": timing tuple}, {model:
-    (the IPDDP operands' problem, kernel 5's inputs)})."""
+    first ``plain_b``, but where ``plain`` ({"<kernel>@<model>": ms},
+    ``phase_lane_kernels``') gives their time from (a). Returns
+    ({"<kernel>@<model>": timing tuple}, {model: (the IPDDP operands'
+    problem, kernel 5's inputs)})."""
     from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
     from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
     from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
@@ -5481,7 +5573,9 @@ def time_lane_kernels(tt, dev, smi, label, models, maker, stage, ip_stage, optio
                      and t.shape[0] == batch else t for t in ts)
 
     def timed(runs, work):
-        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper", batch=batch)
+        given = {k: (plain or {}).get(f"{k}@{model}") for k in runs}
+        timing = time_kernels(runs, work, torch.float32, smi, events_ok="wrapper", batch=batch,
+                              plain_ms=given)
         out.update({f"{k}@{model}": v for k, v in timing.items()})
 
     out, staged, t0 = {}, {}, time.perf_counter()
@@ -6206,14 +6300,15 @@ def family_fleet_run(label, prob, x0, solver, opts, want, smi, mega=None, tag="a
 
 def phase_attitude_fleets(tt, dev, smi, sol64):
     """(b)-(d), each run with the launch counts zeroed just before it and
-    read just after: on each model, the slew fleet (N = SLEW_N, SLEW_B,
-    float32, ATT_ITERS) under CLDDP per pass (kernels 1, 2) and IPDDP per
+    read just after: on each model, the slew fleet (N = SLEW_N, SLEW_B /
+    PER_PASS_SHARE, float32, ATT_ITERS) under CLDDP per pass (kernels 1, 2) and IPDDP per
     pass (kernels 4, 6, 5), and at B_CHECK under MSIPDDP (kernel 8 refuses
     the trio) and LogDDP (``solve_engine="xla"``) on their plain drivers
     over ATT_PLAIN_ITERS (kernel 4's seed alone); the MPC fleet (N =
     MPC_N, B_MAIN, float32, ATT_ITERS) under CLDDP (one launch of kernel 3),
     IPDDP and LogDDP (kernel 4's seed and one launch of kernel 7 or 9), per
-    pass where its table leaves the whole solve out; then the example's
+    pass (on B_MAIN / PER_PASS_SHARE) where its table leaves the whole
+    solve out; then the example's
     single slew (``phase_slew_single``). Returns (launches
     {entry: n}, {(fleet, model): (problem, x0)} for the timings)."""
     from cddp_tpu_torch.ops.kernels import mega_clddp, mega_ipddp, mega_logddp
@@ -6228,9 +6323,9 @@ def phase_attitude_fleets(tt, dev, smi, sol64):
                       f"forward_rollout@{model}")
         k5, k6 = f"ip_forward@{model}", f"ipddp_backward@{nx}x3x6"
         for solver, B, iters, engine, want, drives in (
-                ("CLDDP", SLEW_B, ATT_ITERS, "xla", {k1, k2},
+                ("CLDDP", SLEW_B // PER_PASS_SHARE, ATT_ITERS, "xla", {k1, k2},
                  {f"riccati_backward@{model}": k1, k2: k2}),
-                ("IPDDP", SLEW_B, ATT_ITERS, "xla", {ol, k6, k5},
+                ("IPDDP", SLEW_B // PER_PASS_SHARE, ATT_ITERS, "xla", {ol, k6, k5},
                  {ol: ol, k5: k5, f"ipddp_backward@{model}": k6}),
                 ("MSIPDDP", B_CHECK, ATT_PLAIN_ITERS, "auto", {ol: 1}, {}),
                 ("LogDDP", B_CHECK, ATT_PLAIN_ITERS, "xla", {ol: 1}, {})):
@@ -6255,8 +6350,8 @@ def phase_attitude_fleets(tt, dev, smi, sol64):
             name = f"{kernel}@{model}"
             label = f"{model} MPC {solver} fleet (N={MPC_N})"
             if not whole_takes(kernel, model):
-                family_fleet_run(f"{label}, per pass", prob, x0, solver, opts,
-                                   per_pass[solver], smi)
+                family_fleet_run(f"{label}, per pass", prob, x0[:B_MAIN // PER_PASS_SHARE],
+                                 solver, opts, per_pass[solver], smi)
                 continue
             want = ({name: 1} if solver == "CLDDP"
                     else {name: 1, f"open_loop_rollout@{model}": 1})
@@ -6278,7 +6373,7 @@ def attitude_checks(tt, dev, smi, refs):
     try:
         phase_lane_kernels(tt, dev, errs, "attitude", ATT_MODELS, attitude_maker, attitude_stage,
                            attitude_ip_stage, lambda: attitude_options(tt, ATT_ITERS),
-                           ATT_KERNEL_B, SEED + 77)
+                           ATT_KERNEL_B, SEED + 77, plain=plain)
         print(f"[attitude] (a)'s per-pass kernels done in {time.perf_counter() - t0:.1f} s")
         solves = attitude_kernel_solves(tt, dev)
         sol64 = slew_single(tt, dev, torch.float64)[0]
@@ -6327,7 +6422,7 @@ def time_attitude_kernels(tt, dev, fleets, plain, smi):
         lambda prob, B, gen: stage_inputs(prob, B, gen),
         lambda tt, prob, B, gen, opts: stage_ip_inputs(tt, prob, B, gen, opts, iterations=1,
                                                        kernels=True),
-        lambda: attitude_options(tt, ATT_ITERS), SLEW_B, plain_b=ATT_KERNEL_B)
+        lambda: attitude_options(tt, ATT_ITERS), SLEW_B, plain_b=ATT_KERNEL_B, plain=plain)
     out.update(time_whole_solves(tt, attitude_family(), lambda k, m: fleets[("mpc", m)],
                                  attitude_options(tt, ATT_ITERS), plain, smi))
     return out
@@ -6373,6 +6468,10 @@ SC_SPECS = {
 SC_LONG_N = 100  # (c)'s long-horizon fleets, per pass past every JAX gate
 SC_LONG_B = 65536
 SC_ITERS = 10  # the fleets' budget, at tolerance 1e-4
+# (b)'s LogDDP fleets on their plain driver at B_CHECK (at SC_ITERS the
+# nonlinear model's took 9.2 s, the lander's 4.4 s on an NVIDIA H100 80GB
+# HBM3, 700.00 W): they prove kernel 4's seed launch.
+SC_PLAIN_ITERS = 2
 SC_KERNEL_B = 1024  # (a)'s kernels 1, 2 and 4 at N = SC_LONG_N
 SC_WHOLE_ITERS = 5  # (a)'s whole solves
 # (a)'s kernel 1 in float32 on the lander at the MPC horizon, in float64 at
@@ -6489,18 +6588,18 @@ def sc_ip_stage(tt, prob, B, gen, opts, operands=lambda back: back[0]):
 
 
 
-def sc_lane_checks(tt, dev, models):
+def sc_lane_checks(tt, dev, models, plain=None):
     """(a) every new instantiation of kernels 1, 2, 4, 5 and 6 on ``models``
     against its plain version at N = SC_LONG_N (``phase_lane_kernels``:
     float64 within ZOO_RTOL plus twice the plain version's one-ulp move,
     float32 by ``check``'s rule, kernel 1 with ``ties``, on the lander at
-    SC_RICCATI_F32_N, not on the two-body model). Returns {dtype: {entry:
-    err}}."""
+    SC_RICCATI_F32_N, not on the two-body model; with ``plain`` the float32
+    plain versions' ms). Returns {dtype: {entry: err}}."""
     errs = {"float64": {}, "float32": {}}
     phase_lane_kernels(tt, dev, errs, "spacecraft", models, sc_maker, sc_stage, sc_ip_stage,
                        lambda: sc_options(tt, SC_ITERS), SC_KERNEL_B,
                        SEED + 83 + SC_MODELS.index(models[0]),
-                       riccati_f32_n=SC_RICCATI_F32_N)
+                       riccati_f32_n=SC_RICCATI_F32_N, plain=plain)
     return errs
 
 
@@ -6541,14 +6640,14 @@ def sc_checks(tt, dev, refs):
     references' process's runs (``refs``, a ``Side``). Returns (errs,
     {entry: float32 plain ms}, the references)."""
     t0 = time.perf_counter()
+    plain = {}
     try:
-        errs = sc_lane_checks(tt, dev, SC_MODELS)
+        errs = sc_lane_checks(tt, dev, SC_MODELS, plain)
         print(f"[spacecraft] (a)'s kernels done in {time.perf_counter() - t0:.1f} s")
         refs_out = refs.result(dev)
     finally:
         refs.close()
     print(f"[spacecraft] plain references in at {time.perf_counter() - t0:.1f} s")
-    plain = {}
     check_whole(tt, dev, sc_family(), refs_out, errs, plain)
     print(f"[spacecraft] (a)'s whole solves done in {time.perf_counter() - t0:.1f} s")
     return errs, plain, refs_out
@@ -6570,9 +6669,9 @@ def sc_fleet_x0(x0, solver, model):
     """A per-pass or plain fleet's x0: its first B_CHECK under LogDDP's plain
     driver and under CLDDP on a model whose recursion runs the plain version
     (``riccati_takes``: 9.0 and 11.7 s a fleet at B = 262,144 and 65,536 on
-    an NVIDIA H100 80GB HBM3), all of them otherwise."""
+    an NVIDIA H100 80GB HBM3), its first 1 / PER_PASS_SHARE otherwise."""
     plain = solver == "LogDDP" or (solver == "CLDDP" and not riccati_takes(model))
-    return x0[:B_CHECK] if plain else x0
+    return x0[:B_CHECK] if plain else x0[:x0.shape[0] // PER_PASS_SHARE]
 
 
 def plain_fleet_summary(label, run, tag, smi):
@@ -6596,7 +6695,7 @@ def phase_sc_fleets(tt, dev, smi, refs):
     engine, each with the launch counts zeroed just before it and read
     just after: one whole-solve launch (kernel 4's seed before kernels 7 and
     9) where the tables take the model at N = MPC_N, else per pass (LogDDP:
-    the plain driver at B_CHECK after kernel 4's seed; the two-body model's
+    the plain driver at B_CHECK over SC_PLAIN_ITERS after kernel 4's seed; the two-body model's
     CLDDP, whose Riccati recursion runs the plain version, at B_CHECK); each
     whole solve the tables take only at a shorter horizon (the nonlinear
     model's kernels 3 and 7) on the same fleet at that horizon; the
@@ -6624,9 +6723,11 @@ def phase_sc_fleets(tt, dev, smi, refs):
                     # seeds it), and CLDDP without kernel 1 runs the plain
                     # Riccati recursion (the two-body model): at B_CHECK, as
                     # phase 17's plain fleets.
-                    how = ", plain driver" if solver == "LogDDP" else ", per pass"
-                    family_fleet_run(label + how, prob, sc_fleet_x0(x0, solver, model), solver,
-                                     opts, per_pass[solver], smi, tag="spacecraft")
+                    plain = solver == "LogDDP"
+                    family_fleet_run(label + (", plain driver" if plain else ", per pass"), prob,
+                                     sc_fleet_x0(x0, solver, model), solver,
+                                     sc_options(tt, SC_PLAIN_ITERS) if plain else opts,
+                                     per_pass[solver], smi, tag="spacecraft")
                     continue
                 fleets[("mpc", kernel, model)] = (prob, x0)
                 want = ({name: 1} if solver == "CLDDP"
@@ -6676,7 +6777,7 @@ def time_sc_kernels(tt, dev, fleets, plain, smi):
     tuple}."""
     out, _ = time_lane_kernels(tt, dev, smi, "spacecraft", SC_MODELS, sc_maker, sc_stage,
                                sc_ip_stage, lambda: sc_options(tt, SC_ITERS), SC_LONG_B,
-                               plain_b=SC_KERNEL_B)
+                               plain_b=SC_KERNEL_B, plain=plain)
     out.update(time_whole_solves(tt, sc_family(), lambda k, m: fleets[("mpc", k, m)],
                                  sc_options(tt, SC_ITERS), plain, smi))
     return out
@@ -7020,6 +7121,559 @@ def time_small_kernels(tt, dev, fleets, plain, smi):
     return out
 
 
+# --- phase 20: the MPCC racing fleet (examples/mpcc_lib_torch.py) -------------------
+
+MPCC_B = 1024  # bench_mpcc.py's fleet (BASELINE.json config 5, "1k instances")
+MPCC_BIG_B = 65536  # kernel 7 at four blocks of 128 threads on each of 132 SMs, and more
+MPCC_ITERS = 15  # bench_mpcc.py's cold tick
+MPCC_WARM_ITERS = 5  # its warm ticks (MPCC_WARM_ITERS)
+MPCC_COEFFS = 64  # its Chebyshev window (MPCC_LOCAL_COEFFS), n_cp = 323
+MPCC_WARM_TICKS = 3  # timed warm ticks after the settling one
+MPCC_GOLDEN = Path(__file__).resolve().parent / "tests" / "goldens" / "mpcc_tick.npz"
+# The phase's entries: (entry name, dispatch_log name, kernel, launcher
+# without its type suffix, whether the lane library holds it).
+MPCC_ENTRIES = (
+    ("open_loop_rollout@bicycle7", "open_loop_rollout@bicycle7", "open_loop_rollout",
+     "cddp_open_loop_rollout_bicycle7", True),
+    ("ip_forward_mpcc@bicycle7", "ip_forward_mpcc@bicycle7", "ip_forward",
+     "cddp_ip_forward_bicycle7_mpcc_m6", True),
+    ("ipddp_backward@mpcc", "ipddp_backward@7x3x6", "ipddp_backward",
+     "cddp_ipddp_backward_7x3x6", False),
+    ("ipddp_solve_mpcc_gn@bicycle7", "ipddp_solve_mpcc_gn@bicycle7", "ipddp_solve",
+     "cddp_ipddp_solve_bicycle7_mpcc_gn_m6", True),
+)
+
+
+def mpcc_lib():
+    """examples/mpcc_lib_torch.py (which registers the MPCC lanes)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import mpcc_lib_torch
+
+    return mpcc_lib_torch
+
+
+def mpcc_fleet(m, dev, dtype, B, iters=None):
+    """bench_mpcc.py's cold tick: the synthetic track (240 points), the
+    Chebyshev windows of MPCC_COEFFS coefficients, ``iters`` iterations, B
+    cars spread over 90% of the lap on the centerline (bench_mpcc.py:
+    32-37). Returns (track, config, x0 (B, 7))."""
+    track = m.synthetic_track(n_points=240, device=dev)
+    cfg = m.MpccConfig(max_iterations=iters or MPCC_ITERS, track_eval="local",
+                       local_coeffs=MPCC_COEFFS)
+    s0 = torch.linspace(0.0, float(track.length) * 0.9, B, dtype=torch.float64, device=dev)
+    return track, cfg, m.place(track, s0).to(dtype)
+
+
+def mpcc_seeds_fn(m, track, cfg):
+    """``seeded``'s seeds_fn for the MPCC tick: each car's window and seed
+    controls at its x0, the cold start ``ipddp.solve`` builds from them."""
+    def fn(prob, opts, x0):
+        trk = m.solve_track(track, cfg, x0[:, 3])
+        p = m.build_problem(trk, cfg, x0)
+        return ip_seeds(p, opts, x0, m.seed_controls(trk, cfg, x0[:, 3])) + (None,)
+    return fn
+
+
+def mpcc_stage(tt, m, track, cfg, x0, gen, iterations=2):
+    """Kernels 6 and 5's operands as the per-pass driver stages them on the
+    MPCC tick: the per-pass driver (its kernels 5 and 6: the plain driver's
+    iterations take seconds) takes ``iterations`` from the cold start,
+    then the backward's inputs about its iterate and a trial of the
+    backward's gains at a random ladder step within the fraction-to-boundary
+    maxima (so that the trials are feasible; a quarter's steps tripled past
+    them, which fail), the slack SOC flag on half. Returns (problem,
+    backward args, forward args)."""
+    from cddp_tpu_torch.constraints.stack import PathStacker
+    from cddp_tpu_torch.options import line_search_alphas
+    from cddp_tpu_torch.solvers import ipddp
+
+    dev, dtype = x0.device, x0.dtype
+    rand = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=dtype)  # noqa: E731
+    opts = m.solver_options(cfg)
+    p, seeds, _ = mpcc_seeds_fn(m, track, cfg)(None, opts, x0)
+    stk = PathStacker(p)
+    sol = ipddp._drive(p, opts.replace(max_iterations=iterations), *seeds)
+    X, U, Lam = sol.state_trajectory, sol.control_trajectory, sol.costate_trajectory
+    Y = torch.cat([sol.dual_trajectories[n] for n in stk.names], -1)
+    S = torch.cat([sol.slack_trajectories[n] for n in stk.names], -1)
+    G = ipddp._eval_path(stk, X, U)
+    mu, reg = sol.barrier_mu, sol.final_regularization
+    back = ipddp.backward_inputs(p, stk, X, U, Y, S, G, mu, reg)
+    bp = ipddp._backward_condensed(p, opts, stk, X, U, Y, S, G, mu, reg)
+    a_pr_max, a_du_max = ipddp._max_step_sizes(S, Y, bp.dS, bp.dY, mu, opts)
+    ladder = torch.tensor(line_search_alphas(opts.line_search)[:4], device=dev, dtype=dtype)
+    B = x0.shape[0]
+    alpha = ladder[torch.randint(0, len(ladder), (B,), generator=gen, device=dev)]
+    over = torch.where(rand(B) < 0.25, 3.0, 1.0).to(dtype)
+    fwd = (X[:, :-1], U, Y, S, bp.k_u, bp.K_u, bp.k_lambda[:, :-1], bp.K_lambda[:, :-1],
+           Lam[:, :-1], bp.k_y, bp.K_y, bp.k_s, bp.K_s, x0,
+           torch.minimum(alpha, a_pr_max * over), torch.minimum(alpha, a_du_max * over),
+           ipddp._tau(opts, mu), rand(B) < 0.5)
+    return p, back, fwd
+
+
+def mpcc_check_x0(m, dev):
+    """(a)'s cars: bench_mpcc.py's fleet at B_CHECK, off the centerline by up
+    to 2 cm and 0.05 rad (so that the instances differ in more than their
+    progress), float32-representable (so that the float64 run is the
+    float32 one's truth). Returns (track, config, x0 float64)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    track, cfg, x0 = mpcc_fleet(m, dev, torch.float64, B_CHECK)
+    jitter = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=torch.float64) - 0.5
+    x0 = x0 + torch.cat([jitter * torch.tensor([0.04, 0.04, 0.1], device=dev,
+                                               dtype=torch.float64),
+                         x0.new_zeros(B_CHECK, 4)], -1)
+    return track, cfg, x0.float().double()
+
+
+def mpcc_plain_refs(tt, dev):
+    """Phase 20's plain references, in the plain references' process beside
+    the build (no kernel): (a)'s cold seeds and plain-driver runs (float64,
+    float32, and float32 from x0 one ulp up: the stable instances) over
+    MPCC_ITERS iterations, and (b)'s cold tick on the plain engine at MPCC_B
+    with its host ms and launches. Returns {key: value}."""
+    from cddp_tpu_torch.solvers import ipddp
+
+    m, out, t0 = mpcc_lib(), {}, time.perf_counter()
+    track, cfg, x0_64 = mpcc_check_x0(m, dev)
+    plain = plain_ip_options(tt, m.solver_options(cfg))
+    seeds_fn = mpcc_seeds_fn(m, track, cfg)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        x0 = x0_64.to(dtype)
+        for key, x in (("", x0), (" up", torch.nextafter(x0, torch.full_like(x0, math.inf)))):
+            if key and dtype == torch.float64:
+                continue
+            p, seeds, _ = seeds_fn(None, plain, x)
+            out[("seeds" + key, tag)] = seeds
+            out[("plain" + key, tag)] = timed_plain(lambda: ipddp._drive(p, plain, *seeds))
+            out[("plain ms" + key, tag)] = LAST_PLAIN_MS[0]
+    print(f"phase 20's plain drivers done at {time.perf_counter() - t0:.1f} s", flush=True)
+    track, cfg, x0 = mpcc_fleet(m, dev, torch.float32, MPCC_B)
+    run = mpcc_tick_run(m, track, cfg, x0, plain_ip_options(tt, m.solver_options(cfg)), "plain",
+                        warm=False)
+    out["plain tick"] = run
+    print(f"phase 20's plain tick done at {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def mpcc_checks(tt, dev, m, refs):
+    """(a) the phase's kernels against their plain versions at B_CHECK on
+    the fleet's operands (``mpcc_check_x0``: cars over 90% of the lap, their
+    windows and seed controls): kernel 4 on the bicycle lane from the seed
+    controls; kernels 6 (7x3x6) and 5 (the MPCC cost lane, with and without
+    the slack SOC) on operands the plain driver stages after two iterations
+    (``mpcc_stage``), each by ``check``'s rules (float64 within 1e-9 +
+    ZOO_RTOL |v| plus twice the plain version's move from inputs one ulp
+    up; float32 as accurate against float64 as the plain version within 2x,
+    on the median and 99th percentile); kernel 7's GN build against the
+    plain driver from the same cold seeds over MPCC_ITERS iterations, the
+    plain runs ``refs`` (``mpcc_plain_refs``): float64 every status and
+    iteration count equal, X, U, cost and mu within 1e-8, duals and slacks
+    within 1e-8 + 1e-8 |plain|; float32 status, iterations and cost (rel
+    1e-4) equal on >= 99% of the plain driver's stable instances (those on
+    which it agrees so with its own run from x0 one ulp up, ``cost_agree``)
+    and as accurate against float64 as the plain driver within 2x. Returns
+    {dtype: {entry: max abs err}}."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout, mega_ipddp
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+
+    errs = {"float64": {}, "float32": {}}
+    as64 = lambda ts: tuple(t.double() if isinstance(t, torch.Tensor)  # noqa: E731
+                            and t.is_floating_point() else t for t in ts)
+    t0 = time.perf_counter()
+    track, cfg, x0_64 = mpcc_check_x0(m, dev)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        exact = dtype == torch.float64
+        gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+        x0 = x0_64.to(dtype)
+        opts = m.solver_options(cfg)
+        trk = m.solve_track(track, cfg, x0[:, 3])
+        prob = m.build_problem(trk, cfg, x0)
+        U0 = m.seed_controls(trk, cfg, x0[:, 3])
+        mdl, entry = prob.model, ip_rollout.model_lane(prob.model)
+        got = ip_rollout._launch_open_loop(mdl, entry, x0, U0, cfg.dt)
+        errs[tag]["open_loop_rollout@bicycle7"] = check(
+            "open_loop_rollout@bicycle7", (got,),
+            (ip_rollout.open_loop_rollout_plain(mdl, x0, U0, cfg.dt),),
+            None if exact else (ip_rollout.open_loop_rollout_plain(
+                mdl, x0.double(), U0.double(), cfg.dt),), rtol=ZOO_RTOL, quantiles=not exact,
+            moved=(ip_rollout.open_loop_rollout_plain(mdl, *ulp_up((x0, U0)), cfg.dt),)
+            if exact else None)
+        p, back, fwd = mpcc_stage(tt, m, track, cfg, x0, gen)
+        assert_varies("MPCC operands", back[0], back[2], back[4])
+        got = ric._launch(*back)
+        errs[tag]["ipddp_backward@mpcc"] = check(
+            "ipddp_backward@7x3x6 (MPCC)", got, ric.ipddp_backward_plain(*back),
+            None if exact else ric.ipddp_backward_plain(*as64(back)), rtol=ZOO_RTOL,
+            quantiles=not exact, moved=ric.ipddp_backward_plain(*ulp_up(back)) if exact else None)
+        err = 0.0
+        for soc in (False, True):
+            fc = forward_consts(p, opts, soc)
+            if fc is None or fc.cost is None:
+                raise AssertionError("the MPCC tick did not resolve kernel 5's cost lane")
+            got = ip_rollout._launch_forward(fc, *fwd)
+            err = max(err, check(
+                f"ip_forward_mpcc@bicycle7 slack_soc={soc}", got,
+                ip_rollout.ip_forward_plain(fc, *fwd),
+                None if exact else ip_rollout.ip_forward_plain(
+                    forward_consts(p, opts, soc, f64=True), *as64(fwd)),
+                rtol=ZOO_RTOL, quantiles=not exact,
+                moved=ip_rollout.ip_forward_plain(fc, *ulp_up(fwd)) if exact else None))
+            print(f"[mpcc {tag}] ip_forward_mpcc slack_soc={soc}: feasible on "
+                  f"{float(got[-1].double().mean()):.2%} of {B_CHECK}")
+        errs[tag]["ip_forward_mpcc@bicycle7"] = err
+        # Kernel 7 from the plain references' own cold seeds.
+        pk = m.build_problem(trk, cfg, x0)
+        if not mega_ipddp.mega_eligible(pk, opts):
+            raise AssertionError("the MPCC tick is not eligible for kernel 7's GN build")
+        kern = mega_ipddp._launch(pk, opts, *refs[("seeds", tag)])
+        plain = refs[("plain", tag)]
+        label = (f"ipddp_solve_mpcc_gn@bicycle7 N={cfg.horizon}, M={MPCC_COEFFS}, "
+                 f"{cfg.max_iterations} iterations")
+        same = ((kern.status_code == plain.status_code)
+                & (kern.iterations_completed == plain.iterations_completed))
+        errs[tag]["ipddp_solve_mpcc_gn@bicycle7"] = float(
+            (kern.final_objective - plain.final_objective)[same].abs().max())
+        if exact:
+            check_ip_solve(label, kern, plain, True, dual_rtol=1e-8)
+            truth64 = plain.final_objective
+            continue
+        stable = cost_agree(refs[("plain up", tag)], plain)
+        print(f"[mpcc float32] {label}: the kernel agrees with the plain driver on "
+              f"{cost_share(kern, plain):.4%} of {B_CHECK}; the plain driver with itself "
+              f"from x0 one ulp up on {int(stable.sum())} (its stable instances, "
+              f"{float(stable.double().mean()):.4%}), held at 99% there")
+        check_ip_solve(f"{label}, stable instances", solution_rows(kern, stable),
+                       solution_rows(plain, stable), False)
+        rel = {n: (s.final_objective.double() - truth64).abs() / truth64.abs()
+               for n, s in (("kernel", kern), ("plain", plain))}
+        q = {n: (float(r.median()), float(r.quantile(0.99))) for n, r in rel.items()}
+        print(f"[mpcc float32] {label} against the float64 plain driver: median rel cost "
+              f"err kernel {q['kernel'][0]:.3e}, plain {q['plain'][0]:.3e}; 99th percentile "
+              f"kernel {q['kernel'][1]:.3e}, plain {q['plain'][1]:.3e}")
+        if not all(q["kernel"][i] <= 2.0 * q["plain"][i] + 1e-6 for i in (0, 1)):
+            raise AssertionError(f"{label}: rel cost err against float64 {q['kernel']} "
+                                 f"exceeds twice the plain driver's {q['plain']}")
+    print(f"[mpcc] kernels held at {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+MPCC_LAUNCHES = {
+    "whole": {"open_loop_rollout@bicycle7": 1, "ipddp_solve_mpcc_gn@bicycle7": 1},
+    "per-pass": ("open_loop_rollout@bicycle7", "ip_forward_mpcc@bicycle7",
+                 "ipddp_backward@7x3x6"),
+}
+
+
+def mpcc_tick_run(m, track, cfg, x0, opts, engine, reps=1, warm=True):
+    """One engine's cold tick of the fleet (``batched_mpcc_step_costs``):
+    a warm-up tick (with ``warm``), then ``reps`` timed ticks with the
+    launch counts of the last. Returns (u, cost, iterations, status, ms a
+    tick, launches)."""
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+
+    if warm:
+        m.batched_mpcc_step_costs(track, cfg, x0, options=opts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dispatch_log.reset()
+        out = m.batched_mpcc_step_costs(track, cfg, x0, options=opts)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    launches = dict(dispatch_log.launches)
+    u, cost, iters, status = out
+    B = x0.shape[0]
+    if engine == "whole" and launches != MPCC_LAUNCHES["whole"]:
+        raise AssertionError(f"the MPCC tick at B={B} did not run as kernels 4 and 7: {launches}")
+    if engine == "per-pass" and (set(launches) != set(MPCC_LAUNCHES["per-pass"])
+                                 or launches["open_loop_rollout@bicycle7"] != 1):
+        raise AssertionError(f"the per-pass MPCC tick at B={B} did not run on kernels 4, 5 "
+                             f"and 6 alone: {launches}")
+    if engine == "plain" and launches:
+        raise AssertionError(f"the plain MPCC tick launched kernels: {launches}")
+    lo = torch.tensor([cfg.speed_min, -cfg.delta_max, cfg.v_theta_min], device=u.device,
+                      dtype=u.dtype)
+    hi = torch.tensor([cfg.speed_max, cfg.delta_max, cfg.v_theta_max], device=u.device,
+                      dtype=u.dtype)
+    if not (bool(torch.isfinite(cost).all()) and bool(torch.isfinite(u).all())
+            and bool(((u >= lo) & (u <= hi)).all()) and tuple(u.shape) == (B, 3)):
+        raise AssertionError(f"the {engine} MPCC tick at B={B}: non-finite or out-of-box "
+                             f"controls, or non-finite costs")
+    return u, cost, iters, status, ms, launches
+
+
+def mpcc_fleets(tt, dev, m, smi, refs):
+    """(b) the cold fleet tick on each engine at MPCC_B (the plain driver
+    too, run by the plain references' process, ``mpcc_plain_refs``, beside
+    the build) and MPCC_BIG_B, float32: launch counts, ticks/s, mean iterations,
+    statuses, the kernels' agreement with the plain driver's statuses; then
+    the warm fleet (``warm_fleet_init``, then ticks of MPCC_WARM_ITERS
+    iterations with the plant's step, bench_mpcc.py:39-69) at both sizes.
+    Returns ({entry: launches in the runs that drive it}, {(B, engine):
+    ms a tick}, operands captured from the per-pass run at MPCC_BIG_B for
+    (d), the B = MPCC_BIG_B seeds of kernel 7)."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+
+    launches, ms = {}, {}
+    captured = {}
+    for B in (MPCC_B, MPCC_BIG_B):
+        track, cfg, x0 = mpcc_fleet(m, dev, torch.float32, B)
+        opts = m.solver_options(cfg)
+        engines = {"whole": opts, "per-pass": opts.replace(solve_engine="xla")}
+        if B == MPCC_B:
+            engines["plain"] = None
+        outs = {}
+        for engine, o in engines.items():
+            if engine == "plain":
+                outs[engine] = refs["plain tick"]
+            elif engine == "per-pass" and B == MPCC_BIG_B:
+                # Capture the last operands of kernels 5 and 6 for (d).
+                fwd, back = ip_rollout.ip_forward, ric.ipddp_backward
+
+                def keep_fwd(fc, *a, _f=fwd):
+                    captured["ip_forward"] = (fc, a)
+                    return _f(fc, *a)
+
+                def keep_back(*a, _f=back):
+                    captured["ipddp_backward"] = a
+                    return _f(*a)
+
+                ip_rollout.ip_forward, ric.ipddp_backward = keep_fwd, keep_back
+                try:
+                    outs[engine] = mpcc_tick_run(m, track, cfg, x0, o, engine, warm=False)
+                finally:
+                    ip_rollout.ip_forward, ric.ipddp_backward = fwd, back
+            else:
+                # The per-pass tick (5.3 s on an NVIDIA H100 80GB HBM3) runs
+                # once, after phase 20's checks ran its kernels.
+                whole = engine == "whole"
+                outs[engine] = mpcc_tick_run(m, track, cfg, x0, o, engine,
+                                             reps=3 if whole else 1, warm=whole)
+            u, cost, iters, status, t, counts = outs[engine]
+            ms[(B, engine)] = t
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            agree = float((status == outs["whole"][3]).double().mean())
+            print(f"[mpcc] cold tick, {engine} at B={B}: {B / t * 1e3:.1f} ticks/s ({t:.2f} ms "
+                  f"a tick); mean iterations {float(iters.double().mean()):.2f}; statuses "
+                  f"{torch.bincount(status.long(), minlength=4).tolist()}; status agrees with "
+                  f"the whole solve's on {agree:.4%}; launches {counts}  [{smi}]")
+        if B == MPCC_BIG_B:
+            p, seeds, _ = mpcc_seeds_fn(m, track, cfg)(None, opts, x0)
+            captured["ipddp_solve"] = (p, opts, seeds)
+            captured["open_loop_rollout"] = (p.model, x0, seeds[1], cfg.dt)
+        # The warm fleet: one cold solve of the whole budget seeds it.
+        from cddp_tpu_torch.ops.kernels import dispatch_log
+
+        cfg_w = dataclasses.replace(cfg, max_iterations=MPCC_WARM_ITERS)
+        U, st = m.warm_fleet_init(track, cfg, x0)
+        x, U, st, it = m.warm_fleet_step(track, cfg_w, x0, U, st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MPCC_WARM_TICKS):
+            dispatch_log.reset()
+            x, U, st, it = m.warm_fleet_step(track, cfg_w, x, U, st)
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3 / MPCC_WARM_TICKS
+        counts = dict(dispatch_log.launches)
+        if counts != MPCC_LAUNCHES["whole"]:
+            raise AssertionError(f"the warm MPCC tick at B={B} did not run as kernels 4 and 7: "
+                                 f"{counts}")
+        if not bool(torch.isfinite(x).all()) or tuple(U.shape) != (B, cfg.horizon, 3):
+            raise AssertionError(f"the warm MPCC fleet at B={B}: non-finite states or plans")
+        ms[(B, "warm")] = t
+        print(f"[mpcc] warm tick ({MPCC_WARM_ITERS} iterations, the plant's step included) at "
+              f"B={B}: {B / t * 1e3:.1f} ticks/s ({t:.2f} ms a tick); mean iterations "
+              f"{float(it.double().mean()):.2f}; launches {counts}  [{smi}]")
+    return launches, ms, captured
+
+
+def mpcc_golden(tt, dev, m):
+    """(c) tests/goldens/mpcc_tick.npz on the card in float64: the Fourier
+    track's tick (15 iterations from ``initial_state``; the lanes decline a
+    Fourier track, so the solve runs per pass, kernels 4 and 6 with the
+    plain trial), held as tests/test_goldens.py holds the JAX package
+    (cost rel 1e-9, X and U 1e-7 + 1e-9, status and iterations equal).
+    Returns its launches."""
+    import numpy as np
+
+    from cddp_tpu_torch.ops.kernels import dispatch_log
+
+    g = np.load(MPCC_GOLDEN)
+    track = m.synthetic_track(device=dev)
+    cfg = m.MpccConfig(max_iterations=15)
+    x0 = m.initial_state(track, cfg)
+    dispatch_log.reset()
+    _, sol = m.mpc_tick(track, cfg, x0)
+    torch.cuda.synchronize()
+    launches = dict(dispatch_log.launches)
+    if set(launches) != {"open_loop_rollout@bicycle7", "ipddp_backward@7x3x6"}:
+        raise AssertionError(f"the golden tick's launches: {launches}")
+    np.testing.assert_allclose(float(sol.final_objective), g["cost"], rtol=1e-9)
+    np.testing.assert_allclose(sol.state_trajectory.cpu().numpy(), g["X"], rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(sol.control_trajectory.cpu().numpy(), g["U"], rtol=1e-7,
+                               atol=1e-9)
+    if int(sol.iterations_completed) != int(g["iterations"]) or int(sol.status_code) != int(
+            g["status"]):
+        raise AssertionError("the golden tick's status or iterations differ")
+    print(f"[mpcc] golden mpcc_tick float64 on the card: cost {float(sol.final_objective)!r} "
+          f"(golden {float(g['cost'])!r}), {int(sol.iterations_completed)} iterations, status "
+          f"{int(sol.status_code)}; launches {launches}")
+    return launches
+
+
+def mpcc_gn_cost_ops(p, X, U):
+    """Operations of the GN cost's derivatives on one instance's horizon
+    (``p`` from ``first_instance``, X (1, N + 1, nx), U (1, N, nu)), each
+    taken once, as kernel 7's GN policy needs them. At a step (every step
+    does the same): the residuals with their tangent along theta, the one
+    state the track window reads (one forward-mode pass, its arithmetic
+    counted by ``count_ops``); one operation for each other Jacobian entry
+    (a scaled constant of the residuals' affine terms); then 2 J'r and the
+    blocks 2 Jx'Jx, 2 Ju'Ju and 2 Ju'Jx. At the terminal the same for its
+    residuals, plus the affine extra's constant gradient. The plain
+    objective does more: ``jacfwd`` carries all nx + nu tangents through
+    the track lookup, and it takes the Jacobians once for the gradients
+    and again for the Hessians."""
+    from cddp_tpu_torch.costs import objective as objectives
+
+    obj = p.objective
+    if obj.batched:
+        obj = dataclasses.replace(objectives._with_leaves(
+            obj, [t[0] for t in objectives._leaves(obj)]), batched=False)
+    theta = mpcc_lib().IDX_THETA
+    nx, nu, N = X.shape[-1], U.shape[-1], U.shape[1]
+
+    def along_theta(fn, x):
+        e = torch.zeros_like(x)
+        e[theta] = 1.0
+        n_r = fn(x).numel()
+        return count_ops(lambda: torch.func.jvp(fn, (x,), (e,)), moves=_AD_MOVES), n_r
+
+    c, n_r = along_theta(lambda x: obj.running_residuals(x, U[0, 0], 0), X[0, 0])
+    n = nx + nu
+    blocks = nx * nx + nu * nu + nu * nx
+    step = c + n_r * (n - 1) + (2 * n_r + 1) * n + (2 * n_r + 1) * blocks
+    c_T, n_t = along_theta(obj.terminal_residuals, X[0, -1])
+    terminal = c_T + n_t * (nx - 1) + (2 * n_t + 1) * nx + nx + (2 * n_t + 1) * nx * nx
+    return N * step + terminal
+
+
+def time_mpcc_kernels(tt, dev, m, captured, fleet_ms, smi):
+    """(d) each entry's wrapper and device ms, plain ms and bound at
+    MPCC_BIG_B, float32: kernel 4 on the fleet's seed controls, kernels 5
+    and 6 on the last operands of the per-pass tick (``mpcc_fleets``),
+    kernel 7 on the fleet's cold seeds (its bound from one counted launch's
+    work, ``ipddp_solve_work``; its plain ms the plain engine's tick at
+    MPCC_B). Returns {entry: timing tuple}."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+    from cddp_tpu_torch.ops.kernels import ipddp_riccati as ric
+    from cddp_tpu_torch.ops.kernels import mega_ipddp
+
+    mdl, x0, U0, dt = captured["open_loop_rollout"]
+    entry = ip_rollout.model_lane(mdl)
+    fc, fwd = captured["ip_forward"]
+    back = captured["ipddp_backward"]
+    p, opts, seeds = captured["ipddp_solve"]
+    fc1 = dataclasses.replace(fc, cost=dataclasses.replace(fc.cost, params=fc.cost.params[:1]))
+    out5 = ip_rollout.ip_forward_plain(fc1, *one(fwd))
+    ops5 = count_ops(lambda: ip_rollout.ip_forward_plain(fc1, *one(fwd)))
+    cp = fc.cost.cp(x0.shape[0], x0)
+    runs = {
+        "open_loop_rollout@bicycle7": (
+            lambda: ip_rollout._launch_open_loop(mdl, entry, x0, U0, dt), 20,
+            lambda: ip_rollout.open_loop_rollout_plain(mdl, x0, U0, dt), 3),
+        "ip_forward@mpcc": (lambda: ip_rollout._launch_forward(fc, *fwd), 20,
+                            lambda: ip_rollout.ip_forward_plain(fc, *fwd), 3),
+        "ipddp_backward@mpcc": (lambda: ric._launch(*back), 10,
+                                lambda: ric.ipddp_backward_plain(*back), 2),
+        "ipddp_solve@mpcc_gn": (lambda: mega_ipddp._launch(p, opts, *seeds), 3, None, 0),
+    }
+    X = ip_rollout.open_loop_rollout_plain(mdl, x0, U0, dt)
+    work = {
+        "open_loop_rollout@bicycle7": ((x0, U0), (X[:, 1:],), x0.shape[0] * count_ops(
+            lambda: ip_rollout.open_loop_rollout_plain(mdl, x0[:1], U0[:1], dt))),
+        "ip_forward@mpcc": (fwd + (cp,), ip_rollout.ip_forward_plain(fc, *fwd),
+                            x0.shape[0] * ops5),
+        "ipddp_backward@mpcc": (backward_operands_read(back), ric.ipddp_backward_plain(*back),
+                                x0.shape[0] * count_ops(lambda: ric.ipddp_backward_plain(
+                                    *one(back)))),
+        "ipddp_solve@mpcc_gn": ipddp_solve_work(tt, p, opts, seeds, ops5, out5, (cp,),
+                                                cost_ops=mpcc_gn_cost_ops),
+    }
+    plain = {"ipddp_solve@mpcc_gn": fleet_ms[(MPCC_B, "plain")]}
+    runs["ipddp_solve@mpcc_gn"] = runs["ipddp_solve@mpcc_gn"][:2] + (None, 0)
+    # The last timings of the run: where the profiler records no launch (as
+    # of kernel 6 in phases 7 and 16-19), CUDA events around the wrapper,
+    # which for kernel 6 copies nothing ("cuda_events"), for the others
+    # with their layout copies ("cuda_events_wrapper").
+    six = "ipddp_backward@mpcc"
+    timing = time_kernels({k: v for k, v in runs.items() if k != six}, work, torch.float32, smi,
+                          label=" (MPCC)", events_ok="wrapper", plain_ms=plain,
+                          batch=MPCC_BIG_B)
+    timing.update(time_kernels({six: runs[six]}, work, torch.float32, smi, label=" (MPCC)",
+                               events_ok=True, batch=MPCC_BIG_B))
+    names = dict(zip(("open_loop_rollout@bicycle7", "ip_forward@mpcc", "ipddp_backward@mpcc",
+                      "ipddp_solve@mpcc_gn"), (e[0] for e in MPCC_ENTRIES)))
+    return {names[k]: v for k, v in timing.items()}
+
+
+def phase_mpcc(tt, dev, smi, refs):
+    """Phase 20: the MPCC racing fleet (examples/mpcc_lib_torch.py, BASELINE
+    config 5): (a) ``mpcc_checks``, (b) ``mpcc_fleets``, (c) ``mpcc_golden``,
+    on the plain references of ``refs`` (a ``Side`` part that ran
+    ``mpcc_plain_refs``). Returns (launches by entry, errors, fleet ms,
+    captured operands)."""
+    m = mpcc_lib()
+    plain = refs.result(dev)
+    errs = mpcc_checks(tt, dev, m, plain)
+    launches, fleet_ms, captured = mpcc_fleets(tt, dev, m, smi, plain)
+    golden = mpcc_golden(tt, dev, m)
+    launches = {e[0]: launches.get(e[1], 0) for e in MPCC_ENTRIES}
+    print(f"[mpcc] launches by entry in the fleets' runs: {launches}; the golden's {golden}")
+    for name, _, _, _, _ in MPCC_ENTRIES:
+        if not launches[name]:
+            raise AssertionError(f"phase 20: {name} was launched no time in the fleets' runs")
+    return launches, errs, fleet_ms, captured
+
+
+def mpcc_record(tt, dev, m, launches, errs, timing):
+    """Phase 20's entries of the kernels' JSON line."""
+    from cddp_tpu_torch.ops.kernels import build
+
+    out = []
+    sources = {"open_loop_rollout": ("cddp_tpu_torch/ops/csrc/open_loop_rollout.cuh",
+                                     "cddp_tpu/ops/pallas/ip_rollout.py:612"),
+               "ip_forward": ("cddp_tpu_torch/ops/csrc/ip_forward.cuh",
+                              "cddp_tpu/ops/pallas/ip_rollout.py:248"),
+               "ipddp_backward": ("cddp_tpu_torch/ops/csrc/ipddp_backward_attitude.cu",
+                                  "cddp_tpu/ops/pallas/ipddp_riccati.py:215"),
+               "ipddp_solve": ("cddp_tpu_torch/ops/csrc/ipddp_solve.cuh",
+                               "cddp_tpu/ops/pallas/mega_ipddp.py:555")}
+    for name, logged, kernel, launcher, lane in MPCC_ENTRIES:
+        a = build.kernel_attributes(f"{launcher}_f32", m.LANES_HEADER if lane else None)
+        ms, plain, b_ms, b_by, dev_ms, source = timing[name]
+        src, rep = sources[kernel]
+        out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "variant_of": kernel,
+            "model": "bicycle7", "dispatch_name": logged,
+            "lane": "examples/mpcc_lanes.cuh" if lane else None, "launches": launches[name],
+            "max_abs_err": errs["float32"][name], "max_abs_err_f64": errs["float64"][name],
+            "ms": ms, "device_ms": dev_ms, "device_ms_source": source, "plain_ms": plain,
+            "plain_at": (f"B={MPCC_B}, float32, the plain engine's cold tick beside the "
+                         "kernels' build" if kernel == "ipddp_solve"
+                         else f"B={MPCC_BIG_B}, float32"),
+            "batch": MPCC_BIG_B, "horizon": 20, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "registers": a["registers"], "spill_bytes": a["spill_bytes"],
+            "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
+            "blocks_per_sm": a["blocks_per_sm"]})
+    return out
+
+
 def side_checks(tt, dev):
     """Phases 9, 12, 13 and 15's kernel-against-plain checks, which a side
     process runs while the main process runs phases 3, 16, 17 and 18's and
@@ -7061,6 +7715,7 @@ def zoo_side_checks(tt, dev):
 
 
 SIDE_RUNS = {"quadrotor": quad_plain_refs, "attitude": attitude_plain_refs,
+             "mpcc": mpcc_plain_refs,
              "spacecraft": sc_plain_refs, "small": small_plain_refs, "checks": side_checks,
              "zoo": zoo_side_checks}
 # The side processes that check kernels (and so build the library); the
@@ -7072,7 +7727,8 @@ CHECK_SIDES = ("checks", "zoo")
 # process (one process fewer sharing the card and the host's cores; after
 # phase 17's, phase 19's held the main process up by 73 s on an NVIDIA
 # H100 80GB HBM3).
-SIDE_PARTS = {"quadrotor+spacecraft+small": ("quadrotor", "spacecraft", "small")}
+SIDE_PARTS = {"quadrotor+spacecraft+small+mpcc": ("quadrotor", "spacecraft", "small",
+                                                   "mpcc")}
 
 
 def main():
@@ -7092,7 +7748,7 @@ def main():
     # Phases 16 and 17's plain references run plain drivers only: their
     # processes start now, beside the kernels' build, and are done before
     # the phases read them.
-    refs = {kind: Side(kind) for kind in ("quadrotor+spacecraft+small", "attitude")}
+    refs = {kind: Side(kind) for kind in ("quadrotor+spacecraft+small+mpcc", "attitude")}
     try:
         run(t_start, smi, dev, kind, refs)
     finally:
@@ -7108,17 +7764,19 @@ def run(t_start, smi, dev, kind, refs):
     from cddp_tpu_torch.solvers import base
 
     # --- phase 2: build ------------------------------------------------------
+    # The main library first; the MPCC lane library (phase 20's kernels)
+    # compiles after it, beside phases 3 and 16-19's checks, and is joined
+    # before phase 20 (a failed build raises there).
     t0 = time.perf_counter()
+    lanes = mpcc_lib().LANES_HEADER
     fresh = not build.library_path().exists()
-    build.library()
-    print(f"[build] {'built' if fresh else 'loaded'} {build.library_path().name} "
-          f"in {time.perf_counter() - t0:.1f} s")
-    log = build.library_path().with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if ("registers" in line or "spill" in line or "entry function" in line
-                    or line.startswith("==")):
-                print(f"[ptxas] {line.strip()}")
+    build.build_all()
+    print(f"[build] {'built' if fresh else 'loaded'} {build.library_path().name} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print_ptxas(build.library_path())
+    lane_build = ThreadPoolExecutor(max_workers=1)
+    lane_built = lane_build.submit(build.build_all, [lanes])
+    lane_build.shutdown(wait=False)
     attrs = print_kernel_attributes(smi)
     print(f"[clock] phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -7132,7 +7790,7 @@ def run(t_start, smi, dev, kind, refs):
     try:
         errs = phase_kernels(tt, dev)
         print(f"[clock] phase 3 done at {time.perf_counter() - t_start:.1f} s")
-        side_refs = refs["quadrotor+spacecraft+small"]
+        side_refs = refs["quadrotor+spacecraft+small+mpcc"]
         quad_checked = quad_checks(tt, dev, smi, side_refs.part("quadrotor"))
         att_checked = attitude_checks(tt, dev, smi, refs["attitude"])
         sc_checked = sc_checks(tt, dev, side_refs.part("spacecraft"))
@@ -7162,6 +7820,13 @@ def run(t_start, smi, dev, kind, refs):
     small_launches, small_errs, small_fleets, small_plain = phase_small(
         tt, dev, smi, small_checked, side_errs["small"])
     print(f"[clock] phase 19 fleets done at {time.perf_counter() - t_start:.1f} s")
+    lane_secs = lane_built.result()
+    print(f"[build] built {build.lane_library_path(lanes).name} in {lane_secs:.1f} s beside "
+          f"the checks; in at {time.perf_counter() - t_start:.1f} s")
+    print_ptxas(build.lane_library_path(lanes))
+    mpcc_launches, mpcc_errs, mpcc_ms, mpcc_captured = phase_mpcc(
+        tt, dev, smi, side_refs.part("mpcc"))
+    print(f"[clock] phase 20's checks and fleets done at {time.perf_counter() - t_start:.1f} s")
     zoo_timing = time_zoo_kernels(tt, zoo_fleets, zoo_plain, smi)
     dis_timing, dis_at = time_discrete_kernels(tt, dis_fleets, smi)
     print(f"[clock] phases 14-15 timings done at {time.perf_counter() - t_start:.1f} s")
@@ -7320,6 +7985,10 @@ def run(t_start, smi, dev, kind, refs):
     torch.cuda.empty_cache()
     small_timing = time_small_kernels(tt, dev, small_fleets, small_plain, smi)
     print(f"[clock] phase 19 timings done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    mpcc_timing = time_mpcc_kernels(tt, dev, mpcc_lib(), mpcc_captured, mpcc_ms, smi)
+    del mpcc_captured
+    print(f"[clock] phase 20 timings done at {time.perf_counter() - t_start:.1f} s")
 
     sources = {
         "riccati_backward": ("cddp_tpu_torch/ops/csrc/riccati_backward.cu",
@@ -7528,8 +8197,8 @@ def run(t_start, smi, dev, kind, refs):
             "ms": ms, "device_ms": dev_ms, "device_ms_source": source, "plain_ms": plain_ms,
             "plain_at": (f"B={B_CHECK}, float32, {ATT_WHOLE_ITERS} iterations, N={MPC_N}, "
                          "beside the kernels' build" if whole
-                         else f"B={ATT_KERNEL_B} (the first of the slew's operands), float32, "
-                         f"N={SLEW_N}, after phases 4-16"),
+                         else f"(a)'s operands: B={ATT_KERNEL_B} (kernels 1, 2, 4) or {B_CHECK} "
+                         f"(5, 6), float32, N={SLEW_N}, beside the check processes"),
             "batch": B_MAIN if whole else SLEW_B, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None,
             "registers": a["registers"], "spill_bytes": a["spill_bytes"],
@@ -7564,8 +8233,10 @@ def run(t_start, smi, dev, kind, refs):
             "ms": ms, "device_ms": dev_ms, "device_ms_source": source, "plain_ms": plain_ms,
             "plain_at": (f"B={B_CHECK}, float32, {SC_WHOLE_ITERS} iterations, N={horizon}, "
                          "beside the kernels' build" if whole
-                         else f"B={SC_KERNEL_B} (the first of the operands), float32, "
-                         f"N={SC_LONG_N}, after phases 4-17"),
+                         else f"(a)'s operands: B={SC_KERNEL_B} (kernels 1, 2, 4) or {B_CHECK} "
+                         f"(5, 6), float32, N={SC_LONG_N}, beside the check processes (kernel "
+                         f"1 on the lander: the first {SC_KERNEL_B} operands, after phases "
+                         f"4-17)"),
             "batch": B_MAIN if whole else SC_LONG_B, "horizon": horizon,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "registers": a["registers"], "spill_bytes": a["spill_bytes"],
@@ -7603,6 +8274,10 @@ def run(t_start, smi, dev, kind, refs):
             "registers": a["registers"], "spill_bytes": a["spill_bytes"],
             "smem_bytes": a["static_smem_bytes"] + a["dynamic_smem_bytes"],
             "blocks_per_sm": a["blocks_per_sm"]})
+    # Phase 20's instantiations (``MPCC_ENTRIES``): launches in the fleets'
+    # runs (the cold ticks on the whole-solve and per-pass engines, the warm
+    # ticks), errors from (a), times and bound at MPCC_BIG_B.
+    record["kernels"] += mpcc_record(tt, dev, mpcc_lib(), mpcc_launches, mpcc_errs, mpcc_timing)
     print(f"[card] {smi}; CLDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in rates.items()) + "; IPDDP solves/s: " + ", ".join(
         f"{n} {r:.1f}" for n, r in ip_rates.items()) + "".join(

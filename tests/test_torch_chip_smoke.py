@@ -148,7 +148,7 @@ def _plain_kernels(monkeypatch):
         return k4(model, entry, x0, U, dt)
 
     def k5(fc, *a):
-        dispatch_log.launched("ip_forward" + fc.lane.variant + fc.lane.tag, a[0].shape[0])
+        dispatch_log.launched("ip_forward" + fc.tag, a[0].shape[0])
         return ip_rollout.ip_forward_plain(fc, *a)
 
     def k6(*a):
@@ -673,15 +673,54 @@ def test_count_ops_steps_is_the_full_count(model):
 
 def test_side_part_process_failure_is_raised():
     """A part of a side process that runs several (``SIDE_PARTS``: phases
-    16, 18 and 19's plain references) is raised as the process's failure
+    16, 18, 19 and 20's plain references) is raised as the process's failure
     when the process ends without saving it (here it needs the card)."""
     import chip_smoke
 
-    refs = chip_smoke.Side("quadrotor+spacecraft+small")
+    refs = chip_smoke.Side("quadrotor+spacecraft+small+mpcc")
     try:
-        for part in chip_smoke.SIDE_PARTS["quadrotor+spacecraft+small"]:
+        for part in chip_smoke.SIDE_PARTS["quadrotor+spacecraft+small+mpcc"]:
             with pytest.raises(AssertionError, match="exited with status"):
                 refs.part(part).result(torch.device("cpu"))
     finally:
         refs.close()
     assert not Path(refs._dir.name).exists()
+
+
+def test_phase_20_dry_run(monkeypatch):
+    """Phase 20's plumbing on the CPU at tiny sizes (B_CHECK = 16, the fleets
+    at 8 and 16 cars, 2 iterations, windows of 16 coefficients), kernels 4,
+    5 and 6 replaced by their plain versions that count a launch and kernel
+    7 by its plain driver (``_plain_kernels``, ``_plain_whole_solves``): the
+    checks, the fleets on every engine with their launch counts, the golden
+    tick (float64, 15 iterations from the JAX package's snapshot) and the
+    timings run through, and every entry of ``MPCC_ENTRIES`` gets its
+    launches, errors, timing tuple and record."""
+    import types
+
+    import chip_smoke
+    import cddp_tpu_torch as tt
+
+    for name, value in (("B_CHECK", 16), ("MPCC_B", 8), ("MPCC_BIG_B", 16), ("MPCC_ITERS", 2),
+                        ("MPCC_WARM_ITERS", 1), ("MPCC_WARM_TICKS", 1), ("MPCC_COEFFS", 16),
+                        ("TIMING_BUDGET_MS", 1.0)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    _plain_kernels(monkeypatch)
+    _plain_whole_solves(monkeypatch)
+    from cddp_tpu_torch.ops.kernels import build
+
+    monkeypatch.setattr(build, "kernel_attributes", lambda name, header=None: dict.fromkeys(
+        build.ATTRIBUTES, 0))
+    dev = torch.device("cpu")
+    refs = chip_smoke.mpcc_plain_refs(tt, dev)  # the side process's work, here
+    launches, errs, fleet_ms, captured = chip_smoke.phase_mpcc(
+        tt, dev, "dry run", types.SimpleNamespace(result=lambda dev: refs))
+    m = chip_smoke.mpcc_lib()
+    timing = chip_smoke.time_mpcc_kernels(tt, dev, m, captured, fleet_ms, "dry run")
+    record = chip_smoke.mpcc_record(tt, dev, m, launches, errs, timing)
+    names = [e[0] for e in chip_smoke.MPCC_ENTRIES]
+    assert [r["name"] for r in record] == names
+    assert all(launches[n] >= 1 for n in names)
+    for tag in ("float64", "float32"):
+        assert set(errs[tag]) == set(names)
+    assert set(timing) == set(names)
