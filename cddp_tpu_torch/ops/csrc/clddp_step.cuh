@@ -118,68 +118,82 @@ __device__ __forceinline__ void boxqp_enum(const T (&H)[NU][NU], const T (&g)[NU
   }
 }
 
-// The walk of boxqp_enum as a runtime loop over the configurations, in the
-// same order (used from NU = 3 on). Each free block is solved as the
-// identity-padded NU x NU system the plain version solves
+// Configuration C of the walk (digits in itertools.product order), solved
+// as the identity-padded NU x NU system the plain version solves
 // (ops/boxqp.py::_masked_free_hessian): its Leibniz determinant, cofactors
 // and leading minors have the compact block's terms in the same order,
-// times exact ones, beside exact zeros, so the selection, k and the free
-// block's inverse are those of the compact walk, bit for bit, with the
-// inverse zero off the free rows and columns.
+// times exact ones, beside exact zeros, so its x and free-block inverse are
+// those of the compact walk, bit for bit. Returns whether C is valid; x is
+// its solution, Hinv the inverse of its free block, zero off the free rows
+// and columns.
+template <typename T, int NU>
+__device__ __forceinline__ bool boxqp_config(int C, const T (&H)[NU][NU], const T (&g)[NU],
+                                             const T (&lb)[NU], const T (&ub)[NU], T (&x)[NU],
+                                             T (&Hinv)[NU][NU]) {
+  int d[NU];
+  int rest = C;
+#pragma unroll
+  for (int i = NU - 1; i >= 0; --i) {
+    d[i] = rest % 3;
+    rest /= 3;
+  }
+  T Hff[NU][NU], rhs[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) x[i] = d[i] == 0 ? T(0) : (d[i] == 1 ? lb[i] : ub[i]);
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    T s = T(0);
+#pragma unroll
+    for (int b = 0; b < NU; ++b) {
+      Hff[a][b] = (d[a] == 0 && d[b] == 0) ? H[a][b] : (a == b ? T(1) : T(0));
+      s = d[b] != 0 ? s + H[a][b] * x[b] : s;
+    }
+    rhs[a] = d[a] == 0 ? -(g[a] + s) : T(0);
+  }
+  T xf[NU];
+  inverse<T, NU>(Hff, Hinv);
+  bool valid = leading_minors_pd<T, NU>(Hff);
+  matvec<T, NU, NU>(Hinv, rhs, xf);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) x[i] = d[i] == 0 ? xf[i] : x[i];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    T grad = T(0);
+#pragma unroll
+    for (int j = 0; j < NU; ++j) grad = grad + H[i][j] * x[j];
+    grad = g[i] + grad;
+    if (d[i] == 0) {
+      valid = valid & (x[i] >= lb[i]) & (x[i] <= ub[i]);
+    } else if (d[i] == 1) {
+      valid = valid & (grad >= T(0));
+    } else {
+      valid = valid & (grad <= T(0));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NU; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Hinv[i][j] = (d[i] == 0 && d[j] == 0) ? Hinv[i][j] : T(0);
+  return valid;
+}
+
+// The walk of boxqp_enum as a runtime loop over the configurations, in the
+// same order (used from NU = 3 on; boxqp_config solves each).
 template <typename T, int NU>
 __device__ __forceinline__ void boxqp_enum_loop(const T (&H)[NU][NU], const T (&g)[NU],
                                                 const T (&lb)[NU], const T (&ub)[NU],
                                                 BoxQPSel<T, NU>& sel) {
 #pragma unroll 1
   for (int C = 0; C < pow3(NU); ++C) {
-    int d[NU];
-    int rest = C;
-#pragma unroll
-    for (int i = NU - 1; i >= 0; --i) {
-      d[i] = rest % 3;
-      rest /= 3;
-    }
-    T x[NU], Hff[NU][NU], rhs[NU];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) x[i] = d[i] == 0 ? T(0) : (d[i] == 1 ? lb[i] : ub[i]);
-#pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      T s = T(0);
-#pragma unroll
-      for (int b = 0; b < NU; ++b) {
-        Hff[a][b] = (d[a] == 0 && d[b] == 0) ? H[a][b] : (a == b ? T(1) : T(0));
-        s = d[b] != 0 ? s + H[a][b] * x[b] : s;
-      }
-      rhs[a] = d[a] == 0 ? -(g[a] + s) : T(0);
-    }
-    T Hinv[NU][NU], xf[NU];
-    inverse<T, NU>(Hff, Hinv);
-    bool valid = leading_minors_pd<T, NU>(Hff);
-    matvec<T, NU, NU>(Hinv, rhs, xf);
-#pragma unroll
-    for (int i = 0; i < NU; ++i) x[i] = d[i] == 0 ? xf[i] : x[i];
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      T grad = T(0);
-#pragma unroll
-      for (int j = 0; j < NU; ++j) grad = grad + H[i][j] * x[j];
-      grad = g[i] + grad;
-      if (d[i] == 0) {
-        valid = valid & (x[i] >= lb[i]) & (x[i] <= ub[i]);
-      } else if (d[i] == 1) {
-        valid = valid & (grad >= T(0));
-      } else {
-        valid = valid & (grad <= T(0));
-      }
-    }
+    T x[NU], Hinv[NU][NU];
+    const bool valid = boxqp_config<T, NU>(C, H, g, lb, ub, x, Hinv);
     const bool take = valid & !sel.taken;
     sel.taken = sel.taken | valid;
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
       sel.k[i] = take ? x[i] : sel.k[i];
 #pragma unroll
-      for (int j = 0; j < NU; ++j)
-        sel.Hinv[i][j] = take ? (d[i] == 0 && d[j] == 0 ? Hinv[i][j] : T(0)) : sel.Hinv[i][j];
+      for (int j = 0; j < NU; ++j) sel.Hinv[i][j] = take ? Hinv[i][j] : sel.Hinv[i][j];
     }
   }
 }

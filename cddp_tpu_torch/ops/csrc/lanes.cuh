@@ -18,10 +18,11 @@
 //     ... static void tres(x[NX], cp, w, S (&r)[NTRES]);
 //     ... static S textra(x[NX], cp, w);   (affine in x: its Hessian is 0)
 //
-// cp is each instance's parameter row, batch-last (n_cp, B) in device
-// memory: a warp's threads read neighbouring addresses, through the
+// cp is each instance's parameter row: for kernel 7 batch-last (n_cp, B) in
+// device memory, a warp's threads on neighbouring addresses, through the
 // read-only data cache (a GN lane evaluates every parameter once per
-// tangent column per step).
+// tangent column per step); for kernel 5 its row of the (B, n_cp) tensor
+// where it lies, staged in shared memory once a launch where it fits.
 #pragma once
 
 #include <type_traits>
@@ -30,14 +31,21 @@
 
 namespace cddp {
 
-// One instance's parameters: p[i] is row i of the batch-last (n, B) array.
+// One instance's parameters: parameter i at p[i * Bs + b] (row i of a
+// batch-last (n, B) array; in the forward trial, its own row of a (B, n)
+// tensor with Bs its value stride and b 0). `shared`: p points into shared
+// memory (the forward trial's staged rows), read by a plain load; else
+// through the read-only data cache.
 template <typename T>
 struct LaneParams {
   const T* p;
   size_t Bs;
   int b;
   int n;
-  __device__ __forceinline__ T operator[](int i) const { return __ldg(p + size_t(i) * Bs + b); }
+  bool shared = false;
+  __device__ __forceinline__ T operator[](int i) const {
+    return shared ? p[size_t(i) * Bs + b] : __ldg(p + size_t(i) * Bs + b);
+  }
 };
 
 // A cost or GN lane's kernel arguments: the parameters (n_cp, B) and the

@@ -45,13 +45,22 @@ constexpr int solve_min_blocks() {
 struct KernelInfo {
   const char* name;  // the launcher's exported name
   const void* fn;    // the __global__ function it launches
-  int threads, smem;
+  int threads;
+  mutable int smem;  // as registered, or as the last launch took it (note_launch_smem)
   const KernelInfo* next;
 };
 
 inline const KernelInfo*& kernel_list() {
   static const KernelInfo* head = nullptr;
   return head;
+}
+
+// A launch whose dynamic shared memory is known only at launch (a cost
+// lane's parameters, ip_forward.cuh) notes it, so that the attributes
+// report the size the kernel runs with.
+inline void note_launch_smem(const void* fn, int smem) {
+  for (const KernelInfo* k = kernel_list(); k != nullptr; k = k->next)
+    if (k->fn == fn) k->smem = smem;
 }
 
 struct RegisterKernel {

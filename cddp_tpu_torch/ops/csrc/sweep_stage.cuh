@@ -24,6 +24,19 @@
 // broadcast over the batch is staged by the block once a step, or once a
 // launch when it is also constant over the steps, and every thread reads
 // that one copy.
+//
+// CoopStage is the sibling for a kernel whose operands arrive batch-first
+// (riccati_backward.cuh at its small shapes): a thread copying its own
+// instance's run of a batch-first operand touches a different line of
+// device memory from every other thread of its warp, and one step's run is
+// a few words. The block copies several steps of each per-instance operand
+// together instead: for an operand whose values are contiguous (value
+// stride 1) neighbouring threads take neighbouring values of one instance's
+// run of S steps, for any other (a batch-last view) neighbouring instances,
+// so the reads are coalesced either way. The stage holds each instance's
+// values as a row of odd pitch, [instance][value], so that a warp's 32
+// threads reading their own rows, and the copies writing them, fall in
+// different banks.
 #pragma once
 
 #include "small_linalg.cuh"
@@ -53,6 +66,13 @@ __device__ __forceinline__ void cp_async(T* dst, const T* src) {
 __device__ __forceinline__ void cp_async_commit() {
 #if defined(__CUDA_ARCH__)
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Wait until every group has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 #endif
 }
 
@@ -244,6 +264,89 @@ struct TileStage {
   template <int D1, int D2>
   __device__ void load(const TileOperand& o, int stage, T (&v)[D1][D2]) const {
     load<D1 * D2>(o, stage, reinterpret_cast<T(&)[D1 * D2]>(v));
+  }
+};
+
+// An odd row pitch of at least V values.
+__host__ __device__ constexpr int coop_pitch(int V) { return V | 1; }
+
+// Bytes of a CoopStage of `threads` threads and S steps: a row of S V
+// per-instance values a thread and S W broadcast values, then C constants.
+template <typename T>
+__host__ __device__ constexpr int coop_stage_bytes(int threads, int V, int W, int C, int S) {
+  return (coop_pitch(S * V) * threads + S * W + C) * int(sizeof(T));
+}
+
+// One stage of S steps, then the constants, at base: value v of step s (of
+// the stage's S) of instance x (of the block's TH) of a per-instance
+// operand at x * pitch + S * off + s * D + v; of a per-step broadcast at TH
+// * pitch + S * off + s * D + v; a constant at TH * pitch + S * W + off +
+// v. An instance's S steps of an operand stored step after step (a
+// batch-first tensor's, or a slice's whose step stride is D) are one run in
+// device memory, copied as one. The block fills the stage, waits, and reads.
+template <typename T, int TH, int S>
+struct CoopStage {
+  T* base;
+  int pitch, W;
+
+  __device__ T* consts() const { return base + TH * pitch + S * W; }
+
+  // Start copying steps t0 .. t0 + S - 1 (those in [0, N)) of operand o (D
+  // values a step) of the block's instances b0 .. b0 + TH - 1 (those below
+  // B) into the stage, every thread of the block taking its share.
+  template <int D>
+  __device__ void fetch(const T* src, const TileOperand& o, int t0, int N, int b0, int B) const {
+    const int s_lo = max(0, -t0), s_hi = min(S, N - t0);
+    if (o.kind == kPerInstance) {
+      const int n = min(TH, B - b0);
+      if (o.vs == 1) {
+        for (int idx = threadIdx.x; idx < n * S * D; idx += TH) {
+          const int x = idx / (S * D), r = idx - x * (S * D), s = r / D, v = r - s * D;
+          if (s >= s_lo && s < s_hi)
+            cp_async(base + x * pitch + S * o.off + r,
+                     src + (long long)(b0 + x) * o.bs + (long long)(t0 + s) * o.ts + v);
+        }
+      } else if (int(threadIdx.x) < n) {
+        const int x = threadIdx.x;
+        for (int s = s_lo; s < s_hi; ++s) {
+#pragma unroll
+          for (int v = 0; v < D; ++v)
+            cp_async(base + x * pitch + S * o.off + s * D + v,
+                     src + (long long)(b0 + x) * o.bs + (long long)(t0 + s) * o.ts + v * o.vs);
+        }
+      }
+    } else if (o.kind == kPerStep) {
+      for (int i = threadIdx.x; i < S * D; i += TH) {
+        const int s = i / D, v = i - s * D;
+        if (s >= s_lo && s < s_hi)
+          cp_async(base + TH * pitch + S * o.off + i, src + (long long)(t0 + s) * o.ts + v * o.vs);
+      }
+    }
+  }
+
+  // Start copying a constant operand (once a launch).
+  template <int D>
+  __device__ void fetch_constant(const T* src, const TileOperand& o) const {
+    if (o.kind == kConstant)
+      for (int i = threadIdx.x; i < D; i += TH) cp_async(consts() + o.off + i, src + i * o.vs);
+  }
+
+  // This thread's D values of operand o at step s of the stage.
+  template <int D>
+  __device__ const T* at(const TileOperand& o, int s) const {
+    return o.kind == kPerInstance ? base + threadIdx.x * pitch + S * o.off + s * D
+           : o.kind == kPerStep   ? base + TH * pitch + S * o.off + s * D
+                                  : consts() + o.off;
+  }
+  template <int D>
+  __device__ void load(const TileOperand& o, int s, T (&v)[D]) const {
+    const T* p = at<D>(o, s);
+#pragma unroll
+    for (int i = 0; i < D; ++i) v[i] = p[i];
+  }
+  template <int D1, int D2>
+  __device__ void load(const TileOperand& o, int s, T (&v)[D1][D2]) const {
+    load<D1 * D2>(o, s, reinterpret_cast<T(&)[D1 * D2]>(v));
   }
 };
 

@@ -4,11 +4,18 @@ their plain versions.
 Replaces ``cddp_tpu/ops/pallas/ip_rollout.py::_make_ol_kernel`` (the
 open-loop rollout X[t+1] = f_d(X[t], U[t]) that seeds every solve) and
 ``_make_ip_forward_kernel`` (one trial of the IPDDP line search). The CUDA
-kernels (``ops/csrc/open_loop_rollout.cu``, ``ops/csrc/ip_forward.cu``) give
-each problem instance one thread; trajectories are batch-last in device
-memory. CUDA tensors launch the kernels; CPU tensors run the plain versions,
-which carry the same lane arithmetic (``rollout.integrate_lane``, the box
-rows ``(lo - v) * scale`` and ``(v - hi) * scale``).
+kernels (``ops/csrc/open_loop_rollout.cu``, ``ops/csrc/ip_forward.cuh``)
+give each problem instance one thread and write batch-last trajectories.
+The forward kernel's wrapper copies nothing: the kernel reads each input
+where it lies, from its batch, step and value strides (``forward_strides``;
+the per-pass driver's slices of its trajectories and costate gains, kernel
+6's batch-last gains, a broadcast's one copy; at nx <= 3 the nominal X,
+Lambda and the costate gains staged four steps at a time, whatever their
+strides), and its outputs come back as
+batch-first views. CUDA tensors launch the kernels; CPU tensors run the
+plain versions, which carry the same lane arithmetic
+(``rollout.integrate_lane``, the box rows ``(lo - v) * scale`` and ``(v -
+hi) * scale``).
 
 The forward kernel takes one trial at step sizes (alpha_pr, alpha_du) and
 the fraction-to-boundary tau, per instance:
@@ -31,14 +38,16 @@ forward kernel reads (one row per instance, batch-last in device memory).
 Both match by exact class. The kernels of a header's lanes are built from
 it at first use (``build.lane_library``): kernel 4 on each model lane, and
 kernel 5 on each model lane with each cost lane of the same header, on the
-model's control box (m = 2 nu). The plain versions run the plain lane
-functions.
+model's control box (m = 2 nu); kernel 5 reads the cost parameters (B,
+n_cp) where they lie and stages a block's rows once a launch. The plain
+versions run the plain lane functions.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, List, Optional, Tuple
@@ -48,20 +57,26 @@ import torch
 from cddp_tpu_torch.constraints.path import (BallConstraint, ControlConstraint,
                                              StateConstraint)
 from cddp_tpu_torch.costs.objective import QuadraticObjective
-from cddp_tpu_torch.ops.kernels import dispatch_log
+from cddp_tpu_torch.ops.kernels import dispatch_log, operands
 from cddp_tpu_torch.ops.kernels import rollout as rollout_ops
 from cddp_tpu_torch.ops.kernels.rollout import ATTITUDE_MODELS, SMALL_ROWS, SPACECRAFT_ROWS
 from cddp_tpu_torch.solvers.base import ftb_ok
 
 _OL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_double)]
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.POINTER(ctypes.c_double)] * 2
+# The forward launcher: its 19 inputs, their strides, its 8 outputs, the
+# tracking reference, the problem constants and box rows, N, B, the
+# integrator, the slack SOC flag and the stream.
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_double)] * 2
                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-# A cost-lane launcher: the 26 tensors, cp (n_cp, B) and n_cp, the lane's
-# weights, then as above.
-_FWD_LANE_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.c_int]
+# A cost-lane launcher: the inputs (cp the last), strides and outputs, n_cp,
+# the lane's weights, then as above from the problem constants on.
+_FWD_LANE_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                       + [ctypes.POINTER(ctypes.c_double)] * 3 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p])
+# Forward inputs with a step axis: (B, N, ...) for the first 13 (Xb to Ks),
+# (B, ...) after (x0, a_pr, a_du, tau, soc and a cost lane's parameters).
+FWD_STEP_OPERANDS = 13
 
 # Box-stack sizes m the forward kernel (5) is instantiated for, by model:
 # in the tracking form the unicycle's control box, state box or both, the
@@ -289,10 +304,12 @@ class BoxRows:
             parts.append((v - c.upper) * c.scale_factor)
         return torch.cat(parts, dim=-1)
 
-    @property
+    @functools.cached_property
     def host(self) -> List[float]:
         """Per row [var index, upper flag, bound, scale], as the CUDA
-        ``BoxRows`` struct reads them; a ball's row [-1, 0, 0, 0]."""
+        ``BoxRows`` struct reads them; a ball's row [-1, 0, 0, 0] (one
+        device-to-host copy per stack: a launch that read the bounds again
+        would wait for the card)."""
         out = []
         for kind, c in self.items:
             if isinstance(kind, tuple):
@@ -431,37 +448,48 @@ def ip_forward(fc: ForwardConsts, *args):
     return _launch_forward(fc, *args)
 
 
+def forward_strides(ins):
+    """The forward kernel's view of its 19 inputs (Xb to Ks, x0, a_pr, a_du,
+    tau, soc, cp; ``operands.operand_strides``): each one's (batch, step,
+    value) strides, soc's in bytes; raises ValueError where the values of
+    one instance and step are not evenly spaced."""
+    return operands.operand_strides("ip_forward", ins, FWD_STEP_OPERANDS)
+
+
 def _launch_forward(fc: ForwardConsts, Xb, Ub, Y, S, ku, Ku, klam, Klam, lam,
                     ky, Ky, ks, Ks, x0, a_pr, a_du, tau, soc):
     from cddp_tpu_torch.ops.kernels import build
 
     Bsz, N, nx = Xb.shape
     nu, m = Ub.shape[-1], Y.shape[-1]
-    soc = soc.to(Xb.dtype)
-    ins = (Xb, Ub, Y, S, ku, Ku, klam, Klam, lam, ky, Ky, ks, Ks, x0, a_pr,
-           a_du, tau, soc)
+    ins = (Xb, Ub, Y, S, ku, Ku, klam, Klam, lam, ky, Ky, ks, Ks, x0, a_pr, a_du, tau)
     tag = build.dtype_tag("ip_forward", ins, (
         (N, nx), (N, nu), (N, m), (N, m), (N, nu), (N, nu, nx), (N, nx),
         (N, nx, nx), (N, nx), (N, m), (N, m, nx), (N, m), (N, m, nx), (nx,),
-        (), (), (), ()))
-    last = [t.movedim(0, -1).contiguous() for t in ins]
-    X, U, Sn, Yn, G, Lam = (Xb.new_empty(N, d, Bsz) for d in (nx, nu, m, m, m, nx))
-    J, F = Xb.new_empty(Bsz), Xb.new_empty(Bsz)
-    outs = [build.ptr(t) for t in last + [X, U, Sn, Yn, G, Lam, J, F]]
+        (), (), ()))
+    if soc.dtype != torch.bool or tuple(soc.shape) != (Bsz,) or soc.device != Xb.device:
+        raise ValueError(f"ip_forward: soc must be a ({Bsz},) bool tensor on {Xb.device}")
+    # The kernel reads each instance's cost parameters (B, n_cp) where they
+    # lie, a shared (n_cp,) row as its one copy.
+    cp = None if fc.cost is None else fc.cost.cp(Bsz, Xb)
+    ins = ins + (soc.view(torch.uint8), cp)
+    strides = forward_strides(ins if cp is not None else ins[:-1])
+    if cp is None:
+        strides.append((0, 0, 0))
+    outs = [Xb.new_empty(N, d, Bsz) for d in (nx, nu, m, m, m, nx)]
+    outs += [Xb.new_empty(Bsz), Xb.new_empty(Bsz)]
+    head = (operands.pointers(ins), operands.strides_array(strides), operands.pointers(outs))
     tail = (build.doubles(fc.lane.host), build.doubles(fc.rows.host), N, Bsz,
-            rollout_ops.INTEGRATORS.index(fc.lane.integrator), int(fc.slack_soc))
+            rollout_ops.INTEGRATORS.index(fc.lane.integrator), int(fc.slack_soc),
+            build.stream_ptr(Xb.device))
     if fc.cost is None:
         name = f"cddp_ip_forward_{fc.lane.entry.cuda_name}_m{m}{fc.lane.variant}_{tag}"
-        err = build.function(name, _FWD_ARGTYPES)(
-            *outs, fc.lane.refs_ptr(Xb), *tail, build.stream_ptr(Xb.device))
+        err = build.function(name, _FWD_ARGTYPES)(*head, fc.lane.refs_ptr(Xb), *tail)
     else:
-        # The lane kernel reads each instance's cost parameters batch-last,
-        # (n_cp, B), and the cost lane's weights beside them.
         name = f"cddp_ip_forward_{fc.lane.entry.cuda_name}_{fc.cost.name}_m{m}_{tag}"
-        cp = fc.cost.cp(Bsz, Xb).movedim(0, -1).contiguous()
         err = build.function(name, _FWD_LANE_ARGTYPES, fc.cost.header)(
-            *outs, build.ptr(cp), cp.shape[0], build.doubles(fc.cost.weights), *tail,
-            build.stream_ptr(Xb.device))
+            *head, cp.shape[-1], build.doubles(fc.cost.weights), *tail)
     build.check(err, name)
     dispatch_log.launched("ip_forward" + fc.tag, Bsz)
+    X, U, Sn, Yn, G, Lam, J, F = outs
     return (*(t.movedim(-1, 0) for t in (X, U, Sn, Yn, G, Lam)), J, F > 0.5)

@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from cddp_tpu_torch.ops import linalg
-from cddp_tpu_torch.ops.kernels import dispatch_log
+from cddp_tpu_torch.ops.kernels import dispatch_log, operands
 
 EPS_SLACK = 1e-10
 # (nx, nu, m) the kernel is instantiated for: the unicycle with a control
@@ -215,27 +215,15 @@ def inner_shapes(nx, nu, m):
 
 
 def operand_strides(ins):
-    """The kernel's view of its 16 inputs: each one's (batch stride, step
-    stride, value stride) in elements, the step stride 0 for Vx, Vxx, mu and
-    reg, which have no step axis. A batch or step stride of 0 is a
-    broadcast, read from one copy. The values of one instance and step (the
-    axes after batch and step, row-major) must be evenly spaced: the value
+    """The kernel's view of its 16 inputs (``operands.operand_strides``):
+    each one's (batch stride, step stride, value stride) in elements, the
+    step stride 0 for Vx, Vxx, mu and reg, which have no step axis. A batch
+    or step stride of 0 is a broadcast, read from one copy; the value
     stride is 1 for a dense batch-first tensor and B for a batch-last view
     (``movedim`` of a (..., B) tensor, as the forward kernel returns its
-    duals and slacks). Raises ValueError otherwise."""
-    out = []
-    for k, t in enumerate(ins):
-        lead = 2 if k < STEP_OPERANDS else 1
-        inner = [(n, st) for n, st in zip(t.shape[lead:], t.stride()[lead:]) if n != 1]
-        vs = inner[-1][1] if inner else 1
-        want = vs
-        for n, st in reversed(inner):
-            if st != want or vs == 0:
-                raise ValueError(f"ipddp_backward: input {k} of shape {tuple(t.shape)} and "
-                                 f"strides {t.stride()} has no evenly spaced values")
-            want *= n
-        out.append((t.stride(0), t.stride(1) if lead == 2 else 0, vs))
-    return out
+    duals and slacks). Raises ValueError where the values of one instance
+    and step are not evenly spaced."""
+    return operands.operand_strides("ipddp_backward", ins, STEP_OPERANDS)
 
 
 def _launch(A, Bm, lx, lu, lxx, luu, lux, Y, S, G, Gx, Gu, Vx, Vxx, mu, reg):
@@ -247,15 +235,13 @@ def _launch(A, Bm, lx, lu, lxx, luu, lux, Y, S, G, Gx, Gu, Vx, Vxx, mu, reg):
     shapes = inner_shapes(nx, nu, m)
     tag = build.dtype_tag("ipddp_backward", ins, [
         ((N,) if k < STEP_OPERANDS else ()) + s for k, s in enumerate(shapes)])
-    strides = [s for triple in operand_strides(ins) for s in triple]
+    strides = operand_strides(ins)
     name = f"cddp_ipddp_backward_{nx}x{nu}x{m}_{tag}"
     fn = build.function(name, _ARGTYPES)
     outs = [A.new_empty(*shape, Bsz) for shape in (
         (N, nu), (N, nu, nx), (N, m), (N, m, nx), (N, m), (N, m, nx), (N, nx),
         (N, nx, nx), (7,))]
-    err = fn((ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins)),
-             (ctypes.c_longlong * len(strides))(*strides),
-             (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs)),
+    err = fn(operands.pointers(ins), operands.strides_array(strides), operands.pointers(outs),
              N, Bsz, build.stream_ptr(A.device))
     build.check(err, name)
     dispatch_log.launched(dispatch_name(nx, nu, m), Bsz)

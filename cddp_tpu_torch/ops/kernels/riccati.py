@@ -1,10 +1,27 @@
 """Control-limited Riccati backward pass: CUDA kernel and plain version.
 
 Replaces ``cddp_tpu/ops/pallas/riccati.py::make_backward_kernel`` (the
-streamed backward over a (batch, time) grid). The CUDA kernel
-(``ops/csrc/riccati_backward.cu``) gives each problem instance one thread,
-which walks the horizon backwards with the value function in registers;
-stage tensors are read batch-last so a warp reads consecutive addresses.
+streamed backward over a (batch, time) grid). The CUDA kernel walks each
+instance's horizon backwards in one of two forms. Where one thread's step
+fits its registers (``KERNEL_SHAPES`` but ``TEAM_SHAPES``;
+``ops/csrc/riccati_backward.cuh``) each instance takes one thread, its
+value function in registers; at the small shapes (nx nu <= 8) the block
+stages four steps of its instances' operands at a time in shared memory,
+at nu = 3 each thread reads its own in place. Where one thread spilled its
+step to local memory (``TEAM_SHAPES``: 13x4, 10x4, 10x3;
+``ops/csrc/riccati_team.cuh``) each instance takes a team of 16 lanes of
+one warp: lane r owns row r of Vxx, Qxx and the value update, the
+products go through shared memory, and the 3^nu BoxQP active sets are
+dealt to the lanes, the first valid one taken as the serial walk takes it.
+
+The wrapper copies nothing (``operands.operand_strides``): the kernel
+reads every input where it lies, from its batch, step and value strides,
+and an input broadcast over the batch (the quadratic cost's Hessians, the
+terminal Hessian) from its one copy. Its outputs are batch-last arrays,
+returned as batch-first views: the line-search rollout reads them
+batch-last without a copy. An input whose values are not evenly spaced
+raises ValueError. On an NVIDIA H100 the wrapper's time is the kernel's
+(PERF.md §6).
 
 Both entry points take batch-first tensors: A (B,N,nx,nx), Bm (B,N,nx,nu),
 lx (B,N,nx), lu (B,N,nu), lxx (B,N,nx,nx), luu (B,N,nu,nu), lux (B,N,nu,nx),
@@ -20,9 +37,11 @@ import ctypes
 import torch
 
 from cddp_tpu_torch.ops.boxqp import BoxQPStatus, boxqp_solve_enum, solve_masked_free
-from cddp_tpu_torch.ops.kernels import dispatch_log
+from cddp_tpu_torch.ops.kernels import dispatch_log, operands
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# Inputs with a step axis: (B, N, ...) for the first 9, (B, ...) after.
+STEP_OPERANDS = 9
 # (nx, nu) the kernel is instantiated for: the unicycle, the pendulum and
 # the cart-pole of the model registry, the car's and the default
 # LTISystem's 4x2, the quadrotor's 13x4, QuadrotorRate's 10x4, and the
@@ -34,6 +53,12 @@ _ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_
 # is nu <= 4 alone, riccati.py:491-497) but those of LEFT_OUT_MODELS.
 KERNEL_SHAPES = ((3, 2), (2, 1), (4, 1), (4, 2), (13, 4), (10, 4), (6, 3), (7, 3), (8, 3),
                  (10, 3), (6, 2), (3, 1))
+# The shapes whose step one thread spilled to local memory (ptxas on an
+# NVIDIA H100: 12,944 bytes a thread at 13x4, 1,488 at 10x4, 1,240 at
+# 10x3), and the lanes of the team that takes each instance there. At 8x3
+# one thread took 16 bytes, the frame of float division's slow path, and
+# stays one thread: its team took 1.3x its time (PERF.md §6).
+TEAM_SHAPES = {(13, 4): 16, (10, 4): 16, (10, 3): 16}
 # Registered models (``rollout.ModelEntry.cuda_name``) whose CLDDP runs the
 # plain Riccati recursion although their shape is in KERNEL_SHAPES: float32
 # cannot carry SpacecraftTwobody's recursion (states near 7000 km, velocity
@@ -111,6 +136,14 @@ def riccati_backward(A, Bm, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx, reg):
     return _launch(A, Bm, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx, reg)
 
 
+def operand_strides(ins):
+    """The kernel's view of its 12 inputs (``operands.operand_strides``):
+    each one's (batch, step, value) strides, the step stride 0 for Vx, Vxx
+    and reg; raises ValueError where the values of one instance and step
+    are not evenly spaced."""
+    return operands.operand_strides("riccati_backward", ins, STEP_OPERANDS)
+
+
 def _launch(A, Bm, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx, reg):
     from cddp_tpu_torch.ops.kernels import build
 
@@ -120,15 +153,12 @@ def _launch(A, Bm, lx, lu, lxx, luu, lux, lb, ub, Vx, Vxx, reg):
     tag = build.dtype_tag("riccati_backward", ins, (
         (N, nx, nx), (N, nx, nu), (N, nx), (N, nu), (N, nx, nx), (N, nu, nu),
         (N, nu, nx), (N, nu), (N, nu), (nx,), (nx, nx), ()))
+    strides = operand_strides(ins)
     name = f"cddp_riccati_backward_{nx}x{nu}_{tag}"
     fn = build.function(name, _ARGTYPES)
-    last = [t.movedim(0, -1).contiguous() for t in ins]
-    k = A.new_empty(N, nu, Bsz)
-    K = A.new_empty(N, nu, nx, Bsz)
-    dV = A.new_empty(2, Bsz)
-    stats = A.new_empty(3, Bsz)
-    err = fn(*(build.ptr(t) for t in last + [k, K, dV, stats]), N, Bsz,
-             build.stream_ptr(A.device))
+    k, K, dV, stats = (A.new_empty(*shape, Bsz) for shape in ((N, nu), (N, nu, nx), (2,), (3,)))
+    err = fn(operands.pointers(ins), operands.strides_array(strides),
+             operands.pointers((k, K, dV, stats)), N, Bsz, build.stream_ptr(A.device))
     build.check(err, name)
     dispatch_log.launched(dispatch_name(nx, nu), Bsz)
     return (k.movedim(-1, 0), K.movedim(-1, 0), dV.movedim(-1, 0), stats[0],

@@ -42,7 +42,9 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    m=6 and m=10, and at each m on the driver's broadcast operands, on
    materialised batch-first copies, on batch-last views and on a ragged
    batch, which must give the same bits (``check_backward_layouts``); the
-   whole-solve kernel against the
+   forward trial also on the layout the per-pass driver hands it, recorded
+   on the card, which must give the same bits (``driver_forward_layout``,
+   as in every later phase that checks it); the whole-solve kernel against the
    plain per-pass driver on the same cold seeds (float64: every status and
    iteration count equal, X, U, duals, slacks, cost and mu within 1e-8, on
    the box fleet and the cases of ``phase_ip_branches``; float32: status,
@@ -333,6 +335,7 @@ def launchers():
                                                        MS_BOX_ROWS, TERMINAL_LAYOUTS,
                                                        TRACK_LAYOUTS)
     from cddp_tpu_torch.ops.kernels.riccati import KERNEL_SHAPES as RICCATI_SHAPES
+    from cddp_tpu_torch.ops.kernels.riccati import TEAM_SHAPES
     from cddp_tpu_torch.ops.kernels.rollout import (_REGISTRY, ATTITUDE_MODELS, CLDDP_MODELS,
                                                     CLDDP_TRACK_MODELS, ROLLOUT_MODELS,
                                                     SMALL_MODELS, SPACECRAFT_MODELS)
@@ -352,7 +355,9 @@ def launchers():
     backward = lambda shapes: [f"cddp_ipddp_backward_{nx}x{nu}x{m}"  # noqa: E731
                                for nx, nu, m in KERNEL_SHAPES if (nx, nu) in shapes]
     return {
-        "riccati_backward": [f"cddp_riccati_backward_{nx}x{nu}" for nx, nu in RICCATI_SHAPES],
+        "riccati_backward": [f"cddp_riccati_backward_{nx}x{nu}" for nx, nu in RICCATI_SHAPES
+                             if (nx, nu) not in TEAM_SHAPES],
+        "riccati_backward_team": [f"cddp_riccati_backward_{nx}x{nu}" for nx, nu in TEAM_SHAPES],
         "forward_rollout": [f"cddp_forward_rollout_{m}" for m in ROLLOUT_MODELS]
         + [f"cddp_forward_rollout_{m}_track" for m in CLDDP_TRACK_MODELS],
         "clddp_solve": [f"cddp_clddp_solve_{m}" for m in CLDDP_MODELS
@@ -502,11 +507,16 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(stop) / reps
 
 
+# A kernel built in more than one form: its ``__global__`` functions.
+KERNEL_FORMS = {"riccati_backward": ("riccati_backward", "riccati_team")}
+
+
 def device_ms(fn, kernel, reps, events_ok=False):
     """(ms, source): mean device milliseconds of one launch of the CUDA
     kernel ``kernel`` (its ``__global__`` function is
-    ``cddp::<kernel>_kernel``) over ``reps`` calls of fn, which ``cuda_ms``
-    has just warmed, and where they come from. "profiler": the profiler's
+    ``cddp::<kernel>_kernel``, or those of ``KERNEL_FORMS``) over ``reps``
+    calls of fn, which ``cuda_ms`` has just warmed, and where they come
+    from. "profiler": the profiler's
     kernel rows, without the wrapper's layout copies, over the launches it
     recorded (it can miss one of a short kernel's). If three sessions (one
     with ``events_ok="wrapper"``) record none: with ``events_ok`` (a wrapper that copies nothing, so
@@ -524,7 +534,9 @@ def device_ms(fn, kernel, reps, events_ok=False):
                 fn()
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and f"cddp::{kernel}_kernel<" in e.key]
+                if e.device_type == DeviceType.CUDA
+                and any(f"cddp::{k}_kernel<" in e.key
+                        for k in KERNEL_FORMS.get(kernel, (kernel,)))]
         count = sum(e.count for e in rows)
         if count:
             return sum(e.self_device_time_total for e in rows) / count / 1e3, "profiler"
@@ -1131,6 +1143,16 @@ def backward_operands_read(back):
     return tuple(out)
 
 
+def riccati_operands_read(back):
+    """Kernel 1's inputs as the data its function must read, for
+    ``unique_bytes``: a step operand that is one value at every instance
+    and step as one copy (the quadratic cost's zero lux, which the
+    objective materialises; its expanded lxx and luu are broadcasts
+    already)."""
+    return tuple(t[0, 0] if k < 9 and 0 not in t.stride()[:2] and bool((t == t[:1, :1]).all())
+                 else t for k, t in enumerate(back))
+
+
 def bound(nbytes, ops, dtype):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
     operations over the card's non-tensor peak for the dtype."""
@@ -1222,7 +1244,7 @@ def time_clddp_kernels(prob, x0, opts, smi,
     ops2 = count_ops(rollout_ops.forward_rollout_plain, consts, *one(fwd[1:]))
     print(f"[bound] operations per instance: riccati_backward {ops1}, forward_rollout {ops2}")
     work_items = {
-        "riccati_backward": (back, out1, ops1 * B_MAIN),
+        "riccati_backward": (riccati_operands_read(back), out1, ops1 * B_MAIN),
         "forward_rollout": (fwd[1:] + reference_read(prob), out2, ops2 * B_MAIN),
         "clddp_solve": clddp_solve_work(p, opts, seeds),
     }
@@ -1336,6 +1358,63 @@ def per_pass_layout(back):
     views; the plain driver (``stage_ip_inputs``) makes them batch-first."""
     return tuple(t.movedim(0, -1).contiguous().movedim(-1, 0) if k in (7, 8, 9) else t
                  for k, t in enumerate(back))
+
+
+def driver_forward_layout(tt, prob, opts, fwd, seeds=None):
+    """``fwd`` (kernel 5's operands as ``stage_ip_inputs`` or a family's
+    stage makes them, batch-first) in the layout the per-pass driver hands
+    them on, recorded on the card: the strides of the last forward trial of
+    a two-iteration per-pass solve of ``prob`` under ``opts`` from the cold
+    seeds of the first min(B, 256) instances of the same x0 (``fwd[13]``;
+    ``seeds(x0)`` gives (problem, seeds) where given), carried to the whole
+    batch by ``like_layout``."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout
+    from cddp_tpu_torch.solvers import ipddp
+
+    seen = []
+    trial = ip_rollout.ip_forward
+
+    def keep(fc, *args):
+        seen[:] = [(t.shape, t.stride()) for t in args]
+        return trial(fc, *args)
+
+    x0 = fwd[13][:256]
+    p, cold = seeds(x0) if seeds else ip_seeds(prob, opts, x0)
+    ip_rollout.ip_forward = keep
+    try:
+        ipddp._drive(p, opts.replace(max_iterations=2), *cold)
+    finally:
+        ip_rollout.ip_forward = trial
+    if not seen:
+        raise AssertionError("the per-pass driver launched no forward trial")
+    return tuple(like_layout(t, *r) for t, r in zip(fwd, seen))
+
+
+def like_layout(t, shape, stride):
+    """t's values laid out as a view of ``shape`` and ``stride`` (recorded
+    at another batch) is: its dims in the same order in memory, each with
+    the same extent beyond its size in the storage it views (a slice of N
+    of N + 1 steps stays one); t itself where it is laid out so."""
+    dims = sorted((d for d in range(t.dim()) if shape[d] > 1), key=lambda d: -stride[d])
+    ones = [d for d in range(t.dim()) if shape[d] <= 1]
+    extents = [(stride[dims[i - 1]] // stride[d] if i else shape[d]) - shape[d] + t.shape[d]
+               for i, d in enumerate(dims)]
+    order = ones + dims
+    view = torch.empty([t.shape[d] for d in ones] + extents, device="meta").permute(
+        *[order.index(d) for d in range(t.dim())])[tuple(slice(0, n) for n in t.shape)]
+    if all(a == b for a, b, n in zip(view.stride(), t.stride(), t.shape) if n > 1):
+        return t
+    return torch.empty_strided(t.shape, view.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+def same_forward_bits(name, got, again):
+    """Raise unless two launches of kernel 5 gave the same bits."""
+    for i, (a, b) in enumerate(zip(got, again)):
+        bits = {torch.float64: torch.int64, torch.float32: torch.int32}.get(a.dtype)
+        if not torch.equal(a.view(bits) if bits else a, b.view(bits) if bits else b):
+            raise AssertionError(f"{name} output {i}: the per-pass driver's layout gives "
+                                 "other bits")
 
 
 def forward_consts(prob, opts, slack_soc, f64=False):
@@ -1481,6 +1560,7 @@ def phase_ip_kernels(tt, dev):
         err6, ok_share = check_backward_layouts(tt, dev, back, opts)
 
         err5 = 0.0
+        driven = driver_forward_layout(tt, p, opts, fwd)
         for soc in (False, True):
             fc = forward_consts(p, opts, soc)
             truth = None if exact else ip_rollout.ip_forward_plain(
@@ -1488,6 +1568,8 @@ def phase_ip_kernels(tt, dev):
             got = ip_rollout._launch_forward(fc, *fwd)
             err5 = max(err5, check(f"ip_forward slack_soc={soc}", got,
                                    ip_rollout.ip_forward_plain(fc, *fwd), truth))
+            same_forward_bits(f"ip_forward slack_soc={soc}", got,
+                              ip_rollout._launch_forward(fc, *driven))
             feasible = float(got[-1].double().mean())
             print(f"[kernels {tag}] ip_forward slack_soc={soc}: feasible on "
                   f"{feasible:.2%} of {B_CHECK}")
@@ -1496,7 +1578,8 @@ def phase_ip_kernels(tt, dev):
                                      "boundary test on part of the batch only")
         print(f"[kernels {tag}] open_loop_rollout max abs err {err4:.3e}; "
               f"ipddp_backward max abs err {err6:.3e} (ok on {ok_share:.2%}); "
-              f"ip_forward max abs err {err5:.3e}")
+              f"ip_forward max abs err {err5:.3e}, the per-pass driver's layout (strides "
+              f"{[t.stride() for t in driven[:13]]}) the same bits")
 
         x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=dtype) - 0.5
         if exact:
@@ -1791,8 +1874,9 @@ def time_ip_kernels(tt, prob, x0, smi, names=("open_loop_rollout", "ip_forward",
     dtype, dt = prob.x0.dtype, prob.timestep
     opts = opts or tt.CDDPOptions(max_iterations=10, tolerance=1e-4)
     gen = torch.Generator(device=x0.device).manual_seed(SEED)
-    p, ol, back_dense, fwd = stage_ip_inputs(tt, prob, B_MAIN, gen, opts, stage_iterations)
+    p, ol, back_dense, fwd_dense = stage_ip_inputs(tt, prob, B_MAIN, gen, opts, stage_iterations)
     back = per_pass_layout(back_dense)
+    fwd = driver_forward_layout(tt, p, opts, fwd_dense)
     entry = rollout_ops.model_entry(p.model)
     fc = forward_consts(p, opts, False)
     out4 = ip_rollout._launch_open_loop(p.model, entry, *ol, dt)
@@ -1831,6 +1915,11 @@ def time_ip_kernels(tt, prob, x0, smi, names=("open_loop_rollout", "ip_forward",
     }
     out = time_kernels({n: runs[n] for n in names}, work_items, dtype, smi, plain_ms=plain_ms,
                        events_ok=events_ok)
+    if "ip_forward" in names:
+        dense = lambda: ip_rollout._launch_forward(fc, *fwd_dense)  # noqa: E731
+        print(f"[timing] ip_forward at B={B_MAIN} on batch-first operands (the plain "
+              f"driver's layout): kernel {cuda_ms(dense, 20):.3f} ms with the wrapper, "
+              f"{device_ms(dense, 'ip_forward', 10, events_ok)[0]:.3f} ms device  [{smi}]")
     if "ipddp_backward" not in names:
         return out
     dense = lambda: ric._launch(*back_dense)  # noqa: E731
@@ -2791,16 +2880,20 @@ def phase_tracking_ip_kernels(tt, dev):
         as64 = lambda ts: tuple(t.double() if t.is_floating_point() else t  # noqa: E731
                                 for t in ts)
         err5 = 0.0
+        driven = driver_forward_layout(tt, p, opts, fwd)
         for soc in (False, True):
             fc = forward_consts(p, opts, soc)
             if fc.lane.variant != "_track":
                 raise AssertionError("the tracking problem's forward trial is not tracking")
             truth = None if exact else ip_rollout.ip_forward_plain(
                 forward_consts(p, opts, soc, f64=True), *as64(fwd))
-            err5 = max(err5, check(f"ip_forward_track slack_soc={soc}",
-                                   ip_rollout._launch_forward(fc, *fwd),
+            got = ip_rollout._launch_forward(fc, *fwd)
+            err5 = max(err5, check(f"ip_forward_track slack_soc={soc}", got,
                                    ip_rollout.ip_forward_plain(fc, *fwd), truth))
-        print(f"[tracking {tag}] ip_forward_track max abs err {err5:.3e}")
+            same_forward_bits(f"ip_forward_track slack_soc={soc}", got,
+                              ip_rollout._launch_forward(fc, *driven))
+        print(f"[tracking {tag}] ip_forward_track max abs err {err5:.3e}; the per-pass "
+              f"driver's layout the same bits")
         x0 = torch.rand(B_CHECK, 3, generator=gen, device=dev, dtype=dtype) - 0.5
         ball = tracking_problem(tt, dtype, dev, ball=True)
         for pr, variant in ((prob, "m4_track"), (ball, "m5_ball0_track")):
@@ -3951,12 +4044,15 @@ def phase_zoo_ip_kernels(tt, dev, errs, plain):
                 prob = zoo_problem(tt, dtype, dev, model, tracking, terminal=False)
                 opts = zoo_options(tt, model, "IPDDP").replace(max_iterations=10)
                 p, ol, back, fwd = stage_ip_inputs(tt, prob, B_CHECK, gen, opts, iterations=1)
+                driven = driver_forward_layout(tt, p, opts, fwd)
                 err5 = 0.0
                 for soc in (False, True):
                     fc = forward_consts(p, opts, soc)
                     truth = None if exact else ip_rollout.ip_forward_plain(
                         forward_consts(p, opts, soc, f64=True), *as64(fwd))
                     got = ip_rollout._launch_forward(fc, *fwd)
+                    same_forward_bits(f"ip_forward{sfx}@{model} slack_soc={soc}", got,
+                                      ip_rollout._launch_forward(fc, *driven))
                     moved = (ip_rollout.ip_forward_plain(fc, *ulp_up(fwd)) if exact
                              else None)
                     err5 = max(err5, check(f"ip_forward{sfx}@{model} slack_soc={soc}", got,
@@ -4515,10 +4611,13 @@ def phase_discrete_kernels(tt, dev, errs):
         prob = car_problem(tt, dtype, dev)
         opts = car_options(tt, "IPDDP")
         p, _, back, fwd = stage_ip_inputs(tt, prob, B_CHECK, gen, opts, iterations=1)
+        driven = driver_forward_layout(tt, p, opts, fwd)
         err5 = 0.0
         for soc in (False, True):
             fc = forward_consts(p, opts, soc)
             got = ip_rollout._launch_forward(fc, *fwd)
+            same_forward_bits(f"ip_forward@car slack_soc={soc}", got,
+                              ip_rollout._launch_forward(fc, *driven))
             err5 = max(err5, check(
                 f"ip_forward@car slack_soc={soc}", got, ip_rollout.ip_forward_plain(fc, *fwd),
                 None if exact else ip_rollout.ip_forward_plain(
@@ -4671,7 +4770,7 @@ def time_discrete_kernels(tt, fleets, smi):
         runs = {f"riccati_backward@{label}": (lambda back=back: riccati._launch(*back), 20,
                                               lambda back=back: riccati.riccati_backward_plain(
                                                   *back), 1)}
-        work = {f"riccati_backward@{label}": (back, out1, count_ops_steps(
+        work = {f"riccati_backward@{label}": (riccati_operands_read(back), out1, count_ops_steps(
             riccati.riccati_backward_plain, *one(back)) * B)}
         if label == "car":
             consts = rollout_ops.lane_consts(prob)
@@ -4702,7 +4801,7 @@ def time_discrete_kernels(tt, fleets, smi):
         at[name] = B
     opts = car_options(tt, "IPDDP")
     p, _, back_dense, fwd = stage_ip_inputs(tt, car, CAR_B, gen, opts, iterations=1)
-    back = per_pass_layout(back_dense)
+    back, fwd = per_pass_layout(back_dense), driver_forward_layout(tt, p, opts, fwd)
     fc = forward_consts(p, opts, False)
     out5, out6 = ip_rollout._launch_forward(fc, *fwd), ric._launch(*back)
     runs = {"ip_forward@car": (lambda: ip_rollout._launch_forward(fc, *fwd), 20,
@@ -5036,11 +5135,13 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
             plain[name] = LAST_PLAIN_MS[0]
             return out
 
-        def forward_checks(prob, fwd, name, opts):
+        def forward_checks(prob, fwd, driven, name, opts):
             err = 0.0
             for soc in (False, True):
                 fc = forward_consts(prob, opts, soc)
                 got = ip_rollout._launch_forward(fc, *fwd)
+                same_forward_bits(f"{name} slack_soc={soc}", got,
+                                  ip_rollout._launch_forward(fc, *driven))
                 want = (plain_run(name, lambda: ip_rollout.ip_forward_plain(fc, *fwd))
                         if not soc else ip_rollout.ip_forward_plain(fc, *fwd))
                 err = max(err, check(
@@ -5095,9 +5196,10 @@ def phase_lane_kernels(tt, dev, errs, label, models, maker, stage, ip_stage, opt
                     mdl, *ulp_up((X[:, 0], U)), dt),) if exact else None)
             opts = options()
             p, _, back, fwd = ip_stage(tt, prob, B_CHECK, gen, opts)
-            forward_checks(p, fwd, f"ip_forward@{model}", opts)
+            driven = driver_forward_layout(tt, p, opts, fwd)
+            forward_checks(p, fwd, driven, f"ip_forward@{model}", opts)
             if model in (track or {}):
-                forward_checks(track[model](dtype).replace(x0=p.x0), fwd,
+                forward_checks(track[model](dtype).replace(x0=p.x0), fwd, driven,
                                f"ip_forward_track@{model}", opts)
             got = ric._launch(*back)
             errs[tag][f"ipddp_backward@{model}"] = check(
@@ -5596,7 +5698,7 @@ def time_lane_kernels(tt, dev, smi, label, models, maker, stage, ip_stage, optio
                 "forward_rollout": (lambda: rollout_ops._launch(consts, *fwd2), 20,
                                     lambda: rollout_ops.forward_rollout_plain(consts,
                                                                               *cut(fwd2)), 1)}
-        work = {"riccati_backward": (back, out1, count_ops_steps(
+        work = {"riccati_backward": (riccati_operands_read(back), out1, count_ops_steps(
                     riccati.riccati_backward_plain, *one(back)) * batch),
                 "forward_rollout": (fwd2, out2, count_ops_steps(
                     rollout_ops.forward_rollout_plain, consts, *one(fwd2)) * batch)}
@@ -5607,6 +5709,7 @@ def time_lane_kernels(tt, dev, smi, label, models, maker, stage, ip_stage, optio
         torch.cuda.empty_cache()
         opts = options()
         p, ol, back6d, fwd5 = ip_stage(tt, prob, batch, gen, opts)
+        fwd5 = driver_forward_layout(tt, p, opts, fwd5)
         back6, fc, entry = per_pass_layout(back6d), forward_consts(p, opts, False), \
             rollout_ops.model_entry(p.model)
         out4 = ip_rollout._launch_open_loop(p.model, entry, *ol, p.timestep)
@@ -5647,6 +5750,7 @@ def time_quad_single(tt, dev, single, smi):
     prob = bench_problem(tt, torch.float32, dev)
     p, _, back, fwd = stage_ip_inputs(tt, prob, 1, gen, opts, iterations=0, U0=hover(prob))
     back, fc = per_pass_layout(back), forward_consts(p, opts, False)
+    fwd = driver_forward_layout(tt, p, opts, fwd)
     k6 = lambda: ric._launch(*back)  # noqa: E731
     k5 = lambda: ip_rollout._launch_forward(fc, *fwd)  # noqa: E731
     ms6, src6 = device_ms(k6, "ipddp_backward", 10, "wrapper")
@@ -7308,12 +7412,16 @@ def mpcc_checks(tt, dev, m, refs):
             "ipddp_backward@7x3x6 (MPCC)", got, ric.ipddp_backward_plain(*back),
             None if exact else ric.ipddp_backward_plain(*as64(back)), rtol=ZOO_RTOL,
             quantiles=not exact, moved=ric.ipddp_backward_plain(*ulp_up(back)) if exact else None)
+        driven = driver_forward_layout(
+            tt, p, opts, fwd, lambda x: mpcc_seeds_fn(m, track, cfg)(None, opts, x)[:2])
         err = 0.0
         for soc in (False, True):
             fc = forward_consts(p, opts, soc)
             if fc is None or fc.cost is None:
                 raise AssertionError("the MPCC tick did not resolve kernel 5's cost lane")
             got = ip_rollout._launch_forward(fc, *fwd)
+            same_forward_bits(f"ip_forward_mpcc@bicycle7 slack_soc={soc}", got,
+                              ip_rollout._launch_forward(fc, *driven))
             err = max(err, check(
                 f"ip_forward_mpcc@bicycle7 slack_soc={soc}", got,
                 ip_rollout.ip_forward_plain(fc, *fwd),

@@ -105,7 +105,9 @@ def test_launchers_are_exported_and_registered(kernel):
 # the shapes the others share; kernel 6 at (3, 1, 2) and (4, 1, 2); kernels
 # 2 and 4; kernels 5, 7, 8 and 9 on the control box, the bicycle's m = 4,
 # the others' m = 2, kernel 8 not on the acrobot; kernel 3; goal form;
-# kernels 3, 6, 7, 8 and 9 in translation units of their own).
+# kernels 3, 6, 7, 8 and 9 in translation units of their own). Kernel 1's
+# team form, the shapes whose step one thread spills (riccati.TEAM_SHAPES:
+# 13x4, 10x4, 10x3), has a translation unit of its own.
 ATTITUDE = ("euler_attitude", "quaternion_attitude", "mrp_attitude")
 SPACECRAFT = ("sc_linear_fuel", "sc_nonlinear", "sc_landing2d", "sc_twobody")
 SC_BOX = ("sc_linear_fuel_m6", "sc_nonlinear_m6", "sc_landing2d_m4", "sc_twobody_m6")
@@ -155,8 +157,9 @@ INSTANTIATIONS = {
                          for t in ("", "_track")},
     "msipddp_solve_small.cu": {f"cddp_msipddp_solve_{v}" for v in SMALL_BOX[:3]},
     "riccati_backward.cu": {f"cddp_riccati_backward_{s}"
-                            for s in ("3x2", "2x1", "4x1", "4x2", "13x4", "10x4", "6x3", "7x3",
-                                      "8x3", "10x3", "6x2", "3x1")},
+                            for s in ("3x2", "2x1", "4x1", "4x2", "6x3", "7x3", "6x2", "8x3",
+                                      "3x1")},
+    "riccati_backward_team.cu": {f"cddp_riccati_backward_{s}" for s in ("13x4", "10x4", "10x3")},
     "open_loop_rollout.cu": {f"cddp_open_loop_rollout_{m}"
                              for m in ("unicycle", "pendulum", "cartpole", "hcw", "car",
                                        "forklift", "quadrotor", "quadrotor_rate") + ATTITUDE
@@ -286,3 +289,27 @@ def test_macro_expansion_pastes_tokens():
     body = expanded(text)
     assert "CDDP_EXPORT(cddp_k_unicycle_m4)" in body
     assert "CDDP_REGISTER(cddp_k_unicycle_m4, (f<4>), 1, 0)" in body
+
+
+@pytest.mark.parametrize("source,kernel,bound,launch", [
+    ("riccati_backward.cu", "riccati_backward_kernel", "TH", "<<<blocks, TH, smem, stream>>>"),
+    ("riccati_backward_team.cu", "riccati_team_kernel", "kTeamThreads",
+     "<<<blocks, kTeamThreads, smem, stream>>>"),
+    ("ip_forward.cu", "ip_forward_kernel", "kFwdThreads",
+     "<<<blocks, kFwdThreads, smem, stream>>>"),
+], ids=["riccati_one_thread", "riccati_team", "ip_forward"])
+def test_staged_kernels_launch_with_their_bounds_and_shared_memory(source, kernel, bound,
+                                                                   launch):
+    """Kernels 1 and 5 stage operands in dynamic shared memory (kernel 1's
+    small shapes their steps, kernel 5 a cost lane's parameters): each is
+    launched and registered with the block size its ``__launch_bounds__``
+    names and its dynamic shared-memory size, and the check sees a launch
+    with another block size or without the bytes."""
+    text = source_text(source)
+    shapes = launch_shapes(text)[kernel]
+    assert shapes[0] == bound and shapes[1]
+    assert shapes[2] and shapes[3]
+    assert all(threads == bound and smem != "0" for threads, smem in shapes[2] + shapes[3])
+    assert launch in text
+    for bad in (launch.replace(f", {bound},", ", 256,"), launch.replace("smem,", "0,")):
+        assert launch_shape_faults(launch_shapes(text.replace(launch, bad))), bad

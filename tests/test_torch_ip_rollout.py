@@ -4,7 +4,11 @@ against the JAX package on CPU in float64 — the open-loop rollout against
 ``cddp_tpu.models.base.rollout`` (rtol = atol = 1e-12, all four
 integrators), the forward trial against ``jax.vmap`` of
 ``ip_rollout._scan_ip_forward_single`` (rtol = atol = 1e-10, flags equal)
-and, on a tiny batch, against the Pallas forward kernel in interpret mode."""
+and, on a tiny batch, against the Pallas forward kernel in interpret mode;
+and the forward kernel's view of its operands (``ip_rollout.forward_strides``)
+on the per-pass driver's real inputs (slices of its trajectories and
+costate gains), on batch-last views and broadcasts, and on a gain matrix
+whose values are not evenly spaced (which raises)."""
 
 import jax
 import jax.numpy as jnp
@@ -152,3 +156,107 @@ def test_forward_trial_matches_pallas_interpret():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
     np.testing.assert_allclose(got[6].numpy(), np.asarray(out[1]), **TOL)
     np.testing.assert_array_equal(got[7].numpy(), np.asarray(out[2]))
+
+
+# --- the forward kernel's view of its operands ---------------------------------------
+
+
+def _driver_trial_inputs(B=5, horizon=6):
+    """The forward kernel's inputs as the per-pass IPDDP driver hands them
+    over (``ipddp._forward_pass``), captured from a CPU solve of the
+    unicycle box fleet, and the solve's nominal X (B, N + 1, nx)."""
+    from cddp_tpu_torch.parallel.batch import batched_solve
+
+    p = port_ip_problem(_unicycle_box(horizon=horizon))
+    x0 = torch.as_tensor(np.random.default_rng(7).uniform(-0.5, 0.5, (B, 3)))
+    seen = []
+    real = ip_rollout.ip_forward
+
+    def record(fc, *args):
+        seen.append((fc, args))
+        return real(fc, *args)
+
+    ip_rollout.ip_forward = record
+    try:
+        batched_solve(p, x0, "IPDDP", CDDPOptions(max_iterations=2, tolerance=1e-4,
+                                                  solve_engine="xla"))
+    finally:
+        ip_rollout.ip_forward = real
+    assert seen, "the per-pass driver never reached the forward kernel's wrapper"
+    return seen[-1]
+
+
+def test_driver_trial_inputs_are_read_where_they_lie():
+    # The driver hands on slices of its nominal trajectories and costate
+    # gains (X[:, :-1], Lambda[:, :-1], k_lambda[:, :-1], K_lambda[:, :-1],
+    # x0 = X[:, 0]): each one is read in place, its batch stride that of the
+    # whole (N + 1)-step tensor.
+    fc, args = _driver_trial_inputs()
+    Bsz, N, nx = args[0].shape
+    ins = args[:17] + (args[17].view(torch.uint8),)
+    strides = ip_rollout.forward_strides(ins)
+    for k, rows in ((0, nx), (6, nx), (7, nx * nx), (8, nx)):
+        assert strides[k] == ((N + 1) * rows, rows, 1), k
+    assert strides[13] == ((N + 1) * nx, 0, 1)
+    for k in range(ip_rollout.FWD_STEP_OPERANDS):
+        assert strides[k][0] != 0 and strides[k][2] == 1, k
+    assert args[17].dtype == torch.bool
+
+
+def test_trial_batch_last_views_and_broadcasts_give_the_same_bits():
+    # Kernel 6's gains and kernel 5's own outputs come back as batch-last
+    # views (values B apart), and a per-instance scalar may be a broadcast
+    # (stride 0): read in place, with the plain version's bits.
+    fc, args = _driver_trial_inputs()
+    Bsz = args[0].shape[0]
+    views = list(args)
+    for k in (1, 2, 3, 4, 5, 9, 10, 11, 12):
+        views[k] = args[k].movedim(0, -1).contiguous().movedim(-1, 0)
+    views[16] = args[16][:1].expand(Bsz)
+    strides = ip_rollout.forward_strides(views[:17] + [views[17].view(torch.uint8)])
+    assert strides[5][0] == 1 and strides[5][2] == Bsz
+    assert strides[16] == (0, 0, 1)
+    dense = ip_rollout.ip_forward_plain(fc, *(t.contiguous() for t in args[:16]),
+                                        args[16][:1].expand(Bsz).contiguous(), args[17])
+    for a, b in zip(ip_rollout.ip_forward_plain(fc, *views), dense):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [5, 7, 10], ids=["K_u", "K_lambda", "K_y"])
+def test_trial_operand_with_unevenly_spaced_values_raises(k):
+    # A transposed gain matrix (column-major, as AD Jacobians come back)
+    # raises rather than being copied.
+    fc, args = _driver_trial_inputs()
+    ins = [t.contiguous() for t in args[:17]] + [args[17].view(torch.uint8)]
+    ins[k] = ins[k].transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError, match="evenly spaced"):
+        ip_rollout.forward_strides(ins)
+    ins[k] = ins[k].contiguous()
+    ip_rollout.forward_strides(ins)
+
+
+def test_launch_forward_hands_the_kernel_every_input_where_it_lies(monkeypatch):
+    """``_launch_forward`` passes each input's own address (soc's bool bytes
+    too, no cost lane's parameters for the quadratic cost) and its strides,
+    and returns the batch-last outputs as batch-first views."""
+    from cddp_tpu_torch.ops.kernels import build
+
+    fc, args = _driver_trial_inputs()
+    Bsz, N, nx = args[0].shape
+    seen = {}
+
+    def fake(ptrs, strides, outs, refs, consts, rows, n_steps, batch, integ, soc, stream):
+        seen.update(ptrs=list(ptrs), strides=list(strides), n=(n_steps, batch))
+        return 0
+
+    monkeypatch.setattr(build, "dtype_tag", lambda kernel, tensors, shapes: "f64")
+    monkeypatch.setattr(build, "function", lambda name, argtypes, header=None: fake)
+    monkeypatch.setattr(build, "stream_ptr", lambda device: None)
+    got = ip_rollout._launch_forward(fc, *args)
+    assert seen["ptrs"] == [t.data_ptr() for t in args] + [None]
+    want = ip_rollout.forward_strides(args[:17] + (args[17].view(torch.uint8),))
+    assert seen["strides"] == [s for st in want for s in st] + [0, 0, 0]
+    assert seen["n"] == (N, Bsz)
+    assert got[0].shape == (Bsz, N, nx) and got[0].stride() == (1, nx * Bsz, Bsz)
+    with pytest.raises(ValueError, match="bool"):
+        ip_rollout._launch_forward(fc, *args[:17], args[17].double())

@@ -8,6 +8,9 @@
     python3 torch_profile_fleet.py --compare-outputs A B
     python3 torch_profile_fleet.py --compare-sass TREE_A TREE_B
     python3 torch_profile_fleet.py --model-kernels [--batch 262144]
+    python3 torch_profile_fleet.py --ab-kernels PARENT [--ab-variants TREE ...]
+                                   [--rows ROW ...] [--ab-out PATH]
+    python3 torch_profile_fleet.py --ab-fleets PARENT
 
 For the flagship fleet (cold control-limited unicycle MPC, H=20, 10
 iterations, tolerance 1e-4, float32, x0 ~ U(-0.5, 0.5)) under each solver
@@ -58,6 +61,17 @@ TREE_B`` says whether every kernel of the first tree's built library
 compiles to the same SASS instructions in the second's (``cuobjdump``;
 exit status 1 if not).
 
+``--ab-kernels PARENT`` times kernels 1 and 5 of this tree against those
+of the tree at PARENT (and of each ``--ab-variants`` tree) in one process,
+on the operands ``chip_smoke.py`` stages for the rows of PERF.md §6
+(``AB_ROWS``; ``--rows`` picks some by row or model), in turns: device ms
+by the profiler, wrapper ms by CUDA events, the bound, the largest
+difference from the parent's outputs, and each tree's kernel attributes
+(``ab_kernels``); a JSON line a row to ``--ab-out``. ``--ab-fleets PARENT``
+times the per-pass fleets those kernels serve (the flagship unicycle's and
+the quadrotor's, CLDDP and IPDDP), this tree against PARENT, each run in
+its own tree's checkout, in turns (``ab_fleets``).
+
 ``--model-kernels`` profiles the model-lane kernels 2 and 4 of the models
 past the unicycle alone, in a process that runs nothing else: the line-search
 rollout (kernel 2) on the pendulum's and the cart-pole's fleets in the goal
@@ -72,7 +86,9 @@ its wrapper ms by CUDA events, and its bound from the same operands.
 import argparse
 import re
 import subprocess
+import sys
 import time
+import types
 from collections import Counter
 from pathlib import Path
 
@@ -385,6 +401,374 @@ def model_kernels(tt, batch, smi, dev=None):
               f"by {b_by} ({nbytes / 1e9:.4f} GB); device / bound {dev_ms / b_ms:.2f}  [{smi}]")
 
 
+# --- A/B of kernels 1 and 5 against a parent tree -------------------------------------
+
+# Rows of PERF.md section 6 the A/B times: (row, kernel, model or family,
+# batch). Kernel 1 on ``stage_inputs``' CLDDP operands (each family's own
+# staging), kernel 5 on ``stage_ip_inputs``' after one plain iteration ("5m":
+# the MPCC tick's, two iterations), in the layout the per-pass driver hands
+# them on, recorded from this tree's driver on the card
+# (``chip_smoke.driver_forward_layout``).
+AB_ROWS = (("1", 1, "unicycle"), ("1c", 1, "cartpole"), ("1car", 1, "car"),
+           ("1q", 1, "quadrotor"), ("1qr", 1, "quadrotor_rate"),
+           ("1a", 1, "euler_attitude"), ("1a", 1, "quaternion_attitude"),
+           ("1s", 1, "sc_linear_fuel"), ("1s", 1, "sc_nonlinear"), ("1s", 1, "sc_landing2d"),
+           ("1g", 1, "bicycle"), ("1g", 1, "dubins_car"), ("1g", 1, "dreyfus_rocket"),
+           ("1g", 1, "acrobot"),
+           ("5", 5, "unicycle"), ("5car", 5, "car"), ("5q", 5, "quadrotor"),
+           ("5tq", 5, "quadrotor_track"), ("5qr", 5, "quadrotor_rate"),
+           ("5a", 5, "euler_attitude"), ("5a", 5, "quaternion_attitude"),
+           ("5a", 5, "mrp_attitude"), ("5s", 5, "sc_linear_fuel"), ("5s", 5, "sc_nonlinear"),
+           ("5s", 5, "sc_landing2d"), ("5s", 5, "sc_twobody"), ("5m", 5, "mpcc"),
+           ("1p", 1, "pendulum"), ("1lti", 1, "lti"), ("1a", 1, "mrp_attitude"),
+           ("5t", 5, "unicycle_track"), ("5p", 5, "pendulum"), ("5tp", 5, "pendulum_track"),
+           ("5h", 5, "hcw"), ("5th", 5, "hcw_track"), ("5g", 5, "bicycle"),
+           ("5g", 5, "dubins_car"), ("5g", 5, "dreyfus_rocket"), ("5g", 5, "acrobot"))
+# Kernel 1's and 5's sources, and kernel 4's (the staging's rollouts): what
+# the A/B builds in each tree.
+AB_SOURCES = ("riccati_backward.cu", "riccati_backward_team.cu", "ip_forward.cu",
+              "open_loop_rollout.cu")
+# Kernel 6's sources, which this tree builds besides: the per-pass driver
+# whose layout kernel 5's operands take runs kernels 4, 6 and 5.
+DRIVER_SOURCES = ("ipddp_backward.cu", "ipddp_backward_attitude.cu",
+                  "ipddp_backward_spacecraft.cu", "ipddp_backward_small.cu")
+
+
+def ab_problem(tt, model, dev):
+    """(problem, batch) of a row's fleet, as ``chip_smoke.py`` times it."""
+    c = chip_smoke
+    f32 = torch.float32
+    if model == "unicycle":
+        return c.flagship_problem(tt, f32, dev), c.B_MAIN
+    if model == "unicycle_track":
+        return c.tracking_problem(tt, f32, dev), c.B_MAIN
+    if model.split("_")[0] in ("cartpole", "pendulum", "hcw"):
+        return (c.zoo_problem(tt, f32, dev, model.split("_")[0], tracking=model.endswith("_track")),
+                c.B_MAIN)
+    if model == "lti":
+        return c.lti_problem(tt, f32, dev), c.B_MAIN
+    if model == "car":
+        return c.car_problem(tt, f32, dev), c.CAR_B
+    if model in c.QUAD_MODELS:
+        return c.quad_maker(model)(tt, f32, dev), c.QUAD_B
+    if model == "quadrotor_track":
+        return c.quad_problem(tt, f32, dev, tracking=True), c.QUAD_B
+    if model in c.ATT_MODELS:
+        return c.attitude_maker(model)(tt, f32, dev), c.SLEW_B
+    if model in c.SC_MODELS:
+        return c.sc_maker(model, c.SC_LONG_N)(tt, f32, dev), c.SC_LONG_B
+    return c.small_maker(model, c.SMALL_LONG_N)(tt, f32, dev), c.SMALL_LONG_B
+
+
+def ab_stage(tt, kernel, model, dev):
+    """(label, launch args, plain version, bound inputs, batch): a row's
+    operands, staged on the card by the plain versions, kernel 5's then
+    laid out as this tree's per-pass driver lays them out (its kernels 4, 6
+    and 5 run for that)."""
+    from cddp_tpu_torch.ops.kernels import ip_rollout, riccati
+
+    c = chip_smoke
+    gen = torch.Generator(device=dev).manual_seed(c.SEED)
+    if model == "mpcc":
+        m = c.mpcc_lib()
+        track, cfg, x0 = c.mpcc_fleet(m, dev, torch.float32, c.MPCC_BIG_B)
+        opts = m.solver_options(cfg)
+        plain = types.SimpleNamespace(**{k: getattr(m, k) for k in dir(m)
+                                         if not k.startswith("__")})
+        plain.solver_options = lambda cfg: c.plain_ip_options(tt, opts)
+        p, _, fwd = c.mpcc_stage(tt, plain, track, cfg, x0, gen)
+        fc = c.forward_consts(p, opts, False)
+        fwd = c.driver_forward_layout(
+            tt, p, opts, fwd, lambda x: c.mpcc_seeds_fn(m, track, cfg)(None, opts, x)[:2])
+        cp = fc.cost.cp(x0.shape[0], x0)
+        return ("ip_forward_mpcc@bicycle7", (fc,) + fwd, ip_rollout.ip_forward_plain,
+                fwd + (cp,), x0.shape[0])
+    prob, B = ab_problem(tt, model, dev)
+    if kernel == 1:
+        stage = {**{m: c.quad_stage for m in c.QUAD_MODELS},
+                 **{m: c.sc_stage for m in c.SC_MODELS},
+                 **{m: c.small_stage for m in c.SMALL_MODELS}}.get(model, c.stage_inputs)
+        back = stage(prob, B, gen)[2]
+        nx, nu = prob.state_dim, prob.control_dim
+        return (f"riccati_backward@{nx}x{nu} ({model})", back, riccati.riccati_backward_plain,
+                c.riccati_operands_read(back), B)
+    if model in c.QUAD_MODELS or model == "quadrotor_track":
+        opts, U0 = c.quad_options(tt, c.QUAD_ITERS), c.near_hover(prob, B, gen)
+    elif model in c.SC_MODELS + c.SMALL_MODELS:
+        cc = prob.get_constraint("ControlConstraint")
+        opts = (c.sc_options(tt, c.SC_ITERS) if model in c.SC_MODELS
+                else c.small_options(tt, c.SMALL_ITERS))
+        U0 = ((cc.lower + cc.upper) / 2).expand(prob.horizon, -1)
+    else:
+        opts = (c.attitude_options(tt, c.ATT_ITERS) if model in c.ATT_MODELS
+                else c.car_options(tt, "IPDDP") if model == "car"
+                else tt.CDDPOptions(max_iterations=10, tolerance=1e-4))
+        U0 = None
+    p, _, _, fwd = c.stage_ip_inputs(tt, prob, B, gen, c.plain_ip_options(tt, opts),
+                                     iterations=1, U0=U0)
+    fc = c.forward_consts(p, opts, False)
+    fwd = c.driver_forward_layout(tt, p, opts, fwd)
+    return (f"ip_forward{fc.tag}", (fc,) + fwd, ip_rollout.ip_forward_plain,
+            fwd + c.reference_read(p), B)
+
+
+def ab_wrappers(tree, tag="parent"):
+    """Another tree's kernel-1 and kernel-5 wrappers (the parent's, or a
+    variant's), loaded beside this tree's package as ``ab_<tag>_*``: its
+    ``riccati.py``, ``ip_rollout.py`` and ``build.py`` (which builds that
+    tree's sources into its own ``.torch_ext_build/``); their imports of the
+    package's other modules resolve to this tree's."""
+    import sys
+
+    kern = Path(tree).resolve() / "cddp_tpu_torch" / "ops" / "kernels"
+    mods = {}
+    for name in ("build", "riccati", "ip_rollout"):
+        text = (kern / f"{name}.py").read_text().replace(
+            "from cddp_tpu_torch.ops.kernels import build\n", f"import ab_{tag}_build as build\n")
+        mod = types.ModuleType(f"ab_{tag}_{name}")
+        mod.__file__ = str(kern / f"{name}.py")
+        sys.modules[mod.__name__] = mod
+        exec(compile(text, mod.__file__, "exec"), mod.__dict__)
+        mods[name] = mod
+    return mods
+
+
+def ab_restrict(build, extra=()):
+    """Let ``build`` (a tree's build module) build kernels 1 and 5 alone, in
+    float32: the main library from AB_SOURCES (and ``extra``), a lane
+    library from its kernels 4 and 5 (the unit ``lanes_k45``)."""
+    build.KERNEL_SOURCES = tuple(s for s in build.KERNEL_SOURCES
+                                 if s in AB_SOURCES + tuple(extra))
+    build.DTYPE_FLAGS = {"f32": build.DTYPE_FLAGS["f32"]}
+    units = build.lane_units
+    build.lane_units = lambda header: {k: v for k, v in units(header).items() if k == "lanes_k45"}
+
+
+def ab_ops(kernel, plain, args):
+    """Operations of the plain version for one instance (a cost lane's
+    parameters cut to the first instance's)."""
+    import dataclasses
+
+    if kernel == 1:
+        return chip_smoke.count_ops_steps(plain, *chip_smoke.one(args))
+    fc = args[0]
+    if fc.cost is not None:
+        fc = dataclasses.replace(fc, cost=dataclasses.replace(fc.cost,
+                                                              params=fc.cost.params[:1]))
+    return chip_smoke.count_ops_steps(plain, fc, *chip_smoke.one(args[1:]))
+
+
+def ab_device_ms(fn, key, reps):
+    """Mean device ms of the launches of kernels whose name holds ``key``
+    over ``reps`` calls of fn, by the profiler (the wrapper's copies are
+    other kernels)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and key in e.key and "cddp::" in e.key]
+    count = sum(e.count for e in rows)
+    return sum(e.self_device_time_total for e in rows) / max(count, 1) / 1e3, count
+
+
+def ab_kernels(tt, parent, rows, smi, out_path, variants=()):
+    """``--ab-kernels PARENT``: kernels 1 and 5 of this tree against the
+    parent tree's, on the same operands in one process, in turns (parent,
+    new, new, parent): device ms (profiler), wrapper ms (CUDA events around
+    the wrapper, the parent's layout copies included), registers, local
+    bytes, shared bytes and blocks per SM of this tree's build, the bound (bytes
+    of the distinct inputs, a value the same at every instance and step
+    once, and outputs; operations of the plain version), and the largest
+    difference between the two trees' outputs. One JSON line a row to
+    ``out_path``."""
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cddp_tpu_torch.ops.kernels import build, ip_rollout, riccati
+
+    dev = torch.device("cuda", 0)
+    trees = {"parent": ab_wrappers(parent)}
+    trees.update({Path(v).name: ab_wrappers(v, Path(v).name) for v in variants})
+    builds = [build] + [t["build"] for t in trees.values()]
+    ab_restrict(build, DRIVER_SOURCES)
+    for b in builds[1:]:
+        ab_restrict(b)
+    headers = [chip_smoke.mpcc_lib().LANES_HEADER] if any(r[2] == "mpcc" for r in rows) else []
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        for f in [pool.submit(b.build_all, headers) for b in builds]:
+            f.result()
+    print(f"[ab] {len(builds)} trees' kernels 1 and 5 built in {time.perf_counter() - t0:.1f} s")
+    for b in builds:
+        print(f"[ab] ptxas of {b.library_path()}")
+        chip_smoke.print_ptxas(b.library_path())
+    launch = {"new": {1: riccati._launch, 5: ip_rollout._launch_forward}}
+    launch.update({k: {1: t["riccati"]._launch, 5: t["ip_rollout"]._launch_forward}
+                   for k, t in trees.items()})
+    others = [k for k in launch if k not in ("new", "parent")]
+    turns = ["parent", "new"] + others + others[::-1] + ["new", "parent"]
+    names = []
+    with open(out_path, "a") as out:
+        for row, kernel, model in rows:
+            label, args, plain, ins, B = ab_stage(tt, kernel, model, dev)
+            key = "riccati" if kernel == 1 else "ip_forward_kernel"
+            want = launch["parent"][kernel](*args)
+            diff, flags = {}, {}
+            for v in launch:
+                got = launch[v][kernel](*args)
+                diff[v] = max(float(chip_smoke.abs_err(a, b).max())
+                              for a, b in zip(got, want) if a.is_floating_point())
+                flags[v] = all(bool((a == b).all()) for a, b in zip(got, want)
+                               if not a.is_floating_point())
+                if v == "new":
+                    outs = got
+                del got
+            ops = ab_ops(kernel, plain, args) * B
+            nbytes = chip_smoke.unique_bytes(ins) + chip_smoke.unique_bytes(outs)
+            b_ms, b_by = chip_smoke.bound(nbytes, ops, torch.float32)
+            old_bytes = chip_smoke.unique_bytes(args if kernel == 1 else ins) + \
+                chip_smoke.unique_bytes(outs)
+            old_ms, _ = chip_smoke.bound(old_bytes, ops, torch.float32)
+            del want
+            rec = {"row": row, "name": label, "batch": B, "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes": nbytes, "ops": ops, "bound_ms_materialised": old_ms,
+                   "max_diff_from_parent": diff, "flags_equal_to_parent": flags, "card": smi}
+            for v in turns:
+                fn = lambda v=v: launch[v][kernel](*args)  # noqa: E731
+                reps = max(3, min(20, int(2000 / max(chip_smoke.cuda_ms(fn, 1), 1e-3))))
+                ms = chip_smoke.cuda_ms(fn, reps)
+                dev_ms, count = ab_device_ms(fn, key, max(reps // 2, 3))
+                rec.setdefault(v, []).append({"wrapper_ms": ms, "device_ms": dev_ms,
+                                              "profiled_launches": count})
+            name = (f"cddp_ip_forward_{args[0].lane.entry.cuda_name}_"
+                    + (f"{args[0].cost.name}_" if args[0].cost else "")
+                    + f"m{args[0].rows.m}{args[0].lane.variant}" if kernel == 5
+                    else f"cddp_riccati_backward_{args[0].shape[-1]}x{args[1].shape[-1]}")
+            header = args[0].cost.header if kernel == 5 and args[0].cost else None
+            rec["launcher"] = f"{name}_f32"
+            times = lambda key: ", ".join(  # noqa: E731
+                f"{v} " + " / ".join(f"{r[key]:.4f}" for r in rec[v]) for v in launch)
+            print(f"[ab] {row} {label} B={B}: device ms {times('device_ms')}; wrapper ms "
+                  f"{times('wrapper_ms')}; bound {b_ms:.4f} ms by {b_by} "
+                  f"(materialised lux {old_ms:.4f}); "
+                  f"max |tree - parent| {diff}, flags equal {flags}  [{smi}]",
+                  flush=True)
+            out.write(json.dumps(rec) + "\n")
+            out.flush()
+            names.append(rec["launcher"])
+            del args, ins, outs
+            torch.cuda.empty_cache()
+    # Each tree's kernel attributes in a process of its own: a query in this
+    # process, where every tree's library has its own static CUDA runtime,
+    # can fail and leave the error for that library's next launch.
+    for tree in [Path(__file__).resolve().parent, Path(parent)] + [Path(v) for v in variants]:
+        code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+                "from cddp_tpu_torch.ops.kernels import build; "
+                "build.KERNEL_SOURCES = tuple(s for s in build.KERNEL_SOURCES "
+                "if s in sys.argv[2].split(',')); "
+                "build.DTYPE_FLAGS = {'f32': build.DTYPE_FLAGS['f32']}; out = {}\n"
+                "for n in sys.argv[3:]:\n"
+                "    try: out[n] = build.kernel_attributes(n)\n"
+                "    except Exception as e: out[n] = repr(e)\n"
+                "print(json.dumps(out))")
+        run = subprocess.run([sys.executable, "-c", code, str(tree.resolve()),
+                              ",".join(AB_SOURCES),
+                              *sorted(set(n for n in names if "_mpcc_" not in n))],
+                             capture_output=True, text=True)
+        print(f"[ab] attributes of {tree.name}: {run.stdout.strip() or run.stderr[-2000:]}")
+
+
+# One tree's per-pass fleets, run in that tree's checkout (its own package,
+# chip_smoke.py and .torch_ext_build/, whose library chip_smoke.py may have
+# built): argv[1] "build" builds its library and exits; else argv[2] timed
+# solves of each fleet after a warm-up, then one under the profiler, a JSON
+# line each.
+FLEET_CHILD = r"""
+import json, statistics, sys, time
+import torch
+from torch.profiler import DeviceType, ProfilerActivity, profile
+from cddp_tpu_torch.ops.kernels import build
+secs = build.build_all()
+if sys.argv[1] == "build":
+    print(json.dumps({"build_s": secs}))
+    raise SystemExit
+import chip_smoke as c
+import cddp_tpu_torch as tt
+from cddp_tpu_torch.parallel.batch import batched_solve
+dev, f32 = torch.device("cuda", 0), torch.float32
+uni, quad = c.flagship_problem(tt, f32, dev), c.quad_problem(tt, f32, dev)
+Bu, Bq = c.B_MAIN // c.PER_PASS_SHARE, c.QUAD_B // c.PER_PASS_SHARE
+for name, prob, B, opts, U0 in (
+        ("unicycle", uni, Bu, tt.CDDPOptions(max_iterations=10, tolerance=1e-4), None),
+        ("quadrotor", quad, Bq, c.quad_options(tt, c.QUAD_ITERS), c.hover(quad, Bq))):
+    x0 = c.fleet_x0(prob, B, torch.Generator(device=dev).manual_seed(c.SEED))
+    for solver in ("CLDDP", "IPDDP"):
+        o = opts.replace(solve_engine="xla")
+        run = lambda: batched_solve(prob, x0, solver, o, U0_batch=U0)
+        sol = run()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(int(sys.argv[2])):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:4]
+        print(json.dumps({
+            "fleet": name, "solver": solver, "batch": B, "host_ms": ms,
+            "median_ms": statistics.median(ms),
+            "device_busy_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "launches": sum(e.count for e in rows),
+            "top": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top],
+            "iterations": float(sol.iterations_completed.double().mean()),
+            "status": torch.bincount(sol.status_code.long(), minlength=5).tolist()}),
+            flush=True)
+"""
+
+
+def ab_fleets(parent, smi, reps=3):
+    """``--ab-fleets PARENT``: the per-pass fleets whose solves kernels 1
+    and 5 serve, this tree against the tree at PARENT, each in a process of
+    its own in its own checkout, in turns (parent, new, new, parent), after
+    both trees' libraries are built at once: the flagship unicycle fleet
+    (B_MAIN / PER_PASS_SHARE, 10 iterations, tolerance 1e-4) and the
+    quadrotor fleet (QUAD_B / PER_PASS_SHARE from hover, QUAD_ITERS
+    iterations), each under CLDDP (kernels 1, 2) and IPDDP (kernels 4, 6,
+    5) per pass, float32: host ms of ``reps`` solves, the device busy time
+    and the kernels with the most device time under the profiler."""
+    import json
+
+    trees = {"parent": Path(parent).resolve(), "new": Path(__file__).resolve().parent}
+    t0 = time.perf_counter()
+    builds = {k: subprocess.Popen([sys.executable, "-c", FLEET_CHILD, "build"], cwd=tree,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+              for k, tree in trees.items()}
+    for k, proc in builds.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"[ab-fleets] {k}'s build failed:\n{out[-4000:]}")
+    print(f"[ab-fleets] both trees built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for k in ("parent", "new", "new", "parent"):
+        run = subprocess.run([sys.executable, "-c", FLEET_CHILD, "run", str(reps)],
+                             cwd=trees[k], capture_output=True, text=True)
+        if run.returncode != 0:
+            raise SystemExit(f"[ab-fleets] {k}'s fleets failed:\n{run.stderr[-4000:]}")
+        for line in run.stdout.splitlines():
+            if line.startswith("{"):
+                r = json.loads(line)
+                print(f"[ab-fleets] {k}: {r['fleet']} {r['solver']} per pass, B={r['batch']}: "
+                      f"median {r['median_ms']:.2f} ms of {r['host_ms']}, device busy "
+                      f"{r['device_busy_ms']:.2f} ms, {r['launches']} launches, iterations "
+                      f"{r['iterations']:.3f}, statuses {r['status']}; top {r['top']}  [{smi}]",
+                      flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=chip_smoke.B_MAIN)
@@ -398,6 +782,12 @@ def main():
     ap.add_argument("--compare-outputs", nargs=2, metavar=("A", "B"))
     ap.add_argument("--compare-sass", nargs=2, metavar=("TREE_A", "TREE_B"))
     ap.add_argument("--model-kernels", action="store_true")
+    ap.add_argument("--ab-kernels", metavar="PARENT")
+    ap.add_argument("--rows", nargs="+", help="--ab-kernels: the rows to time (all when unset)")
+    ap.add_argument("--ab-out", default="build/ab_kernels.jsonl")
+    ap.add_argument("--ab-fleets", metavar="PARENT")
+    ap.add_argument("--ab-variants", nargs="*", default=(),
+                    help="--ab-kernels: more trees to time beside the parent and this one")
     args = ap.parse_args()
     if args.compare_outputs:
         raise SystemExit(compare_outputs(*args.compare_outputs))
@@ -413,6 +803,12 @@ def main():
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if args.model_kernels:
         return model_kernels(tt, args.batch, smi)
+    if args.ab_fleets:
+        return ab_fleets(args.ab_fleets, smi)
+    if args.ab_kernels:
+        rows = [r for r in AB_ROWS if not args.rows or r[0] in args.rows or r[2] in args.rows]
+        Path(args.ab_out).parent.mkdir(parents=True, exist_ok=True)
+        return ab_kernels(tt, args.ab_kernels, rows, smi, args.ab_out, args.ab_variants)
     chip_smoke.print_kernel_attributes(smi)
     if args.save_outputs:
         return save_outputs(args.save_outputs, args.batch, smi)
